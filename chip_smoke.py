@@ -1,0 +1,442 @@
+"""Smoke run of the port on one CUDA card: builds the kernels, holds each
+against its plain PyTorch version, drives the engine's bulk solve at the
+paper's §6 scale and checks what comes out.
+
+    python3 chip_smoke.py          # from the root of a checkout, one card
+
+Phases, each printing one JSON line:
+
+1. ``device``: the card (``nvidia-smi``), torch and CUDA versions, the
+   kernels' build time;
+2. ``kernel``: each kernel against its plain version on the card, at the
+   main path's shapes (m = 10 processors, 5 loads, q = 5 installments:
+   chain tableau 1089 x 1811, star 705 x 1427), with times from CUDA events;
+3. ``solve_bulk``: 256 chain + 256 star instances, 64 + 64 with returns and
+   release dates, and two goldens, through ``repro_torch.engine.solve_bulk``
+   on the card; the launch counts are set to 0 just before each call and
+   read just after;
+4. ``warm_hits``: the same population again through the solution cache;
+   every hit replays through the replay kernel.
+
+Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
+the final ``{"ok": true, ...}`` line.  Any failed check raises, so the
+script exits non-zero before that line.  With no card, or without the
+repository's ``src/`` beside it, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SRC = Path(__file__).resolve().parent / "src"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+FP64_FLOP_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
+SEED = 20261017
+GOLDEN_976 = 976.1527780792386  # star/ret0.75/rel0/m2/n3/q4/het1/cc0.02 (HiGHS)
+GOLDEN_Q2 = 781.0 / 653.0 * 0.75  # the paper's §3 example at lambda = 3/4, Q = 2
+RTOL = 1e-9
+REPLAY_TOL = 1e-6  # the engine's certificate: replay <= LP * (1 + tol) + 1e-9
+
+
+def emit(**fields) -> None:
+    print(json.dumps(fields), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, prepare, reps: int) -> float:
+    """Mean milliseconds of ``fn(*prepare())`` by CUDA events, after one
+    warm-up call; ``prepare`` (untimed) makes fresh inputs for each call."""
+    fn(*prepare())
+    total = 0.0
+    for _ in range(reps):
+        args = prepare()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+# ---------------------------------------------------------------- inputs
+
+
+def population(rng, n, topology, returns_and_release):
+    from repro_torch.core.instance import Instance, Loads, random_instance
+
+    out = []
+    for _ in range(n):
+        inst = random_instance(rng, m=10, n_loads=5, q=5, topology=topology,
+                               return_ratio=0.5 if returns_and_release else 0.0)
+        if returns_and_release:
+            # release dates against the instance's own all-parallel makespan
+            # scale, as the campaign draws them
+            scale = float(np.mean(inst.platform.w) * inst.loads.v_comp.sum()) / inst.m
+            ld = inst.loads
+            inst = Instance(inst.platform, Loads(
+                v_comm=ld.v_comm, v_comp=ld.v_comp,
+                release=rng.uniform(0.0, 0.3 * scale, size=inst.N),
+                return_ratio=ld.return_ratio), q=inst.q)
+        out.append(inst)
+    return out
+
+
+def goldens():
+    from repro_torch.core.instance import Chain, Instance, Loads, Star
+
+    mis = Instance(
+        Star(w=[2.306126709357919e-08, 1.7265569726405336e-08],
+             z=[9.289405095685187e-08], tau=0.0, latency=[0.001]),
+        Loads(v_comm=[990409583.4589807, 370593864.8133155, 616276888.6382855],
+              v_comp=[49520479172.949036, 18529693240.665775, 30813844431.914276],
+              release=0.0, return_ratio=0.75),
+        q=4)
+    example = Instance(Chain(w=[0.75, 0.75], z=[1.0]),
+                       Loads(v_comm=[1.0, 1.0], v_comp=[1.0, 1.0]), q=2)
+    return [mis, example], [GOLDEN_976, GOLDEN_Q2]
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def setup_stack(bucket, dev):
+    from repro_torch.convert import to_tensor
+    from repro_torch.engine import batched_simplex as bs
+    from repro_torch.engine.batched_lp import build_lp_bucket
+
+    lp = build_lp_bucket(bucket)
+    c = np.tile(lp.c, (bucket.B, 1))
+    T, basis, _, _ = bs._setup(*(to_tensor(a, dev, torch.float64)
+                                 for a in (c, lp.A_ub, lp.b_ub, lp.A_eq, lp.b_eq)))
+    n, m_ub = c.shape[1], lp.A_ub.shape[1]
+    m_rows = m_ub + lp.A_eq.shape[1]
+    kw = dict(ncols_price=n + m_ub, bland_after=max(200, 4 * (m_rows + 1)), max_iter=20_000)
+    return T, basis, kw
+
+
+def pivot_work(T, basis, it, status, kw, k):
+    """Pivots made, and rows of T an update must change (nonzero entries of
+    the entering column), by one K-pivot launch on this stack — counted by
+    running the plain version one round at a time."""
+    from repro_torch.kernels import simplex_pivot_plain
+
+    B, R, _ = T.shape
+    touched = 0
+    for _ in range(k):
+        obj = T[:, -1, :kw["ncols_price"]]
+        neg = obj < -1e-9
+        first_neg = torch.where(neg, torch.arange(obj.shape[1], device=T.device),
+                                obj.shape[1]).argmin(dim=1)
+        col = torch.where(it < kw["bland_after"], obj.argmin(dim=1), first_neg)
+        colv = T.gather(2, col[:, None, None].expand(B, R, 1))[:, :, 0]
+        before = it.clone()
+        simplex_pivot_plain(T, basis, it, status, k_pivots=1, **kw)
+        touched += int(((colv != 0) & (it > before)[:, None]).sum().item())
+    return int(it.sum().item()), touched
+
+
+def pivot_phase(name, bucket, dev, n_compare=16, n_launches=6):
+    from repro_torch.kernels import simplex_pivot, simplex_pivot_plain
+
+    T0, basis0, kw = setup_stack(bucket, dev)
+    B, R, C = T0.shape
+    scale = T0.abs().max().item()
+    zeros = lambda: torch.zeros(B, dtype=torch.int32, device=dev)  # noqa: E731
+    running = lambda: torch.full((B,), -1, dtype=torch.int32, device=dev)  # noqa: E731
+    rows = {}
+    for k in (1, 4):
+        # N launches of each from the same set-up stack, on a slice of lanes
+        sub = [T0[:n_compare].clone(), basis0[:n_compare].clone(),
+               zeros()[:n_compare].clone(), running()[:n_compare].clone()]
+        ker = [x.clone() for x in sub]
+        for _ in range(n_launches):
+            simplex_pivot_plain(*sub, k_pivots=k, **kw)
+            simplex_pivot(*ker, k_pivots=k, **kw)
+        torch.cuda.synchronize()
+        for a, b, what in zip(ker[1:], sub[1:], ("basis", "it", "status")):
+            check(torch.equal(a, b), f"simplex_pivot {name} K={k}: {what} differs from plain")
+        err = (ker[0] - sub[0]).abs().max().item()
+        check(err <= 1e-12 * scale, f"simplex_pivot {name} K={k}: |dT| {err} > 1e-12 max|T|")
+
+        # times: one launch over the whole bucket from its set-up stack
+        def prepare():
+            return T0.clone(), basis0.clone(), zeros(), running()
+
+        def run(fn):
+            return lambda T, b, it, st: fn(T, b, it, st, k_pivots=k, **kw)
+
+        ms = cuda_ms(run(simplex_pivot), prepare, reps=5)
+        plain_ms = cuda_ms(run(simplex_pivot_plain), prepare, reps=3)
+        pivots, touched = pivot_work(*prepare(), kw, k)
+        # the least work for these pivots: read the objective row, the
+        # entering and rhs columns and the pivot row, and read + write only
+        # the rows whose entering-column entry is nonzero (the rest are
+        # unchanged by the rank-1 update); one fma per updated element
+        nbytes = 8 * (2 * touched * C + pivots * 2 * (R + C))
+        flops = 2 * touched * C
+        bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP64_FLOP_PER_S)
+        dense_bound_ms = 1e3 * 2 * R * C * 8 * pivots / HBM_BYTES_PER_S
+        rows[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP64_FLOP_PER_S
+                       else "operations", max_abs_err=err, exact=err == 0.0)
+        emit(phase="kernel", kernel="simplex_pivot", bucket=name, B=B, R=R, C=C, k_pivots=k,
+             compared_lanes=n_compare, compared_launches=n_launches, max_abs_err=err,
+             exact=err == 0.0, pivots_per_launch=pivots, touched_rows=touched, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound_ms, dense_bound_ms=dense_bound_ms,
+             library_ms=None)
+    del T0
+    torch.cuda.empty_cache()
+    return rows
+
+
+def replay_args(bucket, dev, rng):
+    from repro_torch.convert import to_tensor
+
+    f64 = torch.float64
+    g = rng.uniform(0.0, 1.0, size=(bucket.B, bucket.m, bucket.T))
+    g /= g.sum(axis=1, keepdims=True)
+    args = [to_tensor(a, dev, f64) for a in (
+        bucket.w_cell, bucket.z, bucket.latency, bucket.tau, bucket.vcomm_cell,
+        bucket.vcomp_cell, bucket.rel_cell, bucket.cell_valid, g)]
+    ret = to_tensor(bucket.ret_cell, dev, f64) if bucket.has_returns and bucket.m > 1 else None
+    return args, ret
+
+
+def replay_cost(args, ret, outs, star):
+    """Bytes each input read once and each output written once; float64
+    operations of the recurrence (durations, maxes, adds) for these shapes."""
+    B, m, T = args[-1].shape
+    L = m - 1
+    nbytes = 8 * (sum(a.numel() for a in args) + (ret.numel() if ret is not None else 0)
+                  + sum(o.numel() for o in outs if o is not None))
+    vol = 0 if star else L * (L - 1) // 2  # suffix sums per cell
+    per_cell = vol + L * (4 + 4) + m * (3 + 1)
+    if ret is not None:
+        per_cell += vol + L * (4 + 4) + L
+    return nbytes, B * T * (per_cell + 1) + B * m
+
+
+def replay_phase(name, bucket, dev, rng):
+    from repro_torch.kernels import asap_replay, asap_replay_plain
+
+    args, ret = replay_args(bucket, dev, rng)
+    want = asap_replay_plain(*args, ret, topology=bucket.topology)
+    got = asap_replay(*args, ret, topology=bucket.topology)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        if w is None:
+            check(g is None, "replay slot")
+            continue
+        if w.numel():
+            rel = ((g - w).abs().max() / w.abs().max().clamp_min(1e-300)).item()
+            err = max(err, rel)
+    check(err <= 1e-12, f"asap_replay {name}: relative error {err} > 1e-12")
+    ms = cuda_ms(lambda *a: asap_replay(*a[:-1], a[-1], topology=bucket.topology),
+                 lambda: (*args, ret), reps=20)
+    plain_ms = cuda_ms(lambda *a: asap_replay_plain(*a[:-1], a[-1], topology=bucket.topology),
+                       lambda: (*args, ret), reps=3)
+    nbytes, flops = replay_cost(args, ret, got, bucket.topology == "star")
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP64_FLOP_PER_S)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP64_FLOP_PER_S
+               else "operations", max_abs_err=max(
+                   ((g - w).abs().max().item() for g, w in zip(got, want)
+                    if w is not None and w.numel()), default=0.0))
+    emit(phase="kernel", kernel="asap_replay", bucket=name, B=bucket.B, m=bucket.m, T=bucket.T,
+         returns=ret is not None, max_rel_err=err, max_abs_err=row["max_abs_err"], ms=ms,
+         plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None)
+    return row
+
+
+# ---------------------------------------------------------------- phases 3, 4
+
+
+def serial_makespan(inst) -> float:
+    """The port's serial path (LP build, HiGHS, ASAP replay) with HiGHS's
+    feasibility tolerances at 1e-10: at the default 1e-7 its optimum can sit
+    ~1e-8 away from the exact one at this size, and the dense NumPy simplex
+    (the other serial backend) can take minutes on a degenerate instance."""
+    from scipy.optimize import linprog
+
+    from repro_torch.core.lp import build_lp, extract_schedule
+    from repro_torch.core.simulator import simulate
+
+    lp = build_lp(inst)
+    out = linprog(lp.c, A_ub=lp.sparse_ub(), b_ub=np.asarray(lp.b_ub),
+                  A_eq=lp.sparse_eq(), b_eq=np.asarray(lp.b_eq), bounds=(0, None),
+                  method="highs", options=dict(primal_feasibility_tolerance=1e-10,
+                                               dual_feasibility_tolerance=1e-10))
+    check(out.status == 0, f"serial HiGHS solve: {out.message}")
+    return simulate(inst, extract_schedule(lp, out.x).gamma).makespan
+
+
+def progress(msg: str) -> None:
+    print(f"[{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
+
+
+def bulk_phase(groups, dev, cache, phase):
+    from repro_torch.core.solver import solve
+    from repro_torch.engine import solve_bulk
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    totals = {"simplex_pivot": 0, "asap_replay": 0}
+    for name, insts, golden in groups:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solve_bulk(insts, cache=cache, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        progress(f"{phase} {name}: {len(insts)} instances in {wall:.2f} s")
+        for k in totals:
+            totals[k] += counts[k]
+        hits = sum(bool(r.telemetry.get("cache_hit")) for r in res)
+        statuses: dict = {}
+        for r in res:
+            statuses[r.telemetry["lp"]["status"]] = statuses.get(r.telemetry["lp"]["status"], 0) + 1
+        rescues = sum("serial_rescue" in r.telemetry for r in res)
+        pivots = sum(r.telemetry["lp"]["pivots_phase1"] + r.telemetry["lp"]["pivots_phase2"]
+                     for r in res)
+        for i, r in enumerate(res):
+            check(r.ok, f"{name}[{i}] status {r.status}")
+            check(r.makespan <= r.lp_makespan * (1 + REPLAY_TOL) + 1e-9,
+                  f"{name}[{i}] has no replay certificate")
+            check(r.backend.startswith("cuda") or "serial_rescue" in r.telemetry,
+                  f"{name}[{i}] backend {r.backend}")
+        if phase == "warm_hits":
+            check(hits == len(insts), f"{name}: {hits} of {len(insts)} hits")
+            check(counts["asap_replay"] > 0 and counts["simplex_pivot"] == 0,
+                  f"{name}: warm launches {counts}")
+        else:
+            check(counts["simplex_pivot"] > 0 and counts["asap_replay"] > 0,
+                  f"{name}: launches {counts}")
+        if golden is not None:
+            for r, g in zip(res, golden):
+                check(abs(r.makespan - g) <= RTOL * g, f"{name}: {r.makespan} vs golden {g}")
+        sample = list(range(0, len(insts), max(1, len(insts) // 16)))[:16]
+        worst = 0.0
+        if phase == "solve_bulk":
+            for i in sample:
+                # a rescued result *is* the serial solve (HiGHS at its
+                # default tolerances at this size); the engine's own results
+                # are held against the serial path at tight tolerances
+                if "serial_rescue" in res[i].telemetry:
+                    want = solve(insts[i]).makespan
+                else:
+                    want = serial_makespan(insts[i])
+                worst = max(worst, abs(res[i].makespan - want) / want)
+        # where the wall time went: the engine's per-bucket stage timings
+        # (each bucket's results share them) and the serial rescues
+        stages: dict = {}
+        seen = set()
+        for r in res:
+            key = json.dumps(r.telemetry["bucket"], sort_keys=True)
+            if key not in seen:
+                seen.add(key)
+                for k, v in r.telemetry["stages"].items():
+                    if k not in ("cache_lookup_s", "pack_s") or len(seen) == 1:
+                        stages[k] = stages.get(k, 0.0) + v
+        if hits == len(res):  # one hit replay covers every bucket
+            stages = dict(res[0].telemetry["stages"])
+        stages["serial_rescue_s"] = sum(r.telemetry["serial_rescue"]["seconds"]
+                                        for r in res if "serial_rescue" in r.telemetry)
+        emit(phase=phase, bucket=name, B=len(insts), statuses=statuses, pivots=pivots,
+             rescues=rescues, hits=hits, wall_s=wall, stages=stages, launches=counts,
+             serial_max_rel_diff=worst if phase == "solve_bulk" else None,
+             sample_rescued=sum("serial_rescue" in res[i].telemetry for i in sample))
+        if phase == "solve_bulk":
+            check(worst <= RTOL, f"{name}: serial solve differs by {worst}")
+    return totals
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device: this smoke run needs the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.engine import SolutionCache
+    from repro_torch.engine.arena import InstanceArena
+    from repro_torch.kernels.build import build_seconds, library
+
+    dev = torch.device("cuda")
+    card = smi()
+    library()
+    progress("kernels built")
+    emit(phase="device", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
+         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+         build_s=build_seconds())
+
+    rng = np.random.default_rng(SEED)
+    chain = population(rng, 256, "chain", False)
+    star = population(rng, 256, "star", False)
+    chain_rr = population(rng, 64, "chain", True)
+    star_rr = population(rng, 64, "star", True)
+    gold, gold_values = goldens()
+
+    # phase 2: kernels vs plain at the main path's shapes
+    piv = {}
+    for name, insts in (("chain", chain), ("star", star)):
+        (bucket,) = InstanceArena(insts).buckets
+        piv[name] = pivot_phase(name, bucket, dev)
+    rep = {}
+    for name, insts in (("chain", chain), ("star", star), ("chain_ret_rel", chain_rr),
+                        ("star_ret_rel", star_rr), ("m1", None)):
+        if insts is None:
+            from repro_torch.core.instance import random_instance
+
+            insts = [random_instance(rng, m=1, n_loads=5, q=5) for _ in range(256)]
+        (bucket,) = InstanceArena(insts).buckets
+        rep[name] = replay_phase(name, bucket, dev, rng)
+
+    # phase 3: the main path, launch counts from these calls only
+    groups = [("chain", chain, None), ("star", star, None), ("chain_ret_rel", chain_rr, None),
+              ("star_ret_rel", star_rr, None), ("goldens", gold, gold_values)]
+    cache = SolutionCache()
+    launches = bulk_phase(groups, dev, cache, "solve_bulk")
+    # phase 4: every instance again, now a cache hit
+    bulk_phase(groups, dev, cache, "warm_hits")
+
+    p, r = piv["chain"][4], rep["chain"]
+    kernels = [
+        dict(name="simplex_pivot", route="cuda", source="src/repro_torch/csrc/simplex_pivot.cu",
+             replaces="src/repro/kernels/simplex_pivot.py:133", launches=launches["simplex_pivot"],
+             max_abs_err=max(piv[t][k]["max_abs_err"] for t in piv for k in piv[t]),
+             ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
+             library_ms=None),
+        dict(name="asap_replay", route="cuda", source="src/repro_torch/csrc/asap_replay.cu",
+             replaces="src/repro/kernels/asap_replay.py:226", launches=launches["asap_replay"],
+             max_abs_err=max(v["max_abs_err"] for v in rep.values()),
+             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             library_ms=None),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

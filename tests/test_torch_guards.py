@@ -1,0 +1,152 @@
+"""Standing guards of the port: it imports neither JAX nor the JAX package,
+it runs on the card unless told otherwise, and its serial NumPy copies agree
+with the reference's serial oracle."""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from repro.core.simulator import simulate as ref_simulate
+from repro.core.solver import solve as ref_solve
+from repro_torch.convert import instance_from_reference
+from repro_torch.core.instance import random_instance
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+RTOL = 1e-9
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_sources_import_neither_jax_nor_the_reference():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 20
+    bad = [(f.relative_to(REPO).as_posix(), mod) for f in files for mod in _imported_modules(f)
+           if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    mods = list(_imported_modules(REPO / "chip_smoke.py"))
+    assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
+CHILD = r"""
+import sys
+import numpy as np
+import repro_torch.engine as engine
+from repro_torch.core.instance import random_instance
+rng = np.random.default_rng(0)
+insts = [random_instance(rng, m=3, n_loads=2, q=2, topology=t) for t in ("chain", "star")]
+res = engine.solve_bulk(insts, device="cpu")
+assert all(r.ok for r in res)
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_import_and_cpu_solve_leave_jax_unimported():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", CHILD], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_default_device_is_the_card_and_raises_without_one():
+    import torch
+
+    from repro_torch.core.backends import get_backend
+    from repro_torch.engine import solve_bulk
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs there")
+    inst = random_instance(np.random.default_rng(1), m=3, n_loads=1, q=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve_bulk([inst])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_backend("cuda")
+    with pytest.raises(NotImplementedError):
+        solve_bulk([inst], device="cpu", n_shards=2)
+
+
+def test_torch_backend_on_the_cpu_through_the_registry():
+    from repro_torch.core.backends import SolveRequest, get_backend
+    from repro_torch.engine import TorchBackend
+
+    rng = np.random.default_rng(2)
+    insts = [random_instance(rng, m=3, n_loads=2, q=2, topology="star") for _ in range(2)]
+    backend = get_backend(TorchBackend(device="cpu"))
+    reps = backend.solve_many([SolveRequest(instance=i) for i in insts]
+                              + [SolveRequest(instance=insts[0], cross_check=True)])
+    assert [r.backend for r in reps[:2]] == ["torch", "torch"]
+    assert reps[2].backend in ("simplex", "scipy")  # cross_check is a serial contract
+    assert abs(reps[2].makespan - reps[0].makespan) <= RTOL * reps[0].makespan
+
+
+@pytest.mark.parametrize("topology", ["chain", "star"])
+@pytest.mark.parametrize("returns", [0.0, 0.5])
+def test_port_solve_bulk_matches_reference_serial_solve(topology, returns):
+    """Serial oracle: the reference's JAX-free NumPy solver."""
+    from repro.core.instance import random_instance as ref_random_instance
+
+    from repro_torch.engine import solve_bulk
+
+    rng = np.random.default_rng(7)
+    ref_insts = [ref_random_instance(rng, m=4, n_loads=2, q=2, topology=topology,
+                                     return_ratio=returns, with_latency=True)
+                 for _ in range(3)]
+    res = solve_bulk([instance_from_reference(i) for i in ref_insts], device="cpu")
+    for r, inst in zip(res, ref_insts):
+        want = ref_solve(inst)
+        assert r.ok and want.ok
+        assert abs(r.makespan - want.makespan) <= RTOL * want.makespan
+        # the port's replay of its own gamma vs the reference's serial replay
+        sched = ref_simulate(inst, r.schedule.gamma)
+        assert abs(r.makespan - sched.makespan) <= RTOL * sched.makespan
+        np.testing.assert_allclose(r.schedule.comp_end, sched.comp_end, rtol=RTOL)
+        np.testing.assert_allclose(r.schedule.comm_end, sched.comm_end, rtol=RTOL)
+        if r.schedule.ret_end is not None:
+            np.testing.assert_allclose(r.schedule.ret_end, sched.ret_end, rtol=RTOL)
+
+
+@pytest.mark.parametrize("topology", ["chain", "star"])
+def test_port_replay_matches_reference_simulator_on_padded_buckets(topology):
+    """Several shapes replayed together: padded cells and processors."""
+    from repro_torch.engine import simulate_many
+
+    rng = np.random.default_rng(8)
+    insts = [random_instance(rng, m=m, n_loads=n, q=q, topology=topology,
+                             return_ratio=r, with_latency=True)
+             for m, n, q, r in ((2, 1, 1, 0.0), (3, 2, 2, 0.0), (4, 2, 1, 0.0), (5, 1, 2, 0.0),
+                                (3, 2, 1, 0.4), (4, 1, 2, 0.4))]
+    gammas = [rng.uniform(0, 1, size=(i.m, i.total_installments)) for i in insts]
+    gammas = [g / g.sum(axis=0, keepdims=True) for g in gammas]
+    got = simulate_many(insts, gammas, pad_shapes=True, device="cpu")
+    for inst, g, s in zip(insts, gammas, got):
+        from repro.core.instance import Chain, Instance, Loads, Star
+
+        p, ld = inst.platform, inst.loads
+        ref_inst = Instance((Star if topology == "star" else Chain)(
+            w=p.w, z=p.z, tau=p.tau, latency=p.latency),
+            Loads(v_comm=ld.v_comm, v_comp=ld.v_comp, release=ld.release,
+                  return_ratio=ld.return_ratio), q=inst.q)
+        want = ref_simulate(ref_inst, g)
+        assert abs(s.makespan - want.makespan) <= RTOL * want.makespan
+        for a, b in ((s.comm_start, want.comm_start), (s.comp_start, want.comp_start),
+                     (s.comp_end, want.comp_end)):
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=1e-12)
