@@ -1,6 +1,7 @@
 """Smoke run of the port on one CUDA card: builds the kernels, holds each
 against its plain PyTorch version, drives the engine's bulk solve at the
-paper's §6 scale and checks what comes out.
+paper's §6 scale and the llama3.2-3b serving path at full width and depth,
+and checks what comes out.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -9,14 +10,22 @@ Phases, each printing one JSON line:
 1. ``device``: the card (``nvidia-smi``), torch and CUDA versions, the
    kernels' build time;
 2. ``kernel``: each kernel against its plain version on the card, at the
-   main path's shapes (m = 10 processors, 5 loads, q = 5 installments:
-   chain tableau 1089 x 1811, star 705 x 1427), with times from CUDA events;
+   main paths' shapes (m = 10 processors, 5 loads, q = 5 installments:
+   chain tableau 1089 x 1811, star 705 x 1427; attention at llama3.2-3b's
+   heads with a batch of 4 prompts of 512 tokens and a 544-entry cache),
+   with times from CUDA events;
 3. ``solve_bulk``: 256 chain + 256 star instances, 64 + 64 with returns and
    release dates, and two goldens, through ``repro_torch.engine.solve_bulk``
    on the card; the launch counts are set to 0 just before each call and
    read just after;
 4. ``warm_hits``: the same population again through the solution cache;
-   every hit replays through the replay kernel.
+   every hit replays through the replay kernel;
+5. ``serve``: llama3.2-3b (28 layers, d_model 3072, float32, seeded
+   weights) through ``repro_torch.launch.serve``: 4 prompts of 512
+   ``make_batch`` tokens, 32 greedy decode steps, with the launch counts set
+   to 0 just before and read just after; then the prefill and the first 8
+   steps again through the plain attention (``"naive"``), fed the same
+   tokens, against the kernels' logits and KV cache.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, ...}`` line.  Any failed check raises, so the
@@ -38,6 +47,9 @@ import torch
 SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 FP64_FLOP_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
+FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12  # H100 SXM bfloat16 tensor cores, dense (NVIDIA data sheet)
+L2_BYTES = 50 << 20
 SEED = 20261017
 GOLDEN_976 = 976.1527780792386  # star/ret0.75/rel0/m2/n3/q4/het1/cc0.02 (HiGHS)
 GOLDEN_Q2 = 781.0 / 653.0 * 0.75  # the paper's §3 example at lambda = 3/4, Q = 2
@@ -75,6 +87,32 @@ def cuda_ms(fn, prepare, reps: int) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def device_ms(fn, prepare, reps: int) -> float:
+    """Mean device milliseconds of ``fn(*prepare())``: CUDA events around
+    each call, all enqueued while a sleep kernel holds the card, so no host
+    gap falls between a pair of events (a call of a few microseconds would
+    otherwise time the host's launch overhead).  ``prepare`` runs before
+    each call's first event, untimed."""
+    fn(*prepare())
+    torch.cuda.synchronize()
+    hold_s = 0.1
+    torch.cuda._sleep(int(hold_s * 2.0e9))  # cycles; the H100's clock is at most 1.98 GHz
+    t0 = time.perf_counter()
+    events = []
+    for _ in range(reps):
+        args = prepare()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        events.append((start, end))
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    check(enqueue_s < 0.5 * hold_s, f"device_ms: enqueueing took {enqueue_s:.3f} s, the hold "
+          f"{hold_s} s; the events may include host gaps")
+    return sum(a.elapsed_time(b) for a, b in events) / reps
 
 
 # ---------------------------------------------------------------- inputs
@@ -370,6 +408,290 @@ def bulk_phase(groups, dev, cache, phase):
     return totals
 
 
+# ---------------------------------------------------------------- attention kernels
+
+LLAMA = dict(H=24, KVH=8, D=128)  # llama3.2-3b's attention heads
+# kernel vs plain on the card: float32 computes the same function with sums
+# in another order (~1e-6 at these lengths); bfloat16 rounds inputs and
+# outputs to 8 bits of mantissa, both sides computing in float32 in between
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _rand(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _bound(nbytes, flops, flop_rate):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_phase(dev):
+    """flash_attention against its plain version at the prefill's shapes,
+    plus bfloat16, a window and a length no tile divides; times of the
+    kernel, the plain version and PyTorch's SDPA (the yardstick)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+
+    B, S = 4, 512
+    H, KVH, D = LLAMA["H"], LLAMA["KVH"], LLAMA["D"]
+    cases = [("causal_f32", S, torch.float32, 0), ("causal_bf16", S, torch.bfloat16, 0),
+             ("window96_f32", S, torch.float32, 96), ("ragged500_f32", 500, torch.float32, 0)]
+    rows = {}
+    for name, L, dtype, window in cases:
+        gen = torch.Generator(device=dev).manual_seed(SEED + L + window)
+        q, k, v = (_rand(gen, s, dtype, dev) for s in ((B, L, H, D), (B, L, KVH, D),
+                                                       (B, L, KVH, D)))
+        got = flash_attention(q, k, v, causal=True, window=window)
+        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= ATTN_TOL[dtype], f"flash_attention {name}: max |err| {err}")
+        qi = torch.arange(L, device=dev)[:, None]
+        ki = torch.arange(L, device=dev)[None, :]
+        mask = (ki <= qi) & ((ki > qi - window) if window else True)
+        pairs = int(mask.sum().item())
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def library(qt, kt, vt, mask=mask, window=window):
+            if window:
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        lib_err = (library(qt, kt, vt).transpose(1, 2).float() - want.float()).abs().max().item()
+        ms = device_ms(lambda *a: flash_attention(*a, causal=True, window=window),
+                       lambda: (q, k, v), reps=20)
+        call_ms = cuda_ms(lambda *a: flash_attention(*a, causal=True, window=window),
+                          lambda: (q, k, v), reps=20)
+        plain_ms = device_ms(lambda *a: flash_attention_plain(*a, causal=True, window=window),
+                             lambda: (q, k, v), reps=5)
+        library_ms = device_ms(library, lambda: (qt, kt, vt), reps=20)
+        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
+        flops = 4 * B * H * D * pairs  # two products over the visible pairs
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        bound_ms, bound_by = _bound(nbytes, flops, rate)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms, max_abs_err=err)
+        emit(phase="kernel", kernel="flash_attention", case=name, B=B, Sq=L, Sk=L, H=H,
+             KVH=KVH, D=D, dtype=str(dtype), window=window, max_abs_err=err, tol=ATTN_TOL[dtype],
+             ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+             library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+             bytes=nbytes, tflops=flops / ms / 1e9)
+        del q, k, v, qt, kt, vt, got, want
+    return rows
+
+
+def decode_phase(dev):
+    """decode_attention against its plain version at the decode steps'
+    shapes (a 544-entry cache, 1 to 544 entries valid, with and without a
+    window), the L2 cache flushed before every timed call, as the serving
+    path finds each layer's cache cold."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, decode_attention_plain
+
+    B, Smax = 4, 544
+    H, KVH, D = LLAMA["H"], LLAMA["KVH"], LLAMA["D"]
+    flush = torch.empty(2 * L2_BYTES // 4, device=dev)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        q, kc, vc = (_rand(gen, s, dtype, dev) for s in ((B, 1, H, D), (B, Smax, KVH, D),
+                                                         (B, Smax, KVH, D)))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
+        for n, window in ((1, 0), (300, 0), (544, 0), (1, 64), (300, 64), (544, 64)):
+            name = f"len{n}_w{window}_{str(dtype).split('.')[-1]}"
+            n_t = torch.tensor([n], dtype=torch.int32, device=dev)
+            got = decode_attention(q, kc, vc, n_t, window=window)
+            want = decode_attention_plain(q, kc, vc, n_t, window=window)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(err <= ATTN_TOL[dtype], f"decode_attention {name}: max |err| {err}")
+            idx = torch.arange(Smax, device=dev)
+            valid = (idx < n) & ((idx > n - 1 - window) if window else True)
+            n_valid = int(valid.sum().item())
+
+            def library(qt, kt, vt, valid=valid[None, :]):
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid,
+                                                      enable_gqa=True)
+
+            lib_err = (library(qt, kt, vt).transpose(1, 2).float()
+                       - want.float()).abs().max().item()
+
+            def cold(*args):
+                flush.zero_()
+                return args
+
+            ms = device_ms(lambda *a: decode_attention(*a, window=window),
+                           lambda: cold(q, kc, vc, n_t), reps=50)
+            call_ms = cuda_ms(lambda *a: decode_attention(*a, window=window),
+                              lambda: cold(q, kc, vc, n_t), reps=50)
+            plain_ms = device_ms(lambda *a: decode_attention_plain(*a, window=window),
+                                 lambda: cold(q, kc, vc, n_t), reps=10)
+            library_ms = device_ms(library, lambda: cold(qt, kt, vt), reps=50)
+            elt = q.element_size()
+            nbytes = elt * (2 * B * KVH * n_valid * D + 2 * q.numel())  # valid K+V, q, out
+            flops = 4 * B * H * D * n_valid
+            rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+            bound_ms, bound_by = _bound(nbytes, flops, rate)
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=library_ms, max_abs_err=err)
+            emit(phase="kernel", kernel="decode_attention", case=name, B=B, H=H, KVH=KVH, D=D,
+                 Smax=Smax, cache_len=n, window=window, dtype=str(dtype), max_abs_err=err,
+                 tol=ATTN_TOL[dtype], ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                 library_ms=library_ms, library_max_abs_err=lib_err, bound_ms=bound_ms,
+                 bound_by=bound_by, bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
+    del flush
+    return rows
+
+
+# ---------------------------------------------------------------- phase 5
+
+SERVE_B, SERVE_PROMPT, SERVE_STEPS, SERVE_CHECKED = 4, 512, 32, 8
+# kernel path vs plain path (both float32 on the card, the same weights and
+# the same matrix products): they differ only in attention's summation
+# order, ~1e-6 relative per layer; 1e-3 of max(1, max |value|) leaves that
+# amplified through 28 random layers well inside, and a wrong mask, head or
+# cache slot (an O(1) change) far outside
+SERVE_TOL = 1e-3
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1.0)).item()
+
+
+def _device_time_by_group(prof) -> dict:
+    """Device milliseconds of the profiled kernels, grouped: the two
+    attention kernels, the matrix products (cuBLAS/CUTLASS) and the rest."""
+    groups = {"flash_attention": 0.0, "decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name
+        if "flash_attention_kernel" in name:
+            key = "flash_attention"
+        elif "decode_partial_kernel" in name or "decode_combine_kernel" in name:
+            key = "decode_attention"
+        elif any(t in name.lower() for t in ("gemm", "cutlass", "splitkreduce")):
+            key = "matmul"
+        else:
+            key = "other"
+        groups[key] += e.device_time / 1e3
+    return groups
+
+
+def serve_profile(model, cfg, policy, prompt, n_steps: int, res) -> dict:
+    """Where the device time of the serving path goes: one prefill and
+    ``n_steps`` decode steps under torch.profiler, their kernels' device
+    time by group, and the device's busy share against the unprofiled run's
+    wall times (``res``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import prefill
+    from repro_torch.runtime import make_serve_step
+
+    S = prompt.shape[1]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        logits, cache, pos = prefill(model, cfg, policy, prompt, max_len=S + n_steps)
+        torch.cuda.synchronize()
+    pre = _device_time_by_group(prof)
+    nxt = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    del logits
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=prompt.device)
+    step = make_serve_step(cfg, policy)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for i in range(n_steps):
+            lg, cache = step(model, cache, nxt, pos_t + i)
+            nxt = lg[:, -1:].argmax(dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+    dec = {k: v / n_steps for k, v in _device_time_by_group(prof).items()}
+    check(pre["flash_attention"] > 0 and dec["decode_attention"] > 0 and dec["matmul"] > 0,
+          f"the profiler saw the serving kernels run on the card: {pre}, {dec}")
+    step_wall_ms = 1e3 * res.decode_s / len(res.step_logits)
+    return dict(prefill_device_ms=pre, prefill_device_total_ms=sum(pre.values()),
+                prefill_busy_share=sum(pre.values()) / (1e3 * res.prefill_s),
+                decode_step_device_ms=dec, decode_step_device_total_ms=sum(dec.values()),
+                decode_step_wall_ms=step_wall_ms,
+                decode_busy_share=sum(dec.values()) / step_wall_ms)
+
+
+def serve_phase(dev):
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import generate, load_model, prompt_tokens, serve_policy
+    from repro_torch.models import prefill
+    from repro_torch.runtime import make_serve_step
+
+    cfg = get_arch("llama3.2-3b")
+    B, S, N = SERVE_B, SERVE_PROMPT, SERVE_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = load_model(cfg, SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = prompt_tokens(cfg, B, S, SEED, dev)
+    policy = serve_policy(S)
+    check(policy.attention_impl == "cuda", "the serve policy runs the kernels")
+    warm = generate(model, cfg, policy, prompt, 2)  # first-call costs of cuBLAS and the kernels
+    del warm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = generate(model, cfg, policy, prompt, N, keep_logits=True)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    progress(f"serve: prefill {res.prefill_s:.3f} s, {N} steps in {res.decode_s:.3f} s")
+    L = cfg.num_layers
+    check(counts == {"simplex_pivot": 0, "asap_replay": 0, "flash_attention": L,
+                     "decode_attention": L * N}, f"serve launches {counts}")
+    check(tuple(res.prefill_logits.shape) == (B, S, cfg.vocab_size), "prefill logits shape")
+    check(tuple(res.tokens.shape) == (B, N), "generated tokens shape")
+    finite = bool(torch.isfinite(res.prefill_logits).all()) and all(
+        bool(torch.isfinite(lg).all()) for lg in res.step_logits)
+    check(finite, "serve logits finite")
+    tokens = res.tokens.cpu()
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "tokens in the vocabulary")
+
+    # the plain path on the same weights, fed the kernel run's tokens
+    naive = serve_policy(S, "naive")
+    t1 = time.perf_counter()
+    logits, cache, pos = prefill(model, cfg, naive, prompt, max_len=S + N)
+    errs = {"prefill_logits": _rel_err(res.prefill_logits, logits)}
+    del logits
+    step = make_serve_step(cfg, naive)
+    nxt = res.prefill_logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    for i in range(SERVE_CHECKED):
+        lg, cache = step(model, cache, nxt, pos + i)
+        errs[f"step{i}_logits"] = _rel_err(res.step_logits[i], lg)
+        nxt = res.tokens[:, i:i + 1]
+    for name in ("k", "v"):
+        errs[f"cache_{name}"] = _rel_err(res.cache[name][:, :, :S + SERVE_CHECKED],
+                                         cache[name][:, :, :S + SERVE_CHECKED])
+    torch.cuda.synchronize()
+    naive_s = time.perf_counter() - t1
+    worst = max(errs.values())
+    del cache
+    torch.cuda.empty_cache()
+    breakdown = serve_profile(model, cfg, policy, prompt, 4, res)
+    emit(phase="serve", arch=cfg.name, params=n_params, dtype="float32", batch=B,
+         prompt_len=S, gen_len=N, init_s=init_s, prefill_s=res.prefill_s,
+         prefill_tok_per_s=B * S / res.prefill_s, decode_s=res.decode_s,
+         decode_tok_per_s=B * N / res.decode_s, decode_step_ms=1e3 * res.decode_s / N,
+         peak_mem_gb=peak / 1e9, launches=counts, sample_tokens=tokens[0, :8].tolist(),
+         naive_check_s=naive_s, naive_rel_err=errs, tol=SERVE_TOL, **breakdown)
+    check(worst <= SERVE_TOL, f"serve: kernel vs plain path {errs}")
+    return counts
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs the card", file=sys.stderr)
@@ -380,6 +702,10 @@ def main() -> int:
     from repro_torch.kernels.build import build_seconds, library
 
     dev = torch.device("cuda")
+    # float32 products in full float32 (the defaults, stated): the serve
+    # phase holds the kernel path against the plain path at 1e-3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = smi()
     library()
     progress("kernels built")
@@ -416,8 +742,17 @@ def main() -> int:
     launches = bulk_phase(groups, dev, cache, "solve_bulk")
     # phase 4: every instance again, now a cache hit
     bulk_phase(groups, dev, cache, "warm_hits")
+    del cache, groups
+    torch.cuda.empty_cache()
+
+    # phases 2 (attention kernels) and 5: the serving path
+    fa = flash_phase(dev)
+    da = decode_phase(dev)
+    torch.cuda.empty_cache()
+    served = serve_phase(dev)
 
     p, r = piv["chain"][4], rep["chain"]
+    f, d = fa["causal_f32"], da["len544_w0_float32"]
     kernels = [
         dict(name="simplex_pivot", route="cuda", source="src/repro_torch/csrc/simplex_pivot.cu",
              replaces="src/repro/kernels/simplex_pivot.py:133", launches=launches["simplex_pivot"],
@@ -429,6 +764,19 @@ def main() -> int:
              max_abs_err=max(v["max_abs_err"] for v in rep.values()),
              ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=None),
+        dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:106",
+             launches=served["flash_attention"],
+             max_abs_err=max(v["max_abs_err"] for v in fa.values()),
+             ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"], bound_by=f["bound_by"],
+             library_ms=f["library_ms"]),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:105",
+             launches=served["decode_attention"],
+             max_abs_err=max(v["max_abs_err"] for v in da.values()),
+             ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"], bound_by=d["bound_by"],
+             library_ms=d["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

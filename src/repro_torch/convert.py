@@ -6,9 +6,12 @@ moves to the CPU on its own.  Only an explicit ``device="cpu"`` runs there.
 
 :func:`from_reference` turns state of the JAX package, given as NumPy
 (instance arrays, packed bucket arrays, LP stacks, cached gammas, warm
-bases), into tensors on a device, checking dtypes and shapes.  The port
-never imports the JAX package; the state arrives as plain arrays or as
-dataclasses whose fields are arrays.
+bases), into tensors on a device, checking dtypes and shapes.
+:func:`params_from_reference`, :func:`cache_from_reference` and
+:func:`policy_from_reference` carry a model's parameter tree, decode cache
+and serving policy across.  The port never imports the JAX package; the
+state arrives as plain arrays, dicts of them, or objects whose fields are
+arrays.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "from_reference", "instance_from_reference", "to_tensor"]
+__all__ = ["resolve_device", "from_reference", "instance_from_reference", "to_tensor",
+           "params_from_reference", "cache_from_reference", "policy_from_reference"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -129,3 +133,114 @@ def instance_from_reference(inst):
                   release=ld.release.copy(), return_ratio=ld.return_ratio.copy())
     wpl = None if inst.w_per_load is None else np.array(inst.w_per_load)
     return Instance(platform, loads, q=tuple(inst.q), w_per_load=wpl)
+
+
+# ---------------------------------------------------------------- models
+
+
+def _model_tensor(arr, device, what: str, shape: tuple, dtypes: tuple) -> torch.Tensor:
+    """One reference leaf as a tensor, its shape and dtype checked.  NumPy has
+    no bfloat16 of its own: a bfloat16 leaf (``ml_dtypes``) crosses as its
+    16-bit pattern."""
+    a = np.asarray(arr)
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{what} is {tuple(a.shape)}, expected {tuple(shape)}")
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    elif a.dtype.name in ("float32", "int8"):
+        t = torch.from_numpy(np.array(a))
+    else:
+        raise TypeError(f"{what} is {a.dtype}; the port takes float32, bfloat16 or int8")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what} is {t.dtype}, expected one of {dtypes}")
+    return t.to(device)
+
+
+def params_from_reference(params_np: dict, cfg, device=None):
+    """The reference's parameter tree (``init_params``'s dict, leaves as
+    NumPy, blocks stacked ``[L, ...]``) as the port's
+    :class:`~repro_torch.models.Transformer` on ``device``.  Every leaf's
+    shape is checked against ``cfg`` and all leaves must share one dtype
+    (float32 or bfloat16)."""
+    from repro_torch.models import Transformer
+
+    dev = resolve_device(device)
+    D, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L, F, V = cfg.num_layers, cfg.d_ff, cfg.padded_vocab
+    top = {"embed", "blocks", "ln_f"} | (set() if cfg.tie_embeddings else {"head"})
+    if set(params_np) != top:
+        raise ValueError(f"parameter tree has {sorted(params_np)}, expected {sorted(top)}")
+    blocks = params_np["blocks"]
+    layout = {"ln1": (D,), "ln2": (D,),
+              "attn": {"w_q": (D, H * hd), "w_k": (D, KVH * hd), "w_v": (D, KVH * hd),
+                       "w_o": (H * hd, D)},
+              "mlp": {"w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)}}
+    if set(blocks) != set(layout):
+        raise ValueError(f"blocks have {sorted(blocks)}, expected {sorted(layout)}")
+    dtype = np.asarray(params_np["embed"]).dtype.name
+    floats = {"float32": (torch.float32,), "bfloat16": (torch.bfloat16,)}.get(dtype)
+    if floats is None:
+        raise TypeError(f"embed is {dtype}; the port takes float32 or bfloat16 parameters")
+
+    def leaf(arr, what, shape):
+        return _model_tensor(arr, dev, what, shape, floats)
+
+    stacked = {}
+    for name, spec in layout.items():
+        if isinstance(spec, dict):
+            if set(blocks[name]) != set(spec):
+                raise ValueError(f"blocks.{name} has {sorted(blocks[name])}, expected "
+                                 f"{sorted(spec)}")
+            stacked[name] = {k: leaf(blocks[name][k], f"blocks.{name}.{k}", (L, *shp))
+                             for k, shp in spec.items()}
+        else:
+            stacked[name] = leaf(blocks[name], f"blocks.{name}", (L, *spec))
+    tree = {"embed": leaf(params_np["embed"], "embed", (V, D)),
+            "ln_f": leaf(params_np["ln_f"], "ln_f", (D,)),
+            "blocks": [{name: ({k: t[l] for k, t in val.items()} if isinstance(val, dict)
+                               else val[l]) for name, val in stacked.items()}
+                       for l in range(L)]}
+    if not cfg.tie_embeddings:
+        tree["head"] = leaf(params_np["head"], "head", (D, V))
+    return Transformer(cfg, tree)
+
+
+def cache_from_reference(cache_np: dict, cfg, device=None) -> dict:
+    """The reference's decode cache (``init_cache``/``prefill``'s dict, leaves
+    as NumPy ``[L, B, S, KVH, hd]``) as the port's dict of tensors on
+    ``device``: ``k``/``v`` float32, bfloat16 or int8 alike, and for int8
+    the float32 ``k_scale``/``v_scale`` ``[L, B, S, KVH]``."""
+    dev = resolve_device(device)
+    names = set(cache_np)
+    if names not in ({"k", "v"}, {"k", "v", "k_scale", "v_scale"}):
+        raise ValueError(f"cache has {sorted(names)}; the port's dense cache is k, v "
+                         "(and k_scale, v_scale for int8)")
+    k = np.asarray(cache_np["k"])
+    if k.ndim != 5 or k.shape[0] != cfg.num_layers or k.shape[3:] != (cfg.num_kv_heads,
+                                                                       cfg.head_dim):
+        raise ValueError(f"cache k is {k.shape}, expected [L={cfg.num_layers}, B, S, "
+                         f"KVH={cfg.num_kv_heads}, hd={cfg.head_dim}]")
+    int8 = "k_scale" in names
+    kv_types = (torch.int8,) if int8 else (torch.float32, torch.bfloat16)
+    out = {n: _model_tensor(cache_np[n], dev, f"cache {n}", k.shape, kv_types)
+           for n in ("k", "v")}
+    if out["v"].dtype != out["k"].dtype:
+        raise TypeError(f"cache k is {out['k'].dtype}, v {out['v'].dtype}")
+    if int8:
+        for n in ("k_scale", "v_scale"):
+            out[n] = _model_tensor(cache_np[n], dev, f"cache {n}", k.shape[:-1],
+                                   (torch.float32,))
+    return out
+
+
+def policy_from_reference(policy):
+    """The port's :class:`~repro_torch.config.ShardingPolicy` with the fields
+    of a reference policy that the serving path reads; the reference's
+    ``"pallas"`` kernels are the port's ``"cuda"`` ones."""
+    from repro_torch.config import ShardingPolicy
+
+    impl = {"pallas": "cuda"}.get(policy.attention_impl, policy.attention_impl)
+    return ShardingPolicy(attention_impl=impl, attn_chunk=policy.attn_chunk,
+                          attn_block_skip=policy.attn_block_skip,
+                          logits_fp32=policy.logits_fp32,
+                          kv_cache_dtype=policy.kv_cache_dtype)

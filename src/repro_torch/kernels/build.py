@@ -9,7 +9,8 @@ builds everything on its first call and a changed source rebuilds.
 
 ``-fmad=false`` keeps ``nvcc`` from contracting a product and a sum into a
 fused multiply-add on its own: the kernels write every fma they mean
-(see csrc/simplex_pivot.cu), so their rounding is the source's.
+(``fma`` in csrc/simplex_pivot.cu, ``fmaf`` in the attention kernels), so
+their rounding is the source's.
 
 Nothing here falls back: a missing toolkit, a failed compile or a library
 that does not load raises.
@@ -42,6 +43,8 @@ _BUILD_SECONDS: float | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # T, basis, it, status, lanes, n_lanes, R, C, ncols_price, bland_after,
     # max_iter, k_pivots, stream
@@ -49,6 +52,14 @@ _SIGNATURES = {
     # w, z, latency, tau, vcomm, vcomp, rel, ret, valid, gamma,
     # cs, ce, ps, pe, rs, re, mk, B, m, T, star, stream
     "repro_asap_replay": [_P] * 17 + [_I, _I, _I, _I, _P],
+    # q, k, v, o, B, H, KVH, Sq, Sk, D, bf16, strides of q, k/v and o (b, s, h),
+    # causal, window, scale, stream
+    "repro_flash_attention": [_P] * 4 + [_I] * 7 + [_L] * 9 + [_I, _I, _F, _P],
+    # q, k_cache, v_cache, cache_len, part_m, part_l, part_acc, o, B, H, KVH,
+    # Smax, D, bf16, strides q (b, h), caches (b, s, h), o (b, h), window,
+    # scale, stream
+    "repro_decode_attention": [_P] * 8 + [_I] * 6 + [_L] * 7 + [_I, _F, _P],
+    "repro_decode_attention_chunk": [],
 }
 
 

@@ -1,0 +1,126 @@
+"""Prefill attention: causal or sliding-window masked softmax attention with
+grouped-query heads.
+
+The port of the Pallas kernel ``flash_attention_kernel`` /
+``flash_attention_call`` (``repro/kernels/flash_attention.py``) and of its
+wrapper ``ops.flash_attention``.  :func:`flash_attention` launches the
+hand-written CUDA kernel (``csrc/flash_attention.cu``) for tensors on the
+card and runs :func:`flash_attention_plain` for tensors on the CPU; it never
+falls back from one to the other.  Unlike the TPU kernel it reads the
+model's ``[B, S, H, D]`` layout through strides (no transposes) and takes
+lengths that no tile size divides.
+
+Shapes: q ``[B, Sq, H, D]``, k/v ``[B, Sk, KVH, D]`` with ``H % KVH == 0``
+(query head ``h`` reads kv head ``h // (H // KVH)``); float32 or bfloat16,
+float32 inside, the output ``[B, Sq, H, D]`` in q's dtype.  Masks use the
+absolute positions: causal ``k <= q``, window ``k > q - window``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import check, library
+
+__all__ = ["flash_attention", "flash_attention_plain", "masked_attention", "attention_mask",
+           "NEG_INF", "KERNEL_HEAD_DIMS"]
+
+NEG_INF = -1e30
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def attention_mask(sq, sk, q_off, k_off, causal: bool, window: int, device):
+    """Which of ``sq`` queries (from position ``q_off``) see which of ``sk``
+    keys (from ``k_off``): bool ``[sq, sk]``, causal ``k <= q``, window
+    ``k > q - window``."""
+    qi = q_off + torch.arange(sq, device=device)[:, None]
+    ki = k_off + torch.arange(sk, device=device)[None, :]
+    m = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if causal:
+        m &= ki <= qi
+    if window > 0:
+        m &= ki > qi - window
+    return m
+
+
+def masked_attention(q, k, v, valid, *, probs_dtype=torch.float32):
+    """Masked softmax attention over materialised scores, the one plain
+    oracle of the port: q ``[B,Sq,H,D]``, k/v ``[B,Sk,KVH,D]``, ``valid``
+    bool broadcastable to ``[Sq, Sk]``.  Scores are float32 and masked with
+    the finite ``NEG_INF``; grouped-query heads are taken group-wise (no
+    repeated K/V).  The second product takes the probabilities and V in
+    ``probs_dtype``: float32 for the kernels' plain versions (the
+    reference's ``ref.py``), the value dtype for the model's naive path (the
+    reference's ``_gqa_out``).  The output is in q's dtype."""
+    B, Sq, H, D = q.shape
+    KVH = k.shape[2]
+    qg = q.reshape(B, Sq, KVH, H // KVH, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * (D ** -0.5)
+    p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(probs_dtype), v.to(probs_dtype))
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0):
+    """The plain PyTorch version, on any device: the masked softmax in
+    float32 over materialised scores (the function of the reference's
+    ``ref.flash_attention_ref``)."""
+    mask = attention_mask(q.shape[1], k.shape[1], 0, 0, causal, window, q.device)
+    return masked_attention(q, k, v, mask)
+
+
+def _check_args(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q must be [B,Sq,H,D] and k/v [B,Sk,KVH,D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Sk, KVH, D) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k and v must be [B={B}, Sk, KVH, D={D}] alike; got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if min(B, Sq, Sk, KVH) < 1 or H % KVH:
+        raise ValueError(f"need B, Sq, Sk >= 1 and H % KVH == 0; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share float32 or bfloat16; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
+    if window < 0:
+        raise ValueError(f"window must be >= 0; got {window}")
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q ``[B,Sq,H,D]``, k/v ``[B,Sk,KVH,D]`` -> ``[B,Sq,H,D]``: the CUDA
+    kernel for tensors on the card, :func:`flash_attention_plain` for
+    tensors on the CPU.  ``flash_attention.launches`` counts kernel
+    launches."""
+    _check_args(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors; got {q.device}")
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}; got {D}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or k.stride() != v.stride():
+        raise ValueError("the kernel needs a contiguous last dimension, and k and v "
+                         "with equal strides")
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = library().repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KVH, Sq, Sk, D,
+            int(q.dtype == torch.bfloat16), *q.stride()[:3], *k.stride()[:3],
+            *o.stride()[:3], int(bool(causal)), int(window), ctypes.c_float(D ** -0.5),
+            stream)
+    check(code, "flash_attention launch")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

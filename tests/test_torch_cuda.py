@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, held against their plain versions
-on the same card, and the engine on the card against the engine on the CPU.
+on the same card, and the engine and the serving path on the card against
+the same on the CPU.
 
 These need an NVIDIA card and ``nvcc``; elsewhere they skip (the fixture
 decides at run time, so every xdist worker collects the same tests).  On the
@@ -15,8 +16,10 @@ import pytest
 import torch
 
 from repro_torch.core.instance import random_instance
-from repro_torch.kernels import (asap_replay, asap_replay_plain, launch_counts,
-                                 reset_launch_counts, simplex_pivot, simplex_pivot_plain)
+from repro_torch.kernels import (asap_replay, asap_replay_plain, decode_attention,
+                                 decode_attention_plain, flash_attention, flash_attention_plain,
+                                 launch_counts, reset_launch_counts, simplex_pivot,
+                                 simplex_pivot_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +97,65 @@ def test_solve_bulk_on_card_matches_cpu(card):
     for g, c in zip(gpu, cpu):
         assert g.ok and g.backend == "cuda"
         assert abs(g.makespan - c.makespan) <= 1e-9 * c.makespan
+
+
+# float32: the same function with sums in another order; bfloat16: inputs and
+# outputs rounded to bfloat16 (the kernel and the plain version both compute
+# in float32 in between)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, H, KVH, D, causal, window)
+    (2, 512, 512, 24, 8, 128, True, 0),
+    (1, 500, 500, 4, 2, 64, True, 0),
+    (1, 256, 256, 4, 2, 32, True, 96),
+    (1, 130, 200, 8, 8, 16, False, 0),
+])
+def test_flash_attention_kernel_matches_plain_on_card(card, case, dtype):
+    B, Sq, Sk, H, KVH, D, causal, window = case
+    g = torch.Generator(device=card).manual_seed(sum(case[:6]))
+    q, k, v = (torch.randn(s, generator=g, device=card).to(dtype)
+               for s in ((B, Sq, H, D), (B, Sk, KVH, D), (B, Sk, KVH, D)))
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1 and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("cache_len", [1, 63, 64, 300, 544])
+def test_decode_attention_kernel_matches_plain_on_card(card, cache_len, window, dtype):
+    B, H, KVH, D, Smax = 4, 24, 8, 128, 544
+    g = torch.Generator(device=card).manual_seed(cache_len + window)
+    q, kc, vc = (torch.randn(s, generator=g, device=card).to(dtype)
+                 for s in ((B, 1, H, D), (B, Smax, KVH, D), (B, Smax, KVH, D)))
+    n = torch.tensor([cache_len], dtype=torch.int32, device=card)
+    reset_launch_counts()
+    got = decode_attention(q, kc, vc, n, window=window)
+    want = decode_attention_plain(q, kc, vc, n, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_attention"] == 1 and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+def test_smoke_serving_on_card_matches_cpu(card):
+    from repro_torch.config import get_arch, smoke_variant
+    from repro_torch.launch.serve import generate, load_model, prompt_tokens, serve_policy
+
+    cfg = smoke_variant(get_arch("llama3.2-3b"))
+    model = load_model(cfg, seed=0, device="cpu")
+    prompt = prompt_tokens(cfg, 2, 16, seed=0, device="cpu")
+    cpu = generate(model, cfg, serve_policy(16), prompt, 4)
+    reset_launch_counts()
+    gpu = generate(model.to(card), cfg, serve_policy(16), prompt.to(card), 4)
+    counts = launch_counts()
+    assert counts["flash_attention"] == cfg.num_layers
+    assert counts["decode_attention"] == 4 * cfg.num_layers
+    torch.testing.assert_close(gpu.prefill_logits.cpu(), cpu.prefill_logits, rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(gpu.tokens.cpu(), cpu.tokens)

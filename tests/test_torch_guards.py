@@ -55,6 +55,9 @@ rng = np.random.default_rng(0)
 insts = [random_instance(rng, m=3, n_loads=2, q=2, topology=t) for t in ("chain", "star")]
 res = engine.solve_bulk(insts, device="cpu")
 assert all(r.ok for r in res)
+from repro_torch.launch import serve
+serve.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--gen-len", "2"])
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
 """
 
@@ -82,6 +85,38 @@ def test_default_device_is_the_card_and_raises_without_one():
         get_backend("cuda")
     with pytest.raises(NotImplementedError):
         solve_bulk([inst], device="cpu", n_shards=2)
+
+
+def test_serve_without_device_runs_on_the_card_and_raises_without_one():
+    import torch
+
+    from repro_torch.launch import serve
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the serve demo runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama3.2-3b", "--smoke", "--batch", "1", "--prompt-len", "4",
+                    "--gen-len", "1"])
+
+
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "Initializer", "prompt_tokens"])
+def test_model_entry_points_default_to_the_card_and_raise_without_one(entry):
+    import torch
+
+    from repro_torch.config import get_arch, smoke_variant
+    from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.layers import Initializer
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs there")
+    cfg = smoke_variant(get_arch("llama3.2-3b"))
+    calls = {"init_params": lambda: init_params(cfg, seed=0),
+             "init_cache": lambda: init_cache(cfg, 1, 8),
+             "Initializer": lambda: Initializer(0),
+             "prompt_tokens": lambda: prompt_tokens(cfg, 1, 4, 0, None)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
 
 
 def test_torch_backend_on_the_cpu_through_the_registry():

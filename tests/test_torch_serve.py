@@ -1,0 +1,306 @@
+"""The port's serving path (prefill + decode of the llama3.2-3b smoke
+variant) against the JAX package's, its token generator, its conversion of
+the reference's parameters and caches, and its CLI.
+
+The reference's parameters (``init_params``, float32) are carried across
+with ``params_from_reference``, and both packages serve the same prompt:
+JAX ``prefill`` + ``make_serve_step`` with ``attention_impl="pallas"``
+(interpret mode) or ``"chunked"``, the port with ``"cuda"`` (the kernels'
+plain versions on the CPU) or ``"chunked"``.  Each step is fed the
+reference's greedy token.  Tolerances (float32): prefill logits and KV
+cache to 1e-5, each step's logits to 1e-4 (the sums run in another order
+and decode steps build on the prefill's cache); greedy tokens identical.
+
+With the int8 cache a new K/V value that lies within an ulp of a rounding
+boundary can quantize one step apart in the two packages (a difference of
+1e-7 in float32 becomes one step of absmax/127).  So in the int8 case the
+port starts each step from the reference's cache, carried across with
+``cache_from_reference``: a flip cannot carry into later steps.  Flips are
+counted per step and batch row (at most 4 entries, one step each); a row
+without one is held to 1e-4, and only the row that flips in that very step
+to 1e-3, the size one quantization step of one cached value moves its
+logits at this width (2.4e-4 at this seed).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import ShardingPolicy as RefPolicy
+from repro.config import get_arch as ref_get_arch
+from repro.config import smoke_variant as ref_smoke_variant
+from repro.data import SyntheticStream as RefStream
+from repro.data import make_batch as ref_make_batch
+from repro.models import init_params as ref_init_params
+from repro.models import prefill as ref_prefill
+from repro.runtime import make_serve_step as ref_make_serve_step
+from repro_torch.config import get_arch, smoke_variant
+from repro_torch.convert import cache_from_reference, params_from_reference, policy_from_reference
+from repro_torch.data import SyntheticStream, make_batch
+from repro_torch.models import prefill
+from repro_torch.runtime import make_serve_step
+
+REPO = Path(__file__).resolve().parents[1]
+ARCH = "llama3.2-3b"
+B, PROMPT, STEPS, MAX_LEN = 2, 16, 6, 24
+
+# (reference attention_impl, kv_cache_dtype, attention type)
+CASES = [("pallas", "bf16", "full"), ("chunked", "bf16", "full"), ("pallas", "int8", "full"),
+         ("chunked", "bf16", "swa")]
+
+
+def _cfgs(attn_type):
+    ref_cfg = ref_smoke_variant(ref_get_arch(ARCH))
+    cfg = smoke_variant(get_arch(ARCH))
+    if attn_type == "swa":  # the ring-buffer branches: window 8 < prompt 16
+        ref_cfg = dataclasses.replace(ref_cfg, attn_type="swa", window=8)
+        cfg = dataclasses.replace(cfg, attn_type="swa", window=8)
+    return ref_cfg, cfg
+
+
+def _np(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor) else x)
+
+
+@functools.lru_cache(maxsize=None)
+def _runs(case):
+    """Both packages through prefill + STEPS decode steps on the same
+    parameters and prompt; the port is fed the reference's tokens."""
+    impl, kv_dtype, attn_type = case
+    ref_cfg, cfg = _cfgs(attn_type)
+    ref_policy = RefPolicy(attention_impl=impl, attn_chunk=PROMPT, kv_cache_dtype=kv_dtype)
+    policy = policy_from_reference(ref_policy)
+    params = ref_init_params(ref_cfg, ref_policy, seed=5, dtype=jnp.float32)
+    model = params_from_reference(jax.tree.map(np.asarray, params), cfg, "cpu")
+    toks = np.random.default_rng(11).integers(0, cfg.vocab_size, size=(B, PROMPT), dtype=np.int32)
+
+    ref = {"logits": [], "tokens": []}
+    lg, cache, pos = ref_prefill(params, ref_cfg, ref_policy, jnp.asarray(toks), max_len=MAX_LEN)
+    ref["prefill_logits"], ref["prefill_cache"] = np.asarray(lg), jax.tree.map(np.asarray, cache)
+    step = jax.jit(ref_make_serve_step(ref_cfg, ref_policy))
+    nxt = jnp.argmax(lg[:, -1:], axis=-1).astype(jnp.int32)
+    feed = [np.asarray(nxt)]
+    ref_caches = [jax.tree.map(np.asarray, cache)]  # before step 0, after each step
+    for i in range(STEPS):
+        lg, cache = step(params, cache, nxt, jnp.int32(pos + i))
+        nxt = jnp.argmax(lg[:, -1:], axis=-1).astype(jnp.int32)
+        ref["logits"].append(np.asarray(lg))
+        ref["tokens"].append(np.asarray(nxt))
+        ref_caches.append(jax.tree.map(np.asarray, cache))
+        feed.append(np.asarray(nxt))
+    ref["cache"] = jax.tree.map(np.asarray, cache)
+
+    port = {"logits": [], "tokens": []}
+    lg, cache, pos = prefill(model, cfg, policy, torch.from_numpy(toks), max_len=MAX_LEN)
+    port["prefill_logits"] = _np(lg)
+    port["prefill_cache"] = {k: _np(v.clone()) for k, v in cache.items()}
+    port["first_token"] = lg[:, -1:].argmax(dim=-1).to(torch.int32).numpy()
+    step = make_serve_step(cfg, policy)
+    port["flips"] = []  # per step: int8 entries quantized apart, per batch row; largest gap
+    for i in range(STEPS):
+        if kv_dtype == "int8":  # each step from the reference's cache: no flip carries on
+            cache = cache_from_reference(ref_caches[i], cfg, "cpu")
+        lg, cache = step(model, cache, torch.from_numpy(feed[i].copy()), pos + i)
+        port["logits"].append(_np(lg))
+        port["tokens"].append(lg[:, -1:].argmax(dim=-1).to(torch.int32).numpy())
+        gaps = [np.abs(cache[k].numpy().astype(np.int32) - ref_caches[i + 1][k])
+                for k in ("k", "v")] if kv_dtype == "int8" else [np.zeros((1, B, 1))]
+        port["flips"].append((sum((g != 0).sum(axis=(0, *range(2, g.ndim))) for g in gaps),
+                              max(int(g.max()) for g in gaps)))
+    port["cache"] = {k: _np(v) for k, v in cache.items()}
+    port["feed0"] = feed[0]
+    return ref, port
+
+
+CASE_IDS = ["-".join(c) for c in CASES]
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_prefill_logits_and_cache_match_reference(case):
+    ref, port = _runs(case)
+    np.testing.assert_allclose(port["prefill_logits"], ref["prefill_logits"], rtol=1e-5,
+                               atol=1e-5)
+    assert set(port["prefill_cache"]) == set(ref["prefill_cache"])
+    for name, want in ref["prefill_cache"].items():
+        np.testing.assert_allclose(port["prefill_cache"][name], want.astype(np.float32),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_decode_steps_match_reference(case):
+    ref, port = _runs(case)
+    for i, (got, want) in enumerate(zip(port["logits"], ref["logits"])):
+        row_flips, step_size = port["flips"][i]
+        assert step_size <= 1 and row_flips.sum() <= 4, (i, row_flips, step_size)
+        for b in range(B):
+            tol = 1e-3 if row_flips[b] else 1e-4  # a flip in this very step moves this row
+            np.testing.assert_allclose(got[b], want[b], rtol=tol, atol=tol,
+                                       err_msg=f"step {i}, row {b}")
+    for name, want in ref["cache"].items():
+        if want.dtype == np.int8:
+            assert np.abs(port["cache"][name] - want).max() <= 1, name
+            continue
+        np.testing.assert_allclose(port["cache"][name], want.astype(np.float32), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_greedy_tokens_match_reference(case):
+    ref, port = _runs(case)
+    np.testing.assert_array_equal(port["first_token"], port["feed0"])
+    np.testing.assert_array_equal(np.concatenate(port["tokens"], 1),
+                                  np.concatenate(ref["tokens"], 1))
+
+
+def test_cache_from_reference_round_trips_the_reference_cache():
+    ref, _ = _runs(CASES[2])  # int8
+    _, cfg = _cfgs("full")
+    cache = cache_from_reference(ref["prefill_cache"], cfg, "cpu")
+    assert cache["k"].dtype == torch.int8 and cache["k_scale"].dtype == torch.float32
+    for name, want in ref["prefill_cache"].items():
+        np.testing.assert_array_equal(cache[name].numpy(), want)
+
+
+def test_params_from_reference_carries_bfloat16_bit_for_bit():
+    ref_cfg, cfg = _cfgs("full")
+    params = jax.tree.map(np.asarray, ref_init_params(ref_cfg, seed=1))  # bfloat16
+    model = params_from_reference(params, cfg, "cpu")
+    assert model.embed.dtype == torch.bfloat16
+    np.testing.assert_array_equal(model.embed.view(torch.int16).numpy(),
+                                  params["embed"].view(np.int16))
+    np.testing.assert_array_equal(model.blocks[1].mlp.w_down.view(torch.int16).numpy(),
+                                  params["blocks"]["mlp"]["w_down"][1].view(np.int16))
+
+
+def _broken(params, what):
+    p = jax.tree.map(lambda a: a, params)
+    if what == "shape":
+        p["blocks"]["attn"]["w_q"] = p["blocks"]["attn"]["w_q"][:, :, :-1]
+    elif what == "dtype":
+        p["blocks"]["ln1"] = p["blocks"]["ln1"].astype(np.float64)
+    elif what == "missing":
+        del p["blocks"]["mlp"]["w_up"]
+    elif what == "extra":
+        p["head"] = p["embed"].T
+    return p
+
+
+@pytest.mark.parametrize("what,exc", [("shape", ValueError), ("dtype", TypeError),
+                                      ("missing", ValueError), ("extra", ValueError)])
+def test_params_from_reference_checks_the_tree(what, exc):
+    ref_cfg, cfg = _cfgs("full")
+    params = jax.tree.map(np.asarray, ref_init_params(ref_cfg, seed=1, dtype=jnp.float32))
+    with pytest.raises(exc):
+        params_from_reference(_broken(params, what), cfg, "cpu")
+
+
+@pytest.mark.parametrize("impl", ["naive", "chunked", "pallas"])
+def test_policy_from_reference_maps_pallas_to_cuda(impl):
+    pol = policy_from_reference(RefPolicy(attention_impl=impl, attn_chunk=32,
+                                          kv_cache_dtype="int8"))
+    assert pol.attention_impl == {"pallas": "cuda"}.get(impl, impl)
+    assert (pol.attn_chunk, pol.kv_cache_dtype) == (32, "int8")
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "paligemma-3b", "musicgen-medium"])
+@pytest.mark.parametrize("step", [0, 3])
+def test_make_batch_is_byte_identical_to_reference(arch, step):
+    want = ref_make_batch(ref_smoke_variant(ref_get_arch(arch)), 3, 40, step, seed=7)
+    got = make_batch(smoke_variant(get_arch(arch)), 3, 40, step, seed=7)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert got[k].tobytes() == want[k].tobytes(), k
+
+
+def test_synthetic_stream_matches_reference():
+    ref = RefStream(ref_smoke_variant(ref_get_arch(ARCH)), 2, 8, seed=3).at_step(4)
+    port = SyntheticStream(smoke_variant(get_arch(ARCH)), 2, 8, seed=3).at_step(4)
+    for _ in range(3):
+        a, b = next(ref), next(port)
+        assert a["tokens"].tobytes() == b["tokens"].tobytes()
+    assert port.step == ref.step == 7
+
+
+@pytest.mark.parametrize("family_arch", ["mamba2-2.7b", "deepseek-v2-lite-16b", "hymba-1.5b"])
+def test_other_families_name_their_roadmap_item(family_arch):
+    from repro_torch.models import init_params
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
+        init_params(smoke_variant(get_arch(family_arch)), device="cpu")
+
+
+def _serve_cli(*args):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args], env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_serve_cli_on_the_cpu_prints_its_two_lines():
+    out = _serve_cli("--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "2",
+                     "--prompt-len", "16", "--gen-len", "4")
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert re.fullmatch(r"arch=llama3\.2-3b-smoke prefill 2x16 in [\d.]+s; decoded 8 tokens "
+                        r"in [\d.]+s \([\d.]+ tok/s on cpu\)", lines[-2]), lines
+    tokens = re.fullmatch(r"sample tokens: \[([\d, ]+)\]", lines[-1])
+    assert tokens and len(tokens.group(1).split(",")) == 4
+
+
+def test_serve_generate_matches_a_manual_loop_and_samples_reproducibly():
+    from repro_torch.launch.serve import generate, load_model, prompt_tokens, serve_policy
+
+    cfg = smoke_variant(get_arch(ARCH))
+    model = load_model(cfg, seed=0, device="cpu")
+    prompt = prompt_tokens(cfg, 2, 16, seed=0, device="cpu")
+    policy = serve_policy(16)
+    res = generate(model, cfg, policy, prompt, 4, keep_logits=True)
+    assert tuple(res.tokens.shape) == (2, 4) and len(res.step_logits) == 4
+    assert tuple(res.prefill_logits.shape) == (2, 16, cfg.vocab_size)
+    nxt = res.prefill_logits[:, -1:].argmax(-1).to(torch.int32)
+    logits, cache, pos = prefill(model, cfg, policy, prompt, max_len=20)
+    step = make_serve_step(cfg, policy)
+    for i in range(4):
+        lg, cache = step(model, cache, nxt, pos + i)
+        torch.testing.assert_close(lg, res.step_logits[i], rtol=0, atol=0)
+        nxt = lg[:, -1:].argmax(-1).to(torch.int32)
+        assert torch.equal(nxt[:, 0], res.tokens[:, i])
+    a = generate(model, cfg, policy, prompt, 3, greedy=False, temperature=0.7, seed=4)
+    b = generate(model, cfg, policy, prompt, 3, greedy=False, temperature=0.7, seed=4)
+    assert torch.equal(a.tokens, b.tokens)
+
+
+@pytest.mark.parametrize("flag,item", [(["--plan", "2"], "A.6"), (["--auto-t", "3"], "A.6"),
+                                       (["--serve"], "A.9"), (["--serve-port", "0"], "A.9")])
+def test_serve_cli_refuses_what_the_port_lacks(flag, item, capsys):
+    from repro_torch.launch.serve import main
+
+    with pytest.raises(SystemExit) as exc:
+        main(["--arch", ARCH, "--smoke", "--device", "cpu", *flag])
+    assert exc.value.code == 2
+    assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_serve_cli_trace_out_records_the_prefill_and_decode_spans(tmp_path, capsys):
+    import json
+
+    from repro_torch.launch.serve import main
+
+    out = tmp_path / "trace.json"
+    main(["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "1", "--prompt-len", "8",
+          "--gen-len", "2", "--trace-out", str(out)])
+    events = json.loads(out.read_text())["traceEvents"]
+    assert [e["name"] for e in events if e.get("ph") == "X"] == ["serve.prefill", "serve.decode"]
+    assert "(2 spans)" in capsys.readouterr().out
