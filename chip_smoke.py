@@ -1,7 +1,7 @@
 """Smoke run of the port on one CUDA card: builds the kernels, holds each
 against its plain PyTorch version, drives the engine's bulk solve at the
-paper's §6 scale and the llama3.2-3b serving path at full width and depth,
-and checks what comes out.
+paper's §6 scale and the serving paths of llama3.2-3b, mamba2-2.7b and
+hymba-1.5b at full width and depth, and checks what comes out.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -12,20 +12,29 @@ Phases, each printing one JSON line:
 2. ``kernel``: each kernel against its plain version on the card, at the
    main paths' shapes (m = 10 processors, 5 loads, q = 5 installments:
    chain tableau 1089 x 1811, star 705 x 1427; attention at llama3.2-3b's
-   heads with a batch of 4 prompts of 512 tokens and a 544-entry cache),
-   with times from CUDA events;
+   and hymba-1.5b's heads with a batch of 4 prompts of 512 tokens and a
+   544-entry cache; the
+   SSD scan at mamba2-2.7b's and hymba-1.5b's heads over the same prompts,
+   plus a ragged chunk and a weak decay under which the carried state
+   matters), with times from CUDA events;
 3. ``solve_bulk``: 256 chain + 256 star instances, 64 + 64 with returns and
    release dates, and two goldens, through ``repro_torch.engine.solve_bulk``
    on the card; the launch counts are set to 0 just before each call and
    read just after;
 4. ``warm_hits``: the same population again through the solution cache;
    every hit replays through the replay kernel;
-5. ``serve``: llama3.2-3b (28 layers, d_model 3072, float32, seeded
-   weights) through ``repro_torch.launch.serve``: 4 prompts of 512
-   ``make_batch`` tokens, 32 greedy decode steps, with the launch counts set
-   to 0 just before and read just after; then the prefill and the first 8
-   steps again through the plain attention (``"naive"``), fed the same
-   tokens, against the kernels' logits and KV cache.
+5. ``serve``, once per model: llama3.2-3b (28 layers, d_model 3072),
+   mamba2-2.7b (64 Mamba-2 layers, d_model 2560) and hymba-1.5b (32 parallel
+   attention + Mamba layers, d_model 1600), float32, seeded weights, through
+   ``repro_torch.launch.serve``: 4 prompts of 512 ``make_batch`` tokens, 32
+   greedy decode steps, with the launch counts set to 0 just before and read
+   just after (each must be exactly the model's: one flash-attention and one
+   SSD-scan launch per layer in the prefill, whichever the model has, one
+   decode-attention launch per layer and step); then the prefill and the 32
+   steps again through the plain path (``"naive"``: materialised attention,
+   the step-by-step SSD recurrence), fed the same tokens, against the kernel
+   path's logits and final cache (KV, Mamba state and conv window).  Each
+   model is freed before the next is loaded.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, ...}`` line.  Any failed check raises, so the
@@ -411,6 +420,7 @@ def bulk_phase(groups, dev, cache, phase):
 # ---------------------------------------------------------------- attention kernels
 
 LLAMA = dict(H=24, KVH=8, D=128)  # llama3.2-3b's attention heads
+HYMBA_ATTN = dict(H=25, KVH=5, D=64)  # hymba-1.5b's (window 1024)
 # kernel vs plain on the card: float32 computes the same function with sums
 # in another order (~1e-6 at these lengths); bfloat16 rounds inputs and
 # outputs to 8 bits of mantissa, both sides computing in float32 in between
@@ -427,19 +437,23 @@ def _bound(nbytes, flops, flop_rate):
 
 
 def flash_phase(dev):
-    """flash_attention against its plain version at the prefill's shapes,
-    plus bfloat16, a window and a length no tile divides; times of the
-    kernel, the plain version and PyTorch's SDPA (the yardstick)."""
+    """flash_attention against its plain version at the prefills' shapes
+    (llama3.2-3b's heads, and hymba-1.5b's with its 1024 window), plus
+    bfloat16, a window and a length no tile divides; times of the kernel,
+    the plain version and PyTorch's SDPA (the yardstick)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, flash_attention_plain
 
     B, S = 4, 512
-    H, KVH, D = LLAMA["H"], LLAMA["KVH"], LLAMA["D"]
-    cases = [("causal_f32", S, torch.float32, 0), ("causal_bf16", S, torch.bfloat16, 0),
-             ("window96_f32", S, torch.float32, 96), ("ragged500_f32", 500, torch.float32, 0)]
+    cases = [("causal_f32", LLAMA, S, torch.float32, 0),
+             ("causal_bf16", LLAMA, S, torch.bfloat16, 0),
+             ("window96_f32", LLAMA, S, torch.float32, 96),
+             ("ragged500_f32", LLAMA, 500, torch.float32, 0),
+             ("hymba_window1024_f32", HYMBA_ATTN, S, torch.float32, 1024)]
     rows = {}
-    for name, L, dtype, window in cases:
+    for name, heads, L, dtype, window in cases:
+        H, KVH, D = heads["H"], heads["KVH"], heads["D"]
         gen = torch.Generator(device=dev).manual_seed(SEED + L + window)
         q, k, v = (_rand(gen, s, dtype, dev) for s in ((B, L, H, D), (B, L, KVH, D),
                                                        (B, L, KVH, D)))
@@ -486,23 +500,25 @@ def flash_phase(dev):
 def decode_phase(dev):
     """decode_attention against its plain version at the decode steps'
     shapes (a 544-entry cache, 1 to 544 entries valid, with and without a
-    window), the L2 cache flushed before every timed call, as the serving
-    path finds each layer's cache cold."""
+    window; llama3.2-3b's heads, and hymba-1.5b's, whose ring of 544 slots
+    the path reads with no window), the L2 cache flushed before every timed
+    call, as the serving path finds each layer's cache cold."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, decode_attention_plain
 
     B, Smax = 4, 544
-    H, KVH, D = LLAMA["H"], LLAMA["KVH"], LLAMA["D"]
     flush = torch.empty(2 * L2_BYTES // 4, device=dev)
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for tag, heads, dtype in (("", LLAMA, torch.float32), ("", LLAMA, torch.bfloat16),
+                              ("hymba_", HYMBA_ATTN, torch.float32)):
+        H, KVH, D = heads["H"], heads["KVH"], heads["D"]
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         q, kc, vc = (_rand(gen, s, dtype, dev) for s in ((B, 1, H, D), (B, Smax, KVH, D),
                                                          (B, Smax, KVH, D)))
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
         for n, window in ((1, 0), (300, 0), (544, 0), (1, 64), (300, 64), (544, 64)):
-            name = f"len{n}_w{window}_{str(dtype).split('.')[-1]}"
+            name = f"{tag}len{n}_w{window}_{str(dtype).split('.')[-1]}"
             n_t = torch.tensor([n], dtype=torch.int32, device=dev)
             got = decode_attention(q, kc, vc, n_t, window=window)
             want = decode_attention_plain(q, kc, vc, n_t, window=window)
@@ -547,14 +563,120 @@ def decode_phase(dev):
     return rows
 
 
+# ---------------------------------------------------------------- the SSD scan kernel
+
+MAMBA2 = dict(H=80, P=64, N=128)  # mamba2-2.7b's SSD heads: d_inner 5120 / head_dim 64
+HYMBA = dict(H=50, P=64, N=16)  # hymba-1.5b's: d_inner 3200 / 64, d_state 16
+SSD_CHUNK = 256  # both models' ssm.chunk
+
+
+def ssd_inputs(dev, B, S, H, P, N, dtype, decay, seed):
+    """The kernel's inputs as the mixer hands them over: x, B and C strided
+    slices of one [B, S, H P + 2 N] tensor; dt = softplus(N(0, 1)) (the
+    seeded weights' spread); A = -(1 .. 16) over the heads (the models'
+    A_log), times ``decay``; D = 1."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xbc = torch.randn(B, S, H * P + 2 * N, generator=gen, device=dev).to(dtype)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm = xbc[..., H * P:H * P + N].reshape(B, S, 1, N)
+    Cm = xbc[..., H * P + N:].reshape(B, S, 1, N)
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device=dev))
+    A = -torch.linspace(1.0, 16.0, H, device=dev) * decay
+    return x, dt, A, Bm, Cm, torch.ones(H, device=dev)
+
+
+def ssd_cost(args, y, L):
+    """Bytes (each input read once, the output written once), and the
+    float32 operations of the cheaper of two ways to compute the function:
+    the chunked dual form (C B^T and the decayed scores times xbar over the
+    visible pairs of every chunk, and the carried state's two products
+    between chunks, not before the first or after the last), or the
+    step-by-step recurrence (per step and head, s = a s + xbar B^T is a
+    multiply and a multiply-add per state element and y = s C a
+    multiply-add: 5 P N).  The decay factors and the D x term (O(L^2 + L P)
+    per chunk) are left out of both.  Returns (bytes, flops, both counts)."""
+    x, dt, A, Bm, Cm, D = args
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = S // L
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, A, Bm, Cm, D, y))
+    pairs = L * (L + 1) // 2
+    chunked = 2 * B * H * (nc * pairs * (N + P) + (nc - 1) * 2 * L * P * N)
+    recurrence = 5 * B * H * S * P * N
+    return nbytes, min(chunked, recurrence), dict(chunked=chunked, recurrence=recurrence)
+
+
+def ssd_phase(dev):
+    """ssd_scan against its plain version on the card at the prefill's
+    shapes (4 prompts of 512 tokens, chunk 256), each element held to
+    ``ssd_scan_tolerance`` (the derived bound of two float32 evaluations in
+    different orders); plus bfloat16, a ragged chunk (480 -> 240), and a
+    weak decay (|dt A| ~ 1e-3 per step, exp over a chunk ~0.8) under which
+    the carried state matters: its part of y is measured against the same
+    inputs cut into independent chunks."""
+    from repro_torch.kernels import ssd_scan, ssd_scan_plain, ssd_scan_tolerance
+    from repro_torch.kernels.ssd_scan import pick_chunk
+
+    B = 4
+    cases = [("mamba2_f32", MAMBA2, 512, torch.float32, 1.0),
+             ("mamba2_bf16", MAMBA2, 512, torch.bfloat16, 1.0),
+             ("mamba2_weak_f32", MAMBA2, 512, torch.float32, 1e-3),
+             ("hymba_f32", HYMBA, 512, torch.float32, 1.0),
+             ("ragged480_f32", MAMBA2, 480, torch.float32, 1.0)]
+    rows = {}
+    for name, heads, S, dtype, decay in cases:
+        args = ssd_inputs(dev, B, S, heads["H"], heads["P"], heads["N"], dtype, decay,
+                          SEED + S + heads["N"])
+        L = pick_chunk(S, SSD_CHUNK)
+        got = ssd_scan(*args, chunk=SSD_CHUNK)
+        want = ssd_scan_plain(*args, chunk=L)
+        tol = ssd_scan_tolerance(*args, chunk=SSD_CHUNK)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err, use = diff.max().item(), (diff / tol).max().item()
+        check(bool((diff <= tol).all()), f"ssd_scan {name}: |kernel - plain| exceeds "
+              f"ssd_scan_tolerance ({use:.3g} of it; max |err| {err})")
+        # the carried state's part of y: y against the same chunks run alone
+        x, dt, A, Bm, Cm, D = args
+        nc = S // L
+        cut = [t.reshape(B * nc, L, *t.shape[2:]) for t in (x, dt, Bm, Cm)]
+        alone = ssd_scan_plain(cut[0], cut[1], A, cut[2], cut[3], D, chunk=L).reshape(want.shape)
+        carried = (want.float() - alone.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        if decay < 1.0:
+            check(carried >= 0.05 * scale and err <= 1e-3 * carried,
+                  f"ssd_scan {name}: the carried state is {carried} of max |y| {scale}, "
+                  f"the kernel's error {err}")
+        nbytes, flops, counts = ssd_cost(args, got, L)
+        bound_ms, bound_by = _bound(nbytes, flops, FP32_FLOP_PER_S)
+        ms = device_ms(lambda *a: ssd_scan(*a, chunk=SSD_CHUNK), lambda: args, reps=10)
+        call_ms = cuda_ms(lambda *a: ssd_scan(*a, chunk=SSD_CHUNK), lambda: args, reps=10)
+        plain_ms = device_ms(lambda *a: ssd_scan_plain(*a, chunk=L), lambda: args, reps=3)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None, max_abs_err=err)
+        emit(phase="kernel", kernel="ssd_scan", case=name, B=B, S=S, L=L, dtype=str(dtype),
+             decay=decay, **heads, max_abs_err=err, tol_use=use, max_abs_y=scale,
+             carried_state_max=carried, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+             library_ms=None, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+             flops_chunked=counts["chunked"], flops_recurrence=counts["recurrence"],
+             bytes=nbytes, tflops=flops / ms / 1e9)
+        del args, got, want, tol, diff, alone, cut, x, dt, A, Bm, Cm, D
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------- phase 5
 
-SERVE_B, SERVE_PROMPT, SERVE_STEPS, SERVE_CHECKED = 4, 512, 32, 8
+SERVE_B, SERVE_PROMPT, SERVE_STEPS = 4, 512, 32
+SERVE_ARCHS = ("llama3.2-3b", "mamba2-2.7b", "hymba-1.5b")
 # kernel path vs plain path (both float32 on the card, the same weights and
-# the same matrix products): they differ only in attention's summation
-# order, ~1e-6 relative per layer; 1e-3 of max(1, max |value|) leaves that
-# amplified through 28 random layers well inside, and a wrong mask, head or
-# cache slot (an O(1) change) far outside
+# the same matrix products): they differ only in the summation order of
+# attention and of the SSD scan (chunked against step by step), ~1e-6
+# relative per layer; 1e-3 of max(1, max |value|) leaves that amplified
+# through 28-64 random layers well inside, and a wrong mask, head, cache
+# slot or decay (an O(1) change) far outside
 SERVE_TOL = 1e-3
 
 
@@ -563,31 +685,37 @@ def _rel_err(got, want) -> float:
             / want.float().abs().max().clamp_min(1.0)).item()
 
 
-def _device_time_by_group(prof) -> dict:
-    """Device milliseconds of the profiled kernels, grouped: the two
-    attention kernels, the matrix products (cuBLAS/CUTLASS) and the rest."""
-    groups = {"flash_attention": 0.0, "decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
+def _device_time_by_group(prof):
+    """Device milliseconds of the profiled device operations (kernels,
+    copies, fills), grouped: the attention and SSD-scan kernels, the matrix
+    products (cuBLAS/CUTLASS) and the rest; and the number of operations."""
+    groups = {"flash_attention": 0.0, "decode_attention": 0.0, "ssd_scan": 0.0, "matmul": 0.0,
+              "other": 0.0}
+    n_ops = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        n_ops += 1
         name = e.name
         if "flash_attention_kernel" in name:
             key = "flash_attention"
         elif "decode_partial_kernel" in name or "decode_combine_kernel" in name:
             key = "decode_attention"
+        elif "ssd_scan_kernel" in name:
+            key = "ssd_scan"
         elif any(t in name.lower() for t in ("gemm", "cutlass", "splitkreduce")):
             key = "matmul"
         else:
             key = "other"
         groups[key] += e.device_time / 1e3
-    return groups
+    return groups, n_ops
 
 
 def serve_profile(model, cfg, policy, prompt, n_steps: int, res) -> dict:
     """Where the device time of the serving path goes: one prefill and
     ``n_steps`` decode steps under torch.profiler, their kernels' device
-    time by group, and the device's busy share against the unprofiled run's
-    wall times (``res``)."""
+    time by group, the device operations per decode step, and the device's
+    busy share against the unprofiled run's wall times (``res``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import prefill
@@ -599,7 +727,7 @@ def serve_profile(model, cfg, policy, prompt, n_steps: int, res) -> dict:
     with profile(activities=acts) as prof:
         logits, cache, pos = prefill(model, cfg, policy, prompt, max_len=S + n_steps)
         torch.cuda.synchronize()
-    pre = _device_time_by_group(prof)
+    pre, pre_ops = _device_time_by_group(prof)
     nxt = logits[:, -1:].argmax(dim=-1).to(torch.int32)
     del logits
     pos_t = torch.tensor([pos], dtype=torch.int32, device=prompt.device)
@@ -610,25 +738,38 @@ def serve_profile(model, cfg, policy, prompt, n_steps: int, res) -> dict:
             lg, cache = step(model, cache, nxt, pos_t + i)
             nxt = lg[:, -1:].argmax(dim=-1).to(torch.int32)
         torch.cuda.synchronize()
-    dec = {k: v / n_steps for k, v in _device_time_by_group(prof).items()}
-    check(pre["flash_attention"] > 0 and dec["decode_attention"] > 0 and dec["matmul"] > 0,
+    dec, dec_ops = _device_time_by_group(prof)
+    dec = {k: v / n_steps for k, v in dec.items()}
+    attn = cfg.has_attention
+    check((pre["flash_attention"] > 0) == attn and (dec["decode_attention"] > 0) == attn
+          and (pre["ssd_scan"] > 0) == cfg.has_ssm and dec["matmul"] > 0,
           f"the profiler saw the serving kernels run on the card: {pre}, {dec}")
     step_wall_ms = 1e3 * res.decode_s / len(res.step_logits)
     return dict(prefill_device_ms=pre, prefill_device_total_ms=sum(pre.values()),
                 prefill_busy_share=sum(pre.values()) / (1e3 * res.prefill_s),
+                prefill_device_ops=pre_ops,
                 decode_step_device_ms=dec, decode_step_device_total_ms=sum(dec.values()),
-                decode_step_wall_ms=step_wall_ms,
+                decode_step_wall_ms=step_wall_ms, decode_step_device_ops=dec_ops / n_steps,
+                decode_wall_us_per_device_op=1e3 * step_wall_ms * n_steps / dec_ops,
                 decode_busy_share=sum(dec.values()) / step_wall_ms)
 
 
-def serve_phase(dev):
+def _leaves(cache: dict, prefix: str = "") -> dict:
+    """A (nested) cache's tensors by dotted name."""
+    out = {}
+    for k, v in cache.items():
+        out.update(_leaves(v, prefix + k + ".") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
+def serve_phase(dev, arch):
     from repro_torch.config import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import generate, load_model, prompt_tokens, serve_policy
     from repro_torch.models import prefill
     from repro_torch.runtime import make_serve_step
 
-    cfg = get_arch("llama3.2-3b")
+    cfg = get_arch(arch)
     B, S, N = SERVE_B, SERVE_PROMPT, SERVE_STEPS
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -648,15 +789,17 @@ def serve_phase(dev):
     res = generate(model, cfg, policy, prompt, N, keep_logits=True)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    progress(f"serve: prefill {res.prefill_s:.3f} s, {N} steps in {res.decode_s:.3f} s")
+    progress(f"serve {arch}: prefill {res.prefill_s:.3f} s, {N} steps in {res.decode_s:.3f} s")
     L = cfg.num_layers
-    check(counts == {"simplex_pivot": 0, "asap_replay": 0, "flash_attention": L,
-                     "decode_attention": L * N}, f"serve launches {counts}")
+    attn = L if cfg.has_attention else 0
+    want = {"simplex_pivot": 0, "asap_replay": 0, "flash_attention": attn,
+            "decode_attention": attn * N, "ssd_scan": L if cfg.has_ssm else 0}
+    check(counts == want, f"serve {arch} launches {counts}, expected {want}")
     check(tuple(res.prefill_logits.shape) == (B, S, cfg.vocab_size), "prefill logits shape")
     check(tuple(res.tokens.shape) == (B, N), "generated tokens shape")
     finite = bool(torch.isfinite(res.prefill_logits).all()) and all(
         bool(torch.isfinite(lg).all()) for lg in res.step_logits)
-    check(finite, "serve logits finite")
+    check(finite, f"serve {arch} logits finite")
     tokens = res.tokens.cpu()
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "tokens in the vocabulary")
 
@@ -668,17 +811,19 @@ def serve_phase(dev):
     del logits
     step = make_serve_step(cfg, naive)
     nxt = res.prefill_logits[:, -1:].argmax(dim=-1).to(torch.int32)
-    for i in range(SERVE_CHECKED):
+    steps = []
+    for i in range(N):
         lg, cache = step(model, cache, nxt, pos + i)
-        errs[f"step{i}_logits"] = _rel_err(res.step_logits[i], lg)
+        steps.append(_rel_err(res.step_logits[i], lg))
         nxt = res.tokens[:, i:i + 1]
-    for name in ("k", "v"):
-        errs[f"cache_{name}"] = _rel_err(res.cache[name][:, :, :S + SERVE_CHECKED],
-                                         cache[name][:, :, :S + SERVE_CHECKED])
+    errs["step_logits"] = max(steps)
+    got = _leaves(res.cache)
+    for name, leaf in _leaves(cache).items():
+        errs[f"cache_{name}"] = _rel_err(got[name], leaf)
     torch.cuda.synchronize()
     naive_s = time.perf_counter() - t1
     worst = max(errs.values())
-    del cache
+    del cache, got
     torch.cuda.empty_cache()
     breakdown = serve_profile(model, cfg, policy, prompt, 4, res)
     emit(phase="serve", arch=cfg.name, params=n_params, dtype="float32", batch=B,
@@ -687,9 +832,10 @@ def serve_phase(dev):
          decode_tok_per_s=B * N / res.decode_s, decode_step_ms=1e3 * res.decode_s / N,
          peak_mem_gb=peak / 1e9, launches=counts, sample_tokens=tokens[0, :8].tolist(),
          naive_check_s=naive_s, naive_rel_err=errs, tol=SERVE_TOL, **breakdown)
-    check(worst <= SERVE_TOL, f"serve: kernel vs plain path {errs}")
+    check(worst <= SERVE_TOL, f"serve {arch}: kernel vs plain path {errs}")
+    del model, res, prompt
+    torch.cuda.empty_cache()
     return counts
-
 
 
 def main() -> int:
@@ -745,22 +891,27 @@ def main() -> int:
     del cache, groups
     torch.cuda.empty_cache()
 
-    # phases 2 (attention kernels) and 5: the serving path
+    # phases 2 (attention and SSD kernels) and 5: the serving paths
     fa = flash_phase(dev)
     da = decode_phase(dev)
+    ssd = ssd_phase(dev)
     torch.cuda.empty_cache()
-    served = serve_phase(dev)
+    served = {k: 0 for k in ("flash_attention", "decode_attention", "ssd_scan")}
+    for arch in SERVE_ARCHS:
+        counts = serve_phase(dev, arch)
+        for k in served:
+            served[k] += counts[k]
 
     p, r = piv["chain"][4], rep["chain"]
-    f, d = fa["causal_f32"], da["len544_w0_float32"]
+    f, d, m = fa["causal_f32"], da["len544_w0_float32"], ssd["mamba2_f32"]
     kernels = [
         dict(name="simplex_pivot", route="cuda", source="src/repro_torch/csrc/simplex_pivot.cu",
-             replaces="src/repro/kernels/simplex_pivot.py:133", launches=launches["simplex_pivot"],
+             replaces="src/repro/kernels/simplex_pivot.py:150", launches=launches["simplex_pivot"],
              max_abs_err=max(piv[t][k]["max_abs_err"] for t in piv for k in piv[t]),
              ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
              library_ms=None),
         dict(name="asap_replay", route="cuda", source="src/repro_torch/csrc/asap_replay.cu",
-             replaces="src/repro/kernels/asap_replay.py:226", launches=launches["asap_replay"],
+             replaces="src/repro/kernels/asap_replay.py:267", launches=launches["asap_replay"],
              max_abs_err=max(v["max_abs_err"] for v in rep.values()),
              ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=None),
@@ -777,6 +928,11 @@ def main() -> int:
              max_abs_err=max(v["max_abs_err"] for v in da.values()),
              ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"], bound_by=d["bound_by"],
              library_ms=d["library_ms"]),
+        dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:90", launches=served["ssd_scan"],
+             max_abs_err=max(v["max_abs_err"] for v in ssd.values()),
+             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+             library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,66 @@
+"""Time the port's serving loop on the card: prefill + greedy decode steps of
+llama3.2-3b at full size, at ``chip_smoke.py``'s serve phase's batch, prompt
+length, step count and seed, three runs after a warm-up, in a fresh process.
+
+    python scripts/port_serve_steps.py --src src --label change
+    python scripts/port_serve_steps.py --src old/src --label parent   # another tree
+
+``--src`` is the ``src`` directory of the tree to time, so two versions of the
+port (say a parent commit unpacked with ``git archive``) can be timed in turns
+in one call on one card (parent, change, change, parent).  Prints one JSON
+line: the card, the prefill seconds and the decode step milliseconds of each
+run (host wall time ending in a synchronised card).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCH = "llama3.2-3b"
+RUNS = 3
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="change")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import SEED, SERVE_B, SERVE_PROMPT, SERVE_STEPS
+
+    sys.path.insert(0, args.src)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: this timing needs the card", file=sys.stderr)
+        return 2
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import generate, load_model, prompt_tokens, serve_policy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(ARCH)
+    dev = torch.device("cuda")
+    model = load_model(cfg, SEED, dev)
+    prompt = prompt_tokens(cfg, SERVE_B, SERVE_PROMPT, SEED, dev)
+    policy = serve_policy(SERVE_PROMPT)
+    generate(model, cfg, policy, prompt, 2)  # first-call costs of cuBLAS and the kernels
+    prefill_s, step_ms = [], []
+    for _ in range(RUNS):
+        res = generate(model, cfg, policy, prompt, SERVE_STEPS)
+        prefill_s.append(res.prefill_s)
+        step_ms.append(1e3 * res.decode_s / SERVE_STEPS)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"label": args.label, "arch": cfg.name, "card": card, "prefill_s": prefill_s,
+                      "decode_step_ms": step_ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -156,25 +156,46 @@ def _model_tensor(arr, device, what: str, shape: tuple, dtypes: tuple) -> torch.
     return t.to(device)
 
 
+def _block_layout(cfg) -> dict:
+    """Shapes of one block's leaves in the reference's tree, by family."""
+    D, H, KVH, hd, F = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    layout: dict = {"ln1": (D,)}
+    if cfg.family in ("dense", "hybrid"):
+        layout["attn"] = {"w_q": (D, H * hd), "w_k": (D, KVH * hd), "w_v": (D, KVH * hd),
+                          "w_o": (H * hd, D)}
+    if cfg.family in ("ssm", "hybrid"):
+        ssm = cfg.ssm
+        d_in, h = ssm.d_inner(D), ssm.n_heads(D)
+        conv = d_in + 2 * ssm.d_state
+        layout["mamba"] = {"w_z": (D, d_in), "w_xbc": (D, conv), "w_dt": (D, h),
+                           "conv_w": (ssm.d_conv, conv), "A_log": (h,), "D": (h,),
+                           "dt_bias": (h,), "norm_w": (d_in,), "w_out": (d_in, D)}
+    if cfg.family in ("dense", "hybrid"):
+        layout["ln2"] = (D,)
+        layout["mlp"] = {"w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)}
+    return layout
+
+
+# leaves the reference keeps in float32 whatever the parameters' dtype
+_FLOAT32_LEAVES = {"mamba.A_log", "mamba.D", "mamba.dt_bias"}
+
+
 def params_from_reference(params_np: dict, cfg, device=None):
     """The reference's parameter tree (``init_params``'s dict, leaves as
     NumPy, blocks stacked ``[L, ...]``) as the port's
-    :class:`~repro_torch.models.Transformer` on ``device``.  Every leaf's
-    shape is checked against ``cfg`` and all leaves must share one dtype
-    (float32 or bfloat16)."""
+    :class:`~repro_torch.models.Transformer` on ``device``, for the dense,
+    ssm and hybrid families.  Every leaf's shape is checked against ``cfg``,
+    and all leaves must share one dtype (float32 or bfloat16) except the
+    Mamba mixer's ``A_log``, ``D`` and ``dt_bias``, which are float32."""
     from repro_torch.models import Transformer
 
     dev = resolve_device(device)
-    D, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    L, F, V = cfg.num_layers, cfg.d_ff, cfg.padded_vocab
+    D, L, V = cfg.d_model, cfg.num_layers, cfg.padded_vocab
     top = {"embed", "blocks", "ln_f"} | (set() if cfg.tie_embeddings else {"head"})
     if set(params_np) != top:
         raise ValueError(f"parameter tree has {sorted(params_np)}, expected {sorted(top)}")
     blocks = params_np["blocks"]
-    layout = {"ln1": (D,), "ln2": (D,),
-              "attn": {"w_q": (D, H * hd), "w_k": (D, KVH * hd), "w_v": (D, KVH * hd),
-                       "w_o": (H * hd, D)},
-              "mlp": {"w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)}}
+    layout = _block_layout(cfg)
     if set(blocks) != set(layout):
         raise ValueError(f"blocks have {sorted(blocks)}, expected {sorted(layout)}")
     dtype = np.asarray(params_np["embed"]).dtype.name
@@ -183,7 +204,8 @@ def params_from_reference(params_np: dict, cfg, device=None):
         raise TypeError(f"embed is {dtype}; the port takes float32 or bfloat16 parameters")
 
     def leaf(arr, what, shape):
-        return _model_tensor(arr, dev, what, shape, floats)
+        kinds = (torch.float32,) if what[len("blocks."):] in _FLOAT32_LEAVES else floats
+        return _model_tensor(arr, dev, what, shape, kinds)
 
     stacked = {}
     for name, spec in layout.items():
@@ -206,30 +228,54 @@ def params_from_reference(params_np: dict, cfg, device=None):
 
 
 def cache_from_reference(cache_np: dict, cfg, device=None) -> dict:
-    """The reference's decode cache (``init_cache``/``prefill``'s dict, leaves
-    as NumPy ``[L, B, S, KVH, hd]``) as the port's dict of tensors on
-    ``device``: ``k``/``v`` float32, bfloat16 or int8 alike, and for int8
-    the float32 ``k_scale``/``v_scale`` ``[L, B, S, KVH]``."""
+    """The reference's decode cache (``init_cache``/``prefill``'s dict,
+    leaves as NumPy) as the port's dict of tensors on ``device``, in the same
+    tree: with attention ``k``/``v`` ``[L, B, S, KVH, hd]`` (float32,
+    bfloat16 or int8 alike) and for int8 the float32 ``k_scale``/``v_scale``
+    ``[L, B, S, KVH]``; with an SSM ``ssm`` = {``conv`` ``[L, B, d_conv - 1,
+    conv_dim]`` (float32 or bfloat16), ``state`` ``[L, B, H, P, N]``
+    (float32)}.  The port keeps the reference's tree, so a leaf's
+    ``.numpy()`` is the reference's array again."""
     dev = resolve_device(device)
     names = set(cache_np)
-    if names not in ({"k", "v"}, {"k", "v", "k_scale", "v_scale"}):
-        raise ValueError(f"cache has {sorted(names)}; the port's dense cache is k, v "
-                         "(and k_scale, v_scale for int8)")
-    k = np.asarray(cache_np["k"])
-    if k.ndim != 5 or k.shape[0] != cfg.num_layers or k.shape[3:] != (cfg.num_kv_heads,
-                                                                       cfg.head_dim):
-        raise ValueError(f"cache k is {k.shape}, expected [L={cfg.num_layers}, B, S, "
-                         f"KVH={cfg.num_kv_heads}, hd={cfg.head_dim}]")
-    int8 = "k_scale" in names
-    kv_types = (torch.int8,) if int8 else (torch.float32, torch.bfloat16)
-    out = {n: _model_tensor(cache_np[n], dev, f"cache {n}", k.shape, kv_types)
-           for n in ("k", "v")}
-    if out["v"].dtype != out["k"].dtype:
-        raise TypeError(f"cache k is {out['k'].dtype}, v {out['v'].dtype}")
-    if int8:
-        for n in ("k_scale", "v_scale"):
-            out[n] = _model_tensor(cache_np[n], dev, f"cache {n}", k.shape[:-1],
-                                   (torch.float32,))
+    kv = {"k", "v"} if cfg.has_attention else set()
+    ssm_names = {"ssm"} if cfg.has_ssm else set()
+    allowed = [kv | ssm_names] + ([kv | {"k_scale", "v_scale"} | ssm_names] if kv else [])
+    if names not in allowed:
+        raise ValueError(f"cache has {sorted(names)}; the port's {cfg.family} cache is "
+                         f"{sorted(allowed[0])} (and k_scale, v_scale for int8)")
+    out: dict = {}
+    if kv:
+        k = np.asarray(cache_np["k"])
+        if k.ndim != 5 or k.shape[0] != cfg.num_layers or k.shape[3:] != (cfg.num_kv_heads,
+                                                                           cfg.head_dim):
+            raise ValueError(f"cache k is {k.shape}, expected [L={cfg.num_layers}, B, S, "
+                             f"KVH={cfg.num_kv_heads}, hd={cfg.head_dim}]")
+        int8 = "k_scale" in names
+        kv_types = (torch.int8,) if int8 else (torch.float32, torch.bfloat16)
+        for n in ("k", "v"):
+            out[n] = _model_tensor(cache_np[n], dev, f"cache {n}", k.shape, kv_types)
+        if out["v"].dtype != out["k"].dtype:
+            raise TypeError(f"cache k is {out['k'].dtype}, v {out['v'].dtype}")
+        if int8:
+            for n in ("k_scale", "v_scale"):
+                out[n] = _model_tensor(cache_np[n], dev, f"cache {n}", k.shape[:-1],
+                                       (torch.float32,))
+    if cfg.has_ssm:
+        ssm_np = cache_np["ssm"]
+        if set(ssm_np) != {"conv", "state"}:
+            raise ValueError(f"cache ssm has {sorted(ssm_np)}, expected ['conv', 'state']")
+        ssm, D, L = cfg.ssm, cfg.d_model, cfg.num_layers
+        conv = np.asarray(ssm_np["conv"])
+        B = conv.shape[1] if conv.ndim > 1 else -1  # the batch is the caller's
+        out["ssm"] = {
+            "conv": _model_tensor(conv, dev, "cache ssm.conv",
+                                  (L, B, ssm.d_conv - 1, ssm.d_inner(D) + 2 * ssm.d_state),
+                                  (torch.float32, torch.bfloat16)),
+            "state": _model_tensor(ssm_np["state"], dev, "cache ssm.state",
+                                   (L, B, ssm.n_heads(D), ssm.head_dim, ssm.d_state),
+                                   (torch.float32,)),
+        }
     return out
 
 

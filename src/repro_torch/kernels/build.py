@@ -9,7 +9,7 @@ builds everything on its first call and a changed source rebuilds.
 
 ``-fmad=false`` keeps ``nvcc`` from contracting a product and a sum into a
 fused multiply-add on its own: the kernels write every fma they mean
-(``fma`` in csrc/simplex_pivot.cu, ``fmaf`` in the attention kernels), so
+(``fma`` in csrc/simplex_pivot.cu, ``fmaf`` in the attention and SSD kernels), so
 their rounding is the source's.
 
 Nothing here falls back: a missing toolkit, a failed compile or a library
@@ -60,6 +60,9 @@ _SIGNATURES = {
     # scale, stream
     "repro_decode_attention": [_P] * 8 + [_I] * 6 + [_L] * 7 + [_I, _F, _P],
     "repro_decode_attention_chunk": [],
+    # x, dt, A, B, C, D, y, B, S, H, G, P, N, L, bf16, strides of x, dt, B, C
+    # and y (b, s, h or g), stream
+    "repro_ssd_scan": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_P],
 }
 
 

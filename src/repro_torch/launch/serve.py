@@ -1,16 +1,20 @@
 """Serving entry point of the port: batched prefill + token-by-token decode of a
-dense decoder LM, on the CUDA card unless ``--device cpu`` is given.
+decoder LM of the dense, ssm (Mamba-2) or hybrid (Hymba) family, on the CUDA
+card unless ``--device cpu`` is given.
 
 The port of the reference's decode demo (``repro.launch.serve``, without
-``--serve``).  Attention runs in the hand-written kernels
-(``attention_impl="cuda"``): one flash-attention launch per layer in the
-prefill and one decode-attention launch per layer and step.  The decode
-loop keeps the cache length and the sampled tokens on the device, so it
-never waits for the host until the end.
+``--serve``).  The prefill and decode run in the hand-written kernels
+(``attention_impl="cuda"``): per layer, one flash-attention launch and one
+SSD-scan launch in the prefill (whichever the family has), and one
+decode-attention launch per step.  The Mamba decode step is plain PyTorch.
+The decode loop keeps the cache length and the sampled tokens on the
+device, so it never waits for the host until the end.
 
   python -m repro_torch.launch.serve --arch llama3.2-3b --batch 4 \\
       --prompt-len 512 --gen-len 32                       # on the card
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
+  python -m repro_torch.launch.serve --arch mamba2-2.7b --batch 4 \\
+      --prompt-len 512 --gen-len 32                       # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --smoke --device cpu --batch 2 --prompt-len 16 --gen-len 4
 
 ``--plan``/``--auto-t`` (and their options) need the port's ``Planner`` and
@@ -49,7 +53,9 @@ _WHAT = {"A.6": "the port's Planner and api.Session", "A.9": "the port's plan se
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default=None, help="model architecture (dense family)")
+    ap.add_argument("--arch", default=None,
+                    help="model architecture of the dense, ssm or hybrid family (e.g. "
+                         "llama3.2-3b, mamba2-2.7b, hymba-1.5b)")
     ap.add_argument("--smoke", action="store_true", help="the reduced CPU-test variant")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

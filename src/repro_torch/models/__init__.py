@@ -1,5 +1,5 @@
-"""The port's model path: the dense decoder's layers, attention and serving
-functions (prefill + decode)."""
+"""The port's model path: the layers, attention, the Mamba-2 mixer and the
+serving functions (prefill + decode) of the dense, ssm and hybrid decoders."""
 
 from .transformer import (
     Transformer,
@@ -11,6 +11,7 @@ from .transformer import (
     prefill,
     quantize_kv,
 )
+from .ssm import mamba_decode_step, mamba_mixer
 
 __all__ = [
     "Transformer",
@@ -21,4 +22,6 @@ __all__ = [
     "decode_step",
     "quantize_kv",
     "dequantize_kv",
+    "mamba_mixer",
+    "mamba_decode_step",
 ]

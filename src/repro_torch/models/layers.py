@@ -36,6 +36,9 @@ class Initializer:
         x = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
         return (x * scale).to(self.dtype)
 
+    def zeros(self, shape, dtype=None):
+        return torch.zeros(shape, dtype=dtype or self.dtype, device=self.device)
+
     def ones(self, shape, dtype=None):
         return torch.ones(shape, dtype=dtype or self.dtype, device=self.device)
 

@@ -177,4 +177,5 @@ def test_wrappers_count_no_launch_on_the_cpu():
     decode_attention(q[:, :1], k, v, 5)
     counts = launch_counts()
     assert counts["flash_attention"] == 0 and counts["decode_attention"] == 0
-    assert set(counts) == {"simplex_pivot", "asap_replay", "flash_attention", "decode_attention"}
+    assert set(counts) == {"simplex_pivot", "asap_replay", "flash_attention", "decode_attention",
+                           "ssd_scan"}

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, held against their plain versions
-on the same card, and the engine and the serving path on the card against
+on the same card, and the engine and the serving paths on the card against
 the same on the CPU.
 
 These need an NVIDIA card and ``nvcc``; elsewhere they skip (the fixture
@@ -19,7 +19,9 @@ from repro_torch.core.instance import random_instance
 from repro_torch.kernels import (asap_replay, asap_replay_plain, decode_attention,
                                  decode_attention_plain, flash_attention, flash_attention_plain,
                                  launch_counts, reset_launch_counts, simplex_pivot,
-                                 simplex_pivot_plain)
+                                 simplex_pivot_plain, ssd_scan, ssd_scan_plain,
+                                 ssd_scan_tolerance)
+from repro_torch.kernels.ssd_scan import pick_chunk
 
 pytestmark = pytest.mark.cuda
 
@@ -109,6 +111,7 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 @pytest.mark.parametrize("case", [
     # (B, Sq, Sk, H, KVH, D, causal, window)
     (2, 512, 512, 24, 8, 128, True, 0),
+    (4, 512, 512, 25, 5, 64, True, 1024),  # hymba-1.5b's heads and window
     (1, 500, 500, 4, 2, 64, True, 0),
     (1, 256, 256, 4, 2, 32, True, 96),
     (1, 130, 200, 8, 8, 16, False, 0),
@@ -129,8 +132,10 @@ def test_flash_attention_kernel_matches_plain_on_card(card, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 64])
 @pytest.mark.parametrize("cache_len", [1, 63, 64, 300, 544])
-def test_decode_attention_kernel_matches_plain_on_card(card, cache_len, window, dtype):
-    B, H, KVH, D, Smax = 4, 24, 8, 128, 544
+@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64)])  # llama3.2-3b's, hymba-1.5b's
+def test_decode_attention_kernel_matches_plain_on_card(card, heads, cache_len, window, dtype):
+    B, Smax = 4, 544
+    H, KVH, D = heads
     g = torch.Generator(device=card).manual_seed(cache_len + window)
     q, kc, vc = (torch.randn(s, generator=g, device=card).to(dtype)
                  for s in ((B, 1, H, D), (B, Smax, KVH, D), (B, Smax, KVH, D)))
@@ -143,19 +148,51 @@ def test_decode_attention_kernel_matches_plain_on_card(card, cache_len, window, 
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
 
 
-def test_smoke_serving_on_card_matches_cpu(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (B, S, H, P, G, N, chunk, decay): mamba2-2.7b's and hymba-1.5b's heads,
+    # a ragged chunk (480 -> 240), multi-group, P = 128, and weak decay
+    (2, 512, 8, 64, 1, 128, 256, 1.0),
+    (2, 512, 8, 64, 1, 16, 256, 1.0),
+    (1, 480, 4, 64, 1, 128, 256, 1e-3),
+    (1, 128, 4, 16, 2, 32, 64, 1.0),
+    (1, 96, 2, 128, 1, 64, 32, 1e-3),
+])
+def test_ssd_scan_kernel_matches_plain_on_card(card, case, dtype):
+    B, S, H, P, G, N, chunk, decay = case
+    g = torch.Generator(device=card).manual_seed(S + H + N)
+    xbc = torch.randn(B, S, H * P + 2 * G * N, generator=g, device=card).to(dtype)
+    x = xbc[..., :H * P].reshape(B, S, H, P)  # strided, as the mixer passes them
+    Bm = xbc[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = xbc[..., H * P + G * N:].reshape(B, S, G, N)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device=card))
+    A = -torch.linspace(1.0, 16.0, H, device=card) * decay
+    D = torch.linspace(0.5, 1.5, H, device=card)
+    reset_launch_counts()
+    got = ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
+    want = ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=pick_chunk(S, chunk))
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_scan"] == 1 and got.dtype == dtype
+    tol = ssd_scan_tolerance(x, dt, A, Bm, Cm, D, chunk=chunk)
+    assert ((got.float() - want.float()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-2.7b", "hymba-1.5b"])
+def test_smoke_serving_on_card_matches_cpu(card, arch):
     from repro_torch.config import get_arch, smoke_variant
     from repro_torch.launch.serve import generate, load_model, prompt_tokens, serve_policy
 
-    cfg = smoke_variant(get_arch("llama3.2-3b"))
+    cfg = smoke_variant(get_arch(arch))
     model = load_model(cfg, seed=0, device="cpu")
     prompt = prompt_tokens(cfg, 2, 16, seed=0, device="cpu")
     cpu = generate(model, cfg, serve_policy(16), prompt, 4)
     reset_launch_counts()
     gpu = generate(model.to(card), cfg, serve_policy(16), prompt.to(card), 4)
     counts = launch_counts()
-    assert counts["flash_attention"] == cfg.num_layers
-    assert counts["decode_attention"] == 4 * cfg.num_layers
+    attn = cfg.num_layers if cfg.has_attention else 0
+    assert counts["flash_attention"] == attn
+    assert counts["decode_attention"] == 4 * attn
+    assert counts["ssd_scan"] == (cfg.num_layers if cfg.has_ssm else 0)
     torch.testing.assert_close(gpu.prefill_logits.cpu(), cpu.prefill_logits, rtol=1e-4,
                                atol=1e-4)
     assert torch.equal(gpu.tokens.cpu(), cpu.tokens)

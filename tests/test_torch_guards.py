@@ -99,7 +99,8 @@ def test_serve_without_device_runs_on_the_card_and_raises_without_one():
                     "--gen-len", "1"])
 
 
-@pytest.mark.parametrize("entry", ["init_params", "init_cache", "Initializer", "prompt_tokens"])
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "init_mamba_cache", "Initializer",
+                                   "prompt_tokens"])
 def test_model_entry_points_default_to_the_card_and_raise_without_one(entry):
     import torch
 
@@ -107,12 +108,15 @@ def test_model_entry_points_default_to_the_card_and_raise_without_one(entry):
     from repro_torch.launch.serve import prompt_tokens
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.layers import Initializer
+    from repro_torch.models.ssm import init_mamba_cache
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None runs there")
     cfg = smoke_variant(get_arch("llama3.2-3b"))
+    ssm_cfg = smoke_variant(get_arch("mamba2-2.7b"))
     calls = {"init_params": lambda: init_params(cfg, seed=0),
              "init_cache": lambda: init_cache(cfg, 1, 8),
+             "init_mamba_cache": lambda: init_mamba_cache(ssm_cfg, 1, 1),
              "Initializer": lambda: Initializer(0),
              "prompt_tokens": lambda: prompt_tokens(cfg, 1, 4, 0, None)}
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -165,7 +165,7 @@ def test_wrappers_run_the_plain_version_on_cpu_and_count_no_launch():
     args, ret = replay_inputs(np.random.default_rng(2), 2, 3, 4, 4, True)
     asap_replay(*torch_args(*args), torch_args(ret)[0], topology="star")
     assert launch_counts() == {"simplex_pivot": 0, "asap_replay": 0, "flash_attention": 0,
-                               "decode_attention": 0}
+                               "decode_attention": 0, "ssd_scan": 0}
 
 
 def test_wrappers_reject_bad_arguments():

@@ -234,11 +234,11 @@ def test_synthetic_stream_matches_reference():
     assert port.step == ref.step == 7
 
 
-@pytest.mark.parametrize("family_arch", ["mamba2-2.7b", "deepseek-v2-lite-16b", "hymba-1.5b"])
+@pytest.mark.parametrize("family_arch", ["deepseek-v2-lite-16b", "paligemma-3b", "musicgen-medium"])
 def test_other_families_name_their_roadmap_item(family_arch):
     from repro_torch.models import init_params
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
         init_params(smoke_variant(get_arch(family_arch)), device="cpu")
 
 
