@@ -1,7 +1,8 @@
 """Smoke run of the port on one CUDA card: builds the kernels, holds each
 against its plain PyTorch version, drives the engine's bulk solve at the
-paper's §6 scale and the serving paths of llama3.2-3b, mamba2-2.7b and
-hymba-1.5b at full width and depth, and checks what comes out.
+paper's §6 scale, the serving paths of llama3.2-3b, mamba2-2.7b and
+hymba-1.5b at full width and depth, and the golden campaign's full tier
+through the planner's front door, and checks what comes out.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -16,7 +17,8 @@ Phases, each printing one JSON line:
    544-entry cache; the
    SSD scan at mamba2-2.7b's and hymba-1.5b's heads over the same prompts,
    plus a ragged chunk and a weak decay under which the carried state
-   matters), with times from CUDA events;
+   matters; RMSNorm at the served models' norm shapes, which no path of the
+   port runs yet), with times from CUDA events;
 3. ``solve_bulk``: 256 chain + 256 star instances, 64 + 64 with returns and
    release dates, and two goldens, through ``repro_torch.engine.solve_bulk``
    on the card; the launch counts are set to 0 just before each call and
@@ -34,7 +36,19 @@ Phases, each printing one JSON line:
    steps again through the plain path (``"naive"``: materialised attention,
    the step-by-step SSD recurrence), fed the same tokens, against the kernel
    path's logits and final cache (KV, Mamba state and conv window).  Each
-   model is freed before the next is loaded.
+   model is freed before the next is loaded;
+6. ``campaign``: the golden campaign's full tier (``full_spec``, 1,296
+   instances) through ``repro_torch.eval.run_campaign`` and a
+   ``repro_torch.api.Session`` on the ``"cuda"`` backend, with the launch
+   counts set to 0 just before and read just after, held against the
+   committed ``bench_out/campaign.json`` and
+   ``benchmarks/campaign_baseline.json`` (data files of the reference
+   package, read here, not imported): 0 anomalies, domination 1.0, the same
+   content keys in the same order, 1,080 ``heuristic-infeasible``, the same
+   labels (save a flip between ``lp-fallback`` and ``lp-wins``/``tie`` on an
+   instance one side served off its requested backend, each listed), ratios
+   within 1e-9; then ``Session.evaluate_gammas`` on 256 solved artifacts
+   against the serial simulator within 1e-9.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, ...}`` line.  Any failed check raises, so the
@@ -53,7 +67,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SRC = Path(__file__).resolve().parent / "src"
+REPO = Path(__file__).resolve().parent
+SRC = REPO / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 FP64_FLOP_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (NVIDIA data sheet)
@@ -667,6 +682,177 @@ def ssd_phase(dev):
     return rows
 
 
+# ---------------------------------------------------------------- the RMSNorm kernel
+
+# the served models' norm shapes: llama3.2-3b's prefill (4 x 512 tokens) and
+# decode step, mamba2-2.7b's gated norm over d_inner, hymba-1.5b's d_model;
+# bfloat16; a ragged row count
+RMS_CASES = [("llama_prefill_f32", (2048, 3072), torch.float32),
+             ("llama_decode_f32", (4, 3072), torch.float32),
+             ("mamba2_d_inner_f32", (2048, 5120), torch.float32),
+             ("hymba_f32", (2048, 1600), torch.float32),
+             ("llama_prefill_bf16", (2048, 3072), torch.bfloat16),
+             ("ragged2047_f32", (2047, 3072), torch.float32)]
+RMS_EPS = 1e-5
+
+
+def rmsnorm_phase(dev):
+    """rms_norm against its plain version on the card, per element: within
+    1e-5 of max(1, max |out|) of the plain version's float32 value (the sum
+    of squares is taken in another order), plus, for bfloat16 output, its
+    one rounding (2^-8 relative).  Times of the kernel, the plain version and
+    ``torch.nn.functional.rms_norm`` (the yardstick) on the same input.
+    Returns the rows and the kernel's launches in this phase."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts, rms_norm, rms_norm_plain
+
+    rows = {}
+    reset_launch_counts()
+    for name, shape, dtype in RMS_CASES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + sum(shape))
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        w = 1.0 + 0.1 * torch.randn(shape[-1], generator=gen, device=dev)
+        got = rms_norm(x, w, eps=RMS_EPS)
+        want = rms_norm_plain(x.float(), w, eps=RMS_EPS)  # the plain version's float32 value
+        plain = rms_norm_plain(x, w, eps=RMS_EPS)
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        scale = max(1.0, want.abs().max().item())
+        tol = 1e-5 * scale + (2.0 ** -8 * want.abs() if dtype == torch.bfloat16 else 0.0)
+        err = diff.max().item()
+        check(got.dtype == dtype and bool((diff <= tol).all()),
+              f"rms_norm {name}: max |err| {err} outside the tolerance")
+        wl = w.to(dtype)
+
+        def library(x, w=wl, d=shape[-1]):
+            return F.rms_norm(x, (d,), weight=w, eps=RMS_EPS)
+
+        lib_err = (library(x).float() - want).abs().max().item()
+        ms = device_ms(lambda *a: rms_norm(*a, eps=RMS_EPS), lambda: (x, w), reps=50)
+        call_ms = cuda_ms(lambda *a: rms_norm(*a, eps=RMS_EPS), lambda: (x, w), reps=50)
+        plain_ms = device_ms(lambda *a: rms_norm_plain(*a, eps=RMS_EPS), lambda: (x, w), reps=20)
+        library_ms = device_ms(library, lambda: (x,), reps=50)
+        nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+        flops = 4 * x.numel() + 2 * shape[0]  # square-add, scale, weight; a mean and rsqrt per row
+        bound_ms, bound_by = _bound(nbytes, flops, FP32_FLOP_PER_S)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms, max_abs_err=err)
+        emit(phase="kernel", kernel="rms_norm", case=name, rows=shape[0], D=shape[-1],
+             dtype=str(dtype), max_abs_err=err, max_abs_out=scale, plain_max_abs_diff=(
+                 (got.float() - plain.float()).abs().max().item()),
+             ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+             library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+             gb_per_s=nbytes / ms / 1e6)
+        del x, w, got, want, plain, diff
+    launches = launch_counts()["rms_norm"]
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+CAMPAIGN_GOLDEN = REPO / "bench_out" / "campaign.json"
+CAMPAIGN_BASELINE = REPO / "benchmarks" / "campaign_baseline.json"
+N_EVALUATE = 256
+
+
+def campaign_phase(dev):
+    """The golden campaign's full tier through the port's Session on the
+    card, held against the reference package's committed record."""
+    from repro_torch.api import Policy, Session
+    from repro_torch.core.simulator import simulate
+    from repro_torch.eval import build_document, full_spec, run_campaign, validate_campaign
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import trace as obs_trace
+
+    golden = json.loads(CAMPAIGN_GOLDEN.read_text())
+    baseline = json.loads(CAMPAIGN_BASELINE.read_text())
+    spec = full_spec(backend="cuda")
+    session = Session(policy=Policy(backend="cuda"), device=dev)
+    tracer = obs_trace.Tracer()
+    prev = obs_trace.activate(tracer)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run_campaign(spec, session, progress=progress)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        obs_trace.activate(prev)
+    doc = build_document(result)
+    check(validate_campaign(doc) == [], f"campaign document: {validate_campaign(doc)}")
+    totals = doc["totals"]
+    check(totals["n"] == baseline["n"] == 1296, f"campaign n {totals['n']}")
+    check(totals["counts"]["anomaly"] == 0 and result.domination_rate == 1.0,
+          f"campaign anomalies {totals['counts']['anomaly']}")
+    check(totals["counts"]["heuristic-infeasible"] == 1080
+          == baseline["counts"]["heuristic-infeasible"],
+          f"heuristic-infeasible {totals['counts']['heuristic-infeasible']}")
+    mine, theirs = doc["instances"], golden["instances"]
+    check([(r["cell_id"], r["index"], r["content_key"]) for r in mine]
+          == [(r["cell_id"], r["index"], r["content_key"]) for r in theirs],
+          "content keys differ from the committed campaign")
+    events = {}
+    for c in result.classifications:
+        if c.lp_events:
+            events[f"{c.cell_id}#{c.index}"] = c.lp_events
+    check(all(set(e) == {"serial-rescue"} for e in events.values()),
+          f"events other than a serial rescue: {events}")
+    flips, worst = [], 0.0
+    for g, w in zip(mine, theirs):
+        key = f"{g['cell_id']}#{g['index']}"
+        if g["label"] != w["label"]:
+            pair = {g["label"], w["label"]}
+            check("lp-fallback" in pair and pair - {"lp-fallback"} <= {"lp-wins", "tie"},
+                  f"{key}: label {g['label']} against the committed {w['label']}")
+            flips.append(dict(instance=key, port=g["label"], committed=w["label"],
+                              port_events=events.get(key, [])))
+        check((g["ratio"] is None) == (w["ratio"] is None), f"{key}: ratio presence")
+        if w["ratio"] is not None:
+            worst = max(worst, abs(g["ratio"] - w["ratio"]) / abs(w["ratio"]))
+    check(worst <= RTOL, f"campaign ratios differ by {worst}")
+    check(counts["simplex_pivot"] > 0 and counts["asap_replay"] > 0,
+          f"campaign launches {counts}")
+
+    # where the time went: the eval stages, the engine's buckets, rescues
+    # and the autotuner's probes (its first call per tableau shape)
+    def spans(name):
+        evs = [e for e in tracer.events() if e["name"] == name]
+        return len(evs), sum(e["dur_us"] for e in evs) / 1e6
+
+    stage_s = {k: spans(f"eval.{k}")[1] for k in ("generate", "lp", "heuristics", "classify")}
+    n_buckets, bucket_s = spans("engine.bucket")
+    n_rescues, rescue_s = spans("engine.serial_rescue")
+    n_probes, probe_s = spans("engine.autotune")
+
+    # evaluate_gammas through the replay kernel on solved artifacts (cache
+    # hits of the campaign's own solves), against the serial simulator
+    triples = list(spec.instances())
+    sample = [inst for _, _, inst in triples[::len(triples) // N_EVALUATE]][:N_EVALUATE]
+    arts = session.solve_bulk(sample)
+    check(all(a.ok and a.cache_hit for a in arts), "evaluate_gammas: artifacts from the cache")
+    reset_launch_counts()
+    got = session.evaluate_gammas(sample, [a.gamma for a in arts])
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()["asap_replay"]
+    want = np.array([simulate(i, a.gamma).makespan for i, a in zip(sample, arts)])
+    eval_err = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(eval_launches > 0 and eval_err <= RTOL,
+          f"evaluate_gammas: {eval_launches} launches, max rel. err {eval_err}")
+    emit(phase="campaign", tier=spec.name, n=totals["n"], counts=totals["counts"],
+         committed_counts=golden["totals"]["counts"], domination_rate=result.domination_rate,
+         anomalies=totals["counts"]["anomaly"], content_keys_equal=True,
+         ratio_max_rel_diff=worst, label_flips=flips, served_off_backend=events, wall_s=wall,
+         stage_s=stage_s, engine_buckets=n_buckets, engine_bucket_s=bucket_s,
+         serial_rescues=n_rescues, serial_rescue_s=rescue_s, autotune_probes=n_probes,
+         autotune_probe_s=probe_s, launches=counts, evaluate_gammas_n=len(sample),
+         evaluate_gammas_max_rel_err=eval_err, evaluate_gammas_launches=eval_launches)
+    return counts
+
+
 # ---------------------------------------------------------------- phase 5
 
 SERVE_B, SERVE_PROMPT, SERVE_STEPS = 4, 512, 32
@@ -793,7 +979,7 @@ def serve_phase(dev, arch):
     L = cfg.num_layers
     attn = L if cfg.has_attention else 0
     want = {"simplex_pivot": 0, "asap_replay": 0, "flash_attention": attn,
-            "decode_attention": attn * N, "ssd_scan": L if cfg.has_ssm else 0}
+            "decode_attention": attn * N, "ssd_scan": L if cfg.has_ssm else 0, "rms_norm": 0}
     check(counts == want, f"serve {arch} launches {counts}, expected {want}")
     check(tuple(res.prefill_logits.shape) == (B, S, cfg.vocab_size), "prefill logits shape")
     check(tuple(res.tokens.shape) == (B, N), "generated tokens shape")
@@ -895,6 +1081,7 @@ def main() -> int:
     fa = flash_phase(dev)
     da = decode_phase(dev)
     ssd = ssd_phase(dev)
+    rms, rms_launches = rmsnorm_phase(dev)
     torch.cuda.empty_cache()
     served = {k: 0 for k in ("flash_attention", "decode_attention", "ssd_scan")}
     for arch in SERVE_ARCHS:
@@ -902,8 +1089,12 @@ def main() -> int:
         for k in served:
             served[k] += counts[k]
 
+    # phase 6: the planner's front door and the golden campaign
+    campaign_phase(dev)
+
     p, r = piv["chain"][4], rep["chain"]
     f, d, m = fa["causal_f32"], da["len544_w0_float32"], ssd["mamba2_f32"]
+    n = rms["llama_prefill_f32"]
     kernels = [
         dict(name="simplex_pivot", route="cuda", source="src/repro_torch/csrc/simplex_pivot.cu",
              replaces="src/repro/kernels/simplex_pivot.py:150", launches=launches["simplex_pivot"],
@@ -933,6 +1124,13 @@ def main() -> int:
              max_abs_err=max(v["max_abs_err"] for v in ssd.values()),
              ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
              library_ms=None),
+        dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm.py:37", launches=rms_launches,
+             launches_from="phase 2 (its checks and timed calls): no path of the port calls "
+                           "rms_norm, as no path of the reference calls its kernel",
+             max_abs_err=max(v["max_abs_err"] for v in rms.values()),
+             ms=n["ms"], plain_ms=n["plain_ms"], bound_ms=n["bound_ms"], bound_by=n["bound_by"],
+             library_ms=n["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,8 +2,12 @@
 serving path in PyTorch, for one NVIDIA H100.
 
 A port of the JAX package ``repro`` (which stays as the reference and is
-never imported here).  Two main paths:
+never imported here).  Its paths:
 
+* :class:`repro_torch.api.Session`: the planner's front door (declarative
+  ``Problem``/``Policy`` in, versioned ``PlanArtifact`` out, coalesced
+  submits), and on it the golden campaign (:mod:`repro_torch.eval`) that
+  holds the LP against the paper's §3 heuristics;
 * :func:`repro_torch.engine.solve_bulk`: cache lookup, arena packing, the
   stacked schedule-LP build, the batched two-phase simplex and the batched
   ASAP replay that certifies every plan, with the simplex pivot and the
@@ -11,7 +15,8 @@ never imported here).  Two main paths:
 * :mod:`repro_torch.launch.serve`: prefill + token-by-token decode of a
   dense decoder LM (:mod:`repro_torch.models`), with attention in
   hand-written CUDA kernels (flash attention for the prefill, split-KV
-  decode attention for each step).
+  decode attention for each step) and Mamba-2 / hybrid models (the SSD
+  chunked scan).
 
 The kernels live in :mod:`repro_torch.kernels`, their sources in ``csrc/``.
 
@@ -20,5 +25,5 @@ none; only an explicit ``device="cpu"`` runs on the CPU, through the
 kernels' plain PyTorch versions.
 """
 
-__all__ = ["config", "configs", "convert", "core", "data", "engine", "kernels", "launch",
-           "lpir", "models", "obs", "runtime"]
+__all__ = ["api", "config", "configs", "convert", "core", "data", "engine", "eval", "kernels",
+           "launch", "lpir", "models", "obs", "runtime"]

@@ -229,9 +229,12 @@ def _solve_serial(req: SolveRequest, backend: str) -> SolveReport:
         x, status = _solve_scipy(lp)
     elif backend == "simplex":
         x, status = _solve_simplex(lp)
-        if status in ("unbounded", "iteration_limit") and _have_scipy():
-            # schedule LPs are never unbounded — a non-optimal exit here is
-            # the dense simplex losing a numerical fight; HiGHS is the rescue
+        if status in ("unbounded", "iteration_limit", "infeasible") and _have_scipy():
+            # schedule LPs are always feasible and never unbounded — a
+            # non-optimal exit here is the dense simplex losing a numerical
+            # fight; HiGHS is the rescue.  (The reference package rescues
+            # only the first two: its simplex can call a feasible,
+            # badly-scaled schedule LP infeasible — ROADMAP C.7.)
             x, status = _solve_scipy(lp)
         elif status == "optimal" and _primal_violation(lp, x) > _feasibility_tol(x):
             # ...and so is an "optimal" exit whose iterate left the polytope

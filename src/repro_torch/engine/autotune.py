@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.convert import resolve_device
 from repro_torch.kernels import simplex_pivot
+from repro_torch.obs.trace import span
 
 __all__ = ["pivot_schedule"]
 
@@ -87,17 +88,18 @@ def pivot_schedule(n_rows: int, n_cols: int, device=None,
 
     max_iter = _EPOCH_PIVOTS * 4  # plenty of headroom for the probe
     per_pivot: dict[int, float] = {}
-    for k in sweep:
-        # a fresh stack per launch (copied before the clock starts) keeps
-        # every lane pivoting
-        base = _probe_stack(n_rows, n_cols, dev)
-        stacks = [[x.clone() for x in base] for _ in range(_PROBE_LAUNCHES + 1)]
+    with span("engine.autotune", rows=int(n_rows), cols=int(n_cols)):
+        for k in sweep:
+            # a fresh stack per launch (copied before the clock starts) keeps
+            # every lane pivoting
+            base = _probe_stack(n_rows, n_cols, dev)
+            stacks = [[x.clone() for x in base] for _ in range(_PROBE_LAUNCHES + 1)]
 
-        def launch(stack, k=k):
-            simplex_pivot(*stack, ncols_price=n_cols - 1, bland_after=max_iter,
-                          max_iter=max_iter, k_pivots=int(k))
+            def launch(stack, k=k):
+                simplex_pivot(*stack, ncols_price=n_cols - 1, bland_after=max_iter,
+                              max_iter=max_iter, k_pivots=int(k))
 
-        per_pivot[int(k)] = _time_launches(dev, stacks, launch) / (_PROBE_LAUNCHES * k)
+            per_pivot[int(k)] = _time_launches(dev, stacks, launch) / (_PROBE_LAUNCHES * k)
     best = min(per_pivot, key=per_pivot.get)
     entry = {
         "k_pivots": best,

@@ -17,7 +17,12 @@ The formulation is the reference's:
     run by :func:`repro_torch.kernels.simplex_pivot` — the CUDA kernel on
     the card, its plain version on the CPU;
   * pricing is Dantzig with a Bland fallback after ``max(200, 4 rows)``
-    iterations, and the ratio test tie-breaks on the smallest basis id.
+    iterations, and the ratio test tie-breaks on the smallest basis id;
+  * an optimal exit's values are re-solved from its exit basis
+    (:func:`_refine`): hundreds of rank-1 updates leave the tableau's rhs
+    column off by up to ~1e-9 relative on ill-conditioned instances, which
+    the ASAP replay of gamma then carries into the makespan.  The reference
+    reads the values off the tableau; the basis and status are the same.
 
 Set-up, the inter-phase step and extraction run batched in PyTorch on the
 device; the warm-basis verification (:func:`_warm_verify`) and the
@@ -262,7 +267,47 @@ def _solve_cold(c, A_ub, b_ub, A_eq, b_eq, max_iter, compact):
     it1, st1 = run()
     infeasible, drivable = _between_phases(T, basis, st1, c_s, n, dummy)
     it2, st2 = run()
-    return _extract(T, basis, col_scale, c, infeasible, drivable, st1, st2, it1, it2, n, dummy)
+    x, obj, status, it, it1, it2, basis = _extract(
+        T, basis, col_scale, c, infeasible, drivable, st1, st2, it1, it2, n, dummy)
+    del T
+    x, obj = _refine(x, obj, status, basis, c, A_ub, b_ub, A_eq, b_eq, col_scale, dummy)
+    return x, obj, status, it, it1, it2, basis
+
+
+def _refine(x, obj, status, basis, c, A_ub, b_ub, A_eq, b_eq, col_scale, dummy):
+    """Re-solve the values of each optimal lane from its exit basis.
+
+    The basis matrix of the same equilibrated standard-form rows the
+    tableau started from is factored once per lane (``solve_ex``: a
+    singular lane reports itself instead of failing the batch), and the
+    lane takes the re-solved values when they are finite, a vertex
+    (``x_B >= -1e-9``) and reproduce the rows (residual within
+    ``1e-8 * max(1, max |M|)``, the warm entry's gates); otherwise, and for
+    lanes whose basis holds a retired artificial (the dummy column), it keeps
+    the tableau's values.  The basis, the status and the pivot counts are
+    untouched.  Returns ``(x, obj)``.
+    """
+    n = c.shape[1]
+    sel = ((status == _OPTIMAL) & (basis < dummy).all(dim=1)).nonzero()[:, 0]
+    if sel.numel() == 0:
+        return x, obj
+    M, _, _, _ = _standard_rows(c[sel], A_ub[sel], b_ub[sel], A_eq[sel], b_eq[sel])
+    bas = basis[sel].long()
+    Bm = M.gather(2, bas[:, None, :].expand(-1, M.shape[1], -1))  # [S, R, R]
+    rhs = M[:, :, -1]
+    xB, info = torch.linalg.solve_ex(Bm, rhs)
+    resid = (torch.bmm(Bm, xB[:, :, None])[:, :, 0] - rhs).abs().amax(dim=1)
+    scale = M.abs().flatten(1).amax(dim=1).clamp_min(1.0)
+    ok = ((info == 0) & torch.isfinite(xB).all(dim=1) & (xB.amin(dim=1) >= -1e-9)
+          & (resid <= 1e-8 * scale))
+    xfull = torch.zeros(sel.numel(), dummy + 1, dtype=x.dtype, device=x.device)
+    xfull.scatter_(1, bas, xB)
+    xr = col_scale[sel] * xfull[:, :n]
+    x, obj = x.clone(), obj.clone()
+    keep = sel[ok]
+    x[keep] = xr[ok]
+    obj[keep] = (c[keep] * x[keep]).sum(dim=1)
+    return x, obj
 
 
 def _warm_verify(c, A_ub, b_ub, A_eq, b_eq, basis, device):

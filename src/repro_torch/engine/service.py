@@ -373,6 +373,12 @@ class TorchBackend(SolverBackend):
         self.fallback = fallback
         self.device = device
 
+    @property
+    def label(self) -> str:
+        """The backend label its engine-solved results carry: ``"cuda"`` on
+        the card, ``"torch"`` on the CPU."""
+        return "cuda" if resolve_device(self.device).type == "cuda" else "torch"
+
     @staticmethod
     def _batchable(req: SolveRequest) -> bool:
         # a cross_check against the *other* serial backend is a serial-only
@@ -408,15 +414,20 @@ class TorchBackend(SolverBackend):
 
 
 class CudaBackend(TorchBackend):
-    """The engine on the CUDA card, its hot loops in the hand-written
-    kernels.  Construction raises when there is no card or when the kernels
-    do not build; there is no degrade to another device or to the plain
+    """The engine on a CUDA card (``device``: the current one by default),
+    its hot loops in the hand-written kernels.  Construction raises when
+    there is no card, when ``device`` is not a card, or when the kernels do
+    not build; there is no degrade to another device or to the plain
     versions."""
 
     name = "cuda"
 
-    def __init__(self, cache: SolutionCache | None = None, fallback: bool = True):
+    def __init__(self, cache: SolutionCache | None = None, fallback: bool = True,
+                 device=None):
         from repro_torch.kernels.build import library
 
-        super().__init__(cache=cache, fallback=fallback, device=resolve_device("cuda"))
+        dev = resolve_device("cuda" if device is None else device)
+        if dev.type != "cuda":
+            raise ValueError(f"the 'cuda' backend runs on the card; got device {dev}")
+        super().__init__(cache=cache, fallback=fallback, device=dev)
         library()  # build (or load) the kernels now: a failure raises here

@@ -9,8 +9,8 @@ builds everything on its first call and a changed source rebuilds.
 
 ``-fmad=false`` keeps ``nvcc`` from contracting a product and a sum into a
 fused multiply-add on its own: the kernels write every fma they mean
-(``fma`` in csrc/simplex_pivot.cu, ``fmaf`` in the attention and SSD kernels), so
-their rounding is the source's.
+(``fma`` in csrc/simplex_pivot.cu, ``fmaf`` in the attention, SSD and
+RMSNorm kernels), so their rounding is the source's.
 
 Nothing here falls back: a missing toolkit, a failed compile or a library
 that does not load raises.
@@ -63,6 +63,8 @@ _SIGNATURES = {
     # x, dt, A, B, C, D, y, B, S, H, G, P, N, L, bf16, strides of x, dt, B, C
     # and y (b, s, h or g), stream
     "repro_ssd_scan": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_P],
+    # x, w, out, rows, D, row strides of x and out, bf16, eps, stream
+    "repro_rms_norm": [_P, _P, _P, _I, _I, _L, _L, _I, _F, _P],
 }
 
 

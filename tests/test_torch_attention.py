@@ -178,4 +178,4 @@ def test_wrappers_count_no_launch_on_the_cpu():
     counts = launch_counts()
     assert counts["flash_attention"] == 0 and counts["decode_attention"] == 0
     assert set(counts) == {"simplex_pivot", "asap_replay", "flash_attention", "decode_attention",
-                           "ssd_scan"}
+                           "ssd_scan", "rms_norm"}

@@ -18,8 +18,8 @@ import torch
 from repro_torch.core.instance import random_instance
 from repro_torch.kernels import (asap_replay, asap_replay_plain, decode_attention,
                                  decode_attention_plain, flash_attention, flash_attention_plain,
-                                 launch_counts, reset_launch_counts, simplex_pivot,
-                                 simplex_pivot_plain, ssd_scan, ssd_scan_plain,
+                                 launch_counts, reset_launch_counts, rms_norm, rms_norm_plain,
+                                 simplex_pivot, simplex_pivot_plain, ssd_scan, ssd_scan_plain,
                                  ssd_scan_tolerance)
 from repro_torch.kernels.ssd_scan import pick_chunk
 
@@ -196,3 +196,71 @@ def test_smoke_serving_on_card_matches_cpu(card, arch):
     torch.testing.assert_close(gpu.prefill_logits.cpu(), cpu.prefill_logits, rtol=1e-4,
                                atol=1e-4)
     assert torch.equal(gpu.tokens.cpu(), cpu.tokens)
+
+
+# the served models' norm shapes (llama3.2-3b prefill and decode, mamba2-2.7b's
+# gated norm over d_inner, hymba-1.5b), bfloat16, a ragged row count, and two
+# the vectorised path does not take (an odd D, rows read through a stride)
+RMS_CASES = [((2048, 3072), torch.float32), ((4, 3072), torch.float32),
+             ((2048, 5120), torch.float32), ((2048, 1600), torch.float32),
+             ((2048, 3072), torch.bfloat16), ((2047, 3072), torch.float32),
+             ((33, 97), torch.float32), ((33, 97), torch.bfloat16)]
+
+
+def rms_norm_within_tolerance(got, x, w):
+    """The kernel against the plain version's float32 value on the same
+    inputs: 1e-5 of max(1, max |out|) for the float32 sum of squares taken
+    in another order, plus, for bfloat16 output, its one rounding (2^-8
+    relative)."""
+    want = rms_norm_plain(x.float(), w)
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    if x.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * want.abs()
+    return bool(((got.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("shape,dtype", RMS_CASES)
+def test_rms_norm_kernel_matches_plain_on_card(card, shape, dtype):
+    g = torch.Generator(device=card).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=card).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=card)
+    reset_launch_counts()
+    got = rms_norm(x, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["rms_norm"] == 1 and got.dtype == dtype and got.shape == x.shape
+    assert rms_norm_within_tolerance(got, x, w)
+    wide = torch.randn(shape[0], shape[-1] + 8, generator=g, device=card).to(dtype)
+    strided = wide[:, 3:3 + shape[-1]]  # rows through a stride, unaligned
+    assert rms_norm_within_tolerance(rms_norm(strided, w), strided, w)
+
+
+def test_session_on_card_matches_the_serial_session(card):
+    """The port's front door on the card ("cuda" and "torch" on the card)
+    against its serial "auto" session, and evaluate_gammas through the
+    replay kernel against the serial simulator."""
+    from repro_torch.api import Policy, Session
+    from repro_torch.core.simulator import simulate
+
+    rng = np.random.default_rng(11)
+    insts = [random_instance(rng, m=m, n_loads=2, q=q, topology=t, return_ratio=r,
+                             with_latency=True)
+             for t in ("chain", "star") for r in (0.0, 0.5) for m, q in ((3, 1), (4, 2))]
+    serial = Session(policy=Policy(backend="auto")).solve_bulk(insts)
+    for backend in ("cuda", "torch"):
+        reset_launch_counts()
+        arts = Session(policy=Policy(backend=backend)).solve_bulk(insts)
+        counts = launch_counts()
+        assert counts["simplex_pivot"] > 0 and counts["asap_replay"] > 0
+        for a, s in zip(arts, serial):
+            assert a.status == s.status == "optimal"
+            assert a.backend == "cuda" or a.events[0]["kind"] == "serial-rescue"
+            if a.backend == "cuda":
+                assert a.events == ()
+            for k in ("makespan", "lp_makespan", "objective_value"):
+                assert abs(getattr(a, k) - getattr(s, k)) <= 1e-9 * max(1.0, abs(getattr(s, k)))
+    sess = Session()
+    reset_launch_counts()
+    got = sess.evaluate_gammas(insts, [a.gamma for a in serial])
+    assert launch_counts()["asap_replay"] > 0
+    want = np.array([simulate(i, a.gamma).makespan for i, a in zip(insts, serial)])
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=0)

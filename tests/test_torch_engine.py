@@ -117,12 +117,34 @@ def raw_lps():
     return {"mixed": mixed, "degenerate": degenerate}
 
 
-CHILD = r"""
+# the first lines of every child that runs the reference engine: the alias
+# it needs under the installed JAX (set in the child, never in pytest)
+ALIAS = r"""
 import pickle, sys
 import numpy as np
 import jax, jax.experimental
 if not hasattr(jax.experimental, "enable_x64"):
     jax.experimental.enable_x64 = jax.enable_x64
+"""
+
+
+def run_reference(script: str, payload, tmp_dir: Path):
+    """Run ``script`` after :data:`ALIAS` in a child process, with
+    ``sys.argv[1]`` a pickle of ``payload`` and ``sys.argv[2]`` the path of
+    the pickle it writes back; returns what it wrote."""
+    src, dst = tmp_dir / "in.pkl", tmp_dir / "out.pkl"
+    with open(src, "wb") as f:
+        pickle.dump(payload, f)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(REPO / "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", ALIAS + script, str(src), str(dst)],
+                          env=env, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(dst, "rb") as f:
+        return pickle.load(f)  # written by the child, from our input
+
+
+CHILD = r"""
 from repro.engine import solve_bulk
 from repro.engine.arena import InstanceArena
 from repro.engine.batched_lp import build_lp_bucket
@@ -174,17 +196,8 @@ pickle.dump(out, open(sys.argv[2], "wb"))
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """The reference engine's answers, computed in a child process."""
-    d = tmp_path_factory.mktemp("reference")
-    src, dst = d / "in.pkl", d / "out.pkl"
-    with open(src, "wb") as f:
-        pickle.dump({"pops": populations(), "raw": raw_lps()}, f)
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join([str(REPO / "src"), os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.run([sys.executable, "-c", CHILD, str(src), str(dst)],
-                          env=env, capture_output=True, text=True, timeout=900)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    with open(dst, "rb") as f:
-        return pickle.load(f)  # written by the child above, from our input
+    return run_reference(CHILD, {"pops": populations(), "raw": raw_lps()},
+                         tmp_path_factory.mktemp("reference"))
 
 
 @pytest.fixture(scope="module")

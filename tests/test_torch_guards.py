@@ -55,6 +55,12 @@ rng = np.random.default_rng(0)
 insts = [random_instance(rng, m=3, n_loads=2, q=2, topology=t) for t in ("chain", "star")]
 res = engine.solve_bulk(insts, device="cpu")
 assert all(r.ok for r in res)
+from repro_torch.api import Policy, Session
+from repro_torch.core.heuristics import ALL_HEURISTICS, run_strategy
+import repro_torch.eval
+arts = Session(policy=Policy(backend="torch"), device="cpu").solve_bulk(insts)
+assert all(a.ok for a in arts)
+assert [run_strategy(n, f, insts[0]).name for n, f in ALL_HEURISTICS.items()]
 from repro_torch.launch import serve
 serve.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu", "--batch", "2",
             "--prompt-len", "8", "--gen-len", "2"])
@@ -100,11 +106,14 @@ def test_serve_without_device_runs_on_the_card_and_raises_without_one():
 
 
 @pytest.mark.parametrize("entry", ["init_params", "init_cache", "init_mamba_cache", "Initializer",
-                                   "prompt_tokens"])
+                                   "prompt_tokens", "Session_torch", "Session_cuda",
+                                   "evaluate_gammas", "run_campaign"])
 def test_model_entry_points_default_to_the_card_and_raise_without_one(entry):
     import torch
 
+    from repro_torch.api import Policy, Session
     from repro_torch.config import get_arch, smoke_variant
+    from repro_torch.eval import run_campaign
     from repro_torch.launch.serve import prompt_tokens
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.layers import Initializer
@@ -112,13 +121,20 @@ def test_model_entry_points_default_to_the_card_and_raise_without_one(entry):
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None runs there")
+    from test_torch_campaign import micro_spec
+
     cfg = smoke_variant(get_arch("llama3.2-3b"))
     ssm_cfg = smoke_variant(get_arch("mamba2-2.7b"))
+    inst = random_instance(np.random.default_rng(1), m=3, n_loads=1, q=1)
     calls = {"init_params": lambda: init_params(cfg, seed=0),
              "init_cache": lambda: init_cache(cfg, 1, 8),
              "init_mamba_cache": lambda: init_mamba_cache(ssm_cfg, 1, 1),
              "Initializer": lambda: Initializer(0),
-             "prompt_tokens": lambda: prompt_tokens(cfg, 1, 4, 0, None)}
+             "prompt_tokens": lambda: prompt_tokens(cfg, 1, 4, 0, None),
+             "Session_torch": lambda: Session(policy=Policy(backend="torch")).solve(inst),
+             "Session_cuda": lambda: Session(policy=Policy(backend="cuda")).solve(inst),
+             "evaluate_gammas": lambda: Session().evaluate_gammas([inst], [np.ones((3, 1)) / 3]),
+             "run_campaign": lambda: run_campaign(micro_spec(backend="cuda"))}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
 
@@ -189,3 +205,17 @@ def test_port_replay_matches_reference_simulator_on_padded_buckets(topology):
         for a, b in ((s.comm_start, want.comm_start), (s.comp_start, want.comp_start),
                      (s.comp_end, want.comp_end)):
             np.testing.assert_allclose(a, b, rtol=RTOL, atol=1e-12)
+
+
+def test_rms_norm_never_falls_back_to_the_plain_version():
+    """Off the CPU the wrapper launches its kernel or raises: a tensor on
+    another device never reaches the plain version."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts, rms_norm
+
+    reset_launch_counts()
+    x = torch.empty(4, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rms_norm(x, torch.empty(8, device="meta"))
+    assert launch_counts()["rms_norm"] == 0

@@ -14,6 +14,8 @@ same NumPy inputs, made from a seed, go to both packages.
 * ``asap_replay_plain`` agrees with the reference kernel and oracle within
   1e-9 relative (the sums and products are the same; XLA may contract
   some of them).
+* ``rms_norm`` (its plain version here) agrees with the reference kernel
+  and oracle within ``RMS_TOL`` (see there).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 
 from repro.kernels import ops, ref
 from repro_torch.kernels import (asap_replay, asap_replay_plain, launch_counts,
-                                 reset_launch_counts, simplex_pivot, simplex_pivot_plain)
+                                 reset_launch_counts, rms_norm, rms_norm_plain, simplex_pivot,
+                                 simplex_pivot_plain)
 
 
 def pivot_stack(rng, B, R, C):
@@ -165,7 +168,7 @@ def test_wrappers_run_the_plain_version_on_cpu_and_count_no_launch():
     args, ret = replay_inputs(np.random.default_rng(2), 2, 3, 4, 4, True)
     asap_replay(*torch_args(*args), torch_args(ret)[0], topology="star")
     assert launch_counts() == {"simplex_pivot": 0, "asap_replay": 0, "flash_attention": 0,
-                               "decode_attention": 0, "ssd_scan": 0}
+                               "decode_attention": 0, "ssd_scan": 0, "rms_norm": 0}
 
 
 def test_wrappers_reject_bad_arguments():
@@ -190,3 +193,55 @@ def test_wrappers_reject_bad_arguments():
     single = torch_args(*replay_inputs(np.random.default_rng(3), 2, 1, 4, 4, False)[0])
     with pytest.raises(ValueError):
         asap_replay(*single, torch.zeros(2, 4, dtype=torch.float64), topology="chain")
+
+
+# ---------------------------------------------------------------- rmsnorm
+
+# Both packages evaluate the same float32 formula; the mean of D squares is
+# summed in another order (and XLA's rsqrt is not PyTorch's), which moves a
+# float32 result by a few ulps: 1e-6 of max(1, max |out|).  In bfloat16 the
+# output is then rounded to 8 bits of mantissa, and a float32 value a few
+# ulps from a rounding boundary can land one bfloat16 step away: 2^-8
+# relative to max(1, max |out|).
+RMS_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
+RMS_SHAPES = [(4, 64), (2, 8, 128), (3, 5, 96)]  # the reference's tests/test_kernels.py cases
+
+
+def rms_inputs(shape, dtype, seed):
+    """x (float32 or bfloat16, as a torch tensor and a JAX array holding the
+    same values) and w (float32 around 1), from a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(getattr(torch, dtype))
+    w = torch.from_numpy((1.0 + 0.1 * rng.normal(size=shape[-1])).astype(np.float32))
+    xj = jax.numpy.asarray(x.float().numpy()).astype(getattr(jax.numpy, dtype))
+    return x, w, xj, jax.numpy.asarray(w.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+def test_rms_norm_plain_matches_pallas_kernel_and_oracle(shape, dtype):
+    x, w, xj, wj = rms_inputs(shape, dtype, sum(shape))
+    got = rms_norm(x, w)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    got = got.float().numpy()
+    for want in (ops.rms_norm(xj, wj, interpret=True), ref.rms_norm_ref(xj, wj)):
+        assert want.dtype == xj.dtype
+        want = np.asarray(want.astype(jax.numpy.float32))
+        tol = RMS_TOL[dtype] * max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+def test_rms_norm_wrapper_is_the_plain_version_on_cpu():
+    x, w, _, _ = rms_inputs((3, 7, 40), "float32", 3)
+    reset_launch_counts()
+    assert torch.equal(rms_norm(x, w, eps=1e-3), rms_norm_plain(x, w, eps=1e-3))
+    assert torch.equal(rms_norm(x.transpose(0, 1), w), rms_norm_plain(x.transpose(0, 1), w))
+    assert launch_counts()["rms_norm"] == 0
+
+
+@pytest.mark.parametrize("what", ["w_shape", "x_dtype", "scalar"])
+def test_rms_norm_rejects_bad_arguments(what):
+    x, w, _, _ = rms_inputs((4, 16), "float32", 4)
+    args = {"w_shape": (x, w[:8]), "x_dtype": (x.double(), w), "scalar": (x[0, 0], w)}[what]
+    with pytest.raises((ValueError, TypeError)):
+        rms_norm(*args)
