@@ -11,14 +11,15 @@ Phases, each printing one JSON line:
 1. ``device``: the card (``nvidia-smi``), torch and CUDA versions, the
    kernels' build time;
 2. ``kernel``: each kernel against its plain version on the card, at the
-   main paths' shapes (m = 10 processors, 5 loads, q = 5 installments:
+   main paths' shapes (flash attention bounded by its route: bfloat16 on
+   the tensor cores, float32 as split TF32, three TF32 products each) (m = 10 processors, 5 loads, q = 5 installments:
    chain tableau 1089 x 1811, star 705 x 1427; attention at llama3.2-3b's
    and hymba-1.5b's heads with a batch of 4 prompts of 512 tokens and a
    544-entry cache; the
    SSD scan at mamba2-2.7b's and hymba-1.5b's heads over the same prompts,
    plus a ragged chunk and a weak decay under which the carried state
    matters; RMSNorm at the served models' norm shapes, which no path of the
-   port runs yet), with times from CUDA events;
+   port runs yet, plus three other widths), with times from CUDA events;
 3. ``solve_bulk``: 256 chain + 256 star instances, 64 + 64 with returns and
    release dates, and two goldens, through ``repro_torch.engine.solve_bulk``
    on the card; the launch counts are set to 0 just before each call and
@@ -73,6 +74,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 FP64_FLOP_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM bfloat16 tensor cores, dense (NVIDIA data sheet)
+TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense (NVIDIA data sheet)
+SPLIT_TF32_PRODUCTS = 3  # float32 flash attention: hi*hi + hi*lo + lo*hi per product
 L2_BYTES = 50 << 20
 SEED = 20261017
 GOLDEN_976 = 976.1527780792386  # star/ret0.75/rel0/m2/n3/q4/het1/cc0.02 (HiGHS)
@@ -465,7 +468,8 @@ def flash_phase(dev):
              ("causal_bf16", LLAMA, S, torch.bfloat16, 0),
              ("window96_f32", LLAMA, S, torch.float32, 96),
              ("ragged500_f32", LLAMA, 500, torch.float32, 0),
-             ("hymba_window1024_f32", HYMBA_ATTN, S, torch.float32, 1024)]
+             ("hymba_window1024_f32", HYMBA_ATTN, S, torch.float32, 1024),
+             ("hymba_window1024_bf16", HYMBA_ATTN, S, torch.bfloat16, 1024)]
     rows = {}
     for name, heads, L, dtype, window in cases:
         H, KVH, D = heads["H"], heads["KVH"], heads["D"]
@@ -499,14 +503,23 @@ def flash_phase(dev):
         library_ms = device_ms(library, lambda: (qt, kt, vt), reps=20)
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
         flops = 4 * B * H * D * pairs  # two products over the visible pairs
-        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-        bound_ms, bound_by = _bound(nbytes, flops, rate)
+        # the bound follows the kernel's route: bfloat16 on the tensor cores;
+        # float32 as split TF32, three tensor-core products per product (the
+        # CUDA cores' float32 figure is kept beside it)
+        if dtype == torch.bfloat16:
+            bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOP_PER_S)
+            route = "bf16 tensor cores"
+        else:
+            bound_ms, bound_by = _bound(nbytes, SPLIT_TF32_PRODUCTS * flops, TF32_FLOP_PER_S)
+            route = "split TF32: 3 TF32 tensor-core products per product"
+        bound_cuda_cores_ms = _bound(nbytes, flops, FP32_FLOP_PER_S)[0]
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms, max_abs_err=err)
         emit(phase="kernel", kernel="flash_attention", case=name, B=B, Sq=L, Sk=L, H=H,
              KVH=KVH, D=D, dtype=str(dtype), window=window, max_abs_err=err, tol=ATTN_TOL[dtype],
              ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
-             library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+             library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by,
+             bound_route=route, bound_cuda_cores_ms=bound_cuda_cores_ms, flops=flops,
              bytes=nbytes, tflops=flops / ms / 1e9)
         del q, k, v, qt, kt, vt, got, want
     return rows
@@ -686,13 +699,18 @@ def ssd_phase(dev):
 
 # the served models' norm shapes: llama3.2-3b's prefill (4 x 512 tokens) and
 # decode step, mamba2-2.7b's gated norm over d_inner, hymba-1.5b's d_model;
-# bfloat16; a ragged row count
+# bfloat16; a ragged row count; two other configs' widths (minitron-8b's
+# 4096: two warps a row, mistral-large-123b's 12288: eight); a width that is
+# no multiple of 16 bytes (the generic kernel, the row in shared memory)
 RMS_CASES = [("llama_prefill_f32", (2048, 3072), torch.float32),
              ("llama_decode_f32", (4, 3072), torch.float32),
              ("mamba2_d_inner_f32", (2048, 5120), torch.float32),
              ("hymba_f32", (2048, 1600), torch.float32),
              ("llama_prefill_bf16", (2048, 3072), torch.bfloat16),
-             ("ragged2047_f32", (2047, 3072), torch.float32)]
+             ("ragged2047_f32", (2047, 3072), torch.float32),
+             ("minitron_f32", (2048, 4096), torch.float32),
+             ("mistral_large_f32", (2048, 12288), torch.float32),
+             ("generic3071_f32", (2048, 3071), torch.float32)]
 RMS_EPS = 1e-5
 
 

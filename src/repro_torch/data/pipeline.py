@@ -5,8 +5,9 @@ nothing of the reference).  Batches are pure functions of (step, arch,
 shape): stateless and restart-safe, and byte-identical to the reference's
 for the same arguments.
 
-The reference's ``batch_load_spec`` (and ``SyntheticStream.peek_load_spec``)
-builds the planner's load descriptor; it comes with the port's planner.
+Each batch also carries its DLT *load descriptor* (bytes, flops) for the
+planner (:func:`batch_load_spec`) — the bridge between the data pipeline and
+the paper's scheduler.
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ import dataclasses
 import numpy as np
 
 from repro_torch.config import ArchConfig
+from repro_torch.core.planner import BatchSpec
+from repro_torch.models.flops import train_flops_per_token
 
-__all__ = ["SyntheticStream", "make_batch"]
+__all__ = ["SyntheticStream", "make_batch", "batch_load_spec"]
 
 
 def _tokens(step: int, seed: int, shape, vocab: int) -> np.ndarray:
@@ -43,6 +46,24 @@ def make_batch(cfg: ArchConfig, batch_size: int, seq_len: int, step: int, seed: 
     return batch
 
 
+def batch_load_spec(cfg: ArchConfig, batch_size: int, seq_len: int) -> BatchSpec:
+    """The DLT load descriptor of one global batch (planner input)."""
+    if cfg.family == "vlm":
+        bytes_per_sample = (
+            (seq_len - cfg.num_patches) * 4 + cfg.num_patches * cfg.patch_dim * 4
+        )
+    elif cfg.family == "audio":
+        bytes_per_sample = seq_len * cfg.num_codebooks * 4
+    else:
+        bytes_per_sample = seq_len * 4
+    flops_per_sample = train_flops_per_token(cfg, seq_len) * seq_len
+    return BatchSpec(
+        num_samples=batch_size,
+        bytes_per_sample=float(bytes_per_sample),
+        flops_per_sample=float(flops_per_sample),
+    )
+
+
 @dataclasses.dataclass
 class SyntheticStream:
     """Iterator facade with prefetch-like lookahead (CPU: eager numpy)."""
@@ -60,6 +81,9 @@ class SyntheticStream:
         b = make_batch(self.cfg, self.batch_size, self.seq_len, self.step, self.seed)
         self.step += 1
         return b
+
+    def peek_load_spec(self) -> BatchSpec:
+        return batch_load_spec(self.cfg, self.batch_size, self.seq_len)
 
     def at_step(self, step: int) -> "SyntheticStream":
         return dataclasses.replace(self, step=step)

@@ -4,11 +4,14 @@ grouped-query heads.
 The port of the Pallas kernel ``flash_attention_kernel`` /
 ``flash_attention_call`` (``repro/kernels/flash_attention.py``) and of its
 wrapper ``ops.flash_attention``.  :func:`flash_attention` launches the
-hand-written CUDA kernel (``csrc/flash_attention.cu``) for tensors on the
-card and runs :func:`flash_attention_plain` for tensors on the CPU; it never
-falls back from one to the other.  Unlike the TPU kernel it reads the
-model's ``[B, S, H, D]`` layout through strides (no transposes) and takes
-lengths that no tile size divides.
+hand-written CUDA kernel (``csrc/flash_attention.cu``: tensor cores, K/V
+fed by TMA) for tensors on the card and runs :func:`flash_attention_plain`
+for tensors on the CPU; it never falls back from one to the other.  Unlike
+the TPU kernel it reads the model's ``[B, S, H, D]`` layout through strides
+(no transposes) and takes lengths that no tile size divides.  TMA needs
+q, k and v 16-byte aligned with strides that are multiples of 16 bytes:
+:func:`check_kernel_layout` says what the kernel takes, and the wrapper
+raises on anything else.
 
 Shapes: q ``[B, Sq, H, D]``, k/v ``[B, Sk, KVH, D]`` with ``H % KVH == 0``
 (query head ``h`` reads kv head ``h // (H // KVH)``); float32 or bfloat16,
@@ -25,7 +28,7 @@ import torch
 from .build import check, library
 
 __all__ = ["flash_attention", "flash_attention_plain", "masked_attention", "attention_mask",
-           "NEG_INF", "KERNEL_HEAD_DIMS"]
+           "check_kernel_layout", "NEG_INF", "KERNEL_HEAD_DIMS"]
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -93,6 +96,37 @@ def _check_args(q, k, v, window):
         raise ValueError(f"window must be >= 0; got {window}")
 
 
+def _tma_strides(t):
+    """The strides (elements) of dims 0-2 as the kernel's tensor maps take
+    them: a dimension of size 1 is never stepped over, so its stride is
+    replaced by the head dim's, which every accepted layout aligns."""
+    return [st if n != 1 else t.shape[-1] for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
+def check_kernel_layout(q, k, v):
+    """Raise ``ValueError`` unless the kernel takes these tensors as laid
+    out (checked before every launch; runs on tensors on any device): a
+    head dim of :data:`KERNEL_HEAD_DIMS`, a contiguous last dimension, k and
+    v with equal strides, and what the kernel's TMA copies need: every base
+    address 16-byte aligned and every other stride a positive multiple of 16
+    bytes."""
+    D = q.shape[-1]
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}; got {D}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or k.stride() != v.stride():
+        raise ValueError("the kernel needs a contiguous last dimension, and k and v "
+                         "with equal strides")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"TMA needs 16-byte-aligned tensors; {name} starts at an address "
+                             f"{t.data_ptr() % 16} bytes past a multiple of 16")
+        bad = [st for st in _tma_strides(t) if st <= 0 or (st * t.element_size()) % 16]
+        if bad:
+            raise ValueError(f"TMA needs strides that are positive multiples of 16 bytes; {name} "
+                             f"has strides {tuple(t.stride())} of {t.element_size()}-byte "
+                             f"elements")
+
+
 def flash_attention(q, k, v, *, causal=True, window=0):
     """q ``[B,Sq,H,D]``, k/v ``[B,Sk,KVH,D]`` -> ``[B,Sq,H,D]``: the CUDA
     kernel for tensors on the card, :func:`flash_attention_plain` for
@@ -103,19 +137,15 @@ def flash_attention(q, k, v, *, causal=True, window=0):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors; got {q.device}")
+    check_kernel_layout(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}; got {D}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or k.stride() != v.stride():
-        raise ValueError("the kernel needs a contiguous last dimension, and k and v "
-                         "with equal strides")
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = library().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KVH, Sq, Sk, D,
-            int(q.dtype == torch.bfloat16), *q.stride()[:3], *k.stride()[:3],
+            int(q.dtype == torch.bfloat16), *_tma_strides(q), *_tma_strides(k),
             *o.stride()[:3], int(bool(causal)), int(window), ctypes.c_float(D ** -0.5),
             stream)
     check(code, "flash_attention launch")

@@ -5,9 +5,9 @@ The port of the Pallas kernel ``rmsnorm_kernel`` / ``rmsnorm_call``
 (``repro/kernels/rmsnorm.py``) and of its wrapper ``ops.rms_norm``; the
 reference's ``block_rows`` is TPU tiling and has no counterpart.
 :func:`rms_norm` launches the hand-written CUDA kernel
-(``csrc/rmsnorm.cu``, one block per row) for tensors on the card and runs
-:func:`rms_norm_plain` for tensors on the CPU; it never falls back from one
-to the other.
+(``csrc/rmsnorm.cu``: each row read once into the registers of the warps
+that own it) for tensors on the card and runs :func:`rms_norm_plain` for
+tensors on the CPU; it never falls back from one to the other.
 
 Shapes: x ``[..., D]`` in float32 or bfloat16, w ``[D]`` (taken in
 float32).  No model of the port calls it yet: the models' norms are

@@ -17,9 +17,14 @@ device, so it never waits for the host until the end.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --smoke --device cpu --batch 2 --prompt-len 16 --gen-len 4
 
-``--plan``/``--auto-t`` (and their options) need the port's ``Planner`` and
-``api.Session``, and ``--serve`` (and its options) the port's plan server; they
-fail with the roadmap item that brings them.
+The multi-load analogue for inference, as in the reference: N request
+batches are the paper's N divisible loads, and ``--plan N`` DLT-plans them
+over a 4-stage chain (or star, ``--topology``) through the port's
+``Planner`` and ``api.Session`` on ``--device``, printing the schedule next
+to its makespan, a replanning tick (a solution-cache hit on an engine
+backend) and, with ``--auto-t T_MAX``, the cost-aware installment sweep.
+``--serve`` (and its options) needs the port's plan server and fails with
+the roadmap item that brings it.
 """
 
 from __future__ import annotations
@@ -32,22 +37,24 @@ import torch
 
 from repro_torch.config import ArchConfig, ShardingPolicy, get_arch, smoke_variant
 from repro_torch.convert import resolve_device
+from repro_torch.core.planner import BatchSpec, LinkSpec, StageSpec
 from repro_torch.data import make_batch
-from repro_torch.models import Transformer, init_params, prefill
+from repro_torch.models import Transformer, decode_flops_per_token, init_params, prefill
 from repro_torch.obs import span
 from repro_torch.runtime import make_serve_step
 
-__all__ = ["main", "serve_policy", "load_model", "prompt_tokens", "generate", "ServeResult"]
+__all__ = ["main", "serve_policy", "load_model", "prompt_tokens", "generate", "ServeResult",
+           "plan_inputs", "PLAN_BACKENDS"]
 
 # flags of the reference's CLI that need modules the port does not have yet
 _LATER = {
-    "plan": "A.6", "plan_backend": "A.6", "topology": "A.6", "return_ratio": "A.6",
-    "auto_t": "A.6", "installment_cost": "A.6",
     "serve": "A.9", "serve_port": "A.9", "serve_workers": "A.9", "serve_store": "A.9",
     "serve_queue_limit": "A.9", "serve_deadline": "A.9", "serve_shards": "A.9",
     "serve_duration": "A.9",
 }
-_WHAT = {"A.6": "the port's Planner and api.Session", "A.9": "the port's plan server"}
+_WHAT = {"A.9": "the port's plan server"}
+# the reference's engine backend names, and the port's that take their place
+PLAN_BACKENDS = {"batched": "torch", "pallas": "cuda"}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -74,14 +81,31 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
                     help="serve the process metrics registry as Prometheus text on "
                          "http://localhost:PORT/metrics for the duration of the run")
-    for flag in ("--plan", "--auto-t", "--serve-port", "--serve-workers",
-                 "--serve-queue-limit", "--serve-shards"):
+    ap.add_argument("--plan", type=int, default=0,
+                    help="also DLT-plan N request batches over a 4-stage platform")
+    ap.add_argument("--plan-backend", default="torch",
+                    help="solver-backend registry entry for --plan (see "
+                         "repro_torch.core.available_backends()): 'torch' runs the engine in "
+                         "plain PyTorch on --device, 'cuda' in the CUDA kernels; the "
+                         "reference's 'batched' and 'pallas' name these two")
+    ap.add_argument("--topology", default="chain", choices=("chain", "star"),
+                    help="platform family for --plan: the paper's linear chain, or a one-port "
+                         "master star (stage 0 holds the data, every other stage on its own "
+                         "link)")
+    ap.add_argument("--return-ratio", type=float, default=0.0,
+                    help="result bytes returned to the source per input byte (>0 adds the "
+                         "result-return phase to the plan)")
+    ap.add_argument("--auto-t", type=int, default=0, metavar="T_MAX",
+                    help="with --plan: sweep 1..T_MAX installments through the engine and "
+                         "report the cost-aware T*")
+    ap.add_argument("--installment-cost", type=float, default=1e-3,
+                    help="fixed per-installment overhead (seconds) charged by the --auto-t "
+                         "sweep")
+    for flag in ("--serve-port", "--serve-workers", "--serve-queue-limit", "--serve-shards"):
         ap.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
-    for flag in ("--return-ratio", "--installment-cost", "--serve-deadline",
-                 "--serve-duration"):
+    for flag in ("--serve-deadline", "--serve-duration"):
         ap.add_argument(flag, type=float, default=None, help=argparse.SUPPRESS)
-    for flag in ("--plan-backend", "--topology", "--serve-store"):
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--serve-store", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--serve", action="store_const", const=True, default=None,
                     help=argparse.SUPPRESS)
     return ap
@@ -219,6 +243,68 @@ def _run(args):
           f"decoded {n_tok} tokens in {res.decode_s:.2f}s "
           f"({n_tok / max(res.decode_s, 1e-9):.1f} tok/s on {dev.type})")
     print("sample tokens:", res.tokens[0, :8].tolist())
+    if args.plan:
+        _plan(args, cfg, dev)
+
+
+def plan_inputs(cfg: ArchConfig, batch: int, prompt_len: int, gen_len: int, n_loads: int,
+                return_ratio: float = 0.0):
+    """The ``--plan`` platform and loads, as the reference's demo builds them:
+    ``n_loads`` request batches over a heterogeneous 4-stage platform, speeds
+    scaled to the workload (a batch ~50 ms a stage, a transfer ~15 ms) so the
+    schedule is non-trivial.  Returns (stages, links, loads)."""
+    fl = decode_flops_per_token(cfg, prompt_len) * gen_len
+    base_speed = fl * batch / 0.05
+    base_bw = 4.0 * prompt_len * batch / 0.015
+    stages = [StageSpec(f"pod{i}", base_speed / (1 + 0.15 * i)) for i in range(4)]
+    links = [LinkSpec(base_bw, 50e-6)] * 3
+    loads = [BatchSpec(num_samples=batch, bytes_per_sample=4.0 * prompt_len,
+                       flops_per_sample=fl,
+                       return_bytes_per_sample=return_ratio * 4.0 * prompt_len)
+             for _ in range(n_loads)]
+    return stages, links, loads
+
+
+def _plan(args, cfg: ArchConfig, dev: torch.device) -> None:
+    """The ``--plan`` block: one plan, a replanning tick, the auto-T sweep.
+    Makespans print in ms to 12 significant digits."""
+    from repro_torch.api import Policy, Session
+    from repro_torch.core.planner import Planner
+
+    backend = PLAN_BACKENDS.get(args.plan_backend, args.plan_backend)
+    stages, links, loads = plan_inputs(cfg, args.batch, args.prompt_len, args.gen_len,
+                                       args.plan, args.return_ratio)
+    # one Session is the whole planning state: backend handles, solution
+    # cache, and the coalescing submit queue; the engine runs on --device
+    session = Session(policy=Policy(installments=2, backend=backend), device=dev)
+    planner = Planner(stages, links, topology=args.topology, session=session)
+    plan = planner.plan(loads, q=2, backend=backend)
+    art = plan.artifact
+    print(f"DLT plan for {args.plan} request batches over 4 {args.topology} stages: "
+          f"makespan={plan.makespan * 1e3:.12g}ms (backend={art.backend}, artifact "
+          f"v{art.version}, {len(art.to_json())} JSON bytes)")
+    for t, (n, j) in enumerate(plan.cells):
+        print(f"  load {n} installment {j}: "
+              f"requests/stage={[int(x) for x in plan.samples[t]]}")
+    # a replanning tick with an unchanged platform state: with an engine
+    # backend this is a pure solution-cache hit, visible in the artifact
+    plan2 = planner.plan(loads, q=2, backend=backend)
+    tick = (f"replan tick: makespan={plan2.makespan * 1e3:.12g}ms "
+            f"cache_hit={plan2.artifact.cache_hit}")
+    if backend in ("torch", "cuda"):
+        st = session.stats().get("cache", {})
+        tick += f" cache={st.get('hits', 0)} hit / {st.get('misses', 0)} miss"
+    print(tick)
+    if args.auto_t:
+        # cost-aware installment chooser: one bulk sweep up the q ladder
+        res = planner.plan_auto_T(loads, t_max=args.auto_t,
+                                  installment_cost=args.installment_cost, backend=backend)
+        swept = ", ".join(f"q={q}: {res.makespans[q] * 1e3:.12g}ms"
+                          f"+{(res.costs[q] - res.makespans[q]) * 1e3:.12g}ms"
+                          for q in sorted(res.makespans))
+        print(f"auto-T sweep (installment cost {args.installment_cost * 1e3:.12g}ms): {swept}")
+        print(f"  -> T* = {res.t_star} installments/load, "
+              f"cost-aware makespan {res.costs[res.t_star] * 1e3:.12g}ms")
 
 
 if __name__ == "__main__":

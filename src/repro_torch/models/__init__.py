@@ -11,6 +11,7 @@ from .transformer import (
     prefill,
     quantize_kv,
 )
+from .flops import decode_flops_per_token, param_counts, train_flops_per_token
 from .ssm import mamba_decode_step, mamba_mixer
 
 __all__ = [
@@ -24,4 +25,7 @@ __all__ = [
     "dequantize_kv",
     "mamba_mixer",
     "mamba_decode_step",
+    "param_counts",
+    "train_flops_per_token",
+    "decode_flops_per_token",
 ]

@@ -20,6 +20,7 @@ import torch
 from repro.kernels import ops, ref
 from repro_torch.kernels import (decode_attention, decode_attention_plain, flash_attention,
                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention import check_kernel_layout
 from repro_torch.models.attention import attention
 from repro_torch.models.attention import decode_attention as model_decode_attention
 
@@ -147,6 +148,48 @@ def test_flash_attention_wrapper_rejects(what):
     args, exc = _bad_flash()[what]
     with pytest.raises(exc):
         flash_attention(*args)
+
+
+def _layouts():
+    """(q, k, v) laid out as the kernel takes them (``None``), or not (the
+    words its refusal must contain)."""
+    B, S, H, KVH, D = 2, 8, 4, 2, 16
+    qkv = torch.zeros(B, S, (H + 2 * KVH) * D)  # a fused projection, viewed per part
+    fused = (qkv[..., :H * D].view(B, S, H, D), qkv[..., H * D:(H + KVH) * D].view(B, S, KVH, D),
+             qkv[..., (H + KVH) * D:].view(B, S, KVH, D))
+    k, v = torch.zeros(B, S, KVH, D), torch.zeros(B, S, KVH, D)
+    q = torch.zeros(B, S, H, D)
+    flat = torch.zeros(B * S * H * D + 1)
+    return {
+        "contiguous": ((q, k, v), None),
+        "fused_view": (fused, None),
+        "bf16_d16": ((q.bfloat16(), k.bfloat16(), v.bfloat16()), None),
+        "size1_odd_stride": ((torch.zeros(H * D).as_strided((1, 1, H, D), (3, 5, D, 1)),
+                              k[:1, :1], v[:1, :1]), None),
+        "row_stride_12_bytes": ((torch.zeros(B, S, H, D + 3)[..., :D], k, v),
+                                "multiples of 16 bytes"),
+        "bf16_head_stride": ((torch.zeros(B, S, H, D + 4).bfloat16()[..., :D], k.bfloat16(),
+                              v.bfloat16()), "multiples of 16 bytes"),
+        "misaligned_base": ((flat[1:].view(B, S, H, D), k, v), "16-byte-aligned"),
+        "head_dim": ((torch.zeros(B, S, H, 48), torch.zeros(B, S, KVH, 48),
+                      torch.zeros(B, S, KVH, 48)), "head dims"),
+        "last_dim_stride": ((q.transpose(2, 3).contiguous().transpose(2, 3), k, v),
+                            "contiguous last dimension"),
+        "kv_strides_differ": ((q, k, torch.zeros(B, KVH, S, D).transpose(1, 2)),
+                              "equal strides"),
+    }
+
+
+@pytest.mark.parametrize("what", sorted(_layouts()))
+def test_flash_kernel_layout_check(what):
+    """What the kernel's TMA copies take, checked on CPU tensors: the check
+    the wrapper runs before every launch on the card."""
+    args, words = _layouts()[what]
+    if words is None:
+        check_kernel_layout(*args)
+    else:
+        with pytest.raises(ValueError, match=words):
+            check_kernel_layout(*args)
 
 
 def _bad_decode():

@@ -115,6 +115,15 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (1, 500, 500, 4, 2, 64, True, 0),
     (1, 256, 256, 4, 2, 32, True, 96),
     (1, 130, 200, 8, 8, 16, False, 0),
+    # the edges of the TMA-fed tiles: one row or key, one past a 64-row tile
+    # (rows and keys zero-filled past the end), a window of 1, Sq != Sk at
+    # the smallest head dim
+    (1, 1, 1, 4, 2, 64, True, 0),
+    (1, 65, 65, 4, 2, 128, True, 0),
+    (1, 65, 1, 4, 2, 64, False, 0),
+    (1, 1, 65, 4, 2, 64, False, 0),
+    (2, 100, 100, 4, 4, 64, True, 1),
+    (1, 70, 150, 4, 2, 16, True, 0),
 ])
 def test_flash_attention_kernel_matches_plain_on_card(card, case, dtype):
     B, Sq, Sk, H, KVH, D, causal, window = case
@@ -126,6 +135,23 @@ def test_flash_attention_kernel_matches_plain_on_card(card, case, dtype):
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == 1 and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_reads_a_fused_projection_on_card(card, dtype):
+    """q, k and v as strided views into one [B, S, (H + 2 KVH) D] projection,
+    as a model with a fused QKV weight hands them over: the tensor maps
+    read them in place."""
+    B, S, H, KVH, D = 2, 200, 8, 2, 128
+    g = torch.Generator(device=card).manual_seed(7)
+    qkv = torch.randn(B, S, (H + 2 * KVH) * D, generator=g, device=card).to(dtype)
+    q = qkv[..., :H * D].view(B, S, H, D)
+    k = qkv[..., H * D:(H + KVH) * D].view(B, S, KVH, D)
+    v = qkv[..., (H + KVH) * D:].view(B, S, KVH, D)
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
 
 
@@ -204,7 +230,19 @@ def test_smoke_serving_on_card_matches_cpu(card, arch):
 RMS_CASES = [((2048, 3072), torch.float32), ((4, 3072), torch.float32),
              ((2048, 5120), torch.float32), ((2048, 1600), torch.float32),
              ((2048, 3072), torch.bfloat16), ((2047, 3072), torch.float32),
-             ((33, 97), torch.float32), ((33, 97), torch.bfloat16)]
+             ((33, 97), torch.float32), ((33, 97), torch.bfloat16),
+             # one row; many rows (each resident block walks over several)
+             ((1, 3072), torch.float32), ((1, 3072), torch.bfloat16),
+             ((4096, 3072), torch.float32), ((4096, 5120), torch.bfloat16),
+             # the register path at widths of 1, 2, 4 and 8 warps a row and at
+             # its widest (16384 float32, 24576 bfloat16); one vector past it
+             # (the generic kernel, row in shared memory); past 32768 (the
+             # generic kernel reading the row twice), aligned and not
+             ((64, 2048), torch.float32), ((64, 2048), torch.bfloat16),
+             ((64, 128), torch.float32), ((64, 4096), torch.float32),
+             ((64, 8192), torch.float32), ((64, 16384), torch.float32),
+             ((64, 24576), torch.bfloat16), ((64, 16388), torch.float32),
+             ((8, 40000), torch.float32), ((8, 40001), torch.bfloat16)]
 
 
 def rms_norm_within_tolerance(got, x, w):

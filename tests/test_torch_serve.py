@@ -42,13 +42,14 @@ from repro.config import ShardingPolicy as RefPolicy
 from repro.config import get_arch as ref_get_arch
 from repro.config import smoke_variant as ref_smoke_variant
 from repro.data import SyntheticStream as RefStream
+from repro.data import batch_load_spec as ref_batch_load_spec
 from repro.data import make_batch as ref_make_batch
 from repro.models import init_params as ref_init_params
 from repro.models import prefill as ref_prefill
 from repro.runtime import make_serve_step as ref_make_serve_step
 from repro_torch.config import get_arch, smoke_variant
 from repro_torch.convert import cache_from_reference, params_from_reference, policy_from_reference
-from repro_torch.data import SyntheticStream, make_batch
+from repro_torch.data import SyntheticStream, batch_load_spec, make_batch
 from repro_torch.models import prefill
 from repro_torch.runtime import make_serve_step
 
@@ -282,8 +283,10 @@ def test_serve_generate_matches_a_manual_loop_and_samples_reproducibly():
     assert torch.equal(a.tokens, b.tokens)
 
 
-@pytest.mark.parametrize("flag,item", [(["--plan", "2"], "A.6"), (["--auto-t", "3"], "A.6"),
-                                       (["--serve"], "A.9"), (["--serve-port", "0"], "A.9")])
+# ids kept from when the planner flags (A.6, done) were refused here too
+@pytest.mark.parametrize("flag,item", [
+    pytest.param(["--serve"], "A.9", id="flag2-A.9"),
+    pytest.param(["--serve-port", "0"], "A.9", id="flag3-A.9")])
 def test_serve_cli_refuses_what_the_port_lacks(flag, item, capsys):
     from repro_torch.launch.serve import main
 
@@ -304,3 +307,167 @@ def test_serve_cli_trace_out_records_the_prefill_and_decode_spans(tmp_path, caps
     events = json.loads(out.read_text())["traceEvents"]
     assert [e["name"] for e in events if e.get("ph") == "X"] == ["serve.prefill", "serve.decode"]
     assert "(2 spans)" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------- the planner flags
+
+# the dense, ssm and hybrid families the port serves
+FAMILY_ARCHS = ["llama3.2-3b", "mamba2-2.7b", "hymba-1.5b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_flops_counts_match_reference(arch):
+    from repro.models import flops as ref_flops
+    from repro_torch.models import flops
+
+    for ref_cfg, cfg in ((ref_get_arch(arch), get_arch(arch)),
+                         (ref_smoke_variant(ref_get_arch(arch)), smoke_variant(get_arch(arch)))):
+        assert dataclasses.asdict(flops.param_counts(cfg)) == dataclasses.asdict(
+            ref_flops.param_counts(ref_cfg))
+        for seq in (None, 16, 512, 4096):
+            assert flops.train_flops_per_token(cfg, seq) == ref_flops.train_flops_per_token(
+                ref_cfg, seq)
+        for ctx in (1, 544, 4096):
+            assert flops.decode_flops_per_token(cfg, ctx) == ref_flops.decode_flops_per_token(
+                ref_cfg, ctx)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_batch_load_spec_matches_reference(arch):
+    for batch, seq in ((4, 512), (2, 16)):
+        want = dataclasses.asdict(ref_batch_load_spec(ref_get_arch(arch), batch, seq))
+        assert dataclasses.asdict(batch_load_spec(get_arch(arch), batch, seq)) == want
+        stream = SyntheticStream(get_arch(arch), batch, seq, seed=3)
+        ref_stream = RefStream(ref_get_arch(arch), batch, seq, seed=3)
+        assert dataclasses.asdict(stream.peek_load_spec()) == dataclasses.asdict(
+            ref_stream.peek_load_spec())
+
+
+PLAN_ARGS = ["--arch", ARCH, "--smoke", "--batch", "2", "--prompt-len", "8", "--gen-len", "2"]
+_MS = r"([0-9.eE+-]+)ms"
+# the reference CLI's runs: (--plan-backend, --topology, --return-ratio);
+# the first also sweeps --auto-t 3
+REF_PLANS = [("batched", "chain", 0.0), ("auto", "star", 0.5), ("batched", "chain", 0.25)]
+
+# A child process runs the reference's serving CLI: its engine needs the
+# jax.experimental.enable_x64 alias under the installed JAX, which is never
+# set in the pytest process.  Its Planner is wrapped to record what the
+# CLI's own code hands it (platform, loads) and what it returns, at full
+# precision (the CLI prints makespans to 3 decimals).
+REF_CLI_CHILD = r"""
+import contextlib, dataclasses, io, json, sys
+import jax, jax.experimental
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = jax.enable_x64
+import repro.launch.serve as serve
+
+runs = []
+class Recording(serve.Planner):
+    def __init__(self, stages, links, **kw):
+        super().__init__(stages, links, **kw)
+        self.rec = dict(stages=[dataclasses.asdict(x) for x in stages],
+                        links=[dataclasses.asdict(x) for x in links], plans=[])
+        runs.append(self.rec)
+    def plan(self, loads, **kw):
+        p = super().plan(loads, **kw)
+        self.rec["loads"] = [dataclasses.asdict(x) for x in loads]
+        self.rec["plans"].append(p.makespan)
+        return p
+    def plan_auto_T(self, loads, **kw):
+        r = super().plan_auto_T(loads, **kw)
+        self.rec["auto_t"] = dict(t_star=r.t_star,
+                                  makespans={str(q): v for q, v in r.makespans.items()},
+                                  costs={str(q): v for q, v in r.costs.items()})
+        return r
+serve.Planner = Recording
+for argv in json.loads(sys.argv[1]):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(argv)
+    runs[-1]["stdout"] = out.getvalue()
+print(json.dumps(runs))
+"""
+
+
+@pytest.fixture(scope="module")
+def ref_cli():
+    """The reference CLI's ``--plan 2`` runs of ``REF_PLANS``, recorded in a
+    child process: {(backend, topology, return_ratio): record}."""
+    import json
+
+    argvs = [PLAN_ARGS + ["--plan", "2", "--plan-backend", b, "--topology", t,
+                          "--return-ratio", str(r)] + (["--auto-t", "3"] if i == 0 else [])
+             for i, (b, t, r) in enumerate(REF_PLANS)]
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(REPO / "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", REF_CLI_CHILD, json.dumps(argvs)], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    runs = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(runs) == len(REF_PLANS)
+    return dict(zip(REF_PLANS, runs))
+
+
+def _schedule(out):
+    return re.findall(r"  load \d installment \d: requests/stage=\[.*\]", out)
+
+
+def _run_cli(args, capsys):
+    from repro_torch.launch.serve import main
+
+    main(args)
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("backend,ref_backend,topology,return_ratio", [
+    ("torch", "batched", "chain", 0.0), ("auto", "auto", "star", 0.5),
+    ("batched", "batched", "chain", 0.25)])
+def test_serve_cli_plan_matches_reference(backend, ref_backend, topology, return_ratio, capsys,
+                                          ref_cli):
+    """``--plan 2``: the port's platform and loads are those the reference
+    CLI builds, its printed schedule is the reference's, and its makespan
+    (and the replanning tick's) the reference CLI's within 1e-9.  The
+    port's ``torch`` (and the alias ``batched``) against the reference's
+    engine backend ``batched``, ``auto`` against ``auto``."""
+    from repro_torch.launch.serve import PLAN_BACKENDS, plan_inputs
+
+    ref = ref_cli[(ref_backend, topology, return_ratio)]
+    mine = plan_inputs(smoke_variant(get_arch(ARCH)), 2, 8, 2, 2, return_ratio)
+    for got, key in zip(mine, ("stages", "links", "loads")):
+        assert [dataclasses.asdict(x) for x in got] == ref[key]
+    want = ref["plans"][0] * 1e3
+    assert ref["plans"][1] == ref["plans"][0]
+
+    out = _run_cli(PLAN_ARGS + ["--device", "cpu", "--plan", "2", "--plan-backend", backend,
+                                "--topology", topology, "--return-ratio", str(return_ratio)],
+                   capsys)
+    head_re = (rf"DLT plan for 2 request batches over 4 {topology} stages: makespan="
+               rf"{_MS} \(backend=([\w+]+),")
+    head, ref_head = re.search(head_re, out), re.search(head_re, ref["stdout"])
+    assert head and ref_head, out
+    assert abs(float(head.group(1)) - want) <= 1e-9 * want
+    assert head.group(2) == PLAN_BACKENDS.get(ref_head.group(2), ref_head.group(2))
+    assert len(_schedule(out)) == 4 and _schedule(out) == _schedule(ref["stdout"])
+    tick_re = rf"replan tick: makespan={_MS} cache_hit=(True|False)"
+    tick, ref_tick = re.search(tick_re, out), re.search(tick_re, ref["stdout"])
+    assert tick and ref_tick and abs(float(tick.group(1)) - want) <= 1e-9 * want
+    assert tick.group(2) == ref_tick.group(2)  # engine backends hit the cache
+
+
+def test_serve_cli_auto_t_matches_reference(capsys, ref_cli):
+    """``--plan 2 --auto-t 3``: every rung's makespan and the cost-aware T*
+    as the reference CLI's engine sweep (``plan_auto_T``, backend
+    "batched")."""
+    ref = ref_cli[REF_PLANS[0]]["auto_t"]
+    out = _run_cli(PLAN_ARGS + ["--device", "cpu", "--plan", "2", "--auto-t", "3"], capsys)
+    sweep = {int(q): (float(mk), float(extra))
+             for q, mk, extra in re.findall(rf"q=(\d+): {_MS}\+{_MS}", out)}
+    assert sorted(sweep) == [1, 2, 3]
+    for q, (mk, extra) in sweep.items():
+        want_mk = ref["makespans"][str(q)] * 1e3
+        assert abs(mk - want_mk) <= 1e-9 * want_mk
+        assert abs(mk + extra - ref["costs"][str(q)] * 1e3) <= 1e-9 * want_mk
+    star = re.search(rf"-> T\* = (\d+) installments/load, cost-aware makespan {_MS}", out)
+    assert star and int(star.group(1)) == ref["t_star"]
+    want_cost = ref["costs"][str(ref["t_star"])] * 1e3
+    assert abs(float(star.group(2)) - want_cost) <= 1e-9 * want_cost
