@@ -63,6 +63,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -82,6 +83,15 @@ GOLDEN_976 = 976.1527780792386  # star/ret0.75/rel0/m2/n3/q4/het1/cc0.02 (HiGHS)
 GOLDEN_Q2 = 781.0 / 653.0 * 0.75  # the paper's §3 example at lambda = 3/4, Q = 2
 RTOL = 1e-9
 REPLAY_TOL = 1e-6  # the engine's certificate: replay <= LP * (1 + tol) + 1e-9
+# phase 3 as the dense-update kernel solved it on this card (pivots, serial
+# rescues, the simplex's exit statuses): the pivot sequence is the
+# function's, so no design of the kernel may move it
+PHASE3 = {
+    "chain": (235_080, 6, {"optimal": 250, "false_optimal": 1, "iteration_limit": 5}),
+    "star": (553_299, 22, {"optimal": 234, "false_optimal": 3, "iteration_limit": 19}),
+    "chain_ret_rel": (1_276_031, 62, {"iteration_limit": 60, "unbounded": 2, "optimal": 2}),
+    "star_ret_rel": (1_280_000, 64, {"iteration_limit": 64}),
+}
 
 
 def emit(**fields) -> None:
@@ -198,78 +208,147 @@ def setup_stack(bucket, dev):
     return T, basis, kw
 
 
-def pivot_work(T, basis, it, status, kw, k):
-    """Pivots made, and rows of T an update must change (nonzero entries of
-    the entering column), by one K-pivot launch on this stack — counted by
-    running the plain version one round at a time."""
-    from repro_torch.kernels import simplex_pivot_plain
+def rows_changed(T, basis, it, status, kw):
+    """Tableau elements one row-skipping round must write: for each lane
+    that pivots, C for every row whose pcol' (the entering column, piv - 1
+    at the pivot row) is nonzero, R x C when the scaled pivot row is not
+    finite.  The plain version's choices, written out; CPU tensors."""
+    B, R, C = T.shape
+    obj = T[:, -1, :kw["ncols_price"]]
+    neg = obj < -1e-9
+    bland = torch.where(neg, torch.arange(obj.shape[1]), obj.shape[1]).argmin(dim=1)
+    col = torch.where(it < kw["bland_after"], obj.argmin(dim=1), bland)
+    pcol = T.gather(2, col[:, None, None].expand(B, R, 1))[:, :, 0]
+    pos = pcol[:, :-1] > 1e-9
+    ratios = torch.where(pos, T[:, :-1, -1] / torch.where(pos, pcol[:, :-1], 1.0), torch.inf)
+    best = ratios.amin(dim=1)
+    ties = (ratios - best[:, None]).abs() <= 1e-12
+    row = torch.argmin(torch.where(ties, basis.long(), 2**31 - 1), dim=1)
+    go = (status == -1) & (it < kw["max_iter"]) & neg.any(dim=1) & torch.isfinite(best)
+    total = 0
+    for b in go.nonzero()[:, 0].tolist():
+        p = pcol[b].clone()
+        piv = p[row[b]].item()
+        p[row[b]] = piv - 1.0
+        finite = bool(torch.isfinite(T[b, row[b]] / piv).all())
+        total += C * (int((p != 0).sum()) if finite else R)
+    return total
 
-    B, R, _ = T.shape
-    touched = 0
-    for _ in range(k):
-        obj = T[:, -1, :kw["ncols_price"]]
-        neg = obj < -1e-9
-        first_neg = torch.where(neg, torch.arange(obj.shape[1], device=T.device),
-                                obj.shape[1]).argmin(dim=1)
-        col = torch.where(it < kw["bland_after"], obj.argmin(dim=1), first_neg)
-        colv = T.gather(2, col[:, None, None].expand(B, R, 1))[:, :, 0]
-        before = it.clone()
-        simplex_pivot_plain(T, basis, it, status, k_pivots=1, **kw)
-        touched += int(((colv != 0) & (it > before)[:, None]).sum().item())
-    return int(it.sum().item()), touched
+
+def pivot_compare(name, stack, kw, dev, k, n_lanes, n_launches):
+    """``n_launches`` K-pivot launches of the kernel over ``n_lanes`` lanes
+    of ``stack`` (the first that still run), against the plain version on the CPU
+    from the same stack (one fused multiply-add per element there, the
+    function's definition; PyTorch's addcmul on the card rounds the product
+    first): basis, it and status equal, T exactly, and each launch writes
+    exactly the rows a nonzero pcol' names.  Stops once no compared lane
+    runs.  Returns (max |dT|, rounds compared)."""
+    from repro_torch.kernels import simplex_pivot, simplex_pivot_plain, updated_elements
+    from repro_torch.kernels.simplex_pivot import reset_updated
+
+    running = ((stack[3] == -1) & (stack[2] < kw["max_iter"])).nonzero()[:, 0]
+    pick = (running if running.numel() else torch.arange(stack[0].shape[0]))[:n_lanes]
+    plain = [x[pick.to(x.device)].cpu() for x in stack]
+    ker = [x.to(dev) for x in plain]
+    rounds = 0
+    for _ in range(n_launches):
+        if not bool(((plain[3] == -1) & (plain[2] < kw["max_iter"])).any()):
+            break
+        want = 0
+        for _ in range(k):
+            want += rows_changed(*plain, kw)
+            simplex_pivot_plain(*plain, k_pivots=1, **kw)
+        reset_updated()
+        simplex_pivot(*ker, k_pivots=k, **kw)
+        got = updated_elements(dev)
+        check(got == want, f"simplex_pivot {name} K={k}: wrote {got} elements, the nonzero "
+              f"rows of the entering columns hold {want}")
+        for a, b, what in zip(ker[1:], plain[1:], ("basis", "it", "status")):
+            check(torch.equal(a.cpu(), b), f"simplex_pivot {name} K={k}: {what} differs from plain")
+        rounds += k
+    err = (ker[0].cpu() - plain[0]).abs().max().item()
+    check(err == 0.0, f"simplex_pivot {name} K={k}: |dT| {err} is not 0")
+    return err, rounds
 
 
-def pivot_phase(name, bucket, dev, n_compare=16, n_launches=6):
+MIDSOLVE_ROUNDS = 100  # plain rounds from the set-up to the mid-solve and tail stacks
+
+
+def pivot_timing(stack, kw, k, cluster=None):
+    """Device time of one K-pivot launch over every lane of ``stack`` (a
+    fresh copy each call) and of the plain version; the elements the kernel
+    wrote and the pivots it made; the bound for those elements and the dense
+    bound."""
+    from repro_torch.kernels import simplex_pivot, simplex_pivot_plain, updated_elements
+    from repro_torch.kernels.simplex_pivot import reset_updated
+
+    B, R, C = stack[0].shape
+    reps = 5
+
+    def prepare():
+        return [x.clone() for x in stack]
+
+    reset_updated()
+    ms = cuda_ms(lambda *a: simplex_pivot(*a, k_pivots=k, cluster=cluster, **kw), prepare, reps)
+    elements = updated_elements() // (reps + 1)
+    plain_ms = cuda_ms(lambda *a: simplex_pivot_plain(*a, k_pivots=k, **kw), prepare, reps=3)
+    after = prepare()
+    simplex_pivot(*after, k_pivots=k, cluster=cluster, **kw)
+    pivots = int((after[2] - stack[2]).sum().item())
+    # the least work for these pivots: read the objective row, the entering
+    # and rhs columns and the pivot row, and read + write only the rows whose
+    # entering-column entry is nonzero (the rest are unchanged by the rank-1
+    # update); one fma per updated element
+    nbytes = 8 * (2 * elements + pivots * 2 * (R + C))
+    bound_ms, bound_by = _bound(nbytes, 2 * elements, FP64_FLOP_PER_S)
+    dense_bound_ms = 1e3 * 2 * R * C * 8 * pivots / HBM_BYTES_PER_S
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                dense_bound_ms=dense_bound_ms, pivots=pivots, touched_rows=elements / C,
+                rows_per_pivot=elements / C / max(pivots, 1))
+
+
+def pivot_phase(name, bucket, dev, lanes=None):
+    """The pivot kernel at the bucket's set-up stack and at a mid-solve stack
+    (``MIDSOLVE_ROUNDS`` plain rounds on), or, with ``lanes``, only at the
+    first ``lanes`` lanes of the mid-solve stack: a tail.  At each: held to
+    the plain version on the CPU at K = 1, 4 and 64, and timed at K = 4 with
+    its touched rows, both bounds and the cluster size (at the tail also
+    with 1 and 16 blocks a lane, and at K = 64)."""
     from repro_torch.kernels import simplex_pivot, simplex_pivot_plain
+    from repro_torch.kernels.simplex_pivot import cluster_size
 
     T0, basis0, kw = setup_stack(bucket, dev)
-    B, R, C = T0.shape
-    scale = T0.abs().max().item()
-    zeros = lambda: torch.zeros(B, dtype=torch.int32, device=dev)  # noqa: E731
-    running = lambda: torch.full((B,), -1, dtype=torch.int32, device=dev)  # noqa: E731
-    rows = {}
-    for k in (1, 4):
-        # N launches of each from the same set-up stack, on a slice of lanes
-        sub = [T0[:n_compare].clone(), basis0[:n_compare].clone(),
-               zeros()[:n_compare].clone(), running()[:n_compare].clone()]
-        ker = [x.clone() for x in sub]
-        for _ in range(n_launches):
-            simplex_pivot_plain(*sub, k_pivots=k, **kw)
-            simplex_pivot(*ker, k_pivots=k, **kw)
-        torch.cuda.synchronize()
-        for a, b, what in zip(ker[1:], sub[1:], ("basis", "it", "status")):
-            check(torch.equal(a, b), f"simplex_pivot {name} K={k}: {what} differs from plain")
-        err = (ker[0] - sub[0]).abs().max().item()
-        check(err <= 1e-12 * scale, f"simplex_pivot {name} K={k}: |dT| {err} > 1e-12 max|T|")
-
-        # times: one launch over the whole bucket from its set-up stack
-        def prepare():
-            return T0.clone(), basis0.clone(), zeros(), running()
-
-        def run(fn):
-            return lambda T, b, it, st: fn(T, b, it, st, k_pivots=k, **kw)
-
-        ms = cuda_ms(run(simplex_pivot), prepare, reps=5)
-        plain_ms = cuda_ms(run(simplex_pivot_plain), prepare, reps=3)
-        pivots, touched = pivot_work(*prepare(), kw, k)
-        # the least work for these pivots: read the objective row, the
-        # entering and rhs columns and the pivot row, and read + write only
-        # the rows whose entering-column entry is nonzero (the rest are
-        # unchanged by the rank-1 update); one fma per updated element
-        nbytes = 8 * (2 * touched * C + pivots * 2 * (R + C))
-        flops = 2 * touched * C
-        bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP64_FLOP_PER_S)
-        dense_bound_ms = 1e3 * 2 * R * C * 8 * pivots / HBM_BYTES_PER_S
-        rows[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP64_FLOP_PER_S
-                       else "operations", max_abs_err=err, exact=err == 0.0)
-        emit(phase="kernel", kernel="simplex_pivot", bucket=name, B=B, R=R, C=C, k_pivots=k,
-             compared_lanes=n_compare, compared_launches=n_launches, max_abs_err=err,
-             exact=err == 0.0, pivots_per_launch=pivots, touched_rows=touched, ms=ms,
-             plain_ms=plain_ms, bound_ms=bound_ms, dense_bound_ms=dense_bound_ms,
-             library_ms=None)
+    B = T0.shape[0] if lanes is None else lanes
+    setup = [T0[:B].clone() if lanes else T0, basis0[:B].clone(),
+             torch.zeros(B, dtype=torch.int32, device=dev),
+             torch.full((B,), -1, dtype=torch.int32, device=dev)]
     del T0
     torch.cuda.empty_cache()
+    mid = [x.clone() for x in setup]
+    simplex_pivot_plain(*mid, k_pivots=MIDSOLVE_ROUNDS, **kw)
+    stacks = [("tail", mid)] if lanes else [("set-up", setup), ("mid-solve", mid)]
+    del setup
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for where, stack in stacks:
+        err, compared = 0.0, {}
+        for k, n_launches in ((1, 32), (4, 16), (64, 4)):
+            e, r = pivot_compare(f"{name} {where}", stack, kw, dev, k, min(4, B), n_launches)
+            err, compared[k] = max(err, e), r
+        row = pivot_timing(stack, kw, 4)
+        row.update(max_abs_err=err, cluster=cluster_size(B, sms))
+        extra = {}
+        if lanes:  # what the cluster buys the tail
+            extra = {f"cluster{c}_ms": pivot_timing(stack, kw, 4, cluster=c)["ms"]
+                     for c in (1, 16)}
+            extra["k64_ms"] = pivot_timing(stack, kw, 64)["ms"]
+        rows[where] = row
+        emit(phase="kernel", kernel="simplex_pivot", bucket=name, stack=where, B=B,
+             R=stack[0].shape[1], C=stack[0].shape[2], k_pivots=4, compared_lanes=min(4, B),
+             compared_rounds=compared, library_ms=None, **row, **extra)
+    del stacks, mid
+    torch.cuda.empty_cache()
+    simplex_pivot.clusters = {}
     return rows
 
 
@@ -359,10 +438,24 @@ def progress(msg: str) -> None:
     print(f"[{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
 
 
+def tableau_shapes(insts):
+    """(R, C) of the simplex tableaux of each bucket ``insts`` packs into."""
+    from repro_torch.engine.arena import InstanceArena
+    from repro_torch.engine.batched_lp import build_lp_bucket
+
+    shapes = []
+    for b in InstanceArena(insts).buckets:
+        lp = build_lp_bucket(b)
+        m_ub, n = lp.A_ub.shape[1], lp.c.shape[0]
+        shapes.append((m_ub + lp.A_eq.shape[1] + 1, n + m_ub + 2))
+    return shapes
+
+
 def bulk_phase(groups, dev, cache, phase):
     from repro_torch.core.solver import solve
-    from repro_torch.engine import solve_bulk
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.engine import autotune, solve_bulk
+    from repro_torch.kernels import (launch_counts, reset_launch_counts, simplex_pivot,
+                                     updated_elements)
 
     totals = {"simplex_pivot": 0, "asap_replay": 0}
     for name, insts, golden in groups:
@@ -373,6 +466,8 @@ def bulk_phase(groups, dev, cache, phase):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        clusters = dict(sorted(simplex_pivot.clusters.items()))
+        elements = updated_elements(dev)
         progress(f"{phase} {name}: {len(insts)} instances in {wall:.2f} s")
         for k in totals:
             totals[k] += counts[k]
@@ -426,12 +521,27 @@ def bulk_phase(groups, dev, cache, phase):
             stages = dict(res[0].telemetry["stages"])
         stages["serial_rescue_s"] = sum(r.telemetry["serial_rescue"]["seconds"]
                                         for r in res if "serial_rescue" in r.telemetry)
+        # the pivot kernel's work: the rows it updated (its device counter),
+        # the least time for those bytes against simplex_s, its schedule
+        shapes = tableau_shapes(insts)
+        kernel = dict(k_schedule={f"{R}x{C}": autotune._CACHE.get((R, C, "cuda"))
+                                  for R, C in shapes}, clusters=clusters)
+        if phase == "solve_bulk" and len(shapes) == 1:
+            R, C = shapes[0]
+            nbytes = 16 * elements + 16 * pivots * (R + C)
+            kernel.update(rows_updated=elements / C, rows_per_pivot=elements / C / max(pivots, 1),
+                          update_bound_s=nbytes / HBM_BYTES_PER_S,
+                          dense_bound_s=16 * R * C * pivots / HBM_BYTES_PER_S)
         emit(phase=phase, bucket=name, B=len(insts), statuses=statuses, pivots=pivots,
              rescues=rescues, hits=hits, wall_s=wall, stages=stages, launches=counts,
-             serial_max_rel_diff=worst if phase == "solve_bulk" else None,
+             pivot_kernel=kernel, serial_max_rel_diff=worst if phase == "solve_bulk" else None,
              sample_rescued=sum("serial_rescue" in res[i].telemetry for i in sample))
         if phase == "solve_bulk":
             check(worst <= RTOL, f"{name}: serial solve differs by {worst}")
+            if name in PHASE3:
+                check((pivots, rescues, statuses) == PHASE3[name],
+                      f"{name}: pivots, rescues, statuses {(pivots, rescues, statuses)}, "
+                      f"expected {PHASE3[name]}")
     return totals
 
 
@@ -781,7 +891,8 @@ def campaign_phase(dev):
     from repro_torch.api import Policy, Session
     from repro_torch.core.simulator import simulate
     from repro_torch.eval import build_document, full_spec, run_campaign, validate_campaign
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.engine import autotune
+    from repro_torch.kernels import launch_counts, reset_launch_counts, simplex_pivot
     from repro_torch.obs import trace as obs_trace
 
     golden = json.loads(CAMPAIGN_GOLDEN.read_text())
@@ -798,6 +909,7 @@ def campaign_phase(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        clusters = dict(sorted(simplex_pivot.clusters.items()))
     finally:
         obs_trace.activate(prev)
     doc = build_document(result)
@@ -866,7 +978,9 @@ def campaign_phase(dev):
          ratio_max_rel_diff=worst, label_flips=flips, served_off_backend=events, wall_s=wall,
          stage_s=stage_s, engine_buckets=n_buckets, engine_bucket_s=bucket_s,
          serial_rescues=n_rescues, serial_rescue_s=rescue_s, autotune_probes=n_probes,
-         autotune_probe_s=probe_s, launches=counts, evaluate_gammas_n=len(sample),
+         autotune_probe_s=probe_s, launches=counts, pivot_clusters=clusters,
+         k_pivots_chosen=dict(Counter(e["k_pivots"] for key, e in autotune._CACHE.items()
+                                      if key[2] == "cuda")), evaluate_gammas_n=len(sample),
          evaluate_gammas_max_rel_err=eval_err, evaluate_gammas_launches=eval_launches)
     return counts
 
@@ -1072,9 +1186,11 @@ def main() -> int:
 
     # phase 2: kernels vs plain at the main path's shapes
     piv = {}
-    for name, insts in (("chain", chain), ("star", star)):
+    for name, insts, lanes in (("chain", chain, None), ("star", star, None),
+                               ("chain_ret_rel", chain_rr, 6)):
         (bucket,) = InstanceArena(insts).buckets
-        piv[name] = pivot_phase(name, bucket, dev)
+        piv[name] = pivot_phase(name, bucket, dev, lanes)
+        progress(f"pivot kernel {name}: {json.dumps({k: v['ms'] for k, v in piv[name].items()})}")
     rep = {}
     for name, insts in (("chain", chain), ("star", star), ("chain_ret_rel", chain_rr),
                         ("star_ret_rel", star_rr), ("m1", None)):
@@ -1110,13 +1226,13 @@ def main() -> int:
     # phase 6: the planner's front door and the golden campaign
     campaign_phase(dev)
 
-    p, r = piv["chain"][4], rep["chain"]
+    p, r = piv["chain"]["set-up"], rep["chain"]
     f, d, m = fa["causal_f32"], da["len544_w0_float32"], ssd["mamba2_f32"]
     n = rms["llama_prefill_f32"]
     kernels = [
         dict(name="simplex_pivot", route="cuda", source="src/repro_torch/csrc/simplex_pivot.cu",
              replaces="src/repro/kernels/simplex_pivot.py:150", launches=launches["simplex_pivot"],
-             max_abs_err=max(piv[t][k]["max_abs_err"] for t in piv for k in piv[t]),
+             max_abs_err=max(row["max_abs_err"] for t in piv for row in piv[t].values()),
              ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
              library_ms=None),
         dict(name="asap_replay", route="cuda", source="src/repro_torch/csrc/asap_replay.cu",

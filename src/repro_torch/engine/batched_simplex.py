@@ -30,12 +30,15 @@ false-optimal guard (:func:`_demote_false_optimal`) stay NumPy on the host,
 as in the reference.
 
 The phase driver is the compaction-epoch driver (:func:`_phase_compact`):
-bursts of ``n_launches`` fused K-pivot launches, after each of which the
-host drops the finished lanes from the list of lane ids the next launches
-take.  The kernel updates the stack in place and reads its lanes through
-that list, so compaction moves no tableau bytes at all — the reference
-gathered and scattered the whole stack through the host between epochs.
-Lane arithmetic does not depend on the lane's position, so the results are
+epochs of ``n_launches`` fused K-pivot launches, enqueued back to back,
+after which the host reads how many lanes still run (the epoch's one
+synchronisation) and drops the finished ones from the list of lane ids the
+next launches take.  A finished lane's blocks exit at once, so the
+launches of an epoch after every lane is done cost a few microseconds each.
+The kernel updates the stack in place and reads its lanes through that
+list, so compaction moves no tableau bytes at all — the reference gathered
+and scattered the whole stack through the host between epochs.  Lane
+arithmetic does not depend on the lane's position, so the results are
 bit-identical to the masked driver (:func:`_phase_masked`, every lane,
 one pivot per launch), which stays as the parity reference.
 
@@ -50,7 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import resolve_device, to_tensor
-from repro_torch.kernels import simplex_pivot
+from repro_torch.kernels import simplex_pivot, simplex_pivot_lanes
 
 __all__ = ["BatchedSimplexResult", "solve_simplex_batched", "STATUS"]
 
@@ -188,24 +191,26 @@ def _phase_masked(T, basis, ncols_price, max_iter, bland_after):
 
 def _phase_compact(T, basis, ncols_price, max_iter, bland_after, k_pivots,
                    n_launches):
-    """Compaction epochs: up to ``n_launches`` K-pivot launches over the
-    active lanes (stopping early once none runs), then the finished lanes
-    leave the list.  Same contract and bits as :func:`_phase_masked`."""
+    """Compaction epochs: ``n_launches`` K-pivot launches over the active
+    lanes, one read of how many still run, then the finished lanes leave
+    the list.  Same contract and bits as :func:`_phase_masked`."""
     B = T.shape[0]
     dev = T.device
     it = torch.zeros(B, dtype=torch.int32, device=dev)
     status = torch.full((B,), _RUNNING, dtype=torch.int32, device=dev)
     lanes = torch.arange(B, dtype=torch.int32, device=dev)
     while lanes.numel():
-        idx = lanes.long()
         for _ in range(n_launches):
-            simplex_pivot(T, basis, it, status, ncols_price=ncols_price,
-                          bland_after=bland_after, max_iter=max_iter,
-                          k_pivots=k_pivots, lanes=lanes)
-            live = _running(it[idx], status[idx], max_iter)
-            if not bool(live.any()):
-                break
-        lanes = lanes[live].contiguous()
+            simplex_pivot_lanes(T, basis, it, status, lanes, ncols_price=ncols_price,
+                                bland_after=bland_after, max_iter=max_iter,
+                                k_pivots=k_pivots)
+        idx = lanes.long()
+        live = _running(it[idx], status[idx], max_iter)
+        n_live = int(live.sum())  # the epoch's one synchronisation
+        # the running lanes, in order: a stable sort puts them first, so the
+        # list shrinks without a second read of the card
+        first = torch.argsort((~live).to(torch.int8), stable=True)[:n_live]
+        lanes = lanes.index_select(0, first)
     return it, torch.where(status == _RUNNING, _ITER_LIMIT, status)
 
 
@@ -259,7 +264,7 @@ def _solve_cold(c, A_ub, b_ub, A_eq, b_eq, max_iter, compact):
 
     T, basis, c_s, col_scale = _setup(c, A_ub, b_ub, A_eq, b_eq)
     if compact:
-        tune = pivot_schedule(m_rows + 1, dummy + 2, c.device)
+        tune = pivot_schedule(T, basis, dummy, bland_after, max_iter)
         run = lambda: _phase_compact(  # noqa: E731
             T, basis, dummy, max_iter, bland_after, tune["k_pivots"], tune["n_launches"])
     else:

@@ -14,7 +14,8 @@ wrapper                replaces (JAX package)                      CUDA source
 
 A wrapper launches its kernel for tensors on the card and runs the plain
 version for tensors on the CPU, and never falls back from one to the
-other.  ``<wrapper>.launches`` counts kernel launches.  The kernels are
+other.  ``<wrapper>.launches`` counts kernel launches (and
+``simplex_pivot.clusters`` the pivot kernel's launches by cluster size).  The kernels are
 compiled from ``csrc/`` at first use (:mod:`repro_torch.kernels.build`).
 """
 
@@ -22,10 +23,12 @@ from .asap_replay import asap_replay, asap_replay_plain
 from .decode_attention import decode_attention, decode_attention_plain
 from .flash_attention import flash_attention, flash_attention_plain
 from .rmsnorm import rms_norm, rms_norm_plain
-from .simplex_pivot import simplex_pivot, simplex_pivot_plain
+from .simplex_pivot import (reset_updated, simplex_pivot, simplex_pivot_lanes,
+                            simplex_pivot_plain, updated_elements)
 from .ssd_scan import ssd_scan, ssd_scan_plain, ssd_scan_tolerance
 
-__all__ = ["simplex_pivot", "simplex_pivot_plain", "asap_replay", "asap_replay_plain",
+__all__ = ["simplex_pivot", "simplex_pivot_plain", "simplex_pivot_lanes", "updated_elements",
+           "asap_replay", "asap_replay_plain",
            "flash_attention", "flash_attention_plain", "decode_attention",
            "decode_attention_plain", "ssd_scan", "ssd_scan_plain", "ssd_scan_tolerance",
            "rms_norm", "rms_norm_plain", "reset_launch_counts", "launch_counts"]
@@ -34,9 +37,12 @@ _WRAPPERS = (simplex_pivot, asap_replay, flash_attention, decode_attention, ssd_
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0, and the pivot kernel's counts
+    by cluster size and of updated elements."""
     for w in _WRAPPERS:
         w.launches = 0
+    simplex_pivot.clusters = {}
+    reset_updated()
 
 
 def launch_counts() -> dict:

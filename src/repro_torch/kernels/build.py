@@ -46,9 +46,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # T, basis, it, status, lanes, n_lanes, R, C, ncols_price, bland_after,
-    # max_iter, k_pivots, stream
-    "repro_simplex_pivot": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # T, basis, it, status, lanes, n_lanes, B, R, C, ncols_price, bland_after,
+    # max_iter, k_pivots, cluster, updated, stream
+    "repro_simplex_pivot": [_P] * 5 + [_I] * 9 + [_P, _P],
+    # R, C, cluster, out
+    "repro_simplex_pivot_max_clusters": [_I, _I, _I, _P],
     # w, z, latency, tau, vcomm, vcomp, rel, ret, valid, gamma,
     # cs, ce, ps, pe, rs, re, mk, B, m, T, star, stream
     "repro_asap_replay": [_P] * 17 + [_I, _I, _I, _I, _P],

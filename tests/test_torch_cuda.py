@@ -19,8 +19,8 @@ from repro_torch.core.instance import random_instance
 from repro_torch.kernels import (asap_replay, asap_replay_plain, decode_attention,
                                  decode_attention_plain, flash_attention, flash_attention_plain,
                                  launch_counts, reset_launch_counts, rms_norm, rms_norm_plain,
-                                 simplex_pivot, simplex_pivot_plain, ssd_scan, ssd_scan_plain,
-                                 ssd_scan_tolerance)
+                                 simplex_pivot, simplex_pivot_lanes, simplex_pivot_plain,
+                                 ssd_scan, ssd_scan_plain, ssd_scan_tolerance, updated_elements)
 from repro_torch.kernels.ssd_scan import pick_chunk
 
 pytestmark = pytest.mark.cuda
@@ -45,19 +45,266 @@ def _stack(rng, B, R, C):
     return [torch.from_numpy(a) for a in (T, basis, it, status)]
 
 
-@pytest.mark.parametrize("k_pivots", [1, 4])
-@pytest.mark.parametrize("shape", [(4, 7, 13), (3, 300, 700)])
+# The pivot kernel is held to the plain version run on the CPU: there its
+# update is one fused multiply-add per element, the function's definition
+# (bit for bit the reference's, tests/test_torch_kernels.py), while on the
+# card PyTorch's addcmul rounds the product before the sum, an ulp away.
+def plain_on_cpu(base, **kw):
+    return simplex_pivot_plain(*[x.detach().cpu().clone() for x in base], **kw)
+
+
+def assert_pivots_equal(kern, plain):
+    """The kernel's basis, it and status equal the plain version's, and its
+    tableau differs by exactly 0 (NaN where the plain version has NaN)."""
+    kern, plain = [x.cpu() for x in kern], [x.cpu() for x in plain]
+    for a, b in zip(kern[1:], plain[1:]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(kern[0], plain[0], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("k_pivots", [1, 4, 64])
+@pytest.mark.parametrize("shape", [(4, 7, 13), (3, 300, 700), (5, 301, 701)])
 def test_simplex_pivot_kernel_matches_plain_on_card(card, shape, k_pivots):
     base = _stack(np.random.default_rng(sum(shape)), *shape)
     kw = dict(ncols_price=shape[2] - 1, bland_after=3, max_iter=50, k_pivots=k_pivots)
-    plain = simplex_pivot_plain(*[x.to(card) for x in base], **kw)
+    plain = plain_on_cpu(base, **kw)
     reset_launch_counts()
     kern = simplex_pivot(*[x.to(card) for x in base], **kw)
     torch.cuda.synchronize()
     assert launch_counts()["simplex_pivot"] == 1
-    for a, b in zip(kern[1:], plain[1:]):
-        assert torch.equal(a, b)
-    assert (kern[0] - plain[0]).abs().max().item() <= 1e-12 * base[0].abs().max().item()
+    assert_pivots_equal(kern, plain)
+
+
+def _sparse_stack(rng, B, R, C, density):
+    """A stack whose columns are mostly exact zeros, a share of them -0.0,
+    with a dense objective row and rhs column, so that the entering columns
+    hold both zeros."""
+    T = rng.uniform(0.1, 1.0, size=(B, R, C)) * (rng.random((B, R, C)) < density)
+    T = np.where((T == 0) & (rng.random((B, R, C)) < 0.5), -0.0, T)
+    T[:, -1, :] = rng.uniform(-1.0, 0.5, size=(B, C))
+    T[:, :, -1] = rng.uniform(0.5, 1.5, size=(B, R))
+    basis = np.stack([rng.permutation(C - 1)[: R - 1] for _ in range(B)]).astype(np.int32)
+    return [torch.from_numpy(a) for a in (T, basis, np.zeros(B, np.int32),
+                                          np.full(B, -1, np.int32))]
+
+
+def _rows_changed(T, basis, it, status, kw):
+    """Elements a row-skipping update of one round must write: for every
+    lane that pivots, C for each row whose pcol' is nonzero, all R rows'
+    worth when the scaled pivot row is not finite (the plain version's
+    choices, written out)."""
+    B, R, C = T.shape
+    obj = T[:, -1, :kw["ncols_price"]]
+    neg = obj < -1e-9
+    cidx = torch.arange(obj.shape[1], device=T.device)
+    bland = torch.where(neg, cidx, obj.shape[1]).argmin(dim=1)
+    col = torch.where(it < kw["bland_after"], obj.argmin(dim=1), bland)
+    pcol = T.gather(2, col[:, None, None].expand(B, R, 1))[:, :, 0]
+    pos = pcol[:, :-1] > 1e-9
+    ratios = torch.where(pos, T[:, :-1, -1] / torch.where(pos, pcol[:, :-1], 1.0), torch.inf)
+    best = ratios.amin(dim=1)
+    ties = (ratios - best[:, None]).abs() <= 1e-12
+    row = torch.argmin(torch.where(ties, basis.long(), 2**31 - 1), dim=1)
+    go = ((status == -1) & (it < kw["max_iter"]) & neg.any(dim=1) & torch.isfinite(best))
+    total = 0
+    for b in go.nonzero()[:, 0].tolist():
+        piv = pcol[b, row[b]]
+        p = pcol[b].clone()
+        p[row[b]] = piv - 1.0
+        dense = not bool(torch.isfinite(T[b, row[b]] / piv).all())
+        total += C * (R if dense else int((p != 0).sum()))
+    return total
+
+
+@pytest.mark.parametrize("k_pivots", [1, 4, 64])
+@pytest.mark.parametrize("density", [0.02, 0.2])
+@pytest.mark.parametrize("shape", [(6, 40, 81), (4, 301, 701)])
+def test_simplex_pivot_kernel_sparse_stacks_on_card(card, shape, density, k_pivots):
+    """Entering columns of exact zeros and -0.0: the kernel skips those rows
+    and still gives the plain version's bits; one round writes exactly the
+    rows a nonzero pcol' names."""
+    base = _sparse_stack(np.random.default_rng(sum(shape) + int(100 * density)), *shape,
+                         density)
+    kw = dict(ncols_price=shape[2] - 1, bland_after=3, max_iter=200)
+    want = _rows_changed(*[x.to(card) for x in base], kw)
+    reset_launch_counts()
+    one = simplex_pivot(*[x.to(card) for x in base], k_pivots=1, **kw)
+    assert updated_elements() == want > 0
+    assert_pivots_equal(one, plain_on_cpu(base, k_pivots=1, **kw))
+    plain = plain_on_cpu(base, k_pivots=k_pivots, **kw)
+    kern = simplex_pivot(*[x.to(card) for x in base], k_pivots=k_pivots, **kw)
+    torch.cuda.synchronize()
+    assert_pivots_equal(kern, plain)
+
+
+def _unit_pivot_stack(B, R, C):
+    """Every lane's entering column is column 0 (the objective row's only
+    negative entry) and its pivot element is exactly 1.0."""
+    rng = np.random.default_rng(R + C)
+    T = rng.uniform(0.1, 1.0, size=(B, R, C)) * (rng.random((B, R, C)) < 0.3)
+    T[:, -1, :] = rng.uniform(0.1, 0.5, size=(B, C))
+    T[:, -1, 0] = -1.0
+    T[:, :, -1] = rng.uniform(0.5, 1.5, size=(B, R))
+    T[:, :-1, 0] = 0.0
+    for b in range(B):
+        T[b, b % (R - 1), 0] = 1.0
+        T[b, (b + 1) % (R - 1), 0] = -0.5
+    basis = np.tile(np.arange(1, R, dtype=np.int32)[None, :], (B, 1))
+    return [torch.from_numpy(a) for a in (T, basis, np.zeros(B, np.int32),
+                                          np.full(B, -1, np.int32))]
+
+
+@pytest.mark.parametrize("cluster", [1, 4])
+def test_simplex_pivot_kernel_unit_pivot_on_card(card, cluster):
+    """piv == 1.0 makes the pivot row's pcol' 0: the kernel leaves that row
+    alone (T[row] / 1 == T[row]) and updates only the other nonzero rows."""
+    B, R, C = 3, 50, 91
+    base = _unit_pivot_stack(B, R, C)
+    kw = dict(ncols_price=C - 1, bland_after=100, max_iter=100, k_pivots=1)
+    reset_launch_counts()
+    plain = plain_on_cpu(base, **kw)
+    kern = simplex_pivot(*[x.to(card) for x in base], cluster=cluster, **kw)
+    torch.cuda.synchronize()
+    assert_pivots_equal(kern, plain)
+    assert torch.equal(kern[2].cpu(), torch.ones(B, dtype=torch.int32))
+    assert updated_elements() == B * 2 * C  # the -0.5 row and the objective row
+
+
+def _diagonal_stack(B, R, C):
+    """Lanes that pivot four times, on columns 0-3 in turn (Bland's rule:
+    the first negative reduced cost), each pivot element 2.0 on the
+    diagonal; lane b's first pivot row holds an inf at column 7 + 30 b."""
+    rng = np.random.default_rng(R * C)
+    T = rng.uniform(0.1, 1.0, size=(B, R, C)) * (rng.random((B, R, C)) < 0.3)
+    T[:, :, :4] = 0.0
+    for k in range(4):
+        T[:, k, k] = 2.0
+        T[:, 5 + k, k] = -0.5
+    T[:, -1, :] = 0.3
+    T[:, -1, :4] = [-1.0, -0.9, -0.8, -0.7]
+    T[:, :, -1] = rng.uniform(0.5, 1.5, size=(B, R))
+    for b in range(B):
+        T[b, 0, 7 + 30 * b] = np.inf
+    basis = np.tile(np.arange(4, R + 3, dtype=np.int32)[None, :], (B, 1))
+    return [torch.from_numpy(a) for a in (T, basis, np.zeros(B, np.int32),
+                                          np.full(B, -1, np.int32))]
+
+
+@pytest.mark.parametrize("k_pivots", [1, 4])
+@pytest.mark.parametrize("cluster", [1, 8])
+def test_simplex_pivot_kernel_nonfinite_pivot_row_on_card(card, cluster, k_pivots):
+    """An inf in the pivot row: the dense update writes NaN into every row
+    whose pcol' is 0 at that column, and so must the kernel (its block whose
+    slice holds the inf updates every row); the next pivot rows hold that
+    NaN, so every round here takes that branch."""
+    B, R, C = 3, 50, 91
+    base = _diagonal_stack(B, R, C)
+    kw = dict(ncols_price=C - 1, bland_after=0, max_iter=100, k_pivots=k_pivots)
+    plain = plain_on_cpu(base, **kw)
+    kern = simplex_pivot(*[x.to(card) for x in base], cluster=cluster, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(plain[0]).any()), "the case must reach the NaN"
+    assert (plain[2] == k_pivots).all(), "every lane pivots in every round"
+    assert_pivots_equal(kern, plain)
+
+
+def _solve_both_phases(card, bucket, k_pivots):
+    """Both phases of a real bucket's set-up stack to the end, the kernel
+    and the plain version (on the CPU) launch for launch, compared after
+    every launch.  The set-up and the step between the phases run once, on
+    the CPU, and the card's side starts each phase from a copy."""
+    from repro_torch.convert import to_tensor
+    from repro_torch.engine import batched_simplex as bs
+    from repro_torch.engine.batched_lp import build_lp_bucket
+
+    lp = build_lp_bucket(bucket)
+    c = np.tile(lp.c, (bucket.B, 1))
+    args = [to_tensor(a, "cpu", torch.float64) for a in (c, lp.A_ub, lp.b_ub, lp.A_eq, lp.b_eq)]
+    n, m_ub = c.shape[1], lp.A_ub.shape[1]
+    m_rows, dummy = m_ub + lp.A_eq.shape[1], n + m_ub
+    kw = dict(ncols_price=dummy, bland_after=max(200, 4 * (m_rows + 1)), max_iter=20_000,
+              k_pivots=k_pivots)
+    T, basis, c_s, _ = bs._setup(*args)
+    pivots = 0
+    for phase in (1, 2):
+        B = T.shape[0]
+        plain = [T, basis, torch.zeros(B, dtype=torch.int32), torch.full((B,), -1, dtype=torch.int32)]
+        kern = [x.to(card) for x in plain]
+        while bool(((plain[3] == -1) & (plain[2] < kw["max_iter"])).any()):
+            simplex_pivot(*kern, **kw)
+            simplex_pivot_plain(*plain, **kw)
+            assert_pivots_equal(kern, plain)
+        pivots += int(plain[2].sum())
+        if phase == 1:
+            bs._between_phases(T, basis, plain[3], c_s, n, dummy)
+    return pivots
+
+
+@pytest.mark.parametrize("k_pivots", [1, 4, 64])
+@pytest.mark.parametrize("family", ["chain", "star", "chain_ret_rel", "star_ret_rel"])
+def test_simplex_pivot_kernel_real_tableaux_to_the_end_on_card(card, family, k_pivots):
+    """Set-up tableaux of real buckets (m = 4, 2 loads, q = 2), both phases
+    to the end: every launch equals the plain version's."""
+    from repro_torch.core.instance import Instance, Loads
+    from repro_torch.engine.arena import InstanceArena
+
+    rng = np.random.default_rng(17)
+    ret = family.endswith("ret_rel")
+    insts = []
+    for _ in range(6):
+        inst = random_instance(rng, m=4, n_loads=2, q=2, topology=family.split("_")[0],
+                               return_ratio=0.5 if ret else 0.0, with_latency=True)
+        if ret:  # release dates, as the campaign draws them
+            scale = float(np.mean(inst.platform.w) * inst.loads.v_comp.sum()) / inst.m
+            ld = inst.loads
+            inst = Instance(inst.platform, Loads(
+                v_comm=ld.v_comm, v_comp=ld.v_comp, release=rng.uniform(0, 0.3 * scale, inst.N),
+                return_ratio=ld.return_ratio), q=inst.q)
+        insts.append(inst)
+    (bucket,) = InstanceArena(insts).buckets
+    assert _solve_both_phases(card, bucket, k_pivots) > 0
+
+
+@pytest.mark.parametrize("n_lanes", [1, 5, 12, 20, 40, 100, 140])
+def test_simplex_pivot_kernel_cluster_sizes_on_card(card, n_lanes):
+    """Lane lists of every length class launch every cluster size (16, 16,
+    8, 4, 2, 1 and 1 blocks a lane on a 132-SM card), and each equals the
+    plain version; so does an explicit 16-block cluster."""
+    from repro_torch.kernels.simplex_pivot import cluster_size
+
+    B, R, C = 150, 64, 201
+    base = _sparse_stack(np.random.default_rng(n_lanes), B, R, C, 0.1)
+    rng = np.random.default_rng(n_lanes + 1)
+    lanes = torch.from_numpy(np.sort(rng.choice(B, n_lanes, replace=False)).astype(np.int32))
+    kw = dict(ncols_price=C - 1, bland_after=30, max_iter=200, k_pivots=16)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    reset_launch_counts()
+    kern = simplex_pivot(*[x.to(card) for x in base], lanes=lanes.to(card), **kw)
+    plain = plain_on_cpu(base, lanes=lanes, **kw)
+    torch.cuda.synchronize()
+    want = {1: 16, 5: 16, 12: 8, 20: 4, 40: 2, 100: 1, 140: 1}[n_lanes] if sms == 132 else None
+    assert simplex_pivot.clusters == {want or cluster_size(n_lanes, sms): 1}
+    assert_pivots_equal(kern, plain)
+    wide = simplex_pivot(*[x.to(card) for x in base], lanes=lanes.to(card), cluster=16, **kw)
+    torch.cuda.synchronize()
+    assert_pivots_equal(wide, plain)
+
+
+def test_simplex_pivot_lanes_entry_on_card(card):
+    """The epoch driver's entry (no host check of the lane ids) gives the
+    checked entry's bits, and the kernel ignores an id outside the stack."""
+    base = _sparse_stack(np.random.default_rng(3), 8, 40, 81, 0.1)
+    kw = dict(ncols_price=80, bland_after=30, max_iter=200, k_pivots=4)
+    lanes = torch.tensor([6, 1, 3], dtype=torch.int32, device=card)
+    want = simplex_pivot(*[x.to(card) for x in base], lanes=lanes, **kw)
+    got = simplex_pivot_lanes(*[x.to(card) for x in base], lanes, **kw)
+    torch.cuda.synchronize()
+    assert_pivots_equal(got, want)
+    stray = simplex_pivot_lanes(*[x.to(card) for x in base],
+                                torch.tensor([6, 8, -1, 1, 3], dtype=torch.int32, device=card),
+                                **kw)
+    torch.cuda.synchronize()
+    assert_pivots_equal(stray, want)
 
 
 @pytest.mark.parametrize("with_ret", [False, True])

@@ -44,6 +44,7 @@ from repro_torch.convert import from_reference, instance_from_reference
 from repro_torch.engine import SolutionCache, solve_bulk
 from repro_torch.engine.arena import InstanceArena
 from repro_torch.engine.batched_lp import build_lp_bucket
+from repro_torch.engine import autotune
 from repro_torch.engine import batched_simplex as pbs
 
 REPO = Path(__file__).resolve().parents[1]
@@ -240,7 +241,14 @@ def test_lp_stacks_byte_equal(reference, name):
             assert getattr(lp, k).tobytes() == ref[k].tobytes(), k
 
 
-@pytest.mark.parametrize("compact", [True, False])
+# the phase drivers: the compaction-epoch driver at its first schedule
+# (k_pivots 2, 3 launches an epoch; id "True"), the masked driver ("False"),
+# and the compaction driver at each K the autotuner sweeps, with its epochs
+SCHEDULES = [pytest.param((2, 3), id="True"), pytest.param(None, id="False")] + [
+    pytest.param((k, max(1, autotune._EPOCH_PIVOTS // k)), id=f"K{k}") for k in autotune._SWEEP]
+
+
+@pytest.mark.parametrize("compact", SCHEDULES)
 @pytest.mark.parametrize("name", POPS)
 def test_phases_from_reference_setup_bit_identical(reference, name, compact):
     """From the reference's own set-up stack, the port's phases reproduce
@@ -257,7 +265,7 @@ def test_phases_from_reference_setup_bit_identical(reference, name, compact):
 
         def run():
             if compact:
-                return pbs._phase_compact(T_, b_, dummy, 20_000, bland_after, 2, 3)
+                return pbs._phase_compact(T_, b_, dummy, 20_000, bland_after, *compact)
             return pbs._phase_masked(T_, b_, dummy, 20_000, bland_after)
 
         it1, st1 = run()
