@@ -11,8 +11,10 @@ Phases, each printing one JSON line:
 1. ``device``: the card (``nvidia-smi``), torch and CUDA versions, the
    kernels' build time;
 2. ``kernel``: each kernel against its plain version on the card, at the
-   main paths' shapes (flash attention bounded by its route: bfloat16 on
-   the tensor cores, float32 as split TF32, three TF32 products each) (m = 10 processors, 5 loads, q = 5 installments:
+   main paths' shapes (flash attention and the SSD scan bounded by their
+   route: bfloat16 on the tensor cores, float32 as split TF32, three TF32
+   products each; the SSD scan's three kernels also timed one by one from
+   the profiler) (m = 10 processors, 5 loads, q = 5 installments:
    chain tableau 1089 x 1811, star 705 x 1427; attention at llama3.2-3b's
    and hymba-1.5b's heads with a batch of 4 prompts of 512 tokens and a
    544-entry cache; the
@@ -644,8 +646,10 @@ def decode_phase(dev):
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, decode_attention_plain
+    from repro_torch.kernels.decode_attention import decode_split
 
     B, Smax = 4, 544
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     flush = torch.empty(2 * L2_BYTES // 4, device=dev)
     rows = {}
     for tag, heads, dtype in (("", LLAMA, torch.float32), ("", LLAMA, torch.bfloat16),
@@ -693,7 +697,8 @@ def decode_phase(dev):
             rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                               library_ms=library_ms, max_abs_err=err)
             emit(phase="kernel", kernel="decode_attention", case=name, B=B, H=H, KVH=KVH, D=D,
-                 Smax=Smax, cache_len=n, window=window, dtype=str(dtype), max_abs_err=err,
+                 Smax=Smax, split=decode_split(B, KVH, H // KVH, Smax, n_sms),
+                 cache_len=n, window=window, dtype=str(dtype), max_abs_err=err,
                  tol=ATTN_TOL[dtype], ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                  library_ms=library_ms, library_max_abs_err=lib_err, bound_ms=bound_ms,
                  bound_by=bound_by, bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
@@ -728,22 +733,56 @@ def ssd_inputs(dev, B, S, H, P, N, dtype, decay, seed):
 def ssd_cost(args, y, L):
     """Bytes (each input read once, the output written once), and the
     float32 operations of the cheaper of two ways to compute the function:
-    the chunked dual form (C B^T and the decayed scores times xbar over the
-    visible pairs of every chunk, and the carried state's two products
-    between chunks, not before the first or after the last), or the
-    step-by-step recurrence (per step and head, s = a s + xbar B^T is a
+    the chunked dual form (C B^T over the visible pairs of every chunk, once
+    per group, since all of a group's heads share it; the decayed scores
+    times xbar over the visible pairs, per head; and the carried state's two
+    products between chunks, not before the first or after the last), or
+    the step-by-step recurrence (per step and head, s = a s + xbar B^T is a
     multiply and a multiply-add per state element and y = s C a
     multiply-add: 5 P N).  The decay factors and the D x term (O(L^2 + L P)
-    per chunk) are left out of both.  Returns (bytes, flops, both counts)."""
+    per chunk) are left out of both.  Also the operations of the kernels'
+    route, the chunked form's products on the tensor cores in TF32: three
+    products each for a pair of float32 operands (split TF32), two where one
+    operand is bfloat16 (exact in TF32), one where both are.  Returns
+    (bytes, flops, the route's TF32 flops, the counts)."""
     x, dt, A, Bm, Cm, D = args
     B, S, H, P = x.shape
-    N = Bm.shape[-1]
+    G, N = Bm.shape[-2], Bm.shape[-1]
     nc = S // L
     nbytes = sum(t.numel() * t.element_size() for t in (x, dt, A, Bm, Cm, D, y))
     pairs = L * (L + 1) // 2
-    chunked = 2 * B * H * (nc * pairs * (N + P) + (nc - 1) * 2 * L * P * N)
+    scores = 2 * B * G * nc * pairs * N
+    intra = 2 * B * H * nc * pairs * P
+    state = 2 * B * H * (nc - 1) * 2 * L * P * N  # xbar B^T and C s
+    chunked = scores + intra + state
     recurrence = 5 * B * H * S * P * N
-    return nbytes, min(chunked, recurrence), dict(chunked=chunked, recurrence=recurrence)
+    bf16 = x.dtype == torch.bfloat16
+    tf32 = (1 if bf16 else 3) * scores + 3 * intra + (2 if bf16 else 3) * state
+    return nbytes, min(chunked, recurrence), tf32, dict(chunked=chunked, recurrence=recurrence,
+                                                        tf32_route=tf32)
+
+
+SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
+
+
+def kernel_stage_ms(fn, reps: int) -> dict:
+    """Mean device milliseconds a call of each SSD kernel, from
+    torch.profiler over ``reps`` calls of ``fn`` (after one warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {k: 0.0 for k in SSD_KERNELS}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in SSD_KERNELS:
+                if k in e.name:
+                    out[k] += e.device_time / 1e3 / reps
+    return out
 
 
 def ssd_phase(dev):
@@ -787,19 +826,27 @@ def ssd_phase(dev):
             check(carried >= 0.05 * scale and err <= 1e-3 * carried,
                   f"ssd_scan {name}: the carried state is {carried} of max |y| {scale}, "
                   f"the kernel's error {err}")
-        nbytes, flops, counts = ssd_cost(args, got, L)
-        bound_ms, bound_by = _bound(nbytes, flops, FP32_FLOP_PER_S)
+        nbytes, flops, tf32_flops, counts = ssd_cost(args, got, L)
+        # the bound follows the kernels' route, the chunked form's products
+        # on the tensor cores in (split) TF32; the CUDA cores' float32 figure
+        # for the least work is kept beside it
+        bound_ms, bound_by = _bound(nbytes, tf32_flops, TF32_FLOP_PER_S)
+        bound_cuda_cores_ms = _bound(nbytes, flops, FP32_FLOP_PER_S)[0]
         ms = device_ms(lambda *a: ssd_scan(*a, chunk=SSD_CHUNK), lambda: args, reps=10)
         call_ms = cuda_ms(lambda *a: ssd_scan(*a, chunk=SSD_CHUNK), lambda: args, reps=10)
         plain_ms = device_ms(lambda *a: ssd_scan_plain(*a, chunk=L), lambda: args, reps=3)
+        stage_ms = kernel_stage_ms(lambda: ssd_scan(*args, chunk=SSD_CHUNK), reps=5)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=None, max_abs_err=err)
         emit(phase="kernel", kernel="ssd_scan", case=name, B=B, S=S, L=L, dtype=str(dtype),
              decay=decay, **heads, max_abs_err=err, tol_use=use, max_abs_y=scale,
              carried_state_max=carried, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-             library_ms=None, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+             library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+             bound_route="TF32 tensor cores: split TF32 (3 products) for float32 operands, "
+                         "fewer where an operand is bfloat16",
+             bound_cuda_cores_ms=bound_cuda_cores_ms, stage_ms=stage_ms, flops=flops,
              flops_chunked=counts["chunked"], flops_recurrence=counts["recurrence"],
-             bytes=nbytes, tflops=flops / ms / 1e9)
+             flops_tf32_route=tf32_flops, bytes=nbytes, tflops=flops / ms / 1e9)
         del args, got, want, tol, diff, alone, cut, x, dt, A, Bm, Cm, D
         torch.cuda.empty_cache()
     return rows
@@ -1017,9 +1064,9 @@ def _device_time_by_group(prof):
         name = e.name
         if "flash_attention_kernel" in name:
             key = "flash_attention"
-        elif "decode_partial_kernel" in name or "decode_combine_kernel" in name:
+        elif "decode_attention_kernel" in name:
             key = "decode_attention"
-        elif "ssd_scan_kernel" in name:
+        elif any(k in name for k in SSD_KERNELS):
             key = "ssd_scan"
         elif any(t in name.lower() for t in ("gemm", "cutlass", "splitkreduce")):
             key = "matmul"

@@ -72,7 +72,18 @@ def solve_batch(
     a :class:`repro_torch.engine.cache.SolutionCache` to reuse solutions across
     calls (engine backends only).
 
+    .. deprecated::
+       Use ``repro_torch.api.Session.solve_bulk`` — it returns versioned
+       :class:`PlanArtifact`\\ s and owns the cache for you.
     """
+    import warnings
+
+    warnings.warn(
+        "solve_batch is deprecated: use repro_torch.api.Session.solve_bulk "
+        "(one session owns the cache and returns PlanArtifacts)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
     reqs = [SolveRequest(instance=inst, objective=objective) for inst in instances]
     return get_backend(backend, cache=cache).solve_many(reqs)
 

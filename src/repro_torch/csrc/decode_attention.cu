@@ -8,66 +8,67 @@
 // SMEM, kv blocks are a sequential grid axis carrying the partial softmax in
 // VMEM, and blocks past `cache_len` are skipped.  Here `cache_len` is an
 // int32 in device memory that every block reads itself, so a decode loop
-// needs no host round trip (and can later be captured in a CUDA graph).
+// needs no host round trip (and can be captured in a CUDA graph).
 //
 // Layout: q and out [B, 1, H, D], caches [B, Smax, KVH, D], read through
-// their strides (the last dimension contiguous).  float32 or bfloat16 in,
-// float32 inside, out in the input type.
+// their strides (the last dimension contiguous; the caches 16-byte aligned
+// with strides of whole 16-byte units, as the wrapper checks).  float32 or
+// bfloat16 in, float32 inside, out in the input type.
 //
 // What bounds it on this card: bytes.  A call must read the valid K and V
-// rows once (at the slice's shape, B = 4, KVH = 8, D = 128, 544 entries,
+// rows once (llama3.2-3b's decode, B = 4, KVH = 8, D = 128, 544 entries,
 // float32: 17.8 MB, 5.3 us at 3.35 TB/s) and does 4 flops per element read,
-// far below the card's ~20 flops per byte.  So the design is about reading
-// the cache once, from many SMs at a time:
-//  * split-KV (flash-decoding): pass 1 runs one block per (b, kv head,
-//    64-entry chunk of the cache).  One block per (b, h) walking the whole
-//    cache would give B * H = 96 blocks for 132 SMs, each with a serial
-//    walk; the split gives B * KVH * ceil(Smax / 64) = 288 here.  A chunk
-//    that holds no valid entry (past cache_len, or before the window) exits
-//    before reading anything, so the work follows the filled cache, not the
-//    allocated one;
-//  * a block serves all H / KVH query heads of its kv head, so each K and V
-//    row is read from device memory once, not once per query head;
-//  * pass 2 combines the chunks' (max, denominator, accumulator) for each
-//    (b, h) and divides by max(l, 1e-30), as the reference does.
-// Invalid entries inside a valid chunk get probability exactly 0 (in the
-// reference they are -1e30 and vanish the same way once a valid key is
-// seen; every chunk visited here holds one).  With cache_len = 0 the output
-// is 0, as the reference kernel's.
+// far below the card's ~20 flops per byte.  So the design keeps the cache's
+// bytes in flight on every SM, in one launch:
+//  * split-KV (flash-decoding): one block per (b, kv head, split of the
+//    cache).  The wrapper picks the split (16 to 64 entries) from Smax so
+//    that the blocks come to at most four an SM: 48 entries and 384 blocks
+//    at llama's shape, 32 and 340 at hymba-1.5b's.  A split that holds no
+//    valid entry (past cache_len, or before the window) exits before
+//    reading anything, so the work follows the filled cache;
+//  * a block serves all H / KVH query heads of its kv head (up to 8; more
+//    take more blocks), so each K and V row is read from device memory once;
+//  * a block issues all its K rows, then all its V rows, as 16-byte
+//    `cp.async` copies (neighbouring threads on neighbouring addresses), one
+//    commit group per 16-entry tile, and computes each tile's scores as it
+//    lands while the later tiles and all of V are still in flight; then the
+//    softmax of the split, then P V tile by tile as V lands;
+//  * scores: 8 lanes an entry (4 at D = 16), each with D / 8 of the
+//    dimensions, reduced by shuffles; P V: each thread 4 dimensions of one
+//    entry group for every head, the groups summed through shared memory.
+//    No warp idles at G = 3 or 5;
+//  * the combine is folded in: each block writes its split's (max,
+//    denominator, accumulator) per head, and the last block of a (b, kv
+//    head) to finish, found by an atomic counter in the wrapper's workspace,
+//    combines the splits, divides by max(l, 1e-30) as the reference does,
+//    writes the output and resets the counter for the next call.
+// Invalid entries get probability exactly 0 (in the reference they are
+// -1e30 and vanish the same way once a valid key is seen; every split
+// visited here holds one).  With cache_len = 0 the output is 0, as the
+// reference kernel's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kChunk = 64;    // cache entries per block of pass 1
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ensure_smem;
+using repro::from_f32;
+using repro::kMaxDevices;
+using repro::to_f32;
+
+constexpr int kTile = 16;      // cache entries a commit group
+constexpr int kMaxSplit = 64;  // cache entries a block at most
+constexpr int kMaxG = 8;       // query heads a block at most
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
-
-// cudaFuncSetAttribute is a driver call on every launch unless it is
-// remembered: each launch<T, D> instance keeps, per device, the largest
-// shared-memory size it has set (a race between two threads only sets it
-// twice).
-constexpr int kMaxDevices = 64;
-
-template <typename K>
-cudaError_t ensure_smem(K kernel, int smem, int* set_for_device) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem <= set_for_device[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) set_for_device[dev] = smem;
-  return err;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // The valid entries [lo, hi) for a cache of smax entries.
 __device__ __forceinline__ void valid_range(int n, int smax, int window, int* lo, int* hi) {
@@ -75,175 +76,293 @@ __device__ __forceinline__ void valid_range(int n, int smax, int window, int* lo
   *lo = window > 0 ? max(0, n - window) : 0;
 }
 
+// Four consecutive elements as floats.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <typename T, int D>
+struct Geo {
+  static constexpr int kLK = D / 4 < 8 ? D / 4 : 8;  // lanes an entry for the scores
+  static constexpr int kDL = D / kLK;                // dimensions a lane (multiple of 4)
+  static constexpr int kLD = D / 4;                  // lanes across D for P V
+  static constexpr int kEG = kThreads / kLD;         // entry groups for P V
+  static constexpr int kUnits = D * (int)sizeof(T) / 16;  // 16-byte copies a row
+  static constexpr int kRed = kEG * kMaxG * D * 4;   // P V partial sums (bytes)
+  // q [kMaxG][D] float, scores [kMaxG][kMaxSplit] float, stats (m, l, flag),
+  // then K [split][D] (reused for the P V sums) and V [split][D] in T
+  static constexpr int kQ = 0;
+  static constexpr int kSc = kQ + kMaxG * D * 4;
+  static constexpr int kStats = kSc + kMaxG * kMaxSplit * 4;
+  static constexpr int kK = kStats + 16 * kMaxG + 16;
+  __host__ __device__ static int k_bytes(int split) {
+    const int k = split * D * (int)sizeof(T);
+    return ((k > kRed ? k : kRed) + 15) & ~15;
+  }
+  static int bytes(int split) { return kK + k_bytes(split) + split * D * (int)sizeof(T); }
+  static_assert(kK % 16 == 0, "K and V 16-byte aligned");
+};
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                      const T* __restrict__ vc, const int* __restrict__ cache_len,
-                      float* __restrict__ part_m, float* __restrict__ part_l,
-                      float* __restrict__ part_acc, int H, int KVH, int Smax, int n_split,
-                      long long qsb, long long qsh, long long ksb, long long kss,
-                      long long ksh, int window, float scale) {
-  constexpr int kKS = D + 1;  // lanes on consecutive entries hit distinct banks
-  constexpr int kDW = (D + 31) / 32;
-  extern __shared__ float smem[];
-  const int G = H / KVH;
-  float* qs = smem;             // [G][D]
-  float* ks = qs + G * D;       // [kChunk][D+1]
-  float* vs = ks + kChunk * kKS;  // [kChunk][D]
-  float* pw = vs + kChunk * D;  // [kWarps][kChunk]
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                        const T* __restrict__ vc, const int* __restrict__ cache_len,
+                        float* __restrict__ part_m, float* __restrict__ part_l,
+                        float* __restrict__ part_acc, int* __restrict__ counters,
+                        T* __restrict__ o, int H, int KVH, int Smax, int split, int n_split,
+                        long long qsb, long long qsh, long long ksb, long long kss,
+                        long long ksh, long long osb, long long osh, int window, float scale) {
+  using Gm = Geo<T, D>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem + Gm::kQ);      // [kMaxG][D]
+  float* sc = reinterpret_cast<float*>(smem + Gm::kSc);     // [kMaxG][kMaxSplit]
+  float* st_m = reinterpret_cast<float*>(smem + Gm::kStats);  // [kMaxG]
+  float* st_l = st_m + kMaxG;                                 // [kMaxG]
+  int* last = reinterpret_cast<int*>(st_l + kMaxG);
+  T* ks = reinterpret_cast<T*>(smem + Gm::kK);               // [split][D]
+  float* red = reinterpret_cast<float*>(smem + Gm::kK);      // [kEG][kMaxG][D], after K
+  T* vs = reinterpret_cast<T*>(smem + Gm::kK + Gm::k_bytes(split));  // [split][D]
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KVH;
+  const int n_gc = (G + kMaxG - 1) / kMaxG;
+  const int sp = blockIdx.x, b = blockIdx.z;
+  const int kvh = blockIdx.y / n_gc, gc = blockIdx.y - kvh * n_gc;
+  const int g0 = gc * kMaxG, Gc = min(kMaxG, G - g0);  // this block's query heads
+  const int h0 = kvh * G + g0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
   int lo, hi;
   valid_range(*cache_len, Smax, window, &lo, &hi);
-  const int k0 = split * kChunk;
-  const int c_lo = max(lo, k0) - k0;       // valid entries of this chunk:
-  const int c_hi = min(hi, k0 + kChunk) - k0;  // [c_lo, c_hi)
-  if (c_lo >= c_hi) return;                // nothing valid: read nothing
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const T* kb = kc + b * ksb + kvh * ksh;
-  const T* vb = vc + b * ksb + kvh * ksh;
-  for (int idx = tid; idx < G * D; idx += kThreads) {
-    const int g = idx / D, d = idx - g * D;
-    qs[idx] = to_f32(q[b * qsb + (kvh * G + g) * qsh + d]);
+  const int s_lo = lo / split;
+  const int s_hi = hi > lo ? (hi + split - 1) / split : s_lo;
+  const int n_active = s_hi - s_lo;
+  if (n_active == 0) {  // nothing valid: the output is 0, written by split 0
+    if (sp == 0)
+      for (int i = tid; i < Gc * D; i += kThreads)
+        from_f32(o + b * osb + (h0 + i / D) * osh + i % D, 0.f);
+    return;
   }
-  for (int idx = tid; idx < kChunk * D; idx += kThreads) {
-    const int c = idx / D, d = idx - c * D;
-    const bool ok = c >= c_lo && c < c_hi;
-    ks[c * kKS + d] = ok ? to_f32(kb[(k0 + c) * kss + d]) : 0.f;
-    vs[c * D + d] = ok ? to_f32(vb[(k0 + c) * kss + d]) : 0.f;
+  if (sp < s_lo || sp >= s_hi) return;  // nothing valid here: read nothing
+  const int k0 = sp * split;
+  const int c_lo = max(lo, k0) - k0, c_hi = min(hi, k0 + split) - k0;  // [c_lo, c_hi)
+  const int t_lo = c_lo / kTile, t_hi = (c_hi + kTile - 1) / kTile;
+  const int nt = t_hi - t_lo;
+
+  // all of K, then all of V, one commit group a tile
+  const T* kb = kc + b * ksb + kvh * ksh + (long long)k0 * kss;
+  const T* vb = vc + b * ksb + kvh * ksh + (long long)k0 * kss;
+  for (int pass = 0; pass < 2; ++pass) {
+    const T* src = pass == 0 ? kb : vb;
+    T* dst = pass == 0 ? ks : vs;
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int e0 = max(t * kTile, c_lo), e1 = min(t * kTile + kTile, c_hi);
+      for (int i = tid; i < (e1 - e0) * Gm::kUnits; i += kThreads) {
+        const int e = e0 + i / Gm::kUnits, u = i % Gm::kUnits;
+        cp_async16(dst + e * D + u * (16 / (int)sizeof(T)), src + e * kss + u * (16 / (int)sizeof(T)));
+      }
+      cp_async_commit();
+    }
+  }
+  for (int i = tid; i < Gc * D; i += kThreads)
+    qs[i] = to_f32(q[b * qsb + (h0 + i / D) * qsh + i % D]);
+
+  // scores, tile by tile as K lands: kLK lanes an entry
+  const int grp = lane % Gm::kLK;
+  for (int t = t_lo; t < t_hi; ++t) {
+    cp_async_wait(2 * nt - 1 - (t - t_lo));
+    __syncthreads();  // every thread's copies of this tile (and q) are visible
+    const int e = t * kTile + tid / Gm::kLK;
+    const bool ok = tid / Gm::kLK < kTile && e >= c_lo && e < c_hi;
+    float4 kv[Gm::kDL / 4];
+#pragma unroll
+    for (int j = 0; j < Gm::kDL / 4; ++j)
+      kv[j] = ok ? load4(ks + e * D + 4 * (grp + Gm::kLK * j)) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= Gc) break;
+      float dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < Gm::kDL / 4; ++j) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + g * D + 4 * (grp + Gm::kLK * j));
+        dot = fmaf(qv.x, kv[j].x, dot);
+        dot = fmaf(qv.y, kv[j].y, dot);
+        dot = fmaf(qv.z, kv[j].z, dot);
+        dot = fmaf(qv.w, kv[j].w, dot);
+      }
+#pragma unroll
+      for (int off = Gm::kLK / 2; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (ok && grp == 0) sc[g * kMaxSplit + e] = dot * scale;
+    }
   }
   __syncthreads();
 
-  for (int g = warp; g < G; g += kWarps) {
-    float s[kChunk / 32];
+  // the split's softmax, a warp a head
+  for (int g = warp; g < Gc; g += kWarps) {
     float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kChunk / 32; ++j) {
-      const int c = lane + 32 * j;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(qs[g * D + d], ks[c * kKS + d], dot);
-      s[j] = (c >= c_lo && c < c_hi) ? dot * scale : -INFINITY;
-      mx = fmaxf(mx, s[j]);
-    }
+    for (int e = c_lo + lane; e < c_hi; e += 32) mx = fmaxf(mx, sc[g * kMaxSplit + e]);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kChunk / 32; ++j) {
-      const float p = expf(s[j] - mx);
-      pw[warp * kChunk + lane + 32 * j] = p;
+    for (int e = c_lo + lane; e < c_hi; e += 32) {
+      const float p = expf(sc[g * kMaxSplit + e] - mx);
+      sc[g * kMaxSplit + e] = p;
       sum += p;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    __syncwarp();
-    const long long row = ((long long)b * H + kvh * G + g) * n_split + split;
+    if (lane == 0) {
+      st_m[g] = mx;
+      st_l[g] = sum;
+    }
+  }
+
+  // P V, tile by tile as V lands: 4 dimensions of an entry group a thread
+  const int d4 = 4 * (tid % Gm::kLD), eg = tid / Gm::kLD;
+  float acc[kMaxG][4];
 #pragma unroll
-    for (int j = 0; j < kDW; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) {
-        float a = 0.f;
-        for (int c = c_lo; c < c_hi; ++c) a = fmaf(pw[warp * kChunk + c], vs[c * D + d], a);
-        part_acc[row * D + d] = a;
+  for (int g = 0; g < kMaxG; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+  for (int t = t_lo; t < t_hi; ++t) {
+    cp_async_wait(t_hi - 1 - t);
+    __syncthreads();  // this V tile is visible (and, the first time, the softmax)
+    const int e1 = min(t * kTile + kTile, c_hi);
+    for (int e = max(t * kTile, c_lo) + eg; e < e1; e += Gm::kEG) {
+      const float4 v = load4(vs + e * D + d4);
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g >= Gc) break;
+        const float p = sc[g * kMaxSplit + e];
+        acc[g][0] = fmaf(p, v.x, acc[g][0]);
+        acc[g][1] = fmaf(p, v.y, acc[g][1]);
+        acc[g][2] = fmaf(p, v.z, acc[g][2]);
+        acc[g][3] = fmaf(p, v.w, acc[g][3]);
       }
     }
-    if (lane == 0) {
-      part_m[row] = mx;
-      part_l[row] = sum;
-    }
-    __syncwarp();  // pw is rewritten by this warp's next head
   }
-}
+  // the entry groups' sums, through shared memory (over K, read by now)
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    if (g >= Gc) break;
+    *reinterpret_cast<float4*>(red + (eg * kMaxG + g) * D + d4) =
+        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  }
+  __syncthreads();
+  for (int i = tid; i < Gc * D; i += kThreads) {
+    const int g = i / D, d = i - g * D;
+    float a = 0.f;
+    for (int j = 0; j < Gm::kEG; ++j) a += red[(j * kMaxG + g) * D + d];
+    const long long row = ((long long)b * H + h0 + g) * n_split + sp;
+    part_acc[row * D + d] = a;
+    if (d == 0) {
+      part_m[row] = st_m[g];
+      part_l[row] = st_l[g];
+    }
+  }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(const int* __restrict__ cache_len, const float* __restrict__ part_m,
-                      const float* __restrict__ part_l, const float* __restrict__ part_acc,
-                      T* __restrict__ o, int H, int D, int Smax, int n_split,
-                      long long osb, long long osh, int window) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  int lo, hi;
-  valid_range(*cache_len, Smax, window, &lo, &hi);
-  // the chunks pass 1 filled: those holding an entry of [lo, hi)
-  const int s_lo = lo / kChunk;
-  const int s_hi = hi > lo ? (hi + kChunk - 1) / kChunk : s_lo;
-  const long long base = ((long long)b * H + h) * n_split;
-  float m = -INFINITY;
-  for (int s = s_lo; s < s_hi; ++s) m = fmaxf(m, part_m[base + s]);
-  T* orow = o + b * osb + h * osh;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+  // the last block of this (b, kv head, head group) to finish combines
+  __threadfence();
+  __syncthreads();
+  int* counter = counters + (long long)b * gridDim.y + blockIdx.y;
+  if (tid == 0) *last = atomicAdd(counter, 1) == n_active - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  for (int i = tid; i < Gc * D; i += kThreads) {
+    const int g = i / D, d = i - g * D;
+    const long long base = ((long long)b * H + h0 + g) * n_split;
+    float m = -INFINITY;
+    for (int s = s_lo; s < s_hi; ++s) m = fmaxf(m, __ldcg(part_m + base + s));
     float l = 0.f, a = 0.f;
     for (int s = s_lo; s < s_hi; ++s) {
-      const float w = expf(part_m[base + s] - m);
-      l = fmaf(part_l[base + s], w, l);
-      a = fmaf(part_acc[(base + s) * D + d], w, a);
+      const float w = expf(__ldcg(part_m + base + s) - m);
+      l = fmaf(__ldcg(part_l + base + s), w, l);
+      a = fmaf(__ldcg(part_acc + (base + s) * D + d), w, a);
     }
-    from_f32(orow + d, a / fmaxf(l, 1e-30f));
+    from_f32(o + b * osb + (h0 + g) * osh + d, a / fmaxf(l, 1e-30f));
   }
+  if (tid == 0) *counter = 0;  // every block of this call has counted
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* kc, const void* vc, const int* len, float* pm,
-                   float* pl, float* pa, void* o, int B, int H, int KVH, int Smax,
-                   const long long* st, int window, float scale, cudaStream_t stream) {
+                   float* pl, float* pa, int* counters, void* o, int B, int H, int KVH,
+                   int Smax, int split, const long long* st, int window, float scale,
+                   cudaStream_t stream) {
+  using Gm = Geo<T, D>;
   const int G = H / KVH;
-  const int n_split = (Smax + kChunk - 1) / kChunk;
-  const int smem = (G * D + kChunk * (D + 1) + kChunk * D + kWarps * kChunk) * (int)sizeof(float);
-  auto partial = decode_partial_kernel<T, D>;
-  static int smem_set[kMaxDevices] = {};  // smem grows with G = H / KVH
-  cudaError_t err = ensure_smem(partial, smem, smem_set);
+  const int n_gc = (G + kMaxG - 1) / kMaxG;
+  const int n_split = (Smax + split - 1) / split;
+  const int smem = Gm::bytes(split);
+  auto kernel = decode_attention_kernel<T, D>;
+  static int smem_set[kMaxDevices] = {};  // smem grows with the split
+  cudaError_t err = ensure_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  partial<<<dim3(n_split, KVH, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), len,
-      pm, pl, pa, H, KVH, Smax, n_split, st[0], st[1], st[2], st[3], st[4], window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<dim3(H, B), kThreads, 0, stream>>>(
-      len, pm, pl, pa, static_cast<T*>(o), H, D, Smax, n_split, st[5], st[6], window);
+  kernel<<<dim3(n_split, KVH * n_gc, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), len, pm,
+      pl, pa, counters, static_cast<T*>(o), H, KVH, Smax, split, n_split, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* kc, const void* vc, const int* len,
-                     float* pm, float* pl, float* pa, void* o, int B, int H, int KVH,
-                     int Smax, const long long* st, int window, float scale,
-                     cudaStream_t stream) {
+                     float* pm, float* pl, float* pa, int* cnt, void* o, int B, int H, int KVH,
+                     int Smax, int split, const long long* st, int window, float scale,
+                     cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, kc, vc, len, pm, pl, pa, o, B, H, KVH, Smax, st, window, scale, stream);
-    case 32: return launch<T, 32>(q, kc, vc, len, pm, pl, pa, o, B, H, KVH, Smax, st, window, scale, stream);
-    case 64: return launch<T, 64>(q, kc, vc, len, pm, pl, pa, o, B, H, KVH, Smax, st, window, scale, stream);
-    case 128: return launch<T, 128>(q, kc, vc, len, pm, pl, pa, o, B, H, KVH, Smax, st, window, scale, stream);
+    case 16: return launch<T, 16>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
+    case 32: return launch<T, 32>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
+    case 64: return launch<T, 64>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
+    case 128: return launch<T, 128>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Cache entries per chunk of pass 1: the wrapper sizes the partial buffers
-// ([B, H, ceil(Smax / chunk)] and [B, H, ceil(Smax / chunk), D], float32).
-extern "C" int repro_decode_attention_chunk(void) { return kChunk; }
+// The kernel's geometry, for the wrapper's workspace: what = 0, cache
+// entries a commit group (splits are multiples of it); 1, the largest split;
+// 2, the query heads a block serves (a kv head with more takes
+// ceil(G / this) blocks a split, each with its own counter).
+extern "C" int repro_decode_attention_geometry(int what) {
+  switch (what) {
+    case 0: return kTile;
+    case 1: return kMaxSplit;
+    case 2: return kMaxG;
+    default: return -1;
+  }
+}
 
 // q/o [B, 1, H, D] (strides of b and h), caches [B, Smax, KVH, D] (k and v
-// share their strides), cache_len one int32 on the device.
+// share their strides), cache_len one int32 on the device.  The workspace:
+// part_m and part_l [B, H, n_split], part_acc [B, H, n_split, D] float32,
+// counters [B, KVH ceil(G / 8)] int32, zero before the first call (each call
+// leaves them zero); n_split = ceil(Smax / split).
 extern "C" int repro_decode_attention(const void* q, const void* kc, const void* vc,
                                       const void* cache_len, void* part_m, void* part_l,
-                                      void* part_acc, void* o, int B, int H, int KVH,
-                                      int Smax, int D, int bf16, long long qsb, long long qsh,
-                                      long long ksb, long long kss, long long ksh,
-                                      long long osb, long long osh, int window, float scale,
-                                      void* stream) {
-  if (B < 1 || Smax < 1 || KVH < 1 || H % KVH != 0) return (int)cudaErrorInvalidValue;
+                                      void* part_acc, void* counters, void* o, int B, int H,
+                                      int KVH, int Smax, int D, int split, int bf16,
+                                      long long qsb, long long qsh, long long ksb,
+                                      long long kss, long long ksh, long long osb,
+                                      long long osh, int window, float scale, void* stream) {
+  if (B < 1 || B > 65535 || Smax < 1 || KVH < 1 || H % KVH != 0) return (int)cudaErrorInvalidValue;
+  if (split < kTile || split > kMaxSplit || split % kTile != 0) return (int)cudaErrorInvalidValue;
   const long long st[7] = {qsb, qsh, ksb, kss, ksh, osb, osh};
   const int* len = static_cast<const int*>(cache_len);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(D, q, kc, vc, len, pm, pl, pa, o, B, H,
-                                                   KVH, Smax, st, window, scale, s)
-                         : dispatch<float>(D, q, kc, vc, len, pm, pl, pa, o, B, H, KVH,
-                                           Smax, st, window, scale, s);
+  cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(D, q, kc, vc, len, pm, pl, pa, cnt, o, B, H,
+                                                   KVH, Smax, split, st, window, scale, s)
+                         : dispatch<float>(D, q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH,
+                                           Smax, split, st, window, scale, s);
   return (int)err;
 }

@@ -86,28 +86,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// cudaFuncSetAttribute is a driver call on every launch unless it is
-// remembered: each launch<T, D> instance keeps, per device, the largest
-// shared-memory size it has set (a race between two threads only sets it
-// twice).
-constexpr int kMaxDevices = 64;
-
-template <typename K>
-cudaError_t ensure_smem(K kernel, int smem, int* set_for_device) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem <= set_for_device[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) set_for_device[dev] = smem;
-  return err;
-}
+using repro::ensure_smem;
+using repro::kMaxDevices;
+using repro::split_tf32;
 
 // Shared-memory geometry of one instance.  A tile of R rows of D elements is
 // stored as kChunks slices of kSW bytes a row ([R][kSW] each, 1024-byte
@@ -480,12 +468,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------- split TF32 (float32)
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
 
 template <int D>
 __device__ __forceinline__ void wgmma_pv_tf32(float (&o)[D / 8][4], const uint32_t (&a)[4],

@@ -5,433 +5,721 @@
 //
 // Replaces the Pallas kernel `ssd_scan_kernel` / `ssd_scan_call` of
 // src/repro/kernels/ssd_scan.py (pallas_call at :90).  There the chunks are
-// the innermost, sequential grid axis, the state lives in VMEM scratch
-// across grid steps, and each step holds one [L, L] score tile.  Here blocks
-// run in parallel and in no order, so one block per (b, h) loops over the
-// chunks itself and keeps the state in shared memory.  At L = 256 the
-// [L, L] score tile alone would be 256 KB, more than a block's 227 KB, so
-// the chunk is cut into 64 x 64 sub-tiles and the tiles above the diagonal
-// are never computed.
-//
-// Per chunk (rows l, columns s of the chunk; xbar = x * dt):
-//   cum_l   = sum_{k <= l} dt_k A                (float64, see below)
-//   y_l     = exp(cum_l) (C_l . s)                            carried state
-//           + sum_{s <= l} (C_l . B_s) exp(cum_l - cum_s) xbar_s  intra-chunk
+// the innermost, sequential grid axis and the state lives in VMEM scratch
+// across grid steps.  Here blocks run in parallel and in no order, so the
+// work is cut where it does not depend on the carried state, as in the
+// Mamba-2 paper's chunk_state / state_passing / chunk_scan split.  Per chunk
+// (rows l, columns s of the chunk; xbar = x * dt; cum_l = sum_{k <= l} dt_k A):
+//   scores  = C B^T                                      per (b, chunk, group)
+//   contrib = sum_l exp(cum_{L-1} - cum_l) xbar_l B_l^T     per (b, chunk, head)
+//   s_c     = s_{c-1} exp(cum_{L-1} of chunk c-1) + contrib_{c-1}   (sequential)
+//   y_l     = exp(cum_l) (C_l . s_c)                             carried state
+//           + sum_{s <= l} scores_ls exp(cum_l - cum_s) xbar_s     intra-chunk
 //           + D x_l
-//   s'      = s exp(cum_{L-1}) + sum_l exp(cum_{L-1} - cum_l) xbar_l B_l^T
 // The carried term is skipped in the first chunk (the state entering it is
-// zero) and the update after the last chunk (nothing reads it), as in
-// `ssd_scan_plain`, which defines the function.
+// zero) and no contribution is formed for the last chunk (nothing reads
+// it), as in `ssd_scan_plain`, which defines the function.  One wrapper call
+// enqueues three kernels:
+//  1. `ssd_chunk_state_kernel`: one block per (b, chunk, head, half of N)
+//     for each chunk's own state contribution, and one per (b, chunk,
+//     group, 64 x 64 tile on or below the diagonal) for C B^T, computed once
+//     for all the heads of the group and written to the workspace;
+//  2. `ssd_state_pass_kernel`: the [P, N] recurrence across chunks, one
+//     thread per state element (only with three or more chunks);
+//  3. `ssd_chunk_scan_kernel`: one block per (b, chunk, 64-row tile, head),
+//     the heaviest row tiles first: the carried term, then for each column
+//     tile on or below the diagonal the stored scores times the head's decay
+//     times xbar, then D x.
+// At mamba2-2.7b's prefill (B 4, S 512, H 80, G 1, L 256) that is 640 + 80
+// blocks, then 2,560 blocks, each several times the card's 132 SMs.
 //
-// The cumulative log-decay is summed in float64, and every decay factor
-// (exp of cum_l - cum_s, cum_l, cum_{L-1} - cum_l, cum_{L-1}) is evaluated in
-// float64 and rounded once to float32.  At the model's widths cum reaches
-// about -3,400 within a chunk, where a float32 ulp is 2.4e-4: a float32
-// cumsum would put errors of that size into the exponents, and two float32
-// sums in different orders (a sequential one and a parallel scan) differ by
-// up to 2e-3.  In float64 the order of the sum changes a factor by ~1e-13,
-// which shows in float32 only where it straddles a rounding boundary (one
-// ulp), so this kernel and the plain version (torch.cumsum and torch.exp in
-// float64) take the same factors to within one rounding.  The float64 work is
-// O(L^2 / 2) exps per chunk, small beside the O(L^2 (N + P)) products.
+// Products on the tensor cores: `mma.sync` m16n8k8 in TF32 with float32
+// accumulation.  float32 takes the split: x = hi + lo (hi = cvt.rna.tf32(x),
+// lo = cvt.rna.tf32(x - hi)) and each product is lo*hi + hi*lo + hi*hi,
+// lo*lo (2^-22 relative) dropped.  bfloat16 values are exact in TF32 (8
+// mantissa bits of 10), so in bfloat16 C B^T takes one pass, C s and
+// xbar B^T two (their other operand is float32), and the decayed scores
+// times xbar, both float32, three.  `ssd_scan_tolerance` adds the split's
+// error term.  Why mma.sync and not wgmma: the operands come in every
+// orientation (xbar is the B operand N-major in one product and the A
+// operand M-major in another; the state is read transposed), TF32 wgmma
+// takes B only K-major from shared memory, and a split operand needs its
+// hi and lo halves in registers anyway; mma.sync loads each fragment from
+// padded shared memory in whatever order the product needs, conflict-free,
+// and splits it in registers.  wgmma, with the operands split once into
+// shared memory, is later work.
+//
+// The cumulative log-decay is summed in float64, and every decay factor is
+// evaluated in float64 and rounded once to float32.  At the model's widths
+// cum reaches about -3,400 within a chunk, where a float32 ulp is 2.4e-4: a
+// float32 cumsum would put errors of that size into the exponents.  In
+// float64 the order of the sum changes a factor by ~1e-13, which shows in
+// float32 only where it straddles a rounding boundary (one ulp), so these
+// kernels and the plain version take the same factors to within one
+// rounding.  Off the diagonal tile, exp(cum_l - cum_s) is evaluated as the
+// float64 product exp(cum_l - cum_r0) exp(cum_r0 - cum_s) (r0 the row tile's
+// first row, s < r0 <= l): both factors are <= 1 (dt A <= 0), so nothing
+// overflows, and a factor that underflows in float64 makes the product
+// underflow in float32 too; the product is off by ~2e-16 relative, inside
+// the same one rounding.  That is 128 exps a tile in place of 4,096.
 //
 // Layout: x [B, S, H, P], B and C [B, S, G, N] (head h reads group
-// h / (H / G); B and C are never repeated across heads), dt [B, S, H]
-// float32, all read through their strides (the last dimension of x, B and C
-// contiguous), so the model's slices of one conv output need no copies.
-// A and D [H] float32.  x, B, C float32 or bfloat16; float32 inside; y
-// [B, S, H, P] in x's type.
+// h / (H / G)), dt [B, S, H] float32, all read through their strides (the
+// last dimension of x, B and C contiguous), so the model's slices of one
+// conv output need no copies.  A and D [H] float32.  x, B, C float32 or
+// bfloat16; y [B, S, H, P] in x's type.  The workspace (float32, sized by
+// `repro_ssd_scan_workspace`) holds the scores [B, nc, G, tile pairs, 64,
+// 64], each chunk's exp(cum_{L-1}) [B, nc - 1, H] and the states [B, nc - 1,
+// H, P, N]; the wrapper allocates it.
 //
-// What bounds it on this card: operations.  At mamba2-2.7b's prefill
-// (B = 4, S = 512, H = 80, P = 64, G = 1, N = 128, L = 256) the products over
-// the visible pairs and the state are ~11 GFLOP per call, 0.16 ms at the
-// float32 rate outside the tensor cores (67 TFLOP/s), against 87 MB of inputs
-// and outputs (0.026 ms at 3.35 TB/s).  This first version keeps to float32
-// FMAs on the CUDA cores (every product-sum an explicit fmaf; the library is
-// built with -fmad=false):
-//  * one block of 256 threads per (b, h);
-//  * the state, one 64-row tile of C, one 64-row tile of B and of xbar, and
-//    the decayed 64 x 64 score tile in shared memory, padded so the inner
-//    loops are free of bank conflicts (about 140 KB at P = 64, N = 128: one
-//    block per SM);
-//  * each thread holds a 4 x 4 patch of a score tile, 4 rows x P/16 columns
-//    of the output tile, and (P N / 256) state entries in registers.
-// Tensor cores (wgmma on bf16 or tf32 tiles), several blocks per (b, h) and
-// a pipelined tile ring are later work.
+// Staging: each block copies its tiles from global to padded shared memory
+// four elements at a time (one 16-byte load in float32, 8 bytes in
+// bfloat16) where the rows of x, B and C start on such units, else element
+// by element; C B^T and C s stage N in slices of 64, so a block needs at
+// most ~40 KB at the served shapes and several blocks share an SM.
+//
+// What bounds it on this card: at mamba2-2.7b's prefill the group-shared
+// form needs ~5.4 GFLOP of products, ~16 GFLOP as split TF32 (0.033 ms at
+// 495 TFLOP/s), against 87 MB of inputs and outputs (0.026 ms at 3.35
+// TB/s): operations, on the tensor cores.  Each fragment is loaded from
+// shared memory and split on the CUDA cores, about four instructions per
+// mma, and each output block copies its score and x tiles from L2 (each
+// score tile once per head, each x tile once per row tile at or below it),
+// so the staging and instruction issue, not the tensor cores, are the
+// limits of this design (scripts/ssd_stages.py times them).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kT = 64;          // rows (and columns) of a sub-tile of a chunk
-constexpr int kThreads = 256;   // 16 row groups x 16 lanes
+using repro::ensure_smem;
+using repro::from_f32;
+using repro::kMaxDevices;
+using repro::mma_tf32;
+using repro::split_tf32;
+using repro::to_f32;
+
+constexpr int kT = 64;          // rows (and columns) of a tile of a chunk
+constexpr int kTile = kT * kT;  // elements of a score tile
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kWarps = kThreads / 32;
 constexpr int kScanLanes = 32;  // threads of the float64 cumsum
-constexpr int kPS = kT + 4;     // score tile row stride: 4 * 68 = 16 (mod 32)
+constexpr int kPS = kT + 4;     // decayed score tile row stride: 4 (mod 32)
+constexpr int kNChunk = 64;     // state columns staged at a time for C B^T and C s
 constexpr int kMaxSmem = 232448;
 
-// cudaFuncSetAttribute is a driver call on every launch unless it is
-// remembered: each launch<T, P, N> instance keeps, per device, the largest
-// shared-memory size it has set (a race between two threads only sets it
-// twice).
-constexpr int kMaxDevices = 64;
+__host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) & ~15; }
 
-template <typename K>
-cudaError_t ensure_smem(K kernel, int smem, int* set_for_device) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem <= set_for_device[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) set_for_device[dev] = smem;
-  return err;
+// The shared-memory head every block starts with: cum [n] and the scan's
+// partials in float64, dt [n] in float32; the tiles follow at `tiles`.
+struct Head {
+  int cum, part, dts, tiles;
+  __host__ __device__ explicit Head(int n)
+      : cum(0), part(align16(8 * n)), dts(part + 8 * kScanLanes),
+        tiles(align16(part + 8 * kScanLanes + 4 * n)) {}
+};
+
+// The warps of a block over an [M x NN] product: kWM x kWN warps, each with
+// kTM x kTN tiles of 16 x 8; warps from kBusy on hold no tile.
+template <int M, int NN>
+struct WarpGrid {
+  static constexpr int kMT = M / 16, kNT = NN / 8;
+  static constexpr int kWM = kMT < kWarps ? kMT : kWarps;
+  static constexpr int kWN0 = kWarps / kWM;
+  static constexpr int kWN = kNT < kWN0 ? kNT : kWN0;
+  static constexpr int kTM = kMT / kWM, kTN = kNT / kWN;
+  static constexpr int kBusy = kWM * kWN;
+  static_assert(kTM * kWM == kMT && kTN * kWN == kNT, "tiles divide among the warps");
+};
+
+// acc += A[M x K] B[K x NN] over this warp's tiles (rows m0.., columns n0..),
+// K a multiple of 8, A(r, k) and B(k, c) read by the functors from shared
+// memory.  SA / SB: split the operand into TF32 hi + lo (float32 values);
+// otherwise it is exact in TF32 (a bfloat16 value) and goes in as it is.
+template <int TM, int TN, bool SA, bool SB, typename FA, typename FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[TM][TN][4], int m0, int n0, int K,
+                                         FA fa, FB fb) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 8) {
+    uint32_t ah[TM][4], al[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = m0 + 16 * i + g;
+      const float v[4] = {fa(r, k + t), fa(r + 8, k + t), fa(r, k + t + 4), fa(r + 8, k + t + 4)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (SA) {
+          split_tf32(v[e], ah[i][e], al[i][e]);
+        } else {
+          ah[i][e] = __float_as_uint(v[e]);
+          al[i][e] = 0u;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + 8 * j + g;
+      const float w0 = fb(k + t, c), w1 = fb(k + t + 4, c);
+      uint32_t bh0, bl0, bh1, bl1;
+      if (SB) {
+        split_tf32(w0, bh0, bl0);
+        split_tf32(w1, bh1, bl1);
+      } else {
+        bh0 = __float_as_uint(w0);
+        bh1 = __float_as_uint(w1);
+        bl0 = bl1 = 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        if (SA) mma_tf32(acc[i][j], al[i], bh0, bh1);
+        if (SB) mma_tf32(acc[i][j], ah[i], bl0, bl1);
+        mma_tf32(acc[i][j], ah[i], bh0, bh1);
+      }
+    }
+  }
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+template <int TM, int TN>
+__device__ __forceinline__ void zero(float (&acc)[TM][TN][4]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// cum[l] = sum_{k <= l} (double)(dts[k] * a) for l < n, in float64: 32
+// threads sum contiguous runs, one thread scans the runs' totals, then each
+// run adds its offset.  Every thread of the block calls it; it ends on a
+// barrier.
+__device__ void chunk_cumsum(const float* dts, float a, int n, double* cum, double* part) {
+  const int tid = threadIdx.x;
+  const int per = (n + kScanLanes - 1) / kScanLanes;
+  const int lo = min(n, tid * per), hi = min(n, lo + per);
+  if (tid < kScanLanes) {
+    double run = 0.0;
+    for (int l = lo; l < hi; ++l) {
+      run += (double)(dts[l] * a);
+      cum[l] = run;
+    }
+    part[tid] = run;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    double run = 0.0;
+    for (int i = 0; i < kScanLanes; ++i) {
+      const double v = part[i];
+      part[i] = run;
+      run += v;
+    }
+  }
+  __syncthreads();
+  if (tid < kScanLanes) {
+    const double off = part[tid];
+    for (int l = lo; l < hi; ++l) cum[l] += off;
+  }
+  __syncthreads();
+}
+
+struct Strides {
+  long long xsb, xss, xsh, dsb, dss, dsh, bsb, bss, bsg, csb, css, csg, ysb, yss, ysh;
+  int vec;  // x, B and C rows start on whole 4-element units: loads go 4 elements at a time
+};
+
+// Four consecutive elements of a row as floats: one 16-byte (float32) or
+// 8-byte (bfloat16) load where the row is so aligned (`vec`), else four.
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, bool vec) {
+  if (vec) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  return make_float4(to_f32(p[0]), to_f32(p[1]), to_f32(p[2]), to_f32(p[3]));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ float4 scale4(float4 v, float a) {
+  return make_float4(v.x * a, v.y * a, v.z * a, v.w * a);
+}
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+// ---------------------------------------------------------------- 1. states and scores
 
 template <int P, int N>
-struct Smem {
-  static constexpr int kCS = N + 4;  // C tile row stride: 4 * (N + 4) = 16 (mod 32)
-  static constexpr int kBS = N + 1;  // B tile row stride: lanes on consecutive rows
-                                     // hit distinct banks
-  static constexpr int kXS = P;      // xbar tile row stride (read along p)
-  static constexpr int kSS = N + 1;  // state row stride (read along p by lane)
-  static constexpr int kFloats = kT * kCS + kT * kBS + kT * kXS + kT * kPS + P * kSS;
-  // float64 cum [L] and scan partials first (8-byte aligned), then dt [L]
-  // and the float tiles
+struct StateGeo {
+  static constexpr int kNS = N >= 64 ? 2 : 1;  // blocks a head's state is split over (by N)
+  static constexpr int kNB = N / kNS;          // state columns a block computes
+  static constexpr int kXS = P + 8;    // weighted xbar slab [64][P]: read down a column
+  static constexpr int kBS = kNB + 8;  // B slab [64][kNB]: read down a column
+  static constexpr int kNC = N < kNChunk ? N : kNChunk;  // score role: N staged kNC at a time
+  static constexpr int kCS = kNC + 4;  // score role, C and B tiles [64][kNC]: read along a row
+  static int state_bytes(int L) {  // + w [L]
+    return Head(L).tiles + align16(4 * L) + 4 * (kT * kXS + kT * kBS);
+  }
+  static int score_bytes() { return 4 * 2 * kT * kCS; }
   static int bytes(int L) {
-    return 8 * (L + kScanLanes) + 4 * (L + kFloats);
+    const int a = state_bytes(L), b = score_bytes();
+    return a > b ? a : b;
   }
 };
 
 template <typename T, int P, int N>
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const T* __restrict__ Bm,
-                const T* __restrict__ Cm, const float* __restrict__ Dv, T* __restrict__ y,
-                int H, int G, int S, int L,
-                long long xsb, long long xss, long long xsh,
-                long long dsb, long long dss, long long dsh,
-                long long bsb, long long bss, long long bsg,
-                long long csb, long long css, long long csg,
-                long long ysb, long long yss, long long ysh) {
-  using SM = Smem<P, N>;
-  constexpr int kPC = P / 16;  // output columns per thread
-  // state update: a kTP x kTN thread grid over [P, N]
-  constexpr int kTN = N < 32 ? N : 32;
-  constexpr int kTP = kThreads / kTN;
-  constexpr int kRP = P / kTP;
-  constexpr int kRN = N / kTN;
-  static_assert(kRP >= 1 && kRP * kTP == P, "P must be a multiple of the thread rows");
-
-  extern __shared__ double smem_d[];
-  double* cum = smem_d;            // [L]
-  double* part = cum + L;          // [kScanLanes]
-  float* dts = reinterpret_cast<float*>(part + kScanLanes);  // [L]
-  float* cs = dts + L;             // C tile [kT][kCS]
-  float* bs = cs + kT * SM::kCS;   // B tile [kT][kBS]
-  float* xs = bs + kT * SM::kBS;   // xbar tile [kT][kXS]
-  float* ps = xs + kT * SM::kXS;   // decayed scores [kT][kPS]
-  float* st = ps + kT * kPS;       // state [P][kSS]
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int g = h / (H / G);
-  const float a = A[h];
-  const float dcoef = Dv[h];
-  const T* xb = x + b * xsb + h * xsh;
-  const float* db = dt + b * dsb + h * dsh;
-  const T* bb = Bm + b * bsb + g * bsg;
-  const T* cb = Cm + b * csb + g * csg;
-  T* yb = y + b * ysb + h * ysh;
+__device__ void chunk_state(const T* __restrict__ x, const float* __restrict__ dt,
+                            const float* __restrict__ A, const T* __restrict__ Bm,
+                            float* __restrict__ states, float* __restrict__ decay, int idx,
+                            int H, int G, int nc, int L, const Strides& s, uint8_t* smem) {
+  using SG = StateGeo<P, N>;
+  using WG = WarpGrid<P, SG::kNB>;
+  constexpr bool kSplitB = sizeof(T) == 4;
+  const int nb = idx % SG::kNS;
+  idx /= SG::kNS;
+  const int h = idx % H;
+  idx /= H;
+  const int c = idx % (nc - 1), b = idx / (nc - 1);
+  const int grp = h / (H / G);
+  const Head hd(L);
+  double* cum = reinterpret_cast<double*>(smem + hd.cum);
+  double* part = reinterpret_cast<double*>(smem + hd.part);
+  float* dts = reinterpret_cast<float*>(smem + hd.dts);
+  float* w = reinterpret_cast<float*>(smem + hd.tiles);
+  float* xs = w + align16(4 * L) / 4;
+  float* bs = xs + kT * SG::kXS;
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // row group: rows ty * 4 .. ty * 4 + 3 of a tile
-  const int tx = tid & 15;  // lane: columns tx + 16 j
-  const int tp = tid / kTN;
-  const int tn = tid % kTN;
+  const long long t0 = (long long)c * L;
+  const T* xb = x + b * s.xsb + h * s.xsh + t0 * s.xss;
+  const T* bb = Bm + b * s.bsb + grp * s.bsg + t0 * s.bss + nb * SG::kNB;
+  const float* db = dt + b * s.dsb + h * s.dsh + t0 * s.dss;
+  for (int l = tid; l < L; l += kThreads) dts[l] = db[l * s.dss];
+  __syncthreads();
+  chunk_cumsum(dts, A[h], L, cum, part);
+  const double total = cum[L - 1];
+  if (tid == 0 && nb == 0) decay[((long long)b * (nc - 1) + c) * H + h] = (float)exp(total);
+  for (int l = tid; l < L; l += kThreads) w[l] = (float)exp(total - cum[l]);
 
-  for (int i = tid; i < P * SM::kSS; i += kThreads) st[i] = 0.f;
-
-  const int nc = S / L;
-  const int ntiles = (L + kT - 1) / kT;
-  for (int c = 0; c < nc; ++c) {
-    const long long t0 = (long long)c * L;
-    __syncthreads();  // the previous chunk's state update and readers are done
-    for (int l = tid; l < L; l += kThreads) dts[l] = db[(t0 + l) * dss];
+  float acc[WG::kTM][WG::kTN][4];
+  zero(acc);
+  const int warp = tid >> 5;
+  const int m0 = (warp % WG::kWM) * WG::kTM * 16, n0 = (warp / WG::kWM) * WG::kTN * 8;
+  for (int s0 = 0; s0 < L; s0 += kT) {
+    const int ns = min(kT, L - s0);
+    __syncthreads();  // w is written; the previous slab is consumed
+    for (int i = tid; i < kT * P / 4; i += kThreads) {
+      const int r = i / (P / 4), p = 4 * (i - r * (P / 4));
+      store4(xs + r * SG::kXS + p,
+             r < ns ? scale4(scale4(load4(xb + (s0 + r) * s.xss + p, s.vec), dts[s0 + r]),
+                             w[s0 + r])
+                    : zero4());
+    }
+    for (int i = tid; i < kT * SG::kNB / 4; i += kThreads) {
+      const int r = i / (SG::kNB / 4), n = 4 * (i - r * (SG::kNB / 4));
+      store4(bs + r * SG::kBS + n, r < ns ? load4(bb + (s0 + r) * s.bss + n, s.vec) : zero4());
+    }
     __syncthreads();
-
-    // cum in float64: 32 threads sum contiguous runs, one thread scans the
-    // runs' totals, then each run adds its offset
-    const int per = (L + kScanLanes - 1) / kScanLanes;
-    if (tid < kScanLanes) {
-      const int lo = tid * per, hi = min(L, lo + per);
-      double run = 0.0;
-      for (int l = lo; l < hi; ++l) {
-        run += (double)(dts[l] * a);
-        cum[l] = run;
+    if (warp < WG::kBusy)
+      warp_mma<WG::kTM, WG::kTN, true, kSplitB>(
+          acc, m0, n0, kT, [&](int r, int k) { return xs[k * SG::kXS + r]; },
+          [&](int k, int col) { return bs[k * SG::kBS + col]; });
+  }
+  if (warp >= WG::kBusy) return;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  float* out = states + (((long long)b * (nc - 1) + c) * H + h) * (P * N) + nb * SG::kNB;
+#pragma unroll
+  for (int i = 0; i < WG::kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < WG::kTN; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = m0 + 16 * i + g + 8 * half, n = n0 + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(out + p * N + n) =
+            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
       }
-      part[tid] = run;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      double run = 0.0;
-      for (int i = 0; i < kScanLanes; ++i) {
-        const double v = part[i];
-        part[i] = run;
-        run += v;
-      }
-    }
-    __syncthreads();
-    if (tid < kScanLanes) {
-      const int lo = tid * per, hi = min(L, lo + per);
-      const double off = part[tid];
-      for (int l = lo; l < hi; ++l) cum[l] += off;
-    }
-    __syncthreads();
-    const double total = cum[L - 1];
+}
 
-    for (int rt = 0; rt < ntiles; ++rt) {
-      const int r0 = rt * kT;
-      const int nr = min(kT, L - r0);
-      for (int idx = tid; idx < kT * N; idx += kThreads) {
-        const int r = idx / N, n = idx - r * N;
-        cs[r * SM::kCS + n] = r < nr ? to_f32(cb[(t0 + r0 + r) * css + n]) : 0.f;
+template <typename T, int P, int N>
+__device__ void chunk_scores(const T* __restrict__ Bm, const T* __restrict__ Cm,
+                             float* __restrict__ scores, int idx, int G, int nc, int L,
+                             const Strides& s, uint8_t* smem) {
+  using WG = WarpGrid<kT, kT>;
+  constexpr int kNC = StateGeo<P, N>::kNC, kCS = StateGeo<P, N>::kCS;
+  constexpr bool kSplit = sizeof(T) == 4;
+  const int nt = (L + kT - 1) / kT, npairs = nt * (nt + 1) / 2;
+  const int q = idx % npairs;
+  idx /= npairs;
+  const int grp = idx % G;
+  idx /= G;
+  const int c = idx % nc, b = idx / nc;
+  int rt = 0, ct = q;
+  while (ct > rt) ct -= ++rt;  // q = rt (rt + 1) / 2 + ct, ct <= rt
+  const int r0 = rt * kT, nr = min(kT, L - r0);
+  const int s0 = ct * kT, ns = min(kT, L - s0);
+  float* cs = reinterpret_cast<float*>(smem);
+  float* bs = cs + kT * kCS;
+  const long long t0 = (long long)c * L;
+  const T* cb = Cm + b * s.csb + grp * s.csg + (t0 + r0) * s.css;
+  const T* bb = Bm + b * s.bsb + grp * s.bsg + (t0 + s0) * s.bss;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int m0 = (warp % WG::kWM) * WG::kTM * 16, n0 = (warp / WG::kWM) * WG::kTN * 8;
+  float acc[WG::kTM][WG::kTN][4];
+  zero(acc);
+  for (int k0 = 0; k0 < N; k0 += kNC) {
+    if (k0 > 0) __syncthreads();  // the previous columns are consumed
+    for (int i = tid; i < kT * kNC / 4; i += kThreads) {
+      const int r = i / (kNC / 4), n = 4 * (i - r * (kNC / 4));
+      store4(cs + r * kCS + n, r < nr ? load4(cb + r * s.css + k0 + n, s.vec) : zero4());
+      store4(bs + r * kCS + n, r < ns ? load4(bb + r * s.bss + k0 + n, s.vec) : zero4());
+    }
+    __syncthreads();
+    if (warp < WG::kBusy)
+      warp_mma<WG::kTM, WG::kTN, kSplit, kSplit>(
+          acc, m0, n0, kNC, [&](int r, int k) { return cs[r * kCS + k]; },
+          [&](int k, int col) { return bs[col * kCS + k]; });
+  }
+  if (warp >= WG::kBusy) return;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  float* out = scores + (((long long)b * nc + c) * G + grp) * npairs * kTile + (long long)q * kTile;
+#pragma unroll
+  for (int i = 0; i < WG::kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < WG::kTN; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + 16 * i + g + 8 * half, col = n0 + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(out + r * kT + col) =
+            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+}
+
+// Blocks [0, n_state) form chunk contributions, the rest score tiles.
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                       const float* __restrict__ A, const T* __restrict__ Bm,
+                       const T* __restrict__ Cm, float* __restrict__ states,
+                       float* __restrict__ decay, float* __restrict__ scores, int n_state,
+                       int H, int G, int nc, int L, Strides s) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int idx = blockIdx.x;
+  if (idx < n_state)
+    chunk_state<T, P, N>(x, dt, A, Bm, states, decay, idx, H, G, nc, L, s, smem);
+  else
+    chunk_scores<T, P, N>(Bm, Cm, scores, idx - n_state, G, nc, L, s, smem);
+}
+
+// ---------------------------------------------------------------- 2. passing the state
+
+// states[b, c] holds chunk c's own contribution; afterwards the state
+// leaving chunk c: s = s * exp(total_c) + contribution_c (two roundings, as
+// the plain version's), for c = 1 .. nc - 2.
+__global__ void __launch_bounds__(kThreads)
+ssd_state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay, int H,
+                      int nc, int PN) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= PN) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long slot = (long long)H * PN;
+  float* st = states + ((long long)b * (nc - 1) * H + h) * PN + e;
+  const float* dc = decay + (long long)b * (nc - 1) * H + h;
+  float run = st[0];
+  for (int c = 1; c < nc - 1; ++c) {
+    run = run * dc[c * H] + st[c * slot];
+    st[c * slot] = run;
+  }
+}
+
+// ---------------------------------------------------------------- 3. the output
+
+template <int P, int N>
+struct ScanGeo {
+  static constexpr int kNC = N < kNChunk ? N : kNChunk;  // N staged kNC at a time
+  static constexpr int kCS = kNC + 4;  // C tile [64][kNC] and state [P][kNC]: read along a row
+  static constexpr int kXS = P + 8;  // xbar tile [64][P]: read down a column
+  static constexpr int kCarried = 4 * (kT + P) * kCS;
+  static constexpr int kIntra = 4 * (kT * kPS + kT * kXS);
+  static constexpr int kRegion = kCarried > kIntra ? kCarried : kIntra;
+  static int bytes(int L) { return Head(L).tiles + 2 * 8 * kT + kRegion; }  // + ul, vs
+};
+
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ A, const T* __restrict__ Cm,
+                      const float* __restrict__ Dv, const float* __restrict__ states,
+                      const float* __restrict__ scores, T* __restrict__ y, int H, int G, int nc,
+                      int L, Strides s) {
+  using SG = ScanGeo<P, N>;
+  using WG = WarpGrid<kT, P>;
+  constexpr bool kSplitC = sizeof(T) == 4;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int nt = gridDim.x, npairs = nt * (nt + 1) / 2;
+  const int rt = nt - 1 - blockIdx.x;  // heavy row tiles first
+  const int h = blockIdx.y;
+  const int c = blockIdx.z % nc, b = blockIdx.z / nc;
+  const int grp = h / (H / G);
+  const int r0 = rt * kT, nr = min(kT, L - r0), rend = r0 + nr;
+
+  const Head hd(L);
+  double* cum = reinterpret_cast<double*>(smem + hd.cum);
+  double* part = reinterpret_cast<double*>(smem + hd.part);
+  float* dts = reinterpret_cast<float*>(smem + hd.dts);
+  double* ul = reinterpret_cast<double*>(smem + hd.tiles);  // exp(cum_l - cum_r0), l in the row tile
+  double* vs = ul + kT;                                     // exp(cum_r0 - cum_s), s in a column tile
+  float* region = reinterpret_cast<float*>(vs + kT);
+  float* cs = region;            // carried: C tile [64][kCS]
+  float* ss = cs + kT * SG::kCS;  //          state [P][kCS]
+  float* ps = region;            // intra: decayed scores [64][kPS]
+  float* xs = ps + kT * kPS;     //        xbar [64][kXS]
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const long long t0 = (long long)c * L;
+  const T* xb = x + b * s.xsb + h * s.xsh + t0 * s.xss;
+  const float* db = dt + b * s.dsb + h * s.dsh + t0 * s.dss;
+  for (int l = tid; l < rend; l += kThreads) dts[l] = db[l * s.dss];
+  __syncthreads();
+  chunk_cumsum(dts, A[h], rend, cum, part);
+
+  const bool busy = warp < WG::kBusy;
+  const int m0 = (warp % WG::kWM) * WG::kTM * 16, n0 = (warp / WG::kWM) * WG::kTN * 8;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  float acc[WG::kTM][WG::kTN][4];
+  zero(acc);
+
+  const float* sc0 = scores + (((long long)b * nc + c) * G + grp) * npairs * kTile +
+                     (long long)(rt * (rt + 1) / 2) * kTile;
+  if (c > 0) {  // the state entering this chunk, through C, decayed from the chunk's start
+    const T* cb = Cm + b * s.csb + grp * s.csg + (t0 + r0) * s.css;
+    const float* sb = states + (((long long)b * (nc - 1) + c - 1) * H + h) * (P * N);
+    for (int k0 = 0; k0 < N; k0 += SG::kNC) {
+      if (k0 > 0) __syncthreads();  // the previous columns are consumed
+      for (int i = tid; i < kT * SG::kNC / 4; i += kThreads) {
+        const int r = i / (SG::kNC / 4), n = 4 * (i - r * (SG::kNC / 4));
+        store4(cs + r * SG::kCS + n, r < nr ? load4(cb + r * s.css + k0 + n, s.vec) : zero4());
+      }
+      for (int i = tid; i < P * SG::kNC / 4; i += kThreads) {
+        const int p = i / (SG::kNC / 4), n = 4 * (i - p * (SG::kNC / 4));
+        store4(ss + p * SG::kCS + n, load4(sb + p * N + k0 + n, true));
       }
       __syncthreads();
-
-      float acc[4][kPC];
+      if (busy)
+        warp_mma<WG::kTM, WG::kTN, kSplitC, true>(
+            acc, m0, n0, SG::kNC, [&](int r, int k) { return cs[r * SG::kCS + k]; },
+            [&](int k, int col) { return ss[col * SG::kCS + k]; });
+    }
+    if (busy) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < WG::kTM; ++i)
 #pragma unroll
-        for (int j = 0; j < kPC; ++j) acc[i][j] = 0.f;
-
-      if (c > 0) {  // the carried state through C, decayed from the chunk's start
-        float dot[4][kPC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < kPC; ++j) dot[i][j] = 0.f;
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          float cv[4], sv[kPC];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = cs[(ty * 4 + i) * SM::kCS + n];
-#pragma unroll
-          for (int j = 0; j < kPC; ++j) sv[j] = st[(tx + 16 * j) * SM::kSS + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < kPC; ++j) dot[i][j] = fmaf(cv[i], sv[j], dot[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = ty * 4 + i;
+        for (int half = 0; half < 2; ++half) {
+          const int r = m0 + 16 * i + g + 8 * half;
           const float e = r < nr ? (float)exp(cum[r0 + r]) : 0.f;
 #pragma unroll
-          for (int j = 0; j < kPC; ++j) acc[i][j] = e * dot[i][j];
-        }
-      }
-
-      for (int ct = 0; ct <= rt; ++ct) {  // column tiles on or below the diagonal
-        const int s0 = ct * kT;
-        const int ns = min(kT, L - s0);
-        __syncthreads();  // the previous tile's B, xbar and scores are consumed
-        for (int idx = tid; idx < kT * N; idx += kThreads) {
-          const int r = idx / N, n = idx - r * N;
-          bs[r * SM::kBS + n] = r < ns ? to_f32(bb[(t0 + s0 + r) * bss + n]) : 0.f;
-        }
-        for (int idx = tid; idx < kT * P; idx += kThreads) {
-          const int r = idx / P, p = idx - r * P;
-          xs[r * SM::kXS + p] = r < ns ? to_f32(xb[(t0 + s0 + r) * xss + p]) * dts[s0 + r] : 0.f;
-        }
-        __syncthreads();
-
-        float sc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = cs[(ty * 4 + i) * SM::kCS + n];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = bs[(tx + 16 * j) * SM::kBS + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(cv[i], bv[j], sc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = ty * 4 + i;
-          const int l = r0 + r;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int s = tx + 16 * j;
-            const int sl = s0 + s;
-            float v = 0.f;
-            if (r < nr && s < ns && sl <= l) v = sc[i][j] * (float)exp(cum[l] - cum[sl]);
-            ps[r * kPS + s] = v;
+          for (int j = 0; j < WG::kTN; ++j) {
+            acc[i][j][2 * half] = e * acc[i][j][2 * half];
+            acc[i][j][2 * half + 1] = e * acc[i][j][2 * half + 1];
           }
         }
-        __syncthreads();
-
-        for (int s = 0; s < ns; ++s) {
-          float pv[4], xv[kPC];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) pv[i] = ps[(ty * 4 + i) * kPS + s];
-#pragma unroll
-          for (int j = 0; j < kPC; ++j) xv[j] = xs[s * SM::kXS + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < kPC; ++j) acc[i][j] = fmaf(pv[i], xv[j], acc[i][j]);
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        if (r >= nr) continue;
-        const long long l = t0 + r0 + r;
-#pragma unroll
-        for (int j = 0; j < kPC; ++j) {
-          const int p = tx + 16 * j;
-          const float xv = to_f32(xb[l * xss + p]);
-          from_f32(yb + l * yss + p, acc[i][j] + xv * dcoef);
-        }
-      }
     }
-
-    if (c == nc - 1) break;  // nothing reads the state after the last chunk
-
-    // s' = s exp(total) + sum_l exp(total - cum_l) xbar_l B_l^T
-    float sacc[kRP][kRN];
-#pragma unroll
-    for (int i = 0; i < kRP; ++i)
-#pragma unroll
-      for (int j = 0; j < kRN; ++j) sacc[i][j] = 0.f;
-    for (int ct = 0; ct < ntiles; ++ct) {
-      const int s0 = ct * kT;
-      const int ns = min(kT, L - s0);
-      __syncthreads();  // the previous readers of the B and xbar tiles are done
-      for (int idx = tid; idx < kT * N; idx += kThreads) {
-        const int r = idx / N, n = idx - r * N;
-        bs[r * SM::kBS + n] = r < ns ? to_f32(bb[(t0 + s0 + r) * bss + n]) : 0.f;
-      }
-      for (int idx = tid; idx < kT * P; idx += kThreads) {
-        const int r = idx / P, p = idx - r * P;
-        float v = 0.f;
-        if (r < ns) {
-          const float w = (float)exp(total - cum[s0 + r]);
-          v = (to_f32(xb[(t0 + s0 + r) * xss + p]) * dts[s0 + r]) * w;
-        }
-        xs[r * SM::kXS + p] = v;
-      }
-      __syncthreads();
-      for (int r = 0; r < ns; ++r) {
-        float xv[kRP], bv[kRN];
-#pragma unroll
-        for (int i = 0; i < kRP; ++i) xv[i] = xs[r * SM::kXS + tp + kTP * i];
-#pragma unroll
-        for (int j = 0; j < kRN; ++j) bv[j] = bs[r * SM::kBS + tn + kTN * j];
-#pragma unroll
-        for (int i = 0; i < kRP; ++i)
-#pragma unroll
-          for (int j = 0; j < kRN; ++j) sacc[i][j] = fmaf(xv[i], bv[j], sacc[i][j]);
-      }
-    }
-    const float et = (float)exp(total);
-    // every reader of the old state (the carried term of each row tile) has
-    // passed at least one barrier since; each thread rewrites its own entries
-#pragma unroll
-    for (int i = 0; i < kRP; ++i)
-#pragma unroll
-      for (int j = 0; j < kRN; ++j) {
-        float* e = st + (tp + kTP * i) * SM::kSS + tn + kTN * j;
-        *e = *e * et + sacc[i][j];
-      }
   }
+
+  for (int ct = 0; ct <= rt; ++ct) {
+    const int s0 = ct * kT, ns = min(kT, L - s0);
+    const bool diag = ct == rt;
+    if (!diag && tid < 2 * kT) {  // off the diagonal, the decay factors in two halves
+      const int i = tid & (kT - 1);
+      if (tid < kT) {
+        if (i < nr) ul[i] = exp(cum[r0 + i] - cum[r0]);
+      } else {
+        vs[i] = exp(cum[r0] - cum[s0 + i]);  // a column tile below the diagonal is full
+      }
+    }
+    __syncthreads();  // ul / vs written; the region's previous readers are done
+    const float* sc = sc0 + (long long)ct * kTile;
+    for (int i = tid; i < kTile / 4; i += kThreads) {
+      const int r = i >> 4, col = 4 * (i & 15);
+      const int l = r0 + r;
+      const float4 v4 = load4(sc + 4 * i, true);
+      float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c2 = col + e, sl = s0 + c2;
+        if (r < nr && c2 < ns && sl <= l) {
+          const double f = diag ? exp(cum[l] - cum[sl]) : ul[r] * vs[c2];
+          v[e] = v[e] * (float)f;
+        } else {
+          v[e] = 0.f;
+        }
+      }
+      store4(ps + r * kPS + col, make_float4(v[0], v[1], v[2], v[3]));
+    }
+    for (int i = tid; i < kT * P / 4; i += kThreads) {
+      const int r = i / (P / 4), p = 4 * (i - r * (P / 4));
+      store4(xs + r * SG::kXS + p,
+             r < ns ? scale4(load4(xb + (s0 + r) * s.xss + p, s.vec), dts[s0 + r]) : zero4());
+    }
+    __syncthreads();
+    if (busy)
+      warp_mma<WG::kTM, WG::kTN, true, true>(
+          acc, m0, n0, kT, [&](int r, int k) { return ps[r * kPS + k]; },
+          [&](int k, int col) { return xs[k * SG::kXS + col]; });
+  }
+
+  if (!busy) return;
+  const float dcoef = Dv[h];
+  T* yb = y + b * s.ysb + h * s.ysh + (t0 + r0) * s.yss;
+#pragma unroll
+  for (int i = 0; i < WG::kTM; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + 16 * i + g + 8 * half;
+      if (r >= nr) continue;
+#pragma unroll
+      for (int j = 0; j < WG::kTN; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = n0 + 8 * j + 2 * t + e;
+          const float xv = to_f32(xb[(r0 + r) * s.xss + p]);
+          from_f32(yb + r * s.yss + p, acc[i][j][2 * half + e] + xv * dcoef);
+        }
+    }
+}
+
+// ---------------------------------------------------------------- host side
+
+long long workspace_floats(int B, int S, int H, int G, int P, int N, int L) {
+  const long long nc = S / L, nt = (L + kT - 1) / kT;
+  const long long scores = (long long)B * nc * G * (nt * (nt + 1) / 2) * kTile;
+  const long long decay = ((long long)B * (nc - 1) * H + 3) / 4 * 4;
+  return scores + decay + (long long)B * (nc - 1) * H * P * N;
 }
 
 template <typename T, int P, int N>
 cudaError_t launch(const void* x, const float* dt, const float* A, const void* Bm,
-                   const void* Cm, const float* Dv, void* y, int B, int S, int H, int G, int L,
-                   const long long* st, cudaStream_t stream) {
-  const int smem = Smem<P, N>::bytes(L);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = ssd_scan_kernel<T, P, N>;
-  static int smem_set[kMaxDevices] = {};
-  cudaError_t err = ensure_smem(kernel, smem, smem_set);
+                   const void* Cm, const float* Dv, void* y, float* ws, int B, int S, int H,
+                   int G, int L, const Strides& st, cudaStream_t stream) {
+  const int nc = S / L, nt = (L + kT - 1) / kT, npairs = nt * (nt + 1) / 2;
+  if ((long long)B * nc > 65535) return cudaErrorInvalidValue;
+  float* scores = ws;
+  float* decay = scores + (long long)B * nc * G * npairs * kTile;
+  float* states = decay + ((long long)B * (nc - 1) * H + 3) / 4 * 4;
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(Bm);
+  const T* ct = static_cast<const T*>(Cm);
+
+  const long long n_state = (long long)B * (nc - 1) * H * StateGeo<P, N>::kNS;
+  const long long n_blocks = n_state + (long long)B * nc * G * npairs;
+  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem1 = StateGeo<P, N>::bytes(L);
+  const int smem3 = ScanGeo<P, N>::bytes(L);
+  if (smem1 > kMaxSmem || smem3 > kMaxSmem) return cudaErrorInvalidValue;
+
+  auto k1 = ssd_chunk_state_kernel<T, P, N>;
+  static int set1[kMaxDevices] = {};
+  cudaError_t err = ensure_smem(k1, smem1, set1);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      Dv, static_cast<T*>(y), H, G, S, L, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14]);
+  k1<<<(unsigned)n_blocks, kThreads, smem1, stream>>>(xt, dt, A, bt, ct, states, decay, scores,
+                                                      (int)n_state, H, G, nc, L, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  if (nc >= 3) {
+    ssd_state_pass_kernel<<<dim3((P * N + kThreads - 1) / kThreads, H, B), kThreads, 0,
+                            stream>>>(states, decay, H, nc, P * N);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  auto k3 = ssd_chunk_scan_kernel<T, P, N>;
+  static int set3[kMaxDevices] = {};
+  err = ensure_smem(k3, smem3, set3);
+  if (err != cudaSuccess) return err;
+  k3<<<dim3(nt, H, B * nc), kThreads, smem3, stream>>>(xt, dt, A, ct, Dv, states, scores,
+                                                       static_cast<T*>(y), H, G, nc, L, st);
   return cudaGetLastError();
 }
 
 template <typename T, int P>
 cudaError_t dispatch_n(int N, const void* x, const float* dt, const float* A, const void* Bm,
-                       const void* Cm, const float* Dv, void* y, int B, int S, int H, int G,
-                       int L, const long long* st, cudaStream_t s) {
+                       const void* Cm, const float* Dv, void* y, float* ws, int B, int S, int H,
+                       int G, int L, const Strides& st, cudaStream_t s) {
   switch (N) {
-    case 16: return launch<T, P, 16>(x, dt, A, Bm, Cm, Dv, y, B, S, H, G, L, st, s);
-    case 32: return launch<T, P, 32>(x, dt, A, Bm, Cm, Dv, y, B, S, H, G, L, st, s);
-    case 64: return launch<T, P, 64>(x, dt, A, Bm, Cm, Dv, y, B, S, H, G, L, st, s);
-    case 128: return launch<T, P, 128>(x, dt, A, Bm, Cm, Dv, y, B, S, H, G, L, st, s);
+    case 16: return launch<T, P, 16>(x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
+    case 32: return launch<T, P, 32>(x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
+    case 64: return launch<T, P, 64>(x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
+    case 128: return launch<T, P, 128>(x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 cudaError_t dispatch(int P, int N, const void* x, const float* dt, const float* A,
-                     const void* Bm, const void* Cm, const float* Dv, void* y, int B, int S,
-                     int H, int G, int L, const long long* st, cudaStream_t s) {
+                     const void* Bm, const void* Cm, const float* Dv, void* y, float* ws, int B,
+                     int S, int H, int G, int L, const Strides& st, cudaStream_t s) {
   switch (P) {
-    case 16: return dispatch_n<T, 16>(N, x, dt, A, Bm, Cm, Dv, y, B, S, H, G, L, st, s);
-    case 32: return dispatch_n<T, 32>(N, x, dt, A, Bm, Cm, Dv, y, B, S, H, G, L, st, s);
-    case 64: return dispatch_n<T, 64>(N, x, dt, A, Bm, Cm, Dv, y, B, S, H, G, L, st, s);
-    case 128: return dispatch_n<T, 128>(N, x, dt, A, Bm, Cm, Dv, y, B, S, H, G, L, st, s);
+    case 16: return dispatch_n<T, 16>(N, x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
+    case 32: return dispatch_n<T, 32>(N, x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
+    case 64: return dispatch_n<T, 64>(N, x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
+    case 128: return dispatch_n<T, 128>(N, x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+bool valid_shape(int B, int S, int H, int G, int L) {
+  return B >= 1 && S >= 1 && H >= 1 && G >= 1 && H % G == 0 && L >= 1 && S % L == 0 &&
+         H <= 65535;
+}
+
 }  // namespace
+
+// Float32 elements of the workspace a call needs (scores, per-chunk decays
+// and states), or -1 for a shape the kernels do not take.
+extern "C" long long repro_ssd_scan_workspace(int B, int S, int H, int G, int P, int N, int L) {
+  if (!valid_shape(B, S, H, G, L)) return -1;
+  return workspace_floats(B, S, H, G, P, N, L);
+}
 
 // x [B, S, H, P], dt [B, S, H] float32, A and D [H] float32 (contiguous),
 // B and C [B, S, G, N], y [B, S, H, P]; strides in elements, the last
 // dimension of x, B, C and y contiguous.  bf16 != 0: x, B, C and y bfloat16,
-// else float32.  L divides S; G divides H.
+// else float32.  L divides S; G divides H.  ws: repro_ssd_scan_workspace
+// float32 elements, 16-byte aligned.
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
-                              const void* Cm, const void* Dv, void* y,
+                              const void* Cm, const void* Dv, void* y, void* ws,
                               int B, int S, int H, int G, int P, int N, int L, int bf16,
                               long long xsb, long long xss, long long xsh,
                               long long dsb, long long dss, long long dsh,
                               long long bsb, long long bss, long long bsg,
                               long long csb, long long css, long long csg,
                               long long ysb, long long yss, long long ysh, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || G < 1 || H % G != 0 || L < 1 || S % L != 0)
-    return (int)cudaErrorInvalidValue;
-  if (B > 65535) return (int)cudaErrorInvalidValue;
-  const long long st[15] = {xsb, xss, xsh, dsb, dss, dsh, bsb, bss, bsg,
-                            csb, css, csg, ysb, yss, ysh};
+  if (!valid_shape(B, S, H, G, L)) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(ws) % 16 != 0) return (int)cudaErrorInvalidValue;
+  // rows of x, B and C start on 4-element units: base addresses and strides
+  const uintptr_t unit = bf16 ? 8 : 16;
+  const bool vec = reinterpret_cast<uintptr_t>(x) % unit == 0 &&
+                   reinterpret_cast<uintptr_t>(Bm) % unit == 0 &&
+                   reinterpret_cast<uintptr_t>(Cm) % unit == 0 &&
+                   (xsb | xss | xsh | bsb | bss | bsg | csb | css | csg) % 4 == 0;
+  const Strides st{xsb, xss, xsh, dsb, dss, dsh, bsb, bss, bsg, csb, css, csg, ysb, yss, ysh,
+                   (int)vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
   const float* Df = static_cast<const float*>(Dv);
-  cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(P, N, x, dtf, Af, Bm, Cm, Df, y, B, S, H,
-                                                   G, L, st, s)
-                         : dispatch<float>(P, N, x, dtf, Af, Bm, Cm, Df, y, B, S, H, G, L,
+  float* wf = static_cast<float*>(ws);
+  cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(P, N, x, dtf, Af, Bm, Cm, Df, y, wf, B, S,
+                                                   H, G, L, st, s)
+                         : dispatch<float>(P, N, x, dtf, Af, Bm, Cm, Df, y, wf, B, S, H, G, L,
                                            st, s);
   return (int)err;
 }

@@ -14,7 +14,8 @@ wrapper                replaces (JAX package)                      CUDA source
 
 A wrapper launches its kernel for tensors on the card and runs the plain
 version for tensors on the CPU, and never falls back from one to the
-other.  ``<wrapper>.launches`` counts kernel launches (and
+other.  ``<wrapper>.launches`` counts the calls that launched the kernel
+(one a call, however many kernels it enqueues) (and
 ``simplex_pivot.clusters`` the pivot kernel's launches by cluster size).  The kernels are
 compiled from ``csrc/`` at first use (:mod:`repro_torch.kernels.build`).
 """

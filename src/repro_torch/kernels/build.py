@@ -9,8 +9,10 @@ builds everything on its first call and a changed source rebuilds.
 
 ``-fmad=false`` keeps ``nvcc`` from contracting a product and a sum into a
 fused multiply-add on its own: the kernels write every fma they mean
-(``fma`` in csrc/simplex_pivot.cu, ``fmaf`` in the attention, SSD and
-RMSNorm kernels), so their rounding is the source's.
+(``fma`` in csrc/simplex_pivot.cu, ``fmaf`` in the attention and RMSNorm
+kernels; the SSD scan's products run on the tensor cores), so their
+rounding is the source's.  A ``csrc/*.cuh`` header is part of the hash, and
+``nvcc`` finds it beside the source that includes it.
 
 Nothing here falls back: a missing toolkit, a failed compile or a library
 that does not load raises.
@@ -57,17 +59,20 @@ _SIGNATURES = {
     # q, k, v, o, B, H, KVH, Sq, Sk, D, bf16, strides of q, k/v and o (b, s, h),
     # causal, window, scale, stream
     "repro_flash_attention": [_P] * 4 + [_I] * 7 + [_L] * 9 + [_I, _I, _F, _P],
-    # q, k_cache, v_cache, cache_len, part_m, part_l, part_acc, o, B, H, KVH,
-    # Smax, D, bf16, strides q (b, h), caches (b, s, h), o (b, h), window,
-    # scale, stream
-    "repro_decode_attention": [_P] * 8 + [_I] * 6 + [_L] * 7 + [_I, _F, _P],
-    "repro_decode_attention_chunk": [],
-    # x, dt, A, B, C, D, y, B, S, H, G, P, N, L, bf16, strides of x, dt, B, C
-    # and y (b, s, h or g), stream
-    "repro_ssd_scan": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_P],
+    # q, k_cache, v_cache, cache_len, part_m, part_l, part_acc, counters, o, B,
+    # H, KVH, Smax, D, split, bf16, strides q (b, h), caches (b, s, h), o (b,
+    # h), window, scale, stream
+    "repro_decode_attention": [_P] * 9 + [_I] * 7 + [_L] * 7 + [_I, _F, _P],
+    "repro_decode_attention_geometry": [_I],
+    # x, dt, A, B, C, D, y, workspace, B, S, H, G, P, N, L, bf16, strides of
+    # x, dt, B, C and y (b, s, h or g), stream
+    "repro_ssd_scan": [_P] * 8 + [_I] * 8 + [_L] * 15 + [_P],
+    # B, S, H, G, P, N, L -> float32 elements of the workspace
+    "repro_ssd_scan_workspace": [_I] * 7,
     # x, w, out, rows, D, row strides of x and out, bf16, eps, stream
     "repro_rms_norm": [_P, _P, _P, _I, _I, _L, _L, _I, _F, _P],
 }
+_RESTYPES = {"repro_ssd_scan_workspace": _L}
 
 
 def _nvcc() -> str:
@@ -138,7 +143,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _BUILD_SECONDS = time.perf_counter() - t0

@@ -5,8 +5,9 @@ grouped-query heads.
 The port of the Pallas kernel ``decode_attention_kernel`` /
 ``decode_attention_call`` (``repro/kernels/decode_attention.py``) and of its
 wrapper ``ops.decode_attention``.  :func:`decode_attention` launches the
-hand-written CUDA kernel (``csrc/decode_attention.cu``: a split-KV pass and
-a combine pass) for tensors on the card and runs
+hand-written CUDA kernel (``csrc/decode_attention.cu``: one launch, split-KV
+blocks streaming the cache through shared memory, the last block of each kv
+head combining the splits) for tensors on the card and runs
 :func:`decode_attention_plain` for tensors on the CPU; it never falls back
 from one to the other.
 
@@ -18,7 +19,8 @@ for the host.  Valid entries are ``idx < cache_len`` and, with a window,
 
 Shapes: q ``[B, 1, H, D]``, caches ``[B, Smax, KVH, D]`` (``H % KVH == 0``);
 float32 or bfloat16, float32 inside, the output ``[B, 1, H, D]`` in q's
-dtype.
+dtype.  The kernel copies the caches in 16-byte units: they start 16-byte
+aligned, with strides of whole 16-byte units (:func:`check_decode_layout`).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 from .build import check, library
 from .flash_attention import KERNEL_HEAD_DIMS, masked_attention
 
-__all__ = ["decode_attention", "decode_attention_plain", "decode_valid"]
+__all__ = ["decode_attention", "decode_attention_plain", "decode_valid", "decode_split",
+           "check_decode_layout"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -84,32 +87,71 @@ def _check_args(q, k_cache, v_cache, cache_len, window):
         raise ValueError(f"window must be >= 0; got {window}")
 
 
-_CHUNK: int | None = None
-_PARTIALS: dict = {}
+def check_decode_layout(k_cache, v_cache):
+    """Raise ``ValueError`` unless the kernel's 16-byte copies take the
+    caches as laid out (checked before every launch; runs on tensors on any
+    device): a contiguous last dimension, k and v with equal strides, both
+    starting 16-byte aligned, and every other stride a positive multiple of
+    16 bytes (a dimension of size 1 is never stepped over)."""
+    if k_cache.stride(-1) != 1 or k_cache.stride() != v_cache.stride():
+        raise ValueError("the kernel needs a contiguous last dimension, and caches with "
+                         "equal strides")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"the kernel copies 16-byte units; {name} starts at an address "
+                             f"{t.data_ptr() % 16} bytes past a multiple of 16")
+        bad = [st for n, st in zip(t.shape[:3], t.stride()[:3])
+               if n != 1 and (st <= 0 or (st * t.element_size()) % 16)]
+        if bad or (t.shape[-1] * t.element_size()) % 16:
+            raise ValueError(f"the kernel copies 16-byte units; {name} has strides "
+                             f"{tuple(t.stride())} of {t.element_size()}-byte elements")
 
 
-def _chunk(lib) -> int:
-    """Cache entries per split of pass 1, asked of the library once."""
-    global _CHUNK
-    if _CHUNK is None:
-        _CHUNK = lib.repro_decode_attention_chunk()
-    return _CHUNK
+def decode_split(B: int, KVH: int, G: int, Smax: int, n_sms: int, *, tile: int = 16,
+                 max_split: int = 64, heads: int = 8) -> int:
+    """Cache entries a block of the kernel takes: the smallest multiple of
+    ``tile`` (at most ``max_split``) with which the blocks, one per (b, kv
+    head, group of up to ``heads`` query heads, split), come to at most four
+    an SM, so the card holds them all at once with their copies in flight;
+    ``max_split`` where none does."""
+    blocks = B * KVH * -(-G // heads)
+    for split in range(tile, max_split + 1, tile):
+        if blocks * -(-Smax // split) <= 4 * n_sms:
+            return split
+    return max_split
 
 
-def _partials(device, stream: int, B: int, H: int, n_split: int, D: int):
-    """Pass 1's partial (max, denominator, accumulator) buffers, float32
-    ``[B, H, n_split]`` twice and ``[B, H, n_split, D]``: one workspace per
+_GEOMETRY: tuple | None = None
+_SMS: dict = {}
+_WORKSPACE: dict = {}
+
+
+def _geometry(lib) -> tuple:
+    """(entries a commit group, the largest split, query heads a block),
+    asked of the library once."""
+    global _GEOMETRY
+    if _GEOMETRY is None:
+        _GEOMETRY = tuple(lib.repro_decode_attention_geometry(i) for i in range(3))
+    return _GEOMETRY
+
+
+def _workspace(device, stream: int, B: int, H: int, KVH: int, n_split: int, D: int,
+               heads: int):
+    """The splits' partial (max, denominator, accumulator), float32
+    ``[B, H, n_split]`` twice and ``[B, H, n_split, D]``, and the combine's
+    counters, int32 ``[B, KVH ceil(G / heads)]`` and zero: one workspace per
     device, stream and shape, reused by every call (calls on one stream run
-    in order, so a call's combine pass has read it before the next call's
-    first pass writes it)."""
-    key = (device, stream, B, H, n_split, D)
-    ws = _PARTIALS.get(key)
+    in order, and each leaves the counters zero)."""
+    key = (device, stream, B, H, KVH, n_split, D)
+    ws = _WORKSPACE.get(key)
     if ws is None:
         n = B * H * n_split
         buf = torch.empty(n * (D + 2), dtype=torch.float32, device=device)
+        counters = torch.zeros(B * KVH * -(-(H // KVH) // heads), dtype=torch.int32,
+                               device=device)
         ws = (buf[:n].view(B, H, n_split), buf[n:2 * n].view(B, H, n_split),
-              buf[2 * n:].view(B, H, n_split, D))
-        _PARTIALS[key] = ws
+              buf[2 * n:].view(B, H, n_split, D), counters)
+        _WORKSPACE[key] = ws
     return ws
 
 
@@ -117,7 +159,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
     """q ``[B,1,H,D]``, caches ``[B,Smax,KVH,D]`` -> ``[B,1,H,D]``: the CUDA
     kernel for tensors on the card, :func:`decode_attention_plain` for
     tensors on the CPU.  ``decode_attention.launches`` counts calls that
-    launched the kernel (each is its two passes)."""
+    launched the kernel (one launch a call)."""
     _check_args(q, k_cache, v_cache, cache_len, window)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len, window=window)
@@ -127,23 +169,29 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
     Smax, KVH = k_cache.shape[1], k_cache.shape[2]
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}; got {D}")
-    if q.stride(-1) != 1 or k_cache.stride(-1) != 1 or k_cache.stride() != v_cache.stride():
-        raise ValueError("the kernel needs a contiguous last dimension, and caches with "
-                         "equal strides")
+    if q.stride(-1) != 1:
+        raise ValueError("the kernel needs q with a contiguous last dimension")
+    check_decode_layout(k_cache, v_cache)
     if not isinstance(cache_len, torch.Tensor):
         cache_len = torch.tensor([cache_len], dtype=torch.int32, device=q.device)
     lib = library()
-    n_split = -(-Smax // _chunk(lib))
+    tile, max_split, heads = _geometry(lib)
+    if q.device not in _SMS:
+        _SMS[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
+    split = decode_split(B, KVH, H // KVH, Smax, _SMS[q.device], tile=tile,
+                         max_split=max_split, heads=heads)
+    n_split = -(-Smax // split)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        part_m, part_l, part_acc = _partials(q.device, stream, B, H, n_split, D)
+        part_m, part_l, part_acc, counters = _workspace(q.device, stream, B, H, KVH, n_split,
+                                                        D, heads)
         code = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), o.data_ptr(),
-            B, H, KVH, Smax, D, int(q.dtype == torch.bfloat16), q.stride(0), q.stride(2),
-            *k_cache.stride()[:3], o.stride(0), o.stride(2), int(window),
-            ctypes.c_float(D ** -0.5), stream)
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), counters.data_ptr(),
+            o.data_ptr(), B, H, KVH, Smax, D, split, int(q.dtype == torch.bfloat16),
+            q.stride(0), q.stride(2), *k_cache.stride()[:3], o.stride(0), o.stride(2),
+            int(window), ctypes.c_float(D ** -0.5), stream)
     check(code, "decode_attention launch")
     decode_attention.launches += 1
     return o

@@ -3,15 +3,20 @@
 
 The port of the Pallas kernel ``ssd_scan_kernel`` / ``ssd_scan_call``
 (``repro/kernels/ssd_scan.py``) and of its wrapper ``ops.ssd_scan``.
-:func:`ssd_scan` launches the hand-written CUDA kernel (``csrc/ssd_scan.cu``)
-for tensors on the card and runs :func:`ssd_scan_plain` for tensors on the
-CPU; it never falls back from one to the other.
+:func:`ssd_scan` launches the hand-written CUDA kernels (``csrc/ssd_scan.cu``:
+each chunk's state contribution and the group's scores C Bᵀ, the state passed
+across chunks, the output; products as split TF32 on the tensor cores) for
+tensors on the card and runs :func:`ssd_scan_plain` for tensors on the CPU;
+it never falls back from one to the other.
 
 Shapes: x ``[B, S, H, P]``, dt ``[B, S, H]`` (after the softplus), A and D
 ``[H]``, B and C ``[B, S, G, N]`` with ``H % G == 0`` (head ``h`` reads group
 ``h // (H // G)``).  x, B and C share float32 or bfloat16; dt, A and D are
-taken in float32; y ``[B, S, H, P]`` in x's dtype.  The kernel reads x, dt,
-B and C through their strides, so slices of one tensor need no copies.
+taken in float32; y ``[B, S, H, P]`` in x's dtype.  The kernels read x, dt,
+B and C through their strides, so slices of one tensor need no copies, and
+take dt A <= 0 (dt after the softplus, A = -exp(A_log), as in the models):
+they evaluate a decay factor off the diagonal tile as a product of two
+factors that are then at most 1.
 
 Both versions compute the chunked dual form at the chunk ``L`` (the largest
 divisor of S that is at most ``chunk``, as ``ops._pick_block``): within a
@@ -100,24 +105,45 @@ def ssd_scan_tolerance(x, dt, A, B, C, D, *, chunk: int):
     held to against :func:`ssd_scan_plain` on the same inputs (chunk as
     :func:`ssd_scan` takes it; dt >= 0, as after the softplus).
 
-    Both evaluate the same sums of products in float32, in different orders,
-    with decay factors equal to within one rounding.  A float32 evaluation
-    whose longest chain of roundings has length m is off by at most
+    Both evaluate the same sums of products, in different orders, with
+    decay factors equal to within one rounding.  A float32 evaluation whose
+    longest chain of roundings has length m is off by at most
     gamma_m = m u / (1 - m u) (u = 2^-24) times the sum of the terms' moduli,
-    so the two differ by at most 2 gamma_m of it.  That sum is the plain
-    version on |x|, |B|, |C|, |D| (itself within gamma_m).  m = N + L +
-    nc (L + 10) + 8 counts the dot over N, the sum over a chunk's L columns,
-    the state's chain across the nc chunks (per chunk a sum over L, three
-    products, an add and two decay factors) and the final product and add,
-    each decay factor as three roundings.  A bfloat16 output is rounded once
+    so two such evaluations differ by at most 2 gamma_m of it.  That sum is
+    the plain version on |x|, |B|, |C|, |D| (itself within gamma_m).  m = N +
+    L + nc (L + 10) + 8 counts the dot over N, the sum over a chunk's L
+    columns, the state's chain across the nc chunks (per chunk a sum over L,
+    three products, an add and two decay factors) and the final product and
+    add, each decay factor as three roundings.
+
+    The kernel takes its four products (C Bᵀ and C s over N; the decayed
+    scores times xbar and xbar Bᵀ over L) on the tensor cores as split
+    TF32, which adds its own term.  A float32 a is split as hi = tf32(a),
+    lo = tf32(a - hi) (tf32: round to 10 mantissa bits), so
+    |a - hi - lo| <= 2^-22 |a| and |hi| <= (1 + 2^-11) |a|; a product a b
+    becomes lo_a hi_b + hi_a lo_b + hi_a hi_b, each exact in float32,
+    dropping lo_a lo_b and the two halves' residues: at most
+    3 2^-22 (1 + 2^-11) |a b| < 13 u |a b|.  An mma adds its 8 products and
+    the accumulator in float32 and may truncate where a float32 add rounds:
+    at most 2 u of the moduli for each of the 9 terms, and three mmas (one
+    per partial product) per 8 of depth, 6.75 u per unit of depth.  So a
+    dot of depth K is off by at most (13 + 6.75 K) u of its terms' moduli
+    (bounding all of it anew, not only its excess over the K u the float32
+    chain counts).  Every term of y passes through one product over N and
+    one over L (the carried state's other products and the chain across
+    chunks are float32, counted in m), so the kernel adds at most
+    e = (26 + 6.75 (N + L)) u of the moduli' sum, and the bound is
+    (2 gamma_m + e) (1 + gamma_m) of it.  A bfloat16 output is rounded once
     more on each side: 2^-8 of the sum."""
     L = pick_chunk(x.shape[1], chunk)
     nc, n = x.shape[1] // L, B.shape[-1]
+    u = 2.0 ** -24
     m = n + L + nc * (L + 10) + 8
-    gamma = m * 2.0 ** -24 / (1 - m * 2.0 ** -24)
+    gamma = m * u / (1 - m * u)
+    split = (26 + 6.75 * (n + L)) * u
     mag = ssd_scan_plain(x.abs(), dt.float(), A.float(), B.abs(), C.abs(), D.float().abs(),
                          chunk=L).float()
-    tol = 2 * gamma * (1 + gamma) * mag
+    tol = (2 * gamma + split) * (1 + gamma) * mag
     return tol + 2.0 ** -8 * mag if x.dtype == torch.bfloat16 else tol
 
 
@@ -145,10 +171,10 @@ def _check_args(x, dt, A, B, C, D):
 
 def ssd_scan(x, dt, A, B, C, D, *, chunk=64):
     """x ``[B,S,H,P]``, dt ``[B,S,H]``, A/D ``[H]``, B/C ``[B,S,G,N]`` ->
-    y ``[B,S,H,P]``: the CUDA kernel for tensors on the card,
+    y ``[B,S,H,P]``: the CUDA kernels for tensors on the card,
     :func:`ssd_scan_plain` for tensors on the CPU, at the chunk
-    :func:`pick_chunk` gives.  ``ssd_scan.launches`` counts kernel
-    launches."""
+    :func:`pick_chunk` gives.  ``ssd_scan.launches`` counts the calls that
+    launched the kernels (one a call, however many kernels it enqueues)."""
     _check_args(x, dt, A, B, C, D)
     L = pick_chunk(x.shape[1], chunk)
     dt, A, D = dt.float(), A.float().contiguous(), D.float().contiguous()
@@ -165,12 +191,20 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk=64):
         raise ValueError(f"the kernel takes chunks up to {MAX_CHUNK}; got {L}")
     if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1:
         raise ValueError("the kernel needs x, B and C with a contiguous last dimension")
+    lib = library()
+    n_ws = lib.repro_ssd_scan_workspace(b, s, h, g, p, n, L)
+    if n_ws < 0:
+        raise ValueError(f"the kernel does not take x {tuple(x.shape)}, B {tuple(B.shape)} at "
+                         f"chunk {L}")
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    # the scores, each chunk's decay and the states between chunks
+    ws = torch.empty(max(n_ws, 1), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = library().repro_ssd_scan(
+        code = lib.repro_ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            D.data_ptr(), y.data_ptr(), b, s, h, g, p, n, L, int(x.dtype == torch.bfloat16),
+            D.data_ptr(), y.data_ptr(), ws.data_ptr(), b, s, h, g, p, n, L,
+            int(x.dtype == torch.bfloat16),
             *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3], *y.stride()[:3],
             stream)
     check(code, "ssd_scan launch")

@@ -260,3 +260,22 @@ def test_adversary_sweep_replays_through_the_session():
     assert list(got) == list(want)
     for name in got:
         np.testing.assert_allclose(got[name], want[name], rtol=RTOL)
+
+
+def test_solve_batch_warns_as_the_reference_does():
+    """``repro_torch.core.solve_batch`` is deprecated as the reference's is:
+    a DeprecationWarning naming ``Session.solve_bulk``, raised at the
+    caller's line (the same stacklevel), and the same plans."""
+    from repro.core.solver import solve_batch as ref_solve_batch
+    from repro_torch.core import solve_batch
+
+    kws = population()[:4]
+    with pytest.warns(DeprecationWarning, match=r"repro_torch\.api\.Session\.solve_bulk") as got:
+        reports = solve_batch([Problem(**kw).to_instance(1) for kw in kws], backend="serial")
+    with pytest.warns(DeprecationWarning, match=r"repro\.api\.Session\.solve_bulk") as want:
+        ref = ref_solve_batch([RefProblem(**kw).to_instance(1) for kw in kws], backend="serial")
+    assert [w.filename for w in got] == [w.filename for w in want] == [__file__]
+    assert len(reports) == len(ref) == len(kws)
+    for r, w in zip(reports, ref):
+        assert r.status == w.status
+        assert abs(r.makespan - w.makespan) <= RTOL * max(1.0, abs(w.makespan))

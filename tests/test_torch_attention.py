@@ -20,6 +20,7 @@ import torch
 from repro.kernels import ops, ref
 from repro_torch.kernels import (decode_attention, decode_attention_plain, flash_attention,
                                  flash_attention_plain)
+from repro_torch.kernels.decode_attention import check_decode_layout, decode_split
 from repro_torch.kernels.flash_attention import check_kernel_layout
 from repro_torch.models.attention import attention
 from repro_torch.models.attention import decode_attention as model_decode_attention
@@ -209,6 +210,56 @@ def test_decode_attention_wrapper_rejects(what):
     args, exc = _bad_decode()[what]
     with pytest.raises(exc):
         decode_attention(*args)
+
+
+def _decode_layouts():
+    """(k_cache, v_cache) laid out as the kernel's 16-byte copies take them
+    (``None``), or not (the words its refusal must contain)."""
+    B, S, KVH, D = 2, 8, 2, 16
+    k = torch.zeros(B, S, KVH, D)
+    kv = torch.zeros(B, S, 2 * KVH * D)  # a fused KV projection, viewed per part
+    odd = torch.zeros(B, S, KVH, D + 3)[..., :D]
+    flat = torch.zeros(B * S * KVH * D + 1)[1:].view(B, S, KVH, D)
+    size1 = torch.zeros(KVH * D).as_strided((1, 1, KVH, D), (3, 5, D, 1))
+    return {
+        "contiguous": ((k, torch.zeros_like(k)), None),
+        "fused_view": ((kv[..., :KVH * D].view(B, S, KVH, D),
+                        kv[..., KVH * D:].view(B, S, KVH, D)), None),
+        "bf16_d16": ((k.bfloat16(), k.bfloat16()), None),
+        "size1_odd_stride": ((size1, size1), None),
+        "row_stride_12_bytes": ((odd, odd), "has strides"),
+        "misaligned_base": ((flat, flat), "past a multiple of 16"),
+        "last_dim_stride": ((k.transpose(2, 3).contiguous().transpose(2, 3),) * 2,
+                            "contiguous last dimension"),
+        "kv_strides_differ": ((k, torch.zeros(B, KVH, S, D).transpose(1, 2)), "equal strides"),
+    }
+
+
+@pytest.mark.parametrize("what", sorted(_decode_layouts()))
+def test_decode_kernel_layout_check(what):
+    """What the decode kernel's 16-byte copies take, checked on CPU tensors:
+    the check the wrapper runs before every launch on the card."""
+    args, words = _decode_layouts()[what]
+    if words is None:
+        check_decode_layout(*args)
+    else:
+        with pytest.raises(ValueError, match=words):
+            check_decode_layout(*args)
+
+
+# (B, KVH, G, Smax) -> entries a block on a card of 132 SMs: llama3.2-3b's
+# and hymba-1.5b's decode shapes, a tiny cache, a long one, and G = 12 (two
+# blocks a split, 8 + 4 query heads)
+@pytest.mark.parametrize("shape,split", [((4, 8, 3, 544), 48), ((4, 5, 5, 544), 32),
+                                         ((1, 1, 1, 16), 16), ((4, 8, 3, 32768), 64),
+                                         ((2, 8, 12, 544), 48)])
+def test_decode_split_keeps_at_most_four_blocks_an_sm(shape, split):
+    B, KVH, G, Smax = shape
+    got = decode_split(B, KVH, G, Smax, 132)
+    assert got == split and got % 16 == 0
+    blocks = B * KVH * -(-G // 8)
+    assert blocks * -(-Smax // got) <= 4 * 132 or got == 64
+    assert got == 16 or blocks * -(-Smax // (got - 16)) > 4 * 132
 
 
 def test_wrappers_count_no_launch_on_the_cpu():

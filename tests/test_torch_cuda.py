@@ -21,6 +21,7 @@ from repro_torch.kernels import (asap_replay, asap_replay_plain, decode_attentio
                                  launch_counts, reset_launch_counts, rms_norm, rms_norm_plain,
                                  simplex_pivot, simplex_pivot_lanes, simplex_pivot_plain,
                                  ssd_scan, ssd_scan_plain, ssd_scan_tolerance, updated_elements)
+from repro_torch.kernels.decode_attention import decode_split
 from repro_torch.kernels.ssd_scan import pick_chunk
 
 pytestmark = pytest.mark.cuda
@@ -422,6 +423,33 @@ def test_decode_attention_kernel_matches_plain_on_card(card, heads, cache_len, w
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64)])  # llama3.2-3b's, hymba-1.5b's
+def test_decode_attention_kernel_at_split_boundaries_on_card(card, heads, dtype):
+    """A cache of 550 entries, which no split (a multiple of 16) divides;
+    cache lengths on either side of the first and third split boundaries;
+    every call of a window enqueued back to back on the one workspace, so
+    a combine counter left unreset would leave an output unwritten."""
+    B, Smax = 4, 550
+    H, KVH, D = heads
+    n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+    split = decode_split(B, KVH, H // KVH, Smax, n_sms)
+    assert Smax % split
+    g = torch.Generator(device=card).manual_seed(split)
+    q, kc, vc = (torch.randn(s, generator=g, device=card).to(dtype)
+                 for s in ((B, 1, H, D), (B, Smax, KVH, D), (B, Smax, KVH, D)))
+    lens = [split - 1, split, split + 1, 3 * split - 1, 3 * split, 3 * split + 1, Smax, 1]
+    for window in (0, split + 3):
+        ns = [torch.tensor([n], dtype=torch.int32, device=card) for n in lens]
+        reset_launch_counts()
+        got = [decode_attention(q, kc, vc, n, window=window) for n in ns]
+        assert launch_counts()["decode_attention"] == len(lens)
+        for n, out in zip(ns, got):
+            want = decode_attention_plain(q, kc, vc, n, window=window)
+            err = (out.float() - want.float()).abs().max().item()
+            assert err <= ATTN_TOL[dtype], (n.item(), window, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [
     # (B, S, H, P, G, N, chunk, decay): mamba2-2.7b's and hymba-1.5b's heads,
     # a ragged chunk (480 -> 240), multi-group, P = 128, and weak decay
@@ -430,6 +458,13 @@ def test_decode_attention_kernel_matches_plain_on_card(card, heads, cache_len, w
     (1, 480, 4, 64, 1, 128, 256, 1e-3),
     (1, 128, 4, 16, 2, 32, 64, 1.0),
     (1, 96, 2, 128, 1, 64, 32, 1e-3),
+    # the kernels' split: three chunks with two groups of 4 heads; N = 16
+    # with P = 128 over five chunks; a ragged chunk of 200 (600 -> 200, no
+    # multiple of 64) over three chunks; a chunk of 500 (eight row tiles)
+    (1, 768, 8, 64, 2, 64, 256, 1e-3),
+    (2, 320, 4, 128, 1, 16, 64, 1.0),
+    (1, 600, 8, 32, 2, 128, 256, 1.0),
+    (1, 1000, 4, 64, 1, 128, 512, 1e-3),
 ])
 def test_ssd_scan_kernel_matches_plain_on_card(card, case, dtype):
     B, S, H, P, G, N, chunk, decay = case

@@ -449,3 +449,51 @@ def test_ssd_scan_tolerance_covers_the_plain_versions_rounding(case, decay):
     assert (np.abs(got - exact) <= tol / 2).all(), np.max(np.abs(got - exact) / tol)
     # an O(1) fault (a lost carried state, a wrong decay) is far outside it
     assert (tol < 1e-3 * np.abs(exact).max()).all()
+
+
+def _tf32(t):
+    """float32 rounded to TF32 (10 mantissa bits): to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32_einsum(einsum):
+    """A product as the kernel takes it on the tensor cores: each operand
+    split as hi = tf32(a), lo = tf32(a - hi), and lo hi + hi lo + hi hi."""
+    def product(eq, a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        return einsum(eq, al, bh) + einsum(eq, ah, bl) + einsum(eq, ah, bh)
+    return product
+
+
+# mamba2-2.7b's and hymba-1.5b's SSD heads (P 64, G 1; N 128 and 16) over a
+# 512-token prompt at the models' chunk of 256, narrowed to 4 heads
+SPLIT_CASES = {"mamba2": (1, 512, 4, 64, 1, 128, 256), "hymba": (1, 512, 4, 64, 1, 16, 256)}
+
+
+@pytest.mark.parametrize("decay", ["model", "weak"])
+@pytest.mark.parametrize("heads", sorted(SPLIT_CASES))
+def test_ssd_scan_tolerance_covers_split_tf32_products(heads, decay, monkeypatch):
+    """The chunked form with every product taken as split TF32 (emulated:
+    the plain version's four einsums, C Bᵀ, the decayed scores times xbar,
+    C s and xbar Bᵀ, each on split operands) lies within ssd_scan_tolerance
+    of the float32 plain version, at the model's decays and at weak ones."""
+    b, s, h, p, g, n, chunk = SPLIT_CASES[heads]
+    rng = np.random.default_rng(s + n + (decay == "weak"))
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    A = -np.linspace(1.0, 16.0, h).astype(np.float32) * (1e-3 if decay == "weak" else 1.0)
+    B = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    C = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    D = np.linspace(0.5, 1.5, h).astype(np.float32)
+    tin = [torch.from_numpy(a) for a in (x, dt, A, B, C, D)]
+    want = ssd_scan_plain(*tin, chunk=chunk)
+    tol = ssd_scan_tolerance(*tin, chunk=chunk)
+    monkeypatch.setattr(torch, "einsum", _split_tf32_einsum(torch.einsum))
+    got = ssd_scan_plain(*tin, chunk=chunk)
+    monkeypatch.undo()
+    assert (got != want).any()  # the split ran: its roundings differ from float32's
+    diff = (got - want).abs()
+    assert (diff <= tol).all(), (diff / tol).max().item()
