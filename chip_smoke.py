@@ -22,12 +22,16 @@ Phases, each printing one JSON line:
    plus a ragged chunk and a weak decay under which the carried state
    matters; RMSNorm at the served models' norm shapes, which no path of the
    port runs yet, plus three other widths), with times from CUDA events;
+   the replay kernel also at m = 1, at the chain bucket ladder-padded as
+   warm hits pack it (m 16, T 32) and at the campaign's largest bucket
+   (64 chain instances with returns, m 8, T 12), each beside the floor of
+   its dependent chain (``chain_floor_ms``);
 3. ``solve_bulk``: 256 chain + 256 star instances, 64 + 64 with returns and
    release dates, and two goldens, through ``repro_torch.engine.solve_bulk``
    on the card; the launch counts are set to 0 just before each call and
-   read just after;
+   read just after; each bucket's replay stage (``replay_s``) printed;
 4. ``warm_hits``: the same population again through the solution cache;
-   every hit replays through the replay kernel;
+   every hit replays through the replay kernel (``hit_replay_s``);
 5. ``serve``, once per model: llama3.2-3b (28 layers, d_model 3072),
    mamba2-2.7b (64 Mamba-2 layers, d_model 2560) and hymba-1.5b (32 parallel
    attention + Mamba layers, d_model 1600), float32, seeded weights, through
@@ -355,14 +359,16 @@ def pivot_phase(name, bucket, dev, lanes=None):
 
 
 def replay_args(bucket, dev, rng):
+    """The kernel's inputs for ``bucket`` and random fractions that sum to 1
+    over the real processors of each real cell (0 on the ladder's padding)."""
     from repro_torch.convert import to_tensor
 
     f64 = torch.float64
-    g = rng.uniform(0.0, 1.0, size=(bucket.B, bucket.m, bucket.T))
+    g = rng.uniform(0.0, 1.0, size=(bucket.B, bucket.m_real, bucket.T_real))
     g /= g.sum(axis=1, keepdims=True)
     args = [to_tensor(a, dev, f64) for a in (
         bucket.w_cell, bucket.z, bucket.latency, bucket.tau, bucket.vcomm_cell,
-        bucket.vcomp_cell, bucket.rel_cell, bucket.cell_valid, g)]
+        bucket.vcomp_cell, bucket.rel_cell, bucket.cell_valid, bucket.gamma_padded(list(g)))]
     ret = to_tensor(bucket.ret_cell, dev, f64) if bucket.has_returns and bucket.m > 1 else None
     return args, ret
 
@@ -381,7 +387,32 @@ def replay_cost(args, ret, outs, star):
     return nbytes, B * T * (per_cell + 1) + B * m
 
 
+def chain_steps(m, T, returns):
+    """Dependent max + add steps of one instance's replay that keeps the
+    reference's association: T cells of m - 1 forward links and a compute
+    front, and m - 1 return links with the return phase."""
+    return T * (m + (m - 1 if returns else 0))
+
+
+def chain_floor_ms(steps, dev):
+    """Device ms of ``steps`` dependent float64 max + add steps in one
+    thread's registers (the replay's own ``mx``), timed as the kernel is."""
+    from repro_torch.kernels.build import check, library
+
+    x = torch.zeros(1, dtype=torch.float64, device=dev)
+
+    def probe(x):
+        stream = torch.cuda.current_stream().cuda_stream
+        check(library().repro_asap_replay_chain_floor(x.data_ptr(), 0.5, 1.0, steps, stream),
+              "chain floor probe")
+
+    return device_ms(probe, lambda: (x,), reps=20)
+
+
 def replay_phase(name, bucket, dev, rng):
+    """The replay kernel against its plain version on one bucket: exact
+    within 1e-12 relative, its device time (``ms``), the call's time with
+    the host's launch cost (``call_ms``), the chain's floor and the bound."""
     from repro_torch.kernels import asap_replay, asap_replay_plain
 
     args, ret = replay_args(bucket, dev, rng)
@@ -397,20 +428,27 @@ def replay_phase(name, bucket, dev, rng):
             rel = ((g - w).abs().max() / w.abs().max().clamp_min(1e-300)).item()
             err = max(err, rel)
     check(err <= 1e-12, f"asap_replay {name}: relative error {err} > 1e-12")
-    ms = cuda_ms(lambda *a: asap_replay(*a[:-1], a[-1], topology=bucket.topology),
-                 lambda: (*args, ret), reps=20)
+    ms = device_ms(lambda *a: asap_replay(*a[:-1], a[-1], topology=bucket.topology),
+                   lambda: (*args, ret), reps=50)
+    call_ms = cuda_ms(lambda *a: asap_replay(*a[:-1], a[-1], topology=bucket.topology),
+                      lambda: (*args, ret), reps=20)
     plain_ms = cuda_ms(lambda *a: asap_replay_plain(*a[:-1], a[-1], topology=bucket.topology),
                        lambda: (*args, ret), reps=3)
+    steps = chain_steps(bucket.m, bucket.T, ret is not None)
+    floor_ms = chain_floor_ms(steps, dev)
     nbytes, flops = replay_cost(args, ret, got, bucket.topology == "star")
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP64_FLOP_PER_S)
-    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    row = dict(ms=ms, call_ms=call_ms, chain_floor_ms=floor_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms,
                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP64_FLOP_PER_S
                else "operations", max_abs_err=max(
                    ((g - w).abs().max().item() for g, w in zip(got, want)
                     if w is not None and w.numel()), default=0.0))
     emit(phase="kernel", kernel="asap_replay", bucket=name, B=bucket.B, m=bucket.m, T=bucket.T,
+         m_real=bucket.m_real, T_real=bucket.T_real, topology=bucket.topology,
          returns=ret is not None, max_rel_err=err, max_abs_err=row["max_abs_err"], ms=ms,
-         plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None)
+         call_ms=call_ms, chain_steps=steps, chain_floor_ms=floor_ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=row["bound_by"], library_ms=None)
     return row
 
 
@@ -534,8 +572,12 @@ def bulk_phase(groups, dev, cache, phase):
             kernel.update(rows_updated=elements / C, rows_per_pivot=elements / C / max(pivots, 1),
                           update_bound_s=nbytes / HBM_BYTES_PER_S,
                           dense_bound_s=16 * R * C * pivots / HBM_BYTES_PER_S)
+        # the replay stage (the host's packing and copies, the kernel,
+        # building the schedules): its own key, beside the kernel's ms
+        replay = {("hit_replay_s" if phase == "warm_hits" else "replay_s"): stages["replay_s"]}
+        progress(f"{phase} {name}: {json.dumps(replay)}")
         emit(phase=phase, bucket=name, B=len(insts), statuses=statuses, pivots=pivots,
-             rescues=rescues, hits=hits, wall_s=wall, stages=stages, launches=counts,
+             rescues=rescues, hits=hits, wall_s=wall, **replay, stages=stages, launches=counts,
              pivot_kernel=kernel, serial_max_rel_diff=worst if phase == "solve_bulk" else None,
              sample_rescued=sum("serial_rescue" in res[i].telemetry for i in sample))
         if phase == "solve_bulk":
@@ -1238,15 +1280,22 @@ def main() -> int:
         (bucket,) = InstanceArena(insts).buckets
         piv[name] = pivot_phase(name, bucket, dev, lanes)
         progress(f"pivot kernel {name}: {json.dumps({k: v['ms'] for k, v in piv[name].items()})}")
-    rep = {}
-    for name, insts in (("chain", chain), ("star", star), ("chain_ret_rel", chain_rr),
-                        ("star_ret_rel", star_rr), ("m1", None)):
-        if insts is None:
-            from repro_torch.core.instance import random_instance
+    # the §6 buckets, m = 1, the chain bucket as the warm-hit path packs it
+    # (ladder-padded to m 16, T 32) and the campaign's largest bucket shape
+    # (64 chain instances with returns, m 8, 3 loads, q 4: T 12)
+    from repro_torch.core.instance import random_instance
 
-            insts = [random_instance(rng, m=1, n_loads=5, q=5) for _ in range(256)]
-        (bucket,) = InstanceArena(insts).buckets
+    rep = {}
+    for name, insts, ladder in (
+            ("chain", chain, False), ("star", star, False), ("chain_ret_rel", chain_rr, False),
+            ("star_ret_rel", star_rr, False),
+            ("m1", [random_instance(rng, m=1, n_loads=5, q=5) for _ in range(256)], False),
+            ("chain_hit", chain, True),
+            ("campaign", [random_instance(rng, m=8, n_loads=3, q=4, return_ratio=0.75)
+                          for _ in range(64)], False)):
+        (bucket,) = InstanceArena(insts, pad_shapes=ladder).buckets
         rep[name] = replay_phase(name, bucket, dev, rng)
+        progress(f"replay kernel {name}: {rep[name]['ms']:.5f} ms")
 
     # phase 3: the main path, launch counts from these calls only
     groups = [("chain", chain, None), ("star", star, None), ("chain_ret_rel", chain_rr, None),

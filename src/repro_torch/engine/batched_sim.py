@@ -19,9 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.convert import resolve_device, to_tensor
+from repro_torch.convert import resolve_device
 from repro_torch.core.schedule import Schedule
 from repro_torch.kernels import asap_replay
+from repro_torch.kernels.asap_replay import outputs_to_numpy
 
 from .arena import InstanceArena, PackedBucket
 
@@ -39,13 +40,20 @@ def simulate_bucket(bucket: PackedBucket, gamma: np.ndarray, device=None):
     """
     dev = resolve_device(device)
     with_ret = bool(bucket.has_returns) and bucket.m > 1
-    f64 = torch.float64
-    args = [to_tensor(a, dev, f64) for a in (
-        bucket.w_cell, bucket.z, bucket.latency, bucket.tau, bucket.vcomm_cell,
-        bucket.vcomp_cell, bucket.rel_cell, bucket.cell_valid, gamma)]
-    ret = to_tensor(bucket.ret_cell, dev, f64) if with_ret else None
-    out = asap_replay(*args, ret, topology=bucket.topology)
-    return tuple(None if o is None else o.cpu().numpy() for o in out)
+    fields = [bucket.w_cell, bucket.z, bucket.latency, bucket.tau, bucket.vcomm_cell,
+              bucket.vcomp_cell, bucket.rel_cell, bucket.cell_valid, gamma]
+    if with_ret:
+        fields.append(bucket.ret_cell)
+    # one host buffer (page-locked for the card, from PyTorch's caching host
+    # allocator), one copy to the device, the kernel's inputs views of it
+    host = [np.asarray(a, dtype=np.float64) for a in fields]
+    buf = torch.empty(sum(a.size for a in host), dtype=torch.float64,
+                      pin_memory=dev.type == "cuda")
+    np.concatenate([a.ravel() for a in host], out=buf.numpy())
+    flat = buf.to(dev, non_blocking=True)
+    args = [x.view(a.shape) for x, a in zip(flat.split([a.size for a in host]), host)]
+    ret = args.pop() if with_ret else None
+    return outputs_to_numpy(asap_replay(*args, ret, topology=bucket.topology))
 
 
 def simulate_many(instances: list, gammas: list, pad_shapes: bool = True,

@@ -28,16 +28,20 @@ Padded cells carry zero durations, their latency masked by ``valid``.
 Inputs: w, gamma ``[B, m, T]``; z, latency ``[B, m-1]``; tau ``[B, m]``;
 vcomm, vcomp, rel (and ret) ``[B, T]``; valid ``[T]``; all float64.
 Returns the fixed 7-slot tuple ``(cs, ce, ps, pe, rs, re, mk)``, with
-``rs``/``re`` None unless ``ret`` is given.
+``rs``/``re`` None unless ``ret`` is given.  On the card the outputs are
+views of one buffer, laid end to end in slot order, so
+:func:`outputs_to_numpy` brings them back in one copy.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .build import check, library
 
-__all__ = ["asap_replay", "asap_replay_plain"]
+__all__ = ["asap_replay", "asap_replay_plain", "outputs_to_numpy"]
 
 
 def _volumes(gamma, star: bool):
@@ -145,13 +149,13 @@ def asap_replay(w, z, latency, tau, vcomm, vcomp, rel, valid, gamma, ret=None,
     if gamma.device.type != "cuda":
         raise ValueError(f"asap_replay runs on cuda or cpu tensors; got {gamma.device}")
     B, m, T = gamma.shape
-    new = dict(dtype=gamma.dtype, device=gamma.device)
-    cs, ce = torch.empty(B, m - 1, T, **new), torch.empty(B, m - 1, T, **new)
-    ps, pe = torch.empty(B, m, T, **new), torch.empty(B, m, T, **new)
-    rs = re = None
-    if ret is not None:
-        rs, re = torch.empty(B, m - 1, T, **new), torch.empty(B, m - 1, T, **new)
-    mk = torch.empty(B, **new)
+    shapes = [(B, m - 1, T), (B, m - 1, T), (B, m, T), (B, m, T)]
+    shapes += [(B, m - 1, T)] * (2 if ret is not None else 0)
+    shapes.append((B,))
+    sizes = [math.prod(s) for s in shapes]
+    flat = torch.empty(sum(sizes), dtype=gamma.dtype, device=gamma.device)
+    cs, ce, ps, pe, *rest = (x.view(s) for x, s in zip(flat.split(sizes), shapes))
+    rs, re, mk = rest if ret is not None else (None, None, *rest)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -169,3 +173,19 @@ def asap_replay(w, z, latency, tau, vcomm, vcomp, rel, valid, gamma, ret=None,
 
 
 asap_replay.launches = 0
+
+
+def outputs_to_numpy(out):
+    """:func:`asap_replay`'s 7-slot output as NumPy arrays (None stays None).
+    Outputs on the card come back in one device-to-host copy, as the wrapper
+    lays them end to end in one buffer; CPU outputs are shared, not copied."""
+    full = [o for o in out if o is not None and o.numel()]  # m = 1 has no links
+    if not full or full[0].device.type == "cpu":
+        return tuple(None if o is None else o.cpu().numpy() for o in out)
+    sizes = [o.numel() for o in full]
+    first, last = full[0], full[-1]
+    if last.data_ptr() != first.data_ptr() + first.element_size() * (sum(sizes) - sizes[-1]):
+        raise ValueError("outputs_to_numpy takes the outputs of one asap_replay call")
+    host = iter(first.as_strided((sum(sizes),), (1,)).cpu().split(sizes))
+    return tuple(None if o is None else (next(host).view(o.shape) if o.numel() else o.cpu()).numpy()
+                 for o in out)

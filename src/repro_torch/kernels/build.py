@@ -47,6 +47,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     # T, basis, it, status, lanes, n_lanes, B, R, C, ncols_price, bland_after,
     # max_iter, k_pivots, cluster, updated, stream
@@ -56,6 +57,9 @@ _SIGNATURES = {
     # w, z, latency, tau, vcomm, vcomp, rel, ret, valid, gamma,
     # cs, ce, ps, pe, rs, re, mk, B, m, T, star, stream
     "repro_asap_replay": [_P] * 17 + [_I, _I, _I, _I, _P],
+    # x, y, d, steps, stream: the replay's chain floor (one thread, `steps`
+    # dependent max + add steps)
+    "repro_asap_replay_chain_floor": [_P, _D, _D, _I, _P],
     # q, k, v, o, B, H, KVH, Sq, Sk, D, bf16, strides of q, k/v and o (b, s, h),
     # causal, window, scale, stream
     "repro_flash_attention": [_P] * 4 + [_I] * 7 + [_L] * 9 + [_I, _I, _F, _P],

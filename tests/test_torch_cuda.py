@@ -308,28 +308,101 @@ def test_simplex_pivot_lanes_entry_on_card(card):
     assert_pivots_equal(stray, want)
 
 
-@pytest.mark.parametrize("with_ret", [False, True])
-@pytest.mark.parametrize("topology", ["chain", "star"])
-@pytest.mark.parametrize("m", [1, 4])
-def test_asap_replay_kernel_matches_plain_on_card(card, topology, with_ret, m):
-    if with_ret and m == 1:
-        pytest.skip("the return phase needs a link")
-    rng = np.random.default_rng(m)
-    B, T = 64, 6
+def _replay_case(rng, B, m, T, with_ret):
+    """Replay inputs on the CPU, the last cell padded when T > 1 (masked by
+    ``valid``; its fractions left nonzero, so the mask is all that zeroes its
+    links' durations)."""
     valid = np.ones(T)
-    valid[-1] = 0.0
+    if T > 1:
+        valid[-1] = 0.0
+    gamma = rng.uniform(0.0, 1.0, size=(B, m, T))
     args = [rng.uniform(0.1, 1.0, size=(B, m, T)), rng.uniform(0.1, 1.0, size=(B, m - 1)),
             rng.uniform(0.0, 0.1, size=(B, m - 1)), rng.uniform(0.0, 1.0, size=(B, m)),
             rng.uniform(1.0, 2.0, size=(B, T)), rng.uniform(1.0, 2.0, size=(B, T)),
-            rng.uniform(0.0, 1.0, size=(B, T)), valid, rng.uniform(0.0, 1.0, size=(B, m, T))]
-    ret = torch.from_numpy(rng.uniform(0, 1, size=(B, T))).to(card) if with_ret else None
-    targs = [torch.from_numpy(a).to(card) for a in args]
-    want = asap_replay_plain(*targs, ret, topology=topology)
-    got = asap_replay(*targs, ret, topology=topology)
+            rng.uniform(0.0, 1.0, size=(B, T)), valid, gamma]
+    ret = rng.uniform(0, 1, size=(B, T)) if with_ret else None
+    return [torch.from_numpy(a) for a in args], None if ret is None else torch.from_numpy(ret)
+
+
+def _replay_both(card, args, ret, topology):
+    targs = [a.to(card) for a in args]
+    tret = None if ret is None else ret.to(card)
+    want = asap_replay_plain(*targs, tret, topology=topology)
+    got = asap_replay(*targs, tret, topology=topology)
     torch.cuda.synchronize()
+    return got, want
+
+
+REPLAY_B = (1, 63, 64, 257)  # 257: one block past a multiple of 64
+
+
+# m 16 is the largest with the carries in registers; 20 keeps them in shared
+# memory.  T 32 with m 16 is the warm-hit path's ladder rung.
+@pytest.mark.parametrize("with_ret", [False, True])
+@pytest.mark.parametrize("topology", ["chain", "star"])
+@pytest.mark.parametrize("T", [1, 6, 25, 32])
+@pytest.mark.parametrize("m", [1, 4, 10, 16, 20])
+def test_asap_replay_kernel_matches_plain_on_card(card, topology, with_ret, m, T):
+    if with_ret and m == 1:
+        pytest.skip("the return phase needs a link")
+    B = REPLAY_B[(m + T) % len(REPLAY_B)]
+    args, ret = _replay_case(np.random.default_rng(100 * m + T), B, m, T, with_ret)
+    got, want = _replay_both(card, args, ret, topology)
     for g, w in zip(got, want):
         if w is not None:
             torch.testing.assert_close(g, w, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("B", REPLAY_B)
+def test_asap_replay_kernel_batch_sizes_on_card(card, B):
+    args, ret = _replay_case(np.random.default_rng(B), B, 10, 25, True)
+    got, want = _replay_both(card, args, ret, "chain")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=0)
+
+
+def test_asap_replay_kernel_grid_stride_on_card(card):
+    """More instances than the grid has blocks (16 an SM): blocks loop."""
+    B = 16 * torch.cuda.get_device_properties(card).multi_processor_count * 2 + 5
+    args, ret = _replay_case(np.random.default_rng(5), B, 3, 4, True)
+    got, want = _replay_both(card, args, ret, "star")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("with_ret", [False, True])
+@pytest.mark.parametrize("topology", ["chain", "star"])
+@pytest.mark.parametrize("m", [4, 20])
+def test_asap_replay_kernel_nan_lanes_on_card(card, topology, with_ret, m):
+    """Lanes with a NaN fraction come back NaN where the plain version is
+    NaN, makespan included; the other lanes are exactly the plain version's."""
+    B, T = 64, 6
+    args, ret = _replay_case(np.random.default_rng(m), B, m, T, with_ret)
+    nan_lanes = [3, 17, 40]
+    for k, b in enumerate(nan_lanes):
+        args[-1][b, k % m, k] = float("nan")
+    got, want = _replay_both(card, args, ret, topology)
+    assert torch.isnan(got[-1][nan_lanes]).all()
+    assert torch.isfinite(got[-1]).sum() == B - len(nan_lanes)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=0, equal_nan=True)
+
+
+def test_asap_replay_outputs_come_back_in_one_copy_on_card(card):
+    from repro_torch.kernels.asap_replay import outputs_to_numpy
+
+    for m, with_ret in ((1, False), (5, True)):
+        args, ret = _replay_case(np.random.default_rng(m), 7, m, 4, with_ret)
+        got, _ = _replay_both(card, args, ret, "chain")
+        host = outputs_to_numpy(got)
+        for h, g in zip(host, got):
+            assert (h is None) == (g is None)
+            if g is not None:
+                np.testing.assert_array_equal(h, g.cpu().numpy())
+    with pytest.raises(ValueError):  # not laid end to end: rs and re left out
+        outputs_to_numpy((*got[:4], None, None, got[6]))
 
 
 def test_solve_bulk_on_card_matches_cpu(card):

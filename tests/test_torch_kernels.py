@@ -128,7 +128,8 @@ def assert_replay_close(got, want):
 
 @pytest.mark.parametrize("with_ret", [False, True])
 @pytest.mark.parametrize("topology", ["chain", "star"])
-@pytest.mark.parametrize("dims", [(3, 4, 5, 4), (2, 2, 3, 3), (4, 5, 6, 4)])
+@pytest.mark.parametrize("dims", [(3, 4, 5, 4), (2, 2, 3, 3), (4, 5, 6, 4),
+                                  (2, 16, 32, 25)])  # the warm-hit path's ladder rung, padded
 def test_asap_replay_plain_matches_pallas_kernel_and_oracle(topology, with_ret, dims):
     B, m, T, n_valid = dims
     args, ret = replay_inputs(np.random.default_rng(B * 100 + m * 10 + T), B, m, T,
@@ -141,6 +142,28 @@ def test_asap_replay_plain_matches_pallas_kernel_and_oracle(topology, with_ret, 
                             topology=topology)
     assert_replay_close(got, kern)
     assert_replay_close(got, oracle)
+
+
+@pytest.mark.parametrize("with_ret", [False, True])
+@pytest.mark.parametrize("topology", ["chain", "star"])
+def test_asap_replay_plain_propagates_nan_like_the_oracle(topology, with_ret):
+    """The certify pass replays the NaN gammas of failed LPs: a lane with a
+    NaN fraction must come back with a NaN makespan, the others untouched."""
+    B, m, T = 4, 5, 6
+    args, ret = replay_inputs(np.random.default_rng(21), B, m, T, 5, with_ret)
+    args[-1][1, 2, 3] = np.nan
+    args[-1][3, 0, 0] = np.nan
+    with jax.enable_x64(True):
+        oracle = [np.asarray(o) for o in ref.asap_replay_ref(*args, ret, topology=topology)]
+    got = [o.numpy() for o in asap_replay_plain(
+        *torch_args(*args), None if ret is None else torch_args(ret)[0], topology=topology)
+        if o is not None]
+    assert len(got) == len(oracle)
+    for g, w in zip(got, oracle):
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-12, equal_nan=True)
+    mk = got[-1]
+    assert np.isnan(mk[[1, 3]]).all() and np.isfinite(mk[[0, 2]]).all()
 
 
 def test_asap_replay_single_processor_matches_serial_simulator():
@@ -159,6 +182,44 @@ def test_asap_replay_single_processor_matches_serial_simulator():
     assert got.comm_start.shape == (0, 4)
     np.testing.assert_allclose(got.comp_end, want.comp_end, rtol=1e-12)
     assert abs(got.makespan - want.makespan) <= 1e-12 * want.makespan
+
+
+@pytest.mark.parametrize("pad_shapes", [False, True])
+def test_simulate_bucket_packed_copies_match_serial_simulator(pad_shapes):
+    """``simulate_bucket`` sends its inputs as one packed buffer and reads
+    the outputs back through ``outputs_to_numpy``; exact or ladder-padded
+    buckets of chain and star instances, with and without returns and
+    release dates, against the reference's serial simulator."""
+    from repro.core.instance import random_instance
+    from repro.core.simulator import simulate
+    from repro_torch.convert import instance_from_reference
+    from repro_torch.engine.arena import InstanceArena
+    from repro_torch.engine.batched_sim import simulate_bucket
+
+    rng = np.random.default_rng(7)
+    insts = [random_instance(rng, m=m, n_loads=2, q=2, topology=top, return_ratio=r,
+                             with_latency=True)
+             for top in ("chain", "star") for r in (0.0, 0.5) for m in (1, 3) for _ in range(2)
+             if not (m == 1 and r)]
+    gammas = [rng.uniform(0.0, 1.0, size=(i.m, i.total_installments)) for i in insts]
+    arena = InstanceArena([instance_from_reference(i) for i in insts], pad_shapes=pad_shapes)
+    checked = 0
+    for bucket in arena.buckets:
+        out = simulate_bucket(bucket, bucket.gamma_padded([gammas[i] for i in bucket.indices]),
+                              device="cpu")
+        assert (out[4] is None) == (not (bucket.has_returns and bucket.m > 1))
+        cs, ce, ps, pe, rs, re = (None if o is None else bucket.unpad(o) for o in out[:6])
+        for b, gi in enumerate(bucket.indices):
+            want = simulate(insts[gi], gammas[gi])
+            pairs = [(cs[b], want.comm_start), (ce[b], want.comm_end),
+                     (ps[b], want.comp_start), (pe[b], want.comp_end)]
+            if want.ret_start is not None and want.ret_start.size:
+                pairs += [(rs[b], want.ret_start), (re[b], want.ret_end)]
+            for g, w in pairs:
+                np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-12)
+            assert abs(out[6][b] - want.makespan) <= 1e-9 * want.makespan
+            checked += 1
+    assert checked == len(insts)
 
 
 def test_wrappers_run_the_plain_version_on_cpu_and_count_no_launch():
