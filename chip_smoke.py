@@ -1,8 +1,9 @@
 """Smoke run of the port on one CUDA card: builds the kernels, holds each
 against its plain PyTorch version, drives the engine's bulk solve at the
-paper's §6 scale, the serving paths of llama3.2-3b, mamba2-2.7b and
-hymba-1.5b at full width and depth, and the golden campaign's full tier
-through the planner's front door, and checks what comes out.
+paper's §6 scale, the replanning path and the plan server over the same
+populations, the serving paths of llama3.2-3b, mamba2-2.7b and hymba-1.5b
+at full width and depth, and the golden campaign's full tier through the
+planner's front door, and checks what comes out.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -55,7 +56,34 @@ Phases, each printing one JSON line:
    labels (save a flip between ``lp-fallback`` and ``lp-wins``/``tie`` on an
    instance one side served off its requested backend, each listed), ratios
    within 1e-9; then ``Session.evaluate_gammas`` on 256 solved artifacts
-   against the serial simulator within 1e-9.
+   against the serial simulator within 1e-9;
+7. ``replan`` (run right after phase 4, over its populations): the simplex
+   rung — chain 256 and star 256 each drifted by one seeded
+   ``SpeedObserved`` (a worker's speed times 1 +- up to 2%, folded by
+   ``repro_torch.runtime.replan``), re-solved cold and warm from phase 3's
+   exit bases: objectives and makespans equal within 1e-9, accepted seeds
+   with 0 phase-1 pivots, their count, pivot launches and ``simplex_s``
+   printed for each mode; then an ``EventStreamReplanner`` over one chain
+   instance of the same scale on ``Policy(backend="cuda")``, 24
+   ``SpeedObserved`` events plus a ``LoadArrived`` and a ``ProcessorDown``,
+   run warm and ``warm=False`` in two sessions: every makespan equal within
+   1e-9, four sampled events within 1e-9 of the port's serial solve, warm
+   on some coefficient event and on neither structural one, events/s;
+8. ``plan_server``: four threads on four streams launch the replay kernel
+   50 times each (the count must be exactly 200, every output the plain
+   version's within 1e-12); a two-worker ``repro_torch.serve.PlanServer``
+   on ``Policy(backend="cuda")`` and a fresh sqlite store takes a burst of
+   256 problems (128 chain + 128 star of phase 3's) from 64 HTTP clients
+   (``PlanClient``): the same content keys as a direct ``Session`` and
+   makespans within 1e-9, ``/healthz`` and ``/metrics`` answering, 32 more
+   requests queued when ``close()`` starts all resolved by the drain; a
+   second server on the same store serves the burst as hits with the same
+   makespans; then ``solve_bulk(chain 256 + star 256, n_shards=2)`` (two
+   CUDA streams) against phase 3's results: statuses equal, makespans within
+   1e-9; plans/s, p50/p99 latency and the sharded and single walls printed.
+   Phases 7 and 8 each set the launch counts to 0 just before each of their
+   runs and read them just after; their launches appear in the ``kernels``
+   line as ``launches_by_path``.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, ...}`` line.  Any failed check raises, so the
@@ -498,6 +526,7 @@ def bulk_phase(groups, dev, cache, phase):
                                      updated_elements)
 
     totals = {"simplex_pivot": 0, "asap_replay": 0}
+    results = {}
     for name, insts, golden in groups:
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -508,6 +537,7 @@ def bulk_phase(groups, dev, cache, phase):
         counts = launch_counts()
         clusters = dict(sorted(simplex_pivot.clusters.items()))
         elements = updated_elements(dev)
+        results[name] = (res, wall)
         progress(f"{phase} {name}: {len(insts)} instances in {wall:.2f} s")
         for k in totals:
             totals[k] += counts[k]
@@ -586,6 +616,358 @@ def bulk_phase(groups, dev, cache, phase):
                 check((pivots, rescues, statuses) == PHASE3[name],
                       f"{name}: pivots, rescues, statuses {(pivots, rescues, statuses)}, "
                       f"expected {PHASE3[name]}")
+    return totals, results
+
+
+# ---------------------------------------------------------------- phases 7, 8
+
+REPLAN_DRIFT = 0.02  # phase 7: a worker's speed moves by up to 2% an event
+N_SPEED_EVENTS = 24  # phase 7's event stream: speed observations, plus 2 structural events
+BURST_CLIENTS = 64  # phase 8: HTTP requests in flight at once
+REPLAY_THREADS, REPLAY_PER_THREAD = 4, 50  # phase 8: launch counts under threads
+
+
+def counted(fn, totals=None):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after (added into ``totals`` when given); returns (out, wall s, counts)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if totals is not None:
+        for k in totals:
+            totals[k] += counts[k]
+    return out, wall, {k: counts[k] for k in ("simplex_pivot", "asap_replay")}
+
+
+def bucket_stats(res) -> dict:
+    """Pivots, rescues, warm-accepted lanes and the summed stage seconds of
+    each bucket (results of one bucket share its stages) of a solve."""
+    stages, seen = {}, set()
+    for r in res:
+        key = json.dumps(r.telemetry["bucket"], sort_keys=True)
+        if key not in seen:
+            seen.add(key)
+            for k in ("simplex_s", "replay_s", "lp_build_s"):
+                stages[k] = stages.get(k, 0.0) + r.telemetry["stages"].get(k, 0.0)
+    lp = [r.telemetry["lp"] for r in res]
+    return dict(stages, pivots=sum(x["pivots_phase1"] + x["pivots_phase2"] for x in lp),
+                pivots_phase1=sum(x["pivots_phase1"] for x in lp),
+                warm=sum(bool(x.get("warm")) for x in lp),
+                rescues=sum("serial_rescue" in r.telemetry for r in res))
+
+
+def rescued(res) -> bool:
+    return "serial_rescue" in (res.telemetry or {})
+
+
+def plan_diff(a, b, inst) -> tuple:
+    """Relative difference of two solves of ``inst`` (results or artifacts):
+    of their makespans and LP objectives when both or neither were rescued
+    serially; otherwise of the engine-solved one's makespan against the
+    tight serial solve (``serial_makespan``), since a rescue is HiGHS at its
+    default tolerances, which can sit ~1e-8 off the optimum at this size.
+    Returns (difference, whether only one side was rescued)."""
+    if rescued(a) == rescued(b):
+        return max(abs(a.makespan - b.makespan) / b.makespan,
+                   abs(a.lp_makespan - b.lp_makespan) / abs(b.lp_makespan)), False
+    engine = b if rescued(a) else a
+    want = serial_makespan(inst)
+    return abs(engine.makespan - want) / want, True
+
+
+def warm_rejects() -> dict:
+    """The warm entry's rejected seeds so far, by reason (the metrics
+    registry's ``repro_simplex_warm_rejects_total``)."""
+    from repro_torch.obs import metrics as obs_metrics
+
+    reg = obs_metrics.get_registry()
+    return {r: reg.value("repro_simplex_warm_rejects_total", reason=r) for r in (
+        "ids", "singular", "not_finite", "residual", "not_a_vertex", "not_optimal")}
+
+
+def drifted(rng, insts):
+    """Each instance after one seeded ``SpeedObserved``: one worker's speed
+    times (1 +- up to 2%), folded by the port's replanner, same q."""
+    from repro_torch.api import Problem
+    from repro_torch.runtime.replan import SpeedObserved, _fold
+
+    out = []
+    for inst in insts:
+        p = Problem.from_instance(inst)
+        i = int(rng.integers(p.m))
+        ev = SpeedObserved(i, p.w[i] * (1.0 + rng.uniform(-REPLAN_DRIFT, REPLAN_DRIFT)))
+        out.append(_fold(p, ev).to_instance(inst.q))
+    return out
+
+
+def event_stream(rng, problem):
+    """24 distinct ``SpeedObserved`` events (a worker's speed times 1 +- 0.5 to
+    2% of its current value), with a ``LoadArrived`` before the 13th and a
+    ``ProcessorDown`` before the 19th (event indices 12 and 19), each built
+    against the problem the events before it fold into."""
+    from repro_torch.runtime.replan import LoadArrived, ProcessorDown, SpeedObserved, _fold
+
+    events, p = [], problem
+    for k in range(N_SPEED_EVENTS):
+        if k == 12:
+            events.append(LoadArrived(v_comm=float(np.mean(p.v_comm)),
+                                      v_comp=float(np.mean(p.v_comp))))
+            p = _fold(p, events[-1])
+        elif k == 18:
+            events.append(ProcessorDown(index=p.m // 2))
+            p = _fold(p, events[-1])
+        i = int(rng.integers(p.m))
+        scale = 1.0 + rng.choice([-1.0, 1.0]) * rng.uniform(0.005, REPLAN_DRIFT)
+        events.append(SpeedObserved(i, p.w[i] * scale))
+        p = _fold(p, events[-1])
+    return events
+
+
+def replan_phase(dev, chain, star, phase3):
+    """Phase 7: the replanning path on the card.  (a) the simplex rung: phase
+    3's chain 256 and star 256 drifted by one seeded ``SpeedObserved`` each,
+    re-solved cold and warm (seeded with phase 3's exit bases); (b) an
+    ``EventStreamReplanner`` over one chain instance of the same scale,
+    warm and ``warm=False``.  Returns the pivot and replay launches."""
+    from repro_torch.api import Policy, Problem, Session
+    from repro_torch.core.solver import solve
+    from repro_torch.engine import solve_bulk
+    from repro_torch.runtime.replan import EventStreamReplanner, SpeedObserved
+
+    rng = np.random.default_rng(SEED + 7)
+    totals = {"simplex_pivot": 0, "asap_replay": 0}
+    for name, insts in (("chain", chain), ("star", star)):
+        bases = [r.telemetry["lp"].get("final_basis") for r in phase3[name][0]]
+        moved = drifted(rng, insts)
+        cold, cold_wall, cold_counts = counted(lambda: solve_bulk(moved, device=dev), totals)
+        before = warm_rejects()
+        warm, warm_wall, warm_counts = counted(
+            lambda: solve_bulk(moved, device=dev, warm_starts=bases), totals)
+        rejects = {k: v - before[k] for k, v in warm_rejects().items() if v > before[k]}
+        worst, mixed = 0.0, 0
+        for i, (c, w) in enumerate(zip(cold, warm)):
+            check(c.ok and w.ok, f"replan {name}[{i}]: statuses {c.status}, {w.status}")
+            diff, was_mixed = plan_diff(w, c, moved[i])
+            worst, mixed = max(worst, diff), mixed + was_mixed
+            if w.telemetry["lp"].get("warm"):
+                check(w.telemetry["lp"]["pivots_phase1"] == 0,
+                      f"replan {name}[{i}]: an accepted seed made phase-1 pivots")
+        cs, ws = bucket_stats(cold), bucket_stats(warm)
+        progress(f"replan {name}: cold {cold_wall:.2f} s, warm {warm_wall:.2f} s, "
+                 f"{ws['warm']} of {len(insts)} seeds accepted")
+        emit(phase="replan", rung="simplex", bucket=name, B=len(insts), drift=REPLAN_DRIFT,
+             accepted=ws["warm"], rejected_by=rejects, max_rel_diff=worst,
+             rescued_on_one_side=mixed,
+             cold=dict(cs, wall_s=cold_wall, launches=cold_counts,
+                       solves_per_s=len(insts) / cold_wall),
+             warm=dict(ws, wall_s=warm_wall, launches=warm_counts,
+                       solves_per_s=len(insts) / warm_wall))
+        check(worst <= RTOL, f"replan {name}: warm differs from cold by {worst}")
+
+    # (b) the event stream, warm and cold, one session each
+    base = Problem.from_instance(chain[0])
+    policy = Policy(installments=int(chain[0].q[0]), backend="cuda")
+    events = event_stream(rng, base)
+    runs = {}
+    for warm in (True, False):
+        def stream():
+            rp = EventStreamReplanner(Session(policy=policy), base, warm=warm)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            arts = [rp.apply(ev) for ev in events]
+            torch.cuda.synchronize()
+            return arts, time.perf_counter() - t0
+
+        (arts, ev_s), _, counts = counted(stream, totals)
+        runs[warm] = arts
+        n_warm = sum(a.events[-1]["warm"] for a in arts)
+        emit(phase="replan", rung="event_stream", warm=warm, events=len(events),
+             events_per_s=len(events) / ev_s, stream_s=ev_s, warm_served=n_warm,
+             cache_hits=sum(a.cache_hit for a in arts), launches=counts,
+             pivots=sum((a.events[-1]["pivots_phase1"] or 0) + (a.events[-1]["pivots_phase2"] or 0)
+                        for a in arts))
+        progress(f"replan stream warm={warm}: {len(events) / ev_s:.2f} events/s")
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(runs[True], runs[False])):
+        check(a.ok and b.ok, f"replan stream event {k}: statuses {a.status}, {b.status}")
+        worst = max(worst, plan_diff(a, b, a.instance())[0])
+    check(worst <= RTOL, f"replan stream: warm and cold differ by {worst}")
+    coefficient = [a.events[-1]["warm"] for a, ev in zip(runs[True], events)
+                   if isinstance(ev, SpeedObserved)]
+    structural = [a.events[-1]["warm"] for a, ev in zip(runs[True], events)
+                  if not isinstance(ev, SpeedObserved)]
+    check(any(coefficient), "replan stream: no coefficient event was served warm")
+    check(len(structural) == 2 and not any(structural),
+          f"replan stream: structural events served warm {structural}")
+    sampled = [0, 12, 19, len(events) - 1]  # a speed, both structural, the last
+    serial = []
+    for k in sampled:
+        art = runs[True][k]
+        inst = art.instance()
+        want = (solve(inst).makespan if "serial_rescue" in (art.telemetry or {})
+                else serial_makespan(inst))
+        serial.append(abs(art.makespan - want) / want)
+    emit(phase="replan", rung="event_stream_check", max_rel_diff_warm_cold=worst,
+         sampled=sampled, serial_max_rel_diff=max(serial),
+         warm_on_coefficient=sum(coefficient), warm_on_structural=sum(structural))
+    check(max(serial) <= RTOL, f"replan stream: serial solve differs by {serial}")
+    return totals
+
+
+def thread_launch_check(dev, insts):
+    """Four threads, each on a stream of its own, launch the replay kernel
+    50 times on one bucket: the count must come to exactly 200 and every
+    output equal the plain version within 1e-12 relative.  These launches
+    check the bookkeeping; they count on no path."""
+    import threading
+
+    from repro_torch.engine.arena import InstanceArena
+    from repro_torch.kernels import asap_replay, asap_replay_plain, launch_counts, \
+        reset_launch_counts
+
+    (bucket,) = InstanceArena(insts).buckets
+    args, ret = replay_args(bucket, dev, np.random.default_rng(SEED + 8))
+    want = asap_replay_plain(*args, ret, topology=bucket.topology)
+    errs, failures = [None] * REPLAY_THREADS, []
+    barrier = threading.Barrier(REPLAY_THREADS)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+
+    def worker(i):
+        try:
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.default_stream(dev))
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                err = torch.zeros((), dtype=torch.float64, device=dev)
+                for _ in range(REPLAY_PER_THREAD):
+                    got = asap_replay(*args, ret, topology=bucket.topology)
+                    for g, w in zip(got, want):
+                        if w is not None and w.numel():
+                            err = torch.maximum(err, (g - w).abs().max()
+                                                / w.abs().max().clamp_min(1e-300))
+                errs[i] = float(err)  # waits for this stream
+        except BaseException as e:
+            failures.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(REPLAY_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if failures:
+        raise failures[0]
+    n = launch_counts()["asap_replay"]
+    reset_launch_counts()
+    check(n == REPLAY_THREADS * REPLAY_PER_THREAD,
+          f"replay launches from {REPLAY_THREADS} threads: {n}, "
+          f"expected {REPLAY_THREADS * REPLAY_PER_THREAD}")
+    check(max(errs) <= 1e-12, f"replay under threads: relative error {max(errs)}")
+    return dict(threads=REPLAY_THREADS, per_thread=REPLAY_PER_THREAD, launches=n,
+                max_rel_err=max(errs))
+
+
+def plan_server_phase(dev, chain, star, phase3):
+    """Phase 8: the plan server on the card.  A 256-problem HTTP burst (128
+    chain + 128 star from phase 3's populations) through a two-worker
+    ``PlanServer`` on a fresh store, held against a direct ``Session``; a
+    drain with work queued; a second server on the same store serving the
+    burst as hits; then the sharded bulk solve of chain 256 + star 256 on
+    two streams against phase 3's single path.  Returns the pivot and
+    replay launches of the server, restart and sharded runs."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.api import Policy, Problem, Session
+    from repro_torch.engine import solve_bulk
+    from repro_torch.serve import PlanClient, PlanServer
+
+    threads = thread_launch_check(dev, chain)
+    totals = {"simplex_pivot": 0, "asap_replay": 0}
+    policy = Policy(installments=int(chain[0].q[0]), backend="cuda")
+    problems = [Problem.from_instance(i) for i in chain[:128] + star[:128]]
+    queued = [Problem.from_instance(i) for i in chain[128:144] + star[128:144]]
+
+    def serve_burst(store, drain_with=()):
+        server = PlanServer(workers=2, store=store, policy=policy, port=0,
+                            default_deadline_s=900.0)
+        client = PlanClient(f"http://localhost:{server.port}", timeout_s=900.0)
+
+        def one(p):
+            t = time.perf_counter()
+            art = client.plan(p)
+            return art, time.perf_counter() - t
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(BURST_CLIENTS) as ex:
+            out = list(ex.map(one, problems))
+        wall = time.perf_counter() - t0
+        health, metrics = client.healthz(), client.metrics_text()
+        futures = [server.submit(p) for p in drain_with]  # queued when close() starts
+        server.close()
+        drained = [f.result(timeout=0) for f in futures]  # close() returned: all resolved
+        check(server.healthz()["status"] == "draining", "server: not draining after close")
+        return dict(arts=[a for a, _ in out], lat=[dt for _, dt in out], wall=wall,
+                    health=health, metrics=metrics, drained=drained,
+                    stats=server.cache.stats())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "plans.sqlite")
+        first, _, first_counts = counted(lambda: serve_burst(store, queued), totals)
+        direct, direct_wall, _ = counted(lambda: Session(policy=policy).solve_bulk(problems))
+        second, _, second_counts = counted(lambda: serve_burst(store), totals)
+    worst = 0.0
+    for k, (a, d, h) in enumerate(zip(first["arts"], direct, second["arts"])):
+        check(a.ok and d.ok and h.ok, f"served[{k}]: {a.status}, {d.status}, {h.status}")
+        check(a.problem.key(a.q) == d.problem.key(d.q) == h.problem.key(h.q),
+              f"served[{k}]: content keys differ")
+        check(h.cache_hit, f"served[{k}]: the restarted server re-solved it")
+        for x in (a, h):
+            worst = max(worst, abs(x.makespan - d.makespan) / d.makespan)
+    check(all(a.ok for a in first["drained"]), "drain: a queued request failed")
+    check(first["health"]["status"] == "ok" and "repro_serve_requests_total" in first["metrics"],
+          "healthz or metrics did not answer")
+    check(worst <= RTOL, f"served vs direct: {worst}")
+    lat = np.sort(np.asarray(first["lat"]))
+    hit_lat = np.sort(np.asarray(second["lat"]))
+
+    # the sharded bulk solve: chain 256 + star 256 on two streams
+    sharded, sh_wall, sh_counts = counted(
+        lambda: solve_bulk(chain + star, device=dev, n_shards=2), totals)
+    single = phase3["chain"][0] + phase3["star"][0]
+    single_wall = phase3["chain"][1] + phase3["star"][1]
+    sh_worst = 0.0
+    for k, (a, b) in enumerate(zip(sharded, single)):
+        check(a.status == b.status, f"sharded[{k}]: status {a.status}, single {b.status}")
+        sh_worst = max(sh_worst, abs(a.makespan - b.makespan) / b.makespan)
+    check(sh_worst <= RTOL, f"sharded vs single: {sh_worst}")
+    progress(f"plan server: {len(problems) / first['wall']:.1f} plans/s, sharded "
+             f"{sh_wall:.2f} s against single {single_wall:.2f} s")
+    emit(phase="plan_server", n=len(problems), workers=2, clients=BURST_CLIENTS,
+         launch_counts_under_threads=threads,
+         served=dict(wall_s=first["wall"], plans_per_s=len(problems) / first["wall"],
+                     p50_ms=1e3 * float(np.percentile(lat, 50)),
+                     p99_ms=1e3 * float(np.percentile(lat, 99)), launches=first_counts,
+                     drained=len(first["drained"]), cache=first["stats"]),
+         direct_wall_s=direct_wall, max_rel_diff_served_direct=worst,
+         restart=dict(wall_s=second["wall"], plans_per_s=len(problems) / second["wall"],
+                      p50_ms=1e3 * float(np.percentile(hit_lat, 50)),
+                      p99_ms=1e3 * float(np.percentile(hit_lat, 99)),
+                      hits=sum(a.cache_hit for a in second["arts"]),
+                      store_hits=second["stats"]["store_hits"], launches=second_counts),
+         sharded=dict(shards=2, wall_s=sh_wall, single_wall_s=single_wall,
+                      max_rel_diff=sh_worst, launches=sh_counts,
+                      pivots=bucket_stats(sharded)["pivots"],
+                      single_pivots=bucket_stats(single)["pivots"],
+                      rescues=bucket_stats(sharded)["rescues"],
+                      single_rescues=bucket_stats(single)["rescues"]))
     return totals
 
 
@@ -1301,10 +1683,18 @@ def main() -> int:
     groups = [("chain", chain, None), ("star", star, None), ("chain_ret_rel", chain_rr, None),
               ("star_ret_rel", star_rr, None), ("goldens", gold, gold_values)]
     cache = SolutionCache()
-    launches = bulk_phase(groups, dev, cache, "solve_bulk")
+    launches, phase3 = bulk_phase(groups, dev, cache, "solve_bulk")
     # phase 4: every instance again, now a cache hit
     bulk_phase(groups, dev, cache, "warm_hits")
     del cache, groups
+    torch.cuda.empty_cache()
+
+    # phases 7 and 8: the planning service tier over phase 3's populations
+    # (run here, while phase 3's results are at hand; numbered after the
+    # serving phases they were added after)
+    tier = {"replan": replan_phase(dev, chain, star, phase3),
+            "plan_server": plan_server_phase(dev, chain, star, phase3)}
+    del phase3
     torch.cuda.empty_cache()
 
     # phases 2 (attention and SSD kernels) and 5: the serving paths
@@ -1322,6 +1712,9 @@ def main() -> int:
     # phase 6: the planner's front door and the golden campaign
     campaign_phase(dev)
 
+    by_path = {k: {"solve_bulk (phase 3)": launches[k], "replan (phase 7)": tier["replan"][k],
+                   "plan_server (phase 8)": tier["plan_server"][k]}
+               for k in ("simplex_pivot", "asap_replay")}
     p, r = piv["chain"]["set-up"], rep["chain"]
     f, d, m = fa["causal_f32"], da["len544_w0_float32"], ssd["mamba2_f32"]
     n = rms["llama_prefill_f32"]
@@ -1329,12 +1722,13 @@ def main() -> int:
         dict(name="simplex_pivot", route="cuda", source="src/repro_torch/csrc/simplex_pivot.cu",
              replaces="src/repro/kernels/simplex_pivot.py:150", launches=launches["simplex_pivot"],
              max_abs_err=max(row["max_abs_err"] for t in piv for row in piv[t].values()),
+             launches_by_path=by_path["simplex_pivot"],
              ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
              library_ms=None),
         dict(name="asap_replay", route="cuda", source="src/repro_torch/csrc/asap_replay.cu",
              replaces="src/repro/kernels/asap_replay.py:267", launches=launches["asap_replay"],
              max_abs_err=max(v["max_abs_err"] for v in rep.values()),
-             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             launches_by_path=by_path["asap_replay"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=None),
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:106",

@@ -260,8 +260,10 @@ class Session:
     (explicit ``flush()``/``result()``-driven only).
 
     ``device`` is where the engine runs (see the module docstring).
-    ``store=`` (the reference's persistent plan store) is not ported yet and
-    raises ``NotImplementedError``.
+    ``store=`` (a path or :class:`repro_torch.serve.PlanStore`) persists
+    the session's plans: the cache becomes a
+    :class:`repro_torch.serve.TieredSolutionCache` over it on first engine
+    use; passing both ``cache=`` and ``store=`` raises.
     """
 
     def __init__(
@@ -273,16 +275,17 @@ class Session:
         store=None,
         device=None,
     ):
-        if store is not None:
-            raise NotImplementedError(
-                "Session(store=...) (the persistent plan store) is not ported "
-                "yet: ROADMAP A.9")
         self.policy = policy if policy is not None else Policy()
         if max_batch is not None and max_batch < 1:
             raise ValueError("max_batch must be >= 1 (or None to disable)")
+        if store is not None and cache is not None:
+            raise ValueError(
+                "pass either cache= or store= (a store builds its own "
+                "TieredSolutionCache); not both")
         self.max_batch = max_batch
         self._device = device  # resolved on first engine use (self.device)
         self._cache = cache  # the default-quantum cache (None until needed)
+        self._store = store  # path/PlanStore -> tiered cache on first engine use
         self._extra_caches: dict = {}  # per-call cache_quantum overrides
         self._backends: dict = {}
         self._pending: list[_Pending] = []
@@ -347,11 +350,23 @@ class Session:
 
     @property
     def cache(self):
-        """The session solution cache, created on first engine use."""
-        if self._cache is None:
-            from repro_torch.engine.cache import SolutionCache  # deferred: engine pkg
+        """The session solution cache, created on first engine use.
 
-            self._cache = SolutionCache(quantum=self.policy.cache_quantum)
+        A session constructed with ``store=`` (a path or
+        :class:`repro_torch.serve.PlanStore`) builds a
+        :class:`repro_torch.serve.TieredSolutionCache` over it instead of the
+        plain in-memory LRU, so its plans persist across processes.
+        """
+        if self._cache is None:
+            if self._store is not None:
+                from repro_torch.serve.store import TieredSolutionCache
+
+                self._cache = TieredSolutionCache(
+                    self._store, quantum=self.policy.cache_quantum)
+            else:
+                from repro_torch.engine.cache import SolutionCache  # deferred: engine pkg
+
+                self._cache = SolutionCache(quantum=self.policy.cache_quantum)
         return self._cache
 
     @cache.setter

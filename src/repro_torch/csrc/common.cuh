@@ -7,13 +7,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace repro {
 
 // cudaFuncSetAttribute is a driver call on every launch unless it is
 // remembered: each kernel instance keeps, per device, the largest
-// shared-memory size it has set (a race between two threads only sets it
-// twice).
+// shared-memory size it has set.  The check and the set happen under one
+// process-wide mutex: threads launching on several streams at once would
+// otherwise let a smaller size overwrite a larger one after the larger was
+// recorded, and a later launch that needs the larger size would fail.
 constexpr int kMaxDevices = 64;
+
+inline std::mutex& smem_mutex() {
+  static std::mutex m;
+  return m;
+}
 
 template <typename K>
 inline cudaError_t ensure_smem(K kernel, int smem, int* set_for_device) {
@@ -21,6 +30,7 @@ inline cudaError_t ensure_smem(K kernel, int smem, int* set_for_device) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(smem_mutex());
   if (smem <= set_for_device[dev]) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) set_for_device[dev] = smem;

@@ -74,6 +74,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -379,8 +381,13 @@ simplex_pivot_kernel(double* __restrict__ T, int32_t* __restrict__ basis,
   if (updated && tid == 0 && done) atomicAdd(updated, done);
 }
 
-int g_smem_limit = 48 * 1024;  // the dynamic shared memory the kernel is set up for
-bool g_nonportable = false;
+// The kernel's attributes as raised so far, per device, under g_attr_mutex:
+// host threads launch on several streams at once, and an unguarded check
+// and set could leave the attribute below what g_smem_limit records.
+constexpr int kMaxDevices = 64;
+std::mutex g_attr_mutex;
+int g_smem_limit[kMaxDevices];  // the dynamic shared memory set up beyond 48 KB (0: not yet)
+bool g_nonportable[kMaxDevices];
 
 // The launch configuration of `n_lanes` lanes on clusters of `cluster`
 // blocks (the kernel's attributes raised as it needs), or an error code.
@@ -390,17 +397,24 @@ cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int n_
     return cudaErrorInvalidValue;
   *slice = ((C + cluster - 1) / cluster + 1) & ~1;
   const size_t smem = (size_t)(2 * R + *slice) * sizeof(double) + (size_t)R * sizeof(int);
-  if ((int)smem > g_smem_limit) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        simplex_pivot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    g_smem_limit = (int)smem;
-  }
-  if (cluster > 8 && !g_nonportable) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        simplex_pivot_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-    g_nonportable = true;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(g_attr_mutex);
+    if (smem > 48 * 1024 && (int)smem > g_smem_limit[dev]) {
+      e = cudaFuncSetAttribute(simplex_pivot_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      g_smem_limit[dev] = (int)smem;
+    }
+    if (cluster > 8 && !g_nonportable[dev]) {
+      e = cudaFuncSetAttribute(simplex_pivot_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return e;
+      g_nonportable[dev] = true;
+    }
   }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3((unsigned)n_lanes * cluster, 1, 1);

@@ -10,7 +10,7 @@ from .arena import InstanceArena, PackedBucket, pack_instances
 from .batched_sim import makespans, simulate_bucket, simulate_many
 from .batched_simplex import STATUS, BatchedSimplexResult, solve_simplex_batched
 from .cache import CachedSolution, SolutionCache, instance_key
-from .service import CudaBackend, TorchBackend, solve_bulk
+from .service import CudaBackend, PlanService, TorchBackend, solve_bulk
 
 __all__ = [
     "InstanceArena",
@@ -28,4 +28,5 @@ __all__ = [
     "solve_bulk",
     "TorchBackend",
     "CudaBackend",
+    "PlanService",
 ]

@@ -17,7 +17,8 @@ only the rows an entering column changes, so a dense synthetic stack would
 time its worst case.  Each K runs ``_PROBE_PIVOTS`` pivots' worth of
 launches from the set-up, ended by one read of the iteration counts, on the
 host clock; the cost is per pivot made.  The winner is memoized in-process
-under ``(n_rows, n_cols, device type)``.  Results are timing decisions
+under ``(n_rows, n_cols, device type)`` (first entry wins when threads probe
+one shape at once).  Results are timing decisions
 only: every K gives the same bits (the kernel's per-round active mask), so
 a "wrong" tune costs time, never correctness.
 """
@@ -30,6 +31,7 @@ import time
 import torch
 
 from repro_torch.kernels import simplex_pivot
+from repro_torch.kernels.build import STATE_LOCK
 from repro_torch.obs.trace import span
 
 __all__ = ["pivot_schedule", "probe_stack"]
@@ -63,7 +65,8 @@ def pivot_schedule(T, basis, ncols_price: int, bland_after: int, max_iter: int,
     """
     _, n_rows, n_cols = T.shape
     key = (int(n_rows), int(n_cols), T.device.type)
-    hit = _CACHE.get(key)
+    with STATE_LOCK:
+        hit = _CACHE.get(key)
     if hit is not None:
         return hit
 
@@ -88,5 +91,7 @@ def pivot_schedule(T, basis, ncols_price: int, bland_after: int, max_iter: int,
         "n_launches": max(1, _EPOCH_PIVOTS // best),
         "probe_s_per_pivot": per_pivot,
     }
-    _CACHE[key] = entry
-    return entry
+    # two threads that probed the same shape at once keep the first entry,
+    # so every solve of a shape runs one schedule
+    with STATE_LOCK:
+        return _CACHE.setdefault(key, entry)

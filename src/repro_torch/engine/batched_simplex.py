@@ -24,10 +24,15 @@ The formulation is the reference's:
     the ASAP replay of gamma then carries into the makespan.  The reference
     reads the values off the tableau; the basis and status are the same.
 
-Set-up, the inter-phase step and extraction run batched in PyTorch on the
-device; the warm-basis verification (:func:`_warm_verify`) and the
-false-optimal guard (:func:`_demote_false_optimal`) stay NumPy on the host,
-as in the reference.
+  * the warm-basis verification (:func:`_warm_verify`) factors every
+    lane's basis matrix on the device, one lane at a time as far as
+    singularity goes: the reference factors the stack with NumPy on the
+    host, where one exactly singular seed turns the whole bucket cold.
+
+Set-up, the inter-phase step, extraction and the warm verification run
+batched in PyTorch on the device; the false-optimal guard
+(:func:`_demote_false_optimal`) stays NumPy on the host, as in the
+reference.
 
 The phase driver is the compaction-epoch driver (:func:`_phase_compact`):
 epochs of ``n_launches`` fused K-pivot launches, enqueued back to back,
@@ -54,6 +59,7 @@ import torch
 
 from repro_torch.convert import resolve_device, to_tensor
 from repro_torch.kernels import simplex_pivot, simplex_pivot_lanes
+from repro_torch.obs import metrics as obs_metrics
 
 __all__ = ["BatchedSimplexResult", "solve_simplex_batched", "STATUS"]
 
@@ -323,56 +329,61 @@ def _warm_verify(c, A_ub, b_ub, A_eq, b_eq, basis, device):
     The standard-form rows are rebuilt for the new coefficients by the same
     :func:`_standard_rows` the cold path runs (so both entries see
     bit-identical scaled coefficients), then each lane's basis matrix is
-    factored once on the host (NumPy's stacked LAPACK ``solve``) and the
-    simplex exit certificate is checked directly: primal feasibility
-    (``B^-1 b >= 0``) and dual feasibility (reduced costs ``c - y A >= 0``
-    with ``B^T y = c_B``).
+    factored once on ``device`` (``torch.linalg.solve_ex``, batched, as
+    :func:`_refine` does: a singular lane reports itself and is rejected
+    alone) and the simplex exit certificate is checked directly: primal
+    feasibility (``B^-1 b >= 0``) and dual feasibility (reduced costs
+    ``c - y A >= 0`` with ``B^T y = c_B``).
 
-    Returns ``(x, obj, accept, basis)`` — lanes with ``accept`` False must
-    be cold-solved by the caller — or None when some lane's basis matrix
-    was *exactly* singular, which LAPACK reports batch-wide.  Rejection
-    never changes an answer, only its speed.
+    Returns ``(x, obj, accept, basis)`` as NumPy; lanes with ``accept``
+    False must be cold-solved by the caller.  Each rejected lane is counted
+    under its first failed check in ``repro_simplex_warm_rejects_total``
+    (``reason``: singular, not_finite, residual, not_a_vertex,
+    not_optimal).  Rejection never changes an answer, only its speed.
     """
     B, n = c.shape
     m_ub = A_ub.shape[1]
     dummy = n + m_ub
 
     f64 = torch.float64
-    M, _, c_s, col_scale = _standard_rows(*(to_tensor(a, device, f64) for a in (
-        c, A_ub, b_ub, A_eq, b_eq)))
-    M, c_s, col_scale = M.cpu().numpy(), c_s.cpu().numpy(), col_scale.cpu().numpy()
+    ct = to_tensor(c, device, f64)
+    M, _, c_s, col_scale = _standard_rows(ct, *(to_tensor(a, device, f64) for a in (
+        A_ub, b_ub, A_eq, b_eq)))
+    R = M.shape[1]
     safe = np.clip(basis, 0, dummy - 1)
-    Bm = np.take_along_axis(M, safe[:, None, :], axis=2)  # [B, R, R]
+    idx = torch.from_numpy(np.ascontiguousarray(safe)).to(device)
+    Bm = M.gather(2, idx[:, None, :].expand(B, R, R))  # [B, R, R]
     rhs = M[:, :, -1]
-    c_cols = np.zeros((B, dummy))
+    c_cols = torch.zeros(B, dummy, dtype=f64, device=device)
     c_cols[:, :n] = c_s  # slack/dummy columns price at 0
-    cB = np.take_along_axis(c_cols, safe, axis=1)
-    try:
-        with np.errstate(all="ignore"):
-            xB = np.linalg.solve(Bm, rhs[..., None])[..., 0]  # basic values
-            y = np.linalg.solve(np.swapaxes(Bm, 1, 2), cB[..., None])[..., 0]
-    except np.linalg.LinAlgError:
-        return None  # an exactly singular basis matrix somewhere: all cold
-    with np.errstate(invalid="ignore"):
-        red = c_cols - np.einsum("br,brj->bj", y, M[:, :, :dummy])
-        primal_resid = np.abs(np.einsum("brk,bk->br", Bm, xB) - rhs).max(axis=1)
-        dual_resid = np.abs(np.einsum("brk,br->bk", Bm, y) - cB).max(axis=1)
-        scale = np.maximum(1.0, np.abs(M).reshape(B, -1).max(axis=1))
-        cscale = np.maximum(1.0, np.abs(c_s).max(axis=1))
-        accept = (
-            np.isfinite(xB).all(axis=1)
-            & np.isfinite(y).all(axis=1)
-            & (primal_resid <= 1e-8 * scale)
-            & (dual_resid <= 1e-8 * cscale)
-            & (xB.min(axis=1, initial=0.0) >= -1e-9)  # still a vertex
-            & (red.min(axis=1, initial=0.0) >= -_EPS)  # no column prices in
-        )
+    cB = c_cols.gather(1, idx)
+    xB, info_p = torch.linalg.solve_ex(Bm, rhs)  # basic values
+    y, info_d = torch.linalg.solve_ex(Bm.transpose(1, 2), cB)
+    red = c_cols - torch.bmm(y[:, None, :], M[:, :, :dummy])[:, 0]
+    primal_resid = (torch.bmm(Bm, xB[:, :, None])[:, :, 0] - rhs).abs().amax(dim=1)
+    dual_resid = (torch.bmm(y[:, None, :], Bm)[:, 0] - cB).abs().amax(dim=1)
+    scale = M.abs().flatten(1).amax(dim=1).clamp_min(1.0)
+    cscale = c_s.abs().amax(dim=1).clamp_min(1.0)
+    checks = (
+        ("singular", (info_p == 0) & (info_d == 0)),
+        ("not_finite", torch.isfinite(xB).all(dim=1) & torch.isfinite(y).all(dim=1)),
+        ("residual", (primal_resid <= 1e-8 * scale) & (dual_resid <= 1e-8 * cscale)),
+        ("not_a_vertex", xB.amin(dim=1) >= -1e-9),
+        ("not_optimal", red.amin(dim=1) >= -_EPS),  # no column prices in
+    )
+    accept = torch.ones(B, dtype=torch.bool, device=device)
+    met = obs_metrics.get_registry()
+    for reason, ok in checks:
+        failed = int((accept & ~ok).sum())
+        if failed:
+            met.inc("repro_simplex_warm_rejects_total", failed, reason=reason)
+        accept &= ok
 
-    xfull = np.zeros((B, dummy))
-    np.put_along_axis(xfull, safe, np.where(accept[:, None], xB, 0.0), axis=1)
+    xfull = torch.zeros(B, dummy, dtype=f64, device=device)
+    xfull.scatter_(1, idx, torch.where(accept[:, None], xB, 0.0))
     x = col_scale * xfull[:, :n]  # undo column scaling
-    obj = np.einsum("bn,bn->b", c, x)
-    return x, obj, accept, safe
+    obj = (ct * x).sum(dim=1)
+    return x.cpu().numpy(), obj.cpu().numpy(), accept.cpu().numpy(), safe
 
 
 def _demote_false_optimal(x, status, A_ub, b_ub, A_eq, b_eq):
@@ -453,7 +464,12 @@ def solve_simplex_batched(
                 f"warm_basis must be [B={B}, m_rows={m_rows}]; got {wb.shape}")
         wb = wb.astype(np.int64)
         dummy = n + A_ub.shape[1]
-        cand_idx = np.flatnonzero(np.all((wb >= 0) & (wb < dummy), axis=1))
+        usable = np.all((wb >= 0) & (wb < dummy), axis=1)
+        cand_idx = np.flatnonzero(usable)
+        seeded = int((~usable & np.any(wb >= 0, axis=1)).sum())
+        if seeded:  # seeds that hold an artificial or the dummy column
+            obs_metrics.get_registry().inc("repro_simplex_warm_rejects_total", seeded,
+                                           reason="ids")
         verified = _warm_verify(
             c[cand_idx], A_ub[cand_idx], b_ub[cand_idx],
             A_eq[cand_idx], b_eq[cand_idx], wb[cand_idx], dev,

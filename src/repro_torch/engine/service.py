@@ -24,14 +24,18 @@ kernels' plain versions.  Results are labelled ``"cuda"`` or ``"torch"``
 accordingly.
 
 ``TorchBackend`` / ``CudaBackend`` expose this path through the solver
-backend registry (``repro_torch.core.backends``: ``"torch"``, ``"cuda"``).
+backend registry (``repro_torch.core.backends``: ``"torch"``, ``"cuda"``),
+and the deprecated ``PlanService`` wraps it in a submit/flush request queue
+over a :class:`repro_torch.api.Session`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.convert import resolve_device
 from repro_torch.core.backends import SolveReport, SolveRequest, SolverBackend, get_backend
@@ -48,7 +52,7 @@ from .batched_sim import simulate_bucket
 from .batched_simplex import STATUS, solve_simplex_batched
 from .cache import CachedSolution, SolutionCache
 
-__all__ = ["solve_bulk", "TorchBackend", "CudaBackend"]
+__all__ = ["solve_bulk", "TorchBackend", "CudaBackend", "PlanService"]
 
 _REPLAY_TOL = 1e-6
 
@@ -162,16 +166,25 @@ def solve_bulk(
     every engine-solved instance rides back in
     ``result.telemetry["lp"]["final_basis"]`` for the *next* replan.
 
-    ``devices``/``n_shards`` (the reference's sharded fan-out) are not
-    ported yet and raise ``NotImplementedError``.
+    ``devices``/``n_shards`` fan the arena buckets out across shards via
+    :mod:`repro_torch.serve.shard`: ``devices`` lists cards, ``n_shards``
+    runs that many logical shards on ``device`` (one CUDA stream each on
+    the card, one thread each on the CPU) — deterministic assignment,
+    parity-locked results; both ``None`` (the default) keeps the single
+    path below.
     """
-    if devices is not None or n_shards is not None:
-        raise NotImplementedError(
-            "sharded solve_bulk (devices=/n_shards=) is not ported yet")
     dev = resolve_device(device)
     label = "cuda" if dev.type == "cuda" else "torch"
     if objective != "makespan":
         return [solve(inst, objective=objective, validate=validate) for inst in instances]
+    if devices is not None or n_shards is not None:
+        from repro_torch.serve.shard import solve_bulk_sharded  # deferred: serve pkg
+
+        return solve_bulk_sharded(
+            instances, objective=objective, cache=cache, fallback=fallback,
+            validate=validate, warm_starts=warm_starts, device=dev,
+            devices=devices, n_shards=n_shards,
+        )
 
     met = obs_metrics.get_registry()
     met.inc("repro_engine_bulk_solves_total", path=label)
@@ -259,6 +272,12 @@ def _solve_bucket(bucket, instances, results, keys, pending, cache, label,
             cs, ce, ps, pe, rs, re, mk = simulate_bucket(
                 bucket, bucket.gamma_padded(list(gammas)), device=device)
         replay_s = time.perf_counter() - t0
+        if device.type == "cuda":
+            # the results are on the host already (each stage copies back);
+            # waiting on this thread's stream alone before they reach the
+            # shared result list and cache keeps sharded solves (one stream
+            # a shard) from waiting on one another
+            torch.cuda.current_stream(device).synchronize()
 
         stages = dict(shared_stages, lp_build_s=lp_build_s,
                       simplex_s=simplex_s, replay_s=replay_s)
@@ -350,8 +369,6 @@ def _solve_bucket(bucket, instances, results, keys, pending, cache, label,
         met.observe("repro_engine_stage_seconds", dt, stage=stage, path=label)
 
 
-
-
 class TorchBackend(SolverBackend):
     """The engine's bulk path behind the ``SolverBackend`` registry, on the
     device its caller names (``device=None``: the CUDA card, raising when
@@ -368,10 +385,13 @@ class TorchBackend(SolverBackend):
     name = "torch"
 
     def __init__(self, cache: SolutionCache | None = None, fallback: bool = True,
-                 device=None):
+                 device=None, devices: list | None = None, n_shards: int | None = None):
         super().__init__(cache=cache)
         self.fallback = fallback
         self.device = device
+        # sharded fan-out (repro_torch.serve.shard): both None = one stream
+        self.devices = devices
+        self.n_shards = n_shards
 
     @property
     def label(self) -> str:
@@ -404,6 +424,8 @@ class TorchBackend(SolverBackend):
                 validate=validate,
                 warm_starts=warm if any(w is not None for w in warm) else None,
                 device=self.device,
+                devices=self.devices,
+                n_shards=self.n_shards,
             )
             for i, res in zip(bulk_idxs, results):
                 reports[i] = SolveReport.from_result(res, requests[i])
@@ -423,11 +445,143 @@ class CudaBackend(TorchBackend):
     name = "cuda"
 
     def __init__(self, cache: SolutionCache | None = None, fallback: bool = True,
-                 device=None):
+                 device=None, devices: list | None = None, n_shards: int | None = None):
         from repro_torch.kernels.build import library
 
         dev = resolve_device("cuda" if device is None else device)
         if dev.type != "cuda":
             raise ValueError(f"the 'cuda' backend runs on the card; got device {dev}")
-        super().__init__(cache=cache, fallback=fallback, device=dev)
+        super().__init__(cache=cache, fallback=fallback, device=dev, devices=devices,
+                         n_shards=n_shards)
         library()  # build (or load) the kernels now: a failure raises here
+
+
+@dataclasses.dataclass
+class _Ticket:
+    index: int
+
+
+class PlanService:
+    """Batching request front-end over the engine backend.
+
+    .. deprecated::
+       A thin shim over :class:`repro_torch.api.Session` — the one front door
+       that also coalesces by bucket size and deadline and returns
+       versioned :class:`repro_torch.api.PlanArtifact`\\ s.  New code should
+       use a Session directly; this class keeps the historical submit/flush/
+       result surface (reports, integer tickets, bounded retention) alive.
+
+    Ticket lifecycle (the enforced semantics): ``result()`` on a
+    not-yet-flushed ticket auto-flushes first; ``flush()`` with an empty
+    queue is an idempotent no-op; tickets older than the ``max_results``
+    retention window raise ``KeyError`` loudly instead of returning stale
+    reports.
+
+    ``backend`` is an engine backend of the port, ``"cuda"`` (the default:
+    the card and its kernels) or ``"torch"`` (on ``device``; ``None`` is the
+    card); the reference's ``"batched"`` and ``"pallas"`` map onto them
+    (``repro_torch.launch.serve.PLAN_BACKENDS``).
+    """
+
+    def __init__(
+        self,
+        cache: SolutionCache | None = None,
+        objective: str = "makespan",
+        max_results: int = 65536,
+        backend: str = "cuda",
+        device=None,
+    ):
+        import warnings
+
+        warnings.warn(
+            "PlanService is deprecated: use repro_torch.api.Session (submit/flush "
+            "with coalescing, PlanArtifact results) instead",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        from repro_torch.launch.serve import PLAN_BACKENDS
+
+        backend = PLAN_BACKENDS.get(backend, backend)
+        if backend not in ("torch", "cuda"):
+            raise ValueError(
+                f"PlanService fronts the engine backends ('torch', 'cuda'); got {backend!r}"
+            )
+        from repro_torch.api import Policy, Session
+
+        # explicit-flush semantics: the session never flushes on queue size
+        self._session = Session(
+            policy=Policy(backend=backend, objective=objective),
+            cache=cache if cache is not None else SolutionCache(),
+            max_batch=None,
+            device=device,
+        )
+        self.objective = objective
+        self.max_results = max_results
+        self.backend = self._session.backend(backend)
+        self._pending: list = []  # PlanTickets submitted since the last flush
+        self._results: list = []
+        self._base = 0  # absolute ticket index of _results[0]
+
+    @property
+    def cache(self) -> SolutionCache:
+        return self._session.cache
+
+    @property
+    def session(self):
+        """The underlying :class:`repro_torch.api.Session` (migration escape hatch)."""
+        return self._session
+
+    def submit(self, work) -> _Ticket:
+        """Queue an :class:`Instance` or a :class:`SolveRequest`; returns a ticket."""
+        self._pending.append(self._session.submit(work))
+        return _Ticket(index=self._base + len(self._results) + len(self._pending) - 1)
+
+    def flush(self) -> list:
+        """Solve everything queued; returns the new reports (queue order).
+
+        Idempotent: flushing an empty queue is a no-op returning ``[]``.
+        """
+        if not self._pending:
+            return []
+        batch, self._pending = self._pending, []
+        try:
+            self._session.flush()
+            res = [t.report() for t in batch]
+        except BaseException:
+            # keep the batch queued so ticket indices stay aligned and the
+            # next flush still reports every ticket.  Solver errors have
+            # already resolved their tickets to failed artifacts inside the
+            # Session, so that flush yields status="error" reports for them
+            # (not a re-solve); interrupts leave tickets unresolved and DO
+            # re-solve on the next flush.
+            self._pending = batch + self._pending
+            raise
+        self._results.extend(res)
+        # bound retained results so a long-running serving loop cannot grow
+        # without limit; tickets older than the window raise in result()
+        excess = len(self._results) - self.max_results
+        if excess > 0:
+            del self._results[:excess]
+            self._base += excess
+        return res
+
+    def result(self, ticket: _Ticket):
+        """The report for ``ticket`` — auto-flushes when it is still queued."""
+        if ticket.index >= self._base + len(self._results):
+            self.flush()
+        if ticket.index < self._base:
+            raise KeyError(
+                f"ticket {ticket.index} evicted (retention window "
+                f"{self.max_results}); read results at flush() time instead"
+            )
+        return self._results[ticket.index - self._base]
+
+    def solve_many(self, instances: list) -> list:
+        """One-shot convenience: bulk solve in caller order (flushes any
+        previously submitted work too)."""
+        for inst in instances:
+            self.submit(inst)
+        return self.flush()[-len(instances):] if instances else []
+
+    def stats(self) -> dict:
+        return self.cache.stats()

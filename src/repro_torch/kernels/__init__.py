@@ -16,11 +16,14 @@ A wrapper launches its kernel for tensors on the card and runs the plain
 version for tensors on the CPU, and never falls back from one to the
 other.  ``<wrapper>.launches`` counts the calls that launched the kernel
 (one a call, however many kernels it enqueues) (and
-``simplex_pivot.clusters`` the pivot kernel's launches by cluster size).  The kernels are
+``simplex_pivot.clusters`` the pivot kernel's launches by cluster size), each
+updated under one lock, so launches from several host threads are all
+counted.  The kernels are
 compiled from ``csrc/`` at first use (:mod:`repro_torch.kernels.build`).
 """
 
 from .asap_replay import asap_replay, asap_replay_plain
+from .build import STATE_LOCK
 from .decode_attention import decode_attention, decode_attention_plain
 from .flash_attention import flash_attention, flash_attention_plain
 from .rmsnorm import rms_norm, rms_norm_plain
@@ -40,12 +43,14 @@ _WRAPPERS = (simplex_pivot, asap_replay, flash_attention, decode_attention, ssd_
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0, and the pivot kernel's counts
     by cluster size and of updated elements."""
-    for w in _WRAPPERS:
-        w.launches = 0
-    simplex_pivot.clusters = {}
-    reset_updated()
+    with STATE_LOCK:
+        for w in _WRAPPERS:
+            w.launches = 0
+        simplex_pivot.clusters = {}
+        reset_updated()
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {w.__name__: w.launches for w in _WRAPPERS}
+    with STATE_LOCK:
+        return {w.__name__: w.launches for w in _WRAPPERS}

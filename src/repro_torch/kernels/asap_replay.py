@@ -39,7 +39,7 @@ import math
 
 import torch
 
-from .build import check, library
+from .build import check, count_launch, library
 
 __all__ = ["asap_replay", "asap_replay_plain", "outputs_to_numpy"]
 
@@ -168,7 +168,7 @@ def asap_replay(w, z, latency, tau, vcomm, vcomp, rel, valid, gamma, ret=None,
             ptr(ps), ptr(pe), ptr(rs), ptr(re), ptr(mk), B, m, T,
             int(topology == "star"), stream)
     check(code, "asap_replay launch")
-    asap_replay.launches += 1
+    count_launch(asap_replay)
     return cs, ce, ps, pe, rs, re, mk
 
 

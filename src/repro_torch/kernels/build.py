@@ -30,7 +30,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["library", "build_seconds", "SOURCE_DIR", "BUILD_ROOT"]
+__all__ = ["library", "build_seconds", "count_launch", "STATE_LOCK", "SOURCE_DIR",
+           "BUILD_ROOT"]
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -40,6 +41,12 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
+# the one lock over the wrappers' module-level bookkeeping: launch counts,
+# the pivot kernel's counts by cluster size and its lazy per-card state, the
+# decode kernel's workspaces and the autotuner's memo.  Shards and server
+# workers launch from several host threads at once; under this lock no
+# launch is lost from a count and no per-card object is created twice.
+STATE_LOCK = threading.RLock()
 _LIB: ctypes.CDLL | None = None
 _BUILD_SECONDS: float | None = None
 
@@ -159,6 +166,12 @@ def build_seconds() -> float | None:
     """Seconds the first :func:`library` call took (compile + load), or
     None before it ran."""
     return _BUILD_SECONDS
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (under :data:`STATE_LOCK`)."""
+    with STATE_LOCK:
+        wrapper.launches += 1
 
 
 def check(code: int, what: str) -> None:

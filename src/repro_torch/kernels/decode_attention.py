@@ -30,7 +30,7 @@ import numbers
 
 import torch
 
-from .build import check, library
+from .build import STATE_LOCK, check, count_launch, library
 from .flash_attention import KERNEL_HEAD_DIMS, masked_attention
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_valid", "decode_split",
@@ -130,9 +130,10 @@ def _geometry(lib) -> tuple:
     """(entries a commit group, the largest split, query heads a block),
     asked of the library once."""
     global _GEOMETRY
-    if _GEOMETRY is None:
-        _GEOMETRY = tuple(lib.repro_decode_attention_geometry(i) for i in range(3))
-    return _GEOMETRY
+    with STATE_LOCK:
+        if _GEOMETRY is None:
+            _GEOMETRY = tuple(lib.repro_decode_attention_geometry(i) for i in range(3))
+        return _GEOMETRY
 
 
 def _workspace(device, stream: int, B: int, H: int, KVH: int, n_split: int, D: int,
@@ -143,16 +144,17 @@ def _workspace(device, stream: int, B: int, H: int, KVH: int, n_split: int, D: i
     device, stream and shape, reused by every call (calls on one stream run
     in order, and each leaves the counters zero)."""
     key = (device, stream, B, H, KVH, n_split, D)
-    ws = _WORKSPACE.get(key)
-    if ws is None:
-        n = B * H * n_split
-        buf = torch.empty(n * (D + 2), dtype=torch.float32, device=device)
-        counters = torch.zeros(B * KVH * -(-(H // KVH) // heads), dtype=torch.int32,
-                               device=device)
-        ws = (buf[:n].view(B, H, n_split), buf[n:2 * n].view(B, H, n_split),
-              buf[2 * n:].view(B, H, n_split, D), counters)
-        _WORKSPACE[key] = ws
-    return ws
+    with STATE_LOCK:
+        ws = _WORKSPACE.get(key)
+        if ws is None:
+            n = B * H * n_split
+            buf = torch.empty(n * (D + 2), dtype=torch.float32, device=device)
+            counters = torch.zeros(B * KVH * -(-(H // KVH) // heads), dtype=torch.int32,
+                                   device=device)
+            ws = (buf[:n].view(B, H, n_split), buf[n:2 * n].view(B, H, n_split),
+                  buf[2 * n:].view(B, H, n_split, D), counters)
+            _WORKSPACE[key] = ws
+        return ws
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
@@ -176,9 +178,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
         cache_len = torch.tensor([cache_len], dtype=torch.int32, device=q.device)
     lib = library()
     tile, max_split, heads = _geometry(lib)
-    if q.device not in _SMS:
-        _SMS[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
-    split = decode_split(B, KVH, H // KVH, Smax, _SMS[q.device], tile=tile,
+    with STATE_LOCK:
+        if q.device not in _SMS:
+            _SMS[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_sms = _SMS[q.device]
+    split = decode_split(B, KVH, H // KVH, Smax, n_sms, tile=tile,
                          max_split=max_split, heads=heads)
     n_split = -(-Smax // split)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -193,7 +197,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
             q.stride(0), q.stride(2), *k_cache.stride()[:3], o.stride(0), o.stride(2),
             int(window), ctypes.c_float(D ** -0.5), stream)
     check(code, "decode_attention launch")
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return o
 
 

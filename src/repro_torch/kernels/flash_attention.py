@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from .build import check, library
+from .build import check, count_launch, library
 
 __all__ = ["flash_attention", "flash_attention_plain", "masked_attention", "attention_mask",
            "check_kernel_layout", "NEG_INF", "KERNEL_HEAD_DIMS"]
@@ -149,7 +149,7 @@ def flash_attention(q, k, v, *, causal=True, window=0):
             *o.stride()[:3], int(bool(causal)), int(window), ctypes.c_float(D ** -0.5),
             stream)
     check(code, "flash_attention launch")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return o
 
 

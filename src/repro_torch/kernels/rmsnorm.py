@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import check, library
+from .build import check, count_launch, library
 
 __all__ = ["rms_norm", "rms_norm_plain"]
 
@@ -67,7 +67,7 @@ def rms_norm(x, w, *, eps: float = 1e-5):
             x2.data_ptr(), wf.data_ptr(), out.data_ptr(), x2.shape[0], D, x2.stride(0),
             out.stride(0), int(x.dtype == torch.bfloat16), float(eps), stream)
     check(code, "rms_norm launch")
-    rms_norm.launches += 1
+    count_launch(rms_norm)
     return out.reshape(x.shape)
 
 

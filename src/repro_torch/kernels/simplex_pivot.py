@@ -60,7 +60,7 @@ import ctypes
 
 import torch
 
-from .build import check, library
+from .build import STATE_LOCK, check, library
 
 __all__ = ["simplex_pivot", "simplex_pivot_plain", "simplex_pivot_lanes", "cluster_size",
            "updated_elements", "reset_updated", "SHARED_BYTES_MAX"]
@@ -178,12 +178,14 @@ _RESIDENT: dict[tuple, int] = {}
 
 def _resident_clusters(index: int, R: int, C: int, cluster: int) -> int:
     key = (index, R, C, cluster)
-    if key not in _RESIDENT:
-        out = ctypes.c_int(0)
-        check(library().repro_simplex_pivot_max_clusters(R, C, cluster, ctypes.addressof(out)),
-              "simplex_pivot occupancy")
-        _RESIDENT[key] = out.value
-    return _RESIDENT[key]
+    with STATE_LOCK:
+        if key not in _RESIDENT:
+            out = ctypes.c_int(0)
+            check(library().repro_simplex_pivot_max_clusters(R, C, cluster,
+                                                             ctypes.addressof(out)),
+                  "simplex_pivot occupancy")
+            _RESIDENT[key] = out.value
+        return _RESIDENT[key]
 
 
 _UPDATED: dict[int, torch.Tensor] = {}  # card index -> int64 count of updated elements
@@ -198,14 +200,26 @@ def updated_elements(device=None) -> int:
     """Tableau elements the kernel updated on ``device`` (None: the current
     card) since the last :func:`reset_updated`; reading the card's counter
     synchronises with it."""
-    counter = _UPDATED.get(_card_index(device)) if _UPDATED else None
+    with STATE_LOCK:
+        counter = _UPDATED.get(_card_index(device)) if _UPDATED else None
     return 0 if counter is None else int(counter.item())
 
 
 def reset_updated() -> None:
     """Set the cards' counts of updated elements to 0."""
-    for counter in _UPDATED.values():
-        counter.zero_()
+    with STATE_LOCK:
+        for counter in _UPDATED.values():
+            counter.zero_()
+
+
+def _card_state(index: int, device) -> tuple:
+    """The card's counter of updated elements and its SM count, each made
+    once (under the lock, whichever thread launches first)."""
+    with STATE_LOCK:
+        if index not in _UPDATED:
+            _UPDATED[index] = torch.zeros(1, dtype=torch.int64, device=device)
+            _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+        return _UPDATED[index], _SMS[index]
 
 
 def _launch(T, basis, it, status, lanes, kw, cluster):
@@ -217,13 +231,9 @@ def _launch(T, basis, it, status, lanes, kw, cluster):
         raise ValueError(f"tableau {R}x{C} is too large for 32-bit element indices")
     with torch.cuda.device(T.device):
         index = _card_index(T.device)
-        if index not in _UPDATED:
-            _UPDATED[index] = torch.zeros(1, dtype=torch.int64, device=T.device)
+        updated, sms = _card_state(index, T.device)
         if cluster is None:
-            if index not in _SMS:
-                _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-            cluster = cluster_size(n_lanes, _SMS[index],
-                                   lambda s: _resident_clusters(index, R, C, s))
+            cluster = cluster_size(n_lanes, sms, lambda s: _resident_clusters(index, R, C, s))
         slice_ = ((C + cluster - 1) // cluster + 1) & ~1
         if (2 * R + slice_) * 8 + 4 * R > SHARED_BYTES_MAX:
             raise ValueError(f"tableau {R}x{C} needs more shared memory than a block has")
@@ -232,10 +242,11 @@ def _launch(T, basis, it, status, lanes, kw, cluster):
             T.data_ptr(), basis.data_ptr(), it.data_ptr(), status.data_ptr(),
             None if lanes is None else lanes.data_ptr(), n_lanes, B, R, C,
             kw["ncols_price"], kw["bland_after"], kw["max_iter"], kw["k_pivots"], cluster,
-            _UPDATED[index].data_ptr(), stream)
+            updated.data_ptr(), stream)
     check(code, "simplex_pivot launch")
-    simplex_pivot.launches += 1
-    simplex_pivot.clusters[cluster] = simplex_pivot.clusters.get(cluster, 0) + 1
+    with STATE_LOCK:
+        simplex_pivot.launches += 1
+        simplex_pivot.clusters[cluster] = simplex_pivot.clusters.get(cluster, 0) + 1
 
 
 def _run(T, basis, it, status, lanes, kw, cluster, check_lane_ids):

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import check, library
+from .build import check, count_launch, library
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_tolerance", "pick_chunk", "KERNEL_SIZES",
            "MAX_CHUNK"]
@@ -208,7 +208,7 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk=64):
             *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3], *y.stride()[:3],
             stream)
     check(code, "ssd_scan launch")
-    ssd_scan.launches += 1
+    count_launch(ssd_scan)
     return y
 
 

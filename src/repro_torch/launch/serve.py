@@ -2,8 +2,8 @@
 decoder LM of the dense, ssm (Mamba-2) or hybrid (Hymba) family, on the CUDA
 card unless ``--device cpu`` is given.
 
-The port of the reference's decode demo (``repro.launch.serve``, without
-``--serve``).  The prefill and decode run in the hand-written kernels
+The port of the reference's serving driver (``repro.launch.serve``).  The
+prefill and decode run in the hand-written kernels
 (``attention_impl="cuda"``): per layer, one flash-attention launch and one
 SSD-scan launch in the prefill (whichever the family has), and one
 decode-attention launch per step.  The Mamba decode step is plain PyTorch.
@@ -23,8 +23,18 @@ over a 4-stage chain (or star, ``--topology``) through the port's
 ``Planner`` and ``api.Session`` on ``--device``, printing the schedule next
 to its makespan, a replanning tick (a solution-cache hit on an engine
 backend) and, with ``--auto-t T_MAX``, the cost-aware installment sweep.
-``--serve`` (and its options) needs the port's plan server and fails with
-the roadmap item that brings it.
+
+``--serve`` switches to the long-lived planning service instead (no model
+stack): a :class:`repro_torch.serve.PlanServer` — worker Sessions on
+``--device`` solving with ``--plan-backend`` (``cuda``: the kernels on the
+card), a bounded admission queue, an optional persistent plan store shared
+across restarts and replicas, ``/healthz`` + ``/metrics``, graceful drain on
+SIGINT or after ``--serve-duration`` seconds::
+
+  python -m repro_torch.launch.serve --serve --plan-backend cuda \\
+      --serve-port 8080 --serve-store /tmp/plans.sqlite --serve-workers 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve --device cpu \\
+      --plan-backend torch --serve-port 0 --serve-duration 3
 """
 
 from __future__ import annotations
@@ -46,13 +56,6 @@ from repro_torch.runtime import make_serve_step
 __all__ = ["main", "serve_policy", "load_model", "prompt_tokens", "generate", "ServeResult",
            "plan_inputs", "PLAN_BACKENDS"]
 
-# flags of the reference's CLI that need modules the port does not have yet
-_LATER = {
-    "serve": "A.9", "serve_port": "A.9", "serve_workers": "A.9", "serve_store": "A.9",
-    "serve_queue_limit": "A.9", "serve_deadline": "A.9", "serve_shards": "A.9",
-    "serve_duration": "A.9",
-}
-_WHAT = {"A.9": "the port's plan server"}
 # the reference's engine backend names, and the port's that take their place
 PLAN_BACKENDS = {"batched": "torch", "pallas": "cuda"}
 
@@ -101,25 +104,37 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--installment-cost", type=float, default=1e-3,
                     help="fixed per-installment overhead (seconds) charged by the --auto-t "
                          "sweep")
-    for flag in ("--serve-port", "--serve-workers", "--serve-queue-limit", "--serve-shards"):
-        ap.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
-    for flag in ("--serve-deadline", "--serve-duration"):
-        ap.add_argument(flag, type=float, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--serve-store", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--serve", action="store_const", const=True, default=None,
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--serve", action="store_true",
+                    help="run the long-lived planning service (repro_torch.serve.PlanServer) "
+                         "instead of the decode demo; its workers solve with --plan-backend "
+                         "on --device")
+    ap.add_argument("--serve-port", type=int, default=0, metavar="PORT",
+                    help="HTTP port for --serve (0 = ephemeral, printed)")
+    ap.add_argument("--serve-workers", type=int, default=2,
+                    help="worker Sessions behind the admission queue (one CUDA stream each "
+                         "on the card)")
+    ap.add_argument("--serve-store", default=None, metavar="PATH",
+                    help="persistent plan store (sqlite file) shared across restarts and "
+                         "sibling replicas; default in-memory")
+    ap.add_argument("--serve-queue-limit", type=int, default=256,
+                    help="bounded admission queue depth (backpressure: a full queue rejects "
+                         "with HTTP 429)")
+    ap.add_argument("--serve-deadline", type=float, default=30.0,
+                    help="default per-request deadline (seconds)")
+    ap.add_argument("--serve-shards", type=int, default=None, metavar="N",
+                    help="fan engine buckets out over N shards per solve (N CUDA streams on "
+                         "the card; default: one)")
+    ap.add_argument("--serve-duration", type=float, default=None, metavar="SECONDS",
+                    help="with --serve: drain and exit after this long (default: run until "
+                         "SIGINT)")
     return ap
 
 
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
-    for name, item in _LATER.items():
-        if getattr(args, name) is not None:
-            ap.error(f"--{name.replace('_', '-')} needs {_WHAT[item]}, which the port does "
-                     f"not have yet (ROADMAP {item})")
-    if args.arch is None:
-        ap.error("--arch is required")
+    if not args.serve and args.arch is None:
+        ap.error("--arch is required (unless running --serve)")
     metrics_server = None
     if args.metrics_port is not None:
         from repro_torch.obs import start_metrics_server
@@ -133,7 +148,10 @@ def main(argv=None):
         tracer = Tracer()
         prev_tracer = activate(tracer)
     try:
-        _run(args)
+        if args.serve:
+            _run_server(args)
+        else:
+            _run(args)
     finally:
         if tracer is not None:
             from repro_torch.obs import activate
@@ -143,6 +161,49 @@ def main(argv=None):
             print(f"trace: {args.trace_out} ({len(tracer)} spans)")
         if metrics_server is not None:
             metrics_server.shutdown()
+
+
+def _run_server(args):
+    """The --serve mode: stand up a PlanServer and run until stopped.
+
+    Admitted work always drains before exit (SIGINT and --serve-duration
+    both go through ``PlanServer.close()``), so Ctrl-C never drops a plan.
+    """
+    from repro_torch.api import Policy
+    from repro_torch.serve import PlanServer
+
+    dev = resolve_device(args.device)
+    backend = PLAN_BACKENDS.get(args.plan_backend, args.plan_backend)
+    server = PlanServer(
+        store=args.serve_store,
+        workers=args.serve_workers,
+        queue_limit=args.serve_queue_limit,
+        default_deadline_s=args.serve_deadline,
+        n_shards=args.serve_shards,
+        port=args.serve_port,
+        policy=Policy(backend=backend),
+        device=dev,
+    )
+    print(f"plan server: http://localhost:{server.port}/v1/plan "
+          f"({args.serve_workers} workers, backend={backend} on {dev.type}, "
+          f"queue {args.serve_queue_limit}, store={args.serve_store or 'in-memory'})")
+    print(f"  healthz: http://localhost:{server.port}/healthz   "
+          f"metrics: http://localhost:{server.port}/metrics")
+    try:
+        if args.serve_duration is not None:
+            time.sleep(args.serve_duration)
+        else:
+            while True:
+                time.sleep(3600)
+    except KeyboardInterrupt:
+        print("draining...")
+    finally:
+        server.close()
+        st = server.cache.stats()
+        print(f"drained. cache: {st.get('hits', 0)} hit / "
+              f"{st.get('misses', 0)} miss"
+              + (f", store: {st['store']['entries']} rows persisted"
+                 if "store" in st else ""))
 
 
 def serve_policy(prompt_len: int, attention_impl: str = "cuda") -> ShardingPolicy:

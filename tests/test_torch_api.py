@@ -188,9 +188,17 @@ def test_artifact_documents_cross_read_between_the_packages():
         assert back.schedule().makespan == pytest.approx(r.makespan, rel=RTOL)
 
 
-def test_store_is_not_ported_and_cuda_never_runs_off_the_card():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        Session(store="plans.sqlite")
+def test_store_is_not_ported_and_cuda_never_runs_off_the_card(tmp_path):
+    # the name is kept from before the plan store was ported (A.9, done):
+    # store= now builds the tiered cache, and cache= beside it raises
+    from repro_torch.engine.cache import SolutionCache
+    from repro_torch.serve import TieredSolutionCache
+
+    with pytest.raises(ValueError, match="either cache= or store="):
+        Session(cache=SolutionCache(), store=str(tmp_path / "plans.sqlite"))
+    sess = Session(policy=Policy(backend="torch"), store=str(tmp_path / "plans.sqlite"),
+                   device="cpu")
+    assert isinstance(sess.cache, TieredSolutionCache)
     with pytest.raises(ValueError, match="runs on the card"):
         Session(policy=Policy(backend="cuda"), device="cpu").solve(Problem(**population()[0]))
 

@@ -89,8 +89,11 @@ def test_default_device_is_the_card_and_raises_without_one():
         solve_bulk([inst])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_backend("cuda")
-    with pytest.raises(NotImplementedError):
-        solve_bulk([inst], device="cpu", n_shards=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve_bulk([inst], n_shards=2)  # logical shards are streams of the card
+    (single,) = solve_bulk([inst], device="cpu")
+    (sharded,) = solve_bulk([inst], device="cpu", n_shards=2)
+    assert sharded.ok and sharded.makespan == single.makespan
 
 
 def test_serve_without_device_runs_on_the_card_and_raises_without_one():

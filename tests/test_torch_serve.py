@@ -283,17 +283,22 @@ def test_serve_generate_matches_a_manual_loop_and_samples_reproducibly():
     assert torch.equal(a.tokens, b.tokens)
 
 
-# ids kept from when the planner flags (A.6, done) were refused here too
+# name and ids kept from when the planner flags (A.6) and --serve (A.9)
+# were refused here; both are ported now, so each flag runs the plan server
+# on the CPU, drains it and refuses nothing
 @pytest.mark.parametrize("flag,item", [
     pytest.param(["--serve"], "A.9", id="flag2-A.9"),
-    pytest.param(["--serve-port", "0"], "A.9", id="flag3-A.9")])
+    pytest.param(["--serve", "--serve-port", "0"], "A.9", id="flag3-A.9")])
 def test_serve_cli_refuses_what_the_port_lacks(flag, item, capsys):
     from repro_torch.launch.serve import main
 
-    with pytest.raises(SystemExit) as exc:
-        main(["--arch", ARCH, "--smoke", "--device", "cpu", *flag])
-    assert exc.value.code == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+    main(["--arch", ARCH, "--smoke", "--device", "cpu", "--plan-backend", "torch",
+          "--serve-duration", "0.2", *flag])
+    out = capsys.readouterr()
+    assert f"ROADMAP {item}" not in out.err
+    assert "plan server: http://localhost:" in out.out
+    assert "backend=torch on cpu" in out.out
+    assert "drained. cache: 0 hit / 0 miss" in out.out
 
 
 def test_serve_cli_trace_out_records_the_prefill_and_decode_spans(tmp_path, capsys):
