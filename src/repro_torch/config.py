@@ -141,7 +141,9 @@ class ShardingPolicy:
     ``attention_impl``: ``"naive"`` (materialized scores), ``"chunked"``
     (online softmax over q/kv chunks) or ``"cuda"`` (the hand-written
     kernels in :mod:`repro_torch.kernels`; the reference calls its Pallas
-    kernels ``"pallas"``).
+    kernels ``"pallas"``).  ``moe_impl``: the experts' dispatch,
+    ``"gshard"`` (capacity buckets) or ``"dense"`` (every token through
+    every expert, the oracle).
     """
 
     attention_impl: str = "chunked"  # naive | chunked | cuda
@@ -149,6 +151,7 @@ class ShardingPolicy:
     attn_block_skip: bool = False  # skip fully masked kv blocks (chunked)
     logits_fp32: bool = True
     kv_cache_dtype: str = "bf16"  # "int8": per-(token, kv-head) scaled cache
+    moe_impl: str = "gshard"  # gshard (capacity dispatch) | dense (the oracle)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -160,7 +160,12 @@ def _block_layout(cfg) -> dict:
     """Shapes of one block's leaves in the reference's tree, by family."""
     D, H, KVH, hd, F = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     layout: dict = {"ln1": (D,)}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.mla is not None:
+        m = cfg.mla
+        dn, dr, dv, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
+        layout["attn"] = {"w_q": (D, H * (dn + dr)), "w_dkv": (D, r), "w_kr": (D, dr),
+                          "w_uk": (r, H * dn), "w_uv": (r, H * dv), "w_o": (H * dv, D)}
+    elif cfg.family != "ssm":
         layout["attn"] = {"w_q": (D, H * hd), "w_k": (D, KVH * hd), "w_v": (D, KVH * hd),
                           "w_o": (H * hd, D)}
     if cfg.family in ("ssm", "hybrid"):
@@ -170,10 +175,31 @@ def _block_layout(cfg) -> dict:
         layout["mamba"] = {"w_z": (D, d_in), "w_xbc": (D, conv), "w_dt": (D, h),
                            "conv_w": (ssm.d_conv, conv), "A_log": (h,), "D": (h,),
                            "dt_bias": (h,), "norm_w": (d_in,), "w_out": (d_in, D)}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family == "moe":
+        mo = cfg.moe
+        E, f = mo.num_experts, mo.d_ff_expert
+        layout["ln2"] = (D,)
+        layout["moe"] = {"router": (D, E), "w_gate": (E, D, f), "w_up": (E, D, f),
+                         "w_down": (E, f, D)}
+        if mo.num_shared:
+            fs = f * mo.num_shared
+            layout["moe"]["shared"] = {"w_gate": (D, fs), "w_up": (D, fs), "w_down": (fs, D)}
+    elif cfg.family != "ssm":
         layout["ln2"] = (D,)
         layout["mlp"] = {"w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)}
     return layout
+
+
+def _top_layout(cfg) -> dict:
+    """Shapes of the leaves outside the blocks, by family."""
+    D, V = cfg.d_model, cfg.padded_vocab
+    if cfg.family == "audio":
+        layout = {"embed": (cfg.num_codebooks, V, D), "heads": (cfg.num_codebooks, D, V)}
+    else:
+        layout = {"embed": (V, D)} | ({} if cfg.tie_embeddings else {"head": (D, V)})
+    if cfg.family == "vlm":
+        layout["patch_proj"] = (cfg.patch_dim, D)
+    return layout | {"ln_f": (D,)}
 
 
 # leaves the reference keeps in float32 whatever the parameters' dtype
@@ -183,47 +209,46 @@ _FLOAT32_LEAVES = {"mamba.A_log", "mamba.D", "mamba.dt_bias"}
 def params_from_reference(params_np: dict, cfg, device=None):
     """The reference's parameter tree (``init_params``'s dict, leaves as
     NumPy, blocks stacked ``[L, ...]``) as the port's
-    :class:`~repro_torch.models.Transformer` on ``device``, for the dense,
-    ssm and hybrid families.  Every leaf's shape is checked against ``cfg``,
-    and all leaves must share one dtype (float32 or bfloat16) except the
-    Mamba mixer's ``A_log``, ``D`` and ``dt_bias``, which are float32."""
+    :class:`~repro_torch.models.Transformer` on ``device``, for every
+    family.  The tree's keys and every leaf's shape are checked against
+    ``cfg``, and all leaves must share one dtype (float32 or bfloat16)
+    except the Mamba mixer's ``A_log``, ``D`` and ``dt_bias``, which are
+    float32."""
     from repro_torch.models import Transformer
 
     dev = resolve_device(device)
-    D, L, V = cfg.d_model, cfg.num_layers, cfg.padded_vocab
-    top = {"embed", "blocks", "ln_f"} | (set() if cfg.tie_embeddings else {"head"})
-    if set(params_np) != top:
-        raise ValueError(f"parameter tree has {sorted(params_np)}, expected {sorted(top)}")
-    blocks = params_np["blocks"]
-    layout = _block_layout(cfg)
-    if set(blocks) != set(layout):
-        raise ValueError(f"blocks have {sorted(blocks)}, expected {sorted(layout)}")
+    L = cfg.num_layers
+    top = _top_layout(cfg)
+    if set(params_np) != set(top) | {"blocks"}:
+        raise ValueError(f"parameter tree has {sorted(params_np)}, expected "
+                         f"{sorted(set(top) | {'blocks'})}")
     dtype = np.asarray(params_np["embed"]).dtype.name
     floats = {"float32": (torch.float32,), "bfloat16": (torch.bfloat16,)}.get(dtype)
     if floats is None:
         raise TypeError(f"embed is {dtype}; the port takes float32 or bfloat16 parameters")
 
-    def leaf(arr, what, shape):
-        kinds = (torch.float32,) if what[len("blocks."):] in _FLOAT32_LEAVES else floats
-        return _model_tensor(arr, dev, what, shape, kinds)
+    def carry(tree, layout, what, lead=()):
+        """``tree`` checked against ``layout`` (nested dicts of shapes), its
+        leaves as tensors; ``lead`` the stacked layer axis."""
+        if not isinstance(tree, dict) or set(tree) != set(layout):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{what} has {got}, expected {sorted(layout)}")
+        out = {}
+        for name, spec in layout.items():
+            path = f"{what}.{name}" if what else name
+            if isinstance(spec, dict):
+                out[name] = carry(tree[name], spec, path, lead)
+            else:
+                kinds = (torch.float32,) if path[len("blocks."):] in _FLOAT32_LEAVES else floats
+                out[name] = _model_tensor(tree[name], dev, path, (*lead, *spec), kinds)
+        return out
 
-    stacked = {}
-    for name, spec in layout.items():
-        if isinstance(spec, dict):
-            if set(blocks[name]) != set(spec):
-                raise ValueError(f"blocks.{name} has {sorted(blocks[name])}, expected "
-                                 f"{sorted(spec)}")
-            stacked[name] = {k: leaf(blocks[name][k], f"blocks.{name}.{k}", (L, *shp))
-                             for k, shp in spec.items()}
-        else:
-            stacked[name] = leaf(blocks[name], f"blocks.{name}", (L, *spec))
-    tree = {"embed": leaf(params_np["embed"], "embed", (V, D)),
-            "ln_f": leaf(params_np["ln_f"], "ln_f", (D,)),
-            "blocks": [{name: ({k: t[l] for k, t in val.items()} if isinstance(val, dict)
-                               else val[l]) for name, val in stacked.items()}
-                       for l in range(L)]}
-    if not cfg.tie_embeddings:
-        tree["head"] = leaf(params_np["head"], "head", (D, V))
+    def layer(t, l):
+        return {k: layer(v, l) if isinstance(v, dict) else v[l] for k, v in t.items()}
+
+    tree = carry({k: v for k, v in params_np.items() if k != "blocks"}, top, "")
+    stacked = carry(params_np["blocks"], _block_layout(cfg), "blocks", (L,))
+    tree["blocks"] = [layer(stacked, l) for l in range(L)]
     return Transformer(cfg, tree)
 
 
@@ -235,9 +260,24 @@ def cache_from_reference(cache_np: dict, cfg, device=None) -> dict:
     ``[L, B, S, KVH]``; with an SSM ``ssm`` = {``conv`` ``[L, B, d_conv - 1,
     conv_dim]`` (float32 or bfloat16), ``state`` ``[L, B, H, P, N]``
     (float32)}.  The port keeps the reference's tree, so a leaf's
-    ``.numpy()`` is the reference's array again."""
+    ``.numpy()`` is the reference's array again.  With MLA the attention
+    cache is ``mla`` = {``c_kv`` ``[L, B, S, r]``, ``k_pe`` ``[L, B, S,
+    dr]``} (float32 or bfloat16) in place of ``k``/``v``."""
     dev = resolve_device(device)
     names = set(cache_np)
+    if cfg.mla is not None:
+        if names != {"mla"} or set(cache_np["mla"]) != {"c_kv", "k_pe"}:
+            raise ValueError(f"cache has {sorted(names)}; the port's MLA cache is "
+                             "{'mla': {'c_kv', 'k_pe'}}")
+        m, L = cfg.mla, cfg.num_layers
+        c_kv = np.asarray(cache_np["mla"]["c_kv"])
+        B, S = c_kv.shape[1:3] if c_kv.ndim == 4 else (-1, -1)  # the caller's
+        out = {name: _model_tensor(cache_np["mla"][name], dev, f"cache mla.{name}",
+                                   (L, B, S, width), (torch.float32, torch.bfloat16))
+               for name, width in (("c_kv", m.kv_lora_rank), ("k_pe", m.qk_rope_head_dim))}
+        if out["k_pe"].dtype != out["c_kv"].dtype:
+            raise TypeError(f"cache c_kv is {out['c_kv'].dtype}, k_pe {out['k_pe'].dtype}")
+        return {"mla": out}
     kv = {"k", "v"} if cfg.has_attention else set()
     ssm_names = {"ssm"} if cfg.has_ssm else set()
     allowed = [kv | ssm_names] + ([kv | {"k_scale", "v_scale"} | ssm_names] if kv else [])
@@ -289,4 +329,4 @@ def policy_from_reference(policy):
     return ShardingPolicy(attention_impl=impl, attn_chunk=policy.attn_chunk,
                           attn_block_skip=policy.attn_block_skip,
                           logits_fp32=policy.logits_fp32,
-                          kv_cache_dtype=policy.kv_cache_dtype)
+                          kv_cache_dtype=policy.kv_cache_dtype, moe_impl=policy.moe_impl)

@@ -13,7 +13,9 @@
 // Layout: q and out [B, 1, H, D], caches [B, Smax, KVH, D], read through
 // their strides (the last dimension contiguous; the caches 16-byte aligned
 // with strides of whole 16-byte units, as the wrapper checks).  float32 or
-// bfloat16 in, float32 inside, out in the input type.
+// bfloat16 in, float32 inside, out in the input type.  Head dims 16 to 256
+// (paligemma-3b: D = 256 with all 8 query heads on one kv head, 141 KB of
+// shared memory at the largest split).
 //
 // What bounds it on this card: bytes.  A call must read the valid K and V
 // rows once (llama3.2-3b's decode, B = 4, KVH = 8, D = 128, 544 entries,
@@ -40,8 +42,11 @@
 //  * the combine is folded in: each block writes its split's (max,
 //    denominator, accumulator) per head, and the last block of a (b, kv
 //    head) to finish, found by an atomic counter in the wrapper's workspace,
-//    combines the splits, divides by max(l, 1e-30) as the reference does,
-//    writes the output and resets the counter for the next call.
+//    combines the splits (each split's weight computed once per head, the
+//    loads of a thread's outputs in flight together: at paligemma-3b's 34
+//    splits x 8 heads x 256 the combine is most of a call), divides by
+//    max(l, 1e-30) as the reference does, writes the output and resets the
+//    counter for the next call.
 // Invalid entries get probability exactly 0 (in the reference they are
 // -1e30 and vanish the same way once a valid key is seen; every split
 // visited here holds one).  With cache_len = 0 the output is 0, as the
@@ -107,6 +112,12 @@ struct Geo {
   }
   static int bytes(int split) { return kK + k_bytes(split) + split * D * (int)sizeof(T); }
   static_assert(kK % 16 == 0, "K and V 16-byte aligned");
+  // the largest split's layout (D = 256, float32: 141,456 bytes) fits the
+  // 227 KB a block can use; the launch raises the kernel's attribute to it
+  static_assert(kK + (kMaxSplit * D * (int)sizeof(T) > kRed ? kMaxSplit * D * (int)sizeof(T)
+                                                             : kRed) +
+                        kMaxSplit * D * (int)sizeof(T) <= 232448,
+                "fits the 227 KB a block can use");
 };
 
 template <typename T, int D>
@@ -273,18 +284,60 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   __syncthreads();
   if (!*last) return;
   __threadfence();
-  for (int i = tid; i < Gc * D; i += kThreads) {
-    const int g = i / D, d = i - g * D;
-    const long long base = ((long long)b * H + h0 + g) * n_split;
-    float m = -INFINITY;
-    for (int s = s_lo; s < s_hi; ++s) m = fmaxf(m, __ldcg(part_m + base + s));
-    float l = 0.f, a = 0.f;
-    for (int s = s_lo; s < s_hi; ++s) {
-      const float w = expf(__ldcg(part_m + base + s) - m);
-      l = fmaf(__ldcg(part_l + base + s), w, l);
-      a = fmaf(__ldcg(part_acc + (base + s) * D + d), w, a);
+  // Each head's largest split max and its denominator, a warp a head with
+  // its lanes over the splits; then the splits' weights exp(m_s - m), up to
+  // kMaxSplit splits at a time in shared memory (over the scores); then
+  // each output the weighted sum of its splits' partial sums, the loads of
+  // all a thread's outputs (and of four splits) in flight together.
+  const long long head0 = (long long)b * H + h0;  // this block's first head, [B, H] index
+  for (int g = warp; g < Gc; g += kWarps) {
+    const float* pm = part_m + (head0 + g) * n_split;
+    const float* pl = part_l + (head0 + g) * n_split;
+    float mx = -INFINITY;
+    for (int s = s_lo + lane; s < s_hi; s += 32) mx = fmaxf(mx, __ldcg(pm + s));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float l = 0.f;
+    for (int s = s_lo + lane; s < s_hi; s += 32) l = fmaf(__ldcg(pl + s), expf(__ldcg(pm + s) - mx), l);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      st_m[g] = mx;
+      st_l[g] = l;
     }
-    from_f32(o + b * osb + (h0 + g) * osh + d, a / fmaxf(l, 1e-30f));
+  }
+  constexpr int kOut = (kMaxG * D + kThreads - 1) / kThreads;  // outputs a thread at most
+  float out[kOut];
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) out[j] = 0.f;
+  for (int c0 = s_lo; c0 < s_hi; c0 += kMaxSplit) {
+    const int nc = min(kMaxSplit, s_hi - c0);
+    __syncthreads();  // the maxima are written, the last chunk's weights read
+    for (int i = tid; i < Gc * nc; i += kThreads) {
+      const int g = i / nc, s = i - g * nc;
+      sc[g * kMaxSplit + s] = expf(__ldcg(part_m + (head0 + g) * n_split + c0 + s) - st_m[g]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int s = 0; s < nc; ++s) {
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) {
+        const int i = tid + kThreads * j;
+        if (i < Gc * D) {
+          const int g = i / D, d = i - g * D;
+          const float p = __ldcg(part_acc + ((head0 + g) * n_split + c0 + s) * D + d);
+          out[j] = fmaf(p, sc[g * kMaxSplit + s], out[j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) {
+    const int i = tid + kThreads * j;
+    if (i < Gc * D) {
+      const int g = i / D, d = i - g * D;
+      from_f32(o + b * osb + (h0 + g) * osh + d, out[j] / fmaxf(st_l[g], 1e-30f));
+    }
   }
   if (tid == 0) *counter = 0;  // every block of this call has counted
 }
@@ -320,6 +373,7 @@ cudaError_t dispatch(int D, const void* q, const void* kc, const void* vc, const
     case 32: return launch<T, 32>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
     case 64: return launch<T, 64>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
     case 128: return launch<T, 128>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
+    case 256: return launch<T, 256>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

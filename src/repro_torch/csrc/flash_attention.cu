@@ -77,6 +77,9 @@
 //    `ex2.approx`), masks only the tiles that reach past Sk, the diagonal or
 //    the window, and every product-sum outside the tensor cores is an
 //    explicit fmaf (the library is built with -fmad=false).
+// Head dims 16 to 256.  bfloat16 at D = 256 keeps this geometry (Q 64 KB, two
+// stages of 64 KB); its P V is two products of 128 columns.  float32 at D =
+// 256 does not fit it and runs flash_attention_wide_kernel (below).
 // A barrier wait that does not complete within ~2 s traps (a launch error in
 // place of a hung card).
 
@@ -453,13 +456,22 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[16][4],
 }
 
 
-template <int D>
+// O[64 x D] += P[64 x 16] V[16 x D], V's 16 key rows at `v` in slices of SW
+// bytes a row, `chunk` bytes apart.  D = 256 is two products of 128 columns,
+// the second reading slices 2 and 3 into the accumulator's columns 128..255.
+template <int D, int SW>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 8][4], const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint32_t v, uint32_t chunk) {
+  const uint64_t db = gmma_desc<SW>(v, chunk, 8 * SW);
   if constexpr (D == 16) wgmma_m64n16k16_rs(o, a, db);
   if constexpr (D == 32) wgmma_m64n32k16_rs(o, a, db);
   if constexpr (D == 64) wgmma_m64n64k16_rs(o, a, db);
   if constexpr (D == 128) wgmma_m64n128k16_rs(o, a, db);
+  if constexpr (D == 256) {
+    wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[16][4]>(&o[0]), a, db);
+    wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[16][4]>(&o[16]), a,
+                        gmma_desc<SW>(v + 2 * chunk, chunk, 8 * SW));
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -819,8 +831,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        const uint64_t db = gmma_desc<kSW>(v_s + kk * 16 * kSW, G::kKVChunk, 8 * kSW);
-        wgmma_pv<D>(acc, pa[kk], db);
+        wgmma_pv<D, kSW>(acc, pa[kk], v_s + kk * 16 * kSW, G::kKVChunk);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -917,6 +928,187 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ---------------------------------------------------------------- float32 at D = 256
+//
+// The TMA kernel's float32 geometry does not fit D = 256: Q's lo half alone
+// is 128 registers a thread beside a 128-register accumulator, and a stage of
+// K, V and their lo halves is 128 KB.  So float32 at D = 256 (paligemma-3b's
+// heads) runs this kernel instead: split TF32 on `mma.sync` m16n8k8, each
+// operand split into hi and lo halves in registers as it is loaded from
+// shared memory (Q, K and V stay float32 there), so no split copy is stored.
+// A block is 64 query rows, a warp 16 of them with the accumulator of all
+// 256 output columns (128 registers); kv tiles of 32 keys stream through two
+// stages of `cp.async` copies, rows padded to 260 floats so that every
+// fragment load of a warp hits 32 banks.  Q (66,560 bytes) and two stages of
+// K and V (133,120) fill 199,680 bytes: one block an SM.  A warp skips the
+// tiles none of its rows sees; rows and keys past the end are zero-filled
+// and keys past Sk masked to -inf, as in the kernel above, whose online
+// softmax (log2 domain, the -1e30 mask, max(l, 1e-30)) this one shares.
+namespace wide {
+constexpr int D = 256;
+constexpr int kBQ = 64;     // query rows a block, 16 a warp
+constexpr int kBK = 32;     // keys a kv tile
+constexpr int kThreads = 128;
+constexpr int kLd = D + 4;  // floats a row in shared memory
+constexpr int kQFloats = kBQ * kLd;
+constexpr int kTileFloats = kBK * kLd;
+constexpr int kSmem = (kQFloats + 2 * 2 * kTileFloats) * 4;  // Q, then 2 stages of K and V
+static_assert(kSmem <= 232448, "fits the 227 KB a block can use");
+
+// `rows` rows of D floats from `src` (row stride `ld` elements) into `dst`
+// (row stride kLd) as 16-byte copies; rows at or past `valid` are zeroed.
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long ld, int rows,
+                                          int valid) {
+  for (int i = threadIdx.x; i < rows * (D / 4); i += kThreads) {
+    const int r = i / (D / 4), u = 4 * (i % (D / 4));
+    if (r < valid)
+      repro::cp_async16(dst + r * kLd + u, src + r * ld + u);
+    else
+      *reinterpret_cast<float4*>(dst + r * kLd + u) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+}  // namespace wide
+
+__global__ void __launch_bounds__(wide::kThreads)
+flash_attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o, int H, int KVH,
+                            int Sq, int Sk, long long qsb, long long qss, long long qsh,
+                            long long ksb, long long kss, long long ksh, long long osb,
+                            long long oss, long long osh, int causal, int window,
+                            float scale) {
+  using namespace wide;
+  using repro::mma_tf32;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;
+  float* ring = fsm + kQFloats;  // stage s: K at ring + 2 s kTileFloats, V after it
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int q0 = qt * kBQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int wq0 = q0 + 16 * warp, wq_end = min(wq0 + 16, Sq);
+
+  // the kv tiles some row of [lo, hi) can see
+  auto tiles = [&](int lo, int hi, int& t_lo, int& t_hi) {
+    int k_lo = 0, k_hi = Sk;
+    if (causal) k_hi = min(Sk, hi);
+    if (window > 0) k_lo = max(0, lo - window + 1);
+    t_lo = k_lo / kBK;
+    t_hi = k_hi > k_lo ? (k_hi + kBK - 1) / kBK : t_lo;
+  };
+  int t_lo, t_hi, w_lo = 0, w_hi = 0;
+  tiles(q0, min(q0 + kBQ, Sq), t_lo, t_hi);
+  if (wq0 < Sq) tiles(wq0, wq_end, w_lo, w_hi);
+  const float* kb = k + b * ksb + kvh * ksh;
+  const float* vb = v + b * ksb + kvh * ksh;
+  auto load_tile = [&](int t) {
+    float* st = ring + ((t - t_lo) & 1) * 2 * kTileFloats;
+    const int valid = min(kBK, Sk - t * kBK);
+    load_rows(st, kb + (long long)t * kBK * kss, kss, kBK, valid);
+    load_rows(st + kTileFloats, vb + (long long)t * kBK * kss, kss, kBK, valid);
+  };
+
+  const float scale2 = scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  if (t_hi > t_lo) {
+    load_rows(qs, q + b * qsb + (long long)q0 * qss + h * qsh, qss, kBQ, Sq - q0);
+    load_tile(t_lo);
+    repro::cp_async_commit();
+  }
+  for (int t = t_lo; t < t_hi; ++t) {
+    if (t + 1 < t_hi) load_tile(t + 1);
+    repro::cp_async_commit();  // a group every pass, empty at the last
+    repro::cp_async_wait(1);   // tile t (and Q) have landed for this thread
+    __syncthreads();           // ... and for every thread
+    if (t >= w_lo && t < w_hi) {
+      const float* ks = ring + ((t - t_lo) & 1) * 2 * kTileFloats;
+      const float* vs = ks + kTileFloats;
+      const float* qrow = qs + (16 * warp + g) * kLd;
+      // S = Q K^T = Q_lo K_hi + Q_hi K_lo + Q_hi K_hi: D / 8 steps of k8
+      float sc[kBK / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int c = 8 * kk + q4;
+        uint32_t ah[4], al[4];
+        split_tf32(qrow[c], ah[0], al[0]);
+        split_tf32(qrow[8 * kLd + c], ah[1], al[1]);
+        split_tf32(qrow[c + 4], ah[2], al[2]);
+        split_tf32(qrow[8 * kLd + c + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          const float* krow = ks + (8 * j + g) * kLd + c;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(krow[0], bh0, bl0);
+          split_tf32(krow[4], bh1, bl1);
+          mma_tf32(sc[j], al, bh0, bh1);
+          mma_tf32(sc[j], ah, bl0, bl1);
+          mma_tf32(sc[j], ah, bh0, bh1);
+        }
+      }
+      const int k0 = t * kBK;
+      const int nk = min(kBK, Sk - k0);  // keys of this tile inside [0, Sk)
+      const bool edge = nk < kBK || (causal && k0 + kBK - 1 > wq0) ||
+                        (window > 0 && k0 <= wq_end - 1 - window);
+      if (edge)
+        online_softmax<kBK / 8, true>(sc, m, l, alpha, k0, nk, wq0 + g, q4, causal, window,
+                                      scale2);
+      else
+        online_softmax<kBK / 8, false>(sc, m, l, alpha, k0, nk, wq0 + g, q4, causal, window,
+                                       scale2);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][0] *= alpha[0];
+        acc[j][1] *= alpha[0];
+        acc[j][2] *= alpha[1];
+        acc[j][3] *= alpha[1];
+      }
+      // O += P V = P_lo V_hi + P_hi V_lo + P_hi V_hi: kBK / 8 steps of k8.
+      // The score fragment is the A fragment with the keys of each group of
+      // 8 reordered (k index q4 + 4 e holds key 2 q4 + e), so V's rows are
+      // read in that order.
+#pragma unroll
+      for (int jj = 0; jj < kBK / 8; ++jj) {
+        uint32_t ph[4], pl[4];
+        split_tf32(sc[jj][0], ph[0], pl[0]);
+        split_tf32(sc[jj][2], ph[1], pl[1]);
+        split_tf32(sc[jj][1], ph[2], pl[2]);
+        split_tf32(sc[jj][3], ph[3], pl[3]);
+        const float* v0 = vs + (8 * jj + 2 * q4) * kLd + g;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          uint32_t vh0, vl0, vh1, vl1;
+          split_tf32(v0[8 * n], vh0, vl0);
+          split_tf32(v0[kLd + 8 * n], vh1, vl1);
+          mma_tf32(acc[n], pl, vh0, vh1);
+          mma_tf32(acc[n], ph, vl0, vl1);
+          mma_tf32(acc[n], ph, vh0, vh1);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  repro::cp_async_wait(0);
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = wq0 + g + 8 * half;
+    if (qi >= Sq) continue;
+    const float denom = fmaxf(l[half], 1e-30f);
+    float* orow = o + b * osb + qi * oss + h * osh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(orow + 8 * j + 2 * q4, acc[j][2 * half] / denom, acc[j][2 * half + 1] / denom);
+  }
+}
+
 // ---------------------------------------------------------------- host side
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -984,6 +1176,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
+// float32 at D = 256: the mma.sync kernel, its tiles read through the strides
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int KVH, int Sq, int Sk, const long long* st, int causal, int window,
+                        float scale, cudaStream_t stream) {
+  static int smem_set[kMaxDevices] = {};
+  cudaError_t err = ensure_smem(flash_attention_wide_kernel, wide::kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + wide::kBQ - 1) / wide::kBQ, H, B);
+  flash_attention_wide_kernel<<<grid, wide::kThreads, wide::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, KVH, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], causal, window, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, int B,
                      int H, int KVH, int Sq, int Sk, const long long* st, int causal,
@@ -993,6 +1200,11 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
     case 32: return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
+    case 256:
+      if constexpr (sizeof(T) == 4)
+        return launch_wide(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
+      else
+        return launch<T, 256>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -5,8 +5,10 @@ The port of the Pallas kernel ``flash_attention_kernel`` /
 ``flash_attention_call`` (``repro/kernels/flash_attention.py``) and of its
 wrapper ``ops.flash_attention``.  :func:`flash_attention` launches the
 hand-written CUDA kernel (``csrc/flash_attention.cu``: tensor cores, K/V
-fed by TMA) for tensors on the card and runs :func:`flash_attention_plain`
-for tensors on the CPU; it never falls back from one to the other.  Unlike
+fed by TMA; float32 at head dim 256 a second kernel of the same source,
+split TF32 on ``mma.sync`` fed by ``cp.async``) for tensors on the card and
+runs :func:`flash_attention_plain` for tensors on the CPU; it never falls
+back from one to the other.  Unlike
 the TPU kernel it reads the model's ``[B, S, H, D]`` layout through strides
 (no transposes) and takes lengths that no tile size divides.  TMA needs
 q, k and v 16-byte aligned with strides that are multiples of 16 bytes:
@@ -31,7 +33,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "masked_attention", "atte
            "check_kernel_layout", "NEG_INF", "KERNEL_HEAD_DIMS"]
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -1,20 +1,24 @@
 """Serving entry point of the port: batched prefill + token-by-token decode of a
-decoder LM of the dense, ssm (Mamba-2) or hybrid (Hymba) family, on the CUDA
-card unless ``--device cpu`` is given.
+decoder LM of any family of the reference — dense, moe (with MLA), ssm
+(Mamba-2), hybrid (Hymba), vlm (PaliGemma: a prompt of patch embeddings
+and text) or audio (MusicGen: parallel codebooks) — on the CUDA card
+unless ``--device cpu`` is given.
 
 The port of the reference's serving driver (``repro.launch.serve``).  The
 prefill and decode run in the hand-written kernels
 (``attention_impl="cuda"``): per layer, one flash-attention launch and one
 SSD-scan launch in the prefill (whichever the family has), and one
-decode-attention launch per step.  The Mamba decode step is plain PyTorch.
-The decode loop keeps the cache length and the sampled tokens on the
-device, so it never waits for the host until the end.
+decode-attention launch per step.  MLA attention, the experts and the
+Mamba decode step are plain PyTorch, as the reference's are plain JAX.
+Decoding is greedy (per codebook for audio) unless ``--no-greedy``.  The
+decode loop keeps the cache length and the sampled tokens on the device,
+so it never waits for the host until the end.
 
   python -m repro_torch.launch.serve --arch llama3.2-3b --batch 4 \\
       --prompt-len 512 --gen-len 32                       # on the card
-  python -m repro_torch.launch.serve --arch mamba2-2.7b --batch 4 \\
-      --prompt-len 512 --gen-len 32                       # on the card
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+  python -m repro_torch.launch.serve --arch paligemma-3b --batch 4 \\
+      --prompt-len 512 --gen-len 32     # on the card: 256 patches + 256 tokens
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
       --smoke --device cpu --batch 2 --prompt-len 16 --gen-len 4
 
 The multi-load analogue for inference, as in the reference: N request
@@ -53,8 +57,8 @@ from repro_torch.models import Transformer, decode_flops_per_token, init_params,
 from repro_torch.obs import span
 from repro_torch.runtime import make_serve_step
 
-__all__ = ["main", "serve_policy", "load_model", "prompt_tokens", "generate", "ServeResult",
-           "plan_inputs", "PLAN_BACKENDS"]
+__all__ = ["main", "serve_policy", "load_model", "prompt_tokens", "prompt_patches", "generate",
+           "ServeResult", "plan_inputs", "PLAN_BACKENDS"]
 
 # the reference's engine backend names, and the port's that take their place
 PLAN_BACKENDS = {"batched": "torch", "pallas": "cuda"}
@@ -64,8 +68,8 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default=None,
-                    help="model architecture of the dense, ssm or hybrid family (e.g. "
-                         "llama3.2-3b, mamba2-2.7b, hymba-1.5b)")
+                    help="model architecture (e.g. llama3.2-3b, mamba2-2.7b, hymba-1.5b, "
+                         "deepseek-v2-lite-16b, paligemma-3b, musicgen-medium)")
     ap.add_argument("--smoke", action="store_true", help="the reduced CPU-test variant")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -219,10 +223,19 @@ def load_model(cfg: ArchConfig, seed: int, device) -> Transformer:
 
 
 def prompt_tokens(cfg: ArchConfig, batch: int, prompt_len: int, seed: int, device):
-    """The demo's prompts: ``make_batch`` tokens [batch, prompt_len], int32,
-    on ``device`` (``None``: the card, raising without one)."""
+    """The demo's prompts: ``make_batch`` tokens, int32, on ``device``
+    (``None``: the card, raising without one): [batch, prompt_len]; audio
+    [batch, prompt_len, K]; vlm [batch, prompt_len - num_patches], the text
+    after the patch prefix (:func:`prompt_patches`)."""
     toks = make_batch(cfg, batch, prompt_len, step=0, seed=seed)["tokens"]
     return torch.from_numpy(toks).to(resolve_device(device))
+
+
+def prompt_patches(cfg: ArchConfig, batch: int, prompt_len: int, seed: int, device):
+    """A vlm prompt's patch embeddings from ``make_batch``, float32
+    [batch, num_patches, patch_dim] on ``device``; None for other families."""
+    patches = make_batch(cfg, batch, prompt_len, step=0, seed=seed).get("patches")
+    return None if patches is None else torch.from_numpy(patches).to(resolve_device(device))
 
 
 @dataclasses.dataclass
@@ -231,7 +244,8 @@ class ServeResult:
     the cache after the last step, the generated tokens [B, gen_len] (one
     per decode step), each step's logits [B, 1, V] when asked for, and the
     host times of the prefill and of the decode loop (each ending in a
-    synchronised device)."""
+    synchronised device).  Audio adds a codebook axis: logits [B, S, K, V],
+    tokens [B, gen_len, K]."""
 
     prefill_logits: torch.Tensor
     cache: dict
@@ -247,10 +261,11 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, prompt, gen_len: int,
-             *, greedy: bool = True, temperature: float = 1.0, seed: int = 0,
+             *, patches=None, greedy: bool = True, temperature: float = 1.0, seed: int = 0,
              keep_logits: bool = False) -> ServeResult:
-    """Prefill ``prompt`` [B, S], then ``gen_len`` decode steps, each fed the
-    token sampled from the previous logits (argmax, or a draw at
+    """Prefill ``prompt`` [B, S] (audio [B, S, K]) after vlm's ``patches``,
+    then ``gen_len`` decode steps, each fed the token sampled from the
+    previous logits (argmax, per codebook for audio; or a draw at
     ``temperature`` from a generator seeded with ``seed + 1``)."""
     dev = prompt.device
     gen = None
@@ -259,16 +274,18 @@ def generate(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, prompt
         gen.manual_seed(seed + 1)
 
     def sample(lg):
-        if greedy:
+        if greedy:  # [B, 1] (audio: [B, 1, K], one token a codebook)
             return lg[:, -1:].argmax(dim=-1).to(torch.int32)
-        probs = torch.softmax(lg[:, -1, :] / max(temperature, 1e-6), dim=-1)
-        return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
+        probs = torch.softmax(lg[:, -1] / max(temperature, 1e-6), dim=-1)
+        draw = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1, generator=gen)
+        return draw.view(B, 1, *probs.shape[1:-1]).to(torch.int32)
 
-    B, S = prompt.shape
+    B = prompt.shape[0]
+    S = prompt.shape[1] + (0 if patches is None else patches.shape[1])
     _sync(dev)
     t0 = time.perf_counter()
     with span("serve.prefill", batch=B, prompt_len=S):
-        logits, cache, pos = prefill(model, cfg, policy, prompt, max_len=S + gen_len)
+        logits, cache, pos = prefill(model, cfg, policy, prompt, patches, max_len=S + gen_len)
         _sync(dev)
     t_prefill = time.perf_counter() - t0
     serve_step = make_serve_step(cfg, policy)
@@ -285,7 +302,8 @@ def generate(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, prompt
                 step_logits.append(lg)
         _sync(dev)
     t_decode = time.perf_counter() - t1
-    tokens = torch.cat(out, dim=1) if out else torch.zeros(B, 0, dtype=torch.int32, device=dev)
+    tokens = (torch.cat(out, dim=1) if out else
+              torch.zeros(B, 0, *prompt.shape[2:], dtype=torch.int32, device=dev))
     return ServeResult(logits, cache, tokens, step_logits, t_prefill, t_decode)
 
 
@@ -294,16 +312,20 @@ def _run(args):
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if cfg.family == "vlm" and args.prompt_len <= cfg.num_patches:
+        raise SystemExit(f"{cfg.name}'s prompt holds its {cfg.num_patches} patch embeddings "
+                         f"before the text: --prompt-len must exceed {cfg.num_patches}")
     policy = serve_policy(args.prompt_len)
     model = load_model(cfg, args.seed, dev)
     prompt = prompt_tokens(cfg, args.batch, args.prompt_len, args.seed, dev)
-    res = generate(model, cfg, policy, prompt, args.gen_len, greedy=args.greedy,
-                   temperature=args.temperature, seed=args.seed)
+    patches = prompt_patches(cfg, args.batch, args.prompt_len, args.seed, dev)
+    res = generate(model, cfg, policy, prompt, args.gen_len, patches=patches,
+                   greedy=args.greedy, temperature=args.temperature, seed=args.seed)
     n_tok = args.gen_len * args.batch
     print(f"arch={cfg.name} prefill {args.batch}x{args.prompt_len} in {res.prefill_s:.2f}s; "
           f"decoded {n_tok} tokens in {res.decode_s:.2f}s "
           f"({n_tok / max(res.decode_s, 1e-9):.1f} tok/s on {dev.type})")
-    print("sample tokens:", res.tokens[0, :8].tolist())
+    print("sample tokens:", res.tokens[0, :8].reshape(-1)[:8].tolist())
     if args.plan:
         _plan(args, cfg, dev)
 

@@ -1,5 +1,6 @@
-"""The port's model path: the layers, attention, the Mamba-2 mixer and the
-serving functions (prefill + decode) of the dense, ssm and hybrid decoders."""
+"""The port's model path: the layers, attention, MLA, the experts, the
+Mamba-2 mixer and the serving functions (prefill + decode) of the decoders
+of every family (dense, moe, ssm, hybrid, vlm, audio)."""
 
 from .transformer import (
     Transformer,
@@ -12,6 +13,8 @@ from .transformer import (
     quantize_kv,
 )
 from .flops import decode_flops_per_token, param_counts, train_flops_per_token
+from .mla import init_mla_cache, mla_attention, mla_decode_step
+from .moe import moe_ffn
 from .ssm import mamba_decode_step, mamba_mixer
 
 __all__ = [
@@ -23,6 +26,10 @@ __all__ = [
     "decode_step",
     "quantize_kv",
     "dequantize_kv",
+    "mla_attention",
+    "mla_decode_step",
+    "init_mla_cache",
+    "moe_ffn",
     "mamba_mixer",
     "mamba_decode_step",
     "param_counts",

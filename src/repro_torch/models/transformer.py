@@ -1,24 +1,27 @@
-"""Decoder-only LM assembled from an ArchConfig: the serving path of the
-dense (GQA attention + gated MLP, full or sliding-window attention), ssm
-(Mamba-2) and hybrid (parallel attention + Mamba branches, Hymba) families.
+"""Decoder-only LM assembled from an ArchConfig: the serving path of every
+family of the reference — dense (GQA attention + gated MLP, full or
+sliding-window attention), moe (GQA or MLA attention + routed experts),
+ssm (Mamba-2), hybrid (parallel attention + Mamba branches, Hymba), vlm
+(a patch-embedding prefix, PaliGemma) and audio (parallel codebooks,
+MusicGen).
 
-The port of the reference's ``models/transformer.py`` for those three
-families.  Weights live in a :class:`Transformer` module whose parameter
-names follow the reference's parameter tree (``embed``, ``blocks.<l>.ln1``,
-``blocks.<l>.attn.w_q``, ``blocks.<l>.mamba.w_xbc`` ...); the functions
-mirror the reference's:
+The port of the reference's ``models/transformer.py``.  Weights live in a
+:class:`Transformer` module whose parameter names follow the reference's
+parameter tree (``embed``, ``blocks.<l>.ln1``, ``blocks.<l>.attn.w_q``,
+``blocks.<l>.moe.shared.w_up`` ...); the functions mirror the reference's:
 
   init_params                     — a seeded :class:`Transformer`
   forward                         — logits for a full sequence (prefill)
-  init_cache                      — stacked decode caches: KV [L, B, S, KVH, hd]
-                                    and/or the Mamba conv window and state
+  init_cache                      — stacked decode caches: KV [L, B, S, KVH, hd],
+                                    the MLA latents and/or the Mamba conv
+                                    window and state
   prefill                         — logits + populated cache
   decode_step                     — one-token serve step against the cache
 
-As in the reference, ``prefill`` fills the KV cache but leaves the Mamba
-state and conv window at zero (ROADMAP C.4).  The other families (moe/MLA,
-vlm, audio) raise :class:`NotImplementedError` naming the roadmap item that
-ports them.  Everything runs without autograd.
+As in the reference, ``prefill`` fills the KV (or latent) cache but leaves
+the Mamba state and conv window at zero (ROADMAP C.4).  A vlm prompt's
+patch embeddings are given to ``forward``/``prefill`` only: the prefix is
+in the cache afterwards.  Everything runs without autograd.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from repro_torch.config import ArchConfig, ShardingPolicy
 from repro_torch.convert import resolve_device
 from .attention import attention, decode_attention
 from .layers import Initializer, apply_rope, glu_mlp, init_glu_mlp, rms_norm, rope
+from .mla import init_mla, init_mla_cache, mla_attention, mla_decode_step
+from .moe import init_moe, moe_ffn
 from .ssm import init_mamba, init_mamba_cache, mamba_decode_step, mamba_mixer
 
 __all__ = [
@@ -45,34 +50,28 @@ __all__ = [
     "params_dtype",
 ]
 
-_PORTED = ("dense", "ssm", "hybrid")
-
-
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in _PORTED or cfg.mla is not None:
-        raise NotImplementedError(
-            f"the port serves the dense, ssm and hybrid families; {cfg.name} ({cfg.family}) "
-            "comes with ROADMAP A.13 (the moe/MLA, vlm and audio families)")
-
 
 def _param(x):
     return nn.Parameter(x, requires_grad=False)
 
 
 class _Params(nn.Module):
-    """A named group of weights (``attn``, ``mlp`` or ``mamba``)."""
+    """A named group of weights (``attn``, ``mlp``, ``mamba``, ``moe`` and
+    its ``shared`` experts)."""
 
     def __init__(self, tensors: dict):
         super().__init__()
         for name, t in tensors.items():
-            setattr(self, name, _param(t))
+            setattr(self, name, _Params(t) if isinstance(t, dict) else _param(t))
 
 
 class Block(nn.Module):
     """One decoder block: ``ln1``, then by family ``attn`` (``w_q``, ``w_k``,
-    ``w_v``, ``w_o``), ``mamba`` (``w_z``, ``w_xbc``, ``w_dt``, ``conv_w``,
+    ``w_v``, ``w_o``; with MLA ``w_q``, ``w_dkv``, ``w_kr``, ``w_uk``,
+    ``w_uv``, ``w_o``), ``mamba`` (``w_z``, ``w_xbc``, ``w_dt``, ``conv_w``,
     ``A_log``, ``D``, ``dt_bias``, ``norm_w``, ``w_out``), ``ln2`` and
-    ``mlp`` (``w_gate``, ``w_up``, ``w_down``)."""
+    ``mlp`` (``w_gate``, ``w_up``, ``w_down``) or ``moe`` (``router``,
+    ``w_gate``, ``w_up``, ``w_down`` [E, ...], ``shared``)."""
 
     def __init__(self, p: dict):
         super().__init__()
@@ -81,19 +80,24 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The weights of a decoder: ``embed`` ``[V, d_model]`` (also the
-    head when embeddings are tied, else ``head`` ``[d_model, V]``), the
+    """The weights of a decoder: ``embed`` ``[V, d_model]`` (audio: ``[K, V,
+    d_model]``, one table a codebook), the head (``embed`` itself when
+    embeddings are tied, else ``head`` ``[d_model, V]``; audio: ``heads``
+    ``[K, d_model, V]``), vlm's ``patch_proj`` ``[patch_dim, d_model]``, the
     blocks, and ``ln_f``.  Matrices are ``[d_in, d_out]`` (``x @ w``), as in
     the reference.  ``params`` is the reference's tree with the blocks as a
     list (one dict per layer) instead of stacked leaves."""
 
     def __init__(self, cfg: ArchConfig, params: dict):
         super().__init__()
-        _require_ported(cfg)
         self.cfg = cfg
         self.embed = _param(params["embed"])
-        if not cfg.tie_embeddings:
+        if cfg.family == "audio":
+            self.heads = _param(params["heads"])
+        elif not cfg.tie_embeddings:
             self.head = _param(params["head"])
+        if cfg.family == "vlm":
+            self.patch_proj = _param(params["patch_proj"])
         self.blocks = nn.ModuleList(Block(p) for p in params["blocks"])
         self.ln_f = _param(params["ln_f"])
 
@@ -110,11 +114,16 @@ def _init_attn(init: Initializer, cfg: ArchConfig):
 
 def _init_block(init: Initializer, cfg: ArchConfig):
     p: dict = {"ln1": init.ones((cfg.d_model,))}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family == "moe":
+        p["attn"] = init_mla(init, cfg) if cfg.mla else _init_attn(init, cfg)
+    elif cfg.family != "ssm":
         p["attn"] = _init_attn(init, cfg)
     if cfg.family in ("ssm", "hybrid"):
         p["mamba"] = init_mamba(init, cfg)
-    if cfg.family != "ssm":  # an ssm block is the residual mixer alone
+    if cfg.family == "moe":
+        p["ln2"] = init.ones((cfg.d_model,))
+        p["moe"] = init_moe(init, cfg)
+    elif cfg.family != "ssm":  # an ssm block is the residual mixer alone
         p["ln2"] = init.ones((cfg.d_model,))
         p["mlp"] = init_glu_mlp(init, cfg.d_model, cfg.d_ff)
     return p
@@ -123,15 +132,22 @@ def _init_block(init: Initializer, cfg: ArchConfig):
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
                 device=None) -> Transformer:
     """A :class:`Transformer` drawn from ``seed`` on ``device`` (``None``: the
-    card, raising without one; the draws are made there and are not the
-    reference's numbers)."""
-    _require_ported(cfg)
+    card, raising without one; the draws are made there, never in host
+    memory, and are not the reference's numbers)."""
     init = Initializer(seed, dtype=dtype, device=device)
-    params: dict = {"embed": init.normal((cfg.padded_vocab, cfg.d_model), scale=0.02)}
-    if not cfg.tie_embeddings:
-        params["head"] = init.normal((cfg.d_model, cfg.padded_vocab))
+    V, D = cfg.padded_vocab, cfg.d_model
+    params: dict = {}
+    if cfg.family == "audio":
+        params["embed"] = init.normal((cfg.num_codebooks, V, D), scale=0.02)
+        params["heads"] = init.normal((cfg.num_codebooks, D, V))
+    else:
+        params["embed"] = init.normal((V, D), scale=0.02)
+        if not cfg.tie_embeddings:
+            params["head"] = init.normal((D, V))
+    if cfg.family == "vlm":
+        params["patch_proj"] = init.normal((cfg.patch_dim, D))
     params["blocks"] = [_init_block(init, cfg) for _ in range(cfg.num_layers)]
-    params["ln_f"] = init.ones((cfg.d_model,))
+    params["ln_f"] = init.ones((D,))
     return Transformer(cfg, params)
 
 
@@ -167,48 +183,85 @@ def _ssm_impl(policy: ShardingPolicy) -> str:
     return {"naive": "reference", "chunked": "chunked", "cuda": "cuda"}[policy.attention_impl]
 
 
+def _ffn(p: Block, h2, cfg: ArchConfig, policy: ShardingPolicy):
+    """The block's second half: (output, MoE aux loss or None)."""
+    if cfg.family == "moe":
+        return moe_ffn(p.moe, h2, cfg, impl=policy.moe_impl)
+    return glu_mlp(p.mlp, h2, act=cfg.act), None
+
+
 def _block(p: Block, x, cfg: ArchConfig, policy: ShardingPolicy, positions):
-    """One decoder block (prefill form).  Returns (x, cache_kv or None)."""
+    """One decoder block (prefill form).  Returns (x, aux or None, cache
+    entries: (k, v), MLA's {"c_kv", "k_pe"}, or None)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if cfg.family == "ssm":
-        return x + mamba_mixer(p.mamba, h, cfg, impl=_ssm_impl(policy)), None
-    attn_out, kv = _attn_op(p.attn, h, cfg, policy, positions)
+        return x + mamba_mixer(p.mamba, h, cfg, impl=_ssm_impl(policy)), None, None
+    if cfg.mla is not None:
+        attn_out, cache = mla_attention(p.attn, h, cfg, positions)
+    else:
+        attn_out, cache = _attn_op(p.attn, h, cfg, policy, positions)
     if cfg.family == "hybrid":
         ssm_out = mamba_mixer(p.mamba, h, cfg, impl=_ssm_impl(policy))
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + glu_mlp(p.mlp, h2, act=cfg.act), kv
+    ff, aux = _ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), cfg, policy)
+    return x + ff, aux, cache
+
+
+def _embed(model: Transformer, cfg: ArchConfig, tokens, patches=None):
+    """Token embeddings [B, S, D] (audio: tokens [B, S, K], the codebooks'
+    embeddings summed in order), after vlm's projected patch prefix when
+    ``patches`` [B, P, patch_dim] is given."""
+    if cfg.family == "audio":
+        x = sum(F.embedding(tokens[..., k], model.embed[k]) for k in range(cfg.num_codebooks))
+    else:
+        x = F.embedding(tokens, model.embed)
+    if cfg.family == "vlm" and patches is not None:
+        x = torch.cat([patches.to(x.dtype) @ model.patch_proj, x], dim=1)
+    return x
 
 
 def _head(model: Transformer, cfg: ArchConfig, x, fp32: bool = True):
-    logits = x @ (model.embed.T if cfg.tie_embeddings else model.head)
+    if cfg.family == "audio":
+        logits = torch.einsum("bsd,kdv->bskv", x, model.heads)
+    else:
+        logits = x @ (model.embed.T if cfg.tie_embeddings else model.head)
     if cfg.padded_vocab != cfg.vocab_size:
         logits = logits[..., : cfg.vocab_size]  # drop pad rows pre-softmax
     return logits.float() if fp32 else logits
 
 
+def _stack(caches: list):
+    """Per-layer cache entries stacked over layers: (k, v) or a dict."""
+    if isinstance(caches[0], dict):
+        return {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
+    return tuple(torch.stack(parts) for parts in zip(*caches))
+
+
 @torch.no_grad()
-def forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
+def forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens, patches=None,
             collect_cache=False):
-    """Full-sequence forward over ``tokens`` [B, S].  Returns (logits, aux,
-    caches_or_None); ``caches`` is (k, v), each [L, B, S, KVH, hd], or None
-    for a family without attention."""
-    _require_ported(cfg)
-    x = F.embedding(tokens, model.embed)
+    """Full-sequence forward over ``tokens`` [B, S] (audio: [B, S, K]) after
+    vlm's ``patches`` [B, P, patch_dim] if given.  Returns (logits [B, S', V]
+    (audio: [B, S, K, V]), aux, caches_or_None): ``aux`` is the sum of the
+    MoE layers' auxiliary losses (0 without experts); ``caches`` is (k, v),
+    each [L, B, S', KVH, hd], MLA's {"c_kv" [L, B, S', r], "k_pe" [L, B,
+    S', dr]}, or None for a family without attention."""
+    x = _embed(model, cfg, tokens, patches)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
     for blk in model.blocks:
-        x, kv = _block(blk, x, cfg, policy, positions)
-        if collect_cache and kv is not None:
-            ks.append(kv[0])
-            vs.append(kv[1])
+        x, a, cache = _block(blk, x, cfg, policy, positions)
+        if a is not None:
+            aux = aux + a
+        if collect_cache and cache is not None:
+            caches.append(cache)
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
     logits = _head(model, cfg, x, fp32=policy.logits_fp32)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, aux, ((torch.stack(ks), torch.stack(vs)) if collect_cache and ks else None)
+    return logits, aux, (_stack(caches) if caches else None)
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +271,9 @@ def forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
 
 def _layer_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, kv_dtype: str, device):
     c: dict = {}
-    if cfg.has_attention:
+    if cfg.has_attention and cfg.mla is not None:
+        c["mla"] = init_mla_cache(cfg, cfg.num_layers, batch, max_len, dtype, device)
+    elif cfg.has_attention:
         w = _window(cfg)
         L = min(max_len, w) if w else max_len
         kvd = torch.int8 if kv_dtype == "int8" else dtype
@@ -239,10 +294,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     """Zeroed decode caches, stacked over layers, on ``device`` (``None``:
     the card, raising without one).  With attention: ``k``/``v``
     [L, B, S, KVH, hd] (S = min(max_len, window) for sliding-window
-    attention), plus ``k_scale``/``v_scale`` [L, B, S, KVH] for int8.  With
-    an SSM: ``ssm`` = {``conv`` [L, B, d_conv - 1, conv_dim] in ``dtype``,
-    ``state`` [L, B, H, P, N] float32}, as the reference's tree."""
-    _require_ported(cfg)
+    attention), plus ``k_scale``/``v_scale`` [L, B, S, KVH] for int8; with
+    MLA instead ``mla`` = {``c_kv`` [L, B, S, r], ``k_pe`` [L, B, S, dr]}.
+    With an SSM: ``ssm`` = {``conv`` [L, B, d_conv - 1, conv_dim] in
+    ``dtype``, ``state`` [L, B, H, P, N] float32}, as the reference's tree."""
     return _layer_cache(cfg, batch, max_len, dtype, kv_dtype, resolve_device(device))
 
 
@@ -265,32 +320,43 @@ def dequantize_kv(q, scale, dtype=torch.bfloat16):
 
 
 @torch.no_grad()
-def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens, max_len=None):
+def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens, patches=None,
+            max_len=None):
     """Run the prompt, build the decode cache.  Returns (logits, cache,
-    cache_len).  The Mamba state and conv window stay zero, as the
-    reference's ``if cfg.has_ssm: pass`` leaves them (ROADMAP C.4)."""
-    logits, _, kv = forward(model, cfg, policy, tokens, collect_cache=True)
-    B, S = tokens.shape[:2]
+    cache_len); for vlm the prompt is the ``patches`` prefix and the text
+    tokens, so ``cache_len`` counts both.  The Mamba state and conv window
+    stay zero, as the reference's ``if cfg.has_ssm: pass`` leaves them
+    (ROADMAP C.4)."""
+    if cfg.family == "vlm" and patches is None:
+        raise ValueError(f"{cfg.name} prefills a prompt of patch embeddings and text tokens; "
+                         "pass patches")
+    logits, _, kv = forward(model, cfg, policy, tokens, patches, collect_cache=True)
+    B = tokens.shape[0]
+    S = tokens.shape[1] + (cfg.num_patches if cfg.family == "vlm" else 0)
     max_len = max_len or S
     cache = init_cache(cfg, B, max_len, dtype=params_dtype(model),
                        kv_dtype=policy.kv_cache_dtype, device=logits.device)
     if kv is None:
         return logits, cache, S
+    if cfg.mla is not None:
+        for name, t in kv.items():
+            cache["mla"][name][:, :, :S] = t
+        return logits, cache, S
     k, v = kv
-    int8 = policy.kv_cache_dtype == "int8"
+    n = S
     w = _window(cfg)
     if w and S >= w:
         shift = (S - w) % w
         k = torch.roll(k[:, :, S - w:], shift, dims=2)
         v = torch.roll(v[:, :, S - w:], shift, dims=2)
-        S = w
-    if int8:
-        (cache["k"][:, :, :S], cache["k_scale"][:, :, :S]) = quantize_kv(k)
-        (cache["v"][:, :, :S], cache["v_scale"][:, :, :S]) = quantize_kv(v)
+        n = w
+    if policy.kv_cache_dtype == "int8":
+        (cache["k"][:, :, :n], cache["k_scale"][:, :, :n]) = quantize_kv(k)
+        (cache["v"][:, :, :n], cache["v_scale"][:, :, :n]) = quantize_kv(v)
     else:
-        cache["k"][:, :, :S] = k
-        cache["v"][:, :, :S] = v
-    return logits, cache, tokens.shape[1]
+        cache["k"][:, :, :n] = k
+        cache["v"][:, :, :n] = v
+    return logits, cache, S
 
 
 def _len_tensor(cache_len, device):
@@ -341,14 +407,16 @@ def _decode_block(p: Block, x, cache: dict, n, cfg: ArchConfig, policy: Sharding
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if cfg.family == "ssm":  # residual + mixer, no ln2 / MLP
         return x + mamba_decode_step(p.mamba, h, cache["ssm"], cfg)
-    attn_out = _decode_attn(p.attn, h, cache, n, cfg, policy)
+    if cfg.mla is not None:
+        attn_out = mla_decode_step(p.attn, h, cache["mla"], n, cfg)
+    else:
+        attn_out = _decode_attn(p.attn, h, cache, n, cfg, policy)
     if cfg.family == "hybrid":
         ssm_out = mamba_decode_step(p.mamba, h, cache["ssm"], cfg)
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + glu_mlp(p.mlp, h2, act=cfg.act)
+    return x + _ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), cfg, policy)[0]
 
 
 def _layer(cache: dict, l: int) -> dict:
@@ -359,15 +427,14 @@ def _layer(cache: dict, l: int) -> dict:
 @torch.no_grad()
 def decode_step(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, cache, tokens,
                 cache_len):
-    """One serve step: tokens [B, 1] -> (logits, cache).
+    """One serve step: tokens [B, 1] (audio: [B, 1, K]) -> (logits, cache).
 
     ``cache_len`` is the number of tokens already in the cache: an int, or a
     one-element int32 tensor on the model's device, which keeps the loop
     free of host round trips.  The cache is updated **in place** and
     returned (the reference donates it to the step and returns a new one).
     """
-    _require_ported(cfg)
-    x = F.embedding(tokens, model.embed)
+    x = _embed(model, cfg, tokens)
     n = _len_tensor(cache_len, x.device)
     for l, blk in enumerate(model.blocks):
         x = _decode_block(blk, x, _layer(cache, l), n, cfg, policy)

@@ -33,6 +33,7 @@ FLASH_CASES = [
     (1, 256, 256, 8, 8, 16, False, 0),
     (1, 256, 256, 4, 2, 32, True, 96),
     (1, 100, 100, 4, 2, 32, True, 0),
+    (1, 128, 128, 8, 1, 256, True, 0),  # head dim 256, 8 query heads a kv head (paligemma-3b)
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -93,9 +94,13 @@ def test_prefill_attention_matches_pallas_and_oracle(case, dtype, impl):
 DECODE_SHAPE = (2, 4, 2, 32, 256)  # B, H, KVH, D, Smax (as tests/test_kernels.py)
 
 
+# paligemma-3b's decode heads: head dim 256, 8 query heads on one kv head
+DECODE_SHAPE_256 = (2, 8, 1, 256, 192)
+
+
 @functools.lru_cache(maxsize=None)
-def _decode_case(cache_len, window, dtype):
-    B, H, KVH, D, Smax = DECODE_SHAPE
+def _decode_case(cache_len, window, dtype, shape=DECODE_SHAPE):
+    B, H, KVH, D, Smax = shape
     arrays = _arrays(cache_len + window, (B, 1, H, D), (B, Smax, KVH, D), (B, Smax, KVH, D))
     (jq, jk, jv), torch_in = _both(arrays, dtype)
     kern = ops.decode_attention(jq, jk, jv, cache_len, window=window, block_k=64,
@@ -126,6 +131,19 @@ DECODE_IMPLS = {
 @pytest.mark.parametrize("cache_len", [1, 100, 256])
 def test_decode_attention_matches_pallas_and_oracle(cache_len, window, dtype, impl):
     (q, k, v), kern, oracle = _decode_case(cache_len, window, dtype)
+    out = DECODE_IMPLS[impl](q, k, v, cache_len, window)
+    assert out.dtype == q.dtype and tuple(out.shape) == tuple(q.shape)
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(_np32(out), kern, rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np32(out), oracle, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("impl", sorted(DECODE_IMPLS))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("cache_len", [1, 150])
+def test_decode_attention_head_dim_256_matches_pallas_and_oracle(cache_len, window, dtype, impl):
+    (q, k, v), kern, oracle = _decode_case(cache_len, window, dtype, DECODE_SHAPE_256)
     out = DECODE_IMPLS[impl](q, k, v, cache_len, window)
     assert out.dtype == q.dtype and tuple(out.shape) == tuple(q.shape)
     tol = DTYPES[dtype][2]

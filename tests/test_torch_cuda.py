@@ -445,6 +445,14 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (1, 1, 65, 4, 2, 64, False, 0),
     (2, 100, 100, 4, 4, 64, True, 1),
     (1, 70, 150, 4, 2, 16, True, 0),
+    # head dim 256: paligemma-3b's prefill (8 query heads on 1 kv head),
+    # the edges of its tiles, no mask, a window (float32 runs the mma.sync
+    # kernel, bfloat16 the TMA kernel's geometry)
+    (4, 512, 512, 8, 1, 256, True, 0),
+    (1, 1, 1, 4, 2, 256, True, 0),
+    (1, 65, 65, 4, 2, 256, True, 0),
+    (1, 100, 130, 8, 8, 256, False, 0),
+    (2, 200, 200, 8, 1, 256, True, 64),
 ])
 def test_flash_attention_kernel_matches_plain_on_card(card, case, dtype):
     B, Sq, Sk, H, KVH, D, causal, window = case
@@ -479,7 +487,8 @@ def test_flash_attention_kernel_reads_a_fused_projection_on_card(card, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 64])
 @pytest.mark.parametrize("cache_len", [1, 63, 64, 300, 544])
-@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64)])  # llama3.2-3b's, hymba-1.5b's
+# llama3.2-3b's, hymba-1.5b's, paligemma-3b's heads
+@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256)])
 def test_decode_attention_kernel_matches_plain_on_card(card, heads, cache_len, window, dtype):
     B, Smax = 4, 544
     H, KVH, D = heads
@@ -496,7 +505,8 @@ def test_decode_attention_kernel_matches_plain_on_card(card, heads, cache_len, w
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64)])  # llama3.2-3b's, hymba-1.5b's
+# llama3.2-3b's, hymba-1.5b's, paligemma-3b's heads
+@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256)])
 def test_decode_attention_kernel_at_split_boundaries_on_card(card, heads, dtype):
     """A cache of 550 entries, which no split (a multiple of 16) divides;
     cache lengths on either side of the first and third split boundaries;
@@ -558,25 +568,103 @@ def test_ssd_scan_kernel_matches_plain_on_card(card, case, dtype):
     assert ((got.float() - want.float()).abs() <= tol).all()
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-2.7b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-2.7b", "hymba-1.5b",
+                                  "deepseek-v2-lite-16b", "paligemma-3b", "musicgen-medium"])
 def test_smoke_serving_on_card_matches_cpu(card, arch):
     from repro_torch.config import get_arch, smoke_variant
-    from repro_torch.launch.serve import generate, load_model, prompt_tokens, serve_policy
+    from repro_torch.launch.serve import (generate, load_model, prompt_patches, prompt_tokens,
+                                          serve_policy)
 
     cfg = smoke_variant(get_arch(arch))
     model = load_model(cfg, seed=0, device="cpu")
     prompt = prompt_tokens(cfg, 2, 16, seed=0, device="cpu")
-    cpu = generate(model, cfg, serve_policy(16), prompt, 4)
+    patches = prompt_patches(cfg, 2, 16, seed=0, device="cpu")
+    cpu = generate(model, cfg, serve_policy(16), prompt, 4, patches=patches)
     reset_launch_counts()
-    gpu = generate(model.to(card), cfg, serve_policy(16), prompt.to(card), 4)
+    gpu = generate(model.to(card), cfg, serve_policy(16), prompt.to(card), 4,
+                   patches=None if patches is None else patches.to(card))
     counts = launch_counts()
-    attn = cfg.num_layers if cfg.has_attention else 0
+    # MLA attends in plain PyTorch, as the reference's MLA is plain JAX
+    attn = cfg.num_layers if cfg.has_attention and cfg.mla is None else 0
     assert counts["flash_attention"] == attn
     assert counts["decode_attention"] == 4 * attn
     assert counts["ssd_scan"] == (cfg.num_layers if cfg.has_ssm else 0)
     torch.testing.assert_close(gpu.prefill_logits.cpu(), cpu.prefill_logits, rtol=1e-4,
                                atol=1e-4)
     assert torch.equal(gpu.tokens.cpu(), cpu.tokens)
+
+
+def _moe_mla_params(cfg, seed):
+    from types import SimpleNamespace
+
+    from repro_torch.models.layers import Initializer
+    from repro_torch.models.mla import init_mla
+    from repro_torch.models.moe import init_moe
+
+    def ns(tree):
+        return SimpleNamespace(**{k: ns(v) if isinstance(v, dict) else v
+                                  for k, v in tree.items()})
+
+    init = Initializer(seed, dtype=torch.float32, device="cpu")
+    return ns(init_moe(init, cfg)), ns(init_mla(init, cfg))
+
+
+def _to(tree, dev):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(**{k: _to(v, dev) if isinstance(v, SimpleNamespace) else v.to(dev)
+                              for k, v in vars(tree).items()})
+
+
+@pytest.mark.parametrize("impl", ["gshard", "dense"])
+def test_moe_ffn_on_card_matches_cpu(card, impl):
+    """deepseek-v2-lite-16b's experts at full width (64 experts, top-6, 2
+    shared) on a prefill of 2 x 64 tokens and a decode step of 4 (C = 1):
+    the same routing and outputs within 1e-4 (float32, sums in another order)."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.moe import _router, moe_ffn
+
+    cfg = get_arch("deepseek-v2-lite-16b")
+    moe, _ = _moe_mla_params(cfg, 3)
+    moe_card = _to(moe, card)
+    for shape in ((2, 64), (4, 1)):
+        x = torch.randn(*shape, cfg.d_model, generator=torch.Generator().manual_seed(5))
+        _, experts, _ = _router(moe, x.reshape(-1, cfg.d_model), cfg.moe)
+        _, experts_card, _ = _router(moe_card, x.to(card).reshape(-1, cfg.d_model), cfg.moe)
+        assert torch.equal(experts_card.cpu(), experts)
+        y, aux = moe_ffn(moe, x, cfg, impl=impl)
+        y_card, aux_card = moe_ffn(moe_card, x.to(card), cfg, impl=impl)
+        torch.testing.assert_close(y_card.cpu(), y, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(aux_card.cpu(), aux, rtol=1e-5, atol=1e-7)
+
+
+def test_mla_on_card_matches_cpu(card):
+    """deepseek-v2-lite-16b's MLA at full width: the expanded prefill over
+    2 x 64 tokens and the absorbed decode step against its latent cache, on
+    the card against the CPU within 1e-4."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.mla import init_mla_cache, mla_attention, mla_decode_step
+
+    cfg = get_arch("deepseek-v2-lite-16b")
+    _, mla = _moe_mla_params(cfg, 4)
+    mla_card = _to(mla, card)
+    B, S, Smax = 2, 64, 80
+    x = torch.randn(B, S + 1, cfg.d_model, generator=torch.Generator().manual_seed(6))
+    pos = torch.arange(S)[None].expand(B, S)
+    out, lat = mla_attention(mla, x[:, :S], cfg, pos)
+    out_card, lat_card = mla_attention(mla_card, x[:, :S].to(card), cfg, pos.to(card))
+    torch.testing.assert_close(out_card.cpu(), out, rtol=1e-4, atol=1e-4)
+    caches = []
+    for dev, p in (("cpu", mla), (card, mla_card)):
+        c = {k: v[0] for k, v in init_mla_cache(cfg, 1, B, Smax, torch.float32, dev).items()}
+        for k in c:
+            c[k][:, :S] = (lat if dev == "cpu" else lat_card)[k]
+        n = torch.tensor([S], dtype=torch.int32, device=dev)
+        caches.append((mla_decode_step(p, x[:, S:].to(dev), c, n, cfg), c))
+    (o, c), (o_card, c_card) = caches
+    torch.testing.assert_close(o_card.cpu(), o, rtol=1e-4, atol=1e-4)
+    for k in c:
+        torch.testing.assert_close(c_card[k].cpu(), c[k], rtol=1e-4, atol=1e-4)
 
 
 # the served models' norm shapes (llama3.2-3b prefill and decode, mamba2-2.7b's

@@ -1,13 +1,17 @@
 """The port's serving path (prefill + decode of the llama3.2-3b smoke
-variant) against the JAX package's, its token generator, its conversion of
-the reference's parameters and caches, and its CLI.
+variant, and of the deepseek-v2-lite-16b (moe, MLA), paligemma-3b (vlm)
+and musicgen-medium (audio) smoke variants) against the JAX package's, its
+token generator, its conversion of the reference's parameters and caches,
+and its CLI.
 
 The reference's parameters (``init_params``, float32) are carried across
 with ``params_from_reference``, and both packages serve the same prompt:
 JAX ``prefill`` + ``make_serve_step`` with ``attention_impl="pallas"``
 (interpret mode) or ``"chunked"``, the port with ``"cuda"`` (the kernels'
-plain versions on the CPU) or ``"chunked"``.  Each step is fed the
-reference's greedy token.  Tolerances (float32): prefill logits and KV
+plain versions on the CPU) or ``"chunked"``; deepseek's experts dispatch
+by gshard at the reference's capacity factor (1.25) in both, paligemma's
+prompt is 8 patch embeddings and 8 text tokens, musicgen's 4 codebooks.
+Each step is fed the reference's greedy token (one a codebook for audio).  Tolerances (float32): prefill logits and KV
 cache to 1e-5, each step's logits to 1e-4 (the sums run in another order
 and decode steps build on the prefill's cache); greedy tokens identical.
 
@@ -57,14 +61,15 @@ REPO = Path(__file__).resolve().parents[1]
 ARCH = "llama3.2-3b"
 B, PROMPT, STEPS, MAX_LEN = 2, 16, 6, 24
 
-# (reference attention_impl, kv_cache_dtype, attention type)
+# (reference attention_impl, kv_cache_dtype, attention type[, arch: llama3.2-3b])
 CASES = [("pallas", "bf16", "full"), ("chunked", "bf16", "full"), ("pallas", "int8", "full"),
-         ("chunked", "bf16", "swa")]
+         ("chunked", "bf16", "swa"), ("chunked", "bf16", "full", "deepseek-v2-lite-16b"),
+         ("pallas", "bf16", "full", "paligemma-3b"), ("pallas", "bf16", "full", "musicgen-medium")]
 
 
-def _cfgs(attn_type):
-    ref_cfg = ref_smoke_variant(ref_get_arch(ARCH))
-    cfg = smoke_variant(get_arch(ARCH))
+def _cfgs(attn_type, arch=ARCH):
+    ref_cfg = ref_smoke_variant(ref_get_arch(arch))
+    cfg = smoke_variant(get_arch(arch))
     if attn_type == "swa":  # the ring-buffer branches: window 8 < prompt 16
         ref_cfg = dataclasses.replace(ref_cfg, attn_type="swa", window=8)
         cfg = dataclasses.replace(cfg, attn_type="swa", window=8)
@@ -75,21 +80,38 @@ def _np(x):
     return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor) else x)
 
 
+def _flat(tree, prefix=""):
+    """A (nested) cache's leaves as NumPy by dotted name."""
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}.") if isinstance(v, dict) else
+                   {prefix + k: _np(v.clone() if isinstance(v, torch.Tensor) else v)})
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _runs(case):
     """Both packages through prefill + STEPS decode steps on the same
     parameters and prompt; the port is fed the reference's tokens."""
-    impl, kv_dtype, attn_type = case
-    ref_cfg, cfg = _cfgs(attn_type)
+    impl, kv_dtype, attn_type, *arch = case
+    ref_cfg, cfg = _cfgs(attn_type, *arch)
     ref_policy = RefPolicy(attention_impl=impl, attn_chunk=PROMPT, kv_cache_dtype=kv_dtype)
     policy = policy_from_reference(ref_policy)
     params = ref_init_params(ref_cfg, ref_policy, seed=5, dtype=jnp.float32)
     model = params_from_reference(jax.tree.map(np.asarray, params), cfg, "cpu")
-    toks = np.random.default_rng(11).integers(0, cfg.vocab_size, size=(B, PROMPT), dtype=np.int32)
+    rng = np.random.default_rng(11)
+    n_text = PROMPT - (cfg.num_patches if cfg.family == "vlm" else 0)
+    codebooks = (cfg.num_codebooks,) if cfg.family == "audio" else ()
+    toks = rng.integers(0, cfg.vocab_size, size=(B, n_text, *codebooks), dtype=np.int32)
+    patches = (rng.standard_normal((B, cfg.num_patches, cfg.patch_dim)).astype(np.float32)
+               if cfg.family == "vlm" else None)
 
     ref = {"logits": [], "tokens": []}
-    lg, cache, pos = ref_prefill(params, ref_cfg, ref_policy, jnp.asarray(toks), max_len=MAX_LEN)
-    ref["prefill_logits"], ref["prefill_cache"] = np.asarray(lg), jax.tree.map(np.asarray, cache)
+    lg, cache, pos = ref_prefill(params, ref_cfg, ref_policy, jnp.asarray(toks),
+                                 None if patches is None else jnp.asarray(patches),
+                                 max_len=MAX_LEN)
+    assert pos == PROMPT
+    ref["prefill_logits"], ref["prefill_cache"] = np.asarray(lg), _flat(cache)
     step = jax.jit(ref_make_serve_step(ref_cfg, ref_policy))
     nxt = jnp.argmax(lg[:, -1:], axis=-1).astype(jnp.int32)
     feed = [np.asarray(nxt)]
@@ -101,12 +123,15 @@ def _runs(case):
         ref["tokens"].append(np.asarray(nxt))
         ref_caches.append(jax.tree.map(np.asarray, cache))
         feed.append(np.asarray(nxt))
-    ref["cache"] = jax.tree.map(np.asarray, cache)
+    ref["cache"] = _flat(cache)
 
     port = {"logits": [], "tokens": []}
-    lg, cache, pos = prefill(model, cfg, policy, torch.from_numpy(toks), max_len=MAX_LEN)
+    lg, cache, pos = prefill(model, cfg, policy, torch.from_numpy(toks),
+                             None if patches is None else torch.from_numpy(patches),
+                             max_len=MAX_LEN)
+    assert pos == PROMPT
     port["prefill_logits"] = _np(lg)
-    port["prefill_cache"] = {k: _np(v.clone()) for k, v in cache.items()}
+    port["prefill_cache"] = _flat(cache)
     port["first_token"] = lg[:, -1:].argmax(dim=-1).to(torch.int32).numpy()
     step = make_serve_step(cfg, policy)
     port["flips"] = []  # per step: int8 entries quantized apart, per batch row; largest gap
@@ -120,7 +145,7 @@ def _runs(case):
                 for k in ("k", "v")] if kv_dtype == "int8" else [np.zeros((1, B, 1))]
         port["flips"].append((sum((g != 0).sum(axis=(0, *range(2, g.ndim))) for g in gaps),
                               max(int(g.max()) for g in gaps)))
-    port["cache"] = {k: _np(v) for k, v in cache.items()}
+    port["cache"] = _flat(cache)
     port["feed0"] = feed[0]
     return ref, port
 
@@ -207,6 +232,106 @@ def test_params_from_reference_checks_the_tree(what, exc):
         params_from_reference(_broken(params, what), cfg, "cpu")
 
 
+NEW_FAMILIES = ["deepseek-v2-lite-16b", "paligemma-3b", "musicgen-medium"]
+
+
+def _ref_leaf(params, name):
+    """The reference leaf behind the port's parameter ``name``
+    (``blocks.<l>.`` indexes the stacked layer axis)."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return functools.reduce(lambda t, k: t[k], parts, params)
+    return functools.reduce(lambda t, k: t[k], parts[2:], params["blocks"])[int(parts[1])]
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_params_from_reference_carries_the_new_families_bit_for_bit(arch):
+    """Every leaf of the moe/MLA, vlm and audio trees (the experts and the
+    shared expert, the latent projections, ``patch_proj``, the codebook
+    ``embed`` and ``heads``) crosses bfloat16 bit for bit."""
+    ref_cfg, cfg = _cfgs("full", arch)
+    params = jax.tree.map(np.asarray, ref_init_params(ref_cfg, seed=1))  # bfloat16
+    model = params_from_reference(params, cfg, "cpu")
+    names = dict(model.named_parameters())
+    assert len(names) == len(jax.tree.leaves(params["blocks"])) * cfg.num_layers + len(
+        [k for k in params if k != "blocks"])
+    for name, t in names.items():
+        want = _ref_leaf(params, name)
+        assert t.dtype == torch.bfloat16 and tuple(t.shape) == want.shape, name
+        np.testing.assert_array_equal(t.view(torch.int16).numpy(), want.view(np.int16),
+                                      err_msg=name)
+
+
+def _broken_leaf(params, path, what):
+    p = jax.tree.map(lambda a: a, params)
+    *parents, leaf = path.split(".")
+    node = functools.reduce(lambda t, k: t[k], parents, p)
+    if what == "shape":
+        node[leaf] = node[leaf][..., :-1]
+    elif what == "dtype":
+        node[leaf] = node[leaf].astype(np.float64)
+    elif what == "missing":
+        del node[leaf]
+    return p
+
+
+@pytest.mark.parametrize("arch,path,what,exc", [
+    ("deepseek-v2-lite-16b", "blocks.moe.w_gate", "shape", ValueError),
+    ("deepseek-v2-lite-16b", "blocks.moe.shared.w_down", "dtype", TypeError),
+    ("deepseek-v2-lite-16b", "blocks.attn.w_dkv", "missing", ValueError),
+    ("deepseek-v2-lite-16b", "blocks.moe.router", "shape", ValueError),
+    ("paligemma-3b", "patch_proj", "shape", ValueError),
+    ("paligemma-3b", "patch_proj", "missing", ValueError),
+    ("musicgen-medium", "heads", "shape", ValueError),
+    ("musicgen-medium", "embed", "dtype", TypeError),
+])
+def test_params_from_reference_checks_the_new_families_trees(arch, path, what, exc):
+    ref_cfg, cfg = _cfgs("full", arch)
+    params = jax.tree.map(np.asarray, ref_init_params(ref_cfg, seed=1, dtype=jnp.float32))
+    params_from_reference(params, cfg, "cpu")  # the unbroken tree crosses
+    with pytest.raises(exc):
+        params_from_reference(_broken_leaf(params, path, what), cfg, "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_cache_bf16():
+    """deepseek's smoke variant prefilled by the reference in bfloat16: its
+    latent cache as NumPy."""
+    ref_cfg, _ = _cfgs("full", "deepseek-v2-lite-16b")
+    ref_policy = RefPolicy(attention_impl="chunked", attn_chunk=PROMPT)
+    params = ref_init_params(ref_cfg, ref_policy, seed=2)  # bfloat16
+    toks = np.random.default_rng(4).integers(0, ref_cfg.vocab_size, size=(B, PROMPT),
+                                             dtype=np.int32)
+    _, cache, _ = ref_prefill(params, ref_cfg, ref_policy, jnp.asarray(toks), max_len=MAX_LEN)
+    return jax.tree.map(np.asarray, cache)
+
+
+def test_cache_from_reference_carries_the_mla_cache_bit_for_bit():
+    _, cfg = _cfgs("full", "deepseek-v2-lite-16b")
+    ref = _mla_cache_bf16()
+    cache = cache_from_reference(ref, cfg, "cpu")
+    assert set(cache) == {"mla"} and set(cache["mla"]) == {"c_kv", "k_pe"}
+    for name, want in ref["mla"].items():
+        got = cache["mla"][name]
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+        assert got[:, :, :PROMPT].any()
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(), want.view(np.int16))
+
+
+@pytest.mark.parametrize("what", ["shape", "dtype", "kv_names"])
+def test_cache_from_reference_checks_the_mla_cache(what):
+    _, cfg = _cfgs("full", "deepseek-v2-lite-16b")
+    ref = jax.tree.map(lambda a: a, _mla_cache_bf16())
+    if what == "shape":
+        ref["mla"]["k_pe"] = ref["mla"]["k_pe"][..., :-1]
+    elif what == "dtype":
+        ref["mla"]["c_kv"] = ref["mla"]["c_kv"].astype(np.float64)
+    else:
+        ref = {"k": ref["mla"]["c_kv"], "v": ref["mla"]["c_kv"]}
+    with pytest.raises(TypeError if what == "dtype" else ValueError):
+        cache_from_reference(ref, cfg, "cpu")
+
+
 @pytest.mark.parametrize("impl", ["naive", "chunked", "pallas"])
 def test_policy_from_reference_maps_pallas_to_cuda(impl):
     pol = policy_from_reference(RefPolicy(attention_impl=impl, attn_chunk=32,
@@ -235,14 +360,6 @@ def test_synthetic_stream_matches_reference():
     assert port.step == ref.step == 7
 
 
-@pytest.mark.parametrize("family_arch", ["deepseek-v2-lite-16b", "paligemma-3b", "musicgen-medium"])
-def test_other_families_name_their_roadmap_item(family_arch):
-    from repro_torch.models import init_params
-
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        init_params(smoke_variant(get_arch(family_arch)), device="cpu")
-
-
 def _serve_cli(*args):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args], env=env,
@@ -258,6 +375,31 @@ def test_serve_cli_on_the_cpu_prints_its_two_lines():
                         r"in [\d.]+s \([\d.]+ tok/s on cpu\)", lines[-2]), lines
     tokens = re.fullmatch(r"sample tokens: \[([\d, ]+)\]", lines[-1])
     assert tokens and len(tokens.group(1).split(",")) == 4
+
+
+# the moe (MLA), vlm and audio families: a prompt of 16 positions (paligemma:
+# 8 patch embeddings + 8 text tokens) and 4 greedy steps; musicgen prints
+# the first 8 of its 4 x 4 codebook tokens
+@pytest.mark.parametrize("arch,n_sample", [("deepseek-v2-lite-16b", 4), ("paligemma-3b", 4),
+                                           ("musicgen-medium", 8)])
+def test_serve_cli_serves_the_moe_vlm_and_audio_families_on_the_cpu(arch, n_sample):
+    out = _serve_cli("--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                     "--prompt-len", "16", "--gen-len", "4")
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert re.fullmatch(rf"arch={re.escape(arch)}-smoke prefill 2x16 in [\d.]+s; decoded 8 "
+                        r"tokens in [\d.]+s \([\d.]+ tok/s on cpu\)", lines[-2]), lines
+    tokens = re.fullmatch(r"sample tokens: \[([\d, ]+)\]", lines[-1])
+    assert tokens and len(tokens.group(1).split(",")) == n_sample
+
+
+def test_serve_cli_refuses_a_vlm_prompt_no_longer_than_its_patches():
+    """paligemma's prompt is its patch embeddings, then text: a prompt
+    length that leaves no text is refused before anything is built."""
+    from repro_torch.launch.serve import main
+
+    with pytest.raises(SystemExit, match="--prompt-len must exceed 8"):
+        main(["--arch", "paligemma-3b", "--smoke", "--device", "cpu", "--prompt-len", "8"])
 
 
 def test_serve_generate_matches_a_manual_loop_and_samples_reproducibly():
@@ -316,8 +458,9 @@ def test_serve_cli_trace_out_records_the_prefill_and_decode_spans(tmp_path, caps
 
 # ---------------------------------------------------------------- the planner flags
 
-# the dense, ssm and hybrid families the port serves
-FAMILY_ARCHS = ["llama3.2-3b", "mamba2-2.7b", "hymba-1.5b"]
+# one architecture of each family the port serves
+FAMILY_ARCHS = ["llama3.2-3b", "mamba2-2.7b", "hymba-1.5b", "deepseek-v2-lite-16b",
+                "paligemma-3b", "musicgen-medium"]
 
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
