@@ -3,8 +3,9 @@ against its plain PyTorch version, drives the engine's bulk solve at the
 paper's §6 scale, the replanning path and the plan server over the same
 populations, the serving paths of llama3.2-3b, mamba2-2.7b, hymba-1.5b,
 paligemma-3b, musicgen-medium and deepseek-v2-lite-16b at full width and
-depth, and the golden campaign's full tier through the planner's front
-door, and checks what comes out.
+depth, the golden campaign's full tier through the planner's front door,
+and training of llama3.2-3b at full width and depth, and checks what comes
+out.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -92,9 +93,31 @@ Phases, each printing one JSON line:
    1e-9; plans/s, p50/p99 latency and the sharded and single walls printed.
    Phases 7 and 8 each set the launch counts to 0 just before each of their
    runs and read them just after; their launches appear in the ``kernels``
-   line as ``launches_by_path``.
+   line as ``launches_by_path``;
+9. ``train`` (after the serving models and the campaign are freed):
+   (a) llama3.2-3b at full width and depth (3.213 G parameters, float32
+   weights drawn from the seed on the card, float32 AdamW moments: 51.4 GB
+   with the gradients) through ``repro_torch.launch.train``'s own functions:
+   4 steps of batch 4 x 512 from ``SyntheticStream``, remat per block,
+   chunked attention (chunk 512), lr 5e-5; each step's loss, lr, grad norm
+   and synchronised wall, tokens/s, peak memory, one more step under the
+   profiler (device ms of the matrix products, attention, the optimizer and
+   the rest; the device's busy share), the model FLOPs a step and the
+   float32 TFLOP/s reached; the same batch stepped twice lowers the loss;
+   microbatches 2 against 1 from the same seed over two steps, within the
+   reference's bars (loss 5e-4; parameters rtol 2e-3, atol 2e-4).  (b) The
+   same model with 2 layers, batch 2 x 128: one step on the card against
+   the same step on the CPU (loss and grad norm 1e-5 relative, each
+   gradient leaf 1e-3 of its max |g|), and a checkpoint round trip on the
+   card (2 steps, save, 1 more; a fresh state restored retakes that step:
+   the restored state exact, the step's loss within 1e-6 relative and its
+   parameters within 4 lr, the allowance for an Adam step turned by a
+   gradient at rounding level; the measured difference and whether it was
+   bitwise are printed).  Every kernel's launch count stays 0 throughout:
+   training runs no kernel (none has a backward).
 
-Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
+Then a ``{"train": {...}}`` summary line, the ``{"kernels": [...]}`` line
+(each kernel with its ``train_launches``, 0), the card's name and power limit, and
 the final ``{"ok": true, ...}`` line.  Any failed check raises, so the
 script exits non-zero before that line.  With no card, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
@@ -1755,6 +1778,368 @@ def serve_phase(dev, arch):
     return counts
 
 
+# ---------------------------------------------------------------- phase 9
+
+TRAIN_ARCH, TRAIN_B, TRAIN_SEQ, TRAIN_STEPS = "llama3.2-3b", 4, 512, 4
+# Adam's first steps move each weight by about lr whatever the size of its
+# gradient.  5e-5 is a step a full-width random init takes without harm, and
+# it keeps the microbatch check meaningful: an element whose gradient sits
+# under float32 rounding can step either way in the two runs, 2 lr = 1e-4
+# apart, inside the reference's atol of 2e-4
+TRAIN_LR = 5e-5
+# the reference's bars for microbatch accumulation (tests/test_train_step.py)
+MB_LOSS_TOL, MB_RTOL, MB_ATOL = 5e-4, 2e-3, 2e-4
+# the card's step against the CPU's (full width, 2 layers): float32 on both,
+# sums in other orders (~1e-6 relative); 1e-3 of each gradient leaf's max |g|
+# is the serve phase's bar, and a wrong gradient (an O(1) change) is far out
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_LOSS_RTOL = 1e-5
+# an element whose gradient rounds to the other sign on one side takes
+# Adam's normalised step the other way: after one step (|update| <= 1) the
+# two sides sit 2 lr apart, after three at most ~4 lr
+FLIP_1, FLIP_3 = 2.1 * TRAIN_LR, 4 * TRAIN_LR
+TRAIN_SMALL = (2, 2, 128)  # layers, batch, sequence of phase 9 (b)
+TRAIN_CKPT_DIR = REPO / "build" / "chip_smoke_train_ckpt"
+
+
+def _train_args(steps: int, batch: int, seq: int, microbatches: int = 1):
+    from repro_torch.launch import train as cli
+
+    return cli.parse_args(["--arch", TRAIN_ARCH, "--steps", str(steps), "--batch", str(batch),
+                           "--seq", str(seq), "--lr", str(TRAIN_LR), "--seed", str(SEED),
+                           "--microbatches", str(microbatches), "--device", "cuda"])
+
+
+def _train_batch(cfg, B, S, step, dev):
+    from repro_torch.data import make_batch
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in make_batch(cfg, B, S, step, SEED).items()}
+
+
+def _free():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_device_time_by_group(prof) -> tuple:
+    """Device milliseconds of one profiled train step by group: the
+    optimizer (every kernel under the ``optimizer`` scope), attention (the
+    kernels of the ops under the ``attention`` scope, in the forward and in
+    its recomputation, and of the backward nodes of those ops, matched by
+    the autograd sequence number the profiler records for both), the
+    other matrix products (cuBLAS/CUTLASS kernels) and the rest; and the
+    number of device operations."""
+    events = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA]
+
+    def scopes(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    backward = "autograd::engine::evaluate_function"
+    attn_seq = set()
+    for e in events:
+        chain = [a.name for a in scopes(e)]
+        if (e.sequence_nr >= 0 and "attention" in chain
+                and not any(n.startswith(backward) for n in chain)):
+            attn_seq.add(e.sequence_nr)
+    groups = {"matmul": 0.0, "attention": 0.0, "optimizer": 0.0, "other": 0.0}
+    n_ops = 0
+    for e in events:
+        if not e.kernels:
+            continue
+        chain = list(scopes(e))
+        names = [a.name for a in chain]
+        if "optimizer" in names:
+            key = "optimizer"
+        elif "attention" in names or any(a.name.startswith(backward)
+                                         and a.sequence_nr in attn_seq for a in chain):
+            key = "attention"
+        else:
+            key = None
+        for k in e.kernels:
+            n_ops += 1
+            kk = key or ("matmul" if any(t in k.name.lower()
+                                         for t in ("gemm", "cutlass", "splitkreduce"))
+                         else "other")
+            groups[kk] += k.duration / 1e3
+    return groups, n_ops
+
+
+def _profiled_train_step(cfg, policy, tcfg, state, batch) -> dict:
+    """One train step under torch.profiler, the attention and the optimizer
+    marked by record_function scopes around their calls (no code of the
+    port changes): device ms by group, the wall, the busy share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import repro_torch.models.transformer as transformer
+    import repro_torch.runtime.train as rt
+
+    attention, adamw_update = transformer.attention, rt.adamw_update
+
+    def scoped(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    transformer.attention = scoped("attention", attention)
+    rt.adamw_update = scoped("optimizer", adamw_update)
+    try:
+        step = rt.make_train_step(cfg, policy, tcfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        transformer.attention, rt.adamw_update = attention, adamw_update
+    groups, n_ops = _train_device_time_by_group(prof)
+    total = sum(groups.values())
+    check(groups["attention"] > 0 and groups["optimizer"] > 0 and groups["matmul"] > 0,
+          f"the profiler saw the train step's groups on the card: {groups}")
+    # the device's busy time: the union of its operations' intervals (their
+    # summed durations may overlap), against the step's wall
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, reach = 0.0, -np.inf
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    return dict(device_ms=groups, device_total_ms=total, device_busy_ms=busy_us / 1e3,
+                wall_ms=1e3 * wall, busy_share=busy_us / 1e6 / wall, device_ops=n_ops,
+                loss=float(m["loss"]))
+
+
+def _train_flops(cfg, B, S) -> tuple:
+    """(model FLOPs of a step: 6 N_active per token with the tied head's
+    products, which train_flops_per_token leaves out with the embedding
+    gather, plus attention's quadratic term; the same with each block's
+    forward run again by remat)."""
+    from repro_torch.models import param_counts, train_flops_per_token
+
+    pc = param_counts(cfg)
+    tokens = B * S
+    model = (train_flops_per_token(cfg, S) + 6.0 * cfg.vocab_size * cfg.d_model) * tokens
+    block_fwd = 2.0 * (pc.active - pc.embed) + 2.0 * cfg.num_layers * cfg.num_heads * \
+        cfg.head_dim * S
+    return model, model + block_fwd * tokens
+
+
+def _host_params(state) -> dict:
+    return {n: p.detach().cpu() for n, p in state.params.named_parameters()}
+
+
+def train_full_phase(dev) -> dict:
+    """Phase 9 (a): llama3.2-3b at full width and depth through
+    ``repro_torch.launch.train``'s functions."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as cli
+    from repro_torch.runtime import make_train_step
+
+    B, S = TRAIN_B, TRAIN_SEQ
+    args = _train_args(TRAIN_STEPS, B, S)
+    cfg, policy, tcfg = cli.build_cfg(args)
+    check(policy.attention_impl == "chunked" and policy.remat == "block"
+          and policy.attn_chunk == S, f"the CLI's training policy: {policy}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = cli.init_state(args, cfg, tcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    log, state = cli.run_standard(args, cfg, policy, tcfg, state=state)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state_gb = sum(t.numel() * t.element_size() for t in [
+        *state.params.parameters(), *(p.grad for p in state.params.parameters()),
+        *state.opt.m.values(), *state.opt.v.values()]) / 1e9
+    check(all(v == 0 for v in counts.values()), f"the training path launched kernels: {counts}")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in log),
+          f"losses and grad norms finite: {log}")
+    walls = [m["time_s"] for m in log]
+    steady = float(np.median(walls[1:]))
+    progress(f"train {TRAIN_ARCH}: {TRAIN_STEPS} steps, {[round(w, 3) for w in walls]} s")
+    prof = _profiled_train_step(cfg, policy, tcfg, state, _train_batch(cfg, B, S, TRAIN_STEPS,
+                                                                       dev))
+    model_flops, exec_flops = _train_flops(cfg, B, S)
+    del state
+    _free()
+
+    # the same batch stepped twice lowers the loss (the reference's
+    # test_train_step_reduces_loss)
+    state = cli.init_state(args, cfg, tcfg)
+    step = make_train_step(cfg, policy, tcfg)
+    batch = _train_batch(cfg, B, S, 0, dev)
+    state, m0 = step(state, batch)
+    state, m1 = step(state, batch)
+    repeat = (float(m0["loss"]), float(m1["loss"]))
+    check(all(np.isfinite(repeat)) and repeat[1] < repeat[0],
+          f"the same batch stepped twice lowers the loss: {repeat}")
+    del state, batch
+    _free()
+
+    # microbatches 2 against 1 from the same seed, two steps each (the
+    # reference's test_microbatch_accumulation_matches_full_batch); the
+    # first run's parameters wait on the host
+    runs = {}
+    for mb in (1, 2):
+        a = _train_args(2, B, S, microbatches=mb)
+        mlog, state = cli.run_standard(a, *cli.build_cfg(a), state=None)
+        runs[mb] = mlog[-1]["loss"]
+        if mb == 1:
+            host = _host_params(state)
+            del state
+            _free()
+    worst_ratio, worst_abs = 0.0, 0.0
+    for n, p in state.params.named_parameters():
+        want = host[n].to(dev)
+        diff = (p.detach() - want).abs()
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_ratio = max(worst_ratio, float((diff / (MB_ATOL + MB_RTOL * want.abs())).max()))
+    del state, host
+    _free()
+    mb_loss_diff = abs(runs[1] - runs[2])
+    check(mb_loss_diff < MB_LOSS_TOL and worst_ratio <= 1.0,
+          f"microbatches 2 against 1: loss {runs}, parameters at {worst_ratio} of the bar")
+    steps = [{k: m[k] for k in ("step", "loss", "lr", "grad_norm")} | {"ms": 1e3 * m["time_s"]}
+             for m in log]
+    return dict(arch=cfg.name, params=n_params, dtype="float32", batch=B, seq=S,
+                remat=policy.remat, attn_chunk=policy.attn_chunk, lr=TRAIN_LR, init_s=init_s,
+                params_grads_moments_gb=state_gb, steps=steps, step_ms_median=1e3 * steady,
+                tok_per_s=B * S / steady, peak_mem_gb=peak / 1e9, launches=counts,
+                profiled_step=prof, model_flops=model_flops, flops_with_remat=exec_flops,
+                model_tflop_per_s=model_flops / steady / 1e12,
+                fp32_peak_share=model_flops / steady / FP32_FLOP_PER_S,
+                executed_fp32_peak_share=exec_flops / steady / FP32_FLOP_PER_S,
+                same_batch_losses=repeat, microbatch_last_loss=runs,
+                microbatch_loss_diff=mb_loss_diff, microbatch_param_max_abs=worst_abs,
+                microbatch_param_bar_ratio=worst_ratio)
+
+
+def _grads(state) -> dict:
+    return {n: p.grad.detach() for n, p in state.params.named_parameters()}
+
+
+def train_small_phase(dev) -> dict:
+    """Phase 9 (b): llama3.2-3b at full width with 2 layers: a step on the
+    card against the same step on the CPU, and a checkpoint round trip on
+    the card.
+
+    The retaken step is held to a tolerance, not run under
+    ``torch.use_deterministic_algorithms``: that mode needs
+    ``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS's first use, which would
+    change every earlier phase.  llama's backward has no accumulating
+    scatter whose writes collide (the gold logits' gather writes distinct
+    positions back; MoE's index_put_ and scatter_add_ are not on this
+    path), so equality is expected, and whether it held is printed."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.launch import train as cli
+    from repro_torch.models import init_params
+    from repro_torch.runtime import make_train_state, make_train_step
+
+    L, B, S = TRAIN_SMALL
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=L)
+    _, policy, _ = cli.build_cfg(_train_args(3, B, S))
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=10, seed=SEED)
+    step = make_train_step(cfg, policy, tcfg)
+
+    # the card against the CPU, from the same weights (drawn on the card)
+    card = make_train_state(init_params(cfg, SEED, torch.float32, dev), tcfg)
+    cpu = make_train_state(init_params(cfg, SEED, torch.float32, dev).to("cpu"), tcfg)
+    batch = _train_batch(cfg, B, S, 0, dev)
+    t0 = time.perf_counter()
+    card, m_card = step(card, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu, m_cpu = step(cpu, {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    errs = {k: abs(float(m_card[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
+            for k in ("loss", "grad_norm")}
+    grads_cpu = _grads(cpu)
+    grad_err = max(float((g.cpu() - grads_cpu[n]).abs().max())
+                   / max(float(grads_cpu[n].abs().max()), 1e-30)
+                   for n, g in _grads(card).items())
+    cpu_params = dict(cpu.params.named_parameters())
+    param_diff = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
+                     for n, p in card.params.named_parameters())
+    del cpu, grads_cpu, cpu_params
+    check(max(errs.values()) <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL
+          and param_diff <= FLIP_1,
+          f"train step card vs CPU: {errs}, gradients {grad_err}, parameters {param_diff}")
+
+    # checkpoint round trip on the card: 2 steps, save, 1 more; a fresh state
+    # restored from the checkpoint retakes that step
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    card, _ = step(card, _train_batch(cfg, B, S, 1, dev))
+    saved = {"params": {n: p.detach().clone() for n, p in card.params.named_parameters()},
+             "m": dict(card.opt.m), "v": dict(card.opt.v)}
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(str(TRAIN_CKPT_DIR))
+    mgr.save_async(1, card)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    card, m_a = step(card, _train_batch(cfg, B, S, 2, dev))
+    fresh = make_train_state(init_params(cfg, SEED + 1, torch.float32, dev), tcfg)
+    t0 = time.perf_counter()
+    fresh, _ = restore_checkpoint(str(TRAIN_CKPT_DIR), 1, fresh, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_exact = int(fresh.opt.step) == 2 and all(
+        torch.equal(p, saved["params"][n]) for n, p in fresh.params.named_parameters()) and all(
+        torch.equal(fresh.opt.m[n], saved["m"][n]) and torch.equal(fresh.opt.v[n], saved["v"][n])
+        for n in saved["m"])
+    del saved
+    fresh, m_b = step(fresh, _train_batch(cfg, B, S, 2, dev))
+    ckpt_loss_diff = abs(float(m_a["loss"]) - float(m_b["loss"]))
+    fresh_params = dict(fresh.params.named_parameters())
+    ckpt_param_diff = max(float((p.detach() - fresh_params[n].detach()).abs().max())
+                          for n, p in card.params.named_parameters())
+    ckpt_gb = sum(f.stat().st_size for f in TRAIN_CKPT_DIR.rglob("*") if f.is_file()) / 1e9
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    del card, fresh, fresh_params
+    _free()
+    check(restored_exact, "the restored state equals the saved one, leaf for leaf")
+    check(ckpt_loss_diff <= 1e-6 * abs(float(m_a["loss"])) and ckpt_param_diff <= FLIP_3,
+          f"the step retaken after the restore: loss {ckpt_loss_diff}, parameters "
+          f"{ckpt_param_diff}")
+    return dict(layers=L, batch=B, seq=S, card_step_s=card_s, cpu_step_s=cpu_s,
+                card_vs_cpu_rel_err=errs, card_vs_cpu_grad_err=grad_err,
+                card_vs_cpu_param_max_abs=param_diff, grad_tol=TRAIN_GRAD_TOL,
+                ckpt_gb=ckpt_gb, ckpt_save_s=save_s, ckpt_restore_s=restore_s,
+                ckpt_restored_exact=restored_exact, ckpt_step_loss_diff=ckpt_loss_diff,
+                ckpt_step_param_max_abs=ckpt_param_diff,
+                ckpt_step_bitwise=ckpt_loss_diff == 0 and ckpt_param_diff == 0)
+
+
+def train_phase(dev) -> dict:
+    """Phase 9, with the launch counts set to 0 just before each run and
+    read just after (every kernel's must stay 0: training runs none)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    full = train_full_phase(dev)
+    reset_launch_counts()
+    small = train_small_phase(dev)
+    counts = launch_counts()
+    check(all(v == 0 for v in counts.values()), f"phase 9 (b) launched kernels: {counts}")
+    emit(phase="train", **full, small=small)
+    return {"arch": full["arch"], "params": full["params"], "step_ms": full["step_ms_median"],
+            "tok_per_s": full["tok_per_s"], "peak_mem_gb": full["peak_mem_gb"],
+            "busy_share": full["profiled_step"]["busy_share"],
+            "fp32_peak_share": full["fp32_peak_share"], "launches": full["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs the card", file=sys.stderr)
@@ -1840,6 +2225,10 @@ def main() -> int:
     # phase 6: the planner's front door and the golden campaign
     campaign_phase(dev)
 
+    # phase 9: training, after the serving models are freed
+    _free()
+    trained = train_phase(dev)
+
     by_path = {k: {"solve_bulk (phase 3)": launches[k], "replan (phase 7)": tier["replan"][k],
                    "plan_server (phase 8)": tier["plan_server"][k]}
                for k in ("simplex_pivot", "asap_replay")}
@@ -1886,6 +2275,9 @@ def main() -> int:
              ms=n["ms"], plain_ms=n["plain_ms"], bound_ms=n["bound_ms"], bound_by=n["bound_by"],
              library_ms=n["library_ms"]),
     ]
+    for k in kernels:
+        k["train_launches"] = trained["launches"][k["name"]]
+    print(json.dumps({"train": trained}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -135,8 +135,13 @@ SHAPES = {
 
 @dataclasses.dataclass(frozen=True)
 class ShardingPolicy:
-    """The knobs of the reference's policy that the port's serving path
-    reads.  The mesh and sharding knobs come with the sharding slice.
+    """The knobs of the reference's policy that the port's serving and
+    training paths read.  The mesh and sharding knobs come with the
+    sharding slice.
+
+    ``remat``: ``"block"`` recomputes each decoder block's activations in
+    the backward pass (the reference's ``jax.checkpoint`` per block) and
+    ``"none"`` keeps them; it changes memory, never a value.
 
     ``attention_impl``: ``"naive"`` (materialized scores), ``"chunked"``
     (online softmax over q/kv chunks) or ``"cuda"`` (the hand-written
@@ -146,6 +151,7 @@ class ShardingPolicy:
     every expert, the oracle).
     """
 
+    remat: str = "block"  # none | block (recompute each block in the backward)
     attention_impl: str = "chunked"  # naive | chunked | cuda
     attn_chunk: int = 1024  # q-chunk for the online-softmax attention
     attn_block_skip: bool = False  # skip fully masked kv blocks (chunked)

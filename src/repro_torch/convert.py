@@ -9,9 +9,12 @@ moves to the CPU on its own.  Only an explicit ``device="cpu"`` runs there.
 bases), into tensors on a device, checking dtypes and shapes.
 :func:`params_from_reference`, :func:`cache_from_reference` and
 :func:`policy_from_reference` carry a model's parameter tree, decode cache
-and serving policy across.  The port never imports the JAX package; the
-state arrives as plain arrays, dicts of them, or objects whose fields are
-arrays.
+and policy across; :func:`train_state_from_reference` and
+:func:`train_state_to_reference` carry a training state (parameters, AdamW
+moments, step) both ways, in the reference's tree: the blocks' leaves
+stacked ``[L, ...]`` where the port keeps one module a layer.  The port
+never imports the JAX package; the state arrives as plain arrays, dicts of
+them, or objects whose fields are arrays.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import numpy as np
 import torch
 
 __all__ = ["resolve_device", "from_reference", "instance_from_reference", "to_tensor",
-           "params_from_reference", "cache_from_reference", "policy_from_reference"]
+           "params_from_reference", "cache_from_reference", "policy_from_reference",
+           "reference_key", "leaves_to_reference", "array_to_tensor", "tensor_to_numpy",
+           "flatten_tree", "train_state_from_reference", "train_state_to_reference"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -321,12 +326,139 @@ def cache_from_reference(cache_np: dict, cfg, device=None) -> dict:
 
 def policy_from_reference(policy):
     """The port's :class:`~repro_torch.config.ShardingPolicy` with the fields
-    of a reference policy that the serving path reads; the reference's
+    of a reference policy that the serving and training paths read; the reference's
     ``"pallas"`` kernels are the port's ``"cuda"`` ones."""
     from repro_torch.config import ShardingPolicy
 
     impl = {"pallas": "cuda"}.get(policy.attention_impl, policy.attention_impl)
-    return ShardingPolicy(attention_impl=impl, attn_chunk=policy.attn_chunk,
+    return ShardingPolicy(remat=policy.remat, attention_impl=impl, attn_chunk=policy.attn_chunk,
                           attn_block_skip=policy.attn_block_skip,
                           logits_fp32=policy.logits_fp32,
                           kv_cache_dtype=policy.kv_cache_dtype, moe_impl=policy.moe_impl)
+
+
+# ---------------------------------------------------------- training state
+
+
+def reference_key(name: str) -> tuple:
+    """A port parameter name as (the reference tree's path, the layer):
+    ``"blocks.3.attn.w_q"`` -> ``("blocks/attn/w_q", 3)``, ``"embed"`` ->
+    ``("embed", None)``."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return "/".join(["blocks", *parts[2:]]), int(parts[1])
+    return "/".join(parts), None
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy of a tensor on the host as NumPy (never a view of a CPU
+    tensor: a snapshot); bfloat16 as its 16-bit patterns in a 2-byte void
+    array, the bytes the reference's checkpoints hold for it (NumPy has no
+    bfloat16 of its own)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def array_to_tensor(arr) -> torch.Tensor:
+    """A NumPy array as a tensor on the host; bfloat16 (``ml_dtypes``, or the
+    2-byte void patterns of a checkpoint) as torch.bfloat16."""
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def leaves_to_reference(named: dict) -> dict:
+    """Port leaves by parameter name (a model's named parameters, or AdamW
+    moments under the same names) as the reference's flat leaves by path,
+    NumPy on the host, the blocks' leaves stacked ``[L, ...]`` a leaf at a
+    time."""
+    out: dict = {}
+    layers: dict = {}
+    for name, t in named.items():
+        key, layer = reference_key(name)
+        if layer is None:
+            out[key] = tensor_to_numpy(t)
+        else:
+            layers.setdefault(key, {})[layer] = t
+    for key, per in layers.items():
+        out[key] = np.stack([tensor_to_numpy(per[l]) for l in range(len(per))])
+    return out
+
+
+def _nest_tree(flat: dict) -> dict:
+    """Leaves by ``/``-joined path as nested dicts."""
+    tree: dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """Nested dicts as their leaves by ``/``-joined path (the reference
+    checkpoint's keys)."""
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: tree}
+    out: dict = {}
+    for k, v in tree.items():
+        out.update(flatten_tree(v, f"{prefix}{k}/"))
+    return out
+
+
+def _field(obj, name: str):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def train_state_to_reference(state) -> dict:
+    """A port :class:`~repro_torch.runtime.TrainState` as the reference's
+    ``TrainState`` tree of NumPy arrays: ``{"params": ..., "opt": {"step",
+    "m", "v"}}`` with the blocks stacked (what the checkpoint writer
+    stores)."""
+    named = dict(state.params.named_parameters())
+    return {"params": _nest_tree(leaves_to_reference(named)),
+            "opt": {"step": np.asarray(int(state.opt.step), dtype=np.int32),
+                    "m": _nest_tree(leaves_to_reference(state.opt.m)),
+                    "v": _nest_tree(leaves_to_reference(state.opt.v))}}
+
+
+def train_state_from_reference(state_np, cfg, device=None):
+    """The reference's ``TrainState`` (its ``params`` and ``opt`` with
+    ``step``, ``m`` and ``v``, as NumPy; a dataclass or a dict) as the port's
+    :class:`~repro_torch.runtime.TrainState` on ``device``: the parameters
+    through :func:`params_from_reference` (and switched to
+    ``requires_grad``), each moment checked against its parameter's shape
+    and kept in its own dtype (float32 or bfloat16)."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.runtime.train import TrainState
+
+    dev = resolve_device(device)
+    model = params_from_reference(_field(state_np, "params"), cfg, dev).requires_grad_(True)
+    opt = _field(state_np, "opt")
+    named = dict(model.named_parameters())
+
+    def moments(tree, what):
+        flat = flatten_tree(tree)
+        if set(flat) != {reference_key(n)[0] for n in named}:
+            raise ValueError(f"opt.{what} has {sorted(flat)}, expected the parameters' paths")
+        out = {}
+        for name, p in named.items():
+            key, layer = reference_key(name)
+            arr = np.asarray(flat[key])
+            t = array_to_tensor(arr if layer is None else arr[layer])
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"opt.{what}.{key} is {tuple(t.shape)} a layer, expected "
+                                 f"{tuple(p.shape)}")
+            if t.dtype not in (torch.float32, torch.bfloat16):
+                raise TypeError(f"opt.{what}.{key} is {t.dtype}; moments are float32 or bfloat16")
+            out[name] = t.to(dev)
+        return out
+
+    step = torch.tensor(int(np.asarray(_field(opt, "step"))), dtype=torch.int32, device=dev)
+    return TrainState(params=model, opt=AdamWState(step=step, m=moments(_field(opt, "m"), "m"),
+                                                   v=moments(_field(opt, "v"), "v")))

@@ -30,8 +30,10 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["library", "build_seconds", "count_launch", "STATE_LOCK", "SOURCE_DIR",
-           "BUILD_ROOT"]
+import torch
+
+__all__ = ["library", "build_seconds", "count_launch", "refuse_grad", "STATE_LOCK",
+           "SOURCE_DIR", "BUILD_ROOT"]
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -172,6 +174,18 @@ def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches`` (under :data:`STATE_LOCK`)."""
     with STATE_LOCK:
         wrapper.launches += 1
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise ``ValueError`` while grad mode is on and one of ``tensors``
+    requires grad.  The kernels have no backward (nor does the reference:
+    JAX cannot differentiate its Pallas calls), and their outputs carry no
+    ``grad_fn``: gradients would stop at the kernel without an error.  The
+    plain version refuses too, so a CPU run fails where the card's would."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name} has no backward kernel and does not differentiate its inputs; train "
+            "through attention_impl 'chunked' or 'naive', or call it under torch.no_grad()")
 
 
 def check(code: int, what: str) -> None:

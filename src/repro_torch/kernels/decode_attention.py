@@ -30,7 +30,7 @@ import numbers
 
 import torch
 
-from .build import STATE_LOCK, check, count_launch, library
+from .build import STATE_LOCK, check, count_launch, library, refuse_grad
 from .flash_attention import KERNEL_HEAD_DIMS, masked_attention
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_valid", "decode_split",
@@ -163,6 +163,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
     tensors on the CPU.  ``decode_attention.launches`` counts calls that
     launched the kernel (one launch a call)."""
     _check_args(q, k_cache, v_cache, cache_len, window)
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len, window=window)
     if q.device.type != "cuda":

@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from .build import check, count_launch, library
+from .build import check, count_launch, library, refuse_grad
 
 __all__ = ["flash_attention", "flash_attention_plain", "masked_attention", "attention_mask",
            "check_kernel_layout", "NEG_INF", "KERNEL_HEAD_DIMS"]
@@ -135,6 +135,7 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     tensors on the CPU.  ``flash_attention.launches`` counts kernel
     launches."""
     _check_args(q, k, v, window)
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import check, count_launch, library
+from .build import check, count_launch, library, refuse_grad
 
 __all__ = ["rms_norm", "rms_norm_plain"]
 
@@ -49,6 +49,7 @@ def rms_norm(x, w, *, eps: float = 1e-5):
     tensors on the card, :func:`rms_norm_plain` for tensors on the CPU.
     ``rms_norm.launches`` counts kernel launches."""
     _check_args(x, w)
+    refuse_grad("rms_norm", x, w)
     if x.device.type == "cpu":
         return rms_norm_plain(x, w, eps=eps)
     if x.device.type != "cuda":

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import check, count_launch, library
+from .build import check, count_launch, library, refuse_grad
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_tolerance", "pick_chunk", "KERNEL_SIZES",
            "MAX_CHUNK"]
@@ -176,6 +176,7 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk=64):
     :func:`pick_chunk` gives.  ``ssd_scan.launches`` counts the calls that
     launched the kernels (one a call, however many kernels it enqueues)."""
     _check_args(x, dt, A, B, C, D)
+    refuse_grad("ssd_scan", x, dt, A, B, C, D)
     L = pick_chunk(x.shape[1], chunk)
     dt, A, D = dt.float(), A.float().contiguous(), D.float().contiguous()
     if x.device.type == "cpu":

@@ -1,6 +1,7 @@
 """The port's model path: the layers, attention, MLA, the experts, the
-Mamba-2 mixer and the serving functions (prefill + decode) of the decoders
-of every family (dense, moe, ssm, hybrid, vlm, audio)."""
+Mamba-2 mixer, the serving functions (prefill + decode) and the training
+loss of the decoders of every family (dense, moe, ssm, hybrid, vlm,
+audio)."""
 
 from .transformer import (
     Transformer,
@@ -9,6 +10,7 @@ from .transformer import (
     forward,
     init_cache,
     init_params,
+    loss_fn,
     prefill,
     quantize_kv,
 )
@@ -21,6 +23,7 @@ __all__ = [
     "Transformer",
     "init_params",
     "forward",
+    "loss_fn",
     "init_cache",
     "prefill",
     "decode_step",

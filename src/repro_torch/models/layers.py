@@ -13,7 +13,8 @@ import torch.nn.functional as F
 
 from repro_torch.convert import resolve_device
 
-__all__ = ["Initializer", "rms_norm", "rope", "apply_rope", "init_glu_mlp", "glu_mlp"]
+__all__ = ["Initializer", "rms_norm", "rope", "apply_rope", "init_glu_mlp", "glu_mlp",
+           "cross_entropy"]
 
 
 class Initializer:
@@ -86,3 +87,17 @@ def glu_mlp(p, x, act: str = "swiglu"):
     else:
         raise ValueError(act)
     return h @ p.w_down
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in float32; logits [..., V], labels int
+    [...]: logsumexp minus the gold logit, averaged over the tokens, or over
+    ``mask`` (a masked mean over ``max(mask.sum(), 1)``)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -11,7 +11,10 @@ parameter tree (``embed``, ``blocks.<l>.ln1``, ``blocks.<l>.attn.w_q``,
 ``blocks.<l>.moe.shared.w_up`` ...); the functions mirror the reference's:
 
   init_params                     — a seeded :class:`Transformer`
-  forward                         — logits for a full sequence (prefill)
+  forward                         — logits for a full sequence (prefill, and
+                                    the training forward)
+  loss_fn                         — the training loss (cross-entropy plus the
+                                    MoE aux loss)
   init_cache                      — stacked decode caches: KV [L, B, S, KVH, hd],
                                     the MLA latents and/or the Mamba conv
                                     window and state
@@ -21,7 +24,11 @@ parameter tree (``embed``, ``blocks.<l>.ln1``, ``blocks.<l>.attn.w_q``,
 As in the reference, ``prefill`` fills the KV (or latent) cache but leaves
 the Mamba state and conv window at zero (ROADMAP C.4).  A vlm prompt's
 patch embeddings are given to ``forward``/``prefill`` only: the prefix is
-in the cache afterwards.  Everything runs without autograd.
+in the cache afterwards.  ``prefill`` and ``decode_step`` run without
+autograd (the decode step writes the caches in place); ``forward`` and
+``loss_fn`` follow the caller's grad mode, so training differentiates
+them.  A serving model's parameters do not require grad, so its forward
+builds no graph either way.
 """
 
 from __future__ import annotations
@@ -29,11 +36,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig, ShardingPolicy
 from repro_torch.convert import resolve_device
 from .attention import attention, decode_attention
-from .layers import Initializer, apply_rope, glu_mlp, init_glu_mlp, rms_norm, rope
+from .layers import Initializer, apply_rope, cross_entropy, glu_mlp, init_glu_mlp, rms_norm, rope
 from .mla import init_mla, init_mla_cache, mla_attention, mla_decode_step
 from .moe import init_moe, moe_ffn
 from .ssm import init_mamba, init_mamba_cache, mamba_decode_step, mamba_mixer
@@ -42,6 +50,7 @@ __all__ = [
     "Transformer",
     "init_params",
     "forward",
+    "loss_fn",
     "init_cache",
     "quantize_kv",
     "dequantize_kv",
@@ -239,7 +248,6 @@ def _stack(caches: list):
     return tuple(torch.stack(parts) for parts in zip(*caches))
 
 
-@torch.no_grad()
 def forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens, patches=None,
             collect_cache=False):
     """Full-sequence forward over ``tokens`` [B, S] (audio: [B, S, K]) after
@@ -247,14 +255,25 @@ def forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
     (audio: [B, S, K, V]), aux, caches_or_None): ``aux`` is the sum of the
     MoE layers' auxiliary losses (0 without experts); ``caches`` is (k, v),
     each [L, B, S', KVH, hd], MLA's {"c_kv" [L, B, S', r], "k_pe" [L, B,
-    S', dr]}, or None for a family without attention."""
+    S', dr]}, or None for a family without attention.
+
+    When it builds a graph (grad mode on, parameters that require grad) and
+    ``policy.remat == "block"``, each block runs under
+    :func:`torch.utils.checkpoint.checkpoint` (recomputed in the backward
+    pass), as the reference wraps it in ``jax.checkpoint``."""
     x = _embed(model, cfg, tokens, patches)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
+    remat = (policy.remat == "block" and torch.is_grad_enabled()
+             and any(p.requires_grad for p in model.parameters()))
     for blk in model.blocks:
-        x, a, cache = _block(blk, x, cfg, policy, positions)
+        if remat:
+            x, a, cache = checkpoint(_block, blk, x, cfg, policy, positions,
+                                     use_reentrant=False)
+        else:
+            x, a, cache = _block(blk, x, cfg, policy, positions)
         if a is not None:
             aux = aux + a
         if collect_cache and cache is not None:
@@ -262,6 +281,22 @@ def forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
     logits = _head(model, cfg, x, fp32=policy.logits_fp32)
     return logits, aux, (_stack(caches) if caches else None)
+
+
+def loss_fn(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, batch: dict):
+    """batch: {tokens, labels, [patches], [mask]} -> (total, {"loss",
+    "aux"}): the cross-entropy of the logits against ``labels`` (audio:
+    [B, S, K] labels against [B, S, K, V] logits; vlm: the text tail
+    ``logits[:, num_patches:]`` only, the patch prefix has no labels), plus
+    the MoE aux loss in ``total``."""
+    if cfg.family == "vlm" and batch.get("patches") is None:
+        raise ValueError(f"{cfg.name} trains on patch embeddings and text; the batch has no "
+                         "patches")
+    logits, aux, _ = forward(model, cfg, policy, batch["tokens"], batch.get("patches"))
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.num_patches:]
+    loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return loss + aux, {"loss": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

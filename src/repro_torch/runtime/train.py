@@ -1,13 +1,108 @@
-"""Step builders.  The port of the reference's ``runtime/train.py``, so far
-only its serve step; the train step and its state come with the training
-slice of the port."""
+"""Train and serve step builders: the port of the reference's
+``runtime/train.py``.
+
+``make_train_step`` computes the loss's gradients with autograd over
+``microbatches`` installments of the global batch (the intra-step
+counterpart of the paper's installments: activation memory stays bounded),
+then takes one AdamW step.  It updates the state **in place** and returns
+it, where the reference donates its buffers to a jitted step and returns
+new ones.
+
+Microbatch gradients accumulate in each parameter's ``.grad``: the loss of
+microbatch i is scaled by ``1 / n_mb`` before its backward pass, so
+``.grad`` sums ``grad(l_i) / n_mb`` in float32, as the reference's float32
+accumulator does, without a second float32 copy of the parameters (12.85
+GB at llama3.2-3b's full width).  Scaling the loss rather than the
+gradient is exact when ``n_mb`` is a power of two; otherwise the two
+differ by a rounding of each gradient element.  A leaf kept in another
+dtype than float32 is summed into a float32 buffer after each microbatch
+instead (its ``.grad`` is in its own dtype).
+
+The training path runs no kernel: ``attention_impl="cuda"`` is refused.
+The hand-written kernels have no backward, and the reference cannot
+differentiate its Pallas calls either (``jax.grad`` through them raises),
+so it trains through plain JAX and the port through plain PyTorch.
+"""
 
 from __future__ import annotations
 
-from repro_torch.config import ArchConfig, ShardingPolicy
-from repro_torch.models import decode_step
+import dataclasses
 
-__all__ = ["make_serve_step"]
+import torch
+
+from repro_torch.config import ArchConfig, ShardingPolicy, TrainConfig
+from repro_torch.models import Transformer, decode_step, loss_fn
+from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_lr
+
+__all__ = ["TrainState", "make_train_state", "make_train_step", "make_serve_step"]
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Transformer
+    opt: AdamWState
+
+
+def make_train_state(model: Transformer, tcfg: TrainConfig) -> TrainState:
+    """The model's parameters switched to ``requires_grad=True`` (a serving
+    model keeps ``False``) and zeroed AdamW moments in
+    ``tcfg.optimizer_state_dtype`` beside them."""
+    model.requires_grad_(True)
+    dtype = getattr(torch, tcfg.optimizer_state_dtype)
+    return TrainState(params=model, opt=adamw_init(model, state_dtype=dtype))
+
+
+def _split_micro(batch: dict, n: int) -> list:
+    """The batch as ``n`` microbatches of consecutive rows."""
+    parts = {}
+    for k, x in batch.items():
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"global batch {b} not divisible by microbatches {n}")
+        parts[k] = x.reshape(n, b // n, *x.shape[1:])
+    return [{k: x[i] for k, x in parts.items()} for i in range(n)]
+
+
+def make_train_step(cfg: ArchConfig, policy: ShardingPolicy, tcfg: TrainConfig):
+    """Returns train_step(state, batch) -> (state, metrics), with metrics
+    ``{"loss": the total loss (aux included), "lr", "grad_norm"}`` as
+    scalar tensors.  After the step each float32 parameter's ``.grad``
+    holds the gradient the update took (before clipping)."""
+    if policy.attention_impl == "cuda":
+        raise ValueError(
+            "training needs attention_impl 'chunked' or 'naive': the CUDA kernels have no "
+            "backward kernels, and the reference cannot differentiate its Pallas calls "
+            "either, so it trains through plain JAX")
+
+    def train_step(state: TrainState, batch: dict):
+        model = state.params
+        n_mb = tcfg.microbatches
+        named = dict(model.named_parameters())
+        not_f32 = {n for n, p in named.items() if p.dtype != torch.float32}
+        for p in named.values():
+            p.grad = None
+        acc: dict = {}
+        loss = torch.zeros((), dtype=torch.float32, device=model.embed.device)
+        for mb in (_split_micro(batch, n_mb) if n_mb > 1 else [batch]):
+            total, _ = loss_fn(model, cfg, policy, mb)
+            (total / n_mb if n_mb > 1 else total).backward()
+            loss = loss + total.detach() / n_mb if n_mb > 1 else total.detach()
+            for n in not_f32:
+                if named[n].grad is not None:
+                    g = named[n].grad.float()
+                    acc[n] = acc[n] + g if n in acc else g
+                    named[n].grad = None
+        # a leaf the loss does not reach has a zero gradient, as jax.grad gives it
+        grads = {n: acc.get(n, p.grad) for n, p in named.items()}
+        grads = {n: torch.zeros_like(named[n], dtype=torch.float32) if g is None else g
+                 for n, g in grads.items()}
+        lr = cosine_lr(state.opt.step, tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
+        _, _, om = adamw_update(grads, state.opt, model, lr=lr, beta1=tcfg.beta1,
+                                beta2=tcfg.beta2, eps=tcfg.eps, weight_decay=tcfg.weight_decay,
+                                grad_clip=tcfg.grad_clip)
+        return state, {"loss": loss, "lr": lr, **om}
+
+    return train_step
 
 
 def make_serve_step(cfg: ArchConfig, policy: ShardingPolicy):

@@ -745,3 +745,68 @@ def test_session_on_card_matches_the_serial_session(card):
     assert launch_counts()["asap_replay"] > 0
     want = np.array([simulate(i, a.gamma).makespan for i, a in zip(insts, serial)])
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=0)
+
+
+def _grad_case(kernel, card):
+    """Inputs on the card that each autograd-facing wrapper's kernel takes."""
+    g = torch.Generator(device=card).manual_seed(1)
+    r = lambda *s: torch.randn(*s, generator=g, device=card)  # noqa: E731
+    if kernel == "flash_attention":
+        return flash_attention, (r(1, 64, 4, 64), r(1, 64, 2, 64), r(1, 64, 2, 64)), {}
+    if kernel == "decode_attention":
+        return decode_attention, (r(1, 1, 4, 64), r(1, 64, 2, 64), r(1, 64, 2, 64), 40), {}
+    if kernel == "ssd_scan":
+        return ssd_scan, (r(1, 64, 2, 16), torch.rand(1, 64, 2, generator=g, device=card),
+                          -torch.rand(2, generator=g, device=card), r(1, 64, 1, 16),
+                          r(1, 64, 1, 16), torch.ones(2, device=card)), {"chunk": 32}
+    return rms_norm, (r(8, 256), torch.ones(256, device=card)), {}
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention", "ssd_scan",
+                                    "rms_norm"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad_on_card(card, kernel):
+    """An input that requires grad, with grad mode on, raises before any
+    launch; the same call under no_grad launches once."""
+    fn, args, kw = _grad_case(kernel, card)
+    marked = [a.detach().requires_grad_(True) if isinstance(a, torch.Tensor) and i == 0 else a
+              for i, a in enumerate(args)]
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="no backward kernel"):
+        fn(*marked, **kw)
+    assert launch_counts()[kernel] == 0
+    with torch.no_grad():
+        out = fn(*marked, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()[kernel] == 1 and out.grad_fn is None
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-2.7b"])
+def test_smoke_train_step_on_card_matches_cpu(card, arch):
+    """One train step of a smoke model (dense, ssm) on the card against the
+    same step on the CPU from the same weights and batch: loss and grad
+    norm within 1e-5 relative, every gradient leaf within 1e-4 of its max
+    |g| (float32, sums in another order), and no kernel launched."""
+    from repro_torch.config import ShardingPolicy, TrainConfig, get_arch, smoke_variant
+    from repro_torch.data import make_batch
+    from repro_torch.models import init_params
+    from repro_torch.runtime import make_train_state, make_train_step
+
+    cfg = smoke_variant(get_arch(arch))
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    step = make_train_step(cfg, ShardingPolicy(attn_chunk=16), tcfg)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg, 4, 32, step=0).items()}
+    cpu = make_train_state(init_params(cfg, seed=0, dtype=torch.float32, device="cpu"), tcfg)
+    gpu = make_train_state(init_params(cfg, seed=0, dtype=torch.float32, device="cpu").to(card),
+                           tcfg)
+    assert gpu.opt.step.device.type == "cuda"
+    cpu, m_cpu = step(cpu, batch)
+    reset_launch_counts()
+    gpu, m_gpu = step(gpu, {k: v.to(card) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert sum(launch_counts().values()) == 0
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(m_gpu[k]), float(m_cpu[k]), rtol=1e-5, err_msg=k)
+    grads = {n: p.grad for n, p in cpu.params.named_parameters()}
+    for n, p in gpu.params.named_parameters():
+        err = float((p.grad.cpu() - grads[n]).abs().max())
+        assert err <= 1e-4 * max(float(grads[n].abs().max()), 1e-30), (n, err)

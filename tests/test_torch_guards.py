@@ -61,9 +61,12 @@ import repro_torch.eval
 arts = Session(policy=Policy(backend="torch"), device="cpu").solve_bulk(insts)
 assert all(a.ok for a in arts)
 assert [run_strategy(n, f, insts[0]).name for n, f in ALL_HEURISTICS.items()]
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 serve.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu", "--batch", "2",
             "--prompt-len", "8", "--gen-len", "2"])
+train.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu", "--batch", "2",
+            "--seq", "8", "--steps", "1"])
+import repro_torch.checkpoint, repro_torch.optim
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
 """
 
@@ -110,14 +113,20 @@ def test_serve_without_device_runs_on_the_card_and_raises_without_one():
 
 @pytest.mark.parametrize("entry", ["init_params", "init_cache", "init_mamba_cache", "Initializer",
                                    "prompt_tokens", "Session_torch", "Session_cuda",
-                                   "evaluate_gammas", "run_campaign"])
-def test_model_entry_points_default_to_the_card_and_raise_without_one(entry):
+                                   "evaluate_gammas", "run_campaign", "train_main",
+                                   "train_init_state", "restore_checkpoint",
+                                   "train_state_from_reference"])
+def test_model_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path):
     import torch
 
     from repro_torch.api import Policy, Session
-    from repro_torch.config import get_arch, smoke_variant
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.config import TrainConfig, get_arch, smoke_variant
+    from repro_torch.convert import train_state_from_reference, train_state_to_reference
     from repro_torch.eval import run_campaign
+    from repro_torch.launch import train
     from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.runtime import make_train_state
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.layers import Initializer
     from repro_torch.models.ssm import init_mamba_cache
@@ -137,7 +146,20 @@ def test_model_entry_points_default_to_the_card_and_raise_without_one(entry):
              "Session_torch": lambda: Session(policy=Policy(backend="torch")).solve(inst),
              "Session_cuda": lambda: Session(policy=Policy(backend="cuda")).solve(inst),
              "evaluate_gammas": lambda: Session().evaluate_gammas([inst], [np.ones((3, 1)) / 3]),
-             "run_campaign": lambda: run_campaign(micro_spec(backend="cuda"))}
+             "run_campaign": lambda: run_campaign(micro_spec(backend="cuda")),
+             "train_main": lambda: train.main(["--arch", "llama3.2-3b", "--smoke", "--steps",
+                                               "1"]),
+             "train_init_state": lambda: train.init_state(
+                 train.parse_args(["--arch", "llama3.2-3b", "--smoke"]), cfg, TrainConfig()),
+             "restore_checkpoint": lambda: restore_checkpoint(str(tmp_path), 0, cpu_state()),
+             "train_state_from_reference": lambda: train_state_from_reference(
+                 train_state_to_reference(cpu_state()), cfg)}
+
+    def cpu_state():
+        return make_train_state(init_params(cfg, seed=0, device="cpu"), TrainConfig())
+
+    if entry == "restore_checkpoint":
+        save_checkpoint(str(tmp_path), 0, cpu_state())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
 

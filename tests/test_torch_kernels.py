@@ -306,3 +306,40 @@ def test_rms_norm_rejects_bad_arguments(what):
     args = {"w_shape": (x, w[:8]), "x_dtype": (x.double(), w), "scalar": (x[0, 0], w)}[what]
     with pytest.raises((ValueError, TypeError)):
         rms_norm(*args)
+
+
+def _grad_inputs(kernel):
+    """Small valid inputs of each autograd-facing kernel wrapper."""
+    from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
+
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    if kernel == "flash_attention":
+        return flash_attention, (r(1, 8, 4, 16), r(1, 8, 2, 16), r(1, 8, 2, 16)), {}
+    if kernel == "decode_attention":
+        return decode_attention, (r(1, 1, 4, 16), r(1, 8, 2, 16), r(1, 8, 2, 16), 5), {}
+    if kernel == "ssd_scan":
+        x, dt = r(1, 8, 2, 4), torch.rand(1, 8, 2, generator=g)
+        return ssd_scan, (x, dt, -torch.rand(2, generator=g), r(1, 8, 1, 4), r(1, 8, 1, 4),
+                          torch.ones(2)), {"chunk": 4}
+    return rms_norm, (r(3, 8), torch.ones(8)), {}
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention", "ssd_scan",
+                                    "rms_norm"])
+def test_wrappers_refuse_inputs_that_require_grad(kernel):
+    """No kernel has a backward: with grad mode on, an input that requires
+    grad raises (on the CPU as on the card) instead of returning a result
+    without a grad_fn; under no_grad, or with no input requiring grad, the
+    same call runs."""
+    fn, args, kw = _grad_inputs(kernel)
+    out = fn(*args, **kw)
+    for i, a in enumerate(args):
+        if not isinstance(a, torch.Tensor) or not a.is_floating_point():
+            continue
+        marked = [b.detach().requires_grad_(j == i) if isinstance(b, torch.Tensor) else b
+                  for j, b in enumerate(args)]
+        with pytest.raises(ValueError, match="no backward kernel"):
+            fn(*marked, **kw)
+        with torch.no_grad():
+            assert torch.equal(fn(*marked, **kw), out)
