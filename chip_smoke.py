@@ -4,8 +4,8 @@ paper's §6 scale, the replanning path and the plan server over the same
 populations, the serving paths of llama3.2-3b, mamba2-2.7b, hymba-1.5b,
 paligemma-3b, musicgen-medium and deepseek-v2-lite-16b at full width and
 depth, the golden campaign's full tier through the planner's front door,
-and training of llama3.2-3b at full width and depth, and checks what comes
-out.
+training of llama3.2-3b at full width and depth, alone and down the
+paper's chain of stages, and checks what comes out.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -114,10 +114,37 @@ Phases, each printing one JSON line:
    parameters within 4 lr, the allowance for an Adam step turned by a
    gradient at rounding level; the measured difference and whether it was
    bitwise are printed).  Every kernel's launch count stays 0 throughout:
-   training runs no kernel (none has a backward).
+   training runs no kernel (none has a backward);
+10. ``chain``: the paper's chain.  (a) llama3.2-3b at full width and depth
+   trained through ``repro_torch.launch.train``'s chain functions
+   (``run_dlt_chain``) down a 4-stage ``LocalChain`` on the card with the
+   reference CLI's heterogeneous speeds: 2 loads of 4 x 512 tokens a
+   super-step in 2 installments each, chunked attention (chunk 512), lr
+   5e-5, 4 super-steps, stage 3 straggling (x2) from step 1 and stage 1
+   lost at step 2 (the chain shrinks to 3); each super-step's plan
+   (samples per cell and stage), loss, synchronised wall, tokens/s and peak
+   memory; the first loss against ``loss_fn`` over the same 8 samples in one
+   pass (1e-5 relative); every ``counts`` summing to loads x batch; then one
+   more 4-stage super-step and a ``make_train_step`` step on the same 8
+   samples back to back, and a profiled super-step (device ms a stage).
+   (b) The same model with 2 layers: one chain step's gradients against
+   ``make_train_step`` over the same samples (1e-3 of each leaf's max
+   |g|); a failure run through ``run_dlt_chain`` whose restore from the
+   checkpoint on the card is watched (the state restored exact); a
+   ``DistChain`` of 2 processes on the one card (gloo, hops through host
+   memory, started with ``spawn``), two steps, against the ``LocalChain``
+   (loss 1e-6 relative) with the replicas bitwise equal across the ranks,
+   and the hops' and the all-reduce's share of its second step.  (c)
+   ``ChainReplanner`` on the ``"cuda"`` backend over phase (a)'s chain: 256
+   straggler what-ifs in one bulk call, ``auto_installments(t_max=8)``,
+   ``on_failure(1, ...)`` and a warm ``stream()`` of 8 ``SpeedObserved``,
+   every makespan within 1e-9 of the port's serial solve, the pivot and
+   replay kernels' launches counted (> 0).  Training launches no kernel.
 
-Then a ``{"train": {...}}`` summary line, the ``{"kernels": [...]}`` line
-(each kernel with its ``train_launches``, 0), the card's name and power limit, and
+Then a ``{"train": {...}}`` and a ``{"chain": {...}}`` summary line, the
+``{"kernels": [...]}`` line (each kernel with its ``train_launches`` and
+``chain_train_launches``, 0, and the engine kernels' ``launches_by_path``
+with phase 10's), the card's name and power limit, and
 the final ``{"ok": true, ...}`` line.  Any failed check raises, so the
 script exits non-zero before that line.  With no card, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
@@ -137,13 +164,16 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-FP64_FLOP_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
-FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (NVIDIA data sheet)
-BF16_FLOP_PER_S = 989e12  # H100 SXM bfloat16 tensor cores, dense (NVIDIA data sheet)
-TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense (NVIDIA data sheet)
+sys.path.insert(0, str(SRC))
+from repro_torch.launch.mesh import HW  # noqa: E402  (the card's data-sheet constants)
+
+HBM_BYTES_PER_S = HW.HBM_BW
+FP64_FLOP_PER_S = HW.PEAK_FLOPS_FP64
+FP32_FLOP_PER_S = HW.PEAK_FLOPS_FP32
+BF16_FLOP_PER_S = HW.PEAK_FLOPS_BF16
+TF32_FLOP_PER_S = HW.PEAK_FLOPS_TF32
 SPLIT_TF32_PRODUCTS = 3  # float32 flash attention: hi*hi + hi*lo + lo*hi per product
-L2_BYTES = 50 << 20
+L2_BYTES = HW.L2_BYTES
 SEED = 20261017
 GOLDEN_976 = 976.1527780792386  # star/ret0.75/rel0/m2/n3/q4/het1/cc0.02 (HiGHS)
 GOLDEN_Q2 = 781.0 / 653.0 * 0.75  # the paper's §3 example at lambda = 3/4, Q = 2
@@ -2140,11 +2170,419 @@ def train_phase(dev) -> dict:
             "fp32_peak_share": full["fp32_peak_share"], "launches": full["launches"]}
 
 
+# ---------------------------------------------------------------- phase 10
+
+# the reference CLI's chain (launch/train.py run_dlt_chain): 4 stages of
+# speeds 1 / (1 + 0.2 i), links at ~15 ms a batch; 2 loads of 4 x 512
+# tokens a super-step in 2 installments each; a straggler (stage 3 at half
+# speed) from step 1, stage 1 lost at step 2
+CHAIN_STAGES, CHAIN_Q, CHAIN_LOADS, CHAIN_STEPS = 4, 2, 2, 4
+CHAIN_FAIL, CHAIN_STRAGGLE = "1@step2", "3@step1x2.0"
+CHAIN_LOSS_RTOL = 1e-5  # the chain's loss against one pass over the same samples
+DIST_LOSS_RTOL = 1e-6  # a DistChain's loss against the LocalChain's
+CHAIN_SCENARIOS = 256  # phase 10 (c): straggler what-ifs in one bulk call
+CHAIN_CKPT_DIR = REPO / "build" / "chip_smoke_chain_ckpt"
+CHAIN_DIST_DIR = REPO / "build" / "chip_smoke_dist_chain"
+
+
+def _chain_args(steps: int, dev, stages: int = CHAIN_STAGES, extra=()):
+    from repro_torch.launch import train as cli
+
+    return cli.parse_args(["--arch", TRAIN_ARCH, "--steps", str(steps), "--batch",
+                           str(TRAIN_B), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+                           "--seed", str(SEED), "--device", str(dev), "--dlt-chain", str(stages),
+                           "--dlt-q", str(CHAIN_Q), "--dlt-loads", str(CHAIN_LOADS), *extra])
+
+
+def _super_step_data(cfg, args, data_step: int, stages: int):
+    """(tokens, labels, counts) of the super-step at ``data_step`` under the
+    CLI's first plan of ``stages`` stages, and its batches."""
+    from repro_torch.data import batch_load_spec, make_batch
+    from repro_torch.launch import train as cli
+    from repro_torch.runtime.dlt_runner import stage_batches
+    from repro_torch.runtime.ft import RecoveringChain
+
+    planner, _ = cli.chain_planner(args, cfg, stages)
+    loads = [batch_load_spec(cfg, args.batch, args.seq) for _ in range(args.dlt_loads)]
+    plan = RecoveringChain(planner, loads, q=args.dlt_q).plan
+    batches = [make_batch(cfg, args.batch, args.seq, data_step + i, seed=args.seed)
+               for i in range(args.dlt_loads)]
+    return (*stage_batches(plan, batches, stages), batches)
+
+
+def _concat(batches, dev) -> dict:
+    return {k: torch.from_numpy(np.concatenate([b[k] for b in batches])).to(dev)
+            for k in ("tokens", "labels")}
+
+
+def _chain_device_ms(prof, stages: int) -> dict:
+    """Device milliseconds of one profiled chain step by stage: a kernel
+    belongs to the stage whose ``chain.stage{i}`` scope was open on the host
+    when its op launched it (the backward's too: ``backward()`` returns
+    only when the autograd engine has launched the stage's last kernel);
+    the rest (the optimizer, the host-to-device copy of the chunk) apart."""
+    spans = [(e.time_range.start, e.time_range.end, int(e.name[len("chain.stage"):]))
+             for e in prof.events() if e.name.startswith("chain.stage")
+             and e.device_type != torch.autograd.DeviceType.CUDA]
+    out = {f"stage{i}": 0.0 for i in range(stages)} | {"rest": 0.0}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA or not e.kernels:
+            continue
+        t = e.time_range.start
+        key = next((f"stage{i}" for a, b, i in spans if a <= t <= b), "rest")
+        out[key] += sum(k.duration for k in e.kernels) / 1e3
+    return out
+
+
+def _profiled_chain_step(cfg, policy, tcfg, state, args, data_step: int, dev) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.dlt_runner import LocalChain, make_dlt_train_step
+
+    toks, labs, counts, _ = _super_step_data(cfg, args, data_step, CHAIN_STAGES)
+    step = make_dlt_train_step(cfg, policy, tcfg, LocalChain(CHAIN_STAGES, dev), len(counts))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, toks, labs, counts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_stage = _chain_device_ms(prof, CHAIN_STAGES)
+    rows = counts.sum(axis=0)
+    check(all((by_stage[f"stage{i}"] > 0) == (rows[i] > 0) for i in range(CHAIN_STAGES)),
+          f"the profiler saw the kernels of every stage with rows {rows.tolist()}: {by_stage}")
+    return dict(device_ms=by_stage, wall_ms=1e3 * wall, samples=counts.tolist(),
+                device_total_ms=sum(by_stage.values()))
+
+
+def chain_full_phase(dev) -> dict:
+    """Phase 10 (a): llama3.2-3b at full width and depth trained down a
+    4-stage ``LocalChain`` through ``repro_torch.launch.train``'s chain
+    functions: a straggler replan, then a failure that shrinks the chain."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as cli
+    from repro_torch.models import loss_fn
+    from repro_torch.runtime import make_train_step
+    from repro_torch.runtime.dlt_runner import LocalChain, make_dlt_train_step
+
+    args = _chain_args(CHAIN_STEPS, dev, extra=("--fail", CHAIN_FAIL, "--straggle",
+                                                 CHAIN_STRAGGLE))
+    cfg, policy, tcfg = cli.build_cfg(args)
+    state = cli.init_state(args, cfg, tcfg)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    # the first super-step's loss, as one pass over its 8 samples would give it
+    _, _, _, batches = _super_step_data(cfg, args, 0, CHAIN_STAGES)
+    with torch.no_grad():
+        single = float(loss_fn(state.params, cfg, policy, _concat(batches, dev))[0])
+    _free()
+    reset_launch_counts()
+    log, state = cli.run_dlt_chain(args, cfg, policy, tcfg, state=state)
+    counts = launch_counts()
+    check(all(v == 0 for v in counts.values()), f"the chain's training launched kernels: {counts}")
+    check([m["stages"] for m in log] == [4, 4, 3, 3], f"the chain shrank 4 -> 3: {log}")
+    check(all(sum(map(sum, m["samples"])) == CHAIN_LOADS * TRAIN_B for m in log),
+          f"every super-step's counts sum to loads x batch: {[m['samples'] for m in log]}")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in log),
+          f"losses and grad norms finite: {log}")
+    loss_err = abs(log[0]["loss"] - single) / abs(single)
+    check(loss_err <= CHAIN_LOSS_RTOL,
+          f"the chain's first loss {log[0]['loss']} against one pass {single}: {loss_err}")
+    for m in log:
+        progress(f"chain super-step {m['step']}: {m['stages']} stages, samples {m['samples']}, "
+                 f"loss {m['loss']:.5f}, {m['time_s']:.3f} s, {m['tok_per_s']:.0f} tok/s, "
+                 f"peak {m['peak_mem_gb']} GB")
+
+    # one more super-step of the 4-stage chain and a phase-9 step (make_train_step)
+    # on the same 8 samples, back to back; then the 4-stage step profiled
+    toks, labs, cnt, batches = _super_step_data(cfg, args, 2 * CHAIN_STEPS, CHAIN_STAGES)
+    chain_step = make_dlt_train_step(cfg, policy, tcfg, LocalChain(CHAIN_STAGES, dev), len(cnt))
+    plain_step = make_train_step(cfg, policy, tcfg)
+    walls = {}
+    for name, fn in (("chain", lambda: chain_step(state, toks, labs, cnt)),
+                     ("plain", lambda: plain_step(state, _concat(batches, dev)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = fn()
+        float(m["loss"])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    _free()
+    prof = _profiled_chain_step(cfg, policy, tcfg, state, args, 2 * CHAIN_STEPS + 2, dev)
+    counts = launch_counts()
+    check(all(v == 0 for v in counts.values()), f"the chain's training launched kernels: {counts}")
+    del state
+    _free()
+    steps = [{k: m[k] for k in ("step", "stages", "samples", "loss", "lr", "grad_norm",
+                                "tok_per_s", "peak_mem_gb", "makespan")}
+             | {"wall_ms": 1e3 * m["time_s"]} for m in log]
+    return dict(arch=cfg.name, params=n_params, dtype="float32", stages=CHAIN_STAGES,
+                q=CHAIN_Q, loads=CHAIN_LOADS, batch=TRAIN_B, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                fail=CHAIN_FAIL, straggle=CHAIN_STRAGGLE, super_steps=steps,
+                first_loss_single_pass=single, first_loss_rel_err=loss_err,
+                chain_step_ms=1e3 * walls["chain"], plain_step_ms=1e3 * walls["plain"],
+                profiled_step=prof, launches=counts)
+
+
+def _dist_chain_worker(rank: int, world: int, init: str, out: str, device: str) -> None:
+    """One stage of phase 10 (b)'s DistChain: a spawned process on the
+    card, joined to the others over gloo; two chain steps of the 2-layer
+    model, then its parameters held bitwise against rank 0's."""
+    import dataclasses
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.config import get_arch
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.mesh import make_chain_mesh
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world)
+    try:
+        args = _chain_args(2, device, stages=world)
+        _, policy, tcfg = cli.build_cfg(args)
+        cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_SMALL[0])
+        group = make_chain_mesh(world, device)
+        log, state = cli.run_dlt_chain(args, cfg, policy, tcfg, group=group)
+        equal = True
+        for p in state.params.parameters():
+            x = p.detach().clone()
+            dist.broadcast(x, 0)
+            equal = equal and torch.equal(x, p.detach())
+        flag = torch.tensor([0 if equal else 1])
+        dist.all_reduce(flag)
+        with open(f"{out}/rank{rank}.json", "w") as f:
+            # the second step's times: the first pays each process's warm-up
+            json.dump(dict(loss=log[0]["loss"], samples=log[0]["samples"],
+                           backend=group.backend, staged=group.staged,
+                           replicas_equal=int(flag) == 0,
+                           steps=[{k: m[k] for k in ("loss", "time_s", "hop_s", "sum_s")}
+                                  for m in log]), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def chain_small_phase(dev) -> dict:
+    """Phase 10 (b): the same model with 2 layers: one chain step's
+    gradients against ``make_train_step`` over the same samples, a failure
+    restored from a checkpoint on the card, and a 2-process ``DistChain``
+    on the one card against the ``LocalChain``."""
+    import dataclasses
+    import multiprocessing as mp
+    import shutil
+
+    from repro_torch.config import get_arch
+    from repro_torch.launch import train as cli
+    from repro_torch.models import init_params
+    from repro_torch.runtime import make_train_state, make_train_step
+    from repro_torch.runtime.dlt_runner import LocalChain, make_dlt_train_step
+
+    L = TRAIN_SMALL[0]
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=L)
+    args = _chain_args(2, dev)
+    _, policy, tcfg = cli.build_cfg(args)
+
+    # gradients: one chain step against one step over the samples concatenated
+    toks, labs, cnt, batches = _super_step_data(cfg, args, 0, CHAIN_STAGES)
+    chain = make_train_state(init_params(cfg, SEED, torch.float32, dev), tcfg)
+    chain, m_chain = make_dlt_train_step(cfg, policy, tcfg, LocalChain(CHAIN_STAGES, dev),
+                                         len(cnt))(chain, toks, labs, cnt)
+    plain = make_train_state(init_params(cfg, SEED, torch.float32, dev), tcfg)
+    plain, m_plain = make_train_step(cfg, policy, tcfg)(plain, _concat(batches, dev))
+    want = _grads(plain)
+    grad_err = max(float((g - want[n]).abs().max()) / max(float(want[n].abs().max()), 1e-30)
+                   for n, g in _grads(chain).items())
+    loss_err = abs(float(m_chain["loss"]) - float(m_plain["loss"])) / abs(float(m_plain["loss"]))
+    del chain, plain, want
+    _free()
+    check(grad_err <= TRAIN_GRAD_TOL and loss_err <= CHAIN_LOSS_RTOL,
+          f"chain step against one pass: gradients {grad_err}, loss {loss_err}")
+
+    # a failure after 2 super-steps, restored from the checkpoint on the card
+    # (the CLI's own path; the restore is watched, not changed)
+    shutil.rmtree(CHAIN_CKPT_DIR, ignore_errors=True)
+    fargs = _chain_args(2, dev, extra=("--fail", "1@step2", "--save-every", "2",
+                                       "--ckpt-dir", str(CHAIN_CKPT_DIR)))
+    restore, seen = cli.restore_checkpoint, {}
+
+    def leaves(state) -> dict:
+        return {**{"p/" + n: p.detach() for n, p in state.params.named_parameters()},
+                **{"m/" + n: t for n, t in state.opt.m.items()},
+                **{"v/" + n: t for n, t in state.opt.v.items()}}
+
+    def watched(directory, step, target, device=None):
+        before = {n: t.clone() for n, t in leaves(target).items()}
+        opt_step = int(target.opt.step)
+        t0 = time.perf_counter()
+        out = restore(directory, step, target, device=device)
+        torch.cuda.synchronize()
+        seen["restore_s"] = time.perf_counter() - t0
+        after = leaves(target)
+        seen["exact"] = int(target.opt.step) == opt_step and all(
+            torch.equal(before[n], after[n]) for n in before)
+        seen["step"] = step
+        return out
+
+    cli.restore_checkpoint = watched
+    try:
+        flog, fstate = cli.run_dlt_chain(fargs, cfg, policy, tcfg)
+    finally:
+        cli.restore_checkpoint = restore
+    ckpt_gb = sum(f.stat().st_size for f in CHAIN_CKPT_DIR.rglob("*") if f.is_file()) / 1e9
+    shutil.rmtree(CHAIN_CKPT_DIR, ignore_errors=True)
+    del fstate
+    _free()
+    check(seen.get("step") == 1 and seen.get("exact"),
+          f"the failure restored checkpoint step 1 exactly: {seen}")
+
+    # a DistChain of 2 processes on the one card (gloo, hops through host
+    # memory) against the LocalChain of 2 stages, one step each
+    shutil.rmtree(CHAIN_DIST_DIR, ignore_errors=True)
+    CHAIN_DIST_DIR.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dist_chain_worker,
+                         args=(r, 2, str(CHAIN_DIST_DIR / "rendezvous"), str(CHAIN_DIST_DIR),
+                               str(dev)))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    dist_s = time.perf_counter() - t0
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"the DistChain processes ended: {[p.exitcode for p in procs]}")
+    ranks = [json.loads((CHAIN_DIST_DIR / f"rank{r}.json").read_text()) for r in range(2)]
+    shutil.rmtree(CHAIN_DIST_DIR, ignore_errors=True)
+    largs = _chain_args(1, dev, stages=2)
+    llog, lstate = cli.run_dlt_chain(largs, cfg, policy, tcfg)
+    del lstate
+    _free()
+    dist_err = abs(ranks[0]["loss"] - llog[0]["loss"]) / abs(llog[0]["loss"])
+    check(all(r["replicas_equal"] for r in ranks) and ranks[0]["loss"] == ranks[1]["loss"],
+          f"the DistChain's replicas bitwise equal across ranks: {ranks}")
+    check(ranks[0]["backend"] == "gloo" and ranks[0]["staged"],
+          f"two ranks on one card: gloo, hops through host memory: {ranks[0]}")
+    check(dist_err <= DIST_LOSS_RTOL and ranks[0]["samples"] == llog[0]["samples"],
+          f"DistChain against LocalChain: loss {ranks[0]['loss']} vs {llog[0]['loss']}")
+    return dict(layers=L, grad_err=grad_err, loss_err_vs_single_pass=loss_err,
+                grad_tol=TRAIN_GRAD_TOL, restored_exact=seen["exact"],
+                restored_step=seen["step"], restore_s=seen["restore_s"], ckpt_gb=ckpt_gb,
+                failure_run=[{k: m[k] for k in ("step", "stages", "loss")} for m in flog],
+                dist=dict(processes=2, wall_s=dist_s, local_loss=llog[0]["loss"],
+                          local_step_ms=1e3 * llog[0]["time_s"], loss_rel_err=dist_err,
+                          ranks=[r | {f"{k}_share": r["steps"][1][f"{k}_s"]
+                                      / r["steps"][1]["time_s"] for k in ("hop", "sum")}
+                                 for r in ranks]))
+
+
+def chain_replan_phase(dev) -> dict:
+    """Phase 10 (c): ``ChainReplanner`` on the card (the ``"cuda"``
+    backend) over phase (a)'s chain: 256 straggler what-ifs in one bulk
+    call, the auto-T sweep, a failure replan and a warm stream of 8 speed
+    observations; every makespan against the port's serial solve."""
+    import dataclasses
+
+    from repro_torch.api import Policy, Session
+    from repro_torch.core.planner import Planner
+    from repro_torch.data import batch_load_spec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as cli
+    from repro_torch.runtime.dlt_runner import ChainReplanner
+    from repro_torch.runtime.replan import SpeedObserved
+
+    args = _chain_args(CHAIN_STEPS, dev)
+    cfg, _, _ = cli.build_cfg(args)
+    loads = [batch_load_spec(cfg, args.batch, args.seq) for _ in range(CHAIN_LOADS)]
+    planner, _ = cli.chain_planner(args, cfg, CHAIN_STAGES)
+    rng = np.random.default_rng(SEED + 10)
+    scales = np.ones((CHAIN_SCENARIOS, CHAIN_STAGES))
+    scales[np.arange(CHAIN_SCENARIOS), rng.integers(0, CHAIN_STAGES, CHAIN_SCENARIOS)] = \
+        1.0 / rng.uniform(1.1, 3.0, CHAIN_SCENARIOS)
+    serial = Session(device="cpu")
+
+    def serial_mk(problem, q=CHAIN_Q):
+        return serial.solve(problem, Policy(installments=q, backend="serial")).makespan
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rp = ChainReplanner(planner, q=CHAIN_Q, device=dev)
+    mks = rp.what_if_speeds(loads, scales)
+    what_if_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    auto = rp.auto_installments(loads, t_max=8)
+    auto_s = time.perf_counter() - t0
+    base = rp.planner
+    t0 = time.perf_counter()
+    failed = rp.on_failure(1, loads, restore_delay=1.0)
+    failure_s = time.perf_counter() - t0
+    stream = rp.stream(loads)
+    arts = []
+    t0 = time.perf_counter()
+    for k in range(8):
+        i = k % len(rp.planner.stages)
+        arts.append(stream.apply(SpeedObserved(i, stream.problem.w[i] * (1 + 0.05 * (k + 1)))))
+    stream_s = time.perf_counter() - t0
+    stream.close()
+    counts = launch_counts()
+
+    worst = 0.0
+    for sc, mk in zip(scales, mks):
+        stages = [dataclasses.replace(s, flops_per_sec=s.flops_per_sec * f)
+                  for s, f in zip(base.stages, sc)]
+        want = serial_mk(Planner(stages, base.links).to_problem(loads))
+        worst = max(worst, abs(mk - want) / want)
+    for q, mk in auto.makespans.items():
+        want = serial_mk(base.to_problem(loads), q)
+        worst = max(worst, abs(mk - want) / want)
+    want = serial_mk(rp.planner.to_problem(loads))
+    worst = max(worst, abs(failed.makespan - want) / want)
+    n_warm = 0
+    for a in arts:
+        check(a.ok, f"stream artifact {a.status}")
+        n_warm += bool(a.events[-1]["warm"])
+        want = serial_mk(a.problem)
+        worst = max(worst, abs(a.makespan - want) / want)
+    check(worst <= RTOL, f"ChainReplanner's makespans against the serial solve: {worst}")
+    check(counts["simplex_pivot"] > 0 and counts["asap_replay"] > 0,
+          f"the chain's replans launched the pivot and replay kernels: {counts}")
+    progress(f"chain replanner: {CHAIN_SCENARIOS} what-ifs in {what_if_s:.3f} s, auto-T "
+             f"{auto_s:.3f} s (T* {auto.t_star}), failure {failure_s:.3f} s, 8 events "
+             f"{stream_s:.3f} s ({n_warm} warm); launches {counts}")
+    return dict(scenarios=CHAIN_SCENARIOS, what_if_s=what_if_s, auto_t_s=auto_s,
+                t_star=auto.t_star, failure_s=failure_s, stream_s=stream_s, stream_warm=n_warm,
+                max_rel_diff_serial=worst, launches=counts,
+                makespan_range=[float(mks.min()), float(mks.max())])
+
+
+def chain_phase(dev) -> dict:
+    """Phase 10, with the launch counts set to 0 just before each part and
+    read just after: training runs no kernel; the replanner runs the pivot
+    and replay kernels."""
+    full = chain_full_phase(dev)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    small = chain_small_phase(dev)
+    counts = launch_counts()
+    check(all(v == 0 for v in counts.values()), f"phase 10 (b) launched kernels: {counts}")
+    replan = chain_replan_phase(dev)
+    emit(phase="chain", **full, small=small, replan=replan)
+    return {"train_launches": {k: full["launches"][k] + counts[k] for k in counts},
+            "replan_launches": replan["launches"],
+            "super_step_ms": [m["wall_ms"] for m in full["super_steps"]],
+            "chain_step_ms": full["chain_step_ms"], "plain_step_ms": full["plain_step_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs the card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     from repro_torch.engine import SolutionCache
     from repro_torch.engine.arena import InstanceArena
     from repro_torch.kernels.build import build_seconds, library
@@ -2228,9 +2666,13 @@ def main() -> int:
     # phase 9: training, after the serving models are freed
     _free()
     trained = train_phase(dev)
+    # phase 10: the paper's chain (training down a chain of stages, replanning)
+    _free()
+    chained = chain_phase(dev)
 
     by_path = {k: {"solve_bulk (phase 3)": launches[k], "replan (phase 7)": tier["replan"][k],
-                   "plan_server (phase 8)": tier["plan_server"][k]}
+                   "plan_server (phase 8)": tier["plan_server"][k],
+                   "chain (phase 10)": chained["replan_launches"][k]}
                for k in ("simplex_pivot", "asap_replay")}
     p, r = piv["chain"]["set-up"], rep["chain"]
     f, d, m = fa["causal_f32"], da["len544_w0_float32"], ssd["mamba2_f32"]
@@ -2277,7 +2719,9 @@ def main() -> int:
     ]
     for k in kernels:
         k["train_launches"] = trained["launches"][k["name"]]
+        k["chain_train_launches"] = chained["train_launches"][k["name"]]
     print(json.dumps({"train": trained}))
+    print(json.dumps({"chain": chained}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,11 @@ The port of the reference's ``optim/compress.py``.  Two schemes:
   * top-k sparsification with error feedback (Stich et al.): the residual
     carries the unsent mass, so the descent direction is unbiased over time.
 
-Nothing on the port's train path calls these yet; the reference's chain
-trainer does (ROADMAP A.15).  Trees are flat mappings of names to tensors,
-as in :mod:`repro_torch.optim.adamw`.
+No train path calls these, in the port or in the reference: the
+reference's chain trainer (``runtime/dlt_runner.py``) sums its gradients
+with a plain ``psum``, and the port's with a plain ``all_reduce``.  Trees
+are flat mappings of names to tensors, as in
+:mod:`repro_torch.optim.adamw`.
 """
 
 from __future__ import annotations

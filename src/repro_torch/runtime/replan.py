@@ -32,11 +32,12 @@ event recording the trigger, the warm/cold decision, the engine's actual
 basis reuse, and the pivot counts — the serving audit trail DESIGN.md §11
 specifies.
 
-This supersedes the offline what-if surface on the reference's
-``ChainReplanner`` (``repro/runtime/dlt_runner.py``; not in the port yet:
-``replan`` / ``replan_without_stage`` / ``what_if_speeds``): those re-solve
-hypotheticals from scratch per call; this consumes an ordered stream and
-carries solver state (basis, cache, subscriptions) across solves.
+This supersedes the offline what-if surface of
+:class:`repro_torch.runtime.dlt_runner.ChainReplanner` (``replan`` /
+``on_failure`` / ``what_if_speeds``): those re-solve hypotheticals from
+scratch per call; this consumes an ordered stream and carries solver state
+(basis, cache, subscriptions) across solves.  ``ChainReplanner.stream()``
+opens one on the chain's session.
 """
 
 from __future__ import annotations

@@ -34,7 +34,8 @@ from repro_torch.config import ArchConfig, ShardingPolicy, TrainConfig
 from repro_torch.models import Transformer, decode_step, loss_fn
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_lr
 
-__all__ = ["TrainState", "make_train_state", "make_train_step", "make_serve_step"]
+__all__ = ["TrainState", "make_train_state", "make_train_step", "make_serve_step",
+           "GradAccumulator", "apply_update", "refuse_kernel_attention"]
 
 
 @dataclasses.dataclass
@@ -63,43 +64,73 @@ def _split_micro(batch: dict, n: int) -> list:
     return [{k: x[i] for k, x in parts.items()} for i in range(n)]
 
 
-def make_train_step(cfg: ArchConfig, policy: ShardingPolicy, tcfg: TrainConfig):
-    """Returns train_step(state, batch) -> (state, metrics), with metrics
-    ``{"loss": the total loss (aux included), "lr", "grad_norm"}`` as
-    scalar tensors.  After the step each float32 parameter's ``.grad``
-    holds the gradient the update took (before clipping)."""
+def refuse_kernel_attention(policy: ShardingPolicy) -> None:
+    """Training runs no kernel: ``attention_impl="cuda"`` raises."""
     if policy.attention_impl == "cuda":
         raise ValueError(
             "training needs attention_impl 'chunked' or 'naive': the CUDA kernels have no "
             "backward kernels, and the reference cannot differentiate its Pallas calls "
             "either, so it trains through plain JAX")
 
+
+class GradAccumulator:
+    """Gradients of a step summed over several backward passes.
+
+    Clears every ``.grad`` when made.  Float32 leaves sum in their
+    ``.grad``; a leaf in another dtype is summed into a float32 buffer after
+    each pass (its ``.grad`` is in its own dtype).  :meth:`gradients` gives
+    every leaf's float32 gradient, zero for a leaf no pass reached, as
+    ``jax.grad`` gives it."""
+
+    def __init__(self, model: Transformer):
+        self.named = dict(model.named_parameters())
+        self.not_f32 = {n for n, p in self.named.items() if p.dtype != torch.float32}
+        self.acc: dict = {}
+        for p in self.named.values():
+            p.grad = None
+
+    def backward(self, loss: torch.Tensor) -> None:
+        loss.backward()
+        for n in self.not_f32:
+            g = self.named[n].grad
+            if g is not None:
+                g = g.float()
+                self.acc[n] = self.acc[n] + g if n in self.acc else g
+                self.named[n].grad = None
+
+    def gradients(self) -> dict:
+        grads = {n: self.acc.get(n, p.grad) for n, p in self.named.items()}
+        return {n: torch.zeros_like(self.named[n], dtype=torch.float32) if g is None else g
+                for n, g in grads.items()}
+
+
+def apply_update(state: TrainState, grads: dict, tcfg: TrainConfig) -> tuple:
+    """One AdamW step of ``state`` in place at the schedule's lr; returns
+    (lr, the optimizer's metrics)."""
+    lr = cosine_lr(state.opt.step, tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
+    _, _, om = adamw_update(grads, state.opt, state.params, lr=lr, beta1=tcfg.beta1,
+                            beta2=tcfg.beta2, eps=tcfg.eps, weight_decay=tcfg.weight_decay,
+                            grad_clip=tcfg.grad_clip)
+    return lr, om
+
+
+def make_train_step(cfg: ArchConfig, policy: ShardingPolicy, tcfg: TrainConfig):
+    """Returns train_step(state, batch) -> (state, metrics), with metrics
+    ``{"loss": the total loss (aux included), "lr", "grad_norm"}`` as
+    scalar tensors.  After the step each float32 parameter's ``.grad``
+    holds the gradient the update took (before clipping)."""
+    refuse_kernel_attention(policy)
+
     def train_step(state: TrainState, batch: dict):
         model = state.params
         n_mb = tcfg.microbatches
-        named = dict(model.named_parameters())
-        not_f32 = {n for n, p in named.items() if p.dtype != torch.float32}
-        for p in named.values():
-            p.grad = None
-        acc: dict = {}
+        acc = GradAccumulator(model)
         loss = torch.zeros((), dtype=torch.float32, device=model.embed.device)
         for mb in (_split_micro(batch, n_mb) if n_mb > 1 else [batch]):
             total, _ = loss_fn(model, cfg, policy, mb)
-            (total / n_mb if n_mb > 1 else total).backward()
+            acc.backward(total / n_mb if n_mb > 1 else total)
             loss = loss + total.detach() / n_mb if n_mb > 1 else total.detach()
-            for n in not_f32:
-                if named[n].grad is not None:
-                    g = named[n].grad.float()
-                    acc[n] = acc[n] + g if n in acc else g
-                    named[n].grad = None
-        # a leaf the loss does not reach has a zero gradient, as jax.grad gives it
-        grads = {n: acc.get(n, p.grad) for n, p in named.items()}
-        grads = {n: torch.zeros_like(named[n], dtype=torch.float32) if g is None else g
-                 for n, g in grads.items()}
-        lr = cosine_lr(state.opt.step, tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
-        _, _, om = adamw_update(grads, state.opt, model, lr=lr, beta1=tcfg.beta1,
-                                beta2=tcfg.beta2, eps=tcfg.eps, weight_decay=tcfg.weight_decay,
-                                grad_clip=tcfg.grad_clip)
+        lr, om = apply_update(state, acc.gradients(), tcfg)
         return state, {"loss": loss, "lr": lr, **om}
 
     return train_step

@@ -41,6 +41,14 @@ def test_port_sources_import_neither_jax_nor_the_reference():
     assert not bad, bad
 
 
+def test_port_examples_import_neither_jax_nor_the_reference():
+    files = sorted((REPO / "examples").glob("torch_*.py"))
+    assert files
+    bad = [(f.name, mod) for f in files for mod in _imported_modules(f)
+           if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
 def test_chip_smoke_imports_neither_jax_nor_the_reference():
     mods = list(_imported_modules(REPO / "chip_smoke.py"))
     assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -66,6 +74,8 @@ serve.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu", "--batch", "2
             "--prompt-len", "8", "--gen-len", "2"])
 train.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu", "--batch", "2",
             "--seq", "8", "--steps", "1"])
+train.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu", "--batch", "2",
+            "--seq", "8", "--steps", "1", "--dlt-chain", "2"])
 import repro_torch.checkpoint, repro_torch.optim
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
 """
@@ -115,7 +125,8 @@ def test_serve_without_device_runs_on_the_card_and_raises_without_one():
                                    "prompt_tokens", "Session_torch", "Session_cuda",
                                    "evaluate_gammas", "run_campaign", "train_main",
                                    "train_init_state", "restore_checkpoint",
-                                   "train_state_from_reference"])
+                                   "train_state_from_reference", "train_dlt_chain",
+                                   "make_chain_mesh", "ChainReplanner"])
 def test_model_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path):
     import torch
 
@@ -124,8 +135,11 @@ def test_model_entry_points_default_to_the_card_and_raise_without_one(entry, tmp
     from repro_torch.config import TrainConfig, get_arch, smoke_variant
     from repro_torch.convert import train_state_from_reference, train_state_to_reference
     from repro_torch.eval import run_campaign
+    from repro_torch.core.planner import LinkSpec, Planner, StageSpec
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_chain_mesh
     from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.runtime.dlt_runner import ChainReplanner
     from repro_torch.runtime import make_train_state
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.layers import Initializer
@@ -153,7 +167,12 @@ def test_model_entry_points_default_to_the_card_and_raise_without_one(entry, tmp
                  train.parse_args(["--arch", "llama3.2-3b", "--smoke"]), cfg, TrainConfig()),
              "restore_checkpoint": lambda: restore_checkpoint(str(tmp_path), 0, cpu_state()),
              "train_state_from_reference": lambda: train_state_from_reference(
-                 train_state_to_reference(cpu_state()), cfg)}
+                 train_state_to_reference(cpu_state()), cfg),
+             "train_dlt_chain": lambda: train.main(["--arch", "llama3.2-3b", "--smoke",
+                                                    "--steps", "1", "--dlt-chain", "2"]),
+             "make_chain_mesh": lambda: make_chain_mesh(2),
+             "ChainReplanner": lambda: ChainReplanner(Planner(
+                 [StageSpec("a", 1e9), StageSpec("b", 1e9)], [LinkSpec(1e8)]))}
 
     def cpu_state():
         return make_train_state(init_params(cfg, seed=0, device="cpu"), TrainConfig())

@@ -11,6 +11,13 @@ against the reference's, on the CPU with the ``"torch"`` engine backend.
   and provenance (``warm_requested``, ``warm``, ``cache_hit``) equal the
   reference's.
 * The port's own copies of ``tests/test_replan.py``'s replanner cases.
+* ``ChainReplanner`` (``repro_torch.runtime.dlt_runner``) with
+  ``backend="torch"`` on the CPU: the copies of the reference's cases
+  (``tests/test_replan.py:176``, ``tests/test_api_session.py:384``,
+  ``tests/test_backends_auto_t.py:224``, ``tests/test_engine_wiring.py:50-70``),
+  and ``replan``, ``on_failure``, ``what_if_speeds`` and
+  ``auto_installments`` within 1e-9 of the reference's (its engine in the
+  child process with the alias).
 """
 
 from __future__ import annotations
@@ -465,3 +472,141 @@ def test_replanned_artifact_equals_a_cold_solve_of_the_folded_problem():
     cold = Session(_POLICY, device="cpu").solve(rp.problem)
     assert art.problem == cold.problem
     assert art.makespan == pytest.approx(cold.makespan, rel=RTOL)
+
+
+# ================================================================ ChainReplanner
+
+_CHAIN_STAGES = [port_planner.StageSpec(f"s{i}", 1e9 * (1 + 0.3 * i)) for i in range(3)]
+_CHAIN_LINKS = [port_planner.LinkSpec(1e8, 50e-6)] * 2
+_CHAIN_BATCHES = [port_planner.BatchSpec(num_samples=64, bytes_per_sample=4096,
+                                         flops_per_sample=1e7) for _ in range(2)]
+_SCALES = [[1.0, 1.0, 1.0], [0.25, 1.0, 1.0], [1.0, 0.5, 1.0], [1.0, 1.0, 0.7], [2.0, 1.0, 0.9]]
+
+
+def _chain_replanner(q=2):
+    from repro_torch.runtime.dlt_runner import ChainReplanner
+
+    planner = port_planner.Planner(list(_CHAIN_STAGES), list(_CHAIN_LINKS))
+    return ChainReplanner(planner, q=q, backend="torch", device="cpu")
+
+
+def test_chain_replanner_stream_bridge():
+    from repro_torch.runtime.dlt_runner import ChainReplanner
+
+    stages = [port_planner.StageSpec("s0", flops_per_sec=1e9),
+              port_planner.StageSpec("s1", flops_per_sec=2e9),
+              port_planner.StageSpec("s2", flops_per_sec=1.5e9)]
+    links = [port_planner.LinkSpec(bytes_per_sec=1e9), port_planner.LinkSpec(bytes_per_sec=2e9)]
+    cr = ChainReplanner(port_planner.Planner(stages, links), q=2, backend="torch", device="cpu")
+    batches = [port_planner.BatchSpec(num_samples=64, bytes_per_sample=1e6,
+                                      flops_per_sample=1e7)]
+    rp = cr.stream(batches)
+    assert isinstance(rp, EventStreamReplanner)
+    assert rp.session is cr.session  # shares cache + backend handles
+    art = rp.apply(SpeedObserved(1, rp.problem.w[1] * 1.2))
+    assert art.ok and art.events[-1]["kind"] == "replan"
+    rp.close()
+
+
+def test_chain_replanner_shares_the_planner_session():
+    rp = _chain_replanner()
+    plan = rp.replan(_CHAIN_BATCHES)
+    assert rp.session is rp.planner.session and rp.session.device.type == "cpu"
+    assert plan.artifact is not None and plan.artifact.ok
+    # failure replan keeps the same session (cache carries over)
+    rp.on_failure(1, _CHAIN_BATCHES, restore_delay=0.01)
+    assert rp.planner.session is rp.session
+    mks = rp.what_if_speeds(_CHAIN_BATCHES, [[1.0, 1.0], [0.5, 1.0]])
+    assert mks.shape == (2,) and mks[1] >= mks[0] - 1e-12
+
+
+def test_chain_replanner_auto_installments():
+    rp = _chain_replanner()
+    res = rp.auto_installments(_CHAIN_BATCHES, t_max=3, installment_cost=1e-3)
+    assert res.t_star in (1, 2, 3)
+    assert res.plan.makespan > 0
+    again = rp.auto_installments(_CHAIN_BATCHES, t_max=3, installment_cost=1e-3)
+    assert all(r.backend == "torch+cache" for r in again.reports)
+
+
+def test_chain_replanner_lifecycle():
+    rp = _chain_replanner()
+    plan = rp.replan(_CHAIN_BATCHES)
+    assert plan.result.backend.startswith("torch")
+    # same platform state on the next tick: must be a cache hit
+    again = rp.replan(_CHAIN_BATCHES)
+    assert again.result.backend == "torch+cache"
+    assert again.makespan == pytest.approx(plan.makespan, abs=1e-9)
+    # losing a stage fuses the links and still re-solves through the engine
+    plan2 = rp.on_failure(1, _CHAIN_BATCHES, restore_delay=0.01)
+    assert len(rp.planner.stages) == len(_CHAIN_STAGES) - 1
+    assert plan2.makespan > 0
+    # no-drift observation returns None; a big drift triggers a fresh plan
+    rp2 = _chain_replanner()
+    rp2.replan(_CHAIN_BATCHES)
+    assert rp2.observe(0, _CHAIN_STAGES[0].flops_per_sec, _CHAIN_BATCHES) is None
+    assert rp2.observe(0, _CHAIN_STAGES[0].flops_per_sec * 0.2, _CHAIN_BATCHES) is not None
+
+
+def test_what_if_speeds_orders_scenarios_and_validates_shape():
+    rp = _chain_replanner()
+    mks = rp.what_if_speeds(_CHAIN_BATCHES, [[1.0, 1.0, 1.0], [0.25, 1.0, 1.0]])
+    assert mks.shape == (2,)
+    assert mks[1] > mks[0]  # slowing a stage can only hurt
+    with pytest.raises(ValueError):  # wrong row length must not zip-truncate
+        rp.what_if_speeds(_CHAIN_BATCHES, [[1.0, 1.0]])
+
+
+def test_chain_replanner_cuda_backend_needs_the_card():
+    import torch
+
+    from repro_torch.runtime.dlt_runner import ChainReplanner
+
+    planner = port_planner.Planner(list(_CHAIN_STAGES), list(_CHAIN_LINKS))
+    with pytest.raises(ValueError, match="runs on the card"):
+        ChainReplanner(planner, device="cpu")  # the default backend is "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default backend runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ChainReplanner(port_planner.Planner(list(_CHAIN_STAGES), list(_CHAIN_LINKS)))
+
+
+CHAIN_CHILD = r"""
+from repro.core.planner import BatchSpec, LinkSpec, Planner, StageSpec
+from repro.runtime.dlt_runner import ChainReplanner
+
+src = pickle.load(open(sys.argv[1], "rb"))
+stages = [StageSpec(*s) for s in src["stages"]]
+links = [LinkSpec(*l) for l in src["links"]]
+batches = [BatchSpec(*b) for b in src["batches"]]
+rp = ChainReplanner(Planner(stages, links), q=2)
+out = {"replan": rp.replan(batches).makespan,
+       "what_if": list(rp.what_if_speeds(batches, src["scales"]))}
+res = rp.auto_installments(batches, t_max=3, installment_cost=1e-3)
+out["auto_t"] = (res.t_star, dict(res.makespans), res.plan.makespan)
+out["on_failure"] = rp.on_failure(1, batches, restore_delay=0.01).makespan
+out["what_if_after"] = list(rp.what_if_speeds(batches, [s[:2] for s in src["scales"]]))
+pickle.dump(out, open(sys.argv[2], "wb"))
+"""
+
+
+def test_chain_replanner_makespans_equal_the_references(tmp_path):
+    payload = dict(stages=[(s.name, s.flops_per_sec) for s in _CHAIN_STAGES],
+                   links=[(l.bytes_per_sec, l.startup_sec) for l in _CHAIN_LINKS],
+                   batches=[(b.num_samples, b.bytes_per_sample, b.flops_per_sample)
+                            for b in _CHAIN_BATCHES], scales=_SCALES)
+    want = run_reference(CHAIN_CHILD, payload, tmp_path)
+    rp = _chain_replanner()
+    assert rp.replan(_CHAIN_BATCHES).makespan == pytest.approx(want["replan"], rel=RTOL)
+    np.testing.assert_allclose(rp.what_if_speeds(_CHAIN_BATCHES, _SCALES), want["what_if"],
+                               rtol=RTOL)
+    res = rp.auto_installments(_CHAIN_BATCHES, t_max=3, installment_cost=1e-3)
+    t_star, makespans, best = want["auto_t"]
+    assert res.t_star == t_star and set(res.makespans) == set(makespans)
+    for q, mk in makespans.items():
+        assert res.makespans[q] == pytest.approx(mk, rel=RTOL)
+    assert res.plan.makespan == pytest.approx(best, rel=RTOL)
+    assert rp.on_failure(1, _CHAIN_BATCHES, restore_delay=0.01).makespan == pytest.approx(
+        want["on_failure"], rel=RTOL)
+    np.testing.assert_allclose(rp.what_if_speeds(_CHAIN_BATCHES, [s[:2] for s in _SCALES]),
+                               want["what_if_after"], rtol=RTOL)
