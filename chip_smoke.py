@@ -5,7 +5,8 @@ populations, the serving paths of llama3.2-3b, mamba2-2.7b, hymba-1.5b,
 paligemma-3b, musicgen-medium and deepseek-v2-lite-16b at full width and
 depth, the golden campaign's full tier through the planner's front door,
 training of llama3.2-3b at full width and depth, alone and down the
-paper's chain of stages, and checks what comes out.
+paper's chain of stages, the sharded training path on a 1-rank mesh and
+the examples, and checks what comes out.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -140,11 +141,27 @@ Phases, each printing one JSON line:
    ``on_failure(1, ...)`` and a warm ``stream()`` of 8 ``SpeedObserved``,
    every makespan within 1e-9 of the port's serial solve, the pivot and
    replay kernels' launches counted (> 0).  Training launches no kernel.
+11. ``sharding``: (a) the same model with 2 layers (batch 2 x 128) through
+   ``repro_torch.launch.train.run_standard``'s sharded path on a 1-rank NCCL
+   ``(data 1, model 1)`` mesh (FSDP2 over the data axis, a process group
+   made inside this script), 2 steps against the unsharded
+   ``make_train_step`` from the same draws (loss and grad norm within 1e-6
+   relative, parameters within C.18's bar), then a sharded checkpoint round
+   trip (gathered a leaf at a time, restored into a freshly sharded state:
+   exact); no kernel launches.  (b) The three newest examples on the card,
+   the launch counts set to 0 just before each and read just after:
+   ``examples/torch_quickstart.py`` (its 28 engine solves on ``"cuda"``
+   within 1e-9 of the port's serial solve; pivot and replay launches > 0),
+   ``examples/torch_serve_multiload.py`` (exactly 6 flash-attention and 48
+   decode-attention launches: 2 layers, 3 batches, 8 tokens; its plan
+   within 1e-9 of serial) and ``examples/torch_elastic_restart.py`` (the
+   restore at step 3, 2 replans, the loss falling).
 
 Then a ``{"train": {...}}`` and a ``{"chain": {...}}`` summary line, the
-``{"kernels": [...]}`` line (each kernel with its ``train_launches`` and
-``chain_train_launches``, 0, and the engine kernels' ``launches_by_path``
-with phase 10's), the card's name and power limit, and
+``{"kernels": [...]}`` line (each kernel with its ``train_launches``,
+``chain_train_launches`` and ``sharded_train_launches``, 0, its
+``examples_launches``, and the engine kernels' ``launches_by_path`` with
+phases 10's and 11's), the card's name and power limit, and
 the final ``{"ok": true, ...}`` line.  Any failed check raises, so the
 script exits non-zero before that line.  With no card, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
@@ -227,25 +244,41 @@ def device_ms(fn, prepare, reps: int) -> float:
     each call, all enqueued while a sleep kernel holds the card, so no host
     gap falls between a pair of events (a call of a few microseconds would
     otherwise time the host's launch overhead).  ``prepare`` runs before
-    each call's first event, untimed."""
+    each call's first event, untimed.
+
+    The hold is sized from the host's time to enqueue one call, and the
+    timing stands only if the sleep kernel was still running when the last
+    event was enqueued (an event recorded just after it is not yet
+    complete).  A busy host can enqueue slower than the estimate: the
+    timing is then taken again under a longer hold, once."""
     fn(*prepare())
     torch.cuda.synchronize()
-    hold_s = 0.1
-    torch.cuda._sleep(int(hold_s * 2.0e9))  # cycles; the H100's clock is at most 1.98 GHz
     t0 = time.perf_counter()
-    events = []
-    for _ in range(reps):
-        args = prepare()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*args)
-        end.record()
-        events.append((start, end))
-    enqueue_s = time.perf_counter() - t0
+    fn(*prepare())
+    per_call_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    check(enqueue_s < 0.5 * hold_s, f"device_ms: enqueueing took {enqueue_s:.3f} s, the hold "
-          f"{hold_s} s; the events may include host gaps")
-    return sum(a.elapsed_time(b) for a, b in events) / reps
+    hold_s = min(max(0.1, 4.0 * reps * per_call_s), 5.0)
+    for attempt in range(2):
+        torch.cuda._sleep(int(hold_s * 2.0e9))  # cycles; the H100's clock is at most 1.98 GHz
+        held = torch.cuda.Event()
+        held.record()
+        t0 = time.perf_counter()
+        events = []
+        for _ in range(reps):
+            args = prepare()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            events.append((start, end))
+        enqueue_s = time.perf_counter() - t0
+        still_held = not held.query()
+        torch.cuda.synchronize()
+        if still_held:
+            return sum(a.elapsed_time(b) for a, b in events) / reps
+        hold_s = min(max(2.0 * hold_s, 4.0 * enqueue_s), 5.0)
+    raise RuntimeError(f"check failed: device_ms: enqueueing took {enqueue_s:.3f} s, longer "
+                       f"than the card was held; the events may include host gaps")
 
 
 # ---------------------------------------------------------------- inputs
@@ -1853,97 +1886,6 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def _train_device_time_by_group(prof) -> tuple:
-    """Device milliseconds of one profiled train step by group: the
-    optimizer (every kernel under the ``optimizer`` scope), attention (the
-    kernels of the ops under the ``attention`` scope, in the forward and in
-    its recomputation, and of the backward nodes of those ops, matched by
-    the autograd sequence number the profiler records for both), the
-    other matrix products (cuBLAS/CUTLASS kernels) and the rest; and the
-    number of device operations."""
-    events = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA]
-
-    def scopes(e):
-        while e is not None:
-            yield e
-            e = e.cpu_parent
-
-    backward = "autograd::engine::evaluate_function"
-    attn_seq = set()
-    for e in events:
-        chain = [a.name for a in scopes(e)]
-        if (e.sequence_nr >= 0 and "attention" in chain
-                and not any(n.startswith(backward) for n in chain)):
-            attn_seq.add(e.sequence_nr)
-    groups = {"matmul": 0.0, "attention": 0.0, "optimizer": 0.0, "other": 0.0}
-    n_ops = 0
-    for e in events:
-        if not e.kernels:
-            continue
-        chain = list(scopes(e))
-        names = [a.name for a in chain]
-        if "optimizer" in names:
-            key = "optimizer"
-        elif "attention" in names or any(a.name.startswith(backward)
-                                         and a.sequence_nr in attn_seq for a in chain):
-            key = "attention"
-        else:
-            key = None
-        for k in e.kernels:
-            n_ops += 1
-            kk = key or ("matmul" if any(t in k.name.lower()
-                                         for t in ("gemm", "cutlass", "splitkreduce"))
-                         else "other")
-            groups[kk] += k.duration / 1e3
-    return groups, n_ops
-
-
-def _profiled_train_step(cfg, policy, tcfg, state, batch) -> dict:
-    """One train step under torch.profiler, the attention and the optimizer
-    marked by record_function scopes around their calls (no code of the
-    port changes): device ms by group, the wall, the busy share."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    import repro_torch.models.transformer as transformer
-    import repro_torch.runtime.train as rt
-
-    attention, adamw_update = transformer.attention, rt.adamw_update
-
-    def scoped(name, fn):
-        def call(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return call
-
-    transformer.attention = scoped("attention", attention)
-    rt.adamw_update = scoped("optimizer", adamw_update)
-    try:
-        step = rt.make_train_step(cfg, policy, tcfg)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        transformer.attention, rt.adamw_update = attention, adamw_update
-    groups, n_ops = _train_device_time_by_group(prof)
-    total = sum(groups.values())
-    check(groups["attention"] > 0 and groups["optimizer"] > 0 and groups["matmul"] > 0,
-          f"the profiler saw the train step's groups on the card: {groups}")
-    # the device's busy time: the union of its operations' intervals (their
-    # summed durations may overlap), against the step's wall
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, reach = 0.0, -np.inf
-    for a, b in spans:
-        busy_us += max(0.0, b - max(a, reach))
-        reach = max(reach, b)
-    return dict(device_ms=groups, device_total_ms=total, device_busy_ms=busy_us / 1e3,
-                wall_ms=1e3 * wall, busy_share=busy_us / 1e6 / wall, device_ops=n_ops,
-                loss=float(m["loss"]))
-
-
 def _train_flops(cfg, B, S) -> tuple:
     """(model FLOPs of a step: 6 N_active per token with the tied head's
     products, which train_flops_per_token leaves out with the embedding
@@ -1969,6 +1911,7 @@ def train_full_phase(dev) -> dict:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as cli
     from repro_torch.runtime import make_train_step
+    from repro_torch.runtime.profile import profile_train_step
 
     B, S = TRAIN_B, TRAIN_SEQ
     args = _train_args(TRAIN_STEPS, B, S)
@@ -1995,8 +1938,10 @@ def train_full_phase(dev) -> dict:
     walls = [m["time_s"] for m in log]
     steady = float(np.median(walls[1:]))
     progress(f"train {TRAIN_ARCH}: {TRAIN_STEPS} steps, {[round(w, 3) for w in walls]} s")
-    prof = _profiled_train_step(cfg, policy, tcfg, state, _train_batch(cfg, B, S, TRAIN_STEPS,
-                                                                       dev))
+    prof = profile_train_step(cfg, policy, tcfg, state, _train_batch(cfg, B, S, TRAIN_STEPS, dev))
+    groups = prof["device_ms"]
+    check(groups["attention"] > 0 and groups["optimizer"] > 0 and groups["matmul"] > 0,
+          f"the profiler saw the train step's groups on the card: {groups}")
     model_flops, exec_flops = _train_flops(cfg, B, S)
     del state
     _free()
@@ -2579,6 +2524,198 @@ def chain_phase(dev) -> dict:
             "chain_step_ms": full["chain_step_ms"], "plain_step_ms": full["plain_step_ms"]}
 
 
+# ---------------------------------------------------------------- phase 11
+
+SHARD_STEPS = 2  # phase 11 (a): steps of the sharded path against the unsharded one
+SHARD_LOSS_RTOL = 1e-6
+SHARD_CKPT_DIR = REPO / "build" / "chip_smoke_shard_ckpt"
+MULTILOAD = (2, 3, 6, 8)  # torch_serve_multiload: smoke layers, batches, requests, tokens
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _whole_params(state) -> dict:
+    from torch.distributed.tensor import DTensor
+
+    return {n: (p.full_tensor() if isinstance(p, DTensor) else p).detach().clone()
+            for n, p in state.params.named_parameters()}
+
+
+def _whole_state(state) -> dict:
+    from torch.distributed.tensor import DTensor
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach().clone()
+
+    return {"params": _whole_params(state), "m": {n: whole(t) for n, t in state.opt.m.items()},
+            "v": {n: whole(t) for n, t in state.opt.v.items()}, "step": int(state.opt.step)}
+
+
+def shard_small_phase(dev) -> dict:
+    """Phase 11 (a): llama3.2-3b at full width with 2 layers through
+    ``run_standard``'s sharded path on a 1-rank NCCL ``(1, 1)`` mesh, against
+    the unsharded ``make_train_step`` from the same draws; then a sharded
+    checkpoint round trip."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.config import get_arch
+    from repro_torch.data import SyntheticStream
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.runtime import make_train_step
+    from repro_torch.runtime.sharding import is_sharded
+
+    import copy
+
+    L, B, S = TRAIN_SMALL
+    args = _train_args(SHARD_STEPS, B, S)
+    _, policy, tcfg = cli.build_cfg(args)
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=L)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_data_mesh("cuda")
+        check(tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model"),
+              f"the data mesh: {mesh}")
+        t0 = time.perf_counter()
+        log, sharded = cli.run_standard(args, cfg, policy, tcfg)  # the group's mesh
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        check(is_sharded(sharded.params), "run_standard sharded the state over the group")
+        state = cli.init_state(args, cfg, tcfg)  # unsharded, the same draws
+        step = make_train_step(cfg, policy, tcfg)
+        stream = SyntheticStream(cfg, args.batch, args.seq, seed=args.seed)
+        single = []
+        for _ in range(SHARD_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+            state, m = step(state, batch)
+            single.append((float(m["loss"]), float(m["grad_norm"])))
+        rel = max(max(abs(a["loss"] - b[0]) / abs(b[0]), abs(a["grad_norm"] - b[1]) / abs(b[1]))
+                  for a, b in zip(log, single))
+        whole = _whole_params(sharded)
+        worst, outside, total = 0.0, 0, 0
+        for n, p in state.params.named_parameters():
+            diff = (whole[n] - p.detach()).abs()
+            worst = max(worst, float(diff.max()))
+            outside += int((diff > MB_ATOL + MB_RTOL * p.detach().abs()).sum())
+            total += p.numel()
+        del state, whole
+        check(rel <= SHARD_LOSS_RTOL and worst <= 2 * TRAIN_LR and outside <= total // 10_000,
+              f"sharded against unsharded: loss/grad norm {rel}, parameters {worst} "
+              f"({outside} of {total} outside the bar)")
+        # the sharded checkpoint round trip
+        shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+        saved = _whole_state(sharded)
+        t0 = time.perf_counter()
+        save_checkpoint(str(SHARD_CKPT_DIR), SHARD_STEPS - 1, sharded)
+        save_s = time.perf_counter() - t0
+        fresh_args = copy.copy(args)
+        fresh_args.seed += 1
+        fresh = cli.init_state(fresh_args, cfg, tcfg, mesh, policy)
+        t0 = time.perf_counter()
+        restore_checkpoint(str(SHARD_CKPT_DIR), SHARD_STEPS - 1, fresh, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        back = _whole_state(fresh)
+        exact = back["step"] == saved["step"] and all(
+            torch.equal(back[g][n], saved[g][n]) for g in ("params", "m", "v") for n in saved[g])
+        ckpt_gb = sum(f.stat().st_size for f in SHARD_CKPT_DIR.rglob("*") if f.is_file()) / 1e9
+        shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+        del sharded, fresh, saved, back
+    finally:
+        dist.destroy_process_group()
+    _free()
+    check(exact, "the sharded checkpoint restored exact")
+    return dict(layers=L, batch=B, seq=S, steps=SHARD_STEPS, backend="nccl", mesh=[1, 1],
+                sharded=[{k: m[k] for k in ("loss", "grad_norm")} | {"ms": 1e3 * m["time_s"]}
+                         for m in log], sharded_run_s=sharded_s,
+                single=[{"loss": a, "grad_norm": b} for a, b in single],
+                loss_grad_norm_max_rel=rel, param_max_abs=worst, param_outside_bar=outside,
+                ckpt_gb=ckpt_gb, ckpt_save_s=save_s, ckpt_restore_s=restore_s,
+                ckpt_restored_exact=exact)
+
+
+def _example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(dev) -> dict:
+    """Phase 11 (b): the three examples on the card, the launch counts set
+    to 0 just before each and read just after."""
+    import dataclasses
+
+    from repro_torch.api import Session
+    from repro_torch.core.solver import solve
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    out, counts, walls = {}, {}, {}
+    for name in ("torch_quickstart", "torch_serve_multiload", "torch_elastic_restart"):
+        mod = _example(name)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out[name] = mod.main([])
+        walls[name] = time.perf_counter() - t0
+        counts[name] = launch_counts()
+        progress(f"example {name}: {walls[name]:.1f} s, launches {counts[name]}")
+    # quickstart: every engine solve on "cuda" against the port's serial solve
+    serial = Session(device="cpu")
+    worst = 0.0
+    for what, problem, policy, got in out["torch_quickstart"]["solved"]:
+        want = serial.solve(problem, dataclasses.replace(policy, backend="serial")).makespan
+        worst = max(worst, abs(got - want) / abs(want))
+    qs = counts["torch_quickstart"]
+    check(worst <= RTOL and qs["simplex_pivot"] > 0 and qs["asap_replay"] > 0,
+          f"quickstart on the card: makespans {worst} from serial, launches {qs}")
+    # serve_multiload: the attention kernels' exact launches, the plan against serial
+    layers, batches, _, gen = MULTILOAD
+    sm, got = counts["torch_serve_multiload"], out["torch_serve_multiload"]
+    want_counts = {"flash_attention": layers * batches, "decode_attention": layers * gen * batches}
+    check(all(sm[k] == v for k, v in want_counts.items()) and sm["ssd_scan"] == 0,
+          f"torch_serve_multiload launches {sm}, expected {want_counts}")
+    plan_serial = solve(got["instance"]).makespan
+    ml_err = abs(got["plan"] - plan_serial) / plan_serial
+    check(ml_err <= RTOL and got["tokens"] == batches * MULTILOAD[2] * gen,
+          f"torch_serve_multiload plan {got['plan']} against serial {plan_serial}")
+    el = out["torch_elastic_restart"]
+    check(el["restored_step"] == 3 and el["replans"] == 2 and el["losses"][-1] < el["losses"][0],
+          f"torch_elastic_restart: {el['restored_step']}, {el['replans']}, {el['losses']}")
+    return dict(walls_s=walls, launches=counts, quickstart_solves=len(
+        out["torch_quickstart"]["solved"]), quickstart_max_rel_from_serial=worst,
+        multiload_plan=got["plan"], multiload_plan_rel_from_serial=ml_err,
+        multiload_serve_s=got["serve_s"], multiload_heads=got["heads"],
+        elastic_plans=el["plans"], elastic_losses=el["losses"])
+
+
+def sharding_phase(dev) -> dict:
+    """Phase 11: (a) with every kernel's count at 0 throughout (training
+    runs none), then (b)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    small = shard_small_phase(dev)
+    counts = launch_counts()
+    check(all(v == 0 for v in counts.values()), f"phase 11 (a) launched kernels: {counts}")
+    examples = examples_phase(dev)
+    emit(phase="sharding", small=small, examples=examples)
+    return {"train_launches": counts, "examples_launches": examples["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs the card", file=sys.stderr)
@@ -2669,10 +2806,15 @@ def main() -> int:
     # phase 10: the paper's chain (training down a chain of stages, replanning)
     _free()
     chained = chain_phase(dev)
+    # phase 11: the sharded training path on a 1-rank mesh, and the examples
+    _free()
+    sharded = sharding_phase(dev)
 
+    ex = sharded["examples_launches"]
     by_path = {k: {"solve_bulk (phase 3)": launches[k], "replan (phase 7)": tier["replan"][k],
                    "plan_server (phase 8)": tier["plan_server"][k],
-                   "chain (phase 10)": chained["replan_launches"][k]}
+                   "chain (phase 10)": chained["replan_launches"][k],
+                   "torch_quickstart (phase 11)": ex["torch_quickstart"][k]}
                for k in ("simplex_pivot", "asap_replay")}
     p, r = piv["chain"]["set-up"], rep["chain"]
     f, d, m = fa["causal_f32"], da["len544_w0_float32"], ssd["mamba2_f32"]
@@ -2720,6 +2862,8 @@ def main() -> int:
     for k in kernels:
         k["train_launches"] = trained["launches"][k["name"]]
         k["chain_train_launches"] = chained["train_launches"][k["name"]]
+        k["sharded_train_launches"] = sharded["train_launches"][k["name"]]
+        k["examples_launches"] = {name: c[k["name"]] for name, c in ex.items()}
     print(json.dumps({"train": trained}))
     print(json.dumps({"chain": chained}))
     print(json.dumps({"kernels": kernels}))

@@ -135,9 +135,14 @@ SHAPES = {
 
 @dataclasses.dataclass(frozen=True)
 class ShardingPolicy:
-    """The knobs of the reference's policy that the port's serving and
-    training paths read.  The mesh and sharding knobs come with the
-    sharding slice.
+    """The knobs of the reference's policy that the port's serving,
+    training and sharding paths read.
+
+    ``model_axis``, ``fsdp_params``, ``expert_axis`` and ``expert_ff_axis``
+    steer the sharding rules of :mod:`repro_torch.runtime.sharding` as they
+    steer the reference's: ``fsdp_params`` shards each weight's ``d_in``
+    over the data axes (FSDP / ZeRO-3), ``expert_axis`` the experts' dimension
+    and ``expert_ff_axis`` each expert's ``d_ff``.
 
     ``remat``: ``"block"`` recomputes each decoder block's activations in
     the backward pass (the reference's ``jax.checkpoint`` per block) and
@@ -158,6 +163,10 @@ class ShardingPolicy:
     logits_fp32: bool = True
     kv_cache_dtype: str = "bf16"  # "int8": per-(token, kv-head) scaled cache
     moe_impl: str = "gshard"  # gshard (capacity dispatch) | dense (the oracle)
+    model_axis: str = "model"
+    fsdp_params: bool = True  # shard dim0 of weights over 'data' (ZeRO-3 style)
+    expert_axis: str = "data"  # axis sharding the expert dimension
+    expert_ff_axis: str = "model"  # axis sharding each expert's d_ff
 
 
 @dataclasses.dataclass(frozen=True)

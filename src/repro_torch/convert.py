@@ -326,7 +326,7 @@ def cache_from_reference(cache_np: dict, cfg, device=None) -> dict:
 
 def policy_from_reference(policy):
     """The port's :class:`~repro_torch.config.ShardingPolicy` with the fields
-    of a reference policy that the serving and training paths read; the reference's
+    of a reference policy that the serving, training and sharding paths read; the reference's
     ``"pallas"`` kernels are the port's ``"cuda"`` ones."""
     from repro_torch.config import ShardingPolicy
 
@@ -334,7 +334,9 @@ def policy_from_reference(policy):
     return ShardingPolicy(remat=policy.remat, attention_impl=impl, attn_chunk=policy.attn_chunk,
                           attn_block_skip=policy.attn_block_skip,
                           logits_fp32=policy.logits_fp32,
-                          kv_cache_dtype=policy.kv_cache_dtype, moe_impl=policy.moe_impl)
+                          kv_cache_dtype=policy.kv_cache_dtype, moe_impl=policy.moe_impl,
+                          model_axis=policy.model_axis, fsdp_params=policy.fsdp_params,
+                          expert_axis=policy.expert_axis, expert_ff_axis=policy.expert_ff_axis)
 
 
 # ---------------------------------------------------------- training state

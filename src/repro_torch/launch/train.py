@@ -24,11 +24,22 @@ with a card a rank where the machine has N cards, and over gloo where the
 ranks share a card or run on the CPU; the backend is printed on the
 ``arch=...`` line.
 
-The standard mode runs on one card.  Data parallelism over several cards
-comes with the sharding slice (ROADMAP A.17).
+Under ``torchrun --nproc-per-node N`` the standard mode is data parallel,
+as the reference's ``run_standard`` on a ``(N, 1)`` data x model mesh: the
+state is sharded over the ``N`` ranks with FSDP
+(:func:`repro_torch.runtime.sharding.shard_model`: each weight's ``d_in``
+over 'data', the AdamW moments with it), every rank draws the same global
+batch of ``--batch`` rows and trains on its ``--batch / N`` of them, and
+the printed loss is the global batch's.  NCCL with a card a rank; gloo
+with ``--device cpu`` only.  Checkpoints are gathered a leaf at a time and
+written by rank 0, in the same format.
 
   python -m repro_torch.launch.train --arch llama3.2-3b --steps 4 \\
       --batch 4 --seq 512                          # on the card, full size
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch minitron-8b \\
+      --steps 4 --batch 16 --seq 512               # four cards, FSDP
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch llama3.2-3b --smoke --device cpu --steps 4 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
       --smoke --device cpu --steps 20 --ckpt-dir /tmp/ck --save-every 5
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
@@ -53,14 +64,15 @@ from repro_torch.config import ShardingPolicy, TrainConfig, get_arch, smoke_vari
 from repro_torch.convert import resolve_device
 from repro_torch.core.planner import LinkSpec, Planner, StageSpec
 from repro_torch.data import SyntheticStream, batch_load_spec, make_batch
-from repro_torch.launch.mesh import make_chain_mesh
-from repro_torch.models import init_params, param_counts
+from repro_torch.launch.mesh import make_chain_mesh, make_data_mesh
+from repro_torch.models import activate_mesh, init_params, param_counts
 from repro_torch.runtime import make_train_state, make_train_step
+from repro_torch.runtime.sharding import shard_model
 from repro_torch.runtime.dlt_runner import make_dlt_train_step, stage_batches
 from repro_torch.runtime.ft import FailureEvent, FailureSim, RecoveringChain, StragglerSim
 
 __all__ = ["parse_args", "build_cfg", "init_state", "run_standard", "chain_planner",
-           "chain_events", "init_chain_group", "run_dlt_chain", "main"]
+           "chain_events", "init_chain_group", "init_data_group", "run_dlt_chain", "main"]
 
 
 def parse_args(argv=None):
@@ -102,43 +114,60 @@ def build_cfg(args):
     return cfg, policy, tcfg
 
 
-def init_state(args, cfg, tcfg):
+def init_state(args, cfg, tcfg, mesh=None, policy=None):
     """Float32 weights drawn from ``--seed`` on ``--device`` and zeroed AdamW
-    moments: the state a run starts from."""
+    moments: the state a run starts from.  With a data ``mesh`` every rank
+    draws the same weights and keeps its shards of them and of the moments
+    (FSDP, ``policy``'s specs)."""
     model = init_params(cfg, seed=args.seed, dtype=torch.float32, device=args.device)
+    if mesh is not None:
+        shard_model(model.requires_grad_(True), mesh, policy)
     return make_train_state(model, tcfg)
 
 
-def run_standard(args, cfg, policy, tcfg, state=None):
+def run_standard(args, cfg, policy, tcfg, state=None, mesh=None):
     """Train from step 0 (or the latest checkpoint with ``--resume``) to
     ``--steps``.  Returns (the metrics of each step, the final state);
-    ``state`` replaces :func:`init_state`'s."""
+    ``state`` replaces :func:`init_state`'s.  Under an initialised process
+    group (or with a data ``mesh``) the state is sharded over the data
+    ranks and each rank trains on its rows of every global batch; the
+    loss is the global batch's."""
     dev = resolve_device(args.device)
-    state = init_state(args, cfg, tcfg) if state is None else state
-    step_fn = make_train_step(cfg, policy, tcfg)
-    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    start = 0
-    if args.resume and args.ckpt_dir and (ls := latest_step(args.ckpt_dir)) is not None:
-        state, _ = restore_checkpoint(args.ckpt_dir, ls, state, device=dev)
-        start = ls + 1
-        print(f"resumed from step {ls}")
-    stream = SyntheticStream(cfg, args.batch, args.seq, seed=args.seed, step=start)
-    metrics_log = []
-    for step in range(start, args.steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
-        t0 = time.time()
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])  # waits for the step
-        dt = time.time() - t0
-        lr = float(metrics["lr"])
-        if step % args.log_every == 0:
-            print(f"step {step:5d} loss {loss:.4f} lr {lr:.2e} {dt*1e3:.0f}ms")
-        metrics_log.append({"step": step, "loss": loss, "time_s": dt, "lr": lr,
-                            "grad_norm": float(metrics["grad_norm"])})
-        if mgr and (step + 1) % args.save_every == 0:
-            mgr.save_async(step, state)
-    if mgr:
-        mgr.wait()
+    dist = torch.distributed
+    if mesh is None and dist.is_initialized():
+        mesh = make_data_mesh(dev.type)
+    rank, world = (dist.get_rank(), dist.get_world_size()) if mesh is not None else (0, 1)
+    if args.batch % world:
+        raise ValueError(f"--batch {args.batch} does not split over {world} data ranks")
+    rows = slice(rank * args.batch // world, (rank + 1) * args.batch // world)
+    lead = rank == 0
+    with activate_mesh(mesh):  # the mesh the run's state lives on (current_mesh)
+        state = init_state(args, cfg, tcfg, mesh, policy) if state is None else state
+        step_fn = make_train_step(cfg, policy, tcfg)
+        mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+        start = 0
+        if args.resume and args.ckpt_dir and (ls := latest_step(args.ckpt_dir)) is not None:
+            state, _ = restore_checkpoint(args.ckpt_dir, ls, state, device=dev)
+            start = ls + 1
+            if lead:
+                print(f"resumed from step {ls}")
+        stream = SyntheticStream(cfg, args.batch, args.seq, seed=args.seed, step=start)
+        metrics_log = []
+        for step in range(start, args.steps):
+            batch = {k: torch.from_numpy(v[rows]).to(dev) for k, v in next(stream).items()}
+            t0 = time.time()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])  # waits for the step
+            dt = time.time() - t0
+            lr = float(metrics["lr"])
+            if lead and step % args.log_every == 0:
+                print(f"step {step:5d} loss {loss:.4f} lr {lr:.2e} {dt*1e3:.0f}ms", flush=True)
+            metrics_log.append({"step": step, "loss": loss, "time_s": dt, "lr": lr,
+                                "grad_norm": float(metrics["grad_norm"])})
+            if mgr and (step + 1) % args.save_every == 0:
+                mgr.save_async(step, state)
+        if mgr:
+            mgr.wait()
     return metrics_log, state
 
 
@@ -173,15 +202,16 @@ def chain_events(args) -> tuple:
     return failure, straggler
 
 
-def init_chain_group(args):
+def init_chain_group(args, shared_card: bool = True):
     """Join the ``torch.distributed`` world that ``torchrun`` describes in
     the environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
     ``MASTER_ADDR``/``MASTER_PORT``), with the backend the topology allows:
     NCCL with ``cuda:LOCAL_RANK`` where the machine has a card for every
     local rank, gloo where the ranks share a card (NCCL refuses two ranks
-    on one) or run on the CPU.  Sets ``args.device`` to this rank's device.
-    Returns the backend's name, or ``None`` in a single process or when
-    the caller already initialised a group (which is then used as it is)."""
+    on one; without ``shared_card`` that raises instead) or run on the CPU.
+    Sets ``args.device`` to this rank's device.  Returns the backend's
+    name, or ``None`` in a single process or when the caller already
+    initialised a group (which is then used as it is)."""
     dist = torch.distributed
     if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         return None
@@ -191,6 +221,9 @@ def init_chain_group(args):
     if dev.type == "cuda":
         resolve_device(dev)
         cards = torch.cuda.device_count()
+        if cards < local_world and not shared_card:
+            raise SystemExit(f"the standard mode runs a card a rank: {local_world} local ranks, "
+                             f"{cards} cards (--device cpu runs over gloo)")
         backend = "nccl" if cards >= local_world else "gloo"
         args.device = f"cuda:{local_rank % cards}"
         torch.cuda.set_device(args.device)
@@ -198,6 +231,12 @@ def init_chain_group(args):
         backend = "gloo"
     dist.init_process_group(backend)
     return backend
+
+
+def init_data_group(args):
+    """:func:`init_chain_group` for the standard mode's data parallelism:
+    NCCL with a card a rank, gloo only with ``--device cpu``."""
+    return init_chain_group(args, shared_card=False)
 
 
 def run_dlt_chain(args, cfg, policy, tcfg, state=None, group=None):
@@ -298,11 +337,7 @@ def main(argv=None):
     args = parse_args(argv)
     cfg, policy, tcfg = build_cfg(args)
     dist = torch.distributed
-    if not args.dlt_chain and (dist.is_initialized()
-                               or int(os.environ.get("WORLD_SIZE", "1")) > 1):
-        raise SystemExit("the standard mode trains on one card: data parallelism over "
-                         "several processes comes with ROADMAP A.17")
-    backend = init_chain_group(args) if args.dlt_chain else None
+    backend = init_chain_group(args) if args.dlt_chain else init_data_group(args)
     try:
         resolve_device(args.device)
         world = dist.get_world_size() if dist.is_initialized() else 1

@@ -1,20 +1,101 @@
-"""Shared model layers: norms, RoPE, gated MLPs and the seeded initializer.
+"""Shared model layers: norms, RoPE, gated MLPs, the seeded initializer and
+the sharding helpers.
 
 The port of the reference's ``models/layers.py``.  Every function computes
 in float32 inside and returns the input's dtype, as the reference does.
-The reference's sharding helpers (``constrain``, the mesh context) are
-no-ops on one card and are not ported.
+
+The sharding helpers: :class:`PartitionSpec` (one entry a tensor dim, as
+JAX's), :func:`fix_spec` (drop the axes a mesh lacks), the training
+driver's mesh (:func:`activate_mesh`, :func:`current_mesh`) and
+:func:`constrain`, which returns its input unchanged (see its doc).  The
+rules that give each weight its spec are in
+:mod:`repro_torch.runtime.sharding`; sharded training runs under
+``torchrun``::
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch minitron-8b \\
+      --steps 4 --batch 16 --seq 512
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.convert import resolve_device
 
-__all__ = ["Initializer", "rms_norm", "rope", "apply_rope", "init_glu_mlp", "glu_mlp",
+__all__ = ["PartitionSpec", "activate_mesh", "current_mesh", "constrain", "fix_spec",
+           "Initializer", "rms_norm", "rope", "apply_rope", "init_glu_mlp", "glu_mlp",
            "cross_entropy"]
+
+
+class PartitionSpec(tuple):
+    """How a tensor's dims map onto mesh axes, one entry a dim: ``None``
+    (not sharded), an axis name, or a tuple of names (sharded over their
+    product, the first major), as JAX's ``PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def activate_mesh(mesh):
+    """Make ``mesh`` the current mesh (:func:`current_mesh`) inside the
+    block.  The training driver's standard mode
+    (:func:`repro_torch.launch.train.run_standard`) runs under its data
+    mesh, as the reference's does."""
+    prev = getattr(_local, "mesh", None)
+    _local.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _local.mesh = prev
+
+
+def current_mesh():
+    """The mesh of the innermost :func:`activate_mesh` on this thread, or
+    ``None``.  The reference's :func:`constrain` reads it; the port's
+    returns its input without reading it."""
+    return getattr(_local, "mesh", None)
+
+
+def _axis_names(mesh) -> tuple:
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def fix_spec(mesh, spec) -> PartitionSpec:
+    """Drop axis names absent from the mesh (e.g. 'pod' on a single pod)."""
+    names = set(_axis_names(mesh))
+
+    def fix(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, str):
+            return entry if entry in names else None
+        sub = tuple(a for a in entry if a in names)
+        return sub if len(sub) > 1 else (sub[0] if sub else None)
+
+    return PartitionSpec(*(fix(e) for e in spec))
+
+
+def constrain(x, *spec_entries):
+    """``x`` unchanged.  The reference pins an activation's layout to
+    ``P(*spec_entries)`` under the active mesh for XLA's partitioner; the
+    port has no such partitioner.  Under FSDP (the only sharding an entry
+    point of either package runs: a model axis of 1) every activation is
+    its rank's local tensor over its own rows, which is the layout the
+    reference's constraints ask for on the data axes, and the model axis
+    they name is 1 wide."""
+    return x
 
 
 class Initializer:

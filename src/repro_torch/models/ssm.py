@@ -221,8 +221,10 @@ def init_mamba_cache(cfg: ArchConfig, layers: int, batch: int, dtype=torch.bfloa
     """Zeroed caches of ``layers`` layers: the conv window [layers, b,
     d_conv - 1, conv_dim] in ``dtype`` and the state [layers, b, h, p, n] in
     float32 (the reference's per-layer cache, stacked).  ``device=None``
-    is the card, as everywhere in the port."""
-    device = resolve_device(device)
+    is the card, as everywhere in the port; ``torch.device("meta")`` gives
+    the shapes alone (:func:`repro_torch.models.cache_shapes`)."""
+    if not (isinstance(device, torch.device) and device.type == "meta"):
+        device = resolve_device(device)
     ssm = cfg.ssm
     d_in = ssm.d_inner(cfg.d_model)
     h = ssm.n_heads(cfg.d_model)

@@ -11,6 +11,8 @@ parameter tree (``embed``, ``blocks.<l>.ln1``, ``blocks.<l>.attn.w_q``,
 ``blocks.<l>.moe.shared.w_up`` ...); the functions mirror the reference's:
 
   init_params                     — a seeded :class:`Transformer`
+  param_shapes                    — the same module on the meta device (no
+                                    allocation, no draws: the dry run's)
   forward                         — logits for a full sequence (prefill, and
                                     the training forward)
   loss_fn                         — the training loss (cross-entropy plus the
@@ -18,6 +20,7 @@ parameter tree (``embed``, ``blocks.<l>.ln1``, ``blocks.<l>.attn.w_q``,
   init_cache                      — stacked decode caches: KV [L, B, S, KVH, hd],
                                     the MLA latents and/or the Mamba conv
                                     window and state
+  cache_shapes                    — the same caches on the meta device
   prefill                         — logits + populated cache
   decode_step                     — one-token serve step against the cache
 
@@ -49,6 +52,8 @@ from .ssm import init_mamba, init_mamba_cache, mamba_decode_step, mamba_mixer
 __all__ = [
     "Transformer",
     "init_params",
+    "param_shapes",
+    "cache_shapes",
     "forward",
     "loss_fn",
     "init_cache",
@@ -87,6 +92,12 @@ class Block(nn.Module):
         for name, val in p.items():
             setattr(self, name, _Params(val) if isinstance(val, dict) else _param(val))
 
+    def forward(self, x, cfg: ArchConfig, policy: ShardingPolicy, positions,
+                collect_cache=False):
+        """:func:`_block`'s (x, aux, cache), the cache only when asked for."""
+        x, aux, cache = _block(self, x, cfg, policy, positions)
+        return x, aux, (cache if collect_cache else None)
+
 
 class Transformer(nn.Module):
     """The weights of a decoder: ``embed`` ``[V, d_model]`` (audio: ``[K, V,
@@ -109,6 +120,11 @@ class Transformer(nn.Module):
             self.patch_proj = _param(params["patch_proj"])
         self.blocks = nn.ModuleList(Block(p) for p in params["blocks"])
         self.ln_f = _param(params["ln_f"])
+
+    def forward(self, cfg: ArchConfig, policy: ShardingPolicy, tokens, patches=None,
+                collect_cache=False):
+        """See the module function :func:`forward`."""
+        return _forward(self, cfg, policy, tokens, patches, collect_cache)
 
 
 def _init_attn(init: Initializer, cfg: ArchConfig):
@@ -157,6 +173,26 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
         params["patch_proj"] = init.normal((cfg.patch_dim, D))
     params["blocks"] = [_init_block(init, cfg) for _ in range(cfg.num_layers)]
     params["ln_f"] = init.ones((D,))
+    return Transformer(cfg, params)
+
+
+def param_shapes(cfg: ArchConfig, policy: ShardingPolicy | None = None,
+                 dtype=torch.bfloat16) -> Transformer:
+    """:func:`init_params`'s module on the meta device: every leaf's shape
+    and dtype (the Mamba mixer's ``A_log``, ``D`` and ``dt_bias`` float32,
+    as the reference keeps them), nothing allocated and nothing drawn.
+    ``policy`` is the reference's argument; no shape depends on it."""
+    from repro_torch.convert import _FLOAT32_LEAVES, _block_layout, _top_layout
+
+    def build(layout, path=""):
+        return {name: (build(spec, f"{path}{name}.") if isinstance(spec, dict) else
+                       torch.empty(spec, device="meta",
+                                   dtype=torch.float32 if f"{path}{name}" in _FLOAT32_LEAVES
+                                   else dtype))
+                for name, spec in layout.items()}
+
+    params = build(_top_layout(cfg))
+    params["blocks"] = [build(_block_layout(cfg)) for _ in range(cfg.num_layers)]
     return Transformer(cfg, params)
 
 
@@ -261,6 +297,11 @@ def forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
     ``policy.remat == "block"``, each block runs under
     :func:`torch.utils.checkpoint.checkpoint` (recomputed in the backward
     pass), as the reference wraps it in ``jax.checkpoint``."""
+    return model(cfg, policy, tokens, patches, collect_cache)
+
+
+def _forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens, patches,
+             collect_cache):
     x = _embed(model, cfg, tokens, patches)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -270,10 +311,10 @@ def forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
              and any(p.requires_grad for p in model.parameters()))
     for blk in model.blocks:
         if remat:
-            x, a, cache = checkpoint(_block, blk, x, cfg, policy, positions,
+            x, a, cache = checkpoint(blk, x, cfg, policy, positions, collect_cache,
                                      use_reentrant=False)
         else:
-            x, a, cache = _block(blk, x, cfg, policy, positions)
+            x, a, cache = blk(x, cfg, policy, positions, collect_cache)
         if a is not None:
             aux = aux + a
         if collect_cache and cache is not None:
@@ -334,6 +375,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     With an SSM: ``ssm`` = {``conv`` [L, B, d_conv - 1, conv_dim] in
     ``dtype``, ``state`` [L, B, H, P, N] float32}, as the reference's tree."""
     return _layer_cache(cfg, batch, max_len, dtype, kv_dtype, resolve_device(device))
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                 kv_dtype: str = "bf16") -> dict:
+    """:func:`init_cache`'s tree on the meta device (no allocation)."""
+    return _layer_cache(cfg, batch, max_len, dtype, kv_dtype, torch.device("meta"))
 
 
 def quantize_kv(x):

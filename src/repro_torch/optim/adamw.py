@@ -14,6 +14,12 @@ the same names.  :func:`adamw_update` updates the parameters and moments
 step holds one leaf's temporaries and never a second copy of the
 parameters.  The moments may be kept in bfloat16 (``state_dtype``), as the
 reference allows for its largest configurations.
+
+A model sharded with FSDP (:func:`repro_torch.runtime.sharding.shard_model`)
+has DTensor parameters and gradients: its moments are made as DTensors of
+the same placements (each rank holds its shard: ZeRO), the update runs on
+each rank's local shards, and :func:`global_norm` adds each leaf's
+squares over all its shards once (one all-reduce of the per-leaf sums).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "cosine_lr", "global_norm", "named_leaves"]
 
@@ -46,20 +53,43 @@ def adamw_init(params, state_dtype=torch.float32) -> AdamWState:
     leaves = named_leaves(params)
     device = next(iter(leaves.values())).device
 
-    def zeros():
-        return {n: torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+    def zeros():  # a DTensor parameter's moments are DTensors of its placements
+        return {n: (torch.zeros_like(p, dtype=state_dtype, requires_grad=False)
+                    if isinstance(p, DTensor) else
+                    torch.zeros(p.shape, dtype=state_dtype, device=p.device))
                 for n, p in leaves.items()}
 
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device), m=zeros(), v=zeros())
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares,
-    the leaves' sums added in order, as the reference's Python ``sum``."""
+    the leaves' sums added in order, as the reference's Python ``sum``.  A
+    DTensor leaf sharded over a 1-D mesh counts every shard once: the
+    shards' sums are all-reduced (one call for all such leaves) before the
+    leaves' sums are added."""
+    leaves = list(named_leaves(tree).values())
+    sharded = [isinstance(x, DTensor) and any(p.is_shard() for p in x.placements)
+               for x in leaves]
+    sums = []
+    for x in leaves:
+        xf = _local(x).float()
+        sums.append(torch.sum(xf * xf))
+    if any(sharded):
+        x0 = leaves[sharded.index(True)]
+        if x0.device_mesh.ndim != 1:
+            raise ValueError("global_norm sums shards over a 1-D mesh (FSDP's)")
+        part = torch.stack([s for s, sh in zip(sums, sharded) if sh])
+        torch.distributed.all_reduce(part, group=x0.device_mesh.get_group())
+        it = iter(part)
+        sums = [next(it) if sh else s for s, sh in zip(sums, sharded)]
     total = 0
-    for x in named_leaves(tree).values():
-        xf = x.float()
-        total = total + torch.sum(xf * xf)
+    for s in sums:
+        total = total + s
     return torch.sqrt(total)
 
 
@@ -94,12 +124,14 @@ def adamw_update(grads, state: AdamWState, params, *, lr, beta1=0.9, beta2=0.95,
     bc2 = 1.0 - beta2 ** t
     for name, p in leaves.items():
         m, v = state.m[name], state.v[name]
-        g = flat_g[name].float() * scale
-        m_new = beta1 * m.float()
+        sharded = isinstance(m, DTensor)
+        pl, ml, vl = _local(p), _local(m), _local(v)  # a rank's shards
+        g = _local(flat_g[name]).float() * scale
+        m_new = beta1 * ml.float()
         m_new += (1 - beta1) * g
         v_new = (1 - beta2) * g
         v_new *= g
-        v_new += beta2 * v.float()
+        v_new += beta2 * vl.float()
         del g
         delta = m_new / bc1
         denom = v_new / bc2
@@ -107,10 +139,14 @@ def adamw_update(grads, state: AdamWState, params, *, lr, beta1=0.9, beta2=0.95,
         denom += eps
         delta /= denom
         del denom
-        delta += weight_decay * p.float()
+        delta += weight_decay * pl.float()
         delta *= lr
-        state.m[name] = m_new.to(m.dtype)
-        state.v[name] = v_new.to(v.dtype)
-        del m, v, m_new, v_new
-        p.copy_(p.float() - delta)
+        if sharded:
+            ml.copy_(m_new)
+            vl.copy_(v_new)
+        else:
+            state.m[name] = m_new.to(m.dtype)
+            state.v[name] = v_new.to(v.dtype)
+        del m, v, ml, vl, m_new, v_new
+        pl.copy_(pl.float() - delta)
     return params, state, {"grad_norm": gnorm}

@@ -18,6 +18,13 @@ differ by a rounding of each gradient element.  A leaf kept in another
 dtype than float32 is summed into a float32 buffer after each microbatch
 instead (its ``.grad`` is in its own dtype).
 
+A model sharded with FSDP (:func:`repro_torch.runtime.sharding.shard_model`)
+takes the same step on each data rank over the rank's own rows: FSDP
+reduce-scatters the gradients (their mean over the ranks) on the last
+microbatch only (``set_requires_gradient_sync``), the leaves kept whole are
+averaged after it, the update runs on each rank's shards, and the logged
+loss is the mean of the ranks' losses, i.e. the global batch's.
+
 The training path runs no kernel: ``attention_impl="cuda"`` is refused.
 The hand-written kernels have no backward, and the reference cannot
 differentiate its Pallas calls either (``jax.grad`` through them raises),
@@ -33,6 +40,7 @@ import torch
 from repro_torch.config import ArchConfig, ShardingPolicy, TrainConfig
 from repro_torch.models import Transformer, decode_step, loss_fn
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_lr
+from repro_torch.runtime.sharding import is_sharded, mean_over_ranks, reduce_replicated_grads
 
 __all__ = ["TrainState", "make_train_state", "make_train_step", "make_serve_step",
            "GradAccumulator", "apply_update", "refuse_kernel_attention"]
@@ -118,18 +126,25 @@ def make_train_step(cfg: ArchConfig, policy: ShardingPolicy, tcfg: TrainConfig):
     """Returns train_step(state, batch) -> (state, metrics), with metrics
     ``{"loss": the total loss (aux included), "lr", "grad_norm"}`` as
     scalar tensors.  After the step each float32 parameter's ``.grad``
-    holds the gradient the update took (before clipping)."""
+    holds the gradient the update took (before clipping).  For a sharded
+    model ``batch`` is this rank's rows and the loss is the ranks' mean."""
     refuse_kernel_attention(policy)
 
     def train_step(state: TrainState, batch: dict):
         model = state.params
         n_mb = tcfg.microbatches
+        sharded = is_sharded(model)
         acc = GradAccumulator(model)
         loss = torch.zeros((), dtype=torch.float32, device=model.embed.device)
-        for mb in (_split_micro(batch, n_mb) if n_mb > 1 else [batch]):
+        for i, mb in enumerate(_split_micro(batch, n_mb) if n_mb > 1 else [batch]):
+            if sharded:  # reduce-scatter once, after the last microbatch
+                model.set_requires_gradient_sync(i == n_mb - 1)
             total, _ = loss_fn(model, cfg, policy, mb)
             acc.backward(total / n_mb if n_mb > 1 else total)
             loss = loss + total.detach() / n_mb if n_mb > 1 else total.detach()
+        if sharded:
+            reduce_replicated_grads(model)
+            loss = mean_over_ranks(loss, model)
         lr, om = apply_update(state, acc.gradients(), tcfg)
         return state, {"loss": loss, "lr": lr, **om}
 

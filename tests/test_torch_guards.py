@@ -54,6 +54,12 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
     assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 
 
+@pytest.mark.parametrize("script", ["fsdp_dist.py", "chain_dist.py"])
+def test_card_scripts_import_neither_jax_nor_the_reference(script):
+    mods = list(_imported_modules(REPO / "scripts" / script))
+    assert mods and not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
 CHILD = r"""
 import sys
 import numpy as np
@@ -126,7 +132,9 @@ def test_serve_without_device_runs_on_the_card_and_raises_without_one():
                                    "evaluate_gammas", "run_campaign", "train_main",
                                    "train_init_state", "restore_checkpoint",
                                    "train_state_from_reference", "train_dlt_chain",
-                                   "make_chain_mesh", "ChainReplanner"])
+                                   "make_chain_mesh", "ChainReplanner", "make_data_mesh",
+                                   "make_production_mesh", "torch_quickstart",
+                                   "torch_serve_multiload", "torch_elastic_restart"])
 def test_model_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path):
     import torch
 
@@ -137,7 +145,7 @@ def test_model_entry_points_default_to_the_card_and_raise_without_one(entry, tmp
     from repro_torch.eval import run_campaign
     from repro_torch.core.planner import LinkSpec, Planner, StageSpec
     from repro_torch.launch import train
-    from repro_torch.launch.mesh import make_chain_mesh
+    from repro_torch.launch.mesh import make_chain_mesh, make_data_mesh, make_production_mesh
     from repro_torch.launch.serve import prompt_tokens
     from repro_torch.runtime.dlt_runner import ChainReplanner
     from repro_torch.runtime import make_train_state
@@ -171,6 +179,11 @@ def test_model_entry_points_default_to_the_card_and_raise_without_one(entry, tmp
              "train_dlt_chain": lambda: train.main(["--arch", "llama3.2-3b", "--smoke",
                                                     "--steps", "1", "--dlt-chain", "2"]),
              "make_chain_mesh": lambda: make_chain_mesh(2),
+             "make_data_mesh": lambda: make_data_mesh(),
+             "make_production_mesh": lambda: make_production_mesh(),
+             "torch_quickstart": lambda: _example_main("torch_quickstart"),
+             "torch_serve_multiload": lambda: _example_main("torch_serve_multiload"),
+             "torch_elastic_restart": lambda: _example_main("torch_elastic_restart"),
              "ChainReplanner": lambda: ChainReplanner(Planner(
                  [StageSpec("a", 1e9), StageSpec("b", 1e9)], [LinkSpec(1e8)]))}
 
@@ -181,6 +194,16 @@ def test_model_entry_points_default_to_the_card_and_raise_without_one(entry, tmp
         save_checkpoint(str(tmp_path), 0, cpu_state())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+def _example_main(name: str):
+    """An example's ``main`` with its default device (the card)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main([])
 
 
 def test_torch_backend_on_the_cpu_through_the_registry():

@@ -3,7 +3,8 @@ CPU: it prints the reference driver's lines, checkpoints, resumes where an
 uninterrupted run would be, and runs the ``--dlt-chain`` mode (a failure
 shrinks the chain and restores the checkpoint, a straggler replans) with
 the reference's lines; a torch.distributed world that is not the chain is
-refused.
+refused; the standard mode trains data parallel under ``torchrun`` (two
+gloo ranks print one rank's losses) and steps under its data mesh.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from pathlib import Path
 import pytest
 
 from repro_torch.launch import train
+from repro_torch.runtime import make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
 ARGS = ["--arch", "llama3.2-3b", "--smoke", "--device", "cpu", "--batch", "4", "--seq", "32"]
@@ -118,7 +120,66 @@ def test_cli_refuses_a_world_that_is_not_the_chain(tmp_path):
         with pytest.raises(RuntimeError, match="chain of 2 needs a torch.distributed world "
                                                "of 2 processes, found 1"):
             train.main([*ARGS, "--steps", "1", "--dlt-chain", "2"])
-        with pytest.raises(SystemExit, match="A.17"):
-            train.main([*ARGS, "--steps", "1"])
+        # the standard mode trains over the group: a (1, 1) data mesh
+        train.main([*ARGS, "--steps", "1", "--metrics-out", str(tmp_path / "m.json")])
+        (m,) = json.loads((tmp_path / "m.json").read_text())
+        assert m["step"] == 0 and m["loss"] > 0
     finally:
         dist.destroy_process_group()
+
+
+def test_standard_mode_steps_under_its_data_mesh(tmp_path, monkeypatch):
+    import torch.distributed as dist
+
+    from repro_torch.models import current_mesh
+
+    seen = []
+
+    def recording(*a, **kw):
+        step = make_train_step(*a, **kw)
+
+        def run(state, batch):
+            seen.append(current_mesh())
+            return step(state, batch)
+        return run
+
+    monkeypatch.setattr(train, "make_train_step", recording)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'init'}", rank=0,
+                            world_size=1)
+    try:
+        args = train.parse_args([*ARGS, "--steps", "2"])
+        train.run_standard(args, *train.build_cfg(args))
+    finally:
+        dist.destroy_process_group()
+    assert len(seen) == 2 and seen[0] is seen[1]
+    assert seen[0].mesh_dim_names == ("data", "model") and tuple(seen[0].shape) == (1, 1)
+    assert current_mesh() is None
+
+
+def test_standard_mode_trains_under_torchrun_on_two_gloo_ranks(tmp_path):
+    """``torchrun --nproc-per-node 2``: the state sharded over two ranks,
+    each on half of every batch; the printed losses are one process's."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), GLOO_SOCKET_IFNAME="lo")
+    argv = [*ARGS, "--steps", "3", "--ckpt-dir", str(tmp_path / "ck"), "--save-every", "3"]
+    two = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "repro_torch.launch.train", *argv], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert two.returncode == 0, two.stderr[-3000:]
+    one = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv[:-4]],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert one.returncode == 0, one.stderr[-3000:]
+    lines = two.stdout.splitlines()
+    assert lines[0].endswith("devices=2 backend=gloo")
+    assert len(_steps(two.stdout)) == 3 and _steps(two.stdout) == _steps(one.stdout)
+    assert sorted(os.listdir(tmp_path / "ck")) == ["step_00000002"]  # rank 0 wrote it
+
+
+def test_standard_mode_refuses_a_batch_the_ranks_cannot_split():
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_data_mesh
+
+    args = train.parse_args([*ARGS[:-4], "--batch", "3", "--seq", "32", "--steps", "1"])
+    with fake_world(2):  # rank 0 of two: the check comes before any collective
+        with pytest.raises(ValueError, match="--batch 3 does not split over 2 data ranks"):
+            train.run_standard(args, *train.build_cfg(args), mesh=make_data_mesh("cpu"))
