@@ -21,7 +21,9 @@ Phases, each printing one JSON line:
    the profiler) (m = 10 processors, 5 loads, q = 5 installments:
    chain tableau 1089 x 1811, star 705 x 1427; attention at llama3.2-3b's,
    hymba-1.5b's and paligemma-3b's heads (head dim 256) with a batch of 4
-   prompts of 512 tokens and a 544-entry cache; the
+   prompts of 512 tokens (paligemma's also at 500 tokens and with a window
+   of 96; float32 at head dim 256 with its split kernel's share of the
+   call) and a 544-entry cache; the
    SSD scan at mamba2-2.7b's and hymba-1.5b's heads over the same prompts,
    plus a ragged chunk and a weak decay under which the carried state
    matters; RMSNorm at the served models' norm shapes, which no path of the
@@ -1086,12 +1088,18 @@ def _bound(nbytes, flops, flop_rate):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# float32 at head dim 256 is two kernels a call: K and V split once, then
+# the attention
+FLASH_D256_KERNELS = ("flash_attention_split_kv_kernel", "flash_attention_d256_kernel")
+
+
 def flash_phase(dev):
     """flash_attention against its plain version at the prefills' shapes
     (llama3.2-3b's heads, hymba-1.5b's with its 1024 window, paligemma-3b's
-    at head dim 256), plus bfloat16, a window and a length no tile divides;
-    times of the kernel, the plain version and PyTorch's SDPA (the
-    yardstick)."""
+    at head dim 256), plus bfloat16, a window and a length no tile divides
+    (at llama's heads and at paligemma's); times of the kernel (the whole
+    call: float32 at head dim 256 also reports its split kernel's share),
+    the plain version and PyTorch's SDPA (the yardstick)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, flash_attention_plain
@@ -1104,7 +1112,10 @@ def flash_phase(dev):
              ("hymba_window1024_f32", HYMBA_ATTN, S, torch.float32, 1024),
              ("hymba_window1024_bf16", HYMBA_ATTN, S, torch.bfloat16, 1024),
              ("paligemma_causal_f32", PALIGEMMA, S, torch.float32, 0),
-             ("paligemma_causal_bf16", PALIGEMMA, S, torch.bfloat16, 0)]
+             ("paligemma_causal_bf16", PALIGEMMA, S, torch.bfloat16, 0),
+             ("paligemma_ragged500_f32", PALIGEMMA, 500, torch.float32, 0),
+             ("paligemma_window96_f32", PALIGEMMA, S, torch.float32, 96),
+             ("paligemma_window96_bf16", PALIGEMMA, S, torch.bfloat16, 96)]
     rows = {}
     for name, heads, L, dtype, window in cases:
         H, KVH, D = heads["H"], heads["KVH"], heads["D"]
@@ -1136,12 +1147,19 @@ def flash_phase(dev):
         plain_ms = device_ms(lambda *a: flash_attention_plain(*a, causal=True, window=window),
                              lambda: (q, k, v), reps=5)
         library_ms = device_ms(library, lambda: (qt, kt, vt), reps=20)
+        split = {}
+        if D == 256 and dtype == torch.float32:
+            stage = kernel_stage_ms(lambda: flash_attention(q, k, v, causal=True, window=window),
+                                    reps=20, kernels=FLASH_D256_KERNELS)
+            check(all(t > 0 for t in stage.values()),
+                  f"flash_attention {name}: the profiler saw both kernels run: {stage}")
+            split = dict(stage_ms=stage, split_share=stage[FLASH_D256_KERNELS[0]]
+                         / sum(stage.values()))
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
         flops = 4 * B * H * D * pairs  # two products over the visible pairs
         # the bound follows the kernel's route: bfloat16 on the tensor cores;
-        # float32 as split TF32, three tensor-core products per product
-        # (wgmma, or mma.sync at head dim 256; the CUDA cores' float32 figure
-        # is kept beside it)
+        # float32 as split TF32 on wgmma, three tensor-core products per
+        # product (the CUDA cores' float32 figure is kept beside it)
         if dtype == torch.bfloat16:
             bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOP_PER_S)
             route = "bf16 tensor cores"
@@ -1150,13 +1168,13 @@ def flash_phase(dev):
             route = "split TF32: 3 TF32 tensor-core products per product"
         bound_cuda_cores_ms = _bound(nbytes, flops, FP32_FLOP_PER_S)[0]
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms, max_abs_err=err)
+                          library_ms=library_ms, max_abs_err=err, **split)
         emit(phase="kernel", kernel="flash_attention", case=name, B=B, Sq=L, Sk=L, H=H,
              KVH=KVH, D=D, dtype=str(dtype), window=window, max_abs_err=err, tol=ATTN_TOL[dtype],
              ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
              library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by,
              bound_route=route, bound_cuda_cores_ms=bound_cuda_cores_ms, flops=flops,
-             bytes=nbytes, tflops=flops / ms / 1e9)
+             bytes=nbytes, tflops=flops / ms / 1e9, **split)
         del q, k, v, qt, kt, vt, got, want
     return rows
 
@@ -1291,9 +1309,10 @@ def ssd_cost(args, y, L):
 SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 
 
-def kernel_stage_ms(fn, reps: int) -> dict:
-    """Mean device milliseconds a call of each SSD kernel, from
-    torch.profiler over ``reps`` calls of ``fn`` (after one warm-up)."""
+def kernel_stage_ms(fn, reps: int, kernels=SSD_KERNELS) -> dict:
+    """Mean device milliseconds a call of each of ``kernels`` (by name; the
+    SSD scan's by default), from torch.profiler over ``reps`` calls of
+    ``fn`` (after one warm-up)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1302,10 +1321,10 @@ def kernel_stage_ms(fn, reps: int) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {k: 0.0 for k in SSD_KERNELS}
+    out = {k: 0.0 for k in kernels}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            for k in SSD_KERNELS:
+            for k in kernels:
                 if k in e.name:
                     out[k] += e.device_time / 1e3 / reps
     return out
@@ -1594,7 +1613,7 @@ def _device_time_by_group(prof):
             continue
         n_ops += 1
         name = e.name
-        if "flash_attention_" in name:  # flash_attention_kernel, flash_attention_wide_kernel
+        if "flash_attention_" in name:  # flash_attention_kernel, FLASH_D256_KERNELS
             key = "flash_attention"
         elif "decode_attention_kernel" in name:
             key = "decode_attention"

@@ -77,9 +77,9 @@
 //    `ex2.approx`), masks only the tiles that reach past Sk, the diagonal or
 //    the window, and every product-sum outside the tensor cores is an
 //    explicit fmaf (the library is built with -fmad=false).
-// Head dims 16 to 256.  bfloat16 at D = 256 keeps this geometry (Q 64 KB, two
-// stages of 64 KB); its P V is two products of 128 columns.  float32 at D =
-// 256 does not fit it and runs flash_attention_wide_kernel (below).
+// Head dims 16 to 128.  Head dim 256 (paligemma-3b's heads) does not fit this
+// geometry in either type and has a design of its own, flash_attention_d256_kernel
+// (below, with its note).
 // A barrier wait that does not complete within ~2 s traps (a launch error in
 // place of a hung card).
 
@@ -135,6 +135,7 @@ struct Geo {
   static constexpr int kBarOffset = kRingOffset + kStages * kStageBytes;
   static constexpr int kBarriers = 1 + (kF32 ? 3 : 2) * kStages;
   static constexpr int kSmem = kBarOffset + 8 * kBarriers + 1024;  // + alignment slack
+  static_assert(D <= 128, "head dim 256 runs flash_attention_d256_kernel");
   static_assert(kQChunk % 1024 == 0 && kKVChunk % 1024 == 0, "tiles stay 1024-byte aligned");
   static_assert(!kF32 || (kBK * 4 == 128 && kKVBytes == D * 128),
                 "a float32 V^T row is one 128-byte swizzle row, V^T the size of V");
@@ -218,6 +219,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Tie the accumulators to this point of the program: wgmma writes them
@@ -456,9 +462,39 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[16][4],
 }
 
 
+// S[64 x 16] += A[64 x 8] B[16 x 8]^T in TF32, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_ss(float (&d)[2][4], uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// S[64 x 32] += A[64 x 16] B[32 x 16]^T in bfloat16, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[4][4], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // O[64 x D] += P[64 x 16] V[16 x D], V's 16 key rows at `v` in slices of SW
-// bytes a row, `chunk` bytes apart.  D = 256 is two products of 128 columns,
-// the second reading slices 2 and 3 into the accumulator's columns 128..255.
+// bytes a row, `chunk` bytes apart.
 template <int D, int SW>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 8][4], const uint32_t (&a)[4],
                                          uint32_t v, uint32_t chunk) {
@@ -467,11 +503,6 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 8][4], const uint32_t (&
   if constexpr (D == 32) wgmma_m64n32k16_rs(o, a, db);
   if constexpr (D == 64) wgmma_m64n64k16_rs(o, a, db);
   if constexpr (D == 128) wgmma_m64n128k16_rs(o, a, db);
-  if constexpr (D == 256) {
-    wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[16][4]>(&o[0]), a, db);
-    wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[16][4]>(&o[16]), a,
-                        gmma_desc<SW>(v + 2 * chunk, chunk, 8 * SW));
-  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -928,183 +959,501 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// ---------------------------------------------------------------- float32 at D = 256
+// ---------------------------------------------------------------- head dim 256
 //
-// The TMA kernel's float32 geometry does not fit D = 256: Q's lo half alone
-// is 128 registers a thread beside a 128-register accumulator, and a stage of
-// K, V and their lo halves is 128 KB.  So float32 at D = 256 (paligemma-3b's
-// heads) runs this kernel instead: split TF32 on `mma.sync` m16n8k8, each
-// operand split into hi and lo halves in registers as it is loaded from
-// shared memory (Q, K and V stay float32 there), so no split copy is stored.
-// A block is 64 query rows, a warp 16 of them with the accumulator of all
-// 256 output columns (128 registers); kv tiles of 32 keys stream through two
-// stages of `cp.async` copies, rows padded to 260 floats so that every
-// fragment load of a warp hits 32 banks.  Q (66,560 bytes) and two stages of
-// K and V (133,120) fill 199,680 bytes: one block an SM.  A warp skips the
-// tiles none of its rows sees; rows and keys past the end are zero-filled
-// and keys past Sk masked to -inf, as in the kernel above, whose online
-// softmax (log2 domain, the -1e30 mask, max(l, 1e-30)) this one shares.
-namespace wide {
-constexpr int D = 256;
-constexpr int kBQ = 64;     // query rows a block, 16 a warp
-constexpr int kBK = 32;     // keys a kv tile
-constexpr int kThreads = 128;
-constexpr int kLd = D + 4;  // floats a row in shared memory
-constexpr int kQFloats = kBQ * kLd;
-constexpr int kTileFloats = kBK * kLd;
-constexpr int kSmem = (kQFloats + 2 * 2 * kTileFloats) * 4;  // Q, then 2 stages of K and V
-static_assert(kSmem <= 232448, "fits the 227 KB a block can use");
+// At D = 256 (paligemma-3b's heads: 8 query heads on one kv head) the
+// geometry above does not fit: one warpgroup holding all 256 output columns
+// of its 64 rows needs 128 accumulator registers a thread, and float32's Q_lo
+// operand another 128.  Here a block is one 64-row q tile.
+//
+// What bounds it: at paligemma-3b's prefill (B = 4, S = 512, causal) the
+// function needs 4.30 GFLOP and moves 18.9 MB in bfloat16 (37.7 MB in
+// float32): float32 as split TF32 (12.9 GFLOP on 495 TFLOP/s) is bound by
+// operations, ~26 us; bfloat16 by bytes, ~5.6 us.  What the design does:
+//  * float32: two consumer warpgroups split the output's columns: warpgroup
+//    c keeps columns [128 c, 128 c + 128) of O (64 registers) and contracts
+//    S = Q K^T over its half of D.  The two partial score tiles meet through
+//    shared memory (double-buffered, one named barrier a kv tile); each adds
+//    the other's (a + b = b + a bit for bit, so both hold the same scores)
+//    and runs the same online softmax.  Split TF32 on `wgmma` as above
+//    (S = Q_lo K_hi + Q_hi K_lo + Q_hi K_hi, O += P_lo V_hi + P_hi V_lo +
+//    P_hi V_hi); Q's hi half is written back in place once a block, its lo
+//    half stays in registers as the A operand of Q_lo K_hi.  K and V are
+//    split once a call, not once a block: with one kv head for 8 query heads
+//    every K/V tile is read by 8 heads x Sq / 64 blocks, and splitting (and
+//    transposing V) in each of them cost the old mma.sync kernel as much as
+//    its products.  flash_attention_split_kv_kernel writes each kv tile of
+//    kBK keys as this kernel's shared-memory image of it: K_hi and K_lo in
+//    128-byte swizzled slices of 32 columns, V^T_hi and V^T_lo as [256][kBK]
+//    rows with the keys of each group of 8 reordered so that the score
+//    accumulator is the A operand of P V (see split_vt), zeros past Sk;
+//    one bulk copy (TMA's non-tensor form: the image is already swizzled)
+//    brings each half-stage into a 1024-byte-aligned stage.  The image is
+//    4 x 256 float32 a key (8.4 MB at paligemma's prefill), read from L2;
+//  * bfloat16: one warpgroup holds all 256 columns (128 accumulator
+//    registers) and contracts S over all of D, so nothing is exchanged; a
+//    block is 128 threads and 96 KB, two blocks share an SM, and one's
+//    softmax runs under the other's products.  Q, K and V come straight
+//    from the tensors by TMA (tensor maps, as above), S on `wgmma`
+//    m64n64k16 from shared memory, P rounded to bfloat16 in registers and
+//    O += P V on m64n128k16 with V read through the transpose bit (the same
+//    precision departure as above);
+//  * thread 0 issues every copy (no producer warp: a float32 thread may
+//    keep up to 255 registers with no setmaxnreg): the next K tile into a
+//    stage once every warpgroup has met past the current one (their S
+//    products are done), the next V tile once their P V products are;
+//  * blocks are ranked by their work: every head's heaviest q tiles first
+//    (the last ones under a causal mask or a window), and the blocks
+//    resident at once paired so that an SM's second block is light where
+//    its first is heavy.  In the grid's own order (each head's tiles in
+//    turn) the last heavy tiles started late: 26% of float32's time at
+//    paligemma's prefill (scripts/flash_variants.py, order_by_head);
+//  * kv tiles above the diagonal or before the window are never loaded,
+//    masks run only on edge tiles, and the softmax runs in the log2 domain.
 
-// `rows` rows of D floats from `src` (row stride `ld` elements) into `dst`
-// (row stride kLd) as 16-byte copies; rows at or past `valid` are zeroed.
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long ld, int rows,
-                                          int valid) {
-  for (int i = threadIdx.x; i < rows * (D / 4); i += kThreads) {
-    const int r = i / (D / 4), u = 4 * (i % (D / 4));
-    if (r < valid)
-      repro::cp_async16(dst + r * kLd + u, src + r * ld + u);
-    else
-      *reinterpret_cast<float4*>(dst + r * kLd + u) = make_float4(0.f, 0.f, 0.f, 0.f);
+// Geometry: kBK keys a kv tile, kStages tiles in each ring and kWG consumer
+// warpgroups (with one, it holds all 256 columns and contracts S over all
+// of D, with no exchange).  The choices are Geo256Of's, below
+// (scripts/flash_variants.py times the others).
+template <typename T, int kBK_, int kStages_, int kWG_>
+struct Geo256 {
+  static constexpr int D = 256;
+  static constexpr int kEs = (int)sizeof(T);
+  static constexpr bool kF32 = kEs == 4;
+  static constexpr int kBQ = 64;  // query rows a block
+  static constexpr int kWG = kWG_;
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kCols = D / kWG;  // a warpgroup's output columns and share of S's D
+  static constexpr int kQSteps = kF32 ? kCols / 8 : 1;  // float32: k8 steps of Q_lo's registers
+  static constexpr int kBK = kBK_;
+  static constexpr int kStages = kStages_;
+  static constexpr int kNB = kBK / 8;        // 8-key column blocks of a score tile
+  static constexpr int kSWE = 128 / kEs;     // elements of a 128-byte slice row
+  static constexpr int kSlices = D / kSWE;   // 8 (float32) or 4 (bfloat16)
+  static constexpr int kQChunk = kBQ * 128;
+  static constexpr int kQBytes = kSlices * kQChunk;
+  static constexpr int kKChunk = kBK * 128;  // one slice of a K (bfloat16: or V) tile
+  static constexpr int kKTile = kSlices * kKChunk;
+  // float32: a V^T row holds the tile's kBK keys (64 or 128 bytes, swizzled
+  // at that width); bfloat16: V is stored as K is
+  static constexpr int kVSW = kF32 ? kBK * 4 : 128;
+  static constexpr int kVTile = kF32 ? D * kVSW : kKTile;
+  static constexpr int kKStage = (kF32 ? 2 : 1) * kKTile;  // float32: K_hi, K_lo
+  static constexpr int kVStage = (kF32 ? 2 : 1) * kVTile;  // float32: V^T_hi, V^T_lo
+  static constexpr int kImage = kKStage + kVStage;         // float32: a tile's image
+  static constexpr int kKRing = kQBytes;
+  static constexpr int kVRing = kKRing + kStages * kKStage;
+  static constexpr int kXchg = kVRing + kStages * kVStage;  // [2 buffers][2 wgs][kNB][128] float4
+  static constexpr int kXchgBytes = kWG == 2 ? 2 * 2 * kBQ * kBK * 4 : 0;
+  static constexpr int kBarOffset = kXchg + kXchgBytes;
+  static constexpr int kSmem = kBarOffset + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
+  static_assert(kF32 ? (kBK == 16 || kBK == 32) : (kBK == 32 || kBK == 64),
+                "the score products take these widths");
+  static_assert(kWG == 2 || (kWG == 1 && !kF32),
+                "float32's Q_lo and accumulator need two warpgroups' registers");
+  static_assert(kKChunk % 1024 == 0, "slices stay 1024-byte aligned");
+  static_assert(kKStage % 1024 == 0 && kVStage % 1024 == 0, "stages stay 1024-byte aligned");
+  static_assert(kSmem <= 232448, "fits the 227 KB a block can use");
+};
+
+template <typename T>
+struct Geo256Of;
+template <>
+struct Geo256Of<float> {  // 32-key tiles, one stage, two warpgroups
+  using G = Geo256<float, 32, 1, 2>;
+};
+template <>
+struct Geo256Of<__nv_bfloat16> {  // 64-key tiles, one stage, one warpgroup
+  using G = Geo256<__nv_bfloat16, 64, 1, 1>;
+};
+
+// A bulk copy of `bytes` contiguous bytes into shared memory, its bytes
+// counted on the barrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// S[64 x N] += A[64 x 8] B[N x 8]^T in TF32: A from shared memory (ss) or
+// registers (rs), B K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_s_tf32_ss(float (&d)[N / 8][4], uint64_t da, uint64_t db) {
+  if constexpr (N == 16) wgmma_m64n16k8_tf32_ss(d, da, db);
+  if constexpr (N == 32) wgmma_m64n32k8_tf32_ss(d, da, db);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_s_tf32_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  if constexpr (N == 16) wgmma_m64n16k8_tf32_rs(d, a, db);
+  if constexpr (N == 32) wgmma_m64n32k8_tf32_rs(d, a, db);
+}
+// S[64 x N] += A[64 x 16] B[N x 16]^T in bfloat16, both K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_s_bf16_ss(float (&d)[N / 8][4], uint64_t da, uint64_t db) {
+  if constexpr (N == 32) wgmma_m64n32k16_ss(d, da, db);
+  if constexpr (N == 64) wgmma_m64n64k16_ss(d, da, db, 1);
+}
+
+// float32 at D = 256: keys [8 blockIdx.x, 8 blockIdx.x + 8) of kv head
+// blockIdx.y (b KVH + kvh) written into their tile's image (see the note
+// above): K_hi, K_lo, V^T_hi, V^T_lo, zeros past Sk.  Eight keys are one
+// group of the V^T order, two 16-byte units of each V^T row, so a block
+// writes whole units; the grid has Sk / 8 blocks a kv head, enough to keep
+// the loads of every SM in flight.  A thread a column d: it reads column d
+// of the 8 key rows (a warp reads 128 contiguous bytes of each), writes its
+// K values into their swizzled slots (a warp writes one 128-byte slice row)
+// and its 8 V^T values as two 16-byte units.
+template <typename G>
+__global__ void __launch_bounds__(256)
+flash_attention_split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                                uint8_t* __restrict__ img, int KVH, int Sk, long long ksb,
+                                long long kss, long long ksh) {
+  static_assert(G::D == 256, "a thread a column");
+  constexpr int kGroups = G::kBK / 8;  // 8-key groups a tile
+  const int t = blockIdx.x / kGroups;  // the tile
+  const int r0 = 8 * (blockIdx.x % kGroups);  // the group's first row in it
+  const int bk = blockIdx.y;
+  const int b = bk / KVH, kvh = bk - b * KVH;
+  const int d = threadIdx.x;
+  const long long n_tiles = (Sk + G::kBK - 1) / G::kBK;
+  uint8_t* out = img + ((long long)bk * n_tiles + t) * G::kImage;
+  const float* kp = k + b * ksb + kvh * ksh + d;
+  const float* vp = v + b * ksb + kvh * ksh + d;
+  const int kcol = (d >> 5) * G::kKChunk + (d & 3) * 4;  // column d's slice and word
+  const uint32_t kunit = (uint32_t)((d & 31) >> 2);       // ... and 16-byte unit, unswizzled
+  float kx[8], vx[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {  // all loads first
+    const int key = t * G::kBK + r0 + r;
+    kx[r] = key < Sk ? kp[(long long)key * kss] : 0.f;
+    vx[r] = key < Sk ? vp[(long long)key * kss] : 0.f;
+  }
+  float vh[8], vl[8];  // this group of V^T row d, keys in the kernel's order
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    uint32_t hi, lo;
+    split_tf32(kx[r], hi, lo);
+    const int row = r0 + r;  // (row & 7) == r: r0 is a multiple of 8
+    const int off = kcol + row * 128 + (int)((kunit ^ (uint32_t)r) << 4);
+    *reinterpret_cast<uint32_t*>(out + off) = hi;
+    *reinterpret_cast<uint32_t*>(out + G::kKTile + off) = lo;
+    // key 2 i + e of a group sits at position i + 4 e
+    split_tf32(vx[r], hi, lo);
+    vh[(r >> 1) + 4 * (r & 1)] = __uint_as_float(hi);
+    vl[(r >> 1) + 4 * (r & 1)] = __uint_as_float(lo);
+  }
+  uint8_t* vrow = out + G::kKStage + d * G::kVSW;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const uint32_t unit = (uint32_t)(r0 / 4 + p);  // 16-byte unit of the row, unswizzled
+    const int off = (int)((unit ^ row_bits<G::kVSW>(d & 7)) << 4);
+    *reinterpret_cast<float4*>(vrow + off) =
+        make_float4(vh[4 * p], vh[4 * p + 1], vh[4 * p + 2], vh[4 * p + 3]);
+    *reinterpret_cast<float4*>(vrow + G::kVTile + off) =
+        make_float4(vl[4 * p], vl[4 * p + 1], vl[4 * p + 2], vl[4 * p + 3]);
   }
 }
-}  // namespace wide
 
-__global__ void __launch_bounds__(wide::kThreads)
-flash_attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, float* __restrict__ o, int H, int KVH,
-                            int Sq, int Sk, long long qsb, long long qss, long long qsh,
-                            long long ksb, long long kss, long long ksh, long long osb,
-                            long long oss, long long osh, int causal, int window,
-                            float scale) {
-  using namespace wide;
-  using repro::mma_tf32;
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;
-  float* ring = fsm + kQFloats;  // stage s: K at ring + 2 s kTileFloats, V after it
+// This warpgroup's share of S for the tile in k_s (all of it with one
+// warpgroup), issued and committed, not waited: float32 as split TF32 over
+// its kCols columns of D (Q_lo from registers, Q_hi from shared memory),
+// bfloat16 from shared memory.
+template <typename G>
+__device__ __forceinline__ void d256_scores(float (&d)[G::kNB][4], uint32_t q_s, uint32_t k_s,
+                                            const uint32_t (&qlo)[G::kQSteps][4], int wg) {
+#pragma unroll
+  for (int j = 0; j < G::kNB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+  fence_regs(d);
+  wgmma_fence();
+  if constexpr (G::kF32) {
+#pragma unroll
+    for (int kk = 0; kk < G::kCols / 8; ++kk) {
+      const int dk = (G::kCols / 8) * wg + kk;  // k8 step along D, 4 to a 128-byte slice
+      const uint32_t qoff = (uint32_t)((dk >> 2) * G::kQChunk + (dk & 3) * 32);
+      const uint32_t koff = (uint32_t)((dk >> 2) * G::kKChunk + (dk & 3) * 32);
+      const uint64_t qh = gmma_desc<128>(q_s + qoff, 16, 1024);
+      const uint64_t kh = gmma_desc<128>(k_s + koff, 16, 1024);
+      const uint64_t kl = gmma_desc<128>(k_s + G::kKTile + koff, 16, 1024);
+      wgmma_s_tf32_rs<G::kBK>(d, qlo[kk], kh);
+      wgmma_s_tf32_ss<G::kBK>(d, qh, kl);
+      wgmma_s_tf32_ss<G::kBK>(d, qh, kh);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < G::kCols / 16; ++kk) {
+      const int dk = (G::kCols / 16) * wg + kk;  // k16 step along D, 4 to a 128-byte slice
+      const uint32_t qoff = (uint32_t)((dk >> 2) * G::kQChunk + (dk & 3) * 32);
+      const uint32_t koff = (uint32_t)((dk >> 2) * G::kKChunk + (dk & 3) * 32);
+      wgmma_s_bf16_ss<G::kBK>(d, gmma_desc<128>(q_s + qoff, 16, 1024),
+                              gmma_desc<128>(k_s + koff, 16, 1024));
+    }
+  }
+  wgmma_commit();
+}
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+// O += P V for the tile in v_s, P from this warpgroup's scores, issued and
+// committed, not waited: float32 as split TF32 against this warpgroup's
+// rows of V^T, bfloat16 against its 64-column slices of V through the
+// transpose bit.
+template <typename G>
+__device__ __forceinline__ void d256_pv(float (&acc)[G::kCols / 8][4],
+                                        const float (&s)[G::kNB][4], uint32_t v_s, int wg) {
+  constexpr int kNB = G::kNB;
+  if constexpr (G::kF32) {
+    // P_lo V_hi + P_hi V_lo + P_hi V_hi: kBK / 8 steps of k8, P from registers
+    // (the score fragment is the A fragment, keys reordered)
+    uint32_t ph[kNB][4], pl[kNB][4];
+#pragma unroll
+    for (int jj = 0; jj < kNB; ++jj) {
+      split_tf32(s[jj][0], ph[jj][0], pl[jj][0]);
+      split_tf32(s[jj][2], ph[jj][1], pl[jj][1]);
+      split_tf32(s[jj][1], ph[jj][2], pl[jj][2]);
+      split_tf32(s[jj][3], ph[jj][3], pl[jj][3]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int jj = 0; jj < kNB; ++jj) {
+      const uint32_t vt = v_s + wg * 128 * G::kVSW + jj * 32;  // this warpgroup's rows of V^T
+      const uint64_t vh = gmma_desc<G::kVSW>(vt, 16, 8 * G::kVSW);
+      const uint64_t vl = gmma_desc<G::kVSW>(vt + G::kVTile, 16, 8 * G::kVSW);
+      wgmma_m64n128k8_tf32_rs(acc, pl[jj], vh);
+      wgmma_m64n128k8_tf32_rs(acc, ph[jj], vl);
+      wgmma_m64n128k8_tf32_rs(acc, ph[jj], vh);
+    }
+  } else {
+    // kBK / 16 steps of k16, P rounded to bfloat16 in registers
+    uint32_t pa[G::kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < G::kBK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < G::kBK / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < G::kCols / 128; ++c)  // 128-column products
+        wgmma_m64n128k16_rs(
+            *reinterpret_cast<float(*)[16][4]>(&acc[16 * c]), pa[kk],
+            gmma_desc<128>(v_s + (2 * (G::kCols / 128) * wg + 2 * c) * G::kKChunk +
+                               kk * 16 * 128,
+                           G::kKChunk, 1024));
+  }
+  wgmma_commit();
+}
+
+// The head-dim-256 attention (see the note above).  float32 reads K and V
+// from `img` (the split kernel's output; kmap and vmap unused), bfloat16
+// through kmap and vmap (img unused).
+template <typename T, typename G>
+__global__ void __launch_bounds__(G::kThreads, 1)
+flash_attention_d256_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const uint8_t* __restrict__ img, T* __restrict__ o, int B, int H,
+                            int KVH, int Sq, int Sk, long long osb, long long oss,
+                            long long osh, int causal, int window, float scale, int n_sm,
+                            int resident) {
+  constexpr int kBK = G::kBK;
+  constexpr int kStages = G::kStages;
+  constexpr int kNB = G::kNB;
+  constexpr int kCols = G::kCols;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gsm = smem_raw + (base - raw);
+  const uint32_t q_s = base;
+  const uint32_t k_ring = base + G::kKRing;
+  const uint32_t v_ring = base + G::kVRing;
+  // barriers: q, then per stage K full, then per stage V full (TMA's bytes)
+  const uint32_t qbar = base + G::kBarOffset;
+  const uint32_t kfull0 = qbar + 8;
+  const uint32_t vfull0 = kfull0 + 8 * kStages;
+
+  // Blocks start in the order of blockIdx.x.  The work is ranked heaviest
+  // first (the last q tiles under a causal mask or a window), every head
+  // and batch row of a q tile together.  The first n_sm blocks take the
+  // heaviest ranks, one an SM; the rest of the blocks that are resident at
+  // once (resident, n_sm x blocks an SM) take the next ranks lightest first,
+  // so that an SM's second block is light where its first is heavy; later
+  // blocks take the remaining ranks heaviest first, as SMs free up.
+  const int n_blocks = gridDim.x;
+  const int first = (int)blockIdx.x;
+  const int end = min(resident, n_blocks);
+  const int rank = first >= n_sm && first < end ? n_sm + (end - 1 - first) : first;
+  const int n_qt = n_blocks / (H * B);
+  const int qt = n_qt - 1 - rank / (H * B);
+  const int h = rank % H;
+  const int b = rank / H % B;
   const int kvh = h / (H / KVH);
-  const int q0 = qt * kBQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, q4 = lane & 3;
-  const int wq0 = q0 + 16 * warp, wq_end = min(wq0 + 16, Sq);
+  const int q0 = qt * G::kBQ;
+  const int q_end = min(q0 + G::kBQ, Sq);
+  int k_lo = 0, k_hi = Sk;  // the keys some row of the tile can see
+  if (causal) k_hi = min(Sk, q_end);
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int t_lo = k_lo / kBK;
+  const int n = k_hi > k_lo ? (k_hi + kBK - 1) / kBK - t_lo : 0;  // kv tiles of this block
+  // float32: the images of this kv head's tiles
+  const uint8_t* head_img =
+      img + (long long)(b * KVH + kvh) * ((Sk + kBK - 1) / kBK) * G::kImage;
 
-  // the kv tiles some row of [lo, hi) can see
-  auto tiles = [&](int lo, int hi, int& t_lo, int& t_hi) {
-    int k_lo = 0, k_hi = Sk;
-    if (causal) k_hi = min(Sk, hi);
-    if (window > 0) k_lo = max(0, lo - window + 1);
-    t_lo = k_lo / kBK;
-    t_hi = k_hi > k_lo ? (k_hi + kBK - 1) / kBK : t_lo;
-  };
-  int t_lo, t_hi, w_lo = 0, w_hi = 0;
-  tiles(q0, min(q0 + kBQ, Sq), t_lo, t_hi);
-  if (wq0 < Sq) tiles(wq0, wq_end, w_lo, w_hi);
-  const float* kb = k + b * ksb + kvh * ksh;
-  const float* vb = v + b * ksb + kvh * ksh;
-  auto load_tile = [&](int t) {
-    float* st = ring + ((t - t_lo) & 1) * 2 * kTileFloats;
-    const int valid = min(kBK, Sk - t * kBK);
-    load_rows(st, kb + (long long)t * kBK * kss, kss, kBK, valid);
-    load_rows(st + kTileFloats, vb + (long long)t * kBK * kss, kss, kBK, valid);
-  };
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kfull0 + 8 * s, 1);
+      mbar_init(vfull0 + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
+  // tile i of the block into stage i % kStages of the K (V) ring
+  auto load_k = [&](int i) {
+    const int s = i % kStages;
+    const uint32_t bar = kfull0 + 8 * s;
+    const uint32_t dst = k_ring + s * G::kKStage;
+    const int t = t_lo + i;
+    mbar_expect_tx(bar, G::kKStage);
+    if constexpr (G::kF32) {
+      bulk_load(dst, head_img + (long long)t * G::kImage, G::kKStage, bar);
+    } else {
+      for (int c = 0; c < G::kSlices; ++c)
+        tma_load_4d(dst + c * G::kKChunk, &kmap, bar, c * G::kSWE, kvh, t * kBK, b);
+    }
+  };
+  auto load_v = [&](int i) {
+    const int s = i % kStages;
+    const uint32_t bar = vfull0 + 8 * s;
+    const uint32_t dst = v_ring + s * G::kVStage;
+    const int t = t_lo + i;
+    mbar_expect_tx(bar, G::kVStage);
+    if constexpr (G::kF32) {
+      bulk_load(dst, head_img + (long long)t * G::kImage + G::kKStage, G::kVStage, bar);
+    } else {
+      for (int c = 0; c < G::kSlices; ++c)
+        tma_load_4d(dst + c * G::kKChunk, &vmap, bar, c * G::kSWE, kvh, t * kBK, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, G::kQBytes);
+    for (int c = 0; c < G::kSlices; ++c)
+      tma_load_4d(q_s + c * G::kQChunk, &qmap, qbar, c * G::kSWE, h, q0, b);
+    for (int i = 0; i < n && i < kStages; ++i) {
+      load_k(i);
+      load_v(i);
+    }
+  }
+
+  const int wg = threadIdx.x >> 7;  // its output columns [kCols wg, kCols wg + kCols), and S over them
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;       // row in an 8-row group
+  const int q4 = lane & 3;       // column pair
+  const int r0 = 16 * warp + g;  // this thread's rows r0 and r0 + 8 of the tile
   const float scale2 = scale * kLog2e;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
-  float acc[D / 8][4];
+  float acc[kCols / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
-  if (t_hi > t_lo) {
-    load_rows(qs, q + b * qsb + (long long)q0 * qss + h * qsh, qss, kBQ, Sq - q0);
-    load_tile(t_lo);
-    repro::cp_async_commit();
+  mbar_wait(qbar, 0);
+  // float32: this warpgroup's half of Q split once: lo kept in registers
+  // as the A operand of Q_lo K_hi, hi written back in place
+  uint32_t qlo[G::kQSteps][4];
+  if constexpr (G::kF32) {
+#pragma unroll
+    for (int kk = 0; kk < G::kQSteps; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 8 * (e & 1);
+        const int col = kCols * wg + 8 * kk + q4 + 4 * (e >> 1);
+        const uint32_t unit = (uint32_t)((col & 31) >> 2) ^ row_bits<128>(row & 7);
+        float* p = reinterpret_cast<float*>(gsm + (col >> 5) * G::kQChunk + row * 128 +
+                                            (unit << 4) + (col & 3) * 4);
+        uint32_t hi;
+        split_tf32(*p, hi, qlo[kk][e]);
+        *p = __uint_as_float(hi);
+      }
+    fence_async();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");  // this half of Q_hi is written
   }
-  for (int t = t_lo; t < t_hi; ++t) {
-    if (t + 1 < t_hi) load_tile(t + 1);
-    repro::cp_async_commit();  // a group every pass, empty at the last
-    repro::cp_async_wait(1);   // tile t (and Q) have landed for this thread
-    __syncthreads();           // ... and for every thread
-    if (t >= w_lo && t < w_hi) {
-      const float* ks = ring + ((t - t_lo) & 1) * 2 * kTileFloats;
-      const float* vs = ks + kTileFloats;
-      const float* qrow = qs + (16 * warp + g) * kLd;
-      // S = Q K^T = Q_lo K_hi + Q_hi K_lo + Q_hi K_hi: D / 8 steps of k8
-      float sc[kBK / 8][4];
+
+  float4* xchg = reinterpret_cast<float4*>(gsm + G::kXchg);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages;
+    const uint32_t parity = (uint32_t)(i / kStages) & 1u;
+    mbar_wait(kfull0 + 8 * s, parity);
+    float sc[kNB][4];
+    d256_scores<G>(sc, q_s, k_ring + s * G::kKStage, qlo, wg);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    // With two warpgroups each adds the other's half of the scores (the same
+    // layout, thread for thread; a + b = b + a, so both hold the same sums).
+    // Past the barrier every warpgroup is done with K tile i.
+    float4* mine = xchg + ((i & 1) * 2 + wg) * kNB * 128 + tid;
+    const float4* theirs = xchg + ((i & 1) * 2 + (wg ^ 1)) * kNB * 128 + tid;
+    if constexpr (G::kWG == 2) {
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll 4
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const int c = 8 * kk + q4;
-        uint32_t ah[4], al[4];
-        split_tf32(qrow[c], ah[0], al[0]);
-        split_tf32(qrow[8 * kLd + c], ah[1], al[1]);
-        split_tf32(qrow[c + 4], ah[2], al[2]);
-        split_tf32(qrow[8 * kLd + c + 4], ah[3], al[3]);
+      for (int j = 0; j < kNB; ++j)
+        mine[128 * j] = make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(G::kThreads) : "memory");
+    if constexpr (G::kWG == 2) {
 #pragma unroll
-        for (int j = 0; j < kBK / 8; ++j) {
-          const float* krow = ks + (8 * j + g) * kLd + c;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(krow[0], bh0, bl0);
-          split_tf32(krow[4], bh1, bl1);
-          mma_tf32(sc[j], al, bh0, bh1);
-          mma_tf32(sc[j], ah, bl0, bl1);
-          mma_tf32(sc[j], ah, bh0, bh1);
-        }
-      }
-      const int k0 = t * kBK;
-      const int nk = min(kBK, Sk - k0);  // keys of this tile inside [0, Sk)
-      const bool edge = nk < kBK || (causal && k0 + kBK - 1 > wq0) ||
-                        (window > 0 && k0 <= wq_end - 1 - window);
-      if (edge)
-        online_softmax<kBK / 8, true>(sc, m, l, alpha, k0, nk, wq0 + g, q4, causal, window,
-                                      scale2);
-      else
-        online_softmax<kBK / 8, false>(sc, m, l, alpha, k0, nk, wq0 + g, q4, causal, window,
-                                       scale2);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[j][0] *= alpha[0];
-        acc[j][1] *= alpha[0];
-        acc[j][2] *= alpha[1];
-        acc[j][3] *= alpha[1];
-      }
-      // O += P V = P_lo V_hi + P_hi V_lo + P_hi V_hi: kBK / 8 steps of k8.
-      // The score fragment is the A fragment with the keys of each group of
-      // 8 reordered (k index q4 + 4 e holds key 2 q4 + e), so V's rows are
-      // read in that order.
-#pragma unroll
-      for (int jj = 0; jj < kBK / 8; ++jj) {
-        uint32_t ph[4], pl[4];
-        split_tf32(sc[jj][0], ph[0], pl[0]);
-        split_tf32(sc[jj][2], ph[1], pl[1]);
-        split_tf32(sc[jj][1], ph[2], pl[2]);
-        split_tf32(sc[jj][3], ph[3], pl[3]);
-        const float* v0 = vs + (8 * jj + 2 * q4) * kLd + g;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          uint32_t vh0, vl0, vh1, vl1;
-          split_tf32(v0[8 * n], vh0, vl0);
-          split_tf32(v0[kLd + 8 * n], vh1, vl1);
-          mma_tf32(acc[n], pl, vh0, vh1);
-          mma_tf32(acc[n], ph, vl0, vl1);
-          mma_tf32(acc[n], ph, vh0, vh1);
-        }
+      for (int j = 0; j < kNB; ++j) {
+        const float4 x = theirs[128 * j];
+        sc[j][0] += x.x;
+        sc[j][1] += x.y;
+        sc[j][2] += x.z;
+        sc[j][3] += x.w;
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    if (threadIdx.x == 0 && i + kStages < n) load_k(i + kStages);
+    const int k0 = (t_lo + i) * kBK;
+    const int nk = min(kBK, Sk - k0);  // keys of this tile inside [0, Sk)
+    const bool edge = nk < kBK || (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && k0 <= q_end - 1 - window);
+    if (edge)
+      online_softmax<kNB, true>(sc, m, l, alpha, k0, nk, q0 + r0, q4, causal, window, scale2);
+    else
+      online_softmax<kNB, false>(sc, m, l, alpha, k0, nk, q0 + r0, q4, causal, window, scale2);
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+    mbar_wait(vfull0 + 8 * s, parity);
+    d256_pv<G>(acc, sc, v_ring + s * G::kVStage, wg);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (i + kStages < n) {  // every warpgroup is done with V tile i: refill its stage now
+      asm volatile("bar.sync 1, %0;\n" ::"n"(G::kThreads) : "memory");
+      if (threadIdx.x == 0) load_v(i + kStages);
+    }
   }
-  repro::cp_async_wait(0);
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int qi = wq0 + g + 8 * half;
+    const int qi = q0 + r0 + 8 * half;
     if (qi >= Sq) continue;
     const float denom = fmaxf(l[half], 1e-30f);
-    float* orow = o + b * osb + qi * oss + h * osh;
+    T* orow = o + b * osb + qi * oss + h * osh + kCols * wg;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < kCols / 8; ++j)
       store2(orow + 8 * j + 2 * q4, acc[j][2 * half] / denom, acc[j][2 * half + 1] / denom);
   }
 }
@@ -1131,24 +1480,26 @@ EncodeTiled find_encoder() {
 }
 
 // The 4-D map of a [B, S, heads, D] tensor (strides in elements, the last
-// dimension contiguous) whose box is one kSW-byte slice of `rows` rows of one
-// head.
+// dimension contiguous) whose box is one slice of `rows` rows of one head:
+// the row's D elements if they span less than 128 bytes, else 128 bytes of
+// them, in the TMA swizzle of that width.
 template <typename T, int D>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, long long sb,
                      long long ss, long long sh, int rows) {
-  using G = Geo<T, D>;
+  constexpr int kEs = (int)sizeof(T);
+  constexpr int kSW = D * kEs < 128 ? D * kEs : 128;
   static const EncodeTiled encode = find_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)(sh * G::kEs), (cuuint64_t)(ss * G::kEs),
-                                 (cuuint64_t)(sb * G::kEs)};
-  const cuuint32_t box[4] = {(cuuint32_t)G::kSWE, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(sh * kEs), (cuuint64_t)(ss * kEs),
+                                 (cuuint64_t)(sb * kEs)};
+  const cuuint32_t box[4] = {(cuuint32_t)(kSW / kEs), 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = G::kSW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : G::kSW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swizzle = kSW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : kSW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUtensorMapDataType type =
-      G::kEs == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+      kEs == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const CUresult res = encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
                               CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -1176,58 +1527,112 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
-// float32 at D = 256: the mma.sync kernel, its tiles read through the strides
-cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, int B, int H,
-                        int KVH, int Sq, int Sk, const long long* st, int causal, int window,
-                        float scale, cudaStream_t stream) {
-  static int smem_set[kMaxDevices] = {};
-  cudaError_t err = ensure_smem(flash_attention_wide_kernel, wide::kSmem, smem_set);
+// Bytes of the float32 D = 256 images: every kv tile of every (b, kv head).
+long long d256_workspace_bytes(int B, int KVH, int Sk) {
+  using G = Geo256Of<float>::G;
+  return (long long)B * KVH * ((Sk + G::kBK - 1) / G::kBK) * G::kImage;
+}
+
+// Head dim 256: float32 splits K and V into the workspace first (a second
+// launch on the same stream), bfloat16 reads them through tensor maps.
+template <typename T>
+cudaError_t launch_d256(const void* q, const void* k, const void* v, void* o, void* ws,
+                        long long ws_bytes, int B, int H, int KVH, int Sq, int Sk,
+                        const long long* st, int causal, int window, float scale,
+                        cudaStream_t stream) {
+  using G = typename Geo256Of<T>::G;
+  CUtensorMap qm{}, km{}, vm{};
+  cudaError_t err = make_map<T, 256>(&qm, q, B, Sq, H, st[0], st[1], st[2], G::kBQ);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + wide::kBQ - 1) / wide::kBQ, H, B);
-  flash_attention_wide_kernel<<<grid, wide::kThreads, wide::kSmem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, KVH, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], causal, window, scale);
+  if constexpr (G::kF32) {
+    if (ws == nullptr || ws_bytes < d256_workspace_bytes(B, KVH, Sk)) return cudaErrorInvalidValue;
+    const dim3 grid((Sk + G::kBK - 1) / G::kBK * (G::kBK / 8), B * KVH);
+    flash_attention_split_kv_kernel<G><<<grid, 256, 0, stream>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), static_cast<uint8_t*>(ws),
+        KVH, Sk, st[3], st[4], st[5]);
+    err = cudaGetLastError();
+  } else {
+    err = make_map<T, 256>(&km, k, B, Sk, KVH, st[3], st[4], st[5], G::kBK);
+    if (err == cudaSuccess) err = make_map<T, 256>(&vm, v, B, Sk, KVH, st[3], st[4], st[5], G::kBK);
+  }
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_attention_d256_kernel<T, G>;
+  static int smem_set[kMaxDevices] = {};
+  err = ensure_smem(kernel, G::kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  // the SMs and how many blocks of this kernel each holds at once, for the
+  // kernel's order of work (asked once a device, under the process-wide lock
+  // ensure_smem takes: host threads launch on several streams at once)
+  static int n_sm[kMaxDevices] = {}, resident[kMaxDevices] = {};
+  int dev = 0, sms = 0, res = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  {
+    std::lock_guard<std::mutex> lock(repro::smem_mutex());
+    if (n_sm[dev] == 0) {
+      int blocks = 0;
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, G::kThreads,
+                                                            G::kSmem);
+      if (err != cudaSuccess) return err;
+      n_sm[dev] = sms;
+      resident[dev] = sms * (blocks > 0 ? blocks : 1);
+    }
+    sms = n_sm[dev];
+    res = resident[dev];
+  }
+  const long long n_blocks = (long long)((Sq + G::kBQ - 1) / G::kBQ) * H * B;
+  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)n_blocks, G::kThreads, G::kSmem, stream>>>(
+      qm, km, vm, static_cast<const uint8_t*>(ws), static_cast<T*>(o), B, H, KVH, Sq, Sk, st[6],
+      st[7], st[8], causal, window, scale, sms, res);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, int B,
-                     int H, int KVH, int Sq, int Sk, const long long* st, int causal,
-                     int window, float scale, cudaStream_t stream) {
+cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, void* ws,
+                     long long ws_bytes, int B, int H, int KVH, int Sq, int Sk,
+                     const long long* st, int causal, int window, float scale,
+                     cudaStream_t stream) {
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
     case 256:
-      if constexpr (sizeof(T) == 4)
-        return launch_wide(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
-      else
-        return launch<T, 256>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
+      return launch_d256<T>(q, k, v, o, ws, ws_bytes, B, H, KVH, Sq, Sk, st, causal, window,
+                            scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// The keys of a float32 head-dim-256 kv tile, for the wrapper's workspace:
+// it holds 4 x 256 float32 a key of whole tiles.
+extern "C" int repro_flash_attention_split_tile() { return Geo256Of<float>::G::kBK; }
+
 // q/o [B, Sq, H, D], k/v [B, Sk, KVH, D]; strides in elements, last dim 1;
 // k and v share their strides.  bf16 != 0: bfloat16 tensors, else float32.
 // TMA needs q, k and v 16-byte aligned and every stride a multiple of 16
 // bytes (the wrapper checks; a map that cannot be encoded returns
-// cudaErrorInvalidValue).
+// cudaErrorInvalidValue).  The workspace (16-byte aligned, ws_bytes long)
+// is used by float32 at D = 256 only, which needs B KVH ceil(Sk / tile)
+// tile 4096 bytes (tile: repro_flash_attention_split_tile()) and returns
+// cudaErrorInvalidValue with less; any other call may pass NULL.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int B, int H, int KVH, int Sq, int Sk, int D, int bf16,
-                                     long long qsb, long long qss, long long qsh,
-                                     long long ksb, long long kss, long long ksh,
-                                     long long osb, long long oss, long long osh,
+                                     void* ws, long long ws_bytes, int B, int H, int KVH,
+                                     int Sq, int Sk, int D, int bf16, long long qsb,
+                                     long long qss, long long qsh, long long ksb, long long kss,
+                                     long long ksh, long long osb, long long oss, long long osh,
                                      int causal, int window, float scale, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0) return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, B, H, KVH, Sq, Sk, st,
-                                                   causal, window, scale, s)
-                         : dispatch<float>(D, q, k, v, o, B, H, KVH, Sq, Sk, st, causal,
-                                           window, scale, s);
+  cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, ws, ws_bytes, B, H, KVH, Sq,
+                                                   Sk, st, causal, window, scale, s)
+                         : dispatch<float>(D, q, k, v, o, ws, ws_bytes, B, H, KVH, Sq, Sk, st,
+                                           causal, window, scale, s);
   return (int)err;
 }

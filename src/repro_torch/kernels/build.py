@@ -69,9 +69,10 @@ _SIGNATURES = {
     # x, y, d, steps, stream: the replay's chain floor (one thread, `steps`
     # dependent max + add steps)
     "repro_asap_replay_chain_floor": [_P, _D, _D, _I, _P],
-    # q, k, v, o, B, H, KVH, Sq, Sk, D, bf16, strides of q, k/v and o (b, s, h),
-    # causal, window, scale, stream
-    "repro_flash_attention": [_P] * 4 + [_I] * 7 + [_L] * 9 + [_I, _I, _F, _P],
+    # q, k, v, o, workspace, its bytes, B, H, KVH, Sq, Sk, D, bf16, strides of
+    # q, k/v and o (b, s, h), causal, window, scale, stream
+    "repro_flash_attention": [_P] * 5 + [_L] + [_I] * 7 + [_L] * 9 + [_I, _I, _F, _P],
+    "repro_flash_attention_split_tile": [],
     # q, k_cache, v_cache, cache_len, part_m, part_l, part_acc, counters, o, B,
     # H, KVH, Smax, D, split, bf16, strides q (b, h), caches (b, s, h), o (b,
     # h), window, scale, stream

@@ -4,11 +4,12 @@ grouped-query heads.
 The port of the Pallas kernel ``flash_attention_kernel`` /
 ``flash_attention_call`` (``repro/kernels/flash_attention.py``) and of its
 wrapper ``ops.flash_attention``.  :func:`flash_attention` launches the
-hand-written CUDA kernel (``csrc/flash_attention.cu``: tensor cores, K/V
-fed by TMA; float32 at head dim 256 a second kernel of the same source,
-split TF32 on ``mma.sync`` fed by ``cp.async``) for tensors on the card and
-runs :func:`flash_attention_plain` for tensors on the CPU; it never falls
-back from one to the other.  Unlike
+hand-written CUDA kernel (``csrc/flash_attention.cu``: ``wgmma`` on the
+tensor cores, K/V fed by TMA; head dim 256 a kernel of its own in the same
+source, float32 after a small kernel that splits K and V into TF32 halves
+once a call, into a workspace this wrapper allocates) for tensors on the
+card and runs :func:`flash_attention_plain` for tensors on the CPU; it never
+falls back from one to the other.  Unlike
 the TPU kernel it reads the model's ``[B, S, H, D]`` layout through strides
 (no transposes) and takes lengths that no tile size divides.  TMA needs
 q, k and v 16-byte aligned with strides that are multiples of 16 bytes:
@@ -30,7 +31,7 @@ import torch
 from .build import check, count_launch, library, refuse_grad
 
 __all__ = ["flash_attention", "flash_attention_plain", "masked_attention", "attention_mask",
-           "check_kernel_layout", "NEG_INF", "KERNEL_HEAD_DIMS"]
+           "check_kernel_layout", "workspace_bytes", "NEG_INF", "KERNEL_HEAD_DIMS"]
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -129,6 +130,17 @@ def check_kernel_layout(q, k, v):
                              f"elements")
 
 
+def workspace_bytes(B, KVH, Sk, D, dtype, tile) -> int:
+    """Bytes of scratch a kernel call needs: float32 at head dim 256 splits K
+    and V into TF32 hi and lo halves once a call, ``tile`` keys at a time
+    (the kernel's kv tile, ``repro_flash_attention_split_tile()``), each key
+    as 4 x D float32 (K_hi, K_lo, V^T_hi, V^T_lo) and the keys padded to
+    whole tiles; every other call needs none."""
+    if D != 256 or dtype != torch.float32:
+        return 0
+    return B * KVH * -(-Sk // tile) * tile * 4 * D * 4
+
+
 def flash_attention(q, k, v, *, causal=True, window=0):
     """q ``[B,Sq,H,D]``, k/v ``[B,Sk,KVH,D]`` -> ``[B,Sq,H,D]``: the CUDA
     kernel for tensors on the card, :func:`flash_attention_plain` for
@@ -143,11 +155,15 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     check_kernel_layout(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
+    lib = library()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    nbytes = workspace_bytes(B, KVH, Sk, D, q.dtype, lib.repro_flash_attention_split_tile())
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = library().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KVH, Sq, Sk, D,
+        code = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if ws is None else ws.data_ptr(), nbytes, B, H, KVH, Sq, Sk, D,
             int(q.dtype == torch.bfloat16), *_tma_strides(q), *_tma_strides(k),
             *o.stride()[:3], int(bool(causal)), int(window), ctypes.c_float(D ** -0.5),
             stream)

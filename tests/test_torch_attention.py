@@ -21,7 +21,7 @@ from repro.kernels import ops, ref
 from repro_torch.kernels import (decode_attention, decode_attention_plain, flash_attention,
                                  flash_attention_plain)
 from repro_torch.kernels.decode_attention import check_decode_layout, decode_split
-from repro_torch.kernels.flash_attention import check_kernel_layout
+from repro_torch.kernels.flash_attention import check_kernel_layout, workspace_bytes
 from repro_torch.models.attention import attention
 from repro_torch.models.attention import decode_attention as model_decode_attention
 
@@ -34,6 +34,10 @@ FLASH_CASES = [
     (1, 256, 256, 4, 2, 32, True, 96),
     (1, 100, 100, 4, 2, 32, True, 0),
     (1, 128, 128, 8, 1, 256, True, 0),  # head dim 256, 8 query heads a kv head (paligemma-3b)
+    # head dim 256 with 8 query heads a kv head and a window, and Sq != Sk
+    # without a mask: the oracle of the card's head-dim-256 kernels
+    (1, 256, 256, 8, 1, 256, True, 96),
+    (1, 128, 256, 4, 2, 256, False, 0),
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -209,6 +213,21 @@ def test_flash_kernel_layout_check(what):
     else:
         with pytest.raises(ValueError, match=words):
             check_kernel_layout(*args)
+
+
+@pytest.mark.parametrize("shape,want", [
+    # (B, KVH, Sk, D, dtype, tile): float32 at head dim 256 splits every key
+    # of every kv head into 4 x 256 float32, padded to whole tiles
+    ((4, 1, 512, 256, torch.float32, 16), 4 * 512 * 4096),
+    ((2, 2, 130, 256, torch.float32, 16), 2 * 2 * 144 * 4096),
+    ((1, 1, 1, 256, torch.float32, 32), 32 * 4096),
+    ((1, 1, 500, 256, torch.float32, 32), 512 * 4096),
+    # nothing for bfloat16 (read as stored) or a smaller head dim
+    ((4, 1, 512, 256, torch.bfloat16, 16), 0),
+    ((4, 8, 512, 128, torch.float32, 16), 0),
+], ids=["paligemma", "ragged", "one_key", "tile32", "bf16", "d128"])
+def test_flash_workspace_bytes(shape, want):
+    assert workspace_bytes(*shape) == want
 
 
 def _bad_decode():

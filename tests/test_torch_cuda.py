@@ -446,13 +446,19 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (2, 100, 100, 4, 4, 64, True, 1),
     (1, 70, 150, 4, 2, 16, True, 0),
     # head dim 256: paligemma-3b's prefill (8 query heads on 1 kv head),
-    # the edges of its tiles, no mask, a window (float32 runs the mma.sync
-    # kernel, bfloat16 the TMA kernel's geometry)
+    # the edges of its tiles, no mask, a window (flash_attention_d256_kernel:
+    # 64-row q tiles, float32 after the split kernel)
     (4, 512, 512, 8, 1, 256, True, 0),
     (1, 1, 1, 4, 2, 256, True, 0),
     (1, 65, 65, 4, 2, 256, True, 0),
     (1, 100, 130, 8, 8, 256, False, 0),
     (2, 200, 200, 8, 1, 256, True, 64),
+    # Sk no kv tile divides (32 float32, 64 bfloat16) past a causal
+    # diagonal, a q-tile edge (64 + 64 + 1 rows), two waves of blocks at
+    # paligemma-3b's heads
+    (2, 77, 203, 8, 1, 256, True, 0),
+    (1, 129, 129, 8, 1, 256, True, 0),
+    (4, 1024, 1024, 8, 1, 256, True, 0),
 ])
 def test_flash_attention_kernel_matches_plain_on_card(card, case, dtype):
     B, Sq, Sk, H, KVH, D, causal, window = case
@@ -465,6 +471,25 @@ def test_flash_attention_kernel_matches_plain_on_card(card, case, dtype):
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == 1 and got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_d256_back_to_back_shapes_on_card(card, dtype):
+    """Calls at head dim 256 with other shapes in a row, each against its
+    plain version: a workspace sized or laid out for the call before (float32
+    splits K and V into one each call) would show as a wrong output."""
+    shapes = [(4, 512, 512, 8, 1), (1, 100, 300, 4, 2), (2, 64, 40, 8, 1), (4, 512, 512, 8, 1)]
+    outs = []
+    for i, (B, Sq, Sk, H, KVH) in enumerate(shapes):
+        g = torch.Generator(device=card).manual_seed(100 + i)
+        q, k, v = (torch.randn(s, generator=g, device=card).to(dtype)
+                   for s in ((B, Sq, H, 256), (B, Sk, KVH, 256), (B, Sk, KVH, 256)))
+        causal = Sq == Sk
+        outs.append((flash_attention(q, k, v, causal=causal),
+                     flash_attention_plain(q, k, v, causal=causal)))
+    torch.cuda.synchronize()
+    for got, want in outs:
+        assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
