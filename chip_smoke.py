@@ -23,7 +23,8 @@ Phases, each printing one JSON line:
    hymba-1.5b's and paligemma-3b's heads (head dim 256) with a batch of 4
    prompts of 512 tokens (paligemma's also at 500 tokens and with a window
    of 96; float32 at head dim 256 with its split kernel's share of the
-   call) and a 544-entry cache; the
+   call) and a 544-entry cache (decode at paligemma's heads in both types,
+   with the cluster size and entries a block); the
    SSD scan at mamba2-2.7b's and hymba-1.5b's heads over the same prompts,
    plus a ragged chunk and a weak decay under which the carried state
    matters; RMSNorm at the served models' norm shapes, which no path of the
@@ -1183,13 +1184,16 @@ def decode_phase(dev):
     """decode_attention against its plain version at the decode steps'
     shapes (a 544-entry cache, 1 to 544 entries valid, with and without a
     window; llama3.2-3b's heads, hymba-1.5b's, whose ring of 544 slots the
-    path reads with no window, and paligemma-3b's at head dim 256), the L2
-    cache flushed before every timed call, as the serving path finds each
-    layer's cache cold."""
+    path reads with no window, and paligemma-3b's at head dim 256, which
+    run the cluster kernel, in both types), the L2 cache flushed before
+    every timed call, as the serving path finds each layer's cache cold.
+    Head dims up to 128 report the split the wrapper picks; head dim 256
+    the cluster's blocks and the entries its largest share holds."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, decode_attention_plain
-    from repro_torch.kernels.decode_attention import decode_split
+    from repro_torch.kernels.decode_attention import (decode_cluster_on, decode_shares,
+                                                      decode_split)
 
     B, Smax = 4, 544
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1197,7 +1201,8 @@ def decode_phase(dev):
     rows = {}
     for tag, heads, dtype in (("", LLAMA, torch.float32), ("", LLAMA, torch.bfloat16),
                               ("hymba_", HYMBA_ATTN, torch.float32),
-                              ("paligemma_", PALIGEMMA, torch.float32)):
+                              ("paligemma_", PALIGEMMA, torch.float32),
+                              ("paligemma_", PALIGEMMA, torch.bfloat16)):
         H, KVH, D = heads["H"], heads["KVH"], heads["D"]
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         q, kc, vc = (_rand(gen, s, dtype, dev) for s in ((B, 1, H, D), (B, Smax, KVH, D),
@@ -1240,9 +1245,15 @@ def decode_phase(dev):
             bound_ms, bound_by = _bound(nbytes, flops, rate)
             rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                               library_ms=library_ms, max_abs_err=err)
+            if D == 256:
+                cluster = decode_cluster_on(dev, B, KVH, H // KVH, Smax)
+                grid = dict(cluster=cluster, entries_a_block=max(
+                    e - a for a, e in decode_shares(n, Smax, window, cluster)))
+            else:
+                grid = dict(split=decode_split(B, KVH, H // KVH, Smax, n_sms))
+            rows[name].update(grid)
             emit(phase="kernel", kernel="decode_attention", case=name, B=B, H=H, KVH=KVH, D=D,
-                 Smax=Smax, split=decode_split(B, KVH, H // KVH, Smax, n_sms),
-                 cache_len=n, window=window, dtype=str(dtype), max_abs_err=err,
+                 Smax=Smax, **grid, cache_len=n, window=window, dtype=str(dtype), max_abs_err=err,
                  tol=ATTN_TOL[dtype], ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                  library_ms=library_ms, library_max_abs_err=lib_err, bound_ms=bound_ms,
                  bound_by=bound_by, bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
@@ -1615,7 +1626,7 @@ def _device_time_by_group(prof):
         name = e.name
         if "flash_attention_" in name:  # flash_attention_kernel, FLASH_D256_KERNELS
             key = "flash_attention"
-        elif "decode_attention_kernel" in name:
+        elif "decode_attention_" in name:  # decode_attention_kernel, its d256 kernel
             key = "decode_attention"
         elif any(k in name for k in SSD_KERNELS):
             key = "ssd_scan"
@@ -2864,7 +2875,9 @@ def main() -> int:
              launches=served["decode_attention"],
              max_abs_err=max(v["max_abs_err"] for v in da.values()),
              ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"], bound_by=d["bound_by"],
-             library_ms=d["library_ms"], head_dim_256=da["paligemma_len544_w0_float32"]),
+             library_ms=d["library_ms"],
+             head_dim_256={"float32": da["paligemma_len544_w0_float32"],
+                           "bfloat16": da["paligemma_len544_w0_bfloat16"]}),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:90", launches=served["ssd_scan"],
              max_abs_err=max(v["max_abs_err"] for v in ssd.values()),

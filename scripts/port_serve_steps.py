@@ -1,7 +1,8 @@
 """Time the port's serving loop on the card: prefill + greedy decode steps of
-one served model (``--arch``: llama3.2-3b, mamba2-2.7b or hymba-1.5b) at full
-size, at ``chip_smoke.py``'s serve phase's batch, prompt length, step count
-and seed, three runs after a warm-up, in a fresh process.
+one served model (``--arch``: one of ``chip_smoke.SERVE_ARCHS``; paligemma-3b
+with its seeded patch embeddings) at full size, at ``chip_smoke.py``'s serve
+phase's batch, prompt length, step count and seed, three runs after a
+warm-up, in a fresh process.
 
     python scripts/port_serve_steps.py --src src --label change
     python scripts/port_serve_steps.py --src old/src --label parent   # another tree
@@ -50,19 +51,21 @@ def main(argv=None) -> int:
         print("no CUDA device: this timing needs the card", file=sys.stderr)
         return 2
     from repro_torch.config import get_arch
-    from repro_torch.launch.serve import generate, load_model, prompt_tokens, serve_policy
+    from repro_torch.launch.serve import (generate, load_model, prompt_patches, prompt_tokens,
+                                          serve_policy)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_arch(args.arch)
     dev = torch.device("cuda")
     model = load_model(cfg, SEED, dev)
     prompt = prompt_tokens(cfg, SERVE_B, SERVE_PROMPT, SEED, dev)
+    patches = prompt_patches(cfg, SERVE_B, SERVE_PROMPT, SEED, dev)  # None but for vlm
     policy = serve_policy(SERVE_PROMPT)
-    generate(model, cfg, policy, prompt, 2)  # first-call costs of cuBLAS and the kernels
+    generate(model, cfg, policy, prompt, 2, patches=patches)  # first-call costs
     prefill_s, step_ms, cpu_s, preempted = [], [], [], []
     for _ in range(RUNS):
         cpu0, nivcsw0 = time.thread_time(), resource.getrusage(resource.RUSAGE_SELF).ru_nivcsw
-        res = generate(model, cfg, policy, prompt, SERVE_STEPS)
+        res = generate(model, cfg, policy, prompt, SERVE_STEPS, patches=patches)
         cpu_s.append(time.thread_time() - cpu0)
         preempted.append(resource.getrusage(resource.RUSAGE_SELF).ru_nivcsw - nivcsw0)
         prefill_s.append(res.prefill_s)

@@ -1,6 +1,8 @@
-// Helpers shared by the port's kernels: the shared-memory opt-in, loads and
-// stores in the tensor's type, TF32 on the tensor cores, and cp.async.  Everything is
-// inline, so each source that includes this header compiles its own copy.
+// Helpers shared by the port's kernels: the shared-memory and cluster-size
+// opt-ins, loads and stores in the tensor's type, TF32 on the tensor cores,
+// cp.async, and mbarriers with the bulk copies (TMA's non-tensor form) that
+// complete on them.  Everything is inline, so each source that includes this
+// header compiles its own copy.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,6 +36,21 @@ inline cudaError_t ensure_smem(K kernel, int smem, int* set_for_device) {
   if (smem <= set_for_device[dev]) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) set_for_device[dev] = smem;
+  return err;
+}
+
+// Let `kernel` run on clusters of more than 8 blocks (the non-portable
+// sizes, up to 16 on this card), once per device, under the same mutex.
+template <typename K>
+inline cudaError_t allow_wide_clusters(K kernel, bool* set_for_device) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(smem_mutex());
+  if (set_for_device[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) set_for_device[dev] = true;
   return err;
 }
 
@@ -88,6 +105,58 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
   }
+}
+
+// ---------------------------------------------------------------- mbarriers and bulk copies
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.  A wait
+// that does not complete within ~2 s traps (a launch error in place of a
+// hung card).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1ll << 32)) {
+      __trap();
+    }
+  }
+}
+
+// A bulk copy of `bytes` contiguous bytes into shared memory, its bytes
+// counted on the barrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 }  // namespace repro

@@ -13,11 +13,13 @@
 // Layout: q and out [B, 1, H, D], caches [B, Smax, KVH, D], read through
 // their strides (the last dimension contiguous; the caches 16-byte aligned
 // with strides of whole 16-byte units, as the wrapper checks).  float32 or
-// bfloat16 in, float32 inside, out in the input type.  Head dims 16 to 256
-// (paligemma-3b: D = 256 with all 8 query heads on one kv head, 141 KB of
-// shared memory at the largest split).
+// bfloat16 in, float32 inside, out in the input type.  One kernel a call:
+// head dims 16 to 128 (llama3.2-3b's and hymba-1.5b's heads) run
+// decode_attention_kernel, designed here; head dim 256 (paligemma-3b's) runs
+// decode_attention_d256_kernel, with a design of its own (below, with its
+// note).
 //
-// What bounds it on this card: bytes.  A call must read the valid K and V
+// What bounds both on this card: bytes.  A call must read the valid K and V
 // rows once (llama3.2-3b's decode, B = 4, KVH = 8, D = 128, 544 entries,
 // float32: 17.8 MB, 5.3 us at 3.35 TB/s) and does 4 flops per element read,
 // far below the card's ~20 flops per byte.  So the design keeps the cache's
@@ -43,8 +45,7 @@
 //    denominator, accumulator) per head, and the last block of a (b, kv
 //    head) to finish, found by an atomic counter in the wrapper's workspace,
 //    combines the splits (each split's weight computed once per head, the
-//    loads of a thread's outputs in flight together: at paligemma-3b's 34
-//    splits x 8 heads x 256 the combine is most of a call), divides by
+//    loads of a thread's outputs in flight together), divides by
 //    max(l, 1e-30) as the reference does, writes the output and resets the
 //    counter for the next call.
 // Invalid entries get probability exactly 0 (in the reference they are
@@ -52,6 +53,7 @@
 // visited here holds one).  With cache_len = 0 the output is 0, as the
 // reference kernel's.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,12 +63,21 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 using repro::cp_async16;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
+using repro::allow_wide_clusters;
+using repro::bulk_load;
 using repro::ensure_smem;
 using repro::from_f32;
 using repro::kMaxDevices;
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::smem_u32;
 using repro::to_f32;
 
 constexpr int kTile = 16;      // cache entries a commit group
@@ -112,7 +123,8 @@ struct Geo {
   }
   static int bytes(int split) { return kK + k_bytes(split) + split * D * (int)sizeof(T); }
   static_assert(kK % 16 == 0, "K and V 16-byte aligned");
-  // the largest split's layout (D = 256, float32: 141,456 bytes) fits the
+  static_assert(D <= 128, "head dim 256 runs decode_attention_d256_kernel");
+  // the largest split's layout (D = 128, float32: 71,824 bytes) fits the
   // 227 KB a block can use; the launch raises the kernel's attribute to it
   static_assert(kK + (kMaxSplit * D * (int)sizeof(T) > kRed ? kMaxSplit * D * (int)sizeof(T)
                                                              : kRed) +
@@ -373,28 +385,555 @@ cudaError_t dispatch(int D, const void* q, const void* kc, const void* vc, const
     case 32: return launch<T, 32>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
     case 64: return launch<T, 64>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
     case 128: return launch<T, 128>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
-    case 256: return launch<T, 256>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// ---------------------------------------------------------------- head dim 256
+//
+// decode_attention_d256_kernel.  At paligemma-3b's decode shape (B 4, 8 query
+// heads on one kv head, a 544-entry cache, float32) there are only
+// B KVH ceil(G / 8) = 4 (b, kv head, head group) pairs, each with 1.1 MB of
+// K and V to read (4.5 MB a call: 1.3 us at 3.35 TB/s, 4 flops a byte, far
+// below the float32 ridge).  The kernel above split the *allocated* cache
+// into 16-entry blocks (136, those past cache_len idle), wrote every split's
+// partial state to a global workspace (1.1 MB) and had one elected block a
+// pair read it back on 4 SMs, behind fences and an atomic.  This kernel:
+//  * one thread-block cluster a (b, kv head, group of up to 8 query
+//    heads); the wrapper picks the cluster's size (1 to 16 blocks) from the
+//    pairs and the SMs: 16 at paligemma's shape, 64 blocks (the card holds
+//    7 clusters of 16 at once).  Clusters of 8 are 4-5% slower at 544
+//    entries and 1.4-1.9x slower at 8,192-32,768 (up to 0.9 us faster
+//    where a share holds a few entries); two clusters a pair, each with 4
+//    of the 8 heads, are no faster on clusters of 8 and slower on 16 (8
+//    clusters: two waves).  The blocks split the *valid* range [lo, hi),
+//    which each computes from cache_len on the device, into shares that
+//    differ by at most one entry, so every block works at every cache_len
+//    and the bytes read follow the filled cache.  Shares are not rounded to
+//    a 32-entry stage: at 544 entries on 16 blocks that would put 64
+//    entries on 8 blocks and leave 7 idle;
+//  * warp 0 issues bulk copies (cp.async.bulk, TMA's non-tensor form) of a
+//    stage's K rows and V rows into a ring of kStages stages, each with an
+//    mbarrier for K, one for V and one for its release, as soon as
+//    cache_len is read: one copy for each where the rows are one run (KVH =
+//    1), else one a row, spread over the warp's lanes.  q's rows come in
+//    the first stage's K transaction, and each lane takes its 8 dimensions
+//    of them from shared memory (64 scalar loads a lane from device memory
+//    took 1.1 us in float32 and 4 us in bfloat16).  A 34-entry share is in
+//    flight at once; a 32,768-entry cache cycles through the ring.  Bulk
+//    copies beat warp 0's lanes issuing 16-byte cp.async by up to 0.5 us at
+//    544 entries and by 1.6-2.1x at 32,768.  Asking for 116 KB of shared
+//    memory or more, so that two bfloat16 blocks (111 KB) never share an
+//    SM, measured the same;
+//  * no block-wide barrier in the loop: each warp takes kWE entries of a
+//    stage and keeps its own online softmax over the entries it sees.  A
+//    lane holds 8 of the 256 dimensions of q and of the accumulator, for all
+//    8 heads, in registers; the warp's kWE x 8 partial scores are summed by
+//    a reduce-scatter over the lanes (31 shuffles at kWE = 4), after which
+//    each lane holds one (entry, head) score and takes one exponential; the
+//    probabilities and rescale factors reach every lane through 160 bytes of
+//    shared memory a warp; a rescale whose factor is 1 is skipped.  Stages
+//    of 32 entries (kWE = 4) in a ring of 2 (float32) or 3 (bfloat16) were
+//    kept over 16-entry stages (kWE = 2) in a ring of 4: those tie at 544
+//    entries and are up to 0.8 us faster where a share holds a few entries
+//    (a window, a short cache), but slower at 8,192 and 32,768 entries,
+//    where the loop's instructions bound the kernel (bfloat16 by 18-27%,
+//    float32 by up to 23%, in two runs);
+//  * the combine stays on chip: the block's warps are merged through shared
+//    memory (over the spent ring); then each block stores its maxima and
+//    denominators into every peer's shared memory, and each 256 / cluster
+//    slice of its accumulators into the peer that combines that slice
+//    (distributed shared memory: stores, which do not wait for a reply).
+//    One cluster barrier (release, acquire) later each block combines its
+//    slice from its own shared memory and writes it, divided by
+//    max(l, 1e-30).  No workspace, no atomic, no fence.  The barrier's
+//    first half, arrived at when the block starts and waited for before its
+//    first remote store, ensures every peer has started;
+//  * scores and P V are float32 FMA on the CUDA cores: at 4 flops a byte no
+//    tensor-core route pays at paligemma's length.
+// The choices above are scripts/decode_variants.py's measurements (NVIDIA
+// H100 80GB HBM3, 700 W).
+// A block whose share is empty (cache_len below the cluster's size, a
+// window, cache_len 0) copies nothing and still meets its cluster at both
+// barriers; with no valid entry at all the output is 0.
+
+constexpr int kD256 = 256;
+constexpr int kWarps256 = 8;
+constexpr int kThreads256 = 32 * kWarps256;
+constexpr int kHeads256 = 8;        // query heads a lane's registers hold
+constexpr int kGroupHeads = kHeads256;  // query heads a cluster serves
+constexpr int kMaxCluster = 16;     // blocks a cluster at most (above 8: non-portable)
+
+// Shared memory of one instance: the ring (a stage: the K rows, then the V
+// rows, of kEntries = 8 kWE entries), reused after the loop for the warps'
+// accumulators; the inbox where the cluster's blocks store their states'
+// slices that this block combines (maxima and denominators apart); q's rows;
+// the warps' maxima and denominators; the cluster's weights; each warp's
+// probabilities and rescale factors; the ring's mbarriers.
+template <typename T, int kWE_, int kStages_>
+struct Geo256 {
+  static constexpr int kWE = kWE_;  // entries a warp takes of a stage
+  static constexpr int kStages = kStages_;
+  static constexpr int kEntries = kWarps256 * kWE;
+  static constexpr int kRow = kD256 * (int)sizeof(T);
+  static constexpr int kTileBytes = kEntries * kRow;  // the K (or V) rows of a stage
+  static constexpr int kRing = 2 * kStages * kTileBytes;
+  static constexpr int kWAcc = kWarps256 * kHeads256 * kD256 * 4;
+  static constexpr int kIn = kRing > kWAcc ? kRing : kWAcc;  // [cluster][kHeads256][256 / cluster]
+  static constexpr int kInML = kIn + kHeads256 * kD256 * 4;  // [kMaxCluster][2][kHeads256]
+  static constexpr int kQ = kInML + 2 * kMaxCluster * kHeads256 * 4;  // [kHeads256][256] T
+  static constexpr int kWM = kQ + kHeads256 * kRow;                  // [2][kWarps256][kHeads256]
+  static constexpr int kWt = kWM + 2 * kWarps256 * kHeads256 * 4;  // [kMaxCluster + 1][kHeads256]
+  static constexpr int kScr = kWt + (kMaxCluster + 1) * kHeads256 * 4;
+  static constexpr int kScrWarp = (kWE + 1) * kHeads256;      // floats: [kWE][8] p, [8] alpha
+  static constexpr int kBars = kScr + kWarps256 * kScrWarp * 4;
+  static constexpr int kSmem = kBars + 3 * kStages * 8;
+  static_assert(kWE == 1 || kWE == 2 || kWE == 4, "kWE x 8 scores reduce-scatter over a warp");
+  static_assert(kTileBytes % 16 == 0 && kIn % 16 == 0 && kScr % 16 == 0 && kBars % 16 == 0,
+                "16-byte aligned");
+  static_assert(kSmem <= 232448, "fits the 227 KB a block can use");
+};
+
+template <typename T>
+struct Geo256Of;
+template <>
+struct Geo256Of<float> {  // 32 entries a stage, 2 stages: a 128 KB ring
+  using G = Geo256<float, 4, 2>;
+};
+template <>
+struct Geo256Of<__nv_bfloat16> {  // 32 entries a stage, 3 stages: a 96 KB ring
+  using G = Geo256<__nv_bfloat16, 4, 3>;
+};
+
+// Lane `lane` holds 8 of a row's 256 dimensions: float32 the 16-byte chunks
+// lane and lane + 32, bfloat16 the chunk lane (a warp's loads of a row
+// are contiguous and conflict-free either way).
+template <typename T>
+__device__ __forceinline__ int lane_dim(int lane, int i) {
+  if constexpr (sizeof(T) == 4) {
+    return 4 * (lane + 32 * (i >> 2)) + (i & 3);
+  } else {
+    return 8 * lane + i;
+  }
+}
+
+// The lane's 8 elements of a cache row in shared memory, as floats.
+__device__ __forceinline__ void row8(const float* row, int lane, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(row + 4 * lane);
+  const float4 c = *reinterpret_cast<const float4*>(row + 128 + 4 * lane);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = c.x, x[5] = c.y, x[6] = c.z, x[7] = c.w;
+}
+__device__ __forceinline__ void row8(const __nv_bfloat16* row, int lane, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * lane);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    x[2 * j] = f.x;
+    x[2 * j + 1] = f.y;
+  }
+}
+
+// The lane's 8 values in a 256-float row of shared memory, at float32's
+// lane positions (conflict-free whatever the values' dimensions).
+__device__ __forceinline__ void load8f(const float* row, int lane, float (&x)[8]) {
+  row8(row, lane, x);
+}
+__device__ __forceinline__ void store8f(float* row, int lane, const float (&x)[8]) {
+  *reinterpret_cast<float4*>(row + 4 * lane) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(row + 128 + 4 * lane) = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// 8 consecutive floats of shared memory (16-byte aligned), the same in
+// every lane.
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 c = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = c.x, x[5] = c.y, x[6] = c.z, x[7] = c.w;
+}
+
+// Sums each of a warp's N partial values (N = 8, 16 or 32) over its 32
+// lanes and returns to lane l the total of value l >> (5 - log2 N): halving
+// exchanges (N - 1 shuffles), then plain sums over the lanes that hold the
+// same value (5 - log2 N shuffles).
+template <int N>
+__device__ __forceinline__ float reduce_scatter(float (&v)[N], int lane) {
+  constexpr int kSteps = N == 32 ? 5 : (N == 16 ? 4 : (N == 8 ? 3 : -1));
+  static_assert(kSteps > 0, "8, 16 or 32 values");
+#pragma unroll
+  for (int step = 0; step < kSteps; ++step) {
+    const int half = N >> (step + 1), o = 16 >> step;
+    const bool up = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      if (i < half) {
+        const float send = up ? v[i] : v[i + half];
+        const float keep = up ? v[i + half] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+    }
+  }
+  float x = v[0];
+#pragma unroll
+  for (int o = 16 >> kSteps; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The cluster barrier in two halves: arrive (relaxed: orders nothing; or
+// release: this thread's earlier stores, remote ones included) and wait
+// (acquire).  Every thread of every block of the cluster takes part.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <typename T, typename Gm>
+__global__ void __launch_bounds__(kThreads256, 1)
+decode_attention_d256_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                             const T* __restrict__ vc, const int* __restrict__ cache_len,
+                             T* __restrict__ o, int H, int KVH, int Smax, int csize,
+                             long long qsb, long long qsh, long long ksb, long long kss,
+                             long long ksh, long long osb, long long osh, int window,
+                             float scale) {
+  constexpr int kWE = Gm::kWE, kStages = Gm::kStages, kEntries = Gm::kEntries;
+  constexpr int kN = kWE * kHeads256;  // a lane's partial scores a stage
+  constexpr int kSteps = kN == 32 ? 5 : (kN == 16 ? 4 : 3);
+  extern __shared__ __align__(128) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int G = H / KVH;
+  const int g0 = (int)(blockIdx.x / csize) * kGroupHeads, Gc = min(kGroupHeads, G - g0);
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int h0 = kvh * G + g0;  // the cluster's first query head
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* in = reinterpret_cast<float*>(smem + Gm::kIn);
+  float* in_ml = reinterpret_cast<float*>(smem + Gm::kInML);
+  const T* qs = reinterpret_cast<const T*>(smem + Gm::kQ);
+  float* wm = reinterpret_cast<float*>(smem + Gm::kWM);
+  float* wt = reinterpret_cast<float*>(smem + Gm::kWt);
+  float* scr = reinterpret_cast<float*>(smem + Gm::kScr) + warp * Gm::kScrWarp;
+  const uint32_t kfull = smem_u32(smem + Gm::kBars);  // K landed, V landed, stage freed
+  const uint32_t vfull = kfull + 8 * kStages, freed = vfull + 8 * kStages;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kfull + 8 * s, 1);
+      mbar_init(vfull + 8 * s, 1);
+      mbar_init(freed + 8 * s, kWarps256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive_relaxed();  // this block has started (waited for before the first remote store)
+  // this block's share [e0, e0 + n) of the valid entries [lo, hi)
+  int lo, hi;
+  valid_range(*cache_len, Smax, window, &lo, &hi);
+  const long long nv = hi > lo ? hi - lo : 0;
+  const int e0 = lo + (int)(rank * nv / csize);
+  const int n = lo + (int)((rank + 1) * nv / csize) - e0;
+  const int nt = (n + kEntries - 1) / kEntries;  // stages' worth of entries
+  __syncthreads();  // the barriers are initialised
+
+  const T* kb = kc + b * ksb + kvh * ksh + (long long)e0 * kss;
+  const T* vb = vc + b * ksb + kvh * ksh + (long long)e0 * kss;
+  const T* qb = q + b * qsb + (long long)h0 * qsh;
+  // warp 0: stage t % kStages <- the K rows and the V rows of tile t; with
+  // tile 0, on its K barrier, q's Gc rows (a block with no entries needs
+  // no q)
+  auto issue = [&](int t) {
+    const int s = t % kStages, r0 = t * kEntries, rows = min(kEntries, n - r0);
+    const int qrows = t == 0 ? Gc : 0;
+    uint8_t* kdst = smem + s * 2 * Gm::kTileBytes;
+    uint8_t* vdst = kdst + Gm::kTileBytes;
+    const uint32_t bytes = (uint32_t)rows * Gm::kRow;
+    if (lane == 0) {
+      mbar_expect_tx(kfull + 8 * s, bytes + (uint32_t)qrows * Gm::kRow);
+      mbar_expect_tx(vfull + 8 * s, bytes);
+    }
+    __syncwarp();
+    if (qrows > 0 && (qsh == kD256 || qrows == 1)) {  // q's rows are one run
+      if (lane == 0)
+        bulk_load(smem_u32(qs), qb, (uint32_t)qrows * Gm::kRow, kfull + 8 * s);
+    } else if (lane < qrows) {
+      bulk_load(smem_u32(qs + lane * kD256), qb + lane * qsh, Gm::kRow, kfull + 8 * s);
+    }
+    if (kss == kD256) {  // the rows are one run
+      if (lane == 0) {
+        bulk_load(smem_u32(kdst), kb + r0 * kss, bytes, kfull + 8 * s);
+        bulk_load(smem_u32(vdst), vb + r0 * kss, bytes, vfull + 8 * s);
+      }
+    } else {
+      for (int r = lane; r < rows; r += 32) {
+        bulk_load(smem_u32(kdst + r * Gm::kRow), kb + (r0 + r) * kss, Gm::kRow, kfull + 8 * s);
+        bulk_load(smem_u32(vdst + r * Gm::kRow), vb + (r0 + r) * kss, Gm::kRow, vfull + 8 * s);
+      }
+    }
+  };
+  if (warp == 0)
+    for (int t = 0; t < min(kStages, nt); ++t) issue(t);
+
+  // q's rows in registers, once they land with tile 0: the lane's 8
+  // dimensions of each of the cluster's heads (0 past Gc)
+  float qr[kHeads256][8];
+  if (nt > 0) mbar_wait(kfull, 0);
+#pragma unroll
+  for (int g = 0; g < kHeads256; ++g) {
+    if (nt > 0 && g < Gc) {
+      row8(qs + g * kD256, lane, qr[g]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) qr[g][i] = 0.f;
+    }
+  }
+
+  // The lane's (entry, head) after the reduce-scatter, its head's running
+  // max and denominator over this warp's entries, its 8 dimensions of every
+  // head's accumulator.
+  const int idx = lane >> (5 - kSteps);
+  const int my_e = idx / kHeads256, my_g = idx % kHeads256;
+  float m_run = -INFINITY, l_run = 0.f;
+  float acc[kHeads256][8];
+#pragma unroll
+  for (int g = 0; g < kHeads256; ++g)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
+
+  for (int t = 0; t < nt; ++t) {
+    const int s = t % kStages;
+    const uint32_t par = (uint32_t)(t / kStages) & 1u;
+    const int ne = min(kWE, n - t * kEntries - warp * kWE);  // this warp's entries of the stage
+    const T* ks = reinterpret_cast<const T*>(smem + s * 2 * Gm::kTileBytes) + warp * kWE * kD256;
+    const T* vs = ks + kEntries * kD256;
+    mbar_wait(kfull + 8 * s, par);
+    if (ne > 0) {
+      float v[kN];
+#pragma unroll
+      for (int e = 0; e < kWE; ++e) {
+        float kx[8];
+        if (e < ne) {
+          row8(ks + e * kD256, lane, kx);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) kx[i] = 0.f;
+        }
+#pragma unroll
+        for (int g = 0; g < kHeads256; ++g) {
+          float d = 0.f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) d = fmaf(qr[g][i], kx[i], d);
+          v[e * kHeads256 + g] = d;
+        }
+      }
+      const float dot = reduce_scatter<kN>(v, lane);
+      const bool ok = my_e < ne;
+      const float sc = ok ? dot * scale : -INFINITY;
+      // the group's max and sum for the lane's head: over the lanes of its
+      // other entries
+      float mx = sc;
+#pragma unroll
+      for (int off = 16; off >= (1 << (8 - kSteps)); off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run, mx);  // finite: the group's first entry is valid
+      const float alpha = expf(m_run - m_new);
+      const float p = ok ? expf(sc - m_new) : 0.f;
+      float ps = p;
+#pragma unroll
+      for (int off = 16; off >= (1 << (8 - kSteps)); off >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l_run = fmaf(l_run, alpha, ps);
+      m_run = m_new;
+      __syncwarp();  // every lane has read the last group's probabilities
+      scr[idx] = p;
+      if (my_e == 0) scr[kWE * kHeads256 + my_g] = alpha;
+      __syncwarp();
+    }
+    mbar_wait(vfull + 8 * s, par);
+    if (ne > 0) {
+      float a[8];
+      load8(scr + kWE * kHeads256, a);  // the 8 heads' factors, in every lane
+#pragma unroll
+      for (int g = 0; g < kHeads256; ++g)
+        if (a[g] != 1.f)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[g][i] *= a[g];
+#pragma unroll
+      for (int e = 0; e < kWE; ++e) {
+        if (e < ne) {
+          float vx[8], pe[8];
+          row8(vs + e * kD256, lane, vx);
+          load8(scr + e * kHeads256, pe);
+#pragma unroll
+          for (int g = 0; g < kHeads256; ++g)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(pe[g], vx[i], acc[g][i]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(freed + 8 * s);  // this warp is done with the stage
+    if (warp == 0 && t + kStages < nt) {
+      mbar_wait(freed + 8 * s, par);
+      issue(t + kStages);
+    }
+  }
+  __syncthreads();  // every warp is past the ring, and every copy has landed
+
+  // the warps' states, merged into the block's: warp g for head g (the
+  // accumulators in shared memory at the float32 lanes' positions, which
+  // are conflict-free for either type)
+  float* wacc = reinterpret_cast<float*>(smem);  // [kWarps256][kHeads256][256], over the ring
+#pragma unroll
+  for (int g = 0; g < kHeads256; ++g) store8f(wacc + (warp * kHeads256 + g) * kD256, lane, acc[g]);
+  if (my_e == 0) {
+    wm[warp * kHeads256 + my_g] = m_run;
+    wm[(kWarps256 + warp) * kHeads256 + my_g] = l_run;
+  }
+  __syncthreads();
+  const int dc = kD256 / csize;  // the dimensions each block of the cluster combines
+  {
+    const int g = warp;
+    float mw[kWarps256], M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps256; ++w) {
+      mw[w] = wm[w * kHeads256 + g];
+      M = fmaxf(M, mw[w]);
+    }
+    float L = 0.f, x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int w = 0; w < kWarps256; ++w) {
+      const float c = mw[w] == -INFINITY ? 0.f : expf(mw[w] - M);
+      L = fmaf(wm[(kWarps256 + w) * kHeads256 + g], c, L);
+      float y[8];
+      load8f(wacc + (w * kHeads256 + g) * kD256, lane, y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = fmaf(y[i], c, x[i]);
+    }
+    // the block's state, pushed into its peers' shared memory: each 4
+    // dimensions to the block that combines them, the max and denominator
+    // to all
+    cluster_wait();  // every peer has started
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int d = lane_dim<T>(lane, 4 * j), r = d / dc;
+      float* peer = cluster.map_shared_rank(in, r);
+      *reinterpret_cast<float4*>(peer + (rank * kHeads256 + g) * dc + d - r * dc) =
+          make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+    }
+    if (lane < csize) {
+      float* peer = cluster.map_shared_rank(in_ml, lane);
+      peer[(2 * rank) * kHeads256 + g] = M;
+      peer[(2 * rank + 1) * kHeads256 + g] = L;
+    }
+  }
+  cluster_arrive();  // release: this block's stores to its peers
+  cluster_wait();    // acquire: every peer's stores to this block
+  // the cluster's combine of this block's dimensions, from its own shared
+  // memory (no block touches another's after the barrier)
+  if (tid < kHeads256) {  // a thread a head: the blocks' weights and the denominator
+    const int g = tid;
+    float M = -INFINITY;
+    for (int r = 0; r < csize; ++r) M = fmaxf(M, in_ml[2 * r * kHeads256 + g]);
+    float L = 0.f;
+    for (int r = 0; r < csize; ++r) {
+      const float m = in_ml[2 * r * kHeads256 + g];
+      const float c = m == -INFINITY ? 0.f : expf(m - M);
+      wt[r * kHeads256 + g] = c;
+      L = fmaf(in_ml[(2 * r + 1) * kHeads256 + g], c, L);
+    }
+    wt[kMaxCluster * kHeads256 + g] = L;
+  }
+  __syncthreads();
+  for (int i = tid; i < Gc * dc; i += kThreads256) {
+    const int g = i / dc, j = i - g * dc;
+    float a = 0.f;
+    for (int r = 0; r < csize; ++r) a = fmaf(in[(r * kHeads256 + g) * dc + j], wt[r * kHeads256 + g], a);
+    from_f32(o + b * osb + (long long)(h0 + g) * osh + rank * dc + j,
+             a / fmaxf(wt[kMaxCluster * kHeads256 + g], 1e-30f));
+  }
+}
+
+// The launch of clusters of `csize` blocks over `grid` (the kernel's
+// attributes raised as it needs), or an error code.
+template <typename T>
+cudaError_t configure256(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int csize,
+                         dim3 grid) {
+  using Gm = typename Geo256Of<T>::G;
+  if (csize < 1 || csize > kMaxCluster || (csize & (csize - 1)) != 0) return cudaErrorInvalidValue;
+  auto kernel = decode_attention_d256_kernel<T, Gm>;
+  static int smem_set[kMaxDevices] = {};
+  cudaError_t err = ensure_smem(kernel, Gm::kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  static bool wide[kMaxDevices] = {};
+  if (csize > 8 && (err = allow_wide_clusters(kernel, wide)) != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = grid;
+  cfg->blockDim = dim3(kThreads256, 1, 1);
+  cfg->dynamicSmemBytes = Gm::kSmem;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = csize;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch256(const void* q, const void* kc, const void* vc, const int* len, void* o,
+                      int B, int H, int KVH, int Smax, const long long* st, int window,
+                      float scale, int csize, cudaStream_t stream) {
+  const int n_groups = (H / KVH + kGroupHeads - 1) / kGroupHeads;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = configure256<T>(&cfg, attr, csize, dim3(csize * n_groups, KVH, B));
+  if (err != cudaSuccess) return err;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, decode_attention_d256_kernel<T, typename Geo256Of<T>::G>,
+                           static_cast<const T*>(q), static_cast<const T*>(kc),
+                           static_cast<const T*>(vc), len, static_cast<T*>(o), H, KVH, Smax,
+                           csize, st[0], st[1], st[2], st[3], st[4], st[5], st[6], window, scale);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t max_clusters256(int csize, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const cudaError_t err = configure256<T>(&cfg, attr, csize, dim3(csize, 1, 1));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(
+      out, (void*)decode_attention_d256_kernel<T, typename Geo256Of<T>::G>, &cfg);
+}
+
 }  // namespace
 
-// The kernel's geometry, for the wrapper's workspace: what = 0, cache
-// entries a commit group (splits are multiples of it); 1, the largest split;
-// 2, the query heads a block serves (a kv head with more takes
-// ceil(G / this) blocks a split, each with its own counter).
+// The kernels' geometry, for the wrapper's split, workspace and cluster:
+// what = 0, cache entries a commit group (splits are multiples of it); 1, the
+// largest split; 2, the query heads a block serves (a kv head with more takes
+// ceil(G / this) blocks a split, each with its own counter); 3, the query
+// heads a cluster of the head-dim-256 kernel serves; 4, that kernel's
+// largest cluster.
 extern "C" int repro_decode_attention_geometry(int what) {
   switch (what) {
     case 0: return kTile;
     case 1: return kMaxSplit;
     case 2: return kMaxG;
+    case 3: return kGroupHeads;
+    case 4: return kMaxCluster;
     default: return -1;
   }
 }
 
-// q/o [B, 1, H, D] (strides of b and h), caches [B, Smax, KVH, D] (k and v
-// share their strides), cache_len one int32 on the device.  The workspace:
+// Head dims 16 to 128.  q/o [B, 1, H, D] (strides of b and h), caches
+// [B, Smax, KVH, D] (k and v share their strides), cache_len one int32 on the
+// device.  The workspace:
 // part_m and part_l [B, H, n_split], part_acc [B, H, n_split, D] float32,
 // counters [B, KVH ceil(G / 8)] int32, zero before the first call (each call
 // leaves them zero); n_split = ceil(Smax / split).
@@ -419,4 +958,33 @@ extern "C" int repro_decode_attention(const void* q, const void* kc, const void*
                          : dispatch<float>(D, q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH,
                                            Smax, split, st, window, scale, s);
   return (int)err;
+}
+
+// Head dim 256: q/o [B, 1, H, 256] (strides of b and h), caches
+// [B, Smax, KVH, 256] (k and v share their strides), cache_len one int32 on
+// the device; clusters of `cluster` blocks (1, 2, 4, 8 or 16), each serving
+// up to 8 of a kv head's query heads.
+extern "C" int repro_decode_attention_d256(const void* q, const void* kc, const void* vc,
+                                           const void* cache_len, void* o, int B, int H,
+                                           int KVH, int Smax, int bf16, long long qsb,
+                                           long long qsh, long long ksb, long long kss,
+                                           long long ksh, long long osb, long long osh,
+                                           int window, float scale, int cluster,
+                                           void* stream) {
+  if (B < 1 || B > 65535 || Smax < 1 || KVH < 1 || KVH > 65535 || H % KVH != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long st[7] = {qsb, qsh, ksb, kss, ksh, osb, osh};
+  const int* len = static_cast<const int*>(cache_len);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? launch256<__nv_bfloat16>(q, kc, vc, len, o, B, H, KVH, Smax, st, window,
+                                               scale, cluster, s)
+                    : launch256<float>(q, kc, vc, len, o, B, H, KVH, Smax, st, window, scale,
+                                       cluster, s));
+}
+
+// How many clusters of `cluster` blocks of the head-dim-256 kernel the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *out.
+extern "C" int repro_decode_attention_d256_max_clusters(int bf16, int cluster, int* out) {
+  return (int)(bf16 ? max_clusters256<__nv_bfloat16>(cluster, out)
+                    : max_clusters256<float>(cluster, out));
 }

@@ -96,8 +96,14 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+using repro::bulk_load;
 using repro::ensure_smem;
 using repro::kMaxDevices;
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::smem_u32;
 using repro::split_tf32;
 
 // Shared-memory geometry of one instance.  A tile of R rows of D elements is
@@ -151,45 +157,7 @@ __device__ __forceinline__ uint32_t row_bits(int rr) {
   return (uint32_t)((rr * SW) >> 7) & (uint32_t)(SW / 16 - 1);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------- mbarriers and TMA
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > (1ll << 32)) {
-      __trap();
-    }
-  }
-}
+// ---------------------------------------------------------------- TMA
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {
@@ -1066,16 +1034,6 @@ template <>
 struct Geo256Of<__nv_bfloat16> {  // 64-key tiles, one stage, one warpgroup
   using G = Geo256<__nv_bfloat16, 64, 1, 1>;
 };
-
-// A bulk copy of `bytes` contiguous bytes into shared memory, its bytes
-// counted on the barrier.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 // S[64 x N] += A[64 x 8] B[N x 8]^T in TF32: A from shared memory (ss) or
 // registers (rs), B K-major in shared memory

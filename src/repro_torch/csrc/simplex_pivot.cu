@@ -74,7 +74,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
+#include "common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -381,41 +381,21 @@ simplex_pivot_kernel(double* __restrict__ T, int32_t* __restrict__ basis,
   if (updated && tid == 0 && done) atomicAdd(updated, done);
 }
 
-// The kernel's attributes as raised so far, per device, under g_attr_mutex:
-// host threads launch on several streams at once, and an unguarded check
-// and set could leave the attribute below what g_smem_limit records.
-constexpr int kMaxDevices = 64;
-std::mutex g_attr_mutex;
-int g_smem_limit[kMaxDevices];  // the dynamic shared memory set up beyond 48 KB (0: not yet)
-bool g_nonportable[kMaxDevices];
-
 // The launch configuration of `n_lanes` lanes on clusters of `cluster`
-// blocks (the kernel's attributes raised as it needs), or an error code.
+// blocks (the kernel's attributes raised as it needs, once per device), or
+// an error code.
 cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int n_lanes, int R,
                       int C, int cluster, int* slice) {
   if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8 && cluster != 16)
     return cudaErrorInvalidValue;
   *slice = ((C + cluster - 1) / cluster + 1) & ~1;
   const size_t smem = (size_t)(2 * R + *slice) * sizeof(double) + (size_t)R * sizeof(int);
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static int smem_set[repro::kMaxDevices] = {};
+  cudaError_t e = repro::ensure_smem(simplex_pivot_kernel, (int)smem, smem_set);
   if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  {
-    std::lock_guard<std::mutex> lock(g_attr_mutex);
-    if (smem > 48 * 1024 && (int)smem > g_smem_limit[dev]) {
-      e = cudaFuncSetAttribute(simplex_pivot_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-      g_smem_limit[dev] = (int)smem;
-    }
-    if (cluster > 8 && !g_nonportable[dev]) {
-      e = cudaFuncSetAttribute(simplex_pivot_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (e != cudaSuccess) return e;
-      g_nonportable[dev] = true;
-    }
-  }
+  static bool wide[repro::kMaxDevices] = {};
+  if (cluster > 8 && (e = repro::allow_wide_clusters(simplex_pivot_kernel, wide)) != cudaSuccess)
+    return e;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3((unsigned)n_lanes * cluster, 1, 1);
   cfg->blockDim = dim3(kThreads, 1, 1);

@@ -45,9 +45,10 @@ NVCC_FLAGS = (
 _LOCK = threading.Lock()
 # the one lock over the wrappers' module-level bookkeeping: launch counts,
 # the pivot kernel's counts by cluster size and its lazy per-card state, the
-# decode kernel's workspaces and the autotuner's memo.  Shards and server
-# workers launch from several host threads at once; under this lock no
-# launch is lost from a count and no per-card object is created twice.
+# decode kernels' workspaces and cluster checks, and the autotuner's memo.
+# Shards and server workers launch from several host threads at once; under
+# this lock no launch is lost from a count and no per-card object is created
+# twice.
 STATE_LOCK = threading.RLock()
 _LIB: ctypes.CDLL | None = None
 _BUILD_SECONDS: float | None = None
@@ -78,6 +79,12 @@ _SIGNATURES = {
     # h), window, scale, stream
     "repro_decode_attention": [_P] * 9 + [_I] * 7 + [_L] * 7 + [_I, _F, _P],
     "repro_decode_attention_geometry": [_I],
+    # head dim 256: q, k_cache, v_cache, cache_len, o, B, H, KVH, Smax, bf16,
+    # strides q (b, h), caches (b, s, h), o (b, h), window, scale, cluster,
+    # stream
+    "repro_decode_attention_d256": [_P] * 5 + [_I] * 5 + [_L] * 7 + [_I, _F, _I, _P],
+    # bf16, cluster, out
+    "repro_decode_attention_d256_max_clusters": [_I, _I, _P],
     # x, dt, A, B, C, D, y, workspace, B, S, H, G, P, N, L, bf16, strides of
     # x, dt, B, C and y (b, s, h or g), stream
     "repro_ssd_scan": [_P] * 8 + [_I] * 8 + [_L] * 15 + [_P],

@@ -4,12 +4,17 @@ grouped-query heads.
 
 The port of the Pallas kernel ``decode_attention_kernel`` /
 ``decode_attention_call`` (``repro/kernels/decode_attention.py``) and of its
-wrapper ``ops.decode_attention``.  :func:`decode_attention` launches the
-hand-written CUDA kernel (``csrc/decode_attention.cu``: one launch, split-KV
-blocks streaming the cache through shared memory, the last block of each kv
-head combining the splits) for tensors on the card and runs
-:func:`decode_attention_plain` for tensors on the CPU; it never falls back
-from one to the other.
+wrapper ``ops.decode_attention``.  :func:`decode_attention` launches a
+hand-written CUDA kernel (``csrc/decode_attention.cu``) for tensors on the
+card and runs :func:`decode_attention_plain` for tensors on the CPU; it
+never falls back from one to the other.  Head dims 16 to 128 run split-KV
+blocks that stream the cache through shared memory, the last block of each
+kv head combining the splits (:func:`decode_split` picks the split); head
+dim 256 runs a thread-block cluster per (batch, kv head, group of up to 8
+query heads) whose blocks share out the valid entries and combine in
+distributed shared memory (:func:`decode_cluster` picks the cluster,
+:func:`decode_cluster_on` with the kernel's geometry and the card's SMs;
+:func:`decode_shares` mirrors how the kernel shares out the entries).
 
 ``cache_len`` is a Python int or a one-element int32 tensor on q's device.
 The kernel reads it from device memory, as the TPU kernel read its scalar
@@ -19,7 +24,7 @@ for the host.  Valid entries are ``idx < cache_len`` and, with a window,
 
 Shapes: q ``[B, 1, H, D]``, caches ``[B, Smax, KVH, D]`` (``H % KVH == 0``);
 float32 or bfloat16, float32 inside, the output ``[B, 1, H, D]`` in q's
-dtype.  The kernel copies the caches in 16-byte units: they start 16-byte
+dtype.  The kernels copy the caches in 16-byte units: they start 16-byte
 aligned, with strides of whole 16-byte units (:func:`check_decode_layout`).
 """
 
@@ -34,9 +39,10 @@ from .build import STATE_LOCK, check, count_launch, library, refuse_grad
 from .flash_attention import KERNEL_HEAD_DIMS, masked_attention
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_valid", "decode_split",
-           "check_decode_layout"]
+           "decode_cluster", "decode_cluster_on", "decode_shares", "check_decode_layout"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_MIN_SHARE = 16  # fewest entries of a full cache a block of a cluster takes
 
 
 def decode_valid(smax: int, cache_len, window: int, device):
@@ -87,16 +93,20 @@ def _check_args(q, k_cache, v_cache, cache_len, window):
         raise ValueError(f"window must be >= 0; got {window}")
 
 
-def check_decode_layout(k_cache, v_cache):
-    """Raise ``ValueError`` unless the kernel's 16-byte copies take the
-    caches as laid out (checked before every launch; runs on tensors on any
-    device): a contiguous last dimension, k and v with equal strides, both
-    starting 16-byte aligned, and every other stride a positive multiple of
-    16 bytes (a dimension of size 1 is never stepped over)."""
+def check_decode_layout(k_cache, v_cache, q=None):
+    """Raise ``ValueError`` unless the kernels' 16-byte copies take the
+    caches and, where given, q (which the head-dim-256 kernel copies too)
+    as laid out (checked before every launch; runs on tensors on any
+    device): a contiguous last dimension, k and v with equal strides, each
+    tensor starting 16-byte aligned, and every other stride a positive
+    multiple of 16 bytes (a dimension of size 1 is never stepped over)."""
     if k_cache.stride(-1) != 1 or k_cache.stride() != v_cache.stride():
         raise ValueError("the kernel needs a contiguous last dimension, and caches with "
                          "equal strides")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+    if q is not None and q.stride(-1) != 1:
+        raise ValueError("the kernel needs q with a contiguous last dimension")
+    named = [("k_cache", k_cache), ("v_cache", v_cache)] + ([("q", q)] if q is not None else [])
+    for name, t in named:
         if t.data_ptr() % 16:
             raise ValueError(f"the kernel copies 16-byte units; {name} starts at an address "
                              f"{t.data_ptr() % 16} bytes past a multiple of 16")
@@ -121,18 +131,44 @@ def decode_split(B: int, KVH: int, G: int, Smax: int, n_sms: int, *, tile: int =
     return max_split
 
 
+def decode_cluster(B: int, KVH: int, G: int, Smax: int, n_sms: int, *, heads: int,
+                   max_cluster: int) -> int:
+    """Blocks a cluster of the head-dim-256 kernel: the largest power of two
+    up to ``max_cluster`` with which the clusters, one per (b, kv head,
+    group of up to ``heads`` query heads), come to no more blocks than the
+    card has SMs, and a block takes at least 16 entries of a full cache of
+    ``Smax``; 1 where none does."""
+    pairs = B * KVH * -(-G // heads)
+    cluster = max_cluster
+    while cluster > 1 and (pairs * cluster > n_sms or cluster * _MIN_SHARE > Smax):
+        cluster //= 2
+    return cluster
+
+
+def decode_shares(cache_len: int, smax: int, window: int, cluster: int) -> list:
+    """The entries ``[start, end)`` each block of a cluster takes, by rank:
+    the valid range ``[lo, hi)`` (``cache_len`` clamped to ``smax``; with a
+    window, from ``cache_len - window``) in shares that differ by at most
+    one entry, as the head-dim-256 kernel computes them on the device."""
+    hi = min(max(cache_len, 0), smax)
+    lo = max(0, cache_len - window) if window > 0 else 0
+    n = max(hi - lo, 0)
+    return [(lo + r * n // cluster, lo + (r + 1) * n // cluster) for r in range(cluster)]
+
+
 _GEOMETRY: tuple | None = None
 _SMS: dict = {}
 _WORKSPACE: dict = {}
 
 
 def _geometry(lib) -> tuple:
-    """(entries a commit group, the largest split, query heads a block),
+    """(entries a commit group, the largest split, query heads a block;
+    query heads a cluster of the head-dim-256 kernel, its largest cluster),
     asked of the library once."""
     global _GEOMETRY
     with STATE_LOCK:
         if _GEOMETRY is None:
-            _GEOMETRY = tuple(lib.repro_decode_attention_geometry(i) for i in range(3))
+            _GEOMETRY = tuple(lib.repro_decode_attention_geometry(i) for i in range(5))
         return _GEOMETRY
 
 
@@ -157,6 +193,58 @@ def _workspace(device, stream: int, B: int, H: int, KVH: int, n_split: int, D: i
         return ws
 
 
+def _n_sms(device) -> int:
+    with STATE_LOCK:
+        if device not in _SMS:
+            _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        return _SMS[device]
+
+
+def decode_cluster_on(device, B: int, KVH: int, G: int, Smax: int) -> int:
+    """The cluster :func:`decode_attention` launches at head dim 256 on the
+    card ``device``: :func:`decode_cluster` with the kernel's geometry and
+    the card's SMs."""
+    _, _, _, heads, max_cluster = _geometry(library())
+    return decode_cluster(B, KVH, G, Smax, _n_sms(device), heads=heads, max_cluster=max_cluster)
+
+
+_CLUSTERS: dict = {}
+
+
+def _check_cluster(lib, device, bf16: int, cluster: int) -> None:
+    """Raise unless the card can hold a cluster of ``cluster`` blocks of the
+    head-dim-256 kernel (asked once per device, type and size)."""
+    key = (device, bf16, cluster)
+    with STATE_LOCK:
+        fits = _CLUSTERS.get(key)
+    if fits is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            check(lib.repro_decode_attention_d256_max_clusters(bf16, cluster, ctypes.byref(out)),
+                  "decode_attention cluster occupancy")
+        fits = out.value
+        with STATE_LOCK:
+            _CLUSTERS[key] = fits
+    if fits < 1:
+        raise RuntimeError(f"decode_attention: the card cannot schedule a cluster of {cluster} "
+                           f"blocks of the head-dim-256 kernel")
+
+
+def _launch_d256(lib, q, k_cache, v_cache, cache_len, o, window: int) -> None:
+    B, _, H, D = q.shape
+    Smax, KVH = k_cache.shape[1], k_cache.shape[2]
+    bf16 = int(q.dtype == torch.bfloat16)
+    cluster = decode_cluster_on(q.device, B, KVH, H // KVH, Smax)
+    _check_cluster(lib, q.device, bf16, cluster)
+    with torch.cuda.device(q.device):
+        code = lib.repro_decode_attention_d256(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
+            o.data_ptr(), B, H, KVH, Smax, bf16, q.stride(0), q.stride(2),
+            *k_cache.stride()[:3], o.stride(0), o.stride(2), int(window),
+            ctypes.c_float(D ** -0.5), cluster, torch.cuda.current_stream().cuda_stream)
+    check(code, "decode_attention launch")
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
     """q ``[B,1,H,D]``, caches ``[B,Smax,KVH,D]`` -> ``[B,1,H,D]``: the CUDA
     kernel for tensors on the card, :func:`decode_attention_plain` for
@@ -172,21 +260,19 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
     Smax, KVH = k_cache.shape[1], k_cache.shape[2]
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}; got {D}")
-    if q.stride(-1) != 1:
-        raise ValueError("the kernel needs q with a contiguous last dimension")
-    check_decode_layout(k_cache, v_cache)
+    check_decode_layout(k_cache, v_cache, q)
     if not isinstance(cache_len, torch.Tensor):
         cache_len = torch.tensor([cache_len], dtype=torch.int32, device=q.device)
     lib = library()
-    tile, max_split, heads = _geometry(lib)
-    with STATE_LOCK:
-        if q.device not in _SMS:
-            _SMS[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
-        n_sms = _SMS[q.device]
-    split = decode_split(B, KVH, H // KVH, Smax, n_sms, tile=tile,
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if D == 256:
+        _launch_d256(lib, q, k_cache, v_cache, cache_len, o, window)
+        count_launch(decode_attention)
+        return o
+    tile, max_split, heads, _, _ = _geometry(lib)
+    split = decode_split(B, KVH, H // KVH, Smax, _n_sms(q.device), tile=tile,
                          max_split=max_split, heads=heads)
     n_split = -(-Smax // split)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         part_m, part_l, part_acc, counters = _workspace(q.device, stream, B, H, KVH, n_split,

@@ -20,7 +20,8 @@ import torch
 from repro.kernels import ops, ref
 from repro_torch.kernels import (decode_attention, decode_attention_plain, flash_attention,
                                  flash_attention_plain)
-from repro_torch.kernels.decode_attention import check_decode_layout, decode_split
+from repro_torch.kernels.decode_attention import (check_decode_layout, decode_cluster,
+                                                  decode_shares, decode_split, decode_valid)
 from repro_torch.kernels.flash_attention import check_kernel_layout, workspace_bytes
 from repro_torch.models.attention import attention
 from repro_torch.models.attention import decode_attention as model_decode_attention
@@ -297,6 +298,75 @@ def test_decode_split_keeps_at_most_four_blocks_an_sm(shape, split):
     blocks = B * KVH * -(-G // 8)
     assert blocks * -(-Smax // got) <= 4 * 132 or got == 64
     assert got == 16 or blocks * -(-Smax // (got - 16)) > 4 * 132
+
+
+def _q_layouts():
+    """q laid out as the head-dim-256 kernel's bulk copies take it (``None``),
+    or not (the words its refusal must contain), beside contiguous caches."""
+    B, H, KVH, D = 2, 8, 1, 256
+    qkv = torch.zeros(B, 1, (H + 2 * KVH) * D)  # a fused projection, q viewed out of it
+    flat = torch.zeros(B * H * D + 1)[1:].view(B, 1, H, D)
+    return {
+        "contiguous": (torch.zeros(B, 1, H, D), None),
+        "fused_view": (qkv[..., :H * D].view(B, 1, H, D), None),
+        "bf16": (torch.zeros(B, 1, H, D, dtype=torch.bfloat16), None),
+        "one_row": (torch.zeros(1, 1, 1, D + 2)[..., :D], None),
+        "head_stride_12_bytes": (torch.zeros(B, 1, H, D + 3)[..., :D], "has strides"),
+        "misaligned_base": (flat, "past a multiple of 16"),
+        "last_dim_stride": (torch.zeros(B, 1, D, H).transpose(2, 3), "contiguous last dimension"),
+    }
+
+
+@pytest.mark.parametrize("what", sorted(_q_layouts()))
+def test_decode_q_layout_check(what):
+    """What the head-dim-256 kernel's bulk copy of q takes, checked on CPU
+    tensors beside contiguous caches: the check the wrapper runs before
+    every launch on the card."""
+    q, words = _q_layouts()[what]
+    k = torch.zeros(q.shape[0], 16, 1, q.shape[-1], dtype=q.dtype)
+    if words is None:
+        check_decode_layout(k, k, q)
+    else:
+        with pytest.raises(ValueError, match=words):
+            check_decode_layout(k, k, q)
+
+
+# (B, KVH, G, Smax) -> blocks a cluster of the head-dim-256 kernel (8 query
+# heads a cluster, at most 16 blocks, as the kernel's geometry) on a card of
+# 132 SMs: paligemma-3b's decode shape, two kv heads, G = 12 (two head
+# groups), llama-like G = 3, batches of 64 and 256, a tiny cache, a short
+# one and a long one
+@pytest.mark.parametrize("shape,cluster", [
+    ((4, 1, 8, 544), 16), ((4, 2, 8, 550), 16), ((4, 2, 12, 550), 8), ((4, 8, 3, 544), 4),
+    ((64, 1, 8, 544), 2), ((256, 1, 8, 544), 1), ((1, 1, 1, 16), 1), ((1, 1, 8, 100), 4),
+    ((4, 1, 8, 32768), 16)])
+def test_decode_cluster_fills_the_card_with_one_cluster_a_head_group(shape, cluster):
+    B, KVH, G, Smax = shape
+    got = decode_cluster(B, KVH, G, Smax, 132, heads=8, max_cluster=16)
+    assert got == cluster and got & (got - 1) == 0 and 1 <= got <= 16
+    pairs = B * KVH * -(-G // 8)
+    assert got == 1 or (pairs * got <= 132 and got * 16 <= Smax)
+    assert got == 16 or pairs * 2 * got > 132 or 2 * got * 16 > Smax
+
+
+# (cache_len, Smax, window, cluster): empty, fewer valid entries than blocks,
+# a share on either side of 1 and of a 32-entry stage, paligemma's lengths
+# with and without a window, cache_len above Smax (with a window that still
+# reaches into the cache, and one that does not), a long cache, one block
+@pytest.mark.parametrize("case", [
+    (0, 544, 0, 16), (1, 544, 0, 16), (15, 544, 0, 16), (16, 544, 0, 16), (17, 544, 0, 16),
+    (511, 544, 0, 16), (513, 544, 0, 16), (300, 544, 0, 16), (544, 544, 0, 16),
+    (300, 544, 64, 16), (544, 544, 64, 16), (1, 544, 64, 16), (600, 544, 0, 16),
+    (600, 544, 64, 16), (650, 544, 64, 16), (32768, 32768, 0, 16), (544, 544, 0, 1),
+    (100, 550, 0, 8)])
+def test_decode_shares_split_the_valid_entries_evenly(case):
+    cache_len, smax, window, cluster = case
+    shares = decode_shares(cache_len, smax, window, cluster)
+    valid = decode_valid(smax, cache_len, window, "cpu").nonzero().flatten().tolist()
+    assert len(shares) == cluster
+    assert [e for a, b in shares for e in range(a, b)] == valid  # in order, each once
+    sizes = [b - a for a, b in shares]
+    assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
 
 
 def test_wrappers_count_no_launch_on_the_cpu():

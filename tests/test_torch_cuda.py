@@ -21,7 +21,7 @@ from repro_torch.kernels import (asap_replay, asap_replay_plain, decode_attentio
                                  launch_counts, reset_launch_counts, rms_norm, rms_norm_plain,
                                  simplex_pivot, simplex_pivot_lanes, simplex_pivot_plain,
                                  ssd_scan, ssd_scan_plain, ssd_scan_tolerance, updated_elements)
-from repro_torch.kernels.decode_attention import decode_split
+from repro_torch.kernels.decode_attention import decode_cluster_on, decode_split
 from repro_torch.kernels.ssd_scan import pick_chunk
 
 pytestmark = pytest.mark.cuda
@@ -536,7 +536,10 @@ def test_decode_attention_kernel_at_split_boundaries_on_card(card, heads, dtype)
     """A cache of 550 entries, which no split (a multiple of 16) divides;
     cache lengths on either side of the first and third split boundaries;
     every call of a window enqueued back to back on the one workspace, so
-    a combine counter left unreset would leave an output unwritten."""
+    a combine counter left unreset would leave an output unwritten.  Head
+    dim 256 has no split, workspace or counter: there these lengths only
+    hold the cluster kernel to its plain version (its shares' edges are
+    test_decode_attention_d256_kernel_on_card's)."""
     B, Smax = 4, 550
     H, KVH, D = heads
     n_sms = torch.cuda.get_device_properties(card).multi_processor_count
@@ -555,6 +558,58 @@ def test_decode_attention_kernel_at_split_boundaries_on_card(card, heads, dtype)
             want = decode_attention_plain(q, kc, vc, n, window=window)
             err = (out.float() - want.float()).abs().max().item()
             assert err <= ATTN_TOL[dtype], (n.item(), window, err)
+
+
+# head dim 256 (decode_attention_d256_kernel): paligemma-3b's heads, 8 on one
+# kv head; two kv heads; G = 12, two head groups of a kv head (8 + 4)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("smax", [550, 32768])
+@pytest.mark.parametrize("heads", [(8, 1), (16, 2), (24, 2)])
+def test_decode_attention_d256_kernel_on_card(card, heads, smax, dtype):
+    """The cluster kernel against its plain version: cache lengths 0 and 1,
+    on either side of the cluster's size (shares of 0 and 1 entries) and of
+    32 entries a block (one ring stage), past two stages, windows that start
+    mid-stage, the whole cache; every call enqueued back to back before the
+    first result is read.  At cache_len 0 the output is 0, as the reference
+    kernel's (the plain softmax over no valid entry is uniform instead)."""
+    B, D = 4, 256
+    H, KVH = heads
+    c = decode_cluster_on(card, B, KVH, H // KVH, smax)
+    g = torch.Generator(device=card).manual_seed(smax + H)
+    q, kc, vc = (torch.randn(s, generator=g, device=card).to(dtype)
+                 for s in ((B, 1, H, D), (B, smax, KVH, D), (B, smax, KVH, D)))
+    lens = [(0, 0), (1, 0), (c - 1, 0), (c, 0), (c + 1, 0), (32 * c - 1, 0), (32 * c, 0),
+            (32 * c + 1, 0), (64 * c + 1, 0), (smax, 0), (1, 64), (300, 64), (smax - 7, 64),
+            (smax, 100)]
+    lens = [(n, w) for n, w in lens if n <= smax]
+    ns = [torch.tensor([n], dtype=torch.int32, device=card) for n, _ in lens]
+    reset_launch_counts()
+    got = [decode_attention(q, kc, vc, n_t, window=w) for n_t, (_, w) in zip(ns, lens)]
+    assert launch_counts()["decode_attention"] == len(lens) >= 8
+    for (n, w), n_t, out in zip(lens, ns, got):
+        assert out.dtype == dtype and out.shape == q.shape
+        if n == 0:
+            assert out.abs().max().item() == 0
+            continue
+        want = decode_attention_plain(q, kc, vc, n_t, window=w)
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= ATTN_TOL[dtype], (n, w, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_d256_cache_len_above_smax_on_card(card, dtype):
+    """A cache_len tensor above the cache's 544 entries clamps to the cache,
+    with a window that still reaches into it and without one."""
+    B, Smax, H, KVH, D = 4, 544, 8, 1, 256
+    g = torch.Generator(device=card).manual_seed(Smax)
+    q, kc, vc = (torch.randn(s, generator=g, device=card).to(dtype)
+                 for s in ((B, 1, H, D), (B, Smax, KVH, D), (B, Smax, KVH, D)))
+    for n, w in ((600, 0), (600, 64), (1 << 30, 0)):
+        n_t = torch.tensor([n], dtype=torch.int32, device=card)
+        got = decode_attention(q, kc, vc, n_t, window=w)
+        want = decode_attention_plain(q, kc, vc, n_t, window=w)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= ATTN_TOL[dtype], (n, w, err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
