@@ -34,13 +34,11 @@ import os
 import subprocess
 import sys
 import time
-from collections import Counter
 from pathlib import Path
 
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
-from torch.distributed.tensor.debug import CommDebugMode
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "src"))
@@ -50,31 +48,9 @@ from repro_torch.data import SyntheticStream  # noqa: E402
 from repro_torch.launch import train as cli  # noqa: E402
 from repro_torch.launch.mesh import make_data_mesh  # noqa: E402
 from repro_torch.runtime import make_train_step  # noqa: E402
-from repro_torch.runtime.profile import profile_train_step  # noqa: E402
+from repro_torch.runtime.profile import CommBytes, profile_train_step  # noqa: E402
 
 LOSS_RTOL = 1e-5
-
-
-class CommBytes(CommDebugMode):
-    """``CommDebugMode`` that also adds up, by op, the bytes of the whole
-    tensor each collective works on (an all-gather's output, a
-    reduce-scatter's input, an all-reduce's tensors)."""
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = Counter()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = super().__torch_dispatch__(func, types, args, kwargs)
-        name = str(getattr(func, "_overloadpacket", func))
-        if out is not NotImplemented and name.startswith("c10d."):
-            first = args[0] if args else None
-            if "reduce_scatter" in name:
-                first = args[1]
-            tensors = first if isinstance(first, (list, tuple)) else [first]
-            self.bytes[name] += sum(t.numel() * t.element_size() for t in tensors
-                                    if isinstance(t, torch.Tensor))
-        return out
 
 
 def _args(opts, arch: str, batch: int, steps: int):

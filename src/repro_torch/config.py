@@ -154,6 +154,12 @@ class ShardingPolicy:
     kernels ``"pallas"``).  ``moe_impl``: the experts' dispatch,
     ``"gshard"`` (capacity buckets) or ``"dense"`` (every token through
     every expert, the oracle).
+
+    ``shard_seq_attn`` and ``sp_activations`` are the reference's
+    activation layouts on a model axis wider than 1 (attention
+    sequence-sharded; the residual stream sequence-sharded); they change
+    no value.  The port runs their defaults and refuses the others
+    (ROADMAP A.18).
     """
 
     remat: str = "block"  # none | block (recompute each block in the backward)
@@ -167,6 +173,8 @@ class ShardingPolicy:
     fsdp_params: bool = True  # shard dim0 of weights over 'data' (ZeRO-3 style)
     expert_axis: str = "data"  # axis sharding the expert dimension
     expert_ff_axis: str = "model"  # axis sharding each expert's d_ff
+    shard_seq_attn: bool = True  # sequence-sharded attention (vs replicated)
+    sp_activations: bool = False  # sequence parallelism: residual stream seq-sharded
 
 
 @dataclasses.dataclass(frozen=True)

@@ -336,7 +336,9 @@ def policy_from_reference(policy):
                           logits_fp32=policy.logits_fp32,
                           kv_cache_dtype=policy.kv_cache_dtype, moe_impl=policy.moe_impl,
                           model_axis=policy.model_axis, fsdp_params=policy.fsdp_params,
-                          expert_axis=policy.expert_axis, expert_ff_axis=policy.expert_ff_axis)
+                          expert_axis=policy.expert_axis, expert_ff_axis=policy.expert_ff_axis,
+                          shard_seq_attn=policy.shard_seq_attn,
+                          sp_activations=policy.sp_activations)
 
 
 # ---------------------------------------------------------- training state

@@ -17,10 +17,19 @@ keeps the reference's keys where they can be filled: ``status`` /
 largest shard of each leaf), ``fits`` against the card's memory
 (``HW.HBM_BYTES``) and a roofline from ``HW``'s H100 constants (the model's
 FLOPs over the bfloat16 peak against the arguments read once over HBM).
-The keys only XLA's compiler gives (``temp_size_in_bytes``,
-``bytes_accessed_per_device``, ``collectives``, ``hlo_bytes``,
-``compile_s``, ``flops_per_device``) are ``null``, each with its reason
-under ``not_applicable``.
+For the dense family's prefill and decode cells the step also runs once on
+the meta device over the fake world (weights and caches as DTensors on
+the model axis, rank 0's rows) inside ``CommDebugMode``: ``collectives``
+(count and bytes by op), ``collective_count`` and
+``collective_operand_bytes`` are that rank's, under the reference's keys.
+It runs the naive attention: on the model axis each rank attends its own
+rows locally, so the collectives are the chunked attention's, in a
+hundredth of the operations on the meta device.  The fake group is a CPU
+one, where DTensor runs each all-to-all as an all-gather and a slice.  The keys only XLA's compiler gives
+(``temp_size_in_bytes``, ``bytes_accessed_per_device``, ``hlo_bytes``,
+``compile_s``, ``flops_per_device``), and ``collectives`` where the step
+cannot run so, are ``null``, each with its reason under
+``not_applicable``.
 """
 
 from __future__ import annotations
@@ -38,13 +47,15 @@ import traceback
 from repro_torch.config import SHAPES, ShardingPolicy, TrainConfig, get_arch
 from repro_torch.launch.mesh import HW, make_production_mesh
 from repro_torch.launch.specs import build_cell, cell_skip_reason
-from repro_torch.models import Transformer
+from repro_torch.models import Transformer, init_cache, model_mesh, param_shapes
 from repro_torch.models.flops import decode_flops_per_token, param_counts, train_flops_per_token
 from repro_torch.optim import AdamWState
 from repro_torch.runtime import TrainState
+from repro_torch.runtime.profile import CommBytes
+from repro_torch.runtime.sharding import tp_distribute
 
 __all__ = ["ARCH_ORDER", "SHAPE_ORDER", "model_flops", "fake_world", "argument_bytes",
-           "run_cell", "main"]
+           "step_collectives", "run_cell", "main"]
 
 ARCH_ORDER = [
     "phi4-mini-3.8b", "llama3.2-3b", "mistral-large-123b", "minitron-8b",
@@ -59,9 +70,8 @@ _XLA_ONLY = ("XLA's compiled program gives it (memory_analysis / cost_analysis /
 NOT_APPLICABLE = {
     "temp_size_in_bytes": _XLA_ONLY,
     "bytes_accessed_per_device": _XLA_ONLY,
-    "collectives": "the reference parses XLA's post-SPMD HLO (launch/hlo.py); PyTorch emits none, "
-                   "and the port's collectives run only on real ranks (CommDebugMode in "
-                   "scripts/fsdp_dist.py)",
+    "collectives": "the model axis of this family is not ported (ROADMAP A.18); its FSDP "
+                   "collectives run only on real ranks (CommDebugMode in scripts/fsdp_dist.py)",
     "hlo_bytes": "no HLO: PyTorch does not lower to XLA",
     "compile_s": "nothing is compiled: the port's step runs eagerly",
     "flops_per_device": "the reference counts the dot FLOPs of XLA's HLO; model_flops / devices "
@@ -94,6 +104,59 @@ def fake_world(size: int = WORLD):
         yield
     finally:
         dist.destroy_process_group()
+        # DTensor caches its sharding decisions with the meshes they were made
+        # on: a later world's meshes compare equal to this one's but own other
+        # process groups
+        import torch
+        from torch.distributed.tensor import DTensor
+
+        DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache_clear()
+        native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)
+        if native is not None:  # the C++ dispatch's own cache, where the build has one
+            native()
+
+
+_TRAIN_COLLECTIVES = ("FSDP2 refuses to run a step on parameters on the meta device, so a train "
+                      "cell's step cannot run over the fake world; its collectives are counted "
+                      "on real ranks (CommDebugMode in scripts/tp_dist.py, scripts/fsdp_dist.py)")
+
+
+def step_collectives(mesh, cfg, shape, policy, param_dtype=None) -> dict:
+    """A dense prefill or decode cell's step run once on the meta device
+    over the (fake) world, with the naive attention (see the module doc):
+    the weights and caches as DTensors on the mesh's model axis, rank 0's
+    rows of the batch.  Returns the reference's keys: ``collectives`` ({op:
+    {"count", "bytes"}}), ``collective_count``, ``collective_operand_bytes``
+    (the bytes of the whole tensors the collectives gather, reduce or
+    exchange)."""
+    import torch
+
+    policy = dataclasses.replace(policy, attention_impl="naive")
+    cell = build_cell(mesh, cfg, shape, policy)
+    names = tuple(mesh.mesh_dim_names)
+    dp = math.prod(mesh.size(names.index(a)) for a in ("pod", "data") if a in names)
+    rows = max(1, shape.global_batch // dp)
+    model = tp_distribute(param_shapes(cfg, policy, dtype=param_dtype or torch.bfloat16), mesh,
+                          policy)
+
+    def meta(*s):
+        return torch.empty(s, dtype=torch.int32, device="meta")
+
+    if shape.kind == "prefill":
+        args = (model, {"tokens": meta(rows, shape.seq_len)})
+    elif shape.kind == "decode":
+        cache = init_cache(cfg, rows, shape.seq_len, dtype=model.embed.dtype, device="meta",
+                           kv_dtype=policy.kv_cache_dtype, mesh=model_mesh(mesh))
+        args = (model, cache, {"tokens": meta(rows, 1)}, meta(1))
+    else:
+        raise ValueError(f"{shape.kind}: {_TRAIN_COLLECTIVES}")
+    comm = CommBytes()
+    with comm:
+        cell.fn(*args)
+    by_op = comm.counts()
+    return {"collectives": by_op,
+            "collective_count": sum(v["count"] for v in by_op.values()),
+            "collective_operand_bytes": sum(v["bytes"] for v in by_op.values())}
 
 
 def _pairs(arg, sharding):
@@ -147,6 +210,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, policy=None, tcfg=None
         mf = model_flops(cfg, shape)
         t_compute = mf / n_dev / HW.PEAK_FLOPS_BF16
         t_memory = arg_bytes / HW.HBM_BW
+        not_applicable = dict(NOT_APPLICABLE)
+        comms = {"collectives": None, "collective_count": None, "collective_operand_bytes": None}
+        if cfg.family == "dense" and shape.kind == "train":
+            not_applicable["collectives"] = _TRAIN_COLLECTIVES
+        elif cfg.family == "dense":
+            comms = step_collectives(mesh, cfg, shape, policy)
+            del not_applicable["collectives"]
         rec.update(
             devices=n_dev,
             build_s=round(time.time() - t0, 3),
@@ -164,8 +234,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, policy=None, tcfg=None
                 "bottleneck": "compute" if t_compute >= t_memory else "memory",
                 "constants": "H100 SXM data sheet: bfloat16 dense peak, HBM3 rate",
             },
-            **{k: None for k in NOT_APPLICABLE if k != "temp_size_in_bytes"},
-            not_applicable=dict(NOT_APPLICABLE),
+            **{k: None for k in not_applicable if k not in ("temp_size_in_bytes", "collectives")},
+            **comms,
+            not_applicable=not_applicable,
         )
         if verbose:
             print(f"[{arch} × {shape_name} × {mesh_name}] devices={n_dev} "

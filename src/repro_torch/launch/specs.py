@@ -9,7 +9,12 @@ them.  ``build_cell`` pairs the step function (``make_train_step``, a
 prefill function, or ``make_serve_step``) with the :class:`NamedSharding`
 of each input leaf and output on a mesh (a ``DeviceMesh``, e.g. the
 production mesh over a fake process group:
-:mod:`repro_torch.launch.dryrun`).
+:mod:`repro_torch.launch.dryrun`).  The step runs under
+:func:`~repro_torch.models.layers.activate_mesh` of the cell's mesh, so on
+a mesh with a model axis wider than 1 it runs on real ranks with DTensor
+inputs (the model sharded by :mod:`repro_torch.runtime.sharding`) as the
+reference's partitioned program; a family or policy whose model-axis
+layout is not ported raises when its step runs (ROADMAP A.18).
 
 Cell skip policy: ``long_500k`` runs only for sub-quadratic archs (ssm /
 hybrid-with-SWA); dense-attention archs get a recorded skip (a 500k dense
@@ -25,11 +30,12 @@ import torch
 
 from repro_torch.config import (SHAPES, ArchConfig, ShapeConfig, ShardingPolicy, TrainConfig,
                                 get_arch)
-from repro_torch.models import cache_shapes, param_shapes, prefill
+from repro_torch.models import activate_mesh, cache_shapes, param_shapes, prefill
 from repro_torch.models.layers import PartitionSpec as P
 from repro_torch.optim import AdamWState
 from repro_torch.runtime import TrainState, make_serve_step, make_train_state, make_train_step
-from repro_torch.runtime.sharding import DP, batch_specs, cache_specs, named, param_specs
+from repro_torch.runtime.sharding import (DP, batch_specs, cache_specs, check_model_axis, named,
+                                          param_specs)
 
 __all__ = ["Cell", "input_specs", "build_cell", "cell_skip_reason", "all_cells", "mesh_axis_size"]
 
@@ -121,6 +127,20 @@ def _batch_shardings(mesh, cfg: ArchConfig, kind: str, batch_size: int, policy) 
     return named(mesh, spec)
 
 
+def _on_mesh(fn, mesh, cfg: ArchConfig, policy: ShardingPolicy):
+    """``fn`` run under ``mesh``; on a model axis wider than 1 only where
+    its layout is ported."""
+    width = mesh_axis_size(mesh, "model")
+
+    def step(*args):
+        if width > 1:
+            check_model_axis(cfg, policy, width)
+        with activate_mesh(mesh):
+            return fn(*args)
+
+    return step
+
+
 def build_cell(mesh, arch: str | ArchConfig, shape: str | ShapeConfig,
                policy: ShardingPolicy | None = None, tcfg: TrainConfig | None = None,
                param_dtype=torch.bfloat16) -> Cell:
@@ -140,7 +160,7 @@ def build_cell(mesh, arch: str | ArchConfig, shape: str | ShapeConfig,
         p_sh = named(mesh, param_specs(state.params, policy))
         state_sh = TrainState(params=p_sh, opt=AdamWState(step=rep, m=p_sh, v=p_sh))
         b_sh = _batch_shardings(mesh, cfg, kind, shp.global_batch, policy)
-        fn = make_train_step(cfg, policy, tcfg)
+        fn = _on_mesh(make_train_step(cfg, policy, tcfg), mesh, cfg, policy)
         return Cell(cfg, shp, kind, fn, (state, specs["batch"]), (state_sh, b_sh),
                     (state_sh, None), donate_argnums=(0,))
 
@@ -156,7 +176,8 @@ def build_cell(mesh, arch: str | ArchConfig, shape: str | ShapeConfig,
                                        max_len=shp.seq_len)
             return logits, cache
 
-        return Cell(cfg, shp, kind, prefill_fn, (specs["params"], specs["batch"]),
+        return Cell(cfg, shp, kind, _on_mesh(prefill_fn, mesh, cfg, policy),
+                    (specs["params"], specs["batch"]),
                     (p_sh, b_sh), (None, c_sh), donate_argnums=())
 
     serve = make_serve_step(cfg, policy)
@@ -164,7 +185,7 @@ def build_cell(mesh, arch: str | ArchConfig, shape: str | ShapeConfig,
     def serve_fn(params, cache, batch, cache_len):
         return serve(params, cache, batch["tokens"], cache_len)
 
-    return Cell(cfg, shp, kind, serve_fn,
+    return Cell(cfg, shp, kind, _on_mesh(serve_fn, mesh, cfg, policy),
                 (specs["params"], specs["cache"], specs["batch"], specs["cache_len"]),
                 (p_sh, c_sh, b_sh, rep), (None, c_sh), donate_argnums=(1,))
 

@@ -4,7 +4,7 @@ loss of the decoders of every family (dense, moe, ssm, hybrid, vlm,
 audio), their shapes on the meta device and the sharding helpers."""
 
 from .flops import decode_flops_per_token, param_counts, train_flops_per_token
-from .layers import activate_mesh, constrain, cross_entropy, current_mesh, fix_spec
+from .layers import activate_mesh, constrain, cross_entropy, current_mesh, fix_spec, model_mesh
 from .mla import init_mla_cache, mla_attention, mla_decode_step
 from .moe import moe_ffn
 from .ssm import mamba_decode_step, mamba_mixer
@@ -13,7 +13,9 @@ from .transformer import (
     cache_shapes,
     decode_step,
     dequantize_kv,
+    extend_cache,
     forward,
+    greedy_tokens,
     init_cache,
     init_params,
     loss_fn,
@@ -28,6 +30,7 @@ __all__ = [
     "current_mesh",
     "cross_entropy",
     "fix_spec",
+    "model_mesh",
     "Transformer",
     "init_params",
     "param_shapes",
@@ -37,6 +40,8 @@ __all__ = [
     "cache_shapes",
     "prefill",
     "decode_step",
+    "greedy_tokens",
+    "extend_cache",
     "quantize_kv",
     "dequantize_kv",
     "mla_attention",

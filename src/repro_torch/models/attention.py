@@ -17,31 +17,45 @@ The port of the reference's ``models/attention.py``.  Selectable via
 All functions take q [B,Sq,H,D], k/v [B,Skv,KVH,D] with GQA broadcasting done
 group-wise (never materializing repeated K/V).  Products of bfloat16 inputs
 are taken in float32, as the reference's ``preferred_element_type``.
+
+On a model axis wider than 1 (DTensor inputs on the model mesh, see
+:func:`repro_torch.models.layers.constrain`) :func:`attention` takes the
+reference's layouts: q sequence-sharded, K and V replicated, the output
+sequence-sharded; each rank runs the plain implementation over its own q
+rows from their global offset (the causal mask's).  :func:`decode_attention`
+keeps the cache sequence-sharded and runs split-KV: each rank's partial
+softmax over its own entries (max, sum, weighted values), all-gathered and
+merged, where the reference leaves the split to XLA.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import kernels
 from repro_torch.kernels.decode_attention import decode_valid
 from repro_torch.kernels.flash_attention import NEG_INF, attention_mask, masked_attention
 
+from .layers import constrain, local_offset
+
 __all__ = ["naive_attention", "chunked_attention", "attention", "decode_attention", "NEG_INF"]
 
 
-def naive_attention(q, k, v, *, causal=True, window=0):
-    m = attention_mask(q.shape[1], k.shape[1], 0, 0, causal, window, q.device)
+def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    m = attention_mask(q.shape[1], k.shape[1], q_offset, 0, causal, window, q.device)
     return masked_attention(q, k, v, m, probs_dtype=v.dtype)
 
 
 def chunked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024, kv_chunk=1024,
-                      block_skip=True):
+                      block_skip=True, q_offset=0):
     """Online-softmax attention, O(q_chunk * kv_chunk) score memory.
 
     ``block_skip``: skip fully masked kv chunks (upper triangle for causal;
     out-of-window bands for SWA), ~2x fewer matmul FLOPs for causal.
     Without it every kv chunk is visited, as the reference's scan form.
+    ``q_offset``: the position of q's first row among the keys' (a rank's
+    piece of a sequence-sharded q).
     """
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -83,8 +97,8 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024, kv_chunk=
 
     outs = []
     for qi in range(nq):
-        q_off = qi * q_chunk
-        qc = q[:, q_off:q_off + q_chunk].reshape(B, q_chunk, KVH, G, D)
+        q_off = q_offset + qi * q_chunk
+        qc = q[:, q_off - q_offset:q_off - q_offset + q_chunk].reshape(B, q_chunk, KVH, G, D)
         lo, hi = 0, nk
         if block_skip:
             if causal:
@@ -98,29 +112,96 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024, kv_chunk=
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
-def attention(q, k, v, *, impl="chunked", causal=True, window=0, q_chunk=1024, kv_chunk=1024,
-              block_skip=True):
-    """Dispatching wrapper over the three implementations."""
+def _attention(q, k, v, *, impl, causal, window, q_chunk, kv_chunk, block_skip, q_offset=0):
     if impl == "naive":
-        return naive_attention(q, k, v, causal=causal, window=window)
+        return naive_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     if impl == "chunked":
         return chunked_attention(q, k, v, causal=causal, window=window, q_chunk=q_chunk,
-                                 kv_chunk=kv_chunk, block_skip=block_skip)
-    if impl == "cuda":
+                                 kv_chunk=kv_chunk, block_skip=block_skip, q_offset=q_offset)
+    if impl == "cuda" and not isinstance(q, DTensor):
         return kernels.flash_attention(q, k, v, causal=causal, window=window)
+    if impl == "cuda":
+        raise ValueError("the attention kernels on a model axis wider than 1 are not ported "
+                         "(ROADMAP A.18); the reference's cells run attention_impl='chunked'")
     raise ValueError(impl)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, impl="chunked"):
+def attention(q, k, v, *, impl="chunked", causal=True, window=0, q_chunk=1024, kv_chunk=1024,
+              block_skip=True, model_axis="model", shard_seq=True):
+    """Dispatching wrapper over the three implementations, with the
+    reference's sequence-sharding constraints (``shard_seq``)."""
+    kw = dict(impl=impl, causal=causal, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
+              block_skip=block_skip)
+    if shard_seq:
+        q = constrain(q, ("pod", "data"), model_axis, None, None)
+        k = constrain(k, ("pod", "data"), None, None, None)
+        v = constrain(v, ("pod", "data"), None, None, None)
+    if not isinstance(q, DTensor):
+        return _attention(q, k, v, **kw)
+    if not shard_seq:
+        raise ValueError("shard_seq_attn=False on a model axis wider than 1 is not ported "
+                         "(ROADMAP A.18)")
+    # each rank attends its own q rows to the replicated keys, so its K and
+    # V gradients are partial sums over the model axis
+    kl, vl = (t.to_local(grad_placements=[Partial()]) for t in (k, v))
+    out = _attention(q.to_local(), kl, vl, **kw, q_offset=local_offset(q, 1)).contiguous()
+    out = DTensor.from_local(out, q.device_mesh, q.placements, run_check=False, shape=q.shape,
+                             stride=torch.empty(q.shape, device="meta").stride())
+    return constrain(out, ("pod", "data"), model_axis, None, None)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, impl="chunked",
+                     model_axis="model", shard_seq=True):
     """Single-token attention against a KV cache.
 
     q [B,1,H,D]; caches [B,Smax,KVH,D]; ``cache_len`` an int or a
     one-element int32 tensor — the number of valid entries (positions >=
-    cache_len are masked).
+    cache_len are masked).  With ``shard_seq`` on a model axis the caches
+    stay sequence-sharded and the split-KV combine runs across the ranks.
     """
+    if shard_seq:
+        k_cache = constrain(k_cache, ("pod", "data"), model_axis, None, None)
+        v_cache = constrain(v_cache, ("pod", "data"), model_axis, None, None)
+    if isinstance(q, DTensor):
+        return _split_kv_decode(q, k_cache, v_cache, cache_len, window, impl)
     if impl == "cuda":
         return kernels.decode_attention(q, k_cache, v_cache, cache_len, window=window)
     if impl not in ("naive", "chunked"):
         raise ValueError(impl)
     valid = decode_valid(k_cache.shape[1], cache_len, window, q.device)
     return masked_attention(q, k_cache, v_cache, valid, probs_dtype=v_cache.dtype)
+
+
+def _split_kv_decode(q, k_cache, v_cache, cache_len, window, impl):
+    """Decode attention over a sequence-sharded cache: each rank's (max,
+    sum, weighted values) over its own valid entries, all-gathered over
+    the model axis and merged (flash-decoding's combine).  Returns q's
+    layout, replicated."""
+    if impl not in ("naive", "chunked"):
+        raise ValueError("the attention kernels on a model axis wider than 1 are not ported "
+                         "(ROADMAP A.18); the reference's cells run attention_impl='chunked'")
+    mesh = q.device_mesh
+    if tuple(k_cache.placements) != (Shard(1),) or tuple(v_cache.placements) != (Shard(1),):
+        raise ValueError("split-KV decode reads a sequence-sharded cache")
+    ql = q.redistribute(placements=[Replicate()]).to_local()
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    B, _, H, D = ql.shape
+    KVH = kl.shape[2]
+    G = H // KVH
+    start = local_offset(k_cache, 1)
+    valid = decode_valid(k_cache.shape[1], cache_len, window, ql.device)[start:start + kl.shape[1]]
+    s = torch.einsum("bkgd,bskd->bkgs", ql.reshape(B, KVH, G, D).float(),
+                     kl.float()) * D ** -0.5
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)  # [B, KVH, G]
+    p = torch.exp(s - m[..., None])
+    part = torch.cat([m[..., None], p.sum(dim=-1)[..., None],
+                      torch.einsum("bkgs,bskd->bkgd", p.to(vl.dtype).float(), vl.float())],
+                     dim=-1)  # [B, KVH, G, 2 + D]
+    parts = DTensor.from_local(part[None], mesh, [Shard(0)], run_check=False).full_tensor()
+    top = parts[..., 0].amax(dim=0)
+    w = torch.exp(parts[..., 0] - top) * (parts[..., 0] > NEG_INF / 2)
+    den = (w * parts[..., 1]).sum(dim=0)
+    out = (w[..., None] * parts[..., 2:]).sum(dim=0) / torch.clamp(den[..., None], min=1e-30)
+    out = out.reshape(B, 1, H, D).to(q.dtype)
+    return DTensor.from_local(out, mesh, [Replicate()], run_check=False)

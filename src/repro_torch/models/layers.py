@@ -5,15 +5,17 @@ The port of the reference's ``models/layers.py``.  Every function computes
 in float32 inside and returns the input's dtype, as the reference does.
 
 The sharding helpers: :class:`PartitionSpec` (one entry a tensor dim, as
-JAX's), :func:`fix_spec` (drop the axes a mesh lacks), the training
-driver's mesh (:func:`activate_mesh`, :func:`current_mesh`) and
-:func:`constrain`, which returns its input unchanged (see its doc).  The
-rules that give each weight its spec are in
-:mod:`repro_torch.runtime.sharding`; sharded training runs under
-``torchrun``::
+JAX's), :func:`fix_spec` (drop the axes a mesh lacks), :func:`placements`
+(a spec as DTensor placements), the active mesh (:func:`activate_mesh`,
+:func:`current_mesh`, :func:`model_mesh`) and :func:`constrain`, the port
+of ``with_sharding_constraint`` (see its doc).  The rules that give each
+weight its spec are in :mod:`repro_torch.runtime.sharding`; sharded
+training runs under ``torchrun``::
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch minitron-8b \\
       --steps 4 --batch 16 --seq 512
+
+and the model axis (tensor parallelism) under ``scripts/tp_dist.py``.
 """
 
 from __future__ import annotations
@@ -23,11 +25,12 @@ import threading
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.convert import resolve_device
 
-__all__ = ["PartitionSpec", "activate_mesh", "current_mesh", "constrain", "fix_spec",
-           "Initializer", "rms_norm", "rope", "apply_rope", "init_glu_mlp", "glu_mlp",
+__all__ = ["PartitionSpec", "activate_mesh", "current_mesh", "model_mesh", "constrain",
+           "fix_spec", "placements", "replicated", "local_offset", "Initializer", "rms_norm", "rope", "apply_rope", "init_glu_mlp", "glu_mlp",
            "cross_entropy"]
 
 
@@ -53,19 +56,33 @@ def activate_mesh(mesh):
     block.  The training driver's standard mode
     (:func:`repro_torch.launch.train.run_standard`) runs under its data
     mesh, as the reference's does."""
-    prev = getattr(_local, "mesh", None)
-    _local.mesh = mesh
+    prev = getattr(_local, "mesh", None), getattr(_local, "model", None)
+    _local.mesh, _local.model = mesh, (None if mesh is None else _model_submesh(mesh))
     try:
         yield mesh
     finally:
-        _local.mesh = prev
+        _local.mesh, _local.model = prev
 
 
 def current_mesh():
     """The mesh of the innermost :func:`activate_mesh` on this thread, or
-    ``None``.  The reference's :func:`constrain` reads it; the port's
-    returns its input without reading it."""
+    ``None``."""
     return getattr(_local, "mesh", None)
+
+
+def model_mesh(mesh=None):
+    """The 1-D 'model' submesh of ``mesh`` (default: the active mesh's)
+    when its model axis is wider than 1, else ``None``: the mesh the
+    model's weights and activations are DTensors on under tensor
+    parallelism."""
+    return getattr(_local, "model", None) if mesh is None else _model_submesh(mesh)
+
+
+def _model_submesh(mesh):
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if "model" not in names or mesh.size(names.index("model")) == 1:
+        return None
+    return mesh["model"] if len(names) > 1 else mesh
 
 
 def _axis_names(mesh) -> tuple:
@@ -87,15 +104,65 @@ def fix_spec(mesh, spec) -> PartitionSpec:
     return PartitionSpec(*(fix(e) for e in spec))
 
 
+def placements(mesh, spec) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh`` (axes the mesh lacks
+    dropped): a tensor dim over several mesh axes is ``Shard`` on each of
+    them, the first major, as JAX orders them."""
+    spec = fix_spec(mesh, spec)
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * mesh.ndim
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx = [names.index(a) for a in ((entry,) if isinstance(entry, str) else entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: dim {dim} is sharded over mesh axes out of the mesh's "
+                             f"order {tuple(names)}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"{spec}: mesh axis {names[i]!r} shards two dims")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
 def constrain(x, *spec_entries):
-    """``x`` unchanged.  The reference pins an activation's layout to
-    ``P(*spec_entries)`` under the active mesh for XLA's partitioner; the
-    port has no such partitioner.  Under FSDP (the only sharding an entry
-    point of either package runs: a model axis of 1) every activation is
-    its rank's local tensor over its own rows, which is the layout the
-    reference's constraints ask for on the data axes, and the model axis
-    they name is 1 wide."""
-    return x
+    """The port of ``with_sharding_constraint(x, P(*spec_entries))``.
+
+    Under :func:`activate_mesh` with a model axis wider than 1, ``x`` is a
+    DTensor on the model submesh (:func:`model_mesh`) and is redistributed
+    to the placements the spec's model entry gives there: ``Shard(d)`` for
+    the dim it names, ``Replicate`` otherwise (an all-gather, all-to-all or
+    all-reduce as the move needs; a no-op when ``x`` already has them).
+    The spec's data entries need no move: each data rank holds its own
+    rows, as under FSDP.  A plain tensor there raises: it would run
+    unsharded.  Everywhere else (no mesh, a model axis of 1: the FSDP path
+    and every single-card path) ``x`` is returned unchanged."""
+    mesh = model_mesh()
+    if mesh is None:
+        return x
+    if not isinstance(x, DTensor):
+        raise ValueError("a model axis wider than 1 runs on DTensors: shard the model "
+                         "(repro_torch.runtime.sharding.shard_model / tp_distribute) first")
+    want = placements(mesh, PartitionSpec(*spec_entries))
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
+def replicated(t, like):
+    """``t`` (a plain tensor equal on every rank: positions, RoPE tables) as
+    a replicated DTensor on ``like``'s mesh when ``like`` is a DTensor;
+    else ``t`` itself."""
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, like.device_mesh, [Replicate()] * like.device_mesh.ndim,
+                              run_check=False)
+
+
+def local_offset(x, dim: int) -> int:
+    """Where this rank's piece of DTensor ``x`` starts along ``dim``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    _, offset = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
+    return int(offset[dim])
 
 
 class Initializer:
@@ -156,18 +223,19 @@ def init_glu_mlp(init: Initializer, d_model: int, d_ff: int):
     }
 
 
-def glu_mlp(p, x, act: str = "swiglu"):
-    """Gated MLP; ``p`` has ``w_gate``, ``w_up`` ``[d_model, d_ff]`` and
-    ``w_down`` ``[d_ff, d_model]``."""
-    g = x @ p.w_gate
-    u = x @ p.w_up
+def glu_mlp(p, x, act: str = "swiglu", model_axis: str = "model", out_spec=None):
+    """Gated MLP with Megatron tensor parallelism on d_ff; ``p`` has
+    ``w_gate``, ``w_up`` ``[d_model, d_ff]`` and ``w_down`` ``[d_ff,
+    d_model]``.  ``out_spec``: the residual stream's spec for the output."""
+    g = constrain(x @ p.w_gate, ("pod", "data"), None, model_axis)
+    u = constrain(x @ p.w_up, ("pod", "data"), None, model_axis)
     if act == "swiglu":
         h = F.silu(g) * u
     elif act == "geglu":
         h = F.gelu(g, approximate="tanh") * u  # jax.nn.gelu's default
     else:
         raise ValueError(act)
-    return h @ p.w_down
+    return constrain(h @ p.w_down, *(out_spec or (("pod", "data"), None, None)))
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -176,9 +244,23 @@ def cross_entropy(logits, labels, mask=None):
     ``mask`` (a masked mean over ``max(mask.sum(), 1)``)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    nll = logz - _gold(logits, labels.long())
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def _gold(logits, labels):
+    """``logits[..., labels]``.  Vocabulary-sharded DTensor logits: each
+    rank picks the labels in its columns (zero elsewhere) and the picks
+    are summed over the model axis (a ``Partial`` sum, reduced when
+    read)."""
+    if not (isinstance(logits, DTensor) and tuple(logits.placements) == (Shard(logits.ndim - 1),)):
+        return torch.gather(logits, -1, replicated(labels, logits)[..., None])[..., 0]
+    local = logits.to_local()
+    idx = labels - local_offset(logits, logits.ndim - 1)
+    mine = (idx >= 0) & (idx < local.shape[-1])
+    pick = torch.gather(local, -1, torch.where(mine, idx, 0)[..., None])[..., 0]
+    return DTensor.from_local(torch.where(mine, pick, 0.0), logits.device_mesh, [Partial()],
+                              run_check=False)

@@ -24,6 +24,14 @@ parameter tree (``embed``, ``blocks.<l>.ln1``, ``blocks.<l>.attn.w_q``,
   prefill                         — logits + populated cache
   decode_step                     — one-token serve step against the cache
 
+On a model axis wider than 1 (the dense family's weights as DTensors on
+the model mesh: :mod:`repro_torch.runtime.sharding`, under
+:func:`~repro_torch.models.layers.activate_mesh`) every function runs as
+the reference's partitioned program: the same ``constrain`` sites, the
+embedding looked up vocabulary-sharded (each rank its own rows, summed),
+the logits vocabulary-sharded, the decode caches sequence-sharded and
+decode attention split-KV across the ranks.
+
 As in the reference, ``prefill`` fills the KV (or latent) cache but leaves
 the Mamba state and conv window at zero (ROADMAP C.4).  A vlm prompt's
 patch embeddings are given to ``forward``/``prefill`` only: the prefix is
@@ -39,12 +47,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig, ShardingPolicy
 from repro_torch.convert import resolve_device
 from .attention import attention, decode_attention
-from .layers import Initializer, apply_rope, cross_entropy, glu_mlp, init_glu_mlp, rms_norm, rope
+from .layers import (Initializer, activate_mesh, apply_rope, constrain, cross_entropy,
+                     current_mesh, glu_mlp, init_glu_mlp, local_offset, replicated, rms_norm,
+                     rope)
 from .mla import init_mla, init_mla_cache, mla_attention, mla_decode_step
 from .moe import init_moe, moe_ffn
 from .ssm import init_mamba, init_mamba_cache, mamba_decode_step, mamba_mixer
@@ -62,7 +73,11 @@ __all__ = [
     "prefill",
     "decode_step",
     "params_dtype",
+    "greedy_tokens",
+    "extend_cache",
 ]
+
+DP = ("pod", "data")
 
 
 def _param(x):
@@ -154,25 +169,35 @@ def _init_block(init: Initializer, cfg: ArchConfig):
     return p
 
 
+def _placed(tree: dict, place, prefix: str = "") -> dict:
+    return {k: (_placed(v, place, f"{prefix}{k}.") if isinstance(v, dict) else
+                place(f"{prefix}{k}", v)) for k, v in tree.items()}
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
-                device=None) -> Transformer:
+                device=None, place=None) -> Transformer:
     """A :class:`Transformer` drawn from ``seed`` on ``device`` (``None``: the
     card, raising without one; the draws are made there, never in host
-    memory, and are not the reference's numbers)."""
+    memory, and are not the reference's numbers).  ``place(name, tensor)``,
+    if given, maps each leaf as soon as it is drawn (a rank's shard:
+    :func:`repro_torch.runtime.sharding.init_sharded`), so a model no card
+    holds is never whole; the draws are the same."""
     init = Initializer(seed, dtype=dtype, device=device)
+    place = place or (lambda name, t: t)
     V, D = cfg.padded_vocab, cfg.d_model
     params: dict = {}
     if cfg.family == "audio":
         params["embed"] = init.normal((cfg.num_codebooks, V, D), scale=0.02)
         params["heads"] = init.normal((cfg.num_codebooks, D, V))
     else:
-        params["embed"] = init.normal((V, D), scale=0.02)
+        params["embed"] = place("embed", init.normal((V, D), scale=0.02))
         if not cfg.tie_embeddings:
-            params["head"] = init.normal((D, V))
+            params["head"] = place("head", init.normal((D, V)))
     if cfg.family == "vlm":
         params["patch_proj"] = init.normal((cfg.patch_dim, D))
-    params["blocks"] = [_init_block(init, cfg) for _ in range(cfg.num_layers)]
-    params["ln_f"] = init.ones((D,))
+    params["blocks"] = [_placed(_init_block(init, cfg), place, f"blocks.{l}.")
+                        for l in range(cfg.num_layers)]
+    params["ln_f"] = place("ln_f", init.ones((D,)))
     return Transformer(cfg, params)
 
 
@@ -209,19 +234,55 @@ def _window(cfg: ArchConfig) -> int:
     return cfg.window if cfg.attn_type == "swa" else 0
 
 
+def _rope_tables(positions, like, cfg: ArchConfig):
+    """RoPE's cos/sin [B, S, 1, hd/2], replicated beside a DTensor ``like``."""
+    cos, sin = rope(positions, cfg.head_dim, cfg.rope_theta)
+    return replicated(cos[:, :, None], like), replicated(sin[:, :, None], like)
+
+
+def _out_proj(o, w_o):
+    """``o @ w_o``.  On a model axis ``o`` goes feature-sharded first (an
+    all-to-all from sequence-sharded, a free split from replicated), so
+    the product with the row-sharded ``w_o`` is a partial sum over the
+    ranks and no weight moves."""
+    if isinstance(o, DTensor):
+        o = o.redistribute(placements=[Shard(o.ndim - 1)])
+    return o @ w_o
+
+
+def _heads(t, n: int, hd: int):
+    """``t`` [B, S, n * hd] as [B, S, n, hd].  A feature-sharded DTensor
+    whose ``n`` heads do not split evenly over the model axis (8 KV heads
+    over 16 ranks) is replicated first: DTensor cannot cut a head."""
+    if isinstance(t, DTensor) and n % t.device_mesh.size() and t.placements[0].is_shard(2):
+        t = t.redistribute(placements=[Replicate()])
+    return t.reshape(*t.shape[:2], n, hd)
+
+
 def _attn_op(p, x, cfg: ArchConfig, policy: ShardingPolicy, positions):
     B, S, _ = x.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p.w_q).reshape(B, S, H, hd)
-    k = (x @ p.w_k).reshape(B, S, KVH, hd)
-    v = (x @ p.w_v).reshape(B, S, KVH, hd)
-    cos, sin = rope(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos[:, :, None], sin[:, :, None])
-    k = apply_rope(k, cos[:, :, None], sin[:, :, None])
+    q = _heads(x @ p.w_q, H, hd)
+    k = _heads(x @ p.w_k, KVH, hd)
+    v = _heads(x @ p.w_v, KVH, hd)
+    q = constrain(q, DP, None, policy.model_axis, None)  # the reference's qkv_feature_shard
+    cos, sin = _rope_tables(positions, q, cfg)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
     out = attention(q, k, v, impl=policy.attention_impl, causal=True, window=_window(cfg),
                     q_chunk=policy.attn_chunk, kv_chunk=policy.attn_chunk,
-                    block_skip=policy.attn_block_skip)
-    return out.reshape(B, S, H * hd) @ p.w_o, (k, v)
+                    block_skip=policy.attn_block_skip, model_axis=policy.model_axis,
+                    shard_seq=policy.shard_seq_attn)
+    out = _out_proj(out.reshape(B, S, H * hd), p.w_o)
+    return constrain(out, *_res_spec(policy, S)), (k, v)
+
+
+def _res_spec(policy: ShardingPolicy, seq_len: int):
+    """The residual stream's spec: batch over the data axes (sequence
+    parallelism, ``sp_activations``, is refused on a model axis)."""
+    if policy.sp_activations and seq_len > 1:
+        return (DP, policy.model_axis, None)
+    return (DP, None, None)
 
 
 def _ssm_impl(policy: ShardingPolicy) -> str:
@@ -232,12 +293,14 @@ def _ffn(p: Block, h2, cfg: ArchConfig, policy: ShardingPolicy):
     """The block's second half: (output, MoE aux loss or None)."""
     if cfg.family == "moe":
         return moe_ffn(p.moe, h2, cfg, impl=policy.moe_impl)
-    return glu_mlp(p.mlp, h2, act=cfg.act), None
+    return glu_mlp(p.mlp, h2, act=cfg.act, model_axis=policy.model_axis,
+                   out_spec=_res_spec(policy, h2.shape[1])), None
 
 
 def _block(p: Block, x, cfg: ArchConfig, policy: ShardingPolicy, positions):
     """One decoder block (prefill form).  Returns (x, aux or None, cache
     entries: (k, v), MLA's {"c_kv", "k_pe"}, or None)."""
+    x = constrain(x, *_res_spec(policy, x.shape[1]))
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if cfg.family == "ssm":
         return x + mamba_mixer(p.mamba, h, cfg, impl=_ssm_impl(policy)), None, None
@@ -261,17 +324,33 @@ def _embed(model: Transformer, cfg: ArchConfig, tokens, patches=None):
     if cfg.family == "audio":
         x = sum(F.embedding(tokens[..., k], model.embed[k]) for k in range(cfg.num_codebooks))
     else:
-        x = F.embedding(tokens, model.embed)
+        x = _lookup(model.embed, tokens)
     if cfg.family == "vlm" and patches is not None:
         x = torch.cat([patches.to(x.dtype) @ model.patch_proj, x], dim=1)
     return x
 
 
-def _head(model: Transformer, cfg: ArchConfig, x, fp32: bool = True):
+def _lookup(table, tokens):
+    """``table[tokens]``.  A vocabulary-sharded table (a DTensor sharded on
+    its rows): each rank looks up the tokens among its rows, zero for the
+    rest, and the lookups are a partial sum over the model axis."""
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    if tuple(table.placements) != (Shard(0),):
+        return F.embedding(replicated(tokens, table), table)
+    local = table.to_local()
+    idx = tokens - local_offset(table, 0)
+    mine = (idx >= 0) & (idx < local.shape[0])
+    out = F.embedding(torch.where(mine, idx, 0), local) * mine[..., None].to(local.dtype)
+    return DTensor.from_local(out, table.device_mesh, [Partial()], run_check=False)
+
+
+def _head(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, x, fp32: bool = True):
     if cfg.family == "audio":
         logits = torch.einsum("bsd,kdv->bskv", x, model.heads)
     else:
         logits = x @ (model.embed.T if cfg.tie_embeddings else model.head)
+        logits = constrain(logits, DP, None, policy.model_axis)
     if cfg.padded_vocab != cfg.vocab_size:
         logits = logits[..., : cfg.vocab_size]  # drop pad rows pre-softmax
     return logits.float() if fp32 else logits
@@ -304,24 +383,38 @@ def _forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens
              collect_cache):
     x = _embed(model, cfg, tokens, patches)
     B, S, _ = x.shape
+    x = constrain(x, *_res_spec(policy, S))
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     remat = (policy.remat == "block" and torch.is_grad_enabled()
              and any(p.requires_grad for p in model.parameters()))
+    mesh = current_mesh()
     for blk in model.blocks:
         if remat:
-            x, a, cache = checkpoint(blk, x, cfg, policy, positions, collect_cache,
-                                     use_reentrant=False)
+            x, a, cache = checkpoint(blk if mesh is None else _under(mesh, blk), x, cfg, policy,
+                                     positions, collect_cache, use_reentrant=False)
         else:
             x, a, cache = blk(x, cfg, policy, positions, collect_cache)
         if a is not None:
             aux = aux + a
         if collect_cache and cache is not None:
             caches.append(cache)
+    x = constrain(x, *_res_spec(policy, x.shape[1]))
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
-    logits = _head(model, cfg, x, fp32=policy.logits_fp32)
+    logits = _head(model, cfg, policy, x, fp32=policy.logits_fp32)
     return logits, aux, (_stack(caches) if caches else None)
+
+
+def _under(mesh, fn):
+    """``fn`` run under ``mesh``: a checkpointed block is recomputed in the
+    backward pass, which autograd runs on a thread of its own for a card,
+    and the active mesh is a thread's."""
+    def run(*args):
+        with activate_mesh(mesh):
+            return fn(*args)
+
+    return run
 
 
 def loss_fn(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, batch: dict):
@@ -366,15 +459,34 @@ def _layer_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, kv_dtype: str
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               kv_dtype: str = "bf16", device=None):
+               kv_dtype: str = "bf16", device=None, mesh=None):
     """Zeroed decode caches, stacked over layers, on ``device`` (``None``:
     the card, raising without one).  With attention: ``k``/``v``
     [L, B, S, KVH, hd] (S = min(max_len, window) for sliding-window
     attention), plus ``k_scale``/``v_scale`` [L, B, S, KVH] for int8; with
     MLA instead ``mla`` = {``c_kv`` [L, B, S, r], ``k_pe`` [L, B, S, dr]}.
     With an SSM: ``ssm`` = {``conv`` [L, B, d_conv - 1, conv_dim] in
-    ``dtype``, ``state`` [L, B, H, P, N] float32}, as the reference's tree."""
-    return _layer_cache(cfg, batch, max_len, dtype, kv_dtype, resolve_device(device))
+    ``dtype``, ``state`` [L, B, H, P, N] float32}, as the reference's tree.
+
+    ``mesh``: a model mesh (:func:`~repro_torch.models.layers.model_mesh`);
+    the KV caches are then DTensors sharded over it on their sequence dim,
+    each rank allocating its own range only (on ``"meta"`` too: the dry
+    run's)."""
+    if mesh is None:
+        return _layer_cache(cfg, batch, max_len, dtype, kv_dtype, resolve_device(device))
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shapes = cache_shapes(cfg, batch, max_len, dtype, kv_dtype)
+    if set(shapes) != {"k", "v"}:
+        raise ValueError(f"{cfg.name}: only a KV cache is sequence-sharded (ROADMAP A.18)")
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    out = {}
+    for name, t in shapes.items():
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh, [Shard(2)])
+        out[name] = DTensor.from_local(torch.zeros(local, dtype=t.dtype, device=dev), mesh,
+                                       [Shard(2)], run_check=False, shape=t.shape,
+                                       stride=t.stride())
+    return out
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -417,7 +529,8 @@ def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
     S = tokens.shape[1] + (cfg.num_patches if cfg.family == "vlm" else 0)
     max_len = max_len or S
     cache = init_cache(cfg, B, max_len, dtype=params_dtype(model),
-                       kv_dtype=policy.kv_cache_dtype, device=logits.device)
+                       kv_dtype=policy.kv_cache_dtype, device=logits.device,
+                       mesh=logits.device_mesh if isinstance(logits, DTensor) else None)
     if kv is None:
         return logits, cache, S
     if cfg.mla is not None:
@@ -432,13 +545,58 @@ def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
         k = torch.roll(k[:, :, S - w:], shift, dims=2)
         v = torch.roll(v[:, :, S - w:], shift, dims=2)
         n = w
-    if policy.kv_cache_dtype == "int8":
+    if isinstance(cache["k"], DTensor):
+        _write_prefix(cache["k"], k)
+        _write_prefix(cache["v"], v)
+    elif policy.kv_cache_dtype == "int8":
         (cache["k"][:, :, :n], cache["k_scale"][:, :, :n]) = quantize_kv(k)
         (cache["v"][:, :, :n], cache["v_scale"][:, :, :n]) = quantize_kv(v)
     else:
         cache["k"][:, :, :n] = k
         cache["v"][:, :, :n] = v
     return logits, cache, S
+
+
+@torch.no_grad()
+def extend_cache(cfg: ArchConfig, cache: dict, max_len: int) -> dict:
+    """A KV cache of ``max_len`` entries holding ``cache``'s in its first
+    ones (a prefill cache given room for the decode steps), sharded as
+    ``cache`` is."""
+    if set(cache) != {"k", "v"}:
+        raise ValueError(f"{cfg.name}: extend_cache takes a KV cache")
+    k = cache["k"]
+    L, B, _, _, _ = k.shape
+    out = init_cache(cfg, B, max_len, dtype=k.dtype, device=k.device,
+                     mesh=k.device_mesh if isinstance(k, DTensor) else None)
+    for name, old in cache.items():
+        if isinstance(old, DTensor):
+            _write_prefix(out[name], old)
+        else:
+            out[name][:, :, :old.shape[2]] = old
+    return out
+
+
+def _write_prefix(cache, new) -> None:
+    """``cache[:, :, :n] = new`` into a sequence-sharded cache DTensor
+    [L, B, S, ...]: each rank writes the entries of its own range."""
+    full = new.redistribute(placements=[Replicate()]).to_local()
+    local, start = cache.to_local(), local_offset(cache, 2)
+    hi = min(full.shape[2], start + local.shape[2])
+    if hi > start:
+        local[:, :, :hi - start] = full[:, :, start:hi]
+
+
+def _write_slot(cache, slot, new) -> None:
+    """``cache[:, slot] = new`` ([B, 1, ...]) into one layer's sequence-
+    sharded cache DTensor [B, S, ...]: the rank whose range holds ``slot``
+    writes it (the others rewrite an entry with itself), without reading
+    ``slot`` back to the host."""
+    local = cache.to_local()
+    idx = slot - local_offset(cache, 1)
+    mine = (idx >= 0) & (idx < local.shape[1])
+    idx = torch.where(mine, idx, 0)
+    new = new.redistribute(placements=[Replicate()]).to_local().to(local.dtype)
+    local.index_copy_(1, idx, torch.where(mine, new, local.index_select(1, idx)))
 
 
 def _len_tensor(cache_len, device):
@@ -454,17 +612,21 @@ def _decode_attn(a, h, cache: dict, n, cfg: ArchConfig, policy: ShardingPolicy):
     in place and returns the branch's output [B, 1, d_model]."""
     B = h.shape[0]
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (h @ a.w_q).reshape(B, 1, H, hd)
-    k = (h @ a.w_k).reshape(B, 1, KVH, hd)
-    v = (h @ a.w_v).reshape(B, 1, KVH, hd)
-    cos, sin = rope(n.view(1, 1).expand(B, 1), hd, cfg.rope_theta)
-    q = apply_rope(q, cos[:, :, None], sin[:, :, None])
-    k = apply_rope(k, cos[:, :, None], sin[:, :, None])
+    q = _heads(h @ a.w_q, H, hd)
+    k = _heads(h @ a.w_k, KVH, hd)
+    v = _heads(h @ a.w_v, KVH, hd)
+    cos, sin = _rope_tables(n.view(1, 1).expand(B, 1), q, cfg)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
     w = _window(cfg)
     Lc = cache["k"].shape[1]
     # the reference's dynamic_update_slice clamps its start index into range
     slot = (torch.remainder(n, Lc) if w else torch.clamp(n, max=Lc - 1)).long()
-    if policy.kv_cache_dtype == "int8" and "k_scale" in cache:
+    if isinstance(cache["k"], DTensor):
+        _write_slot(cache["k"], slot, k)
+        _write_slot(cache["v"], slot, v)
+        kd, vd = cache["k"], cache["v"]
+    elif policy.kv_cache_dtype == "int8" and "k_scale" in cache:
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
         cache["k"].index_copy_(1, slot, kq)
@@ -479,8 +641,9 @@ def _decode_attn(a, h, cache: dict, n, cfg: ArchConfig, policy: ShardingPolicy):
         kd, vd = cache["k"], cache["v"]
     # ring buffer: all written slots are attendable (min(len+1, W))
     count = torch.clamp(n + 1, max=Lc) if w else n + 1
-    o = decode_attention(q, kd, vd, count, window=0, impl=policy.attention_impl)
-    return o.reshape(B, 1, H * hd) @ a.w_o
+    o = decode_attention(q, kd, vd, count, window=0, impl=policy.attention_impl,
+                         model_axis=policy.model_axis, shard_seq=policy.shard_seq_attn)
+    return constrain(_out_proj(o.reshape(B, 1, H * hd), a.w_o), DP, None, None)
 
 
 def _decode_block(p: Block, x, cache: dict, n, cfg: ArchConfig, policy: ShardingPolicy):
@@ -516,9 +679,29 @@ def decode_step(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, cac
     free of host round trips.  The cache is updated **in place** and
     returned (the reference donates it to the step and returns a new one).
     """
-    x = _embed(model, cfg, tokens)
+    x = constrain(_embed(model, cfg, tokens), DP, None, None)
     n = _len_tensor(cache_len, x.device)
     for l, blk in enumerate(model.blocks):
         x = _decode_block(blk, x, _layer(cache, l), n, cfg, policy)
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
-    return _head(model, cfg, x, fp32=policy.logits_fp32), cache
+    return _head(model, cfg, policy, x, fp32=policy.logits_fp32), cache
+
+
+@torch.no_grad()
+def greedy_tokens(logits):
+    """The argmax over the last dim of ``logits`` [..., V] as int32 (the
+    first of equal maxima, as ``argmax``).  Vocabulary-sharded DTensor
+    logits: each rank's best column and value, all-gathered over the model
+    axis, the best of them; a plain tensor."""
+    if not isinstance(logits, DTensor):
+        return logits.argmax(dim=-1).to(torch.int32)
+    if tuple(logits.placements) != (Shard(logits.ndim - 1),):
+        return logits.full_tensor().argmax(dim=-1).to(torch.int32)
+    local = logits.to_local()
+    idx = local.argmax(dim=-1)
+    best = torch.gather(local, -1, idx[..., None])[..., 0].float()
+    pair = torch.stack([best, (idx + local_offset(logits, logits.ndim - 1)).float()])
+    pairs = DTensor.from_local(pair[None], logits.device_mesh, [Shard(0)],
+                               run_check=False).full_tensor()  # [ranks, 2, ...]
+    win = pairs[:, 0].argmax(dim=0, keepdim=True)  # the first rank holding the max
+    return torch.gather(pairs[:, 1], 0, win)[0].to(torch.int32)

@@ -15,11 +15,13 @@ step holds one leaf's temporaries and never a second copy of the
 parameters.  The moments may be kept in bfloat16 (``state_dtype``), as the
 reference allows for its largest configurations.
 
-A model sharded with FSDP (:func:`repro_torch.runtime.sharding.shard_model`)
-has DTensor parameters and gradients: its moments are made as DTensors of
-the same placements (each rank holds its shard: ZeRO), the update runs on
-each rank's local shards, and :func:`global_norm` adds each leaf's
-squares over all its shards once (one all-reduce of the per-leaf sums).
+A model sharded with FSDP or over a model axis
+(:func:`repro_torch.runtime.sharding.shard_model`) has DTensor parameters
+and gradients: its moments are made as DTensors of the same placements
+(each rank holds its shard: ZeRO), the update runs on each rank's local
+shards, and :func:`global_norm` adds each leaf's squares over all its
+shards once (an all-reduce of the per-leaf sums over each mesh dim that
+shards them).
 """
 
 from __future__ import annotations
@@ -69,24 +71,27 @@ def _local(x: torch.Tensor) -> torch.Tensor:
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares,
     the leaves' sums added in order, as the reference's Python ``sum``.  A
-    DTensor leaf sharded over a 1-D mesh counts every shard once: the
-    shards' sums are all-reduced (one call for all such leaves) before the
-    leaves' sums are added."""
+    DTensor leaf counts every shard once: its shards' sums are all-reduced
+    over each mesh dim that shards it (one call for the leaves sharded
+    alike) before the leaves' sums are added; its replicas count once."""
     leaves = list(named_leaves(tree).values())
-    sharded = [isinstance(x, DTensor) and any(p.is_shard() for p in x.placements)
-               for x in leaves]
     sums = []
     for x in leaves:
         xf = _local(x).float()
         sums.append(torch.sum(xf * xf))
-    if any(sharded):
-        x0 = leaves[sharded.index(True)]
-        if x0.device_mesh.ndim != 1:
-            raise ValueError("global_norm sums shards over a 1-D mesh (FSDP's)")
-        part = torch.stack([s for s, sh in zip(sums, sharded) if sh])
-        torch.distributed.all_reduce(part, group=x0.device_mesh.get_group())
-        it = iter(part)
-        sums = [next(it) if sh else s for s, sh in zip(sums, sharded)]
+    groups: dict = {}
+    for i, x in enumerate(leaves):
+        if isinstance(x, DTensor):
+            dims = tuple(d for d, p in enumerate(x.placements)
+                         if not (p.is_replicate() or p.is_partial()))
+            if dims:
+                groups.setdefault((x.device_mesh, dims), []).append(i)
+    for (mesh, dims), idx in groups.items():
+        part = torch.stack([sums[i] for i in idx])
+        for d in dims:
+            torch.distributed.all_reduce(part, group=mesh.get_group(d))
+        for i, s in zip(idx, part):
+            sums[i] = s
     total = 0
     for s in sums:
         total = total + s

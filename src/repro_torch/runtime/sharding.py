@@ -27,8 +27,19 @@ in the reference) stays whole on every rank, outside FSDP
 (``ignored_params``); :func:`reduce_replicated_grads` averages its
 gradients over the ranks.  The AdamW moments are created like their
 parameters (:func:`repro_torch.optim.adamw_init`), so each rank holds
-its shard of them too (ZeRO).  A model axis wider than 1 (tensor parallelism)
-is not run by any entry point of either package and is refused here.
+its shard of them too (ZeRO).
+
+A model axis wider than 1 (tensor parallelism, the reference's production
+layout) runs for the dense family under the default policy.  Each weight
+becomes a DTensor on the mesh's 'model' submesh with the placement its
+spec's model entry gives (:func:`tp_distribute`; :func:`init_sharded`
+draws a model no card holds leaf by leaf, each rank keeping its shard);
+the activations follow the reference's ``constrain`` sites
+(:func:`repro_torch.models.layers.constrain`).  For training
+:func:`shard_model` then applies FSDP2 over the 'data' submesh, the usual
+2-D composition (the model-axis placement first).  Refused, each naming
+its ROADMAP item (A.18): the moe, MLA, ssm/hybrid, audio and vlm families,
+and the policy values whose layouts are not ported (:func:`check_model_axis`).
 Each rank computes its loss over its own rows, so an MoE layer's aux loss
 and gshard capacity are those of the rank's tokens, where the reference's
 partitioner computes them over the global batch (ROADMAP C.19); dense
@@ -44,16 +55,17 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.config import ArchConfig, ShardingPolicy
 from repro_torch.convert import reference_key
 from repro_torch.models.layers import PartitionSpec as P
-from repro_torch.models.layers import fix_spec
+from repro_torch.models.layers import fix_spec, model_mesh, placements
 
 __all__ = ["param_specs", "batch_specs", "cache_specs", "shardings_for", "named",
-           "NamedSharding", "placements", "shard_model", "is_sharded",
-           "data_group", "reduce_replicated_grads", "mean_over_ranks"]
+           "NamedSharding", "placements", "shard_model", "is_sharded", "check_model_axis",
+           "tp_distribute", "init_sharded", "data_group", "reduce_replicated_grads",
+           "mean_over_ranks"]
 
 DP = ("pod", "data")
 
@@ -123,13 +135,14 @@ def param_specs(tree, policy: ShardingPolicy | None = None) -> dict:
     from repro_torch.optim.adamw import named_leaves
 
     policy = policy or ShardingPolicy()
-    out = {}
-    for name, t in named_leaves(tree).items():
-        key, layer = reference_key(name)
-        spec = _rule(tuple(key.split("/")), (1, *t.shape) if layer is not None else tuple(t.shape),
-                     policy)
-        out[name] = spec if layer is None else P(*spec[1:])
-    return out
+    return {name: _leaf_spec(name, t.shape, policy) for name, t in named_leaves(tree).items()}
+
+
+def _leaf_spec(name: str, shape, policy: ShardingPolicy) -> P:
+    """The spec of the port's parameter ``name`` of ``shape``."""
+    key, layer = reference_key(name)
+    spec = _rule(tuple(key.split("/")), (1, *shape) if layer is not None else tuple(shape), policy)
+    return spec if layer is None else P(*spec[1:])
 
 
 def batch_specs(cfg: ArchConfig, policy: ShardingPolicy | None = None,
@@ -183,27 +196,6 @@ def cache_specs(cfg: ArchConfig, policy: ShardingPolicy | None = None,
     return c
 
 
-def placements(mesh, spec) -> tuple:
-    """DTensor placements of ``spec`` on ``mesh`` (axes the mesh lacks
-    dropped): a tensor dim over several mesh axes is ``Shard`` on each of
-    them, the first major, as JAX orders them."""
-    spec = fix_spec(mesh, spec)
-    names = list(mesh.mesh_dim_names)
-    out = [Replicate()] * mesh.ndim
-    for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        idx = [names.index(a) for a in ((entry,) if isinstance(entry, str) else entry)]
-        if idx != sorted(idx):
-            raise ValueError(f"{spec}: dim {dim} is sharded over mesh axes out of the mesh's "
-                             f"order {tuple(names)}")
-        for i in idx:
-            if not isinstance(out[i], Replicate):
-                raise ValueError(f"{spec}: mesh axis {names[i]!r} shards two dims")
-            out[i] = Shard(dim)
-    return tuple(out)
-
-
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A spec on a mesh, with its DTensor placements (JAX's
@@ -240,14 +232,105 @@ def shardings_for(mesh, cfg: ArchConfig, policy: ShardingPolicy, shape_tree) -> 
 
 
 def _data_mesh(mesh):
-    """The 1-D 'data' mesh of a ('data', 'model') mesh whose model axis is 1."""
+    """The 1-D 'data' mesh of a ('data', 'model') mesh (or a 1-D 'data' mesh)."""
     names = tuple(mesh.mesh_dim_names or ())
     if "data" not in names or set(names) - {"data", "model"}:
         raise ValueError(f"FSDP runs over a ('data', 'model') mesh; got axes {names}")
-    if "model" in names and mesh.size(names.index("model")) != 1:
-        raise ValueError("a model axis wider than 1 (tensor parallelism) is not run by any "
-                         "entry point of the port or the reference")
     return mesh["data"] if len(names) > 1 else mesh
+
+
+# the families whose model-axis layout is not ported yet, in ROADMAP A.18's order
+_TP_LATER = {"moe": "the experts' d_ff and MLA's heads over 'model' (models/moe.py, mla.py)",
+             "ssm": "the Mamba mixer's d_inner and heads over 'model' (models/ssm.py)",
+             "hybrid": "the Mamba mixer's d_inner and heads over 'model' (models/ssm.py)",
+             "audio": "the codebook heads' vocabulary over 'model'",
+             "vlm": "the patch prefix beside the sharded embedding"}
+
+
+def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int) -> None:
+    """Raise unless ``cfg`` under ``policy`` runs on a model axis of
+    ``size``: the dense family, the policy values whose layouts are
+    ported, and widths every sharded dim divides."""
+    where = "is not ported to a model axis wider than 1 yet (ROADMAP A.18)"
+    if cfg.family in _TP_LATER:
+        raise ValueError(f"{cfg.name} ({cfg.family}): {_TP_LATER[cfg.family]} {where}")
+    expect = {"sp_activations": False, "shard_seq_attn": True, "model_axis": "model",
+              "kv_cache_dtype": "bf16"}
+    bad = {f: getattr(policy, f) for f, v in expect.items() if getattr(policy, f) != v}
+    if policy.attention_impl not in ("chunked", "naive"):
+        bad["attention_impl"] = policy.attention_impl
+    if cfg.attn_type != "full":
+        bad["attn_type"] = cfg.attn_type
+    if bad:
+        raise ValueError(f"{cfg.name}: the layout of {bad} {where}")
+    widths = {"d_ff": cfg.d_ff, "padded_vocab": cfg.padded_vocab}
+    uneven = {k: w for k, w in widths.items() if w % size}
+    if uneven:
+        raise ValueError(f"{cfg.name}: {uneven} do not divide over a model axis of {size}")
+
+
+def _local_shard(t: torch.Tensor, mesh, pl) -> torch.Tensor:
+    """This rank's piece of the whole tensor ``t`` under placements ``pl``,
+    a contiguous copy (``t`` can be freed)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+    index = tuple(slice(o, o + n) for o, n in zip(offset, shape))
+    return t[index].clone(memory_format=torch.contiguous_format)
+
+
+def _tp_place(mesh, policy: ShardingPolicy):
+    """``place(name, whole tensor)`` -> the DTensor of its shard on the
+    model submesh of ``mesh``."""
+    tp = model_mesh(mesh)
+
+    def place(name, t):
+        pl = placements(tp, _leaf_spec(name, t.shape, policy))
+        return DTensor.from_local(_local_shard(t, tp, pl), tp, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    return place
+
+
+def _model_width(mesh) -> int:
+    tp = model_mesh(mesh)
+    return 1 if tp is None else tp.size()
+
+
+def tp_distribute(model, mesh, policy: ShardingPolicy | None = None):
+    """Make ``model``'s weights DTensors on ``mesh``'s model submesh, each
+    with the placement its spec's model entry gives, in place; returns the
+    model (unchanged on a model axis of 1).  Each rank keeps its shard of
+    the whole weights it holds."""
+    policy = policy or ShardingPolicy()
+    width = _model_width(mesh)
+    if width == 1:
+        return model
+    check_model_axis(model.cfg, policy, width)
+    place = _tp_place(mesh, policy)
+    for name, p in list(model.named_parameters()):
+        if isinstance(p, DTensor):
+            raise ValueError(f"{name} is already sharded")
+        owner, leaf = model.get_submodule(name.rpartition(".")[0]), name.rpartition(".")[2]
+        setattr(owner, leaf, torch.nn.Parameter(place(name, p.detach()),
+                                                requires_grad=p.requires_grad))
+    return model
+
+
+def init_sharded(cfg: ArchConfig, mesh, seed: int = 0, dtype=torch.bfloat16, device=None,
+                 policy: ShardingPolicy | None = None):
+    """:func:`repro_torch.models.init_params`'s model, the same draws, with
+    each weight sharded over ``mesh``'s model axis as it is drawn: a rank
+    never holds more than one whole layer (how a model no card holds is
+    made)."""
+    from repro_torch.models import init_params
+
+    policy = policy or ShardingPolicy()
+    width = _model_width(mesh)
+    if width == 1:
+        return init_params(cfg, seed, dtype, device)
+    check_model_axis(cfg, policy, width)
+    return init_params(cfg, seed, dtype, device, place=_tp_place(mesh, policy))
 
 
 def _data_dim(spec) -> int | None:
@@ -259,15 +342,19 @@ def _data_dim(spec) -> int | None:
 
 
 def shard_model(model, mesh, policy: ShardingPolicy | None = None):
-    """Shard ``model`` for training with FSDP2 over ``mesh``'s 'data' axis
-    (a ``(data, model)`` mesh with a model axis of 1, or a 1-D 'data'
-    mesh), in place; returns it.  Each block, then the root, becomes an
-    FSDP module; each weight is split on the dim :func:`param_specs` puts
-    over 'data'; the leaves it puts over none stay whole on every rank
-    (see the module doc).  Call before the optimizer state is made."""
+    """Shard ``model`` for training over a ``(data, model)`` mesh (or a 1-D
+    'data' mesh), in place; returns it.  A model axis wider than 1 first
+    makes each weight a DTensor on the model submesh
+    (:func:`tp_distribute`, unless the model is already sharded so).  Then
+    FSDP2 over 'data': each block, then the root, becomes an FSDP module;
+    each weight is split on the dim :func:`param_specs` puts over 'data';
+    the leaves it puts over none stay whole on every data rank (see the
+    module doc).  Call before the optimizer state is made."""
     from torch.distributed.fsdp import fully_shard
 
     dp = _data_mesh(mesh)
+    if not any(isinstance(p, DTensor) for p in model.parameters()):  # else: init_sharded's
+        tp_distribute(model, mesh, policy)
     specs = param_specs(model, policy)
     dims = {p: _data_dim(specs[n]) for n, p in model.named_parameters()}
     whole = {p for p, d in dims.items() if d is None}
@@ -288,13 +375,14 @@ def is_sharded(model) -> bool:
 
 
 def data_group(model):
-    """The process group a sharded model's weights are split over (``None``
-    for a model that is not sharded)."""
+    """The process group of a sharded model's data ranks (``None`` for a
+    model that is not sharded)."""
     if not is_sharded(model):
         return None
     for p in model.parameters():
-        if isinstance(p, DTensor):
-            return p.device_mesh.get_group()
+        names = tuple(p.device_mesh.mesh_dim_names or ()) if isinstance(p, DTensor) else ()
+        if "data" in names:
+            return p.device_mesh.get_group("data")
     raise ValueError("a sharded model without a sharded parameter")
 
 
@@ -310,14 +398,32 @@ def _all_reduce_mean(tensors: list, group) -> None:
         t.copy_(part.view_as(t))
 
 
+def _outside_fsdp(p) -> bool:
+    """A leaf FSDP leaves alone: a plain tensor, or a DTensor on the model
+    submesh only (replicated there)."""
+    return not isinstance(p, DTensor) or "data" not in (p.device_mesh.mesh_dim_names or ())
+
+
 @torch.no_grad()
 def reduce_replicated_grads(model) -> None:
     """Average over the data ranks the gradients of the leaves a sharded
-    model keeps whole (FSDP reduce-scatters the others itself)."""
+    model keeps whole (FSDP reduce-scatters the others itself).  On a
+    model axis such a leaf's gradient can come back as a partial sum over
+    it: it is reduced to the leaf's own placement first."""
     group = data_group(model)
-    if group is not None:
-        _all_reduce_mean([p.grad for p in model.parameters()
-                          if not isinstance(p, DTensor) and p.grad is not None], group)
+    if group is None:
+        return
+    grads = []
+    for p in model.parameters():
+        if not _outside_fsdp(p) or p.grad is None:
+            continue
+        if isinstance(p.grad, DTensor):
+            if tuple(p.grad.placements) != tuple(p.placements):
+                p.grad = p.grad.redistribute(placements=p.placements)
+            grads.append(p.grad.to_local())
+        else:
+            grads.append(p.grad)
+    _all_reduce_mean(grads, group)
 
 
 @torch.no_grad()

@@ -18,8 +18,10 @@ differ by a rounding of each gradient element.  A leaf kept in another
 dtype than float32 is summed into a float32 buffer after each microbatch
 instead (its ``.grad`` is in its own dtype).
 
-A model sharded with FSDP (:func:`repro_torch.runtime.sharding.shard_model`)
-takes the same step on each data rank over the rank's own rows: FSDP
+A model sharded with FSDP (:func:`repro_torch.runtime.sharding.shard_model`,
+over a model axis too) takes the same step on each data rank over the
+rank's own rows, under the mesh it was sharded over
+(:func:`~repro_torch.models.layers.activate_mesh`): FSDP
 reduce-scatters the gradients (their mean over the ranks) on the last
 microbatch only (``set_requires_gradient_sync``), the leaves kept whole are
 averaged after it, the update runs on each rank's shards, and the logged
@@ -36,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ArchConfig, ShardingPolicy, TrainConfig
 from repro_torch.models import Transformer, decode_step, loss_fn
@@ -141,7 +144,10 @@ def make_train_step(cfg: ArchConfig, policy: ShardingPolicy, tcfg: TrainConfig):
                 model.set_requires_gradient_sync(i == n_mb - 1)
             total, _ = loss_fn(model, cfg, policy, mb)
             acc.backward(total / n_mb if n_mb > 1 else total)
-            loss = loss + total.detach() / n_mb if n_mb > 1 else total.detach()
+            total = total.detach()
+            if isinstance(total, DTensor):  # replicated over a model axis
+                total = total.full_tensor()
+            loss = loss + total / n_mb if n_mb > 1 else total
         if sharded:
             reduce_replicated_grads(model)
             loss = mean_over_ranks(loss, model)

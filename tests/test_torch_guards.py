@@ -54,7 +54,7 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
     assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 
 
-@pytest.mark.parametrize("script", ["fsdp_dist.py", "chain_dist.py", "flash_variants.py",
+@pytest.mark.parametrize("script", ["fsdp_dist.py", "chain_dist.py", "tp_dist.py", "flash_variants.py",
                                     "decode_variants.py", "decode_cache_states.py",
                                     "pivot_stages.py", "pivot_variants.py", "replay_stages.py",
                                     "replay_variants.py", "ssd_stages.py", "port_serve_steps.py"])

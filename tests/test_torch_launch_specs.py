@@ -113,6 +113,9 @@ def test_production_meshes_over_a_fake_world():
         make_production_mesh(device_type="cpu")  # no process group: one rank
 
 
+DENSE = ("llama3.2-3b", "phi4-mini-3.8b", "minitron-8b", "mistral-large-123b")
+
+
 def test_dry_run_writes_eighty_records_without_an_error(tmp_path):
     assert dryrun.main(["--all", "--mesh", "both", "--out-dir", str(tmp_path)]) == 0
     recs = [json.loads(p.read_text()) for p in sorted(tmp_path.glob("*.json"))]
@@ -120,13 +123,23 @@ def test_dry_run_writes_eighty_records_without_an_error(tmp_path):
     assert not [r for r in recs if r["status"] == "error"]
     assert sum(r["status"] == "skip" for r in recs) == 16
     ok = [r for r in recs if r["status"] == "ok"]
+    counted = 0
     for r in ok:
         assert r["devices"] == (512 if r["mesh"] == "multi" else 256)
         assert r["memory"]["argument_size_in_bytes"] > 0 and isinstance(r["fits"], bool)
-        for key in ("temp_size_in_bytes", "bytes_accessed_per_device", "collectives",
-                    "hlo_bytes", "compile_s"):
+        for key in ("temp_size_in_bytes", "bytes_accessed_per_device", "hlo_bytes", "compile_s"):
             value = r["memory"][key] if key == "temp_size_in_bytes" else r[key]
             assert value is None and r["not_applicable"][key]
+        # the dense family's serving cells run on the model axis: their collectives counted
+        if r["arch"] in DENSE and r["kind"] != "train":
+            counted += 1
+            assert "collectives" not in r["not_applicable"] and r["collective_count"] > 0
+            assert r["collective_count"] == sum(v["count"] for v in r["collectives"].values())
+            assert r["collective_operand_bytes"] > 0
+        else:
+            assert r["collectives"] is None and r["collective_count"] is None
+            assert r["not_applicable"]["collectives"]
+    assert counted == 16
     with pytest.raises(SystemExit, match="bench_out"):
         dryrun.main(["--all", "--out-dir", "bench_out/dryrun"])
 
@@ -155,3 +168,29 @@ def test_argument_bytes_equal_the_references_shard_shapes(arch, shape, multi):
         ((16, 16), ("data", "model"))
     assert rec["memory"]["argument_size_in_bytes"] == _ref_argument_bytes(arch, shape,
                                                                          mesh_shape, axes)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_dry_run_counts_a_dense_cells_collectives_at_the_smoke_size(kind):
+    """llama3.2-3b's smoke variant (2 layers, d_model 64, bfloat16) on the
+    production mesh: the embedding and each layer's attention output and
+    MLP are one all-reduce each of rank 0's rows of the residual stream
+    (32 rows over 16 data ranks); the multi-pod mesh halves the rows."""
+    from repro_torch.config import ShapeConfig, ShardingPolicy, get_arch, smoke_variant
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg = smoke_variant(get_arch("llama3.2-3b"))
+    seq = 64
+    shape = ShapeConfig(kind, seq, 32, kind)
+    rows_tokens = 2 * (seq if kind == "prefill" else 1)  # 32 rows over 16 data ranks
+    with dryrun.fake_world(512):
+        got = {}
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+            got[multi] = dryrun.step_collectives(mesh, cfg, shape, ShardingPolicy())
+    ar = got[False]["collectives"]["c10d_functional.all_reduce"]
+    assert ar["count"] == 2 * cfg.num_layers + 1
+    assert ar["bytes"] == ar["count"] * rows_tokens * cfg.d_model * 2
+    assert got[False]["collective_count"] == sum(v["count"] for v in
+                                                 got[False]["collectives"].values())
+    assert got[True]["collectives"]["c10d_functional.all_reduce"]["bytes"] == ar["bytes"] // 2

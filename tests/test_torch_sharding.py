@@ -190,15 +190,17 @@ def test_shard_shapes_equal_jax_named_sharding_on_a_small_mesh():
 
 
 def test_shard_model_refuses_a_model_axis_wider_than_one():
+    """For a family whose model-axis layout is not ported (the dense
+    family's is: tests/test_torch_tensor_parallel.py)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.models import init_params
 
-    model = init_params(smoke_variant(get_arch("llama3.2-3b")), seed=0, dtype=torch.float32,
+    model = init_params(smoke_variant(get_arch("mamba2-2.7b")), seed=0, dtype=torch.float32,
                         device="cpu")
     with fake_world(4):
         mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
-        with pytest.raises(ValueError, match="tensor parallelism"):
+        with pytest.raises(ValueError, match=r"model axis wider than 1 .*ROADMAP A\.18"):
             sharding.shard_model(model, mesh)
         pod = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("pod", "data"))
         with pytest.raises(ValueError, match="FSDP runs over"):
