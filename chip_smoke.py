@@ -1758,8 +1758,8 @@ def moe_checks(model, cfg, prompt) -> tuple:
     routes, layer_errs = {"dense": [], "gshard": []}, []
     mode = None
 
-    def observed_ffn(p, h, c, impl):
-        y, aux = ffn(p, h, c, impl=impl)
+    def observed_ffn(p, h, c, impl, **axes):
+        y, aux = ffn(p, h, c, impl=impl, **axes)
         if mode is not None:  # this layer's experts, as sets
             experts = moe_mod._router(p, h.reshape(-1, h.shape[-1]).float(), c.moe)[1]
             routes[mode].append(experts.sort(dim=-1).values)

@@ -1,38 +1,62 @@
 """Tensor parallelism (a model axis wider than 1) over every rank of a
-``torchrun`` world: the dense family's cells (``launch/specs.build_cell``)
-on ``(data, model)`` meshes, held against one card.
+``torchrun`` world: the dense and moe families' cells
+(``launch/specs.build_cell``) on ``(data, model)`` meshes, held against
+one card.
 
     torchrun --nproc-per-node 4 scripts/tp_dist.py                   # 4 cards: NCCL
     PYTHONPATH=src torchrun --nproc-per-node 4 scripts/tp_dist.py --device cpu --smoke \\
         --seq 32 --prompt 32 --gen 4 --check-batch 4 --serve-batch 2 --lr 1e-3  # the CPU: gloo
 
-(i) ``--check-arch`` (llama3.2-3b) at full width and depth in float32: the
-train cell's step on each of ``--meshes`` (``1x4`` and ``2x2``: data x
-model), ``--check-steps`` steps of the global batch ``--check-batch`` x
-``--seq`` from the synthetic stream (each data rank its rows), then rank 0
-alone, unsharded, on the same batches from the same seed: the losses and
-grad norms within 1e-5 relative, the parameters within C.18's bar (all
-within 2 lr; at most 1 element in 10^4 beyond rtol 2e-3 / atol 2e-4).
-Recorded a mesh: ms a step, peak GB a rank, and one more step under
-``CommDebugMode`` (the collectives by op, with their bytes).
-(ii) ``--serve-arch`` (mistral-large-123b) at full width and depth in
-bfloat16 on ``(1, N)``: the weights drawn sharded (``init_sharded``: no
-rank holds more than a layer whole), the prefill cell on ``--serve-batch``
-x ``--prompt`` tokens, then ``--gen`` greedy decode-cell steps against a
-cache of prompt + gen entries.  Recorded: prefill s, decode ms a step,
-peak GB a rank, the collectives of a prefill and of a decode step, and the
-profiler's busy share of each.
-(iii) ``--serve-arch`` cut to ``--check-layers`` layers at full width in
-float32: the prefill and decode cells on ``(1, N)`` against the same layers
-unsharded on rank 0 (the same draws): logits and caches within 1e-4 of
-their max |value|.
+``--parts`` picks the parts (default: all seven, (i)-(vii)).  The
+dense family's: (i) ``train``: ``--check-arch`` (llama3.2-3b) at full width
+and depth in float32: the train cell's step on each of ``--meshes`` (``1x4``
+and ``2x2``: data x model), ``--check-steps`` steps of the global batch
+``--check-batch`` x ``--seq`` from the synthetic stream (each data rank its
+rows), then rank 0 alone, unsharded, on the same batches from the same
+seed: the losses and grad norms within 1e-5 relative, the parameters within
+C.18's bar (all within 2 lr; at most 1 element in 10^4 beyond rtol 2e-3 /
+atol 2e-4).  Recorded a mesh: ms a step, peak GB a rank, and one more step
+under ``CommDebugMode`` (the collectives by op, with their bytes).
+(ii) ``serve``: ``--serve-arch`` (mistral-large-123b) at full width and
+depth in bfloat16 on ``(1, N)``: the weights drawn sharded
+(``init_sharded``: no rank holds more than a leaf whole), the prefill cell
+on ``--serve-batch`` x ``--prompt`` tokens, then ``--gen`` greedy
+decode-cell steps against a cache of prompt + gen entries.  Recorded:
+prefill s, decode ms a step, peak GB a rank, the collectives of a prefill
+and of a decode step, and the profiler's busy share of each.  (iii)
+``check``: ``--serve-arch`` cut to ``--check-layers`` layers at full width
+in float32: the prefill and decode cells on ``(1, N)`` against the same
+layers unsharded on rank 0 (the same draws): logits and caches within 1e-4
+of their max |value|.
+The moe family's: (iv) ``moe-train``: (i) for deepseek-v2-lite-16b (MLA,
+gshard at cf 1.25) cut to 4 layers, the aux losses held too.  (v)
+``moe-serve``: deepseek-v2-lite-16b at full size in float32 on ``(1, N)``
+against rank 0 alone: the prefill and ``--gen`` decode steps, logits and
+latent caches within 1e-4 of their max |value|.  (vi) ``kimi-serve``: (ii)
+for kimi-k2-1t-a32b cut to 6 layers.  (vii) ``kimi-check``: kimi-k2-1t-a32b
+cut to 2 layers and 64 routed experts in float32, as (v) with
+``--check-gen`` decode steps.
+Routing flips (ROADMAP C.16): in (iv), (v) and (vii) each MoE layer's
+routing is recorded on both sides; every (token, layer) whose top-k
+differs is reported with its margin (the k-th minus the (k+1)-th router
+probability, the larger of the two sides').  A token is touched where it
+flipped, or where gshard's capacity keeps other slots of it on the two
+sides (an earlier token's flip moved an expert's count: the flip reaches
+other sequences so).  A flip is primary unless a token of its sequence
+was touched at an earlier layer and the same or an earlier position (or,
+in training, an earlier step flipped); a primary flip whose margin is
+above 1e-6 fails the run (no near-tie).  The bars apply where nothing was
+touched: in serving, each sequence's logits and caches before its first
+touched position; in training, the steps before the first flip, and the
+whole first step too, with or without a flip.
+The one-card side of (v) and (vii) is fed the sharded side's greedy tokens.
 Rank 0 prints one JSON line (also written to ``--out``) with the cards'
 name and power limit, and exits non-zero on a missed bar.
 """
-
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -58,12 +82,22 @@ from repro_torch.launch import train as cli  # noqa: E402
 from repro_torch.launch.specs import build_cell  # noqa: E402
 from repro_torch.models import (decode_step, extend_cache, greedy_tokens,  # noqa: E402
                                 init_params, prefill)
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.moe import capacity  # noqa: E402
+from repro_torch.models.layers import constrain  # noqa: E402
 from repro_torch.runtime import make_train_state, make_train_step  # noqa: E402
 from repro_torch.runtime.profile import CommBytes, busy_ms, device_time_by_group  # noqa: E402
 from repro_torch.runtime.sharding import init_sharded, shard_model  # noqa: E402
 
 LOSS_RTOL = 1e-5
 SERVE_TOL = 1e-4
+# the moe parts' models and cuts (PERF.md §4): (iv) 4 layers, so that one card
+# holds the float32 state to compare with; (vi) the most layers that keep a
+# rank's bfloat16 weights near 55 GB; (vii) 2 layers and 64 of 384 experts in
+# float32 (~33 GB whole)
+MOE, MOE_TRAIN_LAYERS = "deepseek-v2-lite-16b", 4
+KIMI, KIMI_SERVE_LAYERS, KIMI_CHECK = "kimi-k2-1t-a32b", 6, (2, 64)
+TIE_MARGIN = 1e-6  # a flip with a larger margin is no near-tie
 
 
 def _sync(dev):
@@ -104,13 +138,146 @@ def _whole(model, lead: bool) -> dict:
     return out
 
 
-def _cfg(opts, arch: str, layers: int | None = None):
+def _full(tree):
+    """A cache tree's leaves whole (nested groups included)."""
+    if isinstance(tree, dict):
+        return {k: _full(v) for k, v in tree.items()}
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree
+
+
+def _flat(tree, prefix=""):
+    """A cache tree's leaves by dotted name, on the host."""
+    if isinstance(tree, dict):
+        return {n: t for k, v in tree.items() for n, t in _flat(v, f"{prefix}{k}.").items()}
+    return {prefix[:-1]: tree.detach().cpu()}
+
+
+def _cfg(opts, arch: str, layers: int | None = None, experts: int | None = None):
     cfg = get_arch(arch)
     if opts.smoke:
         cfg = smoke_variant(cfg)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=experts))
     return cfg
+
+
+@contextlib.contextmanager
+def _observe_routes(model, record: dict, key):
+    """Record each MoE layer's routing of this rank's rows while inside:
+    ``record[(key(), layer)]`` = (the experts of each token, sorted [N, k];
+    the k-th minus the (k+1)-th router probability [N]), on the host.  A
+    recomputed block (remat) records the same again."""
+    layer_of = {id(blk.moe): l for l, blk in enumerate(model.blocks)}
+    ffn = transformer.moe_ffn
+
+    def observed(p, x, cfg, **kw):
+        with torch.no_grad():
+            h = constrain(x, ("pod", "data"), None, None)
+            h = (h.to_local() if isinstance(h, DTensor) else h).reshape(-1, cfg.d_model)
+            w = p.router.to_local() if isinstance(p.router, DTensor) else p.router
+            top = torch.softmax(h.float() @ w.float(), dim=-1).topk(cfg.moe.top_k + 1, dim=-1)
+            k = cfg.moe.top_k
+            record[(key(), layer_of[id(p)])] = (
+                top.indices[:, :k].sort(dim=-1).values.cpu(),
+                (top.values[:, k - 1] - top.values[:, k]).cpu())
+        return ffn(p, x, cfg, **kw)
+
+    transformer.moe_ffn = observed
+    try:
+        yield record
+    finally:
+        transformer.moe_ffn = ffn
+
+
+@contextlib.contextmanager
+def _observe_seq_losses(record: dict, key):
+    """Record each training forward's cross-entropy by sequence of this
+    rank's rows while inside: ``record[key()]`` [rows], on the host (the
+    loss's own logits, whole)."""
+    ce = transformer.cross_entropy
+
+    def observed(logits, labels, mask=None):
+        with torch.no_grad():
+            lg = (logits.full_tensor() if isinstance(logits, DTensor) else logits).float()
+            nll = torch.logsumexp(lg, dim=-1) - lg.gather(-1, labels.long()[..., None])[..., 0]
+            record[key()] = nll.mean(dim=-1).cpu()
+        return ce(logits, labels, mask)
+
+    transformer.cross_entropy = observed
+    try:
+        yield record
+    finally:
+        transformer.cross_entropy = ce
+
+
+def _global_rows(record: dict, mesh) -> dict | None:
+    """Every data rank's records (a tensor, or a tuple of tensors, of its
+    rows) joined in the global batch's order, on rank 0 (``None``
+    elsewhere)."""
+    parts = _gather((mesh.get_local_rank("data"), mesh.get_local_rank("model"), record))
+    if dist.get_rank() != 0:
+        return None
+    rows = [r for d, m, r in sorted(parts, key=lambda x: x[:2]) if m == 0]
+
+    def join(key):
+        if isinstance(rows[0][key], tuple):
+            return tuple(torch.cat([r[key][i] for r in rows]) for i in range(len(rows[0][key])))
+        return torch.cat([r[key] for r in rows])
+
+    return {k: join(k) for k in rows[0]}
+
+
+def _kept(experts, cap: int, n_experts: int):
+    """Which experts keep each token's slot [N, E] under gshard at capacity
+    ``cap``: a token's slot is its expert's nth, n counted over the earlier
+    tokens in order (a token picks an expert once), and kept under ``cap``."""
+    chose = torch.zeros(experts.shape[0], n_experts, dtype=torch.int64).scatter_(1, experts, 1)
+    return (chose > 0) & (chose.cumsum(0) - chose < cap)
+
+
+def _flips(sharded: dict, single: dict, batch: int, seq: int, cfg) -> dict:
+    """The (token, layer) pairs the two sides route apart.  Keys are
+    ``((group, step), layer)``: ``step`` None for a pass over whole
+    sequences (positions 0..seq-1), else a decode step at position seq +
+    step.  A token is touched at a layer where its top-k differs (a flip)
+    or, its top-k the same, gshard's capacity keeps other slots of it (an
+    earlier token's flip moved its expert's count).  A flip is primary
+    unless, in its group and sequence, a token at an earlier layer and the
+    same or an earlier position was touched, or an earlier group flipped
+    at all.  Returns every flip, the primary ones' count and largest
+    margin, the touched sequences of each group and the first position
+    touched in each, and ``ok`` (no primary flip above the near-tie
+    margin)."""
+    if set(sharded) != set(single):
+        raise ValueError("the two sides recorded other MoE calls")
+    flips, touched = [], []
+    for (group, step), layer in sorted(single, key=repr):
+        (ea, ma), (eb, mb) = sharded[((group, step), layer)], single[((group, step), layer)]
+        cap = capacity(cfg, ea.shape[0])
+        E = cfg.moe.num_experts
+        flip = (ea != eb).any(dim=-1)
+        moved = flip | (_kept(ea, cap, E) != _kept(eb, cap, E)).any(dim=-1)
+        for t in moved.nonzero().flatten().tolist():
+            seq_i, pos = (t // seq, t % seq) if step is None else (t, seq + step)
+            at = dict(group=group, layer=layer, seq=seq_i, pos=pos)
+            touched.append(at)
+            if flip[t]:
+                flips.append(dict(at, margin=max(float(ma[t]), float(mb[t]))))
+    first = min((f["group"] for f in flips), default=None)
+    primary = [f for f in flips if f["group"] == first and not any(
+        g["seq"] == f["seq"] and g["group"] == first and g["layer"] < f["layer"]
+        and g["pos"] <= f["pos"] for g in touched)]
+    worst = max((f["margin"] for f in primary), default=0.0)
+    since: dict = {}
+    for g in touched:
+        at = since.setdefault(g["group"], {})
+        at[g["seq"]] = min(at.get(g["seq"], g["pos"]), g["pos"])
+    return dict(flips=flips[:200], n_flips=len(flips), n_primary=len(primary),
+                n_touched=len(touched), primary_margin_max=worst, first_group=first,
+                flipped_seqs={g: sorted(v) for g, v in since.items()},
+                first_touched=since, ok=worst <= TIE_MARGIN)
 
 
 def _profiled(fn, dev) -> dict | None:
@@ -134,13 +301,63 @@ def _profiled(fn, dev) -> dict | None:
                 device_ms=groups, device_ops=n_ops, host_top_level_aten_ops=host_ops)
 
 
-def _train_check(opts, dev, rank) -> dict:
-    """Part (i): the train cell on each mesh against rank 0 unsharded."""
-    cfg = _cfg(opts, opts.check_arch)
+def _train_steps(step_fn, state, stream, rows, dev, moe: bool, lead: bool):
+    """A step of ``step_fn`` on ``rows`` of each of ``stream``'s batches:
+    each step's metrics, the parameters whole after each (on ``lead``'s
+    host), and with ``moe`` each step's routing and cross-entropy by
+    sequence (this rank's rows)."""
+    steps, snaps, routes, seq_loss, now = [], [], {}, {}, {}
+    watch = contextlib.ExitStack()
+    if moe:
+        watch.enter_context(_observe_routes(state.params, routes, lambda: (now["step"], None)))
+        watch.enter_context(_observe_seq_losses(seq_loss, lambda: now["step"]))
+    with watch:
+        for i, batch in enumerate(stream):
+            now["step"] = i
+            batch = {k: torch.from_numpy(v[rows]).to(dev) for k, v in batch.items()}
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss = float(m["loss"])  # waits for the step
+            steps.append({"loss": loss, "aux": float(m["aux"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "ms": 1e3 * (time.perf_counter() - t0)})
+            snaps.append(_whole(state.params, lead))
+    return state, steps, snaps, routes, seq_loss
+
+
+def _params_within_c18(got: dict, want: dict, lr: float) -> dict:
+    """C.18's bar: all within 2 lr, at most 1 element in 10^4 beyond rtol
+    2e-3 / atol 2e-4."""
+    worst, outside, total = 0.0, 0, 0
+    for n, w in want.items():
+        diff = (got[n] - w).abs()
+        worst = max(worst, float(diff.max()))
+        outside += int((diff > 2e-4 + 2e-3 * w.abs()).sum())
+        total += w.numel()
+    return dict(param_max_abs=worst, param_outside_bar=outside, param_total=total,
+                ok=worst <= 2 * lr and outside <= total // 10_000)
+
+
+def _train_check(opts, dev, rank, cfg) -> dict:
+    """Parts (i) and (iv): the train cell on each mesh against rank 0
+    unsharded.  An MoE model's routing is compared too: the losses, aux
+    losses and grad norms are held at the first step and at every step
+    before the first flip, the parameters after the last step held, and
+    at a flip in the first step the cross-entropy of each sequence without
+    one too (after a later flip, the parameters already differ by C.18's
+    lr-sized moves: reported)."""
     policy = ShardingPolicy(attn_chunk=min(1024, opts.seq))
     tcfg = TrainConfig(lr=opts.lr, warmup_steps=0, total_steps=opts.check_steps + 1)
     shape = ShapeConfig("train", opts.seq, opts.check_batch, "train")
     world = dist.get_world_size()
+    moe = cfg.moe is not None
+    n_steps = opts.check_steps
+
+    def batches():
+        stream = SyntheticStream(cfg, opts.check_batch, opts.seq, seed=0)
+        return [next(stream) for _ in range(n_steps + 1)]
+
     runs = {}
     for spec in opts.meshes.split(","):
         data, model_ax = map(int, spec.split("x"))
@@ -156,95 +373,101 @@ def _train_check(opts, dev, rank) -> dict:
         cell = build_cell(mesh, cfg, shape, policy, tcfg, torch.float32)
         d = mesh.get_local_rank("data")
         rows = slice(d * opts.check_batch // data, (d + 1) * opts.check_batch // data)
-        stream = SyntheticStream(cfg, opts.check_batch, opts.seq, seed=0)
-        steps = []
-        for _ in range(opts.check_steps):
-            batch = {k: torch.from_numpy(v[rows]).to(dev) for k, v in next(stream).items()}
-            _sync(dev)
-            t0 = time.perf_counter()
-            state, m = cell.fn(state, batch)
-            loss = float(m["loss"])  # waits for the step
-            steps.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
-                          "ms": 1e3 * (time.perf_counter() - t0)})
-        after = _whole(state.params, rank == 0)
-        batch = {k: torch.from_numpy(v[rows]).to(dev) for k, v in next(stream).items()}
+        *stream, extra = batches()
+        state, steps, snaps, routes, seq_loss = _train_steps(cell.fn, state, stream, rows, dev,
+                                                             moe, rank == 0)
         comm = CommBytes()
         with comm:
-            state, _ = cell.fn(state, batch)
+            state, _ = cell.fn(state, {k: torch.from_numpy(v[rows]).to(dev)
+                                       for k, v in extra.items()})
             _sync(dev)
         runs[spec] = dict(steps=steps, init_s=init_s, peak_gb_by_rank=_gather(_peak_gb(dev)),
-                          collectives_per_step=comm.counts(), after=after)
+                          collectives_per_step=comm.counts(), snaps=snaps,
+                          routes=_global_rows(routes, mesh) if moe else None,
+                          seq_loss=_global_rows(seq_loss, mesh) if moe else None)
         del state, model, cell
         _release(dev)
     out = None
     if rank == 0:
         _peak_reset(dev)
-        state = make_train_state(init_params(cfg, seed=0, dtype=torch.float32, device=dev)
-                                 .requires_grad_(True), tcfg)
-        step = make_train_step(cfg, policy, tcfg)
-        stream = SyntheticStream(cfg, opts.check_batch, opts.seq, seed=0)
-        single = []
-        for _ in range(opts.check_steps):
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
-            _sync(dev)
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            single.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                           "ms": 1e3 * (time.perf_counter() - t0)})
-        want = {n: p.detach().cpu() for n, p in state.params.named_parameters()}
+        model = init_params(cfg, seed=0, dtype=torch.float32, device=dev).requires_grad_(True)
+        state, single, want, routes, seq_loss = _train_steps(
+            make_train_step(cfg, policy, tcfg), make_train_state(model, tcfg), batches()[:-1],
+            slice(None), dev, moe, True)
         single_peak = _peak_gb(dev)
-        del state
+        del state, model
         _release(dev)
         ok = True
+        keys = ("loss", "aux", "grad_norm") if moe else ("loss", "grad_norm")
         for spec, run in runs.items():
-            rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(run["steps"], single))
-                   for k in ("loss", "grad_norm")}
-            worst, outside, total = 0.0, 0, 0
-            for n, w in want.items():
-                diff = (run["after"][n] - w).abs()
-                worst = max(worst, float(diff.max()))
-                outside += int((diff > 2e-4 + 2e-3 * w.abs()).sum())
-                total += w.numel()
-            run.pop("after")
-            run.update(rel_diff=rel, param_max_abs=worst, param_outside_bar=outside,
-                       param_total=total,
-                       ok=(max(rel.values()) <= LOSS_RTOL and worst <= 2 * opts.lr
-                           and outside <= total // 10_000))
+            flips = (_flips(run.pop("routes"), routes, opts.check_batch, opts.seq, cfg) if moe
+                     else None)
+            first = None if flips is None else flips["first_group"]
+            # the steps before the first flip, and the first step whatever it holds: a
+            # near-tie flip there moves its loss, aux loss and grad norm by less than the bar
+            held = n_steps if first is None else max(first, 1)
+            rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(run["steps"], single)]
+                   for k in keys}
+            snaps = run.pop("snaps")
+            params = _params_within_c18(snaps[held - 1], want[held - 1], opts.lr) if held else None
+            seqs = None
+            if first is not None:  # the flipped step: its sequences without a flip
+                got, ref = run["seq_loss"][first], seq_loss[first]
+                keep = [b for b in range(len(ref)) if b not in flips["flipped_seqs"][first]]
+                seqs = dict(step=first, sequences=keep, held=first == 0 and bool(keep),
+                            rel_diff=float(((got - ref).abs() / ref.abs())[keep].max())
+                            if keep else None)
+            run.pop("seq_loss")
+            run.update(rel_diff=rel, steps_held=held, params_after_step=held - 1 if held else None,
+                       params=params, flipped_step_sequences=seqs, flips=flips,
+                       ok=(max((max(v[:held], default=0.0) for v in rel.values())) <= LOSS_RTOL
+                           and (params is None or params["ok"])
+                           and (seqs is None or not seqs["held"]
+                                or seqs["rel_diff"] <= LOSS_RTOL)
+                           and (flips is None or flips["ok"])))
             ok = ok and run["ok"]
-        out = dict(arch=cfg.name, dtype="float32", global_batch=opts.check_batch, seq=opts.seq,
-                   lr=opts.lr, meshes=runs, single=single, single_peak_gb=single_peak, ok=ok)
+        out = dict(arch=cfg.name, layers=cfg.num_layers, dtype="float32",
+                   global_batch=opts.check_batch, seq=opts.seq, lr=opts.lr, meshes=runs,
+                   single=single, single_peak_gb=single_peak, ok=ok)
     dist.barrier()
     return out
 
 
-def _serve_run(cfg, mesh, policy, model, toks, gen: int, dev, record: bool):
+def _serve_run(cfg, mesh, policy, model, toks, gen: int, dev, record: bool,
+               routes: dict | None = None):
     """The prefill cell, then ``gen`` greedy decode-cell steps on a cache of
     prompt + gen entries; the logits of each and the final cache (full
-    tensors), and with ``record`` the times, collectives and profiles."""
+    tensors), and with ``record`` the times, collectives and profiles.
+    ``routes``: a dict the MoE layers' routing is recorded into."""
     B, S = toks.shape
     pre = build_cell(mesh, cfg, ShapeConfig("prefill", S, B, "prefill"), policy,
                      param_dtype=model.embed.dtype)
     dec = build_cell(mesh, cfg, ShapeConfig("decode", S + gen, B, "decode"), policy,
                      param_dtype=model.embed.dtype)
     rec: dict = {}
-    _sync(dev)
-    t0 = time.perf_counter()
-    lg, cache = pre.fn(model, {"tokens": toks})
-    nxt = greedy_tokens(lg[:, -1:])
-    _sync(dev)
-    rec["prefill_s"] = time.perf_counter() - t0
-    logits = [lg.full_tensor() if isinstance(lg, DTensor) else lg]
-    cache = extend_cache(cfg, cache, S + gen)
-    tokens, walls = [nxt], []
-    for i in range(gen):
-        n = torch.tensor([S + i], dtype=torch.int32, device=dev)
+    now = {"step": None}
+    watch = (_observe_routes(model, routes, lambda: (0, now["step"])) if routes is not None
+             else contextlib.nullcontext())
+    with watch:
+        _sync(dev)
         t0 = time.perf_counter()
-        lg, cache = dec.fn(model, cache, {"tokens": nxt}, n)
+        lg, cache = pre.fn(model, {"tokens": toks})
         nxt = greedy_tokens(lg[:, -1:])
         _sync(dev)
-        walls.append(1e3 * (time.perf_counter() - t0))
-        logits.append(lg.full_tensor() if isinstance(lg, DTensor) else lg)
-        tokens.append(nxt)
+        rec["prefill_s"] = time.perf_counter() - t0
+        logits = [lg.full_tensor() if isinstance(lg, DTensor) else lg]
+        cache = extend_cache(cfg, cache, S + gen)
+        tokens, walls = [nxt], []
+        for i in range(gen):
+            now["step"] = i
+            n = torch.tensor([S + i], dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            lg, cache = dec.fn(model, cache, {"tokens": nxt}, n)
+            nxt = greedy_tokens(lg[:, -1:])
+            _sync(dev)
+            walls.append(1e3 * (time.perf_counter() - t0))
+            logits.append(lg.full_tensor() if isinstance(lg, DTensor) else lg)
+            tokens.append(nxt)
     rec["decode_ms"] = walls
     rec["decode_ms_median"] = sorted(walls[1:] or walls)[len(walls[1:] or walls) // 2]
     rec["tokens"] = torch.cat(tokens, dim=1).cpu().tolist()
@@ -258,13 +481,47 @@ def _serve_run(cfg, mesh, policy, model, toks, gen: int, dev, record: bool):
                 _sync(dev)
             rec[f"{name}_collectives"] = comm.counts()
             rec[f"{name}_profile"] = _profiled(fn, dev)
-    full = {k: (t.full_tensor() if isinstance(t, DTensor) else t) for k, t in cache.items()}
-    return logits, full, rec
+    return logits, _full(cache), rec
 
 
-def _serve(opts, dev, rank) -> dict:
-    """Part (ii): the serve arch at full size, bfloat16, on (1, N)."""
-    cfg = _cfg(opts, opts.serve_arch)
+def _single_run(cfg, policy, model, toks, tokens, gen: int, routes: dict | None = None):
+    """One card's prefill and ``gen`` decode steps, decode step i fed
+    ``tokens[:, i]`` (the sharded side's greedy tokens, [B, gen + 1]): the
+    logits of each, the final cache, and where its own greedy token
+    differed."""
+    S = toks.shape[1]
+    now = {"step": None}
+    watch = (_observe_routes(model, routes, lambda: (0, now["step"])) if routes is not None
+             else contextlib.nullcontext())
+    with watch:
+        lg, cache, pos = prefill(model, cfg, policy, toks, max_len=S + gen)
+        want, own = [lg], [greedy_tokens(lg[:, -1:])]
+        for i in range(gen):
+            now["step"] = i
+            lg, cache = decode_step(model, cfg, policy, cache, tokens[:, i:i + 1], pos + i)
+            want.append(lg)
+            own.append(greedy_tokens(lg[:, -1:]))
+    differ = (torch.cat(own, dim=1) != tokens).cpu()
+    return want, cache, differ
+
+
+def _rel_err(got, want, until: list, dim: int, first: int = 0) -> float | None:
+    """max |got - want| over max |want|, both over the entries of each
+    sequence b (dim 0) at the positions before ``until[b]`` (``dim`` counts
+    the positions from ``first``); None where no entry is held."""
+    got, want = got.float().cpu(), want.float().cpu()
+    n = got.shape[dim]
+    held = (first + torch.arange(n))[None, :] < torch.tensor(until)[:, None]  # [B, n]
+    held = held.reshape([len(until) if d == 0 else n if d == dim else 1
+                         for d in range(got.dim())]).expand_as(got)
+    if not held.any():
+        return None
+    return float((got - want).abs()[held].max() / want.abs()[held].max())
+
+
+def _serve(opts, dev, rank, cfg) -> dict:
+    """Parts (ii) and (vi): a model served on (1, N) in bfloat16, its
+    weights drawn sharded."""
     policy = ShardingPolicy(attn_chunk=min(1024, opts.prompt))
     world = dist.get_world_size()
     mesh = init_device_mesh(dev.type, (1, world), mesh_dim_names=("data", "model"))
@@ -280,10 +537,11 @@ def _serve(opts, dev, rank) -> dict:
     _peak_reset(dev)
     logits, cache, rec = _serve_run(cfg, mesh, policy, model, toks, opts.gen, dev, record=True)
     finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
-    rec.update(arch=cfg.name, dtype="bfloat16", mesh=f"1x{world}", batch=opts.serve_batch,
-               prompt=opts.prompt, gen=opts.gen, cache_entries=opts.prompt + opts.gen,
-               init_s=init_s, weights_gb_a_rank=weights_gb, init_peak_gb=init_peak,
-               serve_peak_gb_by_rank=_gather(_peak_gb(dev)),
+    rec.update(arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16", mesh=f"1x{world}",
+               batch=opts.serve_batch, prompt=opts.prompt, gen=opts.gen,
+               cache_entries=opts.prompt + opts.gen, init_s=init_s,
+               weights_gb_a_rank=weights_gb, weights_gb_by_rank=_gather(weights_gb),
+               init_peak_gb=init_peak, serve_peak_gb_by_rank=_gather(_peak_gb(dev)),
                logits_shape=list(logits[0].shape), finite=finite,
                ok=finite and list(logits[0].shape) == [opts.serve_batch, opts.prompt,
                                                        cfg.vocab_size])
@@ -292,39 +550,62 @@ def _serve(opts, dev, rank) -> dict:
     return rec if rank == 0 else None
 
 
-def _serve_check(opts, dev, rank) -> dict:
-    """Part (iii): the serve arch cut to a few layers, float32, sharded on
-    (1, N) against the same layers unsharded on rank 0."""
-    cfg = _cfg(opts, opts.serve_arch, opts.check_layers)
+def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1) -> dict:
+    """Parts (iii), (v) and (vii): ``cfg`` in float32 sharded on (1, N)
+    against rank 0 alone (the same draws), the one-card side fed the
+    sharded side's tokens; an MoE model's routing compared, each sequence
+    held before its first touched position."""
     policy = ShardingPolicy(attn_chunk=min(1024, opts.prompt))
     world = dist.get_world_size()
     mesh = init_device_mesh(dev.type, (1, world), mesh_dim_names=("data", "model"))
-    model = init_sharded(cfg, mesh, seed=1, dtype=torch.float32, device=dev, policy=policy)
-    toks = torch.from_numpy(make_batch(cfg, opts.serve_batch, opts.prompt, step=1)["tokens"]).to(dev)
-    logits, cache, rec = _serve_run(cfg, mesh, policy, model, toks, opts.check_gen, dev,
-                                    record=False)
+    moe = cfg.moe is not None
+    model = init_sharded(cfg, mesh, seed=seed, dtype=torch.float32, device=dev, policy=policy)
+    weights_gb = sum(p.to_local().numel() * p.element_size() for p in model.parameters()) / 1e9
+    toks = torch.from_numpy(make_batch(cfg, opts.serve_batch, opts.prompt,
+                                       step=seed)["tokens"]).to(dev)
+    routes = {} if moe else None
+    _peak_reset(dev)
+    logits, cache, rec = _serve_run(cfg, mesh, policy, model, toks, gen, dev, record=False,
+                                    routes=routes)
+    peaks = _gather(_peak_gb(dev))
+    logits, cache = [lg.cpu() for lg in logits], _flat(cache)
     del model
     _release(dev)
     out = None
     if rank == 0:
-        base = init_params(cfg, seed=1, dtype=torch.float32, device=dev)
-        lg, c, pos = prefill(base, cfg, policy, toks, max_len=opts.prompt + opts.check_gen)
-        want, nxt = [lg], greedy_tokens(lg[:, -1:])
-        for i in range(opts.check_gen):
-            lg, c = decode_step(base, cfg, policy, c, nxt, pos + i)
-            want.append(lg)
-            nxt = greedy_tokens(lg[:, -1:])
-        errs = {"logits": max(float((a - b).abs().max() / b.abs().max())
-                              for a, b in zip(logits, want))}
-        for k in ("k", "v"):
-            errs[k] = float((cache[k] - c[k]).abs().max() / c[k].abs().max())
-        out = dict(arch=cfg.name, layers=opts.check_layers, dtype="float32", mesh=f"1x{world}",
-                   batch=opts.serve_batch, prompt=opts.prompt, gen=opts.check_gen,
-                   rel_err=errs, ok=max(errs.values()) <= SERVE_TOL)
+        base = init_params(cfg, seed=seed, dtype=torch.float32, device=dev)
+        single = {} if moe else None
+        tokens = torch.tensor(rec["tokens"], dtype=torch.int32, device=dev)
+        want, c, differ = _single_run(cfg, policy, base, toks, tokens, gen, single)
+        flips = (_flips(routes, single, opts.serve_batch, opts.prompt, cfg) if moe
+                 else None)
+        # each sequence held before the first position an MoE layer touched
+        since = flips["first_touched"].get(0, {}) if moe else {}
+        until = [since.get(b, opts.prompt + gen) for b in range(opts.serve_batch)]
+        keep = [b for b in range(opts.serve_batch) if b not in since]
+        errs = {"logits": [_rel_err(a, b, until, 1, opts.prompt + i - 1 if i else 0)
+                           for i, (a, b) in enumerate(zip(logits, want))]}
+        for name, t in _flat(c).items():  # [L, B, S, ...]
+            errs[name] = [_rel_err(cache[name].transpose(0, 1), t.transpose(0, 1), until, 2)]
+        errs = {k: [x for x in v if x is not None] for k, v in errs.items()}
+        errs = {k: max(v) for k, v in errs.items() if v}
+        out = dict(arch=cfg.name, layers=cfg.num_layers,
+                   experts=cfg.moe.num_experts if moe else None, dtype="float32",
+                   mesh=f"1x{world}", batch=opts.serve_batch, prompt=opts.prompt, gen=gen,
+                   rel_err=errs, sequences_held=keep, held_until=until, flips=flips,
+                   weights_gb_a_rank=weights_gb,
+                   serve_peak_gb_by_rank=peaks, prefill_s=rec["prefill_s"],
+                   decode_ms_median=rec["decode_ms_median"],
+                   own_greedy_differs=[[int(b), int(i)] for b, i in differ.nonzero().tolist()],
+                   ok=bool(errs) and max(errs.values()) <= SERVE_TOL
+                   and (flips is None or flips["ok"]))
         del base, c
         _release(dev)
     dist.barrier()
     return out
+
+
+PARTS = ("train", "check", "serve", "moe-train", "moe-serve", "kimi-check", "kimi-serve")
 
 
 def main(argv=None) -> int:
@@ -333,8 +614,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="'cuda' (the default) or 'cpu'")
     ap.add_argument("--smoke", action="store_true", help="the archs' smoke variants")
     ap.add_argument("--check-arch", default="llama3.2-3b")
-    ap.add_argument("--meshes", default="1x4,2x2", help="data x model meshes of part (i)")
-    ap.add_argument("--check-batch", type=int, default=8, help="global rows in part (i)")
+    ap.add_argument("--meshes", default="1x4,2x2", help="data x model meshes of (i) and (iv)")
+    ap.add_argument("--check-batch", type=int, default=8, help="global rows in (i) and (iv)")
     ap.add_argument("--check-steps", type=int, default=2)
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--lr", type=float, default=5e-5)
@@ -344,9 +625,13 @@ def main(argv=None) -> int:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--check-layers", type=int, default=2)
     ap.add_argument("--check-gen", type=int, default=4)
-    ap.add_argument("--parts", default="train,serve,check", help="which of (i)-(iii) to run")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"which of {', '.join(PARTS)} to run")
     ap.add_argument("--out", default=str(REPO / "build" / "tp_dist.json"))
     opts = ap.parse_args(argv)
+    parts = opts.parts.split(",")
+    if set(parts) - set(PARTS):
+        raise SystemExit(f"unknown parts {sorted(set(parts) - set(PARTS))}")
     args = cli.parse_args(["--arch", opts.check_arch,
                            *(["--device", opts.device] if opts.device else [])])
     backend = cli.init_data_group(args)
@@ -354,17 +639,26 @@ def main(argv=None) -> int:
         raise SystemExit("run under torchrun with more than one process")
     dev = torch.device(args.device)
     rank = dist.get_rank()
-    parts = set(opts.parts.split(","))
+    run = {
+        "train": lambda: _train_check(opts, dev, rank, _cfg(opts, opts.check_arch)),
+        "check": lambda: _serve_check(opts, dev, rank,
+                                      _cfg(opts, opts.serve_arch, opts.check_layers),
+                                      opts.check_gen),
+        "serve": lambda: _serve(opts, dev, rank, _cfg(opts, opts.serve_arch)),
+        "moe-train": lambda: _train_check(opts, dev, rank, _cfg(opts, MOE, MOE_TRAIN_LAYERS)),
+        "moe-serve": lambda: _serve_check(opts, dev, rank, _cfg(opts, MOE), opts.gen),
+        "kimi-check": lambda: _serve_check(opts, dev, rank, _cfg(opts, KIMI, *KIMI_CHECK),
+                                           opts.check_gen),
+        "kimi-serve": lambda: _serve(opts, dev, rank, _cfg(opts, KIMI, KIMI_SERVE_LAYERS)),
+    }
     t0 = time.perf_counter()
     rec = {}
-    if "train" in parts:
-        rec["train"] = _train_check(opts, dev, rank)
+    for part in (p for p in PARTS if p in parts):  # serving parts last: the largest memory
+        t1 = time.perf_counter()
+        rec[part] = run[part]()
+        if rank == 0:
+            rec[part]["wall_s"] = time.perf_counter() - t1
         _release(dev)
-    if "check" in parts:
-        rec["serve_check"] = _serve_check(opts, dev, rank)
-        _release(dev)
-    if "serve" in parts:
-        rec["serve"] = _serve(opts, dev, rank)
     ok = True
     if rank == 0:
         card = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -378,8 +672,7 @@ def main(argv=None) -> int:
         with open(opts.out, "w") as f:
             f.write(line + "\n")
         print(line, flush=True)
-        ok = all(part["ok"] for key, part in rec.items()
-                 if key in ("train", "serve", "serve_check"))
+        ok = all(rec[part]["ok"] for part in parts)
     dist.destroy_process_group()
     return 0 if ok else 1
 

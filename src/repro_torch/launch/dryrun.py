@@ -17,15 +17,17 @@ keeps the reference's keys where they can be filled: ``status`` /
 largest shard of each leaf), ``fits`` against the card's memory
 (``HW.HBM_BYTES``) and a roofline from ``HW``'s H100 constants (the model's
 FLOPs over the bfloat16 peak against the arguments read once over HBM).
-For the dense family's prefill and decode cells the step also runs once on
-the meta device over the fake world (weights and caches as DTensors on
-the model axis, rank 0's rows) inside ``CommDebugMode``: ``collectives``
-(count and bytes by op), ``collective_count`` and
+For the dense and moe families' prefill and decode cells the step also
+runs once on the meta device over the fake world (weights and caches as
+DTensors on the model axis, rank 0's rows; an MoE layer's routing
+statistics summed over the batch axes) inside ``CommDebugMode``:
+``collectives`` (count and bytes by op), ``collective_count`` and
 ``collective_operand_bytes`` are that rank's, under the reference's keys.
 It runs the naive attention: on the model axis each rank attends its own
 rows locally, so the collectives are the chunked attention's, in a
-hundredth of the operations on the meta device.  The fake group is a CPU
-one, where DTensor runs each all-to-all as an all-gather and a slice.  The keys only XLA's compiler gives
+hundredth of the operations on the meta device (MLA has one form).  The
+fake group is a CPU one, where DTensor runs each all-to-all as an
+all-gather and a slice.  The keys only XLA's compiler gives
 (``temp_size_in_bytes``, ``bytes_accessed_per_device``, ``hlo_bytes``,
 ``compile_s``, ``flops_per_device``), and ``collectives`` where the step
 cannot run so, are ``null``, each with its reason under
@@ -116,16 +118,17 @@ def fake_world(size: int = WORLD):
             native()
 
 
+_TP_FAMILIES = ("dense", "moe")  # the families whose model axis is ported
 _TRAIN_COLLECTIVES = ("FSDP2 refuses to run a step on parameters on the meta device, so a train "
                       "cell's step cannot run over the fake world; its collectives are counted "
                       "on real ranks (CommDebugMode in scripts/tp_dist.py, scripts/fsdp_dist.py)")
 
 
 def step_collectives(mesh, cfg, shape, policy, param_dtype=None) -> dict:
-    """A dense prefill or decode cell's step run once on the meta device
-    over the (fake) world, with the naive attention (see the module doc):
-    the weights and caches as DTensors on the mesh's model axis, rank 0's
-    rows of the batch.  Returns the reference's keys: ``collectives`` ({op:
+    """A dense or moe prefill or decode cell's step run once on the meta
+    device over the (fake) world, with the naive attention (see the module
+    doc): the weights and caches as DTensors on the mesh's model axis, rank
+    0's rows of the batch.  Returns the reference's keys: ``collectives`` ({op:
     {"count", "bytes"}}), ``collective_count``, ``collective_operand_bytes``
     (the bytes of the whole tensors the collectives gather, reduce or
     exchange)."""
@@ -212,9 +215,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, policy=None, tcfg=None
         t_memory = arg_bytes / HW.HBM_BW
         not_applicable = dict(NOT_APPLICABLE)
         comms = {"collectives": None, "collective_count": None, "collective_operand_bytes": None}
-        if cfg.family == "dense" and shape.kind == "train":
+        if cfg.family in _TP_FAMILIES and shape.kind == "train":
             not_applicable["collectives"] = _TRAIN_COLLECTIVES
-        elif cfg.family == "dense":
+        elif cfg.family in _TP_FAMILIES:
             comms = step_collectives(mesh, cfg, shape, policy)
             del not_applicable["collectives"]
         rec.update(

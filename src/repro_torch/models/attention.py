@@ -39,7 +39,8 @@ from repro_torch.kernels.flash_attention import NEG_INF, attention_mask, masked_
 
 from .layers import constrain, local_offset
 
-__all__ = ["naive_attention", "chunked_attention", "attention", "decode_attention", "NEG_INF"]
+__all__ = ["naive_attention", "chunked_attention", "attention", "decode_attention",
+           "combine_splits", "NEG_INF"]
 
 
 def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -195,13 +196,22 @@ def _split_kv_decode(q, k_cache, v_cache, cache_len, window, impl):
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1)  # [B, KVH, G]
     p = torch.exp(s - m[..., None])
-    part = torch.cat([m[..., None], p.sum(dim=-1)[..., None],
-                      torch.einsum("bkgs,bskd->bkgd", p.to(vl.dtype).float(), vl.float())],
-                     dim=-1)  # [B, KVH, G, 2 + D]
+    out = combine_splits(m, p.sum(dim=-1),
+                         torch.einsum("bkgs,bskd->bkgd", p.to(vl.dtype).float(), vl.float()), mesh)
+    out = out.reshape(B, 1, H, D).to(q.dtype)
+    return DTensor.from_local(out, mesh, [Replicate()], run_check=False)
+
+
+def combine_splits(m, den, acc, mesh):
+    """Flash-decoding's combine over the model axis ``mesh``: each rank's
+    softmax over its own entries as its max ``m`` [...], its sum of
+    ``exp(s - m)`` ``den`` [...] and its ``exp(s - m)``-weighted values
+    ``acc`` [..., D], all-gathered and merged (a rank with no valid entry
+    weighs nothing) into the softmax-weighted values [..., D], the same on
+    every rank."""
+    part = torch.cat([m[..., None], den[..., None], acc], dim=-1)
     parts = DTensor.from_local(part[None], mesh, [Shard(0)], run_check=False).full_tensor()
     top = parts[..., 0].amax(dim=0)
     w = torch.exp(parts[..., 0] - top) * (parts[..., 0] > NEG_INF / 2)
     den = (w * parts[..., 1]).sum(dim=0)
-    out = (w[..., None] * parts[..., 2:]).sum(dim=0) / torch.clamp(den[..., None], min=1e-30)
-    out = out.reshape(B, 1, H, D).to(q.dtype)
-    return DTensor.from_local(out, mesh, [Replicate()], run_check=False)
+    return (w[..., None] * parts[..., 2:]).sum(dim=0) / torch.clamp(den[..., None], min=1e-30)

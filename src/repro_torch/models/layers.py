@@ -21,6 +21,8 @@ and the model axis (tensor parallelism) under ``scripts/tp_dist.py``.
 from __future__ import annotations
 
 import contextlib
+import functools
+import math
 import threading
 
 import torch
@@ -30,7 +32,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.convert import resolve_device
 
 __all__ = ["PartitionSpec", "activate_mesh", "current_mesh", "model_mesh", "constrain",
-           "fix_spec", "placements", "replicated", "local_offset", "Initializer", "rms_norm", "rope", "apply_rope", "init_glu_mlp", "glu_mlp",
+           "fix_spec", "placements", "replicated", "local_offset", "write_prefix", "write_slot",
+           "Initializer", "rms_norm", "rope", "apply_rope", "init_glu_mlp", "glu_mlp",
            "cross_entropy"]
 
 
@@ -165,13 +168,48 @@ def local_offset(x, dim: int) -> int:
     return int(offset[dim])
 
 
+def write_prefix(cache, new) -> None:
+    """``cache[:, :, :n] = new`` into a sequence-sharded cache DTensor
+    [L, B, S, ...]: each rank writes the entries of its own range."""
+    full = new.redistribute(placements=[Replicate()]).to_local()
+    local, start = cache.to_local(), local_offset(cache, 2)
+    hi = min(full.shape[2], start + local.shape[2])
+    if hi > start:
+        local[:, :, :hi - start] = full[:, :, start:hi]
+
+
+def write_slot(cache, slot, new) -> None:
+    """``cache[:, slot] = new`` ([B, 1, ...]) into one layer's sequence-
+    sharded cache DTensor [B, S, ...]: the rank whose range holds ``slot``
+    writes it (the others rewrite an entry with itself), without reading
+    ``slot`` back to the host."""
+    local = cache.to_local()
+    idx = slot - local_offset(cache, 1)
+    mine = (idx >= 0) & (idx < local.shape[1])
+    idx = torch.where(mine, idx, 0)
+    new = new.redistribute(placements=[Replicate()]).to_local().to(local.dtype)
+    local.index_copy_(1, idx, torch.where(mine, new, local.index_select(1, idx)))
+
+
+WHOLE = 1 << 30  # a leaf of more elements is drawn in slabs
+PIECE = 1 << 28  # about the elements of a slab
+
+
 class Initializer:
     """Seeded parameter factory with the reference's fan-in scaling: a
     normal draw times ``fan_in ** -0.5`` (``fan_in`` is ``shape[-2]``) unless
     a scale is given.  Draws come from an explicit :class:`torch.Generator`
     on ``device`` (``None``: the card, raising without one), so they are not
     the reference's numbers; tests carry the reference's parameters across
-    instead."""
+    instead.
+
+    Each method returns a callable that makes the leaf when called, so the
+    caller decides when each leaf exists (the draws follow the order of the
+    calls): :func:`~repro_torch.models.init_params` makes and places a leaf
+    at a time.  A leaf of more than ``WHOLE`` elements is drawn a slab of
+    about ``PIECE`` elements along dim 0 at a time, so its float32
+    temporaries are a slab's (kimi-k2-1t-a32b's expert leaves hold 5.6 G
+    elements, 45 GB as two float32 tensors)."""
 
     def __init__(self, seed: int, dtype=torch.bfloat16, device=None):
         self.device = resolve_device(device)
@@ -180,16 +218,29 @@ class Initializer:
         self.dtype = dtype
 
     def normal(self, shape, scale=None):
-        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        scale = (fan_in ** -0.5) if scale is None else scale
-        x = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
-        return (x * scale).to(self.dtype)
+        return functools.partial(self._normal, shape, scale)
 
     def zeros(self, shape, dtype=None):
-        return torch.zeros(shape, dtype=dtype or self.dtype, device=self.device)
+        return functools.partial(torch.zeros, shape, dtype=dtype or self.dtype,
+                                 device=self.device)
 
     def ones(self, shape, dtype=None):
-        return torch.ones(shape, dtype=dtype or self.dtype, device=self.device)
+        return functools.partial(torch.ones, shape, dtype=dtype or self.dtype,
+                                 device=self.device)
+
+    def _normal(self, shape, scale):
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        scale = (fan_in ** -0.5) if scale is None else scale
+        if math.prod(shape) <= WHOLE:
+            x = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
+            return (x * scale).to(self.dtype)
+        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+        rows = max(1, PIECE // math.prod(shape[1:]))
+        for i in range(0, shape[0], rows):
+            slab = out[i:i + rows]
+            slab.copy_(torch.randn(slab.shape, generator=self.gen, dtype=torch.float32,
+                                   device=self.device).mul_(scale))
+        return out
 
 
 def rms_norm(x, weight, eps: float = 1e-5):

@@ -24,13 +24,15 @@ parameter tree (``embed``, ``blocks.<l>.ln1``, ``blocks.<l>.attn.w_q``,
   prefill                         — logits + populated cache
   decode_step                     — one-token serve step against the cache
 
-On a model axis wider than 1 (the dense family's weights as DTensors on
-the model mesh: :mod:`repro_torch.runtime.sharding`, under
+On a model axis wider than 1 (the dense and moe families' weights as
+DTensors on the model mesh: :mod:`repro_torch.runtime.sharding`, under
 :func:`~repro_torch.models.layers.activate_mesh`) every function runs as
 the reference's partitioned program: the same ``constrain`` sites, the
 embedding looked up vocabulary-sharded (each rank its own rows, summed),
-the logits vocabulary-sharded, the decode caches sequence-sharded and
-decode attention split-KV across the ranks.
+the logits vocabulary-sharded, the decode caches (KV or MLA's latents)
+sequence-sharded and decode attention split-KV across the ranks; the
+experts and MLA as :mod:`~repro_torch.models.moe` and
+:mod:`~repro_torch.models.mla` say.
 
 As in the reference, ``prefill`` fills the KV (or latent) cache but leaves
 the Mamba state and conv window at zero (ROADMAP C.4).  A vlm prompt's
@@ -55,7 +57,7 @@ from repro_torch.convert import resolve_device
 from .attention import attention, decode_attention
 from .layers import (Initializer, activate_mesh, apply_rope, constrain, cross_entropy,
                      current_mesh, glu_mlp, init_glu_mlp, local_offset, replicated, rms_norm,
-                     rope)
+                     rope, write_prefix, write_slot)
 from .mla import init_mla, init_mla_cache, mla_attention, mla_decode_step
 from .moe import init_moe, moe_ffn
 from .ssm import init_mamba, init_mamba_cache, mamba_decode_step, mamba_mixer
@@ -170,8 +172,9 @@ def _init_block(init: Initializer, cfg: ArchConfig):
 
 
 def _placed(tree: dict, place, prefix: str = "") -> dict:
+    """``tree``'s deferred leaves made in order, each placed as soon as it is."""
     return {k: (_placed(v, place, f"{prefix}{k}.") if isinstance(v, dict) else
-                place(f"{prefix}{k}", v)) for k, v in tree.items()}
+                place(f"{prefix}{k}", v() if callable(v) else v)) for k, v in tree.items()}
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
@@ -181,23 +184,25 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     memory, and are not the reference's numbers).  ``place(name, tensor)``,
     if given, maps each leaf as soon as it is drawn (a rank's shard:
     :func:`repro_torch.runtime.sharding.init_sharded`), so a model no card
-    holds is never whole; the draws are the same."""
+    holds is never whole, nor is more than one of its leaves; the draws
+    are the same."""
     init = Initializer(seed, dtype=dtype, device=device)
     place = place or (lambda name, t: t)
     V, D = cfg.padded_vocab, cfg.d_model
-    params: dict = {}
+    top: dict = {}
     if cfg.family == "audio":
-        params["embed"] = init.normal((cfg.num_codebooks, V, D), scale=0.02)
-        params["heads"] = init.normal((cfg.num_codebooks, D, V))
+        top["embed"] = init.normal((cfg.num_codebooks, V, D), scale=0.02)
+        top["heads"] = init.normal((cfg.num_codebooks, D, V))
     else:
-        params["embed"] = place("embed", init.normal((V, D), scale=0.02))
+        top["embed"] = init.normal((V, D), scale=0.02)
         if not cfg.tie_embeddings:
-            params["head"] = place("head", init.normal((D, V)))
+            top["head"] = init.normal((D, V))
     if cfg.family == "vlm":
-        params["patch_proj"] = init.normal((cfg.patch_dim, D))
+        top["patch_proj"] = init.normal((cfg.patch_dim, D))
+    params = _placed(top, place)
     params["blocks"] = [_placed(_init_block(init, cfg), place, f"blocks.{l}.")
                         for l in range(cfg.num_layers)]
-    params["ln_f"] = place("ln_f", init.ones((D,)))
+    params["ln_f"] = place("ln_f", init.ones((D,))())
     return Transformer(cfg, params)
 
 
@@ -292,7 +297,8 @@ def _ssm_impl(policy: ShardingPolicy) -> str:
 def _ffn(p: Block, h2, cfg: ArchConfig, policy: ShardingPolicy):
     """The block's second half: (output, MoE aux loss or None)."""
     if cfg.family == "moe":
-        return moe_ffn(p.moe, h2, cfg, impl=policy.moe_impl)
+        return moe_ffn(p.moe, h2, cfg, impl=policy.moe_impl, expert_axis=policy.expert_axis,
+                       ff_axis=policy.expert_ff_axis)
     return glu_mlp(p.mlp, h2, act=cfg.act, model_axis=policy.model_axis,
                    out_spec=_res_spec(policy, h2.shape[1])), None
 
@@ -305,7 +311,7 @@ def _block(p: Block, x, cfg: ArchConfig, policy: ShardingPolicy, positions):
     if cfg.family == "ssm":
         return x + mamba_mixer(p.mamba, h, cfg, impl=_ssm_impl(policy)), None, None
     if cfg.mla is not None:
-        attn_out, cache = mla_attention(p.attn, h, cfg, positions)
+        attn_out, cache = mla_attention(p.attn, h, cfg, positions, model_axis=policy.model_axis)
     else:
         attn_out, cache = _attn_op(p.attn, h, cfg, policy, positions)
     if cfg.family == "hybrid":
@@ -385,7 +391,7 @@ def _forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens
     B, S, _ = x.shape
     x = constrain(x, *_res_spec(policy, S))
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = None
     caches = []
     remat = (policy.remat == "block" and torch.is_grad_enabled()
              and any(p.requires_grad for p in model.parameters()))
@@ -397,12 +403,14 @@ def _forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens
         else:
             x, a, cache = blk(x, cfg, policy, positions, collect_cache)
         if a is not None:
-            aux = aux + a
+            aux = a if aux is None else aux + a
         if collect_cache and cache is not None:
             caches.append(cache)
     x = constrain(x, *_res_spec(policy, x.shape[1]))
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
     logits = _head(model, cfg, policy, x, fp32=policy.logits_fp32)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, (_stack(caches) if caches else None)
 
 
@@ -469,24 +477,29 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     ``dtype``, ``state`` [L, B, H, P, N] float32}, as the reference's tree.
 
     ``mesh``: a model mesh (:func:`~repro_torch.models.layers.model_mesh`);
-    the KV caches are then DTensors sharded over it on their sequence dim,
-    each rank allocating its own range only (on ``"meta"`` too: the dry
-    run's)."""
+    the KV or latent caches are then DTensors sharded over it on their
+    sequence dim, each rank allocating its own range only (on ``"meta"``
+    too: the dry run's)."""
     if mesh is None:
         return _layer_cache(cfg, batch, max_len, dtype, kv_dtype, resolve_device(device))
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     shapes = cache_shapes(cfg, batch, max_len, dtype, kv_dtype)
-    if set(shapes) != {"k", "v"}:
-        raise ValueError(f"{cfg.name}: only a KV cache is sequence-sharded (ROADMAP A.18)")
+    if set(shapes) not in ({"k", "v"}, {"mla"}):
+        raise ValueError(f"{cfg.name}: only a KV or latent cache is sequence-sharded "
+                         "(ROADMAP A.18)")
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
-    out = {}
-    for name, t in shapes.items():
+
+    def sharded(t):
         local, _ = compute_local_shape_and_global_offset(t.shape, mesh, [Shard(2)])
-        out[name] = DTensor.from_local(torch.zeros(local, dtype=t.dtype, device=dev), mesh,
-                                       [Shard(2)], run_check=False, shape=t.shape,
-                                       stride=t.stride())
-    return out
+        return DTensor.from_local(torch.zeros(local, dtype=t.dtype, device=dev), mesh,
+                                  [Shard(2)], run_check=False, shape=t.shape, stride=t.stride())
+
+    return _tree_map(sharded, shapes)
+
+
+def _tree_map(fn, tree: dict) -> dict:
+    return {k: (_tree_map(fn, v) if isinstance(v, dict) else fn(v)) for k, v in tree.items()}
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -535,7 +548,10 @@ def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
         return logits, cache, S
     if cfg.mla is not None:
         for name, t in kv.items():
-            cache["mla"][name][:, :, :S] = t
+            if isinstance(t, DTensor):
+                write_prefix(cache["mla"][name], t)
+            else:
+                cache["mla"][name][:, :, :S] = t
         return logits, cache, S
     k, v = kv
     n = S
@@ -546,8 +562,8 @@ def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
         v = torch.roll(v[:, :, S - w:], shift, dims=2)
         n = w
     if isinstance(cache["k"], DTensor):
-        _write_prefix(cache["k"], k)
-        _write_prefix(cache["v"], v)
+        write_prefix(cache["k"], k)
+        write_prefix(cache["v"], v)
     elif policy.kv_cache_dtype == "int8":
         (cache["k"][:, :, :n], cache["k_scale"][:, :, :n]) = quantize_kv(k)
         (cache["v"][:, :, :n], cache["v_scale"][:, :, :n]) = quantize_kv(v)
@@ -559,44 +575,26 @@ def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
 
 @torch.no_grad()
 def extend_cache(cfg: ArchConfig, cache: dict, max_len: int) -> dict:
-    """A KV cache of ``max_len`` entries holding ``cache``'s in its first
-    ones (a prefill cache given room for the decode steps), sharded as
-    ``cache`` is."""
-    if set(cache) != {"k", "v"}:
-        raise ValueError(f"{cfg.name}: extend_cache takes a KV cache")
-    k = cache["k"]
-    L, B, _, _, _ = k.shape
-    out = init_cache(cfg, B, max_len, dtype=k.dtype, device=k.device,
-                     mesh=k.device_mesh if isinstance(k, DTensor) else None)
-    for name, old in cache.items():
-        if isinstance(old, DTensor):
-            _write_prefix(out[name], old)
-        else:
-            out[name][:, :, :old.shape[2]] = old
+    """A KV or latent cache of ``max_len`` entries holding ``cache``'s in
+    its first ones (a prefill cache given room for the decode steps),
+    sharded as ``cache`` is."""
+    if set(cache) not in ({"k", "v"}, {"mla"}):
+        raise ValueError(f"{cfg.name}: extend_cache takes a KV or latent cache")
+    first = cache["k"] if "k" in cache else cache["mla"]["c_kv"]
+    out = init_cache(cfg, first.shape[1], max_len, dtype=first.dtype, device=first.device,
+                     mesh=first.device_mesh if isinstance(first, DTensor) else None)
+
+    def copy(dst, src):
+        for name, old in src.items():
+            if isinstance(old, dict):
+                copy(dst[name], old)
+            elif isinstance(old, DTensor):
+                write_prefix(dst[name], old)
+            else:
+                dst[name][:, :, :old.shape[2]] = old
+
+    copy(out, cache)
     return out
-
-
-def _write_prefix(cache, new) -> None:
-    """``cache[:, :, :n] = new`` into a sequence-sharded cache DTensor
-    [L, B, S, ...]: each rank writes the entries of its own range."""
-    full = new.redistribute(placements=[Replicate()]).to_local()
-    local, start = cache.to_local(), local_offset(cache, 2)
-    hi = min(full.shape[2], start + local.shape[2])
-    if hi > start:
-        local[:, :, :hi - start] = full[:, :, start:hi]
-
-
-def _write_slot(cache, slot, new) -> None:
-    """``cache[:, slot] = new`` ([B, 1, ...]) into one layer's sequence-
-    sharded cache DTensor [B, S, ...]: the rank whose range holds ``slot``
-    writes it (the others rewrite an entry with itself), without reading
-    ``slot`` back to the host."""
-    local = cache.to_local()
-    idx = slot - local_offset(cache, 1)
-    mine = (idx >= 0) & (idx < local.shape[1])
-    idx = torch.where(mine, idx, 0)
-    new = new.redistribute(placements=[Replicate()]).to_local().to(local.dtype)
-    local.index_copy_(1, idx, torch.where(mine, new, local.index_select(1, idx)))
 
 
 def _len_tensor(cache_len, device):
@@ -623,8 +621,8 @@ def _decode_attn(a, h, cache: dict, n, cfg: ArchConfig, policy: ShardingPolicy):
     # the reference's dynamic_update_slice clamps its start index into range
     slot = (torch.remainder(n, Lc) if w else torch.clamp(n, max=Lc - 1)).long()
     if isinstance(cache["k"], DTensor):
-        _write_slot(cache["k"], slot, k)
-        _write_slot(cache["v"], slot, v)
+        write_slot(cache["k"], slot, k)
+        write_slot(cache["v"], slot, v)
         kd, vd = cache["k"], cache["v"]
     elif policy.kv_cache_dtype == "int8" and "k_scale" in cache:
         kq, ks = quantize_kv(k)
@@ -653,7 +651,7 @@ def _decode_block(p: Block, x, cache: dict, n, cfg: ArchConfig, policy: Sharding
     if cfg.family == "ssm":  # residual + mixer, no ln2 / MLP
         return x + mamba_decode_step(p.mamba, h, cache["ssm"], cfg)
     if cfg.mla is not None:
-        attn_out = mla_decode_step(p.attn, h, cache["mla"], n, cfg)
+        attn_out = mla_decode_step(p.attn, h, cache["mla"], n, cfg, model_axis=policy.model_axis)
     else:
         attn_out = _decode_attn(p.attn, h, cache, n, cfg, policy)
     if cfg.family == "hybrid":

@@ -30,20 +30,21 @@ parameters (:func:`repro_torch.optim.adamw_init`), so each rank holds
 its shard of them too (ZeRO).
 
 A model axis wider than 1 (tensor parallelism, the reference's production
-layout) runs for the dense family under the default policy.  Each weight
-becomes a DTensor on the mesh's 'model' submesh with the placement its
-spec's model entry gives (:func:`tp_distribute`; :func:`init_sharded`
-draws a model no card holds leaf by leaf, each rank keeping its shard);
-the activations follow the reference's ``constrain`` sites
+layout) runs for the dense and moe families (MLA included) under the
+default policy.  Each weight becomes a DTensor on the mesh's 'model'
+submesh with the placement its spec's model entry gives (an expert leaf
+[E, D, F] on F; :func:`tp_distribute`; :func:`init_sharded` draws a model
+no card holds leaf by leaf, each rank keeping its shard); the activations
+follow the reference's ``constrain`` sites
 (:func:`repro_torch.models.layers.constrain`).  For training
 :func:`shard_model` then applies FSDP2 over the 'data' submesh, the usual
 2-D composition (the model-axis placement first).  Refused, each naming
-its ROADMAP item (A.18): the moe, MLA, ssm/hybrid, audio and vlm families,
-and the policy values whose layouts are not ported (:func:`check_model_axis`).
-Each rank computes its loss over its own rows, so an MoE layer's aux loss
-and gshard capacity are those of the rank's tokens, where the reference's
-partitioner computes them over the global batch (ROADMAP C.19); dense
-families train as one process does.
+its ROADMAP item (A.18): the ssm/hybrid, audio and vlm families, and the
+policy values whose layouts are not ported (:func:`check_model_axis`).
+Each rank computes its loss over its own rows; an MoE layer's capacity,
+slot positions and aux loss are still the global batch's, as the
+reference's partitioner computes them (:mod:`repro_torch.models.moe`), so
+every ported family trains as one process does.
 
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch llama3.2-3b --smoke --device cpu --steps 4 --batch 4
@@ -240,8 +241,7 @@ def _data_mesh(mesh):
 
 
 # the families whose model-axis layout is not ported yet, in ROADMAP A.18's order
-_TP_LATER = {"moe": "the experts' d_ff and MLA's heads over 'model' (models/moe.py, mla.py)",
-             "ssm": "the Mamba mixer's d_inner and heads over 'model' (models/ssm.py)",
+_TP_LATER = {"ssm": "the Mamba mixer's d_inner and heads over 'model' (models/ssm.py)",
              "hybrid": "the Mamba mixer's d_inner and heads over 'model' (models/ssm.py)",
              "audio": "the codebook heads' vocabulary over 'model'",
              "vlm": "the patch prefix beside the sharded embedding"}
@@ -249,13 +249,15 @@ _TP_LATER = {"moe": "the experts' d_ff and MLA's heads over 'model' (models/moe.
 
 def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int) -> None:
     """Raise unless ``cfg`` under ``policy`` runs on a model axis of
-    ``size``: the dense family, the policy values whose layouts are
-    ported, and widths every sharded dim divides."""
+    ``size``: the dense and moe families, the policy values whose layouts
+    are ported, and widths every sharded dim divides."""
     where = "is not ported to a model axis wider than 1 yet (ROADMAP A.18)"
     if cfg.family in _TP_LATER:
         raise ValueError(f"{cfg.name} ({cfg.family}): {_TP_LATER[cfg.family]} {where}")
     expect = {"sp_activations": False, "shard_seq_attn": True, "model_axis": "model",
               "kv_cache_dtype": "bf16"}
+    if cfg.moe is not None:
+        expect.update(moe_impl="gshard", expert_axis="data", expert_ff_axis="model")
     bad = {f: getattr(policy, f) for f, v in expect.items() if getattr(policy, f) != v}
     if policy.attention_impl not in ("chunked", "naive"):
         bad["attention_impl"] = policy.attention_impl
@@ -263,7 +265,14 @@ def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int) -> None
         bad["attn_type"] = cfg.attn_type
     if bad:
         raise ValueError(f"{cfg.name}: the layout of {bad} {where}")
-    widths = {"d_ff": cfg.d_ff, "padded_vocab": cfg.padded_vocab}
+    widths = {"padded_vocab": cfg.padded_vocab}
+    if cfg.moe is None:
+        widths["d_ff"] = cfg.d_ff
+    else:
+        widths.update(d_ff_expert=cfg.moe.d_ff_expert,
+                      d_ff_shared=cfg.moe.d_ff_expert * cfg.moe.num_shared)
+    if cfg.mla is not None:  # MLA's heads: each rank scores its own
+        widths["mla_heads"] = cfg.num_heads
     uneven = {k: w for k, w in widths.items() if w % size}
     if uneven:
         raise ValueError(f"{cfg.name}: {uneven} do not divide over a model axis of {size}")

@@ -127,10 +127,11 @@ def apply_update(state: TrainState, grads: dict, tcfg: TrainConfig) -> tuple:
 
 def make_train_step(cfg: ArchConfig, policy: ShardingPolicy, tcfg: TrainConfig):
     """Returns train_step(state, batch) -> (state, metrics), with metrics
-    ``{"loss": the total loss (aux included), "lr", "grad_norm"}`` as
-    scalar tensors.  After the step each float32 parameter's ``.grad``
-    holds the gradient the update took (before clipping).  For a sharded
-    model ``batch`` is this rank's rows and the loss is the ranks' mean."""
+    ``{"loss": the total loss (aux included), "aux": the MoE aux loss (the
+    global batch's on every rank), "lr", "grad_norm"}`` as scalar tensors.
+    After the step each float32 parameter's ``.grad`` holds the gradient
+    the update took (before clipping).  For a sharded model ``batch`` is
+    this rank's rows and the loss is the ranks' mean."""
     refuse_kernel_attention(policy)
 
     def train_step(state: TrainState, batch: dict):
@@ -138,21 +139,21 @@ def make_train_step(cfg: ArchConfig, policy: ShardingPolicy, tcfg: TrainConfig):
         n_mb = tcfg.microbatches
         sharded = is_sharded(model)
         acc = GradAccumulator(model)
-        loss = torch.zeros((), dtype=torch.float32, device=model.embed.device)
+        loss = aux = torch.zeros((), dtype=torch.float32, device=model.embed.device)
         for i, mb in enumerate(_split_micro(batch, n_mb) if n_mb > 1 else [batch]):
             if sharded:  # reduce-scatter once, after the last microbatch
                 model.set_requires_gradient_sync(i == n_mb - 1)
-            total, _ = loss_fn(model, cfg, policy, mb)
+            total, parts = loss_fn(model, cfg, policy, mb)
             acc.backward(total / n_mb if n_mb > 1 else total)
-            total = total.detach()
-            if isinstance(total, DTensor):  # replicated over a model axis
-                total = total.full_tensor()
+            total, a = (t.full_tensor() if isinstance(t, DTensor) else t  # model-replicated
+                        for t in (total.detach(), parts["aux"].detach()))
             loss = loss + total / n_mb if n_mb > 1 else total
+            aux = aux + a / n_mb if n_mb > 1 else a
         if sharded:
             reduce_replicated_grads(model)
             loss = mean_over_ranks(loss, model)
         lr, om = apply_update(state, acc.gradients(), tcfg)
-        return state, {"loss": loss, "lr": lr, **om}
+        return state, {"loss": loss, "aux": aux, "lr": lr, **om}
 
     return train_step
 

@@ -681,8 +681,8 @@ def _moe_mla_params(cfg, seed):
     from repro_torch.models.mla import init_mla
     from repro_torch.models.moe import init_moe
 
-    def ns(tree):
-        return SimpleNamespace(**{k: ns(v) if isinstance(v, dict) else v
+    def ns(tree):  # the deferred leaves made in order
+        return SimpleNamespace(**{k: ns(v) if isinstance(v, dict) else v()
                                   for k, v in tree.items()})
 
     init = Initializer(seed, dtype=torch.float32, device="cpu")

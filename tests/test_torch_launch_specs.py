@@ -114,6 +114,7 @@ def test_production_meshes_over_a_fake_world():
 
 
 DENSE = ("llama3.2-3b", "phi4-mini-3.8b", "minitron-8b", "mistral-large-123b")
+MOE = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b")
 
 
 def test_dry_run_writes_eighty_records_without_an_error(tmp_path):
@@ -130,8 +131,9 @@ def test_dry_run_writes_eighty_records_without_an_error(tmp_path):
         for key in ("temp_size_in_bytes", "bytes_accessed_per_device", "hlo_bytes", "compile_s"):
             value = r["memory"][key] if key == "temp_size_in_bytes" else r[key]
             assert value is None and r["not_applicable"][key]
-        # the dense family's serving cells run on the model axis: their collectives counted
-        if r["arch"] in DENSE and r["kind"] != "train":
+        # the dense and moe families' serving cells run on the model axis: their
+        # collectives counted
+        if r["arch"] in DENSE + MOE and r["kind"] != "train":
             counted += 1
             assert "collectives" not in r["not_applicable"] and r["collective_count"] > 0
             assert r["collective_count"] == sum(v["count"] for v in r["collectives"].values())
@@ -139,7 +141,7 @@ def test_dry_run_writes_eighty_records_without_an_error(tmp_path):
         else:
             assert r["collectives"] is None and r["collective_count"] is None
             assert r["not_applicable"]["collectives"]
-    assert counted == 16
+    assert counted == 24
     with pytest.raises(SystemExit, match="bench_out"):
         dryrun.main(["--all", "--out-dir", "bench_out/dryrun"])
 
@@ -194,3 +196,39 @@ def test_dry_run_counts_a_dense_cells_collectives_at_the_smoke_size(kind):
     assert got[False]["collective_count"] == sum(v["count"] for v in
                                                  got[False]["collectives"].values())
     assert got[True]["collectives"]["c10d_functional.all_reduce"]["bytes"] == ar["bytes"] // 2
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_dry_run_counts_a_moe_cells_collectives_at_the_smoke_size(kind):
+    """deepseek-v2-lite-16b's smoke variant with 16 heads (MLA's heads over
+    the 16 model ranks; 4 experts, top-2, a shared one) on the production
+    mesh: the embedding, then each layer's MLA output and MoE output (the
+    routed and shared experts' partial sums together) are an all-reduce
+    each over 'model', and its routing statistics and slot counts one each
+    over every batch axis ('data'; 'pod' too on the multi-pod mesh).
+    Prefill on the single pod: rank 0's 2 rows of 64 tokens; the experts'
+    buffer [4, 128, 64] is never all-reduced."""
+    import dataclasses
+
+    from repro_torch.config import ShapeConfig, ShardingPolicy, get_arch, smoke_variant
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg = dataclasses.replace(smoke_variant(get_arch("deepseek-v2-lite-16b")), num_heads=16)
+    shape = ShapeConfig(kind, 64, 32, kind)
+    with dryrun.fake_world(512):
+        got = {}
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+            got[multi] = dryrun.step_collectives(mesh, cfg, shape, ShardingPolicy())
+    L, E, D = cfg.num_layers, cfg.moe.num_experts, cfg.d_model
+    for multi, per_layer in ((False, 4), (True, 6)):
+        assert got[multi]["collectives"]["c10d_functional.all_reduce"]["count"] == \
+            per_layer * L + 1
+    if kind == "prefill":
+        tokens = 2 * 64
+        layer = 2 * tokens * D * 2 + 2 * E * 4 + 16 * E * 8
+        assert got[False]["collectives"]["c10d_functional.all_reduce"]["bytes"] == \
+            L * layer + tokens * D * 2
+    else:  # split-latent decode: the absorbed queries, the rope queries, the partials
+        assert got[False]["collectives"]["c10d_functional.all_gather_into_tensor"]["count"] == \
+            3 * L
