@@ -1,13 +1,13 @@
 """Tensor parallelism (a model axis wider than 1) over every rank of a
-``torchrun`` world: the dense and moe families' cells
-(``launch/specs.build_cell``) on ``(data, model)`` meshes, held against
-one card.
+``torchrun`` world: every family's cells (``launch/specs.build_cell``) on
+``(data, model)`` meshes, held against one card.
 
     torchrun --nproc-per-node 4 scripts/tp_dist.py                   # 4 cards: NCCL
     PYTHONPATH=src torchrun --nproc-per-node 4 scripts/tp_dist.py --device cpu --smoke \\
         --seq 32 --prompt 32 --gen 4 --check-batch 4 --serve-batch 2 --lr 1e-3  # the CPU: gloo
 
-``--parts`` picks the parts (default: all seven, (i)-(vii)).  The
+``--parts`` picks the parts, run in the order given (default: all
+fifteen, (i)-(xv)).  The
 dense family's: (i) ``train``: ``--check-arch`` (llama3.2-3b) at full width
 and depth in float32: the train cell's step on each of ``--meshes`` (``1x4``
 and ``2x2``: data x model), ``--check-steps`` steps of the global batch
@@ -49,9 +49,28 @@ above 1e-6 fails the run (no near-tie).  The bars apply where nothing was
 touched: in serving, each sequence's logits and caches before its first
 touched position; in training, the steps before the first flip, and the
 whole first step too, with or without a flip.
-The one-card side of (v) and (vii) is fed the sharded side's greedy tokens.
-Rank 0 prints one JSON line (also written to ``--out``) with the cards'
-name and power limit, and exits non-zero on a missed bar.
+The ssm, hybrid, audio and vlm families' (mamba2-2.7b, hymba-1.5b,
+musicgen-medium, paligemma-3b): (viii), (x), (xii), (xiv)
+``<family>-train``: (i) for the family's model cut to 2 layers.  (ix),
+(xi), (xiii), (xv) ``<family>-serve``: the model at full depth in float32
+on ``(1, N)`` against rank 0 alone, as (v), on a prompt of ``--prompt``
+positions (paligemma: its 256 patches, then text; hymba: twice its
+window, 2,048 for its window of 1,024, so the ring cache wraps in the
+prefill and again while decoding), ``--check-gen`` decode steps: the
+logits, every cache leaf after each decode step (the KV
+ring, the Mamba conv window and state) within 1e-4 of their max |value|,
+and the two sides' greedy tokens equal; recorded as (ii) the collectives
+and the profile of one more prefill and decode step.
+The one-card side of (v), (vii) and the serving parts (ix)-(xv) is fed
+the sharded side's greedy tokens.
+Rank 0 prints one JSON line (also written to ``--out``, after each part)
+with the cards' name and power limit, and exits non-zero on a missed bar.
+Every part ends with the ranks' one decision (an all-reduce of whether
+each raised, which is also where the other ranks wait for rank 0's
+one-card comparison): a part that raised on every rank is recorded as
+failed with its error and the next part runs; where the ranks disagree,
+the run stops there (a rank that raised alone may have left the others
+in a collective of that part).
 """
 from __future__ import annotations
 
@@ -64,6 +83,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import torch
@@ -97,6 +117,12 @@ SERVE_TOL = 1e-4
 # float32 (~33 GB whole)
 MOE, MOE_TRAIN_LAYERS = "deepseek-v2-lite-16b", 4
 KIMI, KIMI_SERVE_LAYERS, KIMI_CHECK = "kimi-k2-1t-a32b", 6, (2, 64)
+# the ssm, hybrid, audio and vlm families' parts (viii)-(xv): a train part at
+# FAMILY_TRAIN_LAYERS layers (2, so that all fifteen parts stay near 15 minutes on
+# four cards) and a serving part at full depth each
+FAMILIES = {"ssm": "mamba2-2.7b", "hybrid": "hymba-1.5b", "audio": "musicgen-medium",
+            "vlm": "paligemma-3b"}
+FAMILY_TRAIN_LAYERS = 2
 TIE_MARGIN = 1e-6  # a flip with a larger margin is no near-tie
 
 
@@ -146,10 +172,10 @@ def _full(tree):
 
 
 def _flat(tree, prefix=""):
-    """A cache tree's leaves by dotted name, on the host."""
+    """A cache tree's leaves by dotted name, copied to the host."""
     if isinstance(tree, dict):
         return {n: t for k, v in tree.items() for n, t in _flat(v, f"{prefix}{k}.").items()}
-    return {prefix[:-1]: tree.detach().cpu()}
+    return {prefix[:-1]: tree.detach().to("cpu", copy=True)}
 
 
 def _cfg(opts, arch: str, layers: int | None = None, experts: int | None = None):
@@ -429,38 +455,48 @@ def _train_check(opts, dev, rank, cfg) -> dict:
         out = dict(arch=cfg.name, layers=cfg.num_layers, dtype="float32",
                    global_batch=opts.check_batch, seq=opts.seq, lr=opts.lr, meshes=runs,
                    single=single, single_peak_gb=single_peak, ok=ok)
-    dist.barrier()
     return out
 
 
-def _serve_run(cfg, mesh, policy, model, toks, gen: int, dev, record: bool,
-               routes: dict | None = None):
-    """The prefill cell, then ``gen`` greedy decode-cell steps on a cache of
-    prompt + gen entries; the logits of each and the final cache (full
-    tensors), and with ``record`` the times, collectives and profiles.
-    ``routes``: a dict the MoE layers' routing is recorded into."""
-    B, S = toks.shape
-    pre = build_cell(mesh, cfg, ShapeConfig("prefill", S, B, "prefill"), policy,
+def _prompt(cfg, batch: int, seq: int, step: int, dev) -> dict:
+    """The model inputs of a prompt of ``seq`` positions from the synthetic
+    stream: its tokens ([B, S], audio [B, S, K]) and vlm's patches (the
+    text then takes ``seq - num_patches`` of them)."""
+    batch = make_batch(cfg, batch, seq, step=step)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if k != "labels"}
+
+
+def _serve_run(cfg, mesh, policy, model, prompt: dict, seq: int, gen: int, dev, record: bool,
+               routes: dict | None = None, each_step: bool = False):
+    """The prefill cell on ``prompt`` (``seq`` positions), then ``gen``
+    greedy decode-cell steps on a cache of seq + gen entries; the logits of
+    each and the final cache (full tensors; with ``each_step`` the cache
+    after every decode step, on the host), and with ``record`` the times,
+    collectives and profiles.  ``routes``: a dict the MoE layers' routing
+    is recorded into."""
+    B = prompt["tokens"].shape[0]
+    pre = build_cell(mesh, cfg, ShapeConfig("prefill", seq, B, "prefill"), policy,
                      param_dtype=model.embed.dtype)
-    dec = build_cell(mesh, cfg, ShapeConfig("decode", S + gen, B, "decode"), policy,
+    dec = build_cell(mesh, cfg, ShapeConfig("decode", seq + gen, B, "decode"), policy,
                      param_dtype=model.embed.dtype)
     rec: dict = {}
     now = {"step": None}
     watch = (_observe_routes(model, routes, lambda: (0, now["step"])) if routes is not None
              else contextlib.nullcontext())
+    steps = []
     with watch:
         _sync(dev)
         t0 = time.perf_counter()
-        lg, cache = pre.fn(model, {"tokens": toks})
+        lg, cache = pre.fn(model, prompt)
         nxt = greedy_tokens(lg[:, -1:])
         _sync(dev)
         rec["prefill_s"] = time.perf_counter() - t0
         logits = [lg.full_tensor() if isinstance(lg, DTensor) else lg]
-        cache = extend_cache(cfg, cache, S + gen)
+        cache = extend_cache(cfg, cache, seq + gen)
         tokens, walls = [nxt], []
         for i in range(gen):
             now["step"] = i
-            n = torch.tensor([S + i], dtype=torch.int32, device=dev)
+            n = torch.tensor([seq + i], dtype=torch.int32, device=dev)
             t0 = time.perf_counter()
             lg, cache = dec.fn(model, cache, {"tokens": nxt}, n)
             nxt = greedy_tokens(lg[:, -1:])
@@ -468,12 +504,16 @@ def _serve_run(cfg, mesh, policy, model, toks, gen: int, dev, record: bool,
             walls.append(1e3 * (time.perf_counter() - t0))
             logits.append(lg.full_tensor() if isinstance(lg, DTensor) else lg)
             tokens.append(nxt)
+            if each_step:  # gathered on every rank, kept on rank 0's host
+                whole = _full(cache)
+                steps.append(_flat(whole) if dist.get_rank() == 0 else None)
     rec["decode_ms"] = walls
     rec["decode_ms_median"] = sorted(walls[1:] or walls)[len(walls[1:] or walls) // 2]
     rec["tokens"] = torch.cat(tokens, dim=1).cpu().tolist()
+    final = _full(cache)  # before the recorded steps below write into it again
     if record:  # one more prefill and last decode step, counted, then profiled
-        last = torch.tensor([S + gen - 1], dtype=torch.int32, device=dev)
-        for name, fn in (("prefill", lambda: pre.fn(model, {"tokens": toks})),
+        last = torch.tensor([seq + gen - 1], dtype=torch.int32, device=dev)
+        for name, fn in (("prefill", lambda: pre.fn(model, prompt)),
                          ("decode", lambda: dec.fn(model, cache, {"tokens": nxt}, last))):
             comm = CommBytes()
             with comm:
@@ -481,28 +521,33 @@ def _serve_run(cfg, mesh, policy, model, toks, gen: int, dev, record: bool,
                 _sync(dev)
             rec[f"{name}_collectives"] = comm.counts()
             rec[f"{name}_profile"] = _profiled(fn, dev)
-    return logits, _full(cache), rec
+    return logits, (steps if each_step else final), rec
 
 
-def _single_run(cfg, policy, model, toks, tokens, gen: int, routes: dict | None = None):
+def _single_run(cfg, policy, model, prompt: dict, seq: int, tokens, gen: int,
+                routes: dict | None = None, each_step: bool = False):
     """One card's prefill and ``gen`` decode steps, decode step i fed
     ``tokens[:, i]`` (the sharded side's greedy tokens, [B, gen + 1]): the
-    logits of each, the final cache, and where its own greedy token
+    logits of each, the final cache (with ``each_step`` the cache after
+    every decode step, on the host), and where its own greedy token
     differed."""
-    S = toks.shape[1]
     now = {"step": None}
     watch = (_observe_routes(model, routes, lambda: (0, now["step"])) if routes is not None
              else contextlib.nullcontext())
+    steps = []
     with watch:
-        lg, cache, pos = prefill(model, cfg, policy, toks, max_len=S + gen)
+        lg, cache, pos = prefill(model, cfg, policy, prompt["tokens"], prompt.get("patches"),
+                                 max_len=seq + gen)
         want, own = [lg], [greedy_tokens(lg[:, -1:])]
         for i in range(gen):
             now["step"] = i
             lg, cache = decode_step(model, cfg, policy, cache, tokens[:, i:i + 1], pos + i)
             want.append(lg)
             own.append(greedy_tokens(lg[:, -1:]))
+            if each_step:
+                steps.append(_flat(cache))
     differ = (torch.cat(own, dim=1) != tokens).cpu()
-    return want, cache, differ
+    return want, (steps if each_step else cache), differ
 
 
 def _rel_err(got, want, until: list, dim: int, first: int = 0) -> float | None:
@@ -533,9 +578,10 @@ def _serve(opts, dev, rank, cfg) -> dict:
     init_s = time.perf_counter() - t0
     weights_gb = sum(p.to_local().numel() * p.element_size() for p in model.parameters()) / 1e9
     init_peak = _peak_gb(dev)
-    toks = torch.from_numpy(make_batch(cfg, opts.serve_batch, opts.prompt, step=0)["tokens"]).to(dev)
+    prompt = _prompt(cfg, opts.serve_batch, opts.prompt, 0, dev)
     _peak_reset(dev)
-    logits, cache, rec = _serve_run(cfg, mesh, policy, model, toks, opts.gen, dev, record=True)
+    logits, cache, rec = _serve_run(cfg, mesh, policy, model, prompt, opts.prompt, opts.gen, dev,
+                                    record=True)
     finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
     rec.update(arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16", mesh=f"1x{world}",
                batch=opts.serve_batch, prompt=opts.prompt, gen=opts.gen,
@@ -550,25 +596,32 @@ def _serve(opts, dev, rank, cfg) -> dict:
     return rec if rank == 0 else None
 
 
-def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1) -> dict:
-    """Parts (iii), (v) and (vii): ``cfg`` in float32 sharded on (1, N)
-    against rank 0 alone (the same draws), the one-card side fed the
-    sharded side's tokens; an MoE model's routing compared, each sequence
-    held before its first touched position."""
-    policy = ShardingPolicy(attn_chunk=min(1024, opts.prompt))
+def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None = None,
+                 family: bool = False) -> dict:
+    """Parts (iii), (v), (vii) and the families' serving parts: ``cfg`` in
+    float32 sharded on (1, N) against rank 0 alone (the same draws), the
+    one-card side fed the sharded side's tokens, on a prompt of ``seq``
+    positions (default ``--prompt``); an MoE model's routing compared, each
+    sequence held before its first touched position.  ``family``: every
+    cache leaf held after each decode step, the greedy tokens of the two
+    sides equal, and the collectives and profile of one more prefill and
+    decode step recorded."""
+    seq = seq or opts.prompt
+    policy = ShardingPolicy(attn_chunk=min(1024, seq))
     world = dist.get_world_size()
     mesh = init_device_mesh(dev.type, (1, world), mesh_dim_names=("data", "model"))
     moe = cfg.moe is not None
     model = init_sharded(cfg, mesh, seed=seed, dtype=torch.float32, device=dev, policy=policy)
     weights_gb = sum(p.to_local().numel() * p.element_size() for p in model.parameters()) / 1e9
-    toks = torch.from_numpy(make_batch(cfg, opts.serve_batch, opts.prompt,
-                                       step=seed)["tokens"]).to(dev)
+    prompt = _prompt(cfg, opts.serve_batch, seq, seed, dev)
     routes = {} if moe else None
     _peak_reset(dev)
-    logits, cache, rec = _serve_run(cfg, mesh, policy, model, toks, gen, dev, record=False,
-                                    routes=routes)
+    logits, caches, rec = _serve_run(cfg, mesh, policy, model, prompt, seq, gen, dev,
+                                     record=family, routes=routes, each_step=family)
     peaks = _gather(_peak_gb(dev))
-    logits, cache = [lg.cpu() for lg in logits], _flat(cache)
+    if rank == 0:
+        logits = [lg.cpu() for lg in logits]
+        caches = caches if family else [_flat(caches)]
     del model
     _release(dev)
     out = None
@@ -576,36 +629,40 @@ def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1) -> dict:
         base = init_params(cfg, seed=seed, dtype=torch.float32, device=dev)
         single = {} if moe else None
         tokens = torch.tensor(rec["tokens"], dtype=torch.int32, device=dev)
-        want, c, differ = _single_run(cfg, policy, base, toks, tokens, gen, single)
-        flips = (_flips(routes, single, opts.serve_batch, opts.prompt, cfg) if moe
-                 else None)
+        want, c, differ = _single_run(cfg, policy, base, prompt, seq, tokens, gen, single,
+                                      each_step=family)
+        want_caches = c if family else [_flat(c)]
+        flips = (_flips(routes, single, opts.serve_batch, seq, cfg) if moe else None)
         # each sequence held before the first position an MoE layer touched
         since = flips["first_touched"].get(0, {}) if moe else {}
-        until = [since.get(b, opts.prompt + gen) for b in range(opts.serve_batch)]
+        until = [since.get(b, seq + gen) for b in range(opts.serve_batch)]
         keep = [b for b in range(opts.serve_batch) if b not in since]
-        errs = {"logits": [_rel_err(a, b, until, 1, opts.prompt + i - 1 if i else 0)
+        errs = {"logits": [_rel_err(a, b, until, 1, seq + i - 1 if i else 0)
                            for i, (a, b) in enumerate(zip(logits, want))]}
-        for name, t in _flat(c).items():  # [L, B, S, ...]
-            errs[name] = [_rel_err(cache[name].transpose(0, 1), t.transpose(0, 1), until, 2)]
+        for got, ref in zip(caches, want_caches):  # [L, B, S, ...] a leaf
+            for name, t in ref.items():
+                errs.setdefault(name, []).append(
+                    _rel_err(got[name].transpose(0, 1), t.transpose(0, 1), until, 2))
         errs = {k: [x for x in v if x is not None] for k, v in errs.items()}
         errs = {k: max(v) for k, v in errs.items() if v}
         out = dict(arch=cfg.name, layers=cfg.num_layers,
                    experts=cfg.moe.num_experts if moe else None, dtype="float32",
-                   mesh=f"1x{world}", batch=opts.serve_batch, prompt=opts.prompt, gen=gen,
-                   rel_err=errs, sequences_held=keep, held_until=until, flips=flips,
-                   weights_gb_a_rank=weights_gb,
-                   serve_peak_gb_by_rank=peaks, prefill_s=rec["prefill_s"],
-                   decode_ms_median=rec["decode_ms_median"],
+                   mesh=f"1x{world}", batch=opts.serve_batch, prompt=seq, gen=gen,
+                   caches_held=len(caches), rel_err=errs, sequences_held=keep, held_until=until,
+                   flips=flips, weights_gb_a_rank=weights_gb,
+                   serve_peak_gb_by_rank=peaks,
                    own_greedy_differs=[[int(b), int(i)] for b, i in differ.nonzero().tolist()],
                    ok=bool(errs) and max(errs.values()) <= SERVE_TOL
-                   and (flips is None or flips["ok"]))
+                   and (flips is None or flips["ok"]) and not (family and differ.any()),
+                   **{k: v for k, v in rec.items() if k != "tokens"})
         del base, c
         _release(dev)
-    dist.barrier()
     return out
 
 
-PARTS = ("train", "check", "serve", "moe-train", "moe-serve", "kimi-check", "kimi-serve")
+FAMILY_PARTS = tuple(f"{f}-{k}" for f in FAMILIES for k in ("train", "serve"))
+PARTS = ("train", "check", "serve", "moe-train", "moe-serve", *FAMILY_PARTS, "kimi-check",
+         "kimi-serve")
 
 
 def main(argv=None) -> int:
@@ -626,7 +683,7 @@ def main(argv=None) -> int:
     ap.add_argument("--check-layers", type=int, default=2)
     ap.add_argument("--check-gen", type=int, default=4)
     ap.add_argument("--parts", default=",".join(PARTS),
-                    help=f"which of {', '.join(PARTS)} to run")
+                    help=f"which of {', '.join(PARTS)} to run, in this order")
     ap.add_argument("--out", default=str(REPO / "build" / "tp_dist.json"))
     opts = ap.parse_args(argv)
     parts = opts.parts.split(",")
@@ -651,27 +708,47 @@ def main(argv=None) -> int:
                                            opts.check_gen),
         "kimi-serve": lambda: _serve(opts, dev, rank, _cfg(opts, KIMI, KIMI_SERVE_LAYERS)),
     }
+    for family, arch in FAMILIES.items():
+        run[f"{family}-train"] = (lambda a=arch: _train_check(
+            opts, dev, rank, _cfg(opts, a, FAMILY_TRAIN_LAYERS)))
+        run[f"{family}-serve"] = (lambda c=_cfg(opts, arch): _serve_check(
+            opts, dev, rank, c, opts.check_gen, seq=2 * c.window or None, family=True))
     t0 = time.perf_counter()
+    card = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip().splitlines()
+            if dev.type == "cuda" else ["cpu"])
     rec = {}
-    for part in (p for p in PARTS if p in parts):  # serving parts last: the largest memory
+    for part in parts:
         t1 = time.perf_counter()
-        rec[part] = run[part]()
+        raised = 0
+        try:
+            rec[part] = run[part]()
+        except Exception as e:
+            raised = 1
+            rec[part] = dict(ok=False, error=f"{type(e).__name__}: {e}",
+                             traceback=traceback.format_exc()[-3000:])
+            traceback.print_exc()
+        flag = torch.tensor([raised], device=dev)
+        dist.all_reduce(flag)
+        n_raised = int(flag)
         if rank == 0:
             rec[part]["wall_s"] = time.perf_counter() - t1
+            if n_raised:
+                rec[part].update(ok=False, ranks_raised=n_raised)
+            print(f"part {part}: ok={rec[part]['ok']} in {rec[part]['wall_s']:.1f} s", flush=True)
+            rec.update(cards=card, backend=backend, torch=torch.__version__,
+                       world=dist.get_world_size(), wall_s=time.perf_counter() - t0)
+            os.makedirs(os.path.dirname(opts.out), exist_ok=True)
+            with open(opts.out, "w") as f:  # after each part: a cut run keeps what it did
+                f.write(json.dumps(rec) + "\n")
         _release(dev)
+        if 0 < n_raised < dist.get_world_size():
+            print(f"rank {rank}: {n_raised} of the ranks raised in {part}: the run stops",
+                  flush=True)
+            return 1
     ok = True
     if rank == 0:
-        card = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                "--format=csv,noheader"], capture_output=True, text=True,
-                               check=True).stdout.strip().splitlines()
-                if dev.type == "cuda" else ["cpu"])
-        rec.update(cards=card, backend=backend, torch=torch.__version__,
-                   world=dist.get_world_size(), wall_s=time.perf_counter() - t0)
-        line = json.dumps(rec)
-        os.makedirs(os.path.dirname(opts.out), exist_ok=True)
-        with open(opts.out, "w") as f:
-            f.write(line + "\n")
-        print(line, flush=True)
+        print(json.dumps(rec), flush=True)
         ok = all(rec[part]["ok"] for part in parts)
     dist.destroy_process_group()
     return 0 if ok else 1

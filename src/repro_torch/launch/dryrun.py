@@ -17,20 +17,25 @@ keeps the reference's keys where they can be filled: ``status`` /
 largest shard of each leaf), ``fits`` against the card's memory
 (``HW.HBM_BYTES``) and a roofline from ``HW``'s H100 constants (the model's
 FLOPs over the bfloat16 peak against the arguments read once over HBM).
-For the dense and moe families' prefill and decode cells the step also
-runs once on the meta device over the fake world (weights and caches as
-DTensors on the model axis, rank 0's rows; an MoE layer's routing
-statistics summed over the batch axes) inside ``CommDebugMode``:
-``collectives`` (count and bytes by op), ``collective_count`` and
-``collective_operand_bytes`` are that rank's, under the reference's keys.
-It runs the naive attention: on the model axis each rank attends its own
-rows locally, so the collectives are the chunked attention's, in a
-hundredth of the operations on the meta device (MLA has one form).  The
-fake group is a CPU one, where DTensor runs each all-to-all as an
-all-gather and a slice.  The keys only XLA's compiler gives
-(``temp_size_in_bytes``, ``bytes_accessed_per_device``, ``hlo_bytes``,
-``compile_s``, ``flops_per_device``), and ``collectives`` where the step
-cannot run so, are ``null``, each with its reason under
+For every family's prefill and decode cells the step also runs once on
+the meta device over the fake world (weights and caches as DTensors on
+the model axis, rank 0's rows; an MoE layer's routing statistics summed
+over the batch axes) inside ``CommDebugMode``: ``collectives`` (count and
+bytes by op), ``collective_count`` and ``collective_operand_bytes`` are
+that rank's, under the reference's keys.  It runs the naive attention: on
+the model axis each rank attends its own rows locally, so the collectives
+are the chunked attention's, in a hundredth of the operations on the meta
+device (MLA has one form).  A family with a Mamba mixer keeps the chunked
+form (the naive one would run its scan as the step-by-step oracle, 32,768
+steps a layer), with the sequence in one chunk for the attention and the
+scan alike: each runs on a rank's own rows or heads, so the chunks move
+no data, and one chunk is the naive form's work.  The fake group is a
+CPU one, where DTensor runs each all-to-all as an all-gather and a slice.
+A policy whose model-axis layout is not ported records ``collectives`` as
+``null`` with the refusal, which names ROADMAP A.18.  The keys only XLA's
+compiler gives (``temp_size_in_bytes``, ``bytes_accessed_per_device``,
+``hlo_bytes``, ``compile_s``, ``flops_per_device``), and ``collectives``
+where the step cannot run so, are ``null``, each with its reason under
 ``not_applicable``.
 """
 
@@ -48,13 +53,13 @@ import traceback
 
 from repro_torch.config import SHAPES, ShardingPolicy, TrainConfig, get_arch
 from repro_torch.launch.mesh import HW, make_production_mesh
-from repro_torch.launch.specs import build_cell, cell_skip_reason
+from repro_torch.launch.specs import build_cell, cell_skip_reason, mesh_axis_size
 from repro_torch.models import Transformer, init_cache, model_mesh, param_shapes
 from repro_torch.models.flops import decode_flops_per_token, param_counts, train_flops_per_token
 from repro_torch.optim import AdamWState
 from repro_torch.runtime import TrainState
 from repro_torch.runtime.profile import CommBytes
-from repro_torch.runtime.sharding import tp_distribute
+from repro_torch.runtime.sharding import check_model_axis, tp_distribute
 
 __all__ = ["ARCH_ORDER", "SHAPE_ORDER", "model_flops", "fake_world", "argument_bytes",
            "step_collectives", "run_cell", "main"]
@@ -72,8 +77,6 @@ _XLA_ONLY = ("XLA's compiled program gives it (memory_analysis / cost_analysis /
 NOT_APPLICABLE = {
     "temp_size_in_bytes": _XLA_ONLY,
     "bytes_accessed_per_device": _XLA_ONLY,
-    "collectives": "the model axis of this family is not ported (ROADMAP A.18); its FSDP "
-                   "collectives run only on real ranks (CommDebugMode in scripts/fsdp_dist.py)",
     "hlo_bytes": "no HLO: PyTorch does not lower to XLA",
     "compile_s": "nothing is compiled: the port's step runs eagerly",
     "flops_per_device": "the reference counts the dot FLOPs of XLA's HLO; model_flops / devices "
@@ -118,23 +121,26 @@ def fake_world(size: int = WORLD):
             native()
 
 
-_TP_FAMILIES = ("dense", "moe")  # the families whose model axis is ported
 _TRAIN_COLLECTIVES = ("FSDP2 refuses to run a step on parameters on the meta device, so a train "
                       "cell's step cannot run over the fake world; its collectives are counted "
                       "on real ranks (CommDebugMode in scripts/tp_dist.py, scripts/fsdp_dist.py)")
 
 
 def step_collectives(mesh, cfg, shape, policy, param_dtype=None) -> dict:
-    """A dense or moe prefill or decode cell's step run once on the meta
-    device over the (fake) world, with the naive attention (see the module
-    doc): the weights and caches as DTensors on the mesh's model axis, rank
-    0's rows of the batch.  Returns the reference's keys: ``collectives`` ({op:
-    {"count", "bytes"}}), ``collective_count``, ``collective_operand_bytes``
-    (the bytes of the whole tensors the collectives gather, reduce or
-    exchange)."""
+    """A prefill or decode cell's step run once on the meta device over the
+    (fake) world, with the naive attention (the chunked one beside a Mamba
+    mixer; see the module doc): the weights and caches as DTensors on the
+    mesh's model axis, rank 0's rows of the batch.  Returns the reference's
+    keys: ``collectives`` ({op: {"count", "bytes"}}), ``collective_count``,
+    ``collective_operand_bytes`` (the bytes of the whole tensors the
+    collectives gather, reduce or exchange)."""
     import torch
 
-    policy = dataclasses.replace(policy, attention_impl="naive")
+    if cfg.has_ssm:  # one chunk of the whole sequence, the scan's and attention's
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=shape.seq_len))
+        policy = dataclasses.replace(policy, attention_impl="chunked", attn_chunk=shape.seq_len)
+    else:
+        policy = dataclasses.replace(policy, attention_impl="naive")
     cell = build_cell(mesh, cfg, shape, policy)
     names = tuple(mesh.mesh_dim_names)
     dp = math.prod(mesh.size(names.index(a)) for a in ("pod", "data") if a in names)
@@ -142,15 +148,21 @@ def step_collectives(mesh, cfg, shape, policy, param_dtype=None) -> dict:
     model = tp_distribute(param_shapes(cfg, policy, dtype=param_dtype or torch.bfloat16), mesh,
                           policy)
 
-    def meta(*s):
-        return torch.empty(s, dtype=torch.int32, device="meta")
+    def meta(*s, dtype=torch.int32):
+        return torch.empty(s, dtype=dtype, device="meta")
 
+    books = (cfg.num_codebooks,) if cfg.family == "audio" else ()
     if shape.kind == "prefill":
-        args = (model, {"tokens": meta(rows, shape.seq_len)})
+        if cfg.family == "vlm":
+            batch = {"tokens": meta(rows, shape.seq_len - cfg.num_patches),
+                     "patches": meta(rows, cfg.num_patches, cfg.patch_dim, dtype=torch.float32)}
+        else:
+            batch = {"tokens": meta(rows, shape.seq_len, *books)}
+        args = (model, batch)
     elif shape.kind == "decode":
         cache = init_cache(cfg, rows, shape.seq_len, dtype=model.embed.dtype, device="meta",
                            kv_dtype=policy.kv_cache_dtype, mesh=model_mesh(mesh))
-        args = (model, cache, {"tokens": meta(rows, 1)}, meta(1))
+        args = (model, cache, {"tokens": meta(rows, 1, *books)}, meta(1))
     else:
         raise ValueError(f"{shape.kind}: {_TRAIN_COLLECTIVES}")
     comm = CommBytes()
@@ -160,6 +172,17 @@ def step_collectives(mesh, cfg, shape, policy, param_dtype=None) -> dict:
     return {"collectives": by_op,
             "collective_count": sum(v["count"] for v in by_op.values()),
             "collective_operand_bytes": sum(v["bytes"] for v in by_op.values())}
+
+
+def _refusal(cfg, policy, mesh) -> str | None:
+    """Why ``cfg`` under ``policy`` cannot run on ``mesh``'s model axis (a
+    policy value whose layout is not ported: the refusal names ROADMAP
+    A.18), or None."""
+    try:
+        check_model_axis(cfg, policy, mesh_axis_size(mesh, policy.model_axis))
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def _pairs(arg, sharding):
@@ -215,11 +238,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, policy=None, tcfg=None
         t_memory = arg_bytes / HW.HBM_BW
         not_applicable = dict(NOT_APPLICABLE)
         comms = {"collectives": None, "collective_count": None, "collective_operand_bytes": None}
-        if cfg.family in _TP_FAMILIES and shape.kind == "train":
+        if shape.kind == "train":
             not_applicable["collectives"] = _TRAIN_COLLECTIVES
-        elif cfg.family in _TP_FAMILIES:
+        elif refused := _refusal(cfg, policy, mesh):
+            not_applicable["collectives"] = refused
+        else:
             comms = step_collectives(mesh, cfg, shape, policy)
-            del not_applicable["collectives"]
         rec.update(
             devices=n_dev,
             build_s=round(time.time() - t0, 3),

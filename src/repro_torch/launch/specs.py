@@ -13,8 +13,8 @@ production mesh over a fake process group:
 :func:`~repro_torch.models.layers.activate_mesh` of the cell's mesh, so on
 a mesh with a model axis wider than 1 it runs on real ranks with DTensor
 inputs (the model sharded by :mod:`repro_torch.runtime.sharding`) as the
-reference's partitioned program; a family or policy whose model-axis
-layout is not ported raises when its step runs (ROADMAP A.18).
+reference's partitioned program (every family); a policy value whose
+model-axis layout is not ported raises when its step runs (ROADMAP A.18).
 
 Cell skip policy: ``long_500k`` runs only for sub-quadratic archs (ssm /
 hybrid-with-SWA); dense-attention archs get a recorded skip (a 500k dense

@@ -170,12 +170,14 @@ def local_offset(x, dim: int) -> int:
 
 def write_prefix(cache, new) -> None:
     """``cache[:, :, :n] = new`` into a sequence-sharded cache DTensor
-    [L, B, S, ...]: each rank writes the entries of its own range."""
-    full = new.redistribute(placements=[Replicate()]).to_local()
+    [L, B, S, ...]: each rank writes the entries of its own range.  ``new``
+    is a DTensor, or a plain tensor whole on every rank."""
+    if isinstance(new, DTensor):
+        new = new.redistribute(placements=[Replicate()]).to_local()
     local, start = cache.to_local(), local_offset(cache, 2)
-    hi = min(full.shape[2], start + local.shape[2])
+    hi = min(new.shape[2], start + local.shape[2])
     if hi > start:
-        local[:, :, :hi - start] = full[:, :, start:hi]
+        local[:, :, :hi - start] = new[:, :, start:hi]
 
 
 def write_slot(cache, slot, new) -> None:
@@ -244,8 +246,16 @@ class Initializer:
 
 
 def rms_norm(x, weight, eps: float = 1e-5):
+    """``x`` over its root mean square along the last dim, times ``weight``.
+    A DTensor ``x`` sharded on that dim (the Mamba mixer's gated d_inner on
+    a model axis) takes its mean square as each rank's sum of squares,
+    summed over the model axis (an all-reduce of one number a row)."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if isinstance(x, DTensor) and x.placements[0].is_shard(x.ndim - 1):
+        ss = (xf * xf).sum(dim=-1, keepdim=True).redistribute(placements=[Replicate()])
+        var = ss / x.shape[-1]
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
 
@@ -294,12 +304,24 @@ def cross_entropy(logits, labels, mask=None):
     [...]: logsumexp minus the gold logit, averaged over the tokens, or over
     ``mask`` (a masked mean over ``max(mask.sum(), 1)``)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = _logsumexp(logits)
     nll = logz - _gold(logits, labels.long())
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def _logsumexp(logits):
+    """``logsumexp`` over the last dim.  Vocabulary-sharded DTensor logits
+    keep their shards: the row maxima and the sums of exp(logit - max) are
+    each all-reduced over the model axis (DTensor's own ``logsumexp``
+    gathers the logits whole on every rank)."""
+    if not (isinstance(logits, DTensor) and tuple(logits.placements) == (Shard(logits.ndim - 1),)):
+        return torch.logsumexp(logits, dim=-1)
+    top = logits.detach().amax(dim=-1, keepdim=True).redistribute(placements=[Replicate()])
+    total = torch.exp(logits - top).sum(dim=-1).redistribute(placements=[Replicate()])
+    return top[..., 0] + torch.log(total)
 
 
 def _gold(logits, labels):

@@ -18,12 +18,40 @@ Evaluators of the prefill, selected by ``mamba_mixer``'s ``impl``:
 Plus :func:`ssd_decode_step` (the O(1) state update for serving) and the
 full mixer with its causal depthwise conv and gating.  The decode step
 writes the conv window and the state into the cache in place.
+
+On a model axis wider than 1 (``x`` a DTensor replicated there, the
+weights sharded by :mod:`repro_torch.runtime.sharding`) the mixer takes the
+reference's layout: ``w_z`` and ``w_xbc`` column-sharded (z on d_inner, the
+conv inputs on their channels), so the depthwise conv runs on each rank's
+own channels; x, B and C are cut out of the conv output gathered whole
+(its shard boundaries do not fall on d_inner, and B and C are every
+head's); the scan runs on each rank's own heads (``xs`` heads over 'model',
+the reference's constraint), with ``w_dt``, ``A_log``, ``D`` and ``dt_bias``
+replicated and each rank taking its heads' entries; the gated norm's mean
+square is summed over the ranks, and the row-sharded ``w_out`` makes the
+output a partial sum, all-reduced at the block's constraint (the
+reference's, ``ssm.py:222``; a hybrid block reduces its two branches' sum
+once).  The scan is
+the plain one the policy names (``"chunked"`` or ``"reference"``); the
+kernel is refused on a model axis (ROADMAP A.18).
+
+A head count the axis does not divide (hymba-1.5b's 50 heads over 4 or
+16 ranks) shards the head dim instead, in the scan and in the decode state
+alike, as the reference's ``cache_specs`` does for the state: every rank
+runs every head on its ``head_dim / ranks`` columns of it (the scan is
+independent per column), where DTensor's uneven split of the heads (13,
+13, 13, 11) would give the ranks unequal work and the decode state a
+layout the reference does not use.  The decode step keeps each rank's
+shard of the conv window [B, k-1, C] (channels over 'model') and of the
+float32 state [B, H, P, N] (heads, or head-dim columns, over 'model') and
+writes them in place.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import kernels
 from repro_torch.config import ArchConfig
@@ -185,35 +213,92 @@ def _causal_conv(xbc, conv_w, state=None):
     return F.silu(out), new_state
 
 
-def _ssm_inputs(p, xbc, dt, d_in, h, n, g, head_dim):
+def _ssm_inputs(p, xbc, dt, d_in, h, n, g, head_dim, own=(slice(None), slice(None))):
     """Split the conv output into x, B, C (views, no copies) and take dt
-    through the softplus: x [..., h, p], B/C [..., g, n], dt [..., h]."""
+    through the softplus: x [..., h, p], B/C [..., g, n], dt [..., h].
+    ``own``: the heads and head-dim columns to keep (a rank's, on a model
+    axis: :func:`_own`)."""
     lead = xbc.shape[:-1]
+    heads, cols = own
     xs, B, C = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
-    dt = F.softplus(dt.float() + p.dt_bias)
-    return (xs.reshape(*lead, h, head_dim), B.reshape(*lead, g, n), C.reshape(*lead, g, n),
-            dt, -torch.exp(p.A_log))
+    dt = F.softplus(dt.float()[..., heads] + _whole(p.dt_bias)[heads])
+    return (xs.reshape(*lead, h, head_dim)[..., heads, cols], B.reshape(*lead, g, n),
+            C.reshape(*lead, g, n), dt, -torch.exp(_whole(p.A_log)[heads]))
+
+
+def _whole(t):
+    """``t`` on this rank: a model-replicated DTensor's local copy, whose
+    gradient is a partial sum over the ranks (each uses its own heads of
+    it); else ``t``."""
+    return t.to_local(grad_placements=[Partial()]) if isinstance(t, DTensor) else t
+
+
+def _own(mesh, h: int, head_dim: int) -> tuple:
+    """This rank's part of the scan on model mesh ``mesh``: ((heads,
+    head-dim columns), the dim of [b, s, h, p] they shard).  Its ``h /
+    ranks`` heads when the axis divides ``h``, else every head's ``head_dim
+    / ranks`` columns (see the module doc)."""
+    ranks, r = mesh.size(), mesh.get_local_rank()
+    if h % ranks == 0:
+        return (slice(r * h // ranks, (r + 1) * h // ranks), slice(None)), 2
+    k = head_dim // ranks
+    return (slice(None), slice(r * k, (r + 1) * k)), 3
+
+
+def _scan_out(y, mesh, dim: int, b: int, s: int, h: int, head_dim: int):
+    """A rank's scan output [b, s, h', p'] as the DTensor [b, s, d_inner]
+    sharded on d_inner, as ``z`` is (a rank's heads are its d_inner
+    columns; head-dim columns are gathered and cut again)."""
+    d_in = h * head_dim
+    if dim == 2:
+        return DTensor.from_local(y.reshape(b, s, -1), mesh, [Shard(2)], run_check=False,
+                                  shape=(b, s, d_in), stride=(s * d_in, d_in, 1))
+    y = DTensor.from_local(y.contiguous(), mesh, [Shard(3)], run_check=False,
+                           shape=(b, s, h, head_dim), stride=(s * d_in, d_in, head_dim, 1))
+    y = y.redistribute(placements=[Replicate()]).reshape(b, s, d_in)
+    return y.redistribute(placements=[Shard(2)])
+
+
+def _scan(impl, xs, dt, A, B, C, D, chunk: int):
+    if impl == "reference":
+        return ssd_reference(xs, dt, A, B, C, D)
+    if impl == "cuda":
+        return kernels.ssd_scan(xs, dt, A, B, C, D, chunk=chunk)
+    if impl == "chunked":
+        return ssd_chunked(xs, dt, A, B, C, D, chunk=min(chunk, xs.shape[1]))
+    raise ValueError(impl)
+
+
+def _gate_out(p, y, z, cfg: ArchConfig):
+    """The gated norm and the out-projection (on a model axis a partial
+    sum over the ranks: the caller reduces it)."""
+    return rms_norm(y * F.silu(z), p.norm_w, cfg.norm_eps) @ p.w_out
 
 
 def mamba_mixer(p, x, cfg: ArchConfig, impl: str = "chunked"):
     """x [b,s,d] -> [b,s,d]; ``impl`` is ``"reference"``, ``"chunked"`` or
-    ``"cuda"``."""
+    ``"cuda"``.  On a model axis see the module doc: the output is a
+    partial sum there."""
     ssm = cfg.ssm
     z, xbc, dt, d_in, h, n, g = _in_proj(p, x, cfg)
-    xbc, _ = _causal_conv(xbc, p.conv_w)
-    xs, B, C, dt, A = _ssm_inputs(p, xbc, dt, d_in, h, n, g, ssm.head_dim)
     b, s, _ = x.shape
-    if impl == "reference":
-        y = ssd_reference(xs, dt, A, B, C, p.D)
-    elif impl == "cuda":
-        y = kernels.ssd_scan(xs, dt, A, B, C, p.D, chunk=ssm.chunk)
-    elif impl == "chunked":
-        y = ssd_chunked(xs, dt, A, B, C, p.D, chunk=min(ssm.chunk, s))
-    else:
-        raise ValueError(impl)
-    y = y.reshape(b, s, d_in)
-    y = rms_norm(y * F.silu(z), p.norm_w, cfg.norm_eps)
-    return y @ p.w_out
+    if not isinstance(xbc, DTensor):
+        xbc, _ = _causal_conv(xbc, p.conv_w)
+        xs, B, C, dt, A = _ssm_inputs(p, xbc, dt, d_in, h, n, g, ssm.head_dim)
+        y = _scan(impl, xs, dt, A, B, C, p.D, ssm.chunk).reshape(b, s, d_in)
+        return _gate_out(p, y, z, cfg)
+    if impl == "cuda":
+        raise ValueError("the SSD scan kernel on a model axis wider than 1 is not ported "
+                         "(ROADMAP A.18); the reference's cells run attention_impl='chunked'")
+    mesh = xbc.device_mesh
+    conv, _ = _causal_conv(xbc.to_local(), p.conv_w.to_local())  # each rank its channels
+    conv = DTensor.from_local(conv, mesh, [Shard(2)], run_check=False, shape=xbc.shape,
+                              stride=xbc.stride())
+    own, dim = _own(mesh, h, ssm.head_dim)
+    whole = conv.redistribute(placements=[Replicate()]).to_local(grad_placements=[Partial()])
+    xs, B, C, dt, A = _ssm_inputs(p, whole, _whole(dt), d_in, h, n, g, ssm.head_dim, own)
+    y = _scan(impl, xs, dt, A, B, C, _whole(p.D)[own[0]], ssm.chunk)
+    return _gate_out(p, _scan_out(y, mesh, dim, b, s, h, ssm.head_dim), z, cfg)
 
 
 def init_mamba_cache(cfg: ArchConfig, layers: int, batch: int, dtype=torch.bfloat16,
@@ -239,14 +324,26 @@ def init_mamba_cache(cfg: ArchConfig, layers: int, batch: int, dtype=torch.bfloa
 
 def mamba_decode_step(p, x, cache, cfg: ArchConfig):
     """x [b,1,d]; cache {conv, state} (this layer's) -> out [b,1,d].  The
-    cache's conv window and state are written in place."""
+    cache's conv window and state are written in place (on a model axis
+    each rank's shards of them, and the output a partial sum: see the
+    module doc)."""
     ssm = cfg.ssm
     z, xbc, dt, d_in, h, n, g = _in_proj(p, x, cfg)
-    xbc, conv_state = _causal_conv(xbc, p.conv_w, state=cache["conv"])
-    xs, B, C, dtv, A = _ssm_inputs(p, xbc[:, 0], dt[:, 0], d_in, h, n, g, ssm.head_dim)
-    state, y = ssd_decode_step(cache["state"], xs, dtv, A, B, C, p.D)
-    cache["conv"].copy_(conv_state)
-    cache["state"].copy_(state)
-    y = y.reshape(x.shape[0], 1, d_in)
-    y = rms_norm(y * F.silu(z), p.norm_w, cfg.norm_eps)
-    return y @ p.w_out
+    b = x.shape[0]
+    if not isinstance(xbc, DTensor):
+        xbc, conv_state = _causal_conv(xbc, p.conv_w, state=cache["conv"])
+        xs, B, C, dtv, A = _ssm_inputs(p, xbc[:, 0], dt[:, 0], d_in, h, n, g, ssm.head_dim)
+        state, y = ssd_decode_step(cache["state"], xs, dtv, A, B, C, p.D)
+        cache["conv"].copy_(conv_state)
+        cache["state"].copy_(state)
+        return _gate_out(p, y.reshape(b, 1, d_in), z, cfg)
+    mesh = xbc.device_mesh
+    window, state = cache["conv"].to_local(), cache["state"].to_local()
+    conv, new_window = _causal_conv(xbc.to_local(), p.conv_w.to_local(), state=window)
+    window.copy_(new_window)
+    own, dim = _own(mesh, h, ssm.head_dim)
+    whole = DTensor.from_local(conv[:, 0], mesh, [Shard(1)], run_check=False).full_tensor()
+    xs, B, C, dtv, A = _ssm_inputs(p, whole, _whole(dt)[:, 0], d_in, h, n, g, ssm.head_dim, own)
+    new_state, y = ssd_decode_step(state, xs, dtv, A, B, C, _whole(p.D)[own[0]])
+    state.copy_(new_state)
+    return _gate_out(p, _scan_out(y[:, None], mesh, dim, b, 1, h, ssm.head_dim), z, cfg)

@@ -24,15 +24,25 @@ parameter tree (``embed``, ``blocks.<l>.ln1``, ``blocks.<l>.attn.w_q``,
   prefill                         — logits + populated cache
   decode_step                     — one-token serve step against the cache
 
-On a model axis wider than 1 (the dense and moe families' weights as
-DTensors on the model mesh: :mod:`repro_torch.runtime.sharding`, under
+On a model axis wider than 1 (every family's weights as DTensors on the
+model mesh: :mod:`repro_torch.runtime.sharding`, under
 :func:`~repro_torch.models.layers.activate_mesh`) every function runs as
 the reference's partitioned program: the same ``constrain`` sites, the
-embedding looked up vocabulary-sharded (each rank its own rows, summed),
-the logits vocabulary-sharded, the decode caches (KV or MLA's latents)
-sequence-sharded and decode attention split-KV across the ranks; the
-experts and MLA as :mod:`~repro_torch.models.moe` and
-:mod:`~repro_torch.models.mla` say.
+embedding looked up vocabulary-sharded (each rank its own rows, summed;
+audio a table a codebook; vlm's replicated patch prefix joined to the
+reduced text), the logits vocabulary-sharded (audio each codebook's, the
+reference's ``(DP, None, None, model)``; a padded vocabulary's pad columns
+at -inf, the loss's logsumexp and the greedy argmax reduced over the
+shards, and only a caller's logits cut, by a neighbour shift), the decode
+caches split as the reference's ``cache_specs`` puts them on 'model' (KV,
+sliding-window ring and MLA latents on their sequence, the Mamba conv
+window on its channels and state on its heads or head dim) and decode
+attention split-KV across the ranks; a hybrid block's two branches
+reduced once, together; the
+Mamba mixer, the experts and MLA as :mod:`~repro_torch.models.ssm`,
+:mod:`~repro_torch.models.moe` and :mod:`~repro_torch.models.mla` say.
+The policy values whose layouts are not ported are refused there (ROADMAP
+A.18: :func:`~repro_torch.runtime.sharding.check_model_axis`).
 
 As in the reference, ``prefill`` fills the KV (or latent) cache but leaves
 the Mamba state and conv window at zero (ROADMAP C.4).  A vlm prompt's
@@ -56,8 +66,8 @@ from repro_torch.config import ArchConfig, ShardingPolicy
 from repro_torch.convert import resolve_device
 from .attention import attention, decode_attention
 from .layers import (Initializer, activate_mesh, apply_rope, constrain, cross_entropy,
-                     current_mesh, glu_mlp, init_glu_mlp, local_offset, replicated, rms_norm,
-                     rope, write_prefix, write_slot)
+                     current_mesh, glu_mlp, init_glu_mlp, local_offset, placements, replicated,
+                     rms_norm, rope, write_prefix, write_slot)
 from .mla import init_mla, init_mla_cache, mla_attention, mla_decode_step
 from .moe import init_moe, moe_ffn
 from .ssm import init_mamba, init_mamba_cache, mamba_decode_step, mamba_mixer
@@ -265,6 +275,8 @@ def _heads(t, n: int, hd: int):
 
 
 def _attn_op(p, x, cfg: ArchConfig, policy: ShardingPolicy, positions):
+    """The attention branch: (output, (k, v)).  On a model axis the output
+    is a partial sum over the ranks (the block reduces it)."""
     B, S, _ = x.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _heads(x @ p.w_q, H, hd)
@@ -278,8 +290,7 @@ def _attn_op(p, x, cfg: ArchConfig, policy: ShardingPolicy, positions):
                     q_chunk=policy.attn_chunk, kv_chunk=policy.attn_chunk,
                     block_skip=policy.attn_block_skip, model_axis=policy.model_axis,
                     shard_seq=policy.shard_seq_attn)
-    out = _out_proj(out.reshape(B, S, H * hd), p.w_o)
-    return constrain(out, *_res_spec(policy, S)), (k, v)
+    return _out_proj(out.reshape(B, S, H * hd), p.w_o), (k, v)
 
 
 def _res_spec(policy: ShardingPolicy, seq_len: int):
@@ -306,19 +317,19 @@ def _ffn(p: Block, h2, cfg: ArchConfig, policy: ShardingPolicy):
 def _block(p: Block, x, cfg: ArchConfig, policy: ShardingPolicy, positions):
     """One decoder block (prefill form).  Returns (x, aux or None, cache
     entries: (k, v), MLA's {"c_kv", "k_pe"}, or None)."""
-    x = constrain(x, *_res_spec(policy, x.shape[1]))
+    res = _res_spec(policy, x.shape[1])
+    x = constrain(x, *res)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if cfg.family == "ssm":
-        return x + mamba_mixer(p.mamba, h, cfg, impl=_ssm_impl(policy)), None, None
+        out = mamba_mixer(p.mamba, h, cfg, impl=_ssm_impl(policy))
+        return x + constrain(out, *res), None, None
     if cfg.mla is not None:
         attn_out, cache = mla_attention(p.attn, h, cfg, positions, model_axis=policy.model_axis)
     else:
         attn_out, cache = _attn_op(p.attn, h, cfg, policy, positions)
-    if cfg.family == "hybrid":
-        ssm_out = mamba_mixer(p.mamba, h, cfg, impl=_ssm_impl(policy))
-        x = x + 0.5 * (attn_out + ssm_out)
-    else:
-        x = x + attn_out
+    if cfg.family == "hybrid":  # both branches partial sums on a model axis: one reduction
+        attn_out = 0.5 * (attn_out + mamba_mixer(p.mamba, h, cfg, impl=_ssm_impl(policy)))
+    x = x + constrain(attn_out, *res)
     ff, aux = _ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), cfg, policy)
     return x + ff, aux, cache
 
@@ -326,13 +337,20 @@ def _block(p: Block, x, cfg: ArchConfig, policy: ShardingPolicy, positions):
 def _embed(model: Transformer, cfg: ArchConfig, tokens, patches=None):
     """Token embeddings [B, S, D] (audio: tokens [B, S, K], the codebooks'
     embeddings summed in order), after vlm's projected patch prefix when
-    ``patches`` [B, P, patch_dim] is given."""
+    ``patches`` [B, P, patch_dim] is given.  On a model axis each lookup is
+    vocabulary-sharded (a partial sum, :func:`_lookup`); the patch prefix,
+    from the replicated ``patch_proj``, joins the text once it is reduced."""
     if cfg.family == "audio":
-        x = sum(F.embedding(tokens[..., k], model.embed[k]) for k in range(cfg.num_codebooks))
+        x = _lookup(model.embed[0], tokens[..., 0])
+        for k in range(1, cfg.num_codebooks):
+            x = x + _lookup(model.embed[k], tokens[..., k])
     else:
         x = _lookup(model.embed, tokens)
     if cfg.family == "vlm" and patches is not None:
-        x = torch.cat([patches.to(x.dtype) @ model.patch_proj, x], dim=1)
+        proj = model.patch_proj
+        if isinstance(x, DTensor):
+            x = x.redistribute(placements=[Replicate()])
+        x = torch.cat([replicated(patches.to(x.dtype), proj) @ proj, x], dim=1)
     return x
 
 
@@ -352,14 +370,72 @@ def _lookup(table, tokens):
 
 
 def _head(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, x, fp32: bool = True):
-    if cfg.family == "audio":
+    """The logits [B, S, V] (audio: [B, S, K, V], a head a codebook),
+    vocabulary-sharded on a model axis.  Where the table has pad rows the
+    logits are cut to the vocabulary before the softmax; on a model axis
+    they keep their padded shards, the pad columns at -inf in the rank
+    that holds them (out of the softmax and the argmax alike), and only
+    the logits a caller gets back are cut (:func:`_vocab_cut`)."""
+    if cfg.family == "audio" and isinstance(model.heads, DTensor):
+        # each rank its vocabulary columns of every codebook's head, from the
+        # replicated x (whose gradient is then a partial sum over the ranks)
+        local = torch.einsum("bsd,kdv->bskv", x.to_local(grad_placements=[Partial()]),
+                             model.heads.to_local())
+        shape = (*x.shape[:2], *model.heads.shape[::2])
+        logits = DTensor.from_local(local, x.device_mesh, [Shard(3)], run_check=False,
+                                    shape=shape, stride=torch.empty(shape, device="meta").stride())
+        logits = constrain(logits, DP, None, None, policy.model_axis)
+    elif cfg.family == "audio":
         logits = torch.einsum("bsd,kdv->bskv", x, model.heads)
     else:
         logits = x @ (model.embed.T if cfg.tie_embeddings else model.head)
         logits = constrain(logits, DP, None, policy.model_axis)
     if cfg.padded_vocab != cfg.vocab_size:
-        logits = logits[..., : cfg.vocab_size]  # drop pad rows pre-softmax
+        if isinstance(logits, DTensor):
+            local = logits.to_local()
+            col = local_offset(logits, logits.ndim - 1) + torch.arange(local.shape[-1],
+                                                                       device=local.device)
+            logits = DTensor.from_local(local.masked_fill(col >= cfg.vocab_size, float("-inf")),
+                                        logits.device_mesh, logits.placements, run_check=False,
+                                        shape=logits.shape, stride=logits.stride())
+        else:
+            logits = logits[..., : cfg.vocab_size]  # drop pad rows pre-softmax
     return logits.float() if fp32 else logits
+
+
+def _vocab_cut(logits, vocab: int):
+    """``logits[..., :vocab]`` for a caller.  Vocabulary-sharded logits with
+    pad columns (:func:`_head`): the cut's shards (DTensor's split of
+    ``vocab`` over the ranks) start no later than the padded ones, so a
+    column only moves to the same or a later rank.  Each rank keeps its
+    first columns and sends the rest to the ranks the cut puts them on, one
+    all-to-all of a few columns a rank (the neighbour shift), and no rank
+    gathers the logits whole."""
+    if not isinstance(logits, DTensor) or logits.shape[-1] == vocab:
+        return logits
+    from torch.distributed._functional_collectives import (all_to_all_single_autograd,
+                                                           wait_tensor)
+
+    mesh, padded = logits.device_mesh, logits.shape[-1]
+    ranks, r = mesh.size(), mesh.get_local_rank()
+
+    def span(n, i):  # rank i's columns [start, end) of n split over the ranks
+        size = -(-n // ranks)
+        return min(i * size, n), min((i + 1) * size, n)
+
+    def overlap(a, b):
+        return max(0, min(a[1], b[1], vocab) - max(a[0], b[0]))
+
+    mine, cut = span(padded, r), span(vocab, r)
+    send = [0 if i == r else overlap(mine, span(vocab, i)) for i in range(ranks)]
+    recv = [0 if i == r else overlap(span(padded, i), cut) for i in range(ranks)]
+    local, keep = logits.to_local(), overlap(mine, cut)
+    cols = local[..., keep:keep + sum(send)].movedim(-1, 0).contiguous()
+    moved = wait_tensor(all_to_all_single_autograd(cols, recv, send, mesh.get_group()))
+    shape = (*logits.shape[:-1], vocab)
+    return DTensor.from_local(torch.cat([moved.movedim(0, -1), local[..., :keep]], dim=-1), mesh,
+                              logits.placements, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def _stack(caches: list):
@@ -382,7 +458,8 @@ def forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
     ``policy.remat == "block"``, each block runs under
     :func:`torch.utils.checkpoint.checkpoint` (recomputed in the backward
     pass), as the reference wraps it in ``jax.checkpoint``."""
-    return model(cfg, policy, tokens, patches, collect_cache)
+    logits, aux, caches = model(cfg, policy, tokens, patches, collect_cache)
+    return _vocab_cut(logits, cfg.vocab_size), aux, caches
 
 
 def _forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens, patches,
@@ -434,7 +511,8 @@ def loss_fn(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, batch: 
     if cfg.family == "vlm" and batch.get("patches") is None:
         raise ValueError(f"{cfg.name} trains on patch embeddings and text; the batch has no "
                          "patches")
-    logits, aux, _ = forward(model, cfg, policy, batch["tokens"], batch.get("patches"))
+    # the logits as the head leaves them: on a model axis with pad columns at -inf
+    logits, aux, _ = model(cfg, policy, batch["tokens"], batch.get("patches"))
     if cfg.family == "vlm":
         logits = logits[:, cfg.num_patches:]
     loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
@@ -477,29 +555,33 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     ``dtype``, ``state`` [L, B, H, P, N] float32}, as the reference's tree.
 
     ``mesh``: a model mesh (:func:`~repro_torch.models.layers.model_mesh`);
-    the KV or latent caches are then DTensors sharded over it on their
-    sequence dim, each rank allocating its own range only (on ``"meta"``
-    too: the dry run's)."""
+    every leaf is then a DTensor sharded over it as the reference's
+    ``cache_specs`` puts it on 'model' (the KV and latent caches on their
+    sequence dim, the conv window on its channels, the state on its heads
+    or, where the axis does not divide them, on its head dim), each rank
+    allocating its own shard only (on ``"meta"`` too: the dry run's)."""
     if mesh is None:
         return _layer_cache(cfg, batch, max_len, dtype, kv_dtype, resolve_device(device))
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
-    shapes = cache_shapes(cfg, batch, max_len, dtype, kv_dtype)
-    if set(shapes) not in ({"k", "v"}, {"mla"}):
-        raise ValueError(f"{cfg.name}: only a KV or latent cache is sequence-sharded "
-                         "(ROADMAP A.18)")
+    from repro_torch.runtime.sharding import cache_specs
+
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    specs = cache_specs(cfg, ShardingPolicy(kv_cache_dtype=kv_dtype), model_divisor=mesh.size())
 
-    def sharded(t):
-        local, _ = compute_local_shape_and_global_offset(t.shape, mesh, [Shard(2)])
-        return DTensor.from_local(torch.zeros(local, dtype=t.dtype, device=dev), mesh,
-                                  [Shard(2)], run_check=False, shape=t.shape, stride=t.stride())
+    def sharded(t, spec):
+        pl = placements(mesh, spec)
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+        return DTensor.from_local(torch.zeros(local, dtype=t.dtype, device=dev), mesh, pl,
+                                  run_check=False, shape=t.shape, stride=t.stride())
 
-    return _tree_map(sharded, shapes)
+    return _tree_map(sharded, cache_shapes(cfg, batch, max_len, dtype, kv_dtype), specs)
 
 
-def _tree_map(fn, tree: dict) -> dict:
-    return {k: (_tree_map(fn, v) if isinstance(v, dict) else fn(v)) for k, v in tree.items()}
+def _tree_map(fn, tree: dict, *rest: dict) -> dict:
+    """``fn`` on the leaves of ``tree`` (and the same leaves of ``rest``)."""
+    return {k: (_tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict) else
+                fn(v, *(r[k] for r in rest))) for k, v in tree.items()}
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -554,14 +636,17 @@ def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
                 cache["mla"][name][:, :, :S] = t
         return logits, cache, S
     k, v = kv
+    sharded = isinstance(cache["k"], DTensor)
+    if sharded:  # whole on every rank; each writes the entries of its range
+        k, v = (t.redistribute(placements=[Replicate()]).to_local() for t in (k, v))
     n = S
     w = _window(cfg)
-    if w and S >= w:
+    if w and S >= w:  # the ring of the last w entries, entry i at slot i mod w
         shift = (S - w) % w
         k = torch.roll(k[:, :, S - w:], shift, dims=2)
         v = torch.roll(v[:, :, S - w:], shift, dims=2)
         n = w
-    if isinstance(cache["k"], DTensor):
+    if sharded:
         write_prefix(cache["k"], k)
         write_prefix(cache["v"], v)
     elif policy.kv_cache_dtype == "int8":
@@ -575,18 +660,23 @@ def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
 
 @torch.no_grad()
 def extend_cache(cfg: ArchConfig, cache: dict, max_len: int) -> dict:
-    """A KV or latent cache of ``max_len`` entries holding ``cache``'s in
-    its first ones (a prefill cache given room for the decode steps),
-    sharded as ``cache`` is."""
-    if set(cache) not in ({"k", "v"}, {"mla"}):
-        raise ValueError(f"{cfg.name}: extend_cache takes a KV or latent cache")
-    first = cache["k"] if "k" in cache else cache["mla"]["c_kv"]
+    """A cache of ``max_len`` entries holding ``cache``'s KV or latent
+    entries in its first ones and its Mamba conv window and state as they
+    are (a prefill cache given room for the decode steps), sharded as
+    ``cache`` is.  int8 KV caches are not extended."""
+    if set(cache) - {"k", "v", "mla", "ssm"}:
+        raise ValueError(f"{cfg.name}: extend_cache takes a KV, latent or Mamba cache")
+    first = cache["ssm"]["conv"] if "ssm" in cache else (
+        cache["k"] if "k" in cache else cache["mla"]["c_kv"])
     out = init_cache(cfg, first.shape[1], max_len, dtype=first.dtype, device=first.device,
                      mesh=first.device_mesh if isinstance(first, DTensor) else None)
 
     def copy(dst, src):
         for name, old in src.items():
-            if isinstance(old, dict):
+            if name == "ssm":  # no sequence: the window and state as they are
+                for leaf, t in old.items():
+                    dst[name][leaf].copy_(t)
+            elif isinstance(old, dict):
                 copy(dst[name], old)
             elif isinstance(old, DTensor):
                 write_prefix(dst[name], old)
@@ -607,7 +697,8 @@ def _len_tensor(cache_len, device):
 
 def _decode_attn(a, h, cache: dict, n, cfg: ArchConfig, policy: ShardingPolicy):
     """The attention branch for one token: writes k/v into the cache views
-    in place and returns the branch's output [B, 1, d_model]."""
+    in place and returns the branch's output [B, 1, d_model] (a partial
+    sum over a model axis: the block reduces it)."""
     B = h.shape[0]
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _heads(h @ a.w_q, H, hd)
@@ -641,7 +732,7 @@ def _decode_attn(a, h, cache: dict, n, cfg: ArchConfig, policy: ShardingPolicy):
     count = torch.clamp(n + 1, max=Lc) if w else n + 1
     o = decode_attention(q, kd, vd, count, window=0, impl=policy.attention_impl,
                          model_axis=policy.model_axis, shard_seq=policy.shard_seq_attn)
-    return constrain(_out_proj(o.reshape(B, 1, H * hd), a.w_o), DP, None, None)
+    return _out_proj(o.reshape(B, 1, H * hd), a.w_o)
 
 
 def _decode_block(p: Block, x, cache: dict, n, cfg: ArchConfig, policy: ShardingPolicy):
@@ -649,16 +740,14 @@ def _decode_block(p: Block, x, cache: dict, n, cfg: ArchConfig, policy: Sharding
     in place; ``n`` is the one-element int32 tensor of cached tokens."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if cfg.family == "ssm":  # residual + mixer, no ln2 / MLP
-        return x + mamba_decode_step(p.mamba, h, cache["ssm"], cfg)
+        return x + constrain(mamba_decode_step(p.mamba, h, cache["ssm"], cfg), DP, None, None)
     if cfg.mla is not None:
-        attn_out = mla_decode_step(p.attn, h, cache["mla"], n, cfg, model_axis=policy.model_axis)
+        out = mla_decode_step(p.attn, h, cache["mla"], n, cfg, model_axis=policy.model_axis)
     else:
-        attn_out = _decode_attn(p.attn, h, cache, n, cfg, policy)
-    if cfg.family == "hybrid":
-        ssm_out = mamba_decode_step(p.mamba, h, cache["ssm"], cfg)
-        x = x + 0.5 * (attn_out + ssm_out)
-    else:
-        x = x + attn_out
+        out = _decode_attn(p.attn, h, cache, n, cfg, policy)
+    if cfg.family == "hybrid":  # both branches partial sums on a model axis: one reduction
+        out = 0.5 * (out + mamba_decode_step(p.mamba, h, cache["ssm"], cfg))
+    x = x + constrain(out, DP, None, None)
     return x + _ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), cfg, policy)[0]
 
 
@@ -682,7 +771,8 @@ def decode_step(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, cac
     for l, blk in enumerate(model.blocks):
         x = _decode_block(blk, x, _layer(cache, l), n, cfg, policy)
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
-    return _head(model, cfg, policy, x, fp32=policy.logits_fp32), cache
+    logits = _head(model, cfg, policy, x, fp32=policy.logits_fp32)
+    return _vocab_cut(logits, cfg.vocab_size), cache
 
 
 @torch.no_grad()

@@ -22,29 +22,41 @@ the layer's entry.
 mesh's 'data' axis: each block and the root are sharded modules, each
 weight split on the dim its spec puts over 'data' (so ``embed`` [V, D] on
 D, as the reference).  A leaf whose spec names no data axis (the norms,
-the Mamba mixer's ``A_log``, ``D``, ``dt_bias`` and ``conv_w``: ``P(None)``
-in the reference) stays whole on every rank, outside FSDP
-(``ignored_params``); :func:`reduce_replicated_grads` averages its
-gradients over the ranks.  The AdamW moments are created like their
+the Mamba mixer's ``A_log``, ``D``, ``dt_bias``, ``conv_w`` and ``norm_w``)
+stays whole on every data rank, outside FSDP (``ignored_params``);
+:func:`reduce_replicated_grads` averages its gradients over the data
+ranks, on a model axis after reducing a partial sum over it to the leaf's
+own placement (``conv_w`` and ``norm_w`` are sharded there, the others
+replicated, and each rank's use of its own heads of ``A_log``, ``D`` and
+``dt_bias`` makes their gradients partial sums).  The AdamW moments are created like their
 parameters (:func:`repro_torch.optim.adamw_init`), so each rank holds
 its shard of them too (ZeRO).
 
 A model axis wider than 1 (tensor parallelism, the reference's production
-layout) runs for the dense and moe families (MLA included) under the
-default policy.  Each weight becomes a DTensor on the mesh's 'model'
-submesh with the placement its spec's model entry gives (an expert leaf
-[E, D, F] on F; :func:`tp_distribute`; :func:`init_sharded` draws a model
-no card holds leaf by leaf, each rank keeping its shard); the activations
-follow the reference's ``constrain`` sites
+layout) runs for every family under the default policy: dense, moe (MLA
+included), ssm and hybrid (the Mamba mixer's d_inner, conv channels and
+heads over 'model', hymba's sliding window on the sequence-sharded rows
+and ring cache), audio (each codebook's table and head vocabulary-sharded)
+and vlm (the replicated patch prefix beside the vocabulary-sharded text).
+Each weight becomes a DTensor on the mesh's 'model' submesh with the
+placement its spec's model entry gives (an expert leaf [E, D, F] on F;
+:func:`tp_distribute`; :func:`init_sharded` draws a model no card holds
+leaf by leaf, each rank keeping its shard); the activations follow the
+reference's ``constrain`` sites
 (:func:`repro_torch.models.layers.constrain`).  For training
 :func:`shard_model` then applies FSDP2 over the 'data' submesh, the usual
-2-D composition (the model-axis placement first).  Refused, each naming
-its ROADMAP item (A.18): the ssm/hybrid, audio and vlm families, and the
-policy values whose layouts are not ported (:func:`check_model_axis`).
-Each rank computes its loss over its own rows; an MoE layer's capacity,
-slot positions and aux loss are still the global batch's, as the
-reference's partitioner computes them (:mod:`repro_torch.models.moe`), so
-every ported family trains as one process does.
+2-D composition (the model-axis placement first).  An SSM head count the
+axis does not divide (hymba-1.5b's 50 heads over 4 or 16) puts the head
+dim over 'model' instead, in the scan and in the decode state, as
+:func:`cache_specs` does for the state (why: :mod:`repro_torch.models.ssm`).
+Refused, naming ROADMAP A.18: the policy values whose layouts are not
+ported (``sp_activations``, ``shard_seq_attn=False``, int8 KV, the CUDA
+kernels, the moe values and ``expert_axis``), and widths a sharded dim does
+not divide (:func:`check_model_axis`).  Each rank computes its loss over
+its own rows; an MoE layer's capacity, slot positions and aux loss are
+still the global batch's, as the reference's partitioner computes them
+(:mod:`repro_torch.models.moe`), so every family trains as one process
+does.
 
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch llama3.2-3b --smoke --device cpu --steps 4 --batch 4
@@ -240,20 +252,12 @@ def _data_mesh(mesh):
     return mesh["data"] if len(names) > 1 else mesh
 
 
-# the families whose model-axis layout is not ported yet, in ROADMAP A.18's order
-_TP_LATER = {"ssm": "the Mamba mixer's d_inner and heads over 'model' (models/ssm.py)",
-             "hybrid": "the Mamba mixer's d_inner and heads over 'model' (models/ssm.py)",
-             "audio": "the codebook heads' vocabulary over 'model'",
-             "vlm": "the patch prefix beside the sharded embedding"}
-
-
 def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int) -> None:
     """Raise unless ``cfg`` under ``policy`` runs on a model axis of
-    ``size``: the dense and moe families, the policy values whose layouts
-    are ported, and widths every sharded dim divides."""
+    ``size``: every family, under the policy values whose layouts are
+    ported (the others name ROADMAP A.18), at widths every sharded dim
+    divides."""
     where = "is not ported to a model axis wider than 1 yet (ROADMAP A.18)"
-    if cfg.family in _TP_LATER:
-        raise ValueError(f"{cfg.name} ({cfg.family}): {_TP_LATER[cfg.family]} {where}")
     expect = {"sp_activations": False, "shard_seq_attn": True, "model_axis": "model",
               "kv_cache_dtype": "bf16"}
     if cfg.moe is not None:
@@ -261,18 +265,22 @@ def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int) -> None
     bad = {f: getattr(policy, f) for f, v in expect.items() if getattr(policy, f) != v}
     if policy.attention_impl not in ("chunked", "naive"):
         bad["attention_impl"] = policy.attention_impl
-    if cfg.attn_type != "full":
-        bad["attn_type"] = cfg.attn_type
     if bad:
         raise ValueError(f"{cfg.name}: the layout of {bad} {where}")
-    widths = {"padded_vocab": cfg.padded_vocab}
+    widths = {"padded_vocab": cfg.padded_vocab}  # audio: each codebook's
     if cfg.moe is None:
-        widths["d_ff"] = cfg.d_ff
+        widths["d_ff"] = cfg.d_ff  # 0 for an ssm block
     else:
         widths.update(d_ff_expert=cfg.moe.d_ff_expert,
                       d_ff_shared=cfg.moe.d_ff_expert * cfg.moe.num_shared)
     if cfg.mla is not None:  # MLA's heads: each rank scores its own
         widths["mla_heads"] = cfg.num_heads
+    if cfg.has_ssm:  # z and the gated norm on d_inner, the conv on its channels
+        ssm = cfg.ssm
+        widths.update(d_inner=ssm.d_inner(cfg.d_model),
+                      conv_channels=ssm.d_inner(cfg.d_model) + 2 * ssm.d_state)
+        if ssm.n_heads(cfg.d_model) % size:  # the heads' fallback: their head dim
+            widths["ssm_head_dim"] = ssm.head_dim
     uneven = {k: w for k, w in widths.items() if w % size}
     if uneven:
         raise ValueError(f"{cfg.name}: {uneven} do not divide over a model axis of {size}")

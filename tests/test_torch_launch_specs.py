@@ -9,7 +9,11 @@ production meshes build over a fake process group of 256 / 512 ranks and
 refuse fewer; the dry run builds all 40 cells on both meshes with no
 error, and its per-device argument bytes equal the sum of the reference's
 shard shapes (JAX's ``NamedSharding.shard_shape`` on an ``AbstractMesh``
-of the same shape) for three cells.
+of the same shape) for three cells.  Every family's prefill and decode
+cells count one rank's collectives on the production mesh (dense, moe and
+mamba counted exactly at the smoke size); hymba-1.5b's decode cell puts
+its state's head dim over 'model' (its 50 heads do not divide 16), as the
+reference's ``cache_specs``.
 """
 
 from __future__ import annotations
@@ -113,8 +117,6 @@ def test_production_meshes_over_a_fake_world():
         make_production_mesh(device_type="cpu")  # no process group: one rank
 
 
-DENSE = ("llama3.2-3b", "phi4-mini-3.8b", "minitron-8b", "mistral-large-123b")
-MOE = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b")
 
 
 def test_dry_run_writes_eighty_records_without_an_error(tmp_path):
@@ -131,9 +133,8 @@ def test_dry_run_writes_eighty_records_without_an_error(tmp_path):
         for key in ("temp_size_in_bytes", "bytes_accessed_per_device", "hlo_bytes", "compile_s"):
             value = r["memory"][key] if key == "temp_size_in_bytes" else r[key]
             assert value is None and r["not_applicable"][key]
-        # the dense and moe families' serving cells run on the model axis: their
-        # collectives counted
-        if r["arch"] in DENSE + MOE and r["kind"] != "train":
+        # every family's serving cells run on the model axis: their collectives counted
+        if r["kind"] != "train":
             counted += 1
             assert "collectives" not in r["not_applicable"] and r["collective_count"] > 0
             assert r["collective_count"] == sum(v["count"] for v in r["collectives"].values())
@@ -141,7 +142,7 @@ def test_dry_run_writes_eighty_records_without_an_error(tmp_path):
         else:
             assert r["collectives"] is None and r["collective_count"] is None
             assert r["not_applicable"]["collectives"]
-    assert counted == 24
+    assert counted == 44  # 10 archs' prefill and decode, 2 long_500k, on both meshes
     with pytest.raises(SystemExit, match="bench_out"):
         dryrun.main(["--all", "--out-dir", "bench_out/dryrun"])
 
@@ -232,3 +233,72 @@ def test_dry_run_counts_a_moe_cells_collectives_at_the_smoke_size(kind):
     else:  # split-latent decode: the absorbed queries, the rope queries, the partials
         assert got[False]["collectives"]["c10d_functional.all_gather_into_tensor"]["count"] == \
             3 * L
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_dry_run_counts_a_mamba_cells_collectives_at_the_smoke_size(kind):
+    """mamba2-2.7b's smoke variant (2 layers, d_model 64, d_inner 128, 8 SSM
+    heads of 16, bfloat16) on the production mesh: the embedding and each
+    layer's gated norm (its float32 sum of squares a row) and output are an
+    all-reduce each over 'model'; each layer gathers its conv output [rows,
+    tokens, 160] whole and, its 8 heads not dividing 16 ranks, the scan's
+    output from its head-dim columns [rows, tokens, 8, 16]."""
+    from repro_torch.config import ShapeConfig, ShardingPolicy, get_arch, smoke_variant
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg = smoke_variant(get_arch("mamba2-2.7b"))
+    tokens = 2 * (64 if kind == "prefill" else 1)  # rank 0's 2 rows of 32 over 16
+    with dryrun.fake_world(512):
+        mesh = make_production_mesh(device_type="cpu")
+        got = dryrun.step_collectives(mesh, cfg, ShapeConfig(kind, 64, 32, kind),
+                                      ShardingPolicy())["collectives"]
+    L, D, d_in = cfg.num_layers, cfg.d_model, 128
+    ar, ag = got["c10d_functional.all_reduce"], got["c10d_functional.all_gather_into_tensor"]
+    assert ar == {"count": 2 * L + 1, "bytes": tokens * (D * 2 * (L + 1) + 4 * L)}
+    assert ag == {"count": 2 * L, "bytes": L * tokens * ((d_in + 32) + d_in) * 2}
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_dry_run_cuts_padded_logits_without_gathering_them(kind):
+    """phi4-mini-3.8b's smoke variant with a vocabulary of 200 in a table of
+    256 rows (16 a rank over 16 model ranks; the cut's shards are 13 wide)
+    on the production mesh: the logits keep their padded shards, and the
+    cut for the caller is one all-to-all in which rank 0 sends its last 3
+    columns of its rows' float32 logits; every other collective is the one
+    of the same model without pad rows."""
+    import dataclasses
+
+    from repro_torch.config import ShapeConfig, ShardingPolicy, get_arch, smoke_variant
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg = smoke_variant(get_arch("phi4-mini-3.8b"))
+    tokens = 2 * (64 if kind == "prefill" else 1)  # rank 0's 2 rows of 32 over 16
+    got = {}
+    with dryrun.fake_world(512):
+        mesh = make_production_mesh(device_type="cpu")
+        for vocab in (256, 200):
+            got[vocab] = dryrun.step_collectives(
+                mesh, dataclasses.replace(cfg, vocab_size=vocab),
+                ShapeConfig(kind, 64, 32, kind), ShardingPolicy())["collectives"]
+    cut = got[200].pop("c10d_functional.all_to_all_single")
+    assert cut == {"count": 1, "bytes": 3 * tokens * 4}
+    assert got[200] == got[256]
+
+
+def test_hymba_decode_cell_shards_its_states_head_dim():
+    """hymba-1.5b's 50 SSM heads divide neither the 16 model ranks nor (so)
+    its state's placement: the state [L, B, 50, 64, 16] goes over 'model' on
+    its head dim (4 columns a rank), the conv window on its 3,232 channels,
+    the ring cache of 1,024 entries on its sequence; the cell's collectives
+    are counted."""
+    with dryrun.fake_world(512):
+        mesh = make_production_mesh(device_type="cpu")
+        cell = specs.build_cell(mesh, "hymba-1.5b", "decode_32k")
+        rec = dryrun.run_cell("hymba-1.5b", "decode_32k", False, verbose=False)
+    cache, sh = cell.args[1], cell.in_shardings[1]
+    assert tuple(sh["ssm"]["state"].spec) == (None, "data", None, "model", None)
+    assert sh["ssm"]["state"].shard_shape(cache["ssm"]["state"].shape) == (32, 8, 50, 4, 16)
+    assert sh["ssm"]["conv"].shard_shape(cache["ssm"]["conv"].shape) == (32, 8, 3, 202)
+    assert sh["k"].shard_shape(cache["k"].shape) == (32, 8, 64, 5, 64)
+    assert rec["status"] == "ok" and rec["collective_count"] > 0
+    assert "collectives" not in rec["not_applicable"]

@@ -190,10 +190,11 @@ def test_shard_shapes_equal_jax_named_sharding_on_a_small_mesh():
 
 
 def test_shard_model_refuses_a_model_axis_wider_than_one():
-    """For a family whose model-axis layout is not ported (the dense
-    family's is: tests/test_torch_tensor_parallel.py)."""
+    """Under a policy value whose model-axis layout is not ported (every
+    family's default layout is: tests/test_torch_tensor_parallel*.py)."""
     from torch.distributed.device_mesh import DeviceMesh
 
+    from repro_torch.config import ShardingPolicy
     from repro_torch.models import init_params
 
     model = init_params(smoke_variant(get_arch("mamba2-2.7b")), seed=0, dtype=torch.float32,
@@ -201,7 +202,7 @@ def test_shard_model_refuses_a_model_axis_wider_than_one():
     with fake_world(4):
         mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
         with pytest.raises(ValueError, match=r"model axis wider than 1 .*ROADMAP A\.18"):
-            sharding.shard_model(model, mesh)
+            sharding.shard_model(model, mesh, ShardingPolicy(sp_activations=True))
         pod = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("pod", "data"))
         with pytest.raises(ValueError, match="FSDP runs over"):
             sharding.shard_model(model, pod)

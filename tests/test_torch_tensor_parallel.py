@@ -21,8 +21,12 @@ a ``file://`` rendezvous under ``tmp_path``:
   the vocabulary-sharded argmax equal to ``argmax``.
 
 In this process, over a fake process group: ``constrain``'s placements on a
-model axis of 2, the identity on a model axis of 1, and the refusals of the
-families and policy values whose layouts are not ported (ROADMAP A.18).
+model axis of 2, the identity on a model axis of 1, ``check_model_axis``
+accepting the ssm, hybrid, audio and vlm families' configurations at widths
+2, 4 and 16 (their cells run in ``test_torch_tensor_parallel_ssm.py`` and
+``test_torch_tensor_parallel_families.py``) and refusing a width a sharded
+dim does not divide, and the refusals of the policy values whose layouts
+are not ported (ROADMAP A.18).
 """
 
 from __future__ import annotations
@@ -51,12 +55,10 @@ from repro.models import prefill as ref_prefill
 from repro.runtime import make_serve_step as ref_make_serve_step
 from repro.runtime import make_train_state as ref_make_train_state
 from repro.runtime import make_train_step as ref_make_train_step
-from repro_torch.config import SHAPES, ShardingPolicy, TrainConfig, get_arch, smoke_variant
+from repro_torch.config import ShardingPolicy, TrainConfig, get_arch, smoke_variant
 from repro_torch.convert import leaves_to_reference, train_state_from_reference
 from repro_torch.data import make_batch
 from repro_torch.launch.dryrun import fake_world
-from repro_torch.launch.specs import build_cell
-from repro_torch.models import init_params
 from repro_torch.models.layers import activate_mesh, constrain
 from repro_torch.runtime import make_train_step
 from repro_torch.runtime import sharding
@@ -356,21 +358,18 @@ def test_constrain_refuses_a_plain_tensor_on_a_model_axis():
             constrain(torch.ones(2, 3), ("pod", "data"), None)
 
 
-@pytest.mark.parametrize("arch,family", [
-    ("mamba2-2.7b", "ssm"), ("hymba-1.5b", "hybrid"), ("musicgen-medium", "audio"),
-    ("paligemma-3b", "vlm")])
-def test_unported_families_refuse_naming_their_roadmap_item(arch, family):
-    cfg = smoke_variant(get_arch(arch))
-    model = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
-    with fake_world(4):
-        mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
-        for call in (lambda: sharding.tp_distribute(model, mesh),
-                     lambda: sharding.shard_model(model, mesh),
-                     lambda: build_cell(mesh, cfg, SHAPES["decode_32k"]).fn(None, None, None,
-                                                                            None)):
-            with pytest.raises(ValueError, match=rf"\({family}\).*ROADMAP A\.18"):
-                call()
-    assert not any(isinstance(p, DTensor) for p in model.parameters())  # nothing ran sharded
+@pytest.mark.parametrize("width", [2, 4, 16])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b", "musicgen-medium", "paligemma-3b"])
+def test_families_run_on_a_model_axis(arch, width):
+    """hymba-1.5b's 50 SSM heads divide neither 4 nor 16: its head dim (64)
+    goes over 'model' instead."""
+    sharding.check_model_axis(get_arch(arch), ShardingPolicy(), width)
+
+
+def test_a_mamba_width_that_does_not_divide_is_refused():
+    cfg = smoke_variant(get_arch("mamba2-2.7b"))  # d_inner 128, conv channels 160
+    with pytest.raises(ValueError, match=r"d_inner.*do not divide over a model axis of 3"):
+        sharding.check_model_axis(cfg, ShardingPolicy(), 3)
 
 
 @pytest.mark.parametrize("field,value", [
