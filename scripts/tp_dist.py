@@ -1,13 +1,14 @@
-"""Tensor parallelism (a model axis wider than 1) over every rank of a
+"""Tensor parallelism (a model axis wider than 1) and expert parallelism
+(an MoE model's experts split over the data ranks) over every rank of a
 ``torchrun`` world: every family's cells (``launch/specs.build_cell``) on
 ``(data, model)`` meshes, held against one card.
 
     torchrun --nproc-per-node 4 scripts/tp_dist.py                   # 4 cards: NCCL
     PYTHONPATH=src torchrun --nproc-per-node 4 scripts/tp_dist.py --device cpu --smoke \\
-        --seq 32 --prompt 32 --gen 4 --check-batch 4 --serve-batch 2 --lr 1e-3  # the CPU: gloo
+        --seq 32 --prompt 32 --gen 4 --check-batch 4 --serve-batch 4 --lr 1e-3  # the CPU: gloo
 
 ``--parts`` picks the parts, run in the order given (default: all
-fifteen, (i)-(xv)).  The
+nineteen, (i)-(xix)).  The
 dense family's: (i) ``train``: ``--check-arch`` (llama3.2-3b) at full width
 and depth in float32: the train cell's step on each of ``--meshes`` (``1x4``
 and ``2x2``: data x model), ``--check-steps`` steps of the global batch
@@ -61,8 +62,16 @@ logits, every cache leaf after each decode step (the KV
 ring, the Mamba conv window and state) within 1e-4 of their max |value|,
 and the two sides' greedy tokens equal; recorded as (ii) the collectives
 and the profile of one more prefill and decode step.
-The one-card side of (v), (vii) and the serving parts (ix)-(xv) is fed
-the sharded side's greedy tokens.
+Expert parallelism's (each on ``2x2`` and ``4x1``: the
+experts split on E over the data ranks, each expert's d_ff over 'model';
+each data rank serves its rows of the batch): (xvi) ``moe-ep-train``: (iv)
+on those meshes.  (xvii) ``moe-ep-serve``: (v) on each, the collectives
+and profile of one more prefill and decode step recorded.  (xviii)
+``kimi-ep-check``: (vii) on each.  (xix) ``kimi-ep-serve``: (vi) on the
+last mesh (96 of kimi's 384 experts a rank, drawn as slabs of the rank's
+rows).
+The one-card side of (v), (vii), (xvii), (xviii) and the serving parts
+(ix)-(xv) is fed the sharded side's greedy tokens.
 Rank 0 prints one JSON line (also written to ``--out``, after each part)
 with the cards' name and power limit, and exits non-zero on a missed bar.
 Every part ends with the ranks' one decision (an all-reduce of whether
@@ -124,6 +133,9 @@ FAMILIES = {"ssm": "mamba2-2.7b", "hybrid": "hymba-1.5b", "audio": "musicgen-med
             "vlm": "paligemma-3b"}
 FAMILY_TRAIN_LAYERS = 2
 TIE_MARGIN = 1e-6  # a flip with a larger margin is no near-tie
+# expert parallelism's parts (xvi)-(xix): the experts split on E over the data
+# ranks, d_ff over 'model' on (2, 2); (xix) on the last mesh alone
+EP_MESHES = "2x2,4x1"
 
 
 def _sync(dev):
@@ -154,6 +166,23 @@ def _gather(x):
     return out
 
 
+def _data_rows(t, mesh, dim: int = 0):
+    """``t``'s rows of every data rank joined along ``dim`` in their order,
+    on every rank (``t`` itself on a data axis of 1)."""
+    n = mesh.size(0)  # the ('data', 'model') mesh's data axis
+    if n == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.get_group("data"))
+    return torch.cat(parts, dim=dim)
+
+
+def _weights_gb(model) -> float:
+    """The weights this rank holds, GB."""
+    return sum((p.to_local() if isinstance(p, DTensor) else p).numel() * p.element_size()
+               for p in model.parameters()) / 1e9
+
+
 def _whole(model, lead: bool) -> dict:
     """Every parameter whole on rank 0's host (a gather a leaf)."""
     out = {}
@@ -164,11 +193,12 @@ def _whole(model, lead: bool) -> dict:
     return out
 
 
-def _full(tree):
-    """A cache tree's leaves whole (nested groups included)."""
+def _full(tree, mesh):
+    """A cache tree's leaves [L, B, ...] whole (nested groups included):
+    gathered over 'model', every data rank's rows joined."""
     if isinstance(tree, dict):
-        return {k: _full(v) for k, v in tree.items()}
-    return tree.full_tensor() if isinstance(tree, DTensor) else tree
+        return {k: _full(v, mesh) for k, v in tree.items()}
+    return _data_rows(tree.full_tensor() if isinstance(tree, DTensor) else tree, mesh, 1)
 
 
 def _flat(tree, prefix=""):
@@ -365,7 +395,7 @@ def _params_within_c18(got: dict, want: dict, lr: float) -> dict:
                 ok=worst <= 2 * lr and outside <= total // 10_000)
 
 
-def _train_check(opts, dev, rank, cfg) -> dict:
+def _train_check(opts, dev, rank, cfg, meshes: str | None = None) -> dict:
     """Parts (i) and (iv): the train cell on each mesh against rank 0
     unsharded.  An MoE model's routing is compared too: the losses, aux
     losses and grad norms are held at the first step and at every step
@@ -385,7 +415,7 @@ def _train_check(opts, dev, rank, cfg) -> dict:
         return [next(stream) for _ in range(n_steps + 1)]
 
     runs = {}
-    for spec in opts.meshes.split(","):
+    for spec in (meshes or opts.meshes).split(","):
         data, model_ax = map(int, spec.split("x"))
         if data * model_ax != world:
             raise SystemExit(f"mesh {spec} is not a world of {world}")
@@ -472,9 +502,11 @@ def _serve_run(cfg, mesh, policy, model, prompt: dict, seq: int, gen: int, dev, 
     greedy decode-cell steps on a cache of seq + gen entries; the logits of
     each and the final cache (full tensors; with ``each_step`` the cache
     after every decode step, on the host), and with ``record`` the times,
-    collectives and profiles.  ``routes``: a dict the MoE layers' routing
-    is recorded into."""
-    B = prompt["tokens"].shape[0]
+    collectives and profiles.  ``prompt`` is this data rank's rows; the
+    logits, tokens and caches returned are every data rank's, joined.
+    ``routes``: a dict the MoE layers' routing of this rank's rows is
+    recorded into."""
+    B = prompt["tokens"].shape[0] * mesh.size(0)  # the global batch
     pre = build_cell(mesh, cfg, ShapeConfig("prefill", seq, B, "prefill"), policy,
                      param_dtype=model.embed.dtype)
     dec = build_cell(mesh, cfg, ShapeConfig("decode", seq + gen, B, "decode"), policy,
@@ -491,7 +523,7 @@ def _serve_run(cfg, mesh, policy, model, prompt: dict, seq: int, gen: int, dev, 
         nxt = greedy_tokens(lg[:, -1:])
         _sync(dev)
         rec["prefill_s"] = time.perf_counter() - t0
-        logits = [lg.full_tensor() if isinstance(lg, DTensor) else lg]
+        logits = [_data_rows(lg.full_tensor() if isinstance(lg, DTensor) else lg, mesh)]
         cache = extend_cache(cfg, cache, seq + gen)
         tokens, walls = [nxt], []
         for i in range(gen):
@@ -502,15 +534,15 @@ def _serve_run(cfg, mesh, policy, model, prompt: dict, seq: int, gen: int, dev, 
             nxt = greedy_tokens(lg[:, -1:])
             _sync(dev)
             walls.append(1e3 * (time.perf_counter() - t0))
-            logits.append(lg.full_tensor() if isinstance(lg, DTensor) else lg)
+            logits.append(_data_rows(lg.full_tensor() if isinstance(lg, DTensor) else lg, mesh))
             tokens.append(nxt)
             if each_step:  # gathered on every rank, kept on rank 0's host
-                whole = _full(cache)
+                whole = _full(cache, mesh)
                 steps.append(_flat(whole) if dist.get_rank() == 0 else None)
     rec["decode_ms"] = walls
     rec["decode_ms_median"] = sorted(walls[1:] or walls)[len(walls[1:] or walls) // 2]
-    rec["tokens"] = torch.cat(tokens, dim=1).cpu().tolist()
-    final = _full(cache)  # before the recorded steps below write into it again
+    rec["tokens"] = _data_rows(torch.cat(tokens, dim=1), mesh).cpu().tolist()
+    final = _full(cache, mesh)  # before the recorded steps below write into it again
     if record:  # one more prefill and last decode step, counted, then profiled
         last = torch.tensor([seq + gen - 1], dtype=torch.int32, device=dev)
         for name, fn in (("prefill", lambda: pre.fn(model, prompt)),
@@ -564,26 +596,45 @@ def _rel_err(got, want, until: list, dim: int, first: int = 0) -> float | None:
     return float((got - want).abs()[held].max() / want.abs()[held].max())
 
 
-def _serve(opts, dev, rank, cfg) -> dict:
-    """Parts (ii) and (vi): a model served on (1, N) in bfloat16, its
-    weights drawn sharded."""
-    policy = ShardingPolicy(attn_chunk=min(1024, opts.prompt))
+def _mesh(dev, spec: str | None):
+    """The ('data', 'model') mesh of ``spec`` ('DxM'; None: (1, world))."""
     world = dist.get_world_size()
-    mesh = init_device_mesh(dev.type, (1, world), mesh_dim_names=("data", "model"))
+    data, model_ax = map(int, (spec or f"1x{world}").split("x"))
+    if data * model_ax != world:
+        raise SystemExit(f"mesh {spec} is not a world of {world}")
+    return init_device_mesh(dev.type, (data, model_ax), mesh_dim_names=("data", "model"))
+
+
+def _rows_of(prompt: dict, mesh) -> dict:
+    """This data rank's rows of a prompt."""
+    d, n = mesh.get_local_rank("data"), mesh.size(0)
+    if prompt["tokens"].shape[0] % n:
+        raise ValueError(f"--serve-batch {prompt['tokens'].shape[0]} does not split over {n} "
+                         "data ranks")
+    return {k: v[d * v.shape[0] // n:(d + 1) * v.shape[0] // n] for k, v in prompt.items()}
+
+
+def _serve(opts, dev, rank, cfg, mesh_spec: str | None = None) -> dict:
+    """Parts (ii), (vi) and (xix): a model served in bfloat16 on
+    ``mesh_spec`` (default (1, N); each data rank its rows of the batch),
+    its weights drawn sharded."""
+    policy = ShardingPolicy(attn_chunk=min(1024, opts.prompt))
+    mesh = _mesh(dev, mesh_spec)
     _peak_reset(dev)
     _sync(dev)
     t0 = time.perf_counter()
     model = init_sharded(cfg, mesh, seed=0, dtype=torch.bfloat16, device=dev, policy=policy)
     _sync(dev)
     init_s = time.perf_counter() - t0
-    weights_gb = sum(p.to_local().numel() * p.element_size() for p in model.parameters()) / 1e9
+    weights_gb = _weights_gb(model)
     init_peak = _peak_gb(dev)
-    prompt = _prompt(cfg, opts.serve_batch, opts.prompt, 0, dev)
+    prompt = _rows_of(_prompt(cfg, opts.serve_batch, opts.prompt, 0, dev), mesh)
     _peak_reset(dev)
     logits, cache, rec = _serve_run(cfg, mesh, policy, model, prompt, opts.prompt, opts.gen, dev,
                                     record=True)
     finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
-    rec.update(arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16", mesh=f"1x{world}",
+    rec.update(arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16",
+               mesh=f"{mesh.size(0)}x{mesh.size(1)}",
                batch=opts.serve_batch, prompt=opts.prompt, gen=opts.gen,
                cache_entries=opts.prompt + opts.gen, init_s=init_s,
                weights_gb_a_rank=weights_gb, weights_gb_by_rank=_gather(weights_gb),
@@ -597,28 +648,33 @@ def _serve(opts, dev, rank, cfg) -> dict:
 
 
 def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None = None,
-                 family: bool = False) -> dict:
+                 family: bool = False, mesh_spec: str | None = None,
+                 record: bool = False) -> dict:
     """Parts (iii), (v), (vii) and the families' serving parts: ``cfg`` in
     float32 sharded on (1, N) against rank 0 alone (the same draws), the
     one-card side fed the sharded side's tokens, on a prompt of ``seq``
     positions (default ``--prompt``); an MoE model's routing compared, each
     sequence held before its first touched position.  ``family``: every
-    cache leaf held after each decode step, the greedy tokens of the two
-    sides equal, and the collectives and profile of one more prefill and
-    decode step recorded."""
+    cache leaf held after each decode step and the greedy tokens of the two
+    sides equal; ``record``: the collectives and profile of one more
+    prefill and decode step recorded.
+    ``mesh_spec``: the sharded side's mesh (default (1, N)); each data rank
+    serves its rows of the batch."""
     seq = seq or opts.prompt
     policy = ShardingPolicy(attn_chunk=min(1024, seq))
-    world = dist.get_world_size()
-    mesh = init_device_mesh(dev.type, (1, world), mesh_dim_names=("data", "model"))
+    mesh = _mesh(dev, mesh_spec)
     moe = cfg.moe is not None
     model = init_sharded(cfg, mesh, seed=seed, dtype=torch.float32, device=dev, policy=policy)
-    weights_gb = sum(p.to_local().numel() * p.element_size() for p in model.parameters()) / 1e9
+    weights_gb = _weights_gb(model)
+    weights_by_rank = _gather(weights_gb)
     prompt = _prompt(cfg, opts.serve_batch, seq, seed, dev)
     routes = {} if moe else None
     _peak_reset(dev)
-    logits, caches, rec = _serve_run(cfg, mesh, policy, model, prompt, seq, gen, dev,
-                                     record=family, routes=routes, each_step=family)
+    logits, caches, rec = _serve_run(cfg, mesh, policy, model, _rows_of(prompt, mesh), seq, gen,
+                                     dev, record=record,
+                                     routes=routes, each_step=family)
     peaks = _gather(_peak_gb(dev))
+    routes = _global_rows(routes, mesh) if moe else None
     if rank == 0:
         logits = [lg.cpu() for lg in logits]
         caches = caches if family else [_flat(caches)]
@@ -647,7 +703,8 @@ def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None 
         errs = {k: max(v) for k, v in errs.items() if v}
         out = dict(arch=cfg.name, layers=cfg.num_layers,
                    experts=cfg.moe.num_experts if moe else None, dtype="float32",
-                   mesh=f"1x{world}", batch=opts.serve_batch, prompt=seq, gen=gen,
+                   mesh=f"{mesh.size(0)}x{mesh.size(1)}", batch=opts.serve_batch, prompt=seq,
+                   gen=gen, weights_gb_by_rank=weights_by_rank,
                    caches_held=len(caches), rel_err=errs, sequences_held=keep, held_until=until,
                    flips=flips, weights_gb_a_rank=weights_gb,
                    serve_peak_gb_by_rank=peaks,
@@ -660,9 +717,19 @@ def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None 
     return out
 
 
+def _each_mesh(part, meshes: str) -> dict | None:
+    """``part(mesh_spec)`` on each of ``meshes`` in turn: rank 0's records
+    by mesh, ok where every mesh's is."""
+    runs = {spec: part(spec) for spec in meshes.split(",")}
+    if dist.get_rank() != 0:
+        return None
+    return dict(meshes=runs, ok=all(r["ok"] for r in runs.values()))
+
+
 FAMILY_PARTS = tuple(f"{f}-{k}" for f in FAMILIES for k in ("train", "serve"))
+EP_PARTS = ("moe-ep-train", "moe-ep-serve", "kimi-ep-check", "kimi-ep-serve")
 PARTS = ("train", "check", "serve", "moe-train", "moe-serve", *FAMILY_PARTS, "kimi-check",
-         "kimi-serve")
+         "kimi-serve", *EP_PARTS)
 
 
 def main(argv=None) -> int:
@@ -707,12 +774,23 @@ def main(argv=None) -> int:
         "kimi-check": lambda: _serve_check(opts, dev, rank, _cfg(opts, KIMI, *KIMI_CHECK),
                                            opts.check_gen),
         "kimi-serve": lambda: _serve(opts, dev, rank, _cfg(opts, KIMI, KIMI_SERVE_LAYERS)),
+        "moe-ep-train": lambda: _train_check(opts, dev, rank, _cfg(opts, MOE, MOE_TRAIN_LAYERS),
+                                             EP_MESHES),
+        "moe-ep-serve": lambda: _each_mesh(lambda m: _serve_check(
+            opts, dev, rank, _cfg(opts, MOE), opts.gen, mesh_spec=m, record=True),
+            EP_MESHES),
+        "kimi-ep-check": lambda: _each_mesh(lambda m: _serve_check(
+            opts, dev, rank, _cfg(opts, KIMI, *KIMI_CHECK), opts.check_gen, mesh_spec=m),
+            EP_MESHES),
+        "kimi-ep-serve": lambda: _serve(opts, dev, rank, _cfg(opts, KIMI, KIMI_SERVE_LAYERS),
+                                        EP_MESHES.split(",")[-1]),
     }
     for family, arch in FAMILIES.items():
         run[f"{family}-train"] = (lambda a=arch: _train_check(
             opts, dev, rank, _cfg(opts, a, FAMILY_TRAIN_LAYERS)))
         run[f"{family}-serve"] = (lambda c=_cfg(opts, arch): _serve_check(
-            opts, dev, rank, c, opts.check_gen, seq=2 * c.window or None, family=True))
+            opts, dev, rank, c, opts.check_gen, seq=2 * c.window or None, family=True,
+            record=True))
     t0 = time.perf_counter()
     card = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                            capture_output=True, text=True, check=True).stdout.strip().splitlines()

@@ -55,6 +55,7 @@ from repro_torch.config import SHAPES, ShardingPolicy, TrainConfig, get_arch
 from repro_torch.launch.mesh import HW, make_production_mesh
 from repro_torch.launch.specs import build_cell, cell_skip_reason, mesh_axis_size
 from repro_torch.models import Transformer, init_cache, model_mesh, param_shapes
+from repro_torch.models.layers import batch_ranks
 from repro_torch.models.flops import decode_flops_per_token, param_counts, train_flops_per_token
 from repro_torch.optim import AdamWState
 from repro_torch.runtime import TrainState
@@ -177,9 +178,10 @@ def step_collectives(mesh, cfg, shape, policy, param_dtype=None) -> dict:
 def _refusal(cfg, policy, mesh) -> str | None:
     """Why ``cfg`` under ``policy`` cannot run on ``mesh``'s model axis (a
     policy value whose layout is not ported: the refusal names ROADMAP
-    A.18), or None."""
+    A.18) or (an MoE model's experts) its batch axes, or None."""
     try:
-        check_model_axis(cfg, policy, mesh_axis_size(mesh, policy.model_axis))
+        check_model_axis(cfg, policy, mesh_axis_size(mesh, policy.model_axis),
+                         batch_ranks(mesh))
     except ValueError as e:
         return str(e)
     return None

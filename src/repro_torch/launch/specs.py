@@ -13,8 +13,11 @@ production mesh over a fake process group:
 :func:`~repro_torch.models.layers.activate_mesh` of the cell's mesh, so on
 a mesh with a model axis wider than 1 it runs on real ranks with DTensor
 inputs (the model sharded by :mod:`repro_torch.runtime.sharding`) as the
-reference's partitioned program (every family); a policy value whose
-model-axis layout is not ported raises when its step runs (ROADMAP A.18).
+reference's partitioned program (every family), and an MoE model's train,
+prefill and decode steps on batch axes wider than 1 run expert
+parallelism (each rank its E / ranks experts, the slots sent to them by
+all-to-all: :mod:`repro_torch.models.moe`); a policy value whose layout is
+not ported there raises when its step runs (ROADMAP A.18).
 
 Cell skip policy: ``long_500k`` runs only for sub-quadratic archs (ssm /
 hybrid-with-SWA); dense-attention archs get a recorded skip (a 500k dense
@@ -32,6 +35,7 @@ from repro_torch.config import (SHAPES, ArchConfig, ShapeConfig, ShardingPolicy,
                                 get_arch)
 from repro_torch.models import activate_mesh, cache_shapes, param_shapes, prefill
 from repro_torch.models.layers import PartitionSpec as P
+from repro_torch.models.layers import batch_ranks
 from repro_torch.optim import AdamWState
 from repro_torch.runtime import TrainState, make_serve_step, make_train_state, make_train_step
 from repro_torch.runtime.sharding import (DP, batch_specs, cache_specs, check_model_axis, named,
@@ -128,13 +132,14 @@ def _batch_shardings(mesh, cfg: ArchConfig, kind: str, batch_size: int, policy) 
 
 
 def _on_mesh(fn, mesh, cfg: ArchConfig, policy: ShardingPolicy):
-    """``fn`` run under ``mesh``; on a model axis wider than 1 only where
-    its layout is ported."""
-    width = mesh_axis_size(mesh, "model")
+    """``fn`` run under ``mesh``; on a model axis wider than 1, or an MoE
+    model's experts over batch axes wider than 1, only where its layout is
+    ported."""
+    width, batch = mesh_axis_size(mesh, "model"), batch_ranks(mesh)
 
     def step(*args):
-        if width > 1:
-            check_model_axis(cfg, policy, width)
+        if width > 1 or batch > 1:
+            check_model_axis(cfg, policy, width, batch)
         with activate_mesh(mesh):
             return fn(*args)
 

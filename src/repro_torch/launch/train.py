@@ -28,7 +28,8 @@ Under ``torchrun --nproc-per-node N`` the standard mode is data parallel,
 as the reference's ``run_standard`` on a ``(N, 1)`` data x model mesh: the
 state is sharded over the ``N`` ranks with FSDP
 (:func:`repro_torch.runtime.sharding.shard_model`: each weight's ``d_in``
-over 'data', the AdamW moments with it), every rank draws the same global
+over 'data', the AdamW moments with it; an MoE model's routed experts split
+on E over the ranks instead, expert parallelism), every rank draws the same global
 batch of ``--batch`` rows and trains on its ``--batch / N`` of them, and
 the printed loss is the global batch's.  NCCL with a card a rank; gloo
 with ``--device cpu`` only.  Checkpoints are gathered a leaf at a time and
@@ -67,7 +68,7 @@ from repro_torch.data import SyntheticStream, batch_load_spec, make_batch
 from repro_torch.launch.mesh import make_chain_mesh, make_data_mesh
 from repro_torch.models import activate_mesh, init_params, param_counts
 from repro_torch.runtime import make_train_state, make_train_step
-from repro_torch.runtime.sharding import shard_model
+from repro_torch.runtime.sharding import init_sharded, shard_model
 from repro_torch.runtime.dlt_runner import make_dlt_train_step, stage_batches
 from repro_torch.runtime.ft import FailureEvent, FailureSim, RecoveringChain, StragglerSim
 
@@ -118,9 +119,13 @@ def init_state(args, cfg, tcfg, mesh=None, policy=None):
     """Float32 weights drawn from ``--seed`` on ``--device`` and zeroed AdamW
     moments: the state a run starts from.  With a data ``mesh`` every rank
     draws the same weights and keeps its shards of them and of the moments
-    (FSDP, ``policy``'s specs)."""
-    model = init_params(cfg, seed=args.seed, dtype=torch.float32, device=args.device)
-    if mesh is not None:
+    (FSDP, ``policy``'s specs; an MoE model's experts drawn split over the
+    ranks, expert parallelism: :func:`~repro_torch.runtime.sharding.init_sharded`)."""
+    if mesh is None:
+        model = init_params(cfg, seed=args.seed, dtype=torch.float32, device=args.device)
+    else:
+        model = init_sharded(cfg, mesh, seed=args.seed, dtype=torch.float32,
+                             device=args.device, policy=policy)
         shard_model(model.requires_grad_(True), mesh, policy)
     return make_train_state(model, tcfg)
 

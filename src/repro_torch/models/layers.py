@@ -31,9 +31,9 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.convert import resolve_device
 
-__all__ = ["PartitionSpec", "activate_mesh", "current_mesh", "model_mesh", "constrain",
-           "fix_spec", "placements", "replicated", "local_offset", "write_prefix", "write_slot",
-           "Initializer", "rms_norm", "rope", "apply_rope", "init_glu_mlp", "glu_mlp",
+__all__ = ["PartitionSpec", "DP", "activate_mesh", "current_mesh", "model_mesh", "batch_ranks",
+           "constrain", "fix_spec", "placements", "replicated", "local_offset", "write_prefix", "write_slot",
+           "Deferred", "Initializer", "rms_norm", "rope", "apply_rope", "init_glu_mlp", "glu_mlp",
            "cross_entropy"]
 
 
@@ -79,6 +79,15 @@ def model_mesh(mesh=None):
     model's weights and activations are DTensors on under tensor
     parallelism."""
     return getattr(_local, "model", None) if mesh is None else _model_submesh(mesh)
+
+
+DP = ("pod", "data")  # the batch axes
+
+
+def batch_ranks(mesh) -> int:
+    """The ranks of ``mesh``'s batch axes ('pod' and 'data') together."""
+    names = _axis_names(mesh)
+    return math.prod(mesh.size(i) for i, a in enumerate(names) if a in DP)
 
 
 def _model_submesh(mesh):
@@ -197,6 +206,23 @@ WHOLE = 1 << 30  # a leaf of more elements is drawn in slabs
 PIECE = 1 << 28  # about the elements of a slab
 
 
+class Deferred:
+    """A leaf made when called (what :class:`Initializer`'s methods return):
+    its ``shape`` is known before it exists, and ``rows`` (a range of dim
+    0) makes only those rows, the numbers the whole leaf holds there."""
+
+    def __init__(self, shape, make):
+        self.shape, self._make = tuple(shape), make
+
+    def __call__(self, rows: slice | None = None):
+        return self._make(rows)
+
+
+def _rows(shape, rows) -> tuple:
+    """(start, stop) of ``rows`` along dim 0 of ``shape`` (all of it for None)."""
+    return (0, shape[0]) if rows is None else rows.indices(shape[0])[:2]
+
+
 class Initializer:
     """Seeded parameter factory with the reference's fan-in scaling: a
     normal draw times ``fan_in ** -0.5`` (``fan_in`` is ``shape[-2]``) unless
@@ -205,13 +231,16 @@ class Initializer:
     the reference's numbers; tests carry the reference's parameters across
     instead.
 
-    Each method returns a callable that makes the leaf when called, so the
-    caller decides when each leaf exists (the draws follow the order of the
-    calls): :func:`~repro_torch.models.init_params` makes and places a leaf
-    at a time.  A leaf of more than ``WHOLE`` elements is drawn a slab of
-    about ``PIECE`` elements along dim 0 at a time, so its float32
-    temporaries are a slab's (kimi-k2-1t-a32b's expert leaves hold 5.6 G
-    elements, 45 GB as two float32 tensors)."""
+    Each method returns a :class:`Deferred` leaf, so the caller decides when
+    each leaf exists (the draws follow the order of the calls) and how much
+    of it: :func:`~repro_torch.models.init_params` makes and places a leaf
+    at a time, and a rank can make only its rows of dim 0.  A leaf of more
+    than ``WHOLE`` elements is drawn a slab of about ``PIECE`` elements
+    along dim 0 at a time, so its float32 temporaries are a slab's
+    (kimi-k2-1t-a32b's expert leaves hold 5.6 G elements, 45 GB as two
+    float32 tensors); a part of its rows is made from every slab drawn in
+    turn (the generator runs on) and keeps only the rows asked for.  A
+    smaller leaf is drawn whole and cut."""
 
     def __init__(self, seed: int, dtype=torch.bfloat16, device=None):
         self.device = resolve_device(device)
@@ -219,29 +248,34 @@ class Initializer:
         self.gen.manual_seed(seed)
         self.dtype = dtype
 
-    def normal(self, shape, scale=None):
-        return functools.partial(self._normal, shape, scale)
+    def normal(self, shape, scale=None) -> Deferred:
+        return Deferred(shape, functools.partial(self._normal, tuple(shape), scale))
 
-    def zeros(self, shape, dtype=None):
-        return functools.partial(torch.zeros, shape, dtype=dtype or self.dtype,
-                                 device=self.device)
+    def zeros(self, shape, dtype=None) -> Deferred:
+        return Deferred(shape, functools.partial(self._fill, tuple(shape), torch.zeros, dtype))
 
-    def ones(self, shape, dtype=None):
-        return functools.partial(torch.ones, shape, dtype=dtype or self.dtype,
-                                 device=self.device)
+    def ones(self, shape, dtype=None) -> Deferred:
+        return Deferred(shape, functools.partial(self._fill, tuple(shape), torch.ones, dtype))
 
-    def _normal(self, shape, scale):
+    def _fill(self, shape, fill, dtype, rows):
+        lo, hi = _rows(shape, rows)
+        return fill((hi - lo, *shape[1:]), dtype=dtype or self.dtype, device=self.device)
+
+    def _normal(self, shape, scale, rows):
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = (fan_in ** -0.5) if scale is None else scale
+        lo, hi = _rows(shape, rows)
         if math.prod(shape) <= WHOLE:
             x = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
-            return (x * scale).to(self.dtype)
-        out = torch.empty(shape, dtype=self.dtype, device=self.device)
-        rows = max(1, PIECE // math.prod(shape[1:]))
-        for i in range(0, shape[0], rows):
-            slab = out[i:i + rows]
-            slab.copy_(torch.randn(slab.shape, generator=self.gen, dtype=torch.float32,
-                                   device=self.device).mul_(scale))
+            return ((x if rows is None else x[lo:hi]) * scale).to(self.dtype)
+        out = torch.empty((hi - lo, *shape[1:]), dtype=self.dtype, device=self.device)
+        step = max(1, PIECE // math.prod(shape[1:]))
+        for i in range(0, shape[0], step):
+            slab = torch.randn((min(step, shape[0] - i), *shape[1:]), generator=self.gen,
+                               dtype=torch.float32, device=self.device)
+            a, b = max(i, lo), min(i + step, hi)
+            if a < b:
+                out[a - lo:b - lo].copy_(slab[a - i:b - i].mul_(scale))
         return out
 
 

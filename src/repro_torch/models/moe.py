@@ -31,25 +31,38 @@ Sharded, as the reference's partitioned program (its ``constrain`` sites):
     sums stay partial through the gather back and the gates' weighted sum
     (both linear) and through the shared experts' (the dense MLP's
     layout), and one all-reduce of the [B, S, D] output at its constraint
-    sums them.  The experts are not sharded over 'data' (``expert_axis``
-    reaches :func:`constrain`, which moves only the model axis): each rank
-    runs its own slots through every expert (ROADMAP A.18);
+    sums them;
   * on a data group wider than 1 (the batch axes of the active mesh: FSDP,
     or ``(data, model)``) each rank routes its own rows, but the capacity,
     the slot positions and the aux loss are the global batch's, as the
     reference's partitioner computes them (ROADMAP C.19): a slot's position
     in its expert is the count of the earlier ranks' slots there (one
-    all-reduce of the ranks' E counts) plus the rank's own cumsum, so the same slots
-    are dropped, and the aux loss's means are sums all-reduced over the
-    ranks (differentiable: the gradient averaging over the ranks then gives
-    the global batch's gradient).  A rank runs only its own kept slots:
-    the experts act row by row.  One card and a data group of 1 run none of
-    these collectives.
+    all-reduce of the ranks' E counts) plus the rank's own cumsum, so the
+    same slots are dropped, and the aux loss's means are sums all-reduced
+    over the ranks (differentiable: the gradient averaging over the ranks
+    then gives the global batch's gradient);
+  * there, under the default ``expert_axis="data"``, the experts are split
+    over those ranks (expert parallelism: each rank holds E / ranks routed
+    experts, :mod:`repro_torch.runtime.sharding`).  The gshard slots go to
+    them by all-to-all over the batch axes ('pod' and 'data' as one
+    group), with variable splits: the count table above, read to the host
+    once a layer (the only host read), says how many kept slots each rank
+    sends each expert, so only kept slots travel.  Each rank puts the slots
+    it gets at their global positions in the reference's [E / ranks, C, D]
+    buffer, runs its experts on it (d_ff over 'model' as above), and the
+    reverse all-to-all brings each output back to the row it left.  Both
+    go through ``_AllToAll``, whose gradient is the reverse exchange; an
+    expert's gradient so sums every rank's loss's, and the train step
+    divides it by the ranks once
+    (:func:`repro_torch.runtime.sharding.mean_expert_grads`).  ``"dense"``
+    sends every rank's tokens to every rank's experts and the weighted
+    sums back.  Under ``expert_axis="model"`` on a model axis of 1 every
+    rank runs its slots through every expert (FSDP gathers them).  A mesh
+    whose batch ranks the experts are not split over as the policy says
+    raises.  One card and a data group of 1 run none of these collectives.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.distributed as dist
@@ -58,7 +71,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.config import ArchConfig
-from .layers import constrain, current_mesh, replicated
+from .layers import DP, constrain, current_mesh, model_mesh, replicated
 
 __all__ = ["init_moe", "moe_ffn", "capacity"]
 
@@ -87,71 +100,61 @@ def _act(cfg: ArchConfig):
     return lambda g: F.gelu(g, approximate="tanh")  # jax.nn.gelu's default
 
 
-DP = ("pod", "data")
-
-
-def _batch_groups() -> list:
-    """The process groups of the active mesh's batch axes wider than 1,
-    the major axis first ('pod', then 'data'): the ranks whose rows make
-    the global batch."""
+def _batch_group():
+    """The process group of the active mesh's batch axes wider than 1
+    ('pod' and 'data' flattened into one, the pod major): the ranks whose
+    rows make the global batch, in its order; ``None`` where that is one
+    rank."""
     mesh = current_mesh()
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    return [mesh.get_group(a) for a in DP if a in names and mesh.size(names.index(a)) > 1]
+    axes = tuple(a for a in DP if a in names and mesh.size(names.index(a)) > 1)
+    if not axes:
+        return None
+    return mesh[axes]._flatten().get_group() if len(axes) > 1 else mesh.get_group(axes[0])
 
 
-def _ranks(groups) -> int:
-    return math.prod(g.size() for g in groups)
-
-
-def _sum_over(t, groups):
-    """``t`` summed over the ranks of ``groups``."""
-    for g in groups:
-        t = funcol.all_reduce(t, "sum", g)
-    return funcol.wait_tensor(t)
+def _sum_over(t, group):
+    """``t`` summed over the ranks of ``group``."""
+    return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """``t`` summed over the ranks of ``groups``; its gradient is summed
+    """``t`` summed over the ranks of ``group``; its gradient is summed
     over them too, as the sum's adjoint (each rank's loss holds the global
     sum)."""
 
     @staticmethod
-    def forward(ctx, t, groups):
-        ctx.groups = groups
-        return _sum_over(t, groups)
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _sum_over(t, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _sum_over(grad, ctx.groups), None
+        return _sum_over(grad, ctx.group), None
 
 
-def _earlier_ranks(counts, groups):
-    """The sum of ``counts`` [E] over the ranks of ``groups`` that come
-    before this one in the global batch's order (the first group major):
-    one all-reduce of a [ranks, E] table that holds each rank's counts in
-    its row."""
-    index, size = 0, 1
-    for g in reversed(groups):  # the innermost axis varies fastest
-        index += dist.get_group_rank(g, dist.get_rank()) * size
-        size *= g.size()
-    table = torch.zeros(size, counts.shape[0], dtype=counts.dtype, device=counts.device)
-    table[index] = counts
-    return _sum_over(table, groups)[:index].sum(dim=0)
+def _by_rank(counts, group):
+    """[ranks, E]: every rank of ``group``'s ``counts`` [E] in its row, in
+    the global batch's order (one all-reduce of a table that holds this
+    rank's counts in its row)."""
+    table = counts.new_zeros(group.size(), counts.shape[0])
+    table[dist.get_group_rank(group, dist.get_rank())] = counts
+    return _sum_over(table, group)
 
 
-def _router(p, x2d, mo, groups=()):
+def _router(p, x2d, mo, group=None):
     """x2d [N, D] float32 -> (gates [N, k], experts [N, k] int64, aux loss);
-    the aux loss's means over the global batch of ``groups``' ranks."""
+    the aux loss's means over the global batch of ``group``'s ranks."""
     logits = x2d @ _local(p.router).float()
     probs = torch.softmax(logits, dim=-1)  # [N, E]
     gates, experts = torch.topk(probs, mo.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     top1 = F.one_hot(experts[:, 0], mo.num_experts).float()
-    if groups:
-        n = x2d.shape[0] * _ranks(groups)
+    if group is not None:
+        n = x2d.shape[0] * group.size()
         me, ce = (_SumOverRanks.apply(torch.stack([probs.sum(dim=0), top1.sum(dim=0)]),
-                                      groups) / n).unbind(0)
+                                      group) / n).unbind(0)
     else:
         me, ce = probs.mean(dim=0), top1.mean(dim=0)
     aux = mo.num_experts * torch.sum(me * ce)
@@ -194,12 +197,129 @@ def _like(t, like):
     return DTensor.from_local(t, like.device_mesh, like.placements, run_check=False)
 
 
-def _expert_ffn(p, buf, act_fn, expert_axis, ff_axis):
+def _exchange(t, send: list, recv: list, group):
+    """An all-to-all over ``group``: ``t``'s first ``send[0]`` rows go to
+    rank 0, the next ``send[1]`` to rank 1, ...; returns the rows every
+    rank sent here, rank 0's first (``recv[j]`` of them from rank j)."""
+    return funcol.wait_tensor(funcol.all_to_all_single(t.contiguous(), recv, send, group))
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_exchange`; its gradient goes back by the reverse exchange
+    (what came from rank j returns to rank j, into the rows it left)."""
+
+    @staticmethod
+    def forward(ctx, t, send, recv, group):
+        ctx.args = recv, send, group
+        return _exchange(t, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, *ctx.args), None, None, None
+
+
+def _slab(w, ff_dim: int):
+    """This rank's experts of an expert leaf split over the batch axes: its
+    local slab, on a model axis wider than 1 a DTensor there with each
+    expert's d_ff on ``ff_dim`` (the leaf's own split: the gradient of the
+    slab is the leaf's local gradient)."""
+    local = w.to_local()
+    tp = model_mesh()
+    return local if tp is None else DTensor.from_local(local, tp, [Shard(ff_dim)], run_check=False)
+
+
+def _split(w) -> int:
+    """The ranks an expert leaf's E is split over (its E over the experts
+    this rank holds)."""
+    return w.shape[0] // (w.to_local() if isinstance(w, DTensor) else w).shape[0]
+
+
+def _expert_ffn(w_gate, w_up, w_down, buf, act_fn, expert_axis, ff_axis):
     """buf [E, C, D] -> [E, C, D] through each expert's gated MLP; on a
     model axis a partial sum over it (``w_down`` sharded on its input)."""
-    g = constrain(torch.bmm(buf, p.w_gate), expert_axis, None, ff_axis)
-    u = constrain(torch.bmm(buf, p.w_up), expert_axis, None, ff_axis)
-    return torch.bmm(act_fn(g) * u, p.w_down)
+    g = constrain(torch.bmm(buf, w_gate), expert_axis, None, ff_axis)
+    u = constrain(torch.bmm(buf, w_up), expert_axis, None, ff_axis)
+    return torch.bmm(act_fn(g) * u, w_down)
+
+
+def _host_counts(kept, table, C: int, slots: int) -> list:
+    """``kept`` [ranks, E] as lists on the host: the all-to-alls' split
+    sizes, one read a layer.  On the meta device (the dry run, which has no
+    data) the balanced routing's instead: each rank's ``slots`` spread
+    evenly over the experts, kept up to the capacity ``C``."""
+    if not kept.is_meta:
+        return kept.tolist()
+    ranks, E = table.shape
+    each = [slots // E + (e < slots % E) for e in range(E)]
+    return [[min(max(C - r * n, 0), n) for n in each] for r in range(ranks)]
+
+
+def _dispatched(p, x2d, flat_e, mine, keep, table, C, group, x, act_fn, expert_axis, ff_axis):
+    """Expert parallelism (gshard): this rank's kept slots through the
+    experts that live on the ranks of ``group`` and back.  ``table`` [ranks,
+    E] holds every rank's slots by expert, ``mine`` each slot's position
+    among this rank's.  The slots go out in expert order, which groups them
+    by the rank that holds their expert (variable splits, read from the
+    table: only kept slots travel); each rank puts the ones it gets at
+    their global positions in the reference's [E / ranks, C, D] buffer of
+    its experts (a rank's slots of an expert follow the earlier ranks'),
+    runs its experts on it (d_ff over 'model' as on one card), and sends
+    each slot's output back by the reverse all-to-all to the row it left.
+    Returns (each slot's output [N k, D], a dropped slot's 0, as this
+    rank's local tensor; the experts' output, on a model axis a DTensor
+    whose placements that local tensor has)."""
+    ranks, me, (N, D) = group.size(), dist.get_group_rank(group, dist.get_rank()), x2d.shape
+    E = table.shape[1]
+    here = slice(me * E // ranks, (me + 1) * E // ranks)  # this rank's experts
+    earlier = table.cumsum(dim=0) - table  # each rank's first global position an expert
+    kept = torch.minimum((C - earlier).clamp(min=0), table)  # [ranks, E]
+    sizes = _host_counts(kept, table, C, flat_e.shape[0])
+    send = [sum(sizes[me][r * E // ranks:(r + 1) * E // ranks]) for r in range(ranks)]
+    recv = [sum(row[here]) for row in sizes]
+    # this rank's kept slots in expert order, each expert's in position
+    # order; a dropped slot into one spare row past them, never sent
+    start = kept[me].cumsum(dim=0) - kept[me]
+    row = torch.where(keep, start[flat_e] + mine, sum(send))
+    rows = x2d.new_zeros(sum(send) + 1, D).index_copy(
+        0, row, x2d.repeat_interleave(flat_e.shape[0] // N, dim=0))  # k a token
+    got = _AllToAll.apply(rows[:sum(send)], send, recv, group)
+    # a received row's place in [E / ranks, C, D]: its expert's C positions,
+    # its sending rank's first one there, its order among that rank's
+    depth = min(C, N * ranks)
+    n = kept[:, here].reshape(-1)  # by sending rank, then expert
+    first = (torch.arange(E // ranks, device=x2d.device) * depth + earlier[:, here]).reshape(-1)
+    total = sum(recv)
+    at = (torch.repeat_interleave(first - (n.cumsum(dim=0) - n), n, output_size=total)
+          + torch.arange(total, device=x2d.device))
+    buf = x2d.new_zeros(E // ranks * depth, D).index_copy(0, at, got)
+    out = _expert_ffn(_slab(p.w_gate, 2), _slab(p.w_up, 2), _slab(p.w_down, 1),
+                      replicated(buf.view(E // ranks, depth, D), x), act_fn, expert_axis,
+                      ff_axis)
+    # on a model axis each model rank sends back its own partial sums (the
+    # local tensor of a Partial DTensor) over its own batch group: they reach
+    # the model rank of the same index, so they stay its partial sums, summed
+    # once at the output's constraint
+    back = _AllToAll.apply(_local(out).reshape(-1, D)[at], recv, send, group)
+    return torch.cat([back, back.new_zeros(1, D)])[row], out
+
+
+def _dense_dispatched(p, x2d, w, group, act_fn):
+    """moe_impl 'dense' with the experts split over the ranks of ``group``
+    (a model axis of 1): every rank's tokens and their router weights ``w``
+    [N, E] for each rank's experts go to that rank (one all-to-all each),
+    each rank sums its E / ranks experts' outputs weighted by them, and the
+    reverse all-to-all brings the sums back, added in the ranks' order (the
+    experts')."""
+    ranks, (N, D), E = group.size(), x2d.shape, w.shape[1]
+    n = [N] * ranks
+    xs = _AllToAll.apply(x2d.repeat(ranks, 1), n, n, group)  # [ranks N, D]
+    ws = _AllToAll.apply(w.view(N, ranks, E // ranks).transpose(0, 1).reshape(ranks * N, -1),
+                         n, n, group)
+    g = torch.einsum("nd,edf->nef", xs, p.w_gate.to_local())
+    u = torch.einsum("nd,edf->nef", xs, p.w_up.to_local())
+    per_e = torch.einsum("nef,efd->ned", act_fn(g) * u, p.w_down.to_local())
+    part = torch.einsum("ned,ne->nd", per_e.float(), ws)
+    return _AllToAll.apply(part, n, n, group).view(ranks, N, D).sum(dim=0)
 
 
 def moe_ffn(p, x, cfg: ArchConfig, impl: str = "gshard", expert_axis: str = "data",
@@ -214,41 +334,63 @@ def moe_ffn(p, x, cfg: ArchConfig, impl: str = "gshard", expert_axis: str = "dat
     N, E, k = B * S, mo.num_experts, mo.top_k
     x2d = _local(x).reshape(N, D)
     act_fn = _act(cfg)
-    groups = _batch_groups()
-    gates, experts, aux = _router(p, x2d.float(), mo, groups)
+    group = _batch_group()
+    ranks = 1 if group is None else group.size()
+    parallel = ranks > 1 and expert_axis == "data"  # expert parallelism
+    if _split(p.w_gate) != (ranks if parallel else 1):
+        raise ValueError(
+            f"the experts are split over {_split(p.w_gate)} batch ranks and the batch over "
+            f"{ranks}: under expert_axis {expert_axis!r} they are split on E over the batch "
+            "axes exactly when those are wider than 1 (runtime.sharding.tp_distribute, "
+            "init_sharded or shard_model)")
+    gates, experts, aux = _router(p, x2d.float(), mo, group)
 
     if impl == "dense":
-        g = torch.einsum("nd,edf->nef", x2d, p.w_gate)
-        u = torch.einsum("nd,edf->nef", x2d, p.w_up)
-        per_e = torch.einsum("nef,efd->ned", act_fn(g) * u, p.w_down)  # [N, E, D]
         w = torch.zeros(N, E, dtype=torch.float32, device=x.device).scatter_add_(1, experts,
                                                                                 gates)
-        y = replicated(torch.einsum("ned,ne->nd", per_e.float(), w).to(x.dtype).reshape(B, S, D),
-                       x)
+        if parallel:
+            y = _dense_dispatched(p, x2d, w, group, act_fn).to(x.dtype).reshape(B, S, D)
+        else:
+            g = torch.einsum("nd,edf->nef", x2d, p.w_gate)
+            u = torch.einsum("nd,edf->nef", x2d, p.w_up)
+            per_e = torch.einsum("nef,efd->ned", act_fn(g) * u, p.w_down)  # [N, E, D]
+            y = torch.einsum("ned,ne->nd", per_e.float(), w).to(x.dtype).reshape(B, S, D)
+        y = replicated(y, x)
     elif impl == "gshard":
-        C = capacity(cfg, N * _ranks(groups))
+        C = capacity(cfg, N * ranks)
         flat_e = experts.reshape(-1)  # [N k] expert of each slot
         flat_g = gates.reshape(-1)
         # position of each slot within its expert (cumsum over slot order):
         # among this rank's slots, and in the global batch's slot order
         onehot = F.one_hot(flat_e, E)
         mine = (torch.cumsum(onehot, dim=0) - 1).gather(1, flat_e[:, None])[:, 0]
-        flat_pos = mine + _earlier_ranks(onehot.sum(dim=0), groups)[flat_e] if groups else mine
+        if group is None:
+            flat_pos = mine
+        else:
+            table = _by_rank(onehot.sum(dim=0), group)  # [ranks, E]
+            me = dist.get_group_rank(group, dist.get_rank())
+            flat_pos = mine + (table[:me].sum(dim=0))[flat_e]
         keep = flat_pos < C
         flat_g = torch.where(keep, flat_g, 0.0)
-        R = min(C, N)  # this rank's kept slots of an expert, at most
-        safe_pos = torch.where(keep, mine, R - 1)
-        # the kept slots into [E, R, D] (each position written once); the
-        # dropped ones into one spare row past the buffer
-        row = torch.where(keep, flat_e * R + mine, E * R)
-        buf = torch.zeros(E * R + 1, D, dtype=x.dtype, device=x.device)
-        buf.index_copy_(0, row, x2d.repeat_interleave(k, dim=0))
-        out_buf = _expert_ffn(p, replicated(buf[:E * R].view(E, R, D), x), act_fn,
-                              expert_axis, ff_axis)
+        if parallel:
+            back, out_buf = _dispatched(p, x2d, flat_e, mine, keep, table, C, group, x, act_fn,
+                                        expert_axis, ff_axis)
+        else:  # every expert here: this rank's slots into [E, R, D]
+            R = min(C, N)  # this rank's kept slots of an expert, at most
+            safe_pos = torch.where(keep, mine, R - 1)
+            # the kept slots into [E, R, D] (each position written once); the
+            # dropped ones into one spare row past the buffer
+            row = torch.where(keep, flat_e * R + mine, E * R)
+            buf = torch.zeros(E * R + 1, D, dtype=x.dtype, device=x.device)
+            buf.index_copy_(0, row, x2d.repeat_interleave(k, dim=0))
+            out_buf = _expert_ffn(p.w_gate, p.w_up, p.w_down,
+                                  replicated(buf[:E * R].view(E, R, D), x), act_fn, expert_axis,
+                                  ff_axis)
+            back = _local(out_buf)[flat_e, safe_pos]
         # gather back, weighted by gates; a token's k slots summed in order
         # (on a model axis, each rank its partial sums: linear in them; the
         # gates' gradient is then partial too, and ``_against`` sums it)
-        y2 = _local(out_buf)[flat_e, safe_pos] * _against(flat_g, out_buf)[:, None].to(x.dtype)
+        y2 = back * _against(flat_g, out_buf)[:, None].to(x.dtype)
         y = _like(y2.float().view(N, k, D).sum(dim=1).to(x.dtype).reshape(B, S, D), out_buf)
     else:
         raise ValueError(impl)

@@ -182,22 +182,24 @@ def _init_block(init: Initializer, cfg: ArchConfig):
 
 
 def _placed(tree: dict, place, prefix: str = "") -> dict:
-    """``tree``'s deferred leaves made in order, each placed as soon as it is."""
+    """``tree``'s deferred leaves made and placed in order, one at a time."""
     return {k: (_placed(v, place, f"{prefix}{k}.") if isinstance(v, dict) else
-                place(f"{prefix}{k}", v() if callable(v) else v)) for k, v in tree.items()}
+                place(f"{prefix}{k}", v)) for k, v in tree.items()}
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
                 device=None, place=None) -> Transformer:
     """A :class:`Transformer` drawn from ``seed`` on ``device`` (``None``: the
     card, raising without one; the draws are made there, never in host
-    memory, and are not the reference's numbers).  ``place(name, tensor)``,
-    if given, maps each leaf as soon as it is drawn (a rank's shard:
-    :func:`repro_torch.runtime.sharding.init_sharded`), so a model no card
-    holds is never whole, nor is more than one of its leaves; the draws
-    are the same."""
+    memory, and are not the reference's numbers).  ``place(name, leaf)``,
+    if given, makes each leaf in turn (a
+    :class:`~repro_torch.models.layers.Deferred` one, or a tensor made
+    already) and returns what the model keeps of it (a rank's shard:
+    :func:`repro_torch.runtime.sharding.init_sharded`, which draws only
+    the rows of dim 0 its shard needs), so a model no card holds is never
+    whole, nor is more than one of its leaves; the draws are the same."""
     init = Initializer(seed, dtype=dtype, device=device)
-    place = place or (lambda name, t: t)
+    place = place or (lambda name, leaf: leaf() if callable(leaf) else leaf)
     V, D = cfg.padded_vocab, cfg.d_model
     top: dict = {}
     if cfg.family == "audio":
@@ -212,7 +214,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     params = _placed(top, place)
     params["blocks"] = [_placed(_init_block(init, cfg), place, f"blocks.{l}.")
                         for l in range(cfg.num_layers)]
-    params["ln_f"] = place("ln_f", init.ones((D,))())
+    params["ln_f"] = place("ln_f", init.ones((D,)))
     return Transformer(cfg, params)
 
 

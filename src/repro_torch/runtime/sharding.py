@@ -6,8 +6,8 @@ port of the reference's ``runtime/sharding.py``, its rules kept as data.
 Conventions (mesh axes: optional 'pod', 'data', 'model'):
   * weights [.., d_in, d_out]:  d_in over 'data' (FSDP/ZeRO-3), d_out over
     'model' (TP) — flipped for down/output projections so TP contracts;
-  * expert weights [E, D, F]: E over 'data' (expert parallelism), F over
-    'model';
+  * expert weights [E, D, F]: E over ('pod', 'data') (expert parallelism),
+    F over 'model';
   * embeddings [V, D]: V over 'model', D over 'data';
   * activations: batch over ('pod', 'data');
   * KV caches: sequence over 'model' (split-KV decode), batch over dp;
@@ -39,24 +39,38 @@ heads over 'model', hymba's sliding window on the sequence-sharded rows
 and ring cache), audio (each codebook's table and head vocabulary-sharded)
 and vlm (the replicated patch prefix beside the vocabulary-sharded text).
 Each weight becomes a DTensor on the mesh's 'model' submesh with the
-placement its spec's model entry gives (an expert leaf [E, D, F] on F;
-:func:`tp_distribute`; :func:`init_sharded` draws a model no card holds
-leaf by leaf, each rank keeping its shard); the activations follow the
-reference's ``constrain`` sites
-(:func:`repro_torch.models.layers.constrain`).  For training
+placement its spec's model entry gives (:func:`tp_distribute`;
+:func:`init_sharded` draws a model no card holds leaf by leaf, each rank
+keeping its shard); the activations follow the reference's ``constrain``
+sites (:func:`repro_torch.models.layers.constrain`).  An MoE model's routed
+expert leaves on batch axes wider than 1 ('pod' and 'data' together, any
+model axis; the FSDP-only (N, 1) mesh too), under the default
+``expert_axis="data"``, take both entries of their spec instead: a DTensor on the whole mesh, E over the batch axes and F over
+'model' (expert parallelism, the reference's ``expert_axis="data"``), so
+each rank holds its E / ranks experts only, and the gshard slots travel to
+them by all-to-all (:mod:`repro_torch.models.moe`).  For training
 :func:`shard_model` then applies FSDP2 over the 'data' submesh, the usual
-2-D composition (the model-axis placement first).  An SSM head count the
-axis does not divide (hymba-1.5b's 50 heads over 4 or 16) puts the head
-dim over 'model' instead, in the scan and in the decode state, as
-:func:`cache_specs` does for the state (why: :mod:`repro_torch.models.ssm`).
-Refused, naming ROADMAP A.18: the policy values whose layouts are not
-ported (``sp_activations``, ``shard_seq_attn=False``, int8 KV, the CUDA
-kernels, the moe values and ``expert_axis``), and widths a sharded dim does
-not divide (:func:`check_model_axis`).  Each rank computes its loss over
-its own rows; an MoE layer's capacity, slot positions and aux loss are
-still the global batch's, as the reference's partitioner computes them
-(:mod:`repro_torch.models.moe`), so every family trains as one process
-does.
+2-D composition (the model-axis placement first), with the expert leaves
+left out of it (``ignored_params``: they are split already and FSDP never
+gathers them); their gradients, each the sum of every rank's loss's, are
+divided by the ranks once a step (:func:`mean_expert_grads`), and AdamW,
+its global norm and the checkpoint take them as any sharded leaf.  An SSM
+head count the axis does not divide (hymba-1.5b's 50 heads over 4 or 16)
+puts the head dim over 'model' instead, in the scan and in the decode
+state, as :func:`cache_specs` does for the state (why:
+:mod:`repro_torch.models.ssm`).  Refused, naming ROADMAP A.18: the policy
+values whose layouts are not ported to a model axis wider than 1
+(``sp_activations``, ``shard_seq_attn=False``, int8 KV, the CUDA kernels,
+``moe_impl="dense"``, ``expert_axis="model"``, ``expert_ff_axis="data"``);
+on batch axes wider than 1 with a model axis of 1, ``moe_impl="dense"``
+runs expert parallelism too and ``expert_axis="model"`` keeps every
+expert on every rank (FSDP's layout), while ``expert_ff_axis="data"``
+beside ``expert_axis="data"`` is refused (the reference's spec would name
+'data' twice); and widths a sharded dim does not divide, the experts over
+the batch ranks included (:func:`check_model_axis`).  Each rank computes its loss over its own
+rows; an MoE layer's capacity, slot positions and aux loss are still the
+global batch's, as the reference's partitioner computes them, so every
+family trains as one process does.
 
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch llama3.2-3b --smoke --device cpu --steps 4 --batch 4
@@ -73,14 +87,12 @@ from torch.distributed.tensor import DTensor, Shard
 from repro_torch.config import ArchConfig, ShardingPolicy
 from repro_torch.convert import reference_key
 from repro_torch.models.layers import PartitionSpec as P
-from repro_torch.models.layers import fix_spec, model_mesh, placements
+from repro_torch.models.layers import DP, batch_ranks, fix_spec, model_mesh, placements
 
 __all__ = ["param_specs", "batch_specs", "cache_specs", "shardings_for", "named",
            "NamedSharding", "placements", "shard_model", "is_sharded", "check_model_axis",
            "tp_distribute", "init_sharded", "data_group", "reduce_replicated_grads",
-           "mean_over_ranks"]
-
-DP = ("pod", "data")
+           "mean_over_ranks", "mean_expert_grads", "is_expert_leaf"]
 
 
 def _rule(path_keys: tuple, shape: tuple, policy: ShardingPolicy) -> P:
@@ -252,21 +264,35 @@ def _data_mesh(mesh):
     return mesh["data"] if len(names) > 1 else mesh
 
 
-def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int) -> None:
+def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int, batch: int = 1) -> None:
     """Raise unless ``cfg`` under ``policy`` runs on a model axis of
-    ``size``: every family, under the policy values whose layouts are
-    ported (the others name ROADMAP A.18), at widths every sharded dim
-    divides."""
-    where = "is not ported to a model axis wider than 1 yet (ROADMAP A.18)"
-    expect = {"sp_activations": False, "shard_seq_attn": True, "model_axis": "model",
-              "kv_cache_dtype": "bf16"}
-    if cfg.moe is not None:
-        expect.update(moe_impl="gshard", expert_axis="data", expert_ff_axis="model")
-    bad = {f: getattr(policy, f) for f, v in expect.items() if getattr(policy, f) != v}
-    if policy.attention_impl not in ("chunked", "naive"):
-        bad["attention_impl"] = policy.attention_impl
-    if bad:
-        raise ValueError(f"{cfg.name}: the layout of {bad} {where}")
+    ``size`` and batch axes of ``batch`` ranks together: every family,
+    under the policy values whose layouts are ported to a model axis (the
+    others name ROADMAP A.18), at widths every sharded dim divides.  On
+    batch axes wider than 1 an MoE model under ``expert_axis="data"``
+    runs expert parallelism: the batch ranks must divide its experts, and
+    each expert's d_ff cannot be over 'data' too."""
+    if size > 1:
+        expect = {"sp_activations": False, "shard_seq_attn": True, "model_axis": "model",
+                  "kv_cache_dtype": "bf16"}
+        if cfg.moe is not None:
+            expect.update(moe_impl="gshard", expert_axis="data", expert_ff_axis="model")
+        bad = {f: getattr(policy, f) for f, v in expect.items() if getattr(policy, f) != v}
+        if policy.attention_impl not in ("chunked", "naive"):
+            bad["attention_impl"] = policy.attention_impl
+        if bad:
+            raise ValueError(f"{cfg.name}: the layout of {bad} is not ported to a model axis "
+                             "wider than 1 yet (ROADMAP A.18)")
+    if cfg.moe is not None and batch > 1 and policy.expert_axis == "data":
+        if policy.expert_ff_axis == "data":
+            raise ValueError(f"{cfg.name}: expert_ff_axis 'data' beside expert_axis 'data' "
+                             "puts the experts and each expert's d_ff over the same batch axes "
+                             "(the reference's spec names 'data' twice, which JAX refuses)")
+        if cfg.moe.num_experts % batch:
+            raise ValueError(f"{cfg.name}: {{'num_experts': {cfg.moe.num_experts}}} do not "
+                             f"divide over batch axes of {batch} ranks (expert parallelism)")
+    if size == 1:
+        return
     widths = {"padded_vocab": cfg.padded_vocab}  # audio: each codebook's
     if cfg.moe is None:
         widths["d_ff"] = cfg.d_ff  # 0 for an ssm block
@@ -286,25 +312,44 @@ def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int) -> None
         raise ValueError(f"{cfg.name}: {uneven} do not divide over a model axis of {size}")
 
 
-def _local_shard(t: torch.Tensor, mesh, pl) -> torch.Tensor:
-    """This rank's piece of the whole tensor ``t`` under placements ``pl``,
-    a contiguous copy (``t`` can be freed)."""
+EXPERT_LEAVES = ("blocks/moe/w_gate", "blocks/moe/w_up", "blocks/moe/w_down")
+
+
+def is_expert_leaf(name: str) -> bool:
+    """Whether the port's parameter ``name`` is a routed expert leaf ([E, D,
+    F] or [E, F, D]; the shared experts' are not)."""
+    return reference_key(name)[0] in EXPERT_LEAVES
+
+
+def _expert_parallel(mesh, cfg: ArchConfig, policy: ShardingPolicy) -> bool:
+    """Whether ``cfg``'s experts are split over ``mesh``'s batch axes."""
+    return cfg.moe is not None and batch_ranks(mesh) > 1 and policy.expert_axis == "data"
+
+
+def _place(mesh, policy: ShardingPolicy, experts: bool):
+    """``place(name, leaf)`` -> the DTensor of this rank's shard of a leaf
+    (a whole tensor, or a :class:`~repro_torch.models.layers.Deferred` one,
+    of which only the rows of dim 0 the shard needs are made): with
+    ``experts``, a routed expert leaf on the whole mesh (E over the batch
+    axes, F over 'model'), every other leaf on the model submesh (a plain
+    tensor, whole, where the model axis is 1)."""
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
-    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, pl)
-    index = tuple(slice(o, o + n) for o, n in zip(offset, shape))
-    return t[index].clone(memory_format=torch.contiguous_format)
-
-
-def _tp_place(mesh, policy: ShardingPolicy):
-    """``place(name, whole tensor)`` -> the DTensor of its shard on the
-    model submesh of ``mesh``."""
     tp = model_mesh(mesh)
 
-    def place(name, t):
-        pl = placements(tp, _leaf_spec(name, t.shape, policy))
-        return DTensor.from_local(_local_shard(t, tp, pl), tp, pl, run_check=False,
-                                  shape=t.shape, stride=t.stride())
+    def place(name, leaf):
+        shape = tuple(leaf.shape)
+        on = mesh if experts and is_expert_leaf(name) else tp
+        if on is None:
+            return leaf() if callable(leaf) else leaf
+        pl = placements(on, _leaf_spec(name, shape, policy))
+        size, offset = compute_local_shape_and_global_offset(shape, on, pl)
+        rows = slice(offset[0], offset[0] + size[0])
+        t = leaf(rows) if callable(leaf) else leaf[rows]
+        index = tuple(slice(o, o + n) for o, n in zip(offset[1:], size[1:]))
+        local = t[(slice(None), *index)].clone(memory_format=torch.contiguous_format)
+        return DTensor.from_local(local, on, pl, run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta").stride())
 
     return place
 
@@ -315,16 +360,19 @@ def _model_width(mesh) -> int:
 
 
 def tp_distribute(model, mesh, policy: ShardingPolicy | None = None):
-    """Make ``model``'s weights DTensors on ``mesh``'s model submesh, each
-    with the placement its spec's model entry gives, in place; returns the
-    model (unchanged on a model axis of 1).  Each rank keeps its shard of
-    the whole weights it holds."""
+    """Make ``model``'s weights DTensors on ``mesh`` in place, each with the
+    placement its spec gives: a routed expert leaf of an MoE model on the
+    whole mesh when the batch axes hold more than one rank (expert
+    parallelism: E over 'pod' and 'data', F over 'model'), every other
+    weight on the model submesh (its spec's model entry); returns the
+    model (unchanged on a model axis of 1 without expert parallelism).
+    Each rank keeps its shard of the whole weights it holds."""
     policy = policy or ShardingPolicy()
-    width = _model_width(mesh)
-    if width == 1:
+    width, experts = _model_width(mesh), _expert_parallel(mesh, model.cfg, policy)
+    if width == 1 and not experts:
         return model
-    check_model_axis(model.cfg, policy, width)
-    place = _tp_place(mesh, policy)
+    check_model_axis(model.cfg, policy, width, batch_ranks(mesh))
+    place = _place(mesh, policy, experts)
     for name, p in list(model.named_parameters()):
         if isinstance(p, DTensor):
             raise ValueError(f"{name} is already sharded")
@@ -336,18 +384,19 @@ def tp_distribute(model, mesh, policy: ShardingPolicy | None = None):
 
 def init_sharded(cfg: ArchConfig, mesh, seed: int = 0, dtype=torch.bfloat16, device=None,
                  policy: ShardingPolicy | None = None):
-    """:func:`repro_torch.models.init_params`'s model, the same draws, with
-    each weight sharded over ``mesh``'s model axis as it is drawn: a rank
-    never holds more than one whole layer (how a model no card holds is
-    made)."""
+    """:func:`repro_torch.models.init_params`'s model, the same draws, each
+    weight placed as :func:`tp_distribute` places it as it is drawn: a
+    rank draws only the rows of dim 0 its shard needs (an expert leaf:
+    its experts, the generator run on past the others), and never holds
+    more than one leaf whole (how a model no card holds is made)."""
     from repro_torch.models import init_params
 
     policy = policy or ShardingPolicy()
-    width = _model_width(mesh)
-    if width == 1:
+    width, experts = _model_width(mesh), _expert_parallel(mesh, cfg, policy)
+    if width == 1 and not experts:
         return init_params(cfg, seed, dtype, device)
-    check_model_axis(cfg, policy, width)
-    return init_params(cfg, seed, dtype, device, place=_tp_place(mesh, policy))
+    check_model_axis(cfg, policy, width, batch_ranks(mesh))
+    return init_params(cfg, seed, dtype, device, place=_place(mesh, policy, experts))
 
 
 def _data_dim(spec) -> int | None:
@@ -369,12 +418,16 @@ def shard_model(model, mesh, policy: ShardingPolicy | None = None):
     module doc).  Call before the optimizer state is made."""
     from torch.distributed.fsdp import fully_shard
 
+    policy = policy or ShardingPolicy()
     dp = _data_mesh(mesh)
     if not any(isinstance(p, DTensor) for p in model.parameters()):  # else: init_sharded's
         tp_distribute(model, mesh, policy)
     specs = param_specs(model, policy)
     dims = {p: _data_dim(specs[n]) for n, p in model.named_parameters()}
+    # kept whole on every data rank, or (expert parallelism) split on E already
     whole = {p for p, d in dims.items() if d is None}
+    if _expert_parallel(mesh, model.cfg, policy):
+        whole |= {p for n, p in model.named_parameters() if is_expert_leaf(n)}
 
     def placement(p):
         return Shard(dims[p])
@@ -415,16 +468,18 @@ def _all_reduce_mean(tensors: list, group) -> None:
         t.copy_(part.view_as(t))
 
 
-def _outside_fsdp(p) -> bool:
-    """A leaf FSDP leaves alone: a plain tensor, or a DTensor on the model
-    submesh only (replicated there)."""
+def _replicated_over_data(p) -> bool:
+    """A leaf every data rank holds whole: a plain tensor, or a DTensor on
+    the model submesh only (FSDP's leaves and the experts split over the
+    batch axes are DTensors on a mesh with 'data')."""
     return not isinstance(p, DTensor) or "data" not in (p.device_mesh.mesh_dim_names or ())
 
 
 @torch.no_grad()
 def reduce_replicated_grads(model) -> None:
     """Average over the data ranks the gradients of the leaves a sharded
-    model keeps whole (FSDP reduce-scatters the others itself).  On a
+    model keeps whole (FSDP reduce-scatters its own; an expert leaf split
+    over the batch axes is no replica: :func:`mean_expert_grads`).  On a
     model axis such a leaf's gradient can come back as a partial sum over
     it: it is reduced to the leaf's own placement first."""
     group = data_group(model)
@@ -432,7 +487,7 @@ def reduce_replicated_grads(model) -> None:
         return
     grads = []
     for p in model.parameters():
-        if not _outside_fsdp(p) or p.grad is None:
+        if not _replicated_over_data(p) or p.grad is None:
             continue
         if isinstance(p.grad, DTensor):
             if tuple(p.grad.placements) != tuple(p.placements):
@@ -441,6 +496,23 @@ def reduce_replicated_grads(model) -> None:
         else:
             grads.append(p.grad)
     _all_reduce_mean(grads, group)
+
+
+@torch.no_grad()
+def mean_expert_grads(model, grads: dict) -> None:
+    """Divide each expert leaf's gradient in ``grads`` (by name, in place)
+    by the batch ranks its experts are split over.  Under expert
+    parallelism an expert's gradient reaches its rank through the return
+    all-to-all's backward as the sum of every rank's loss's gradient; the
+    global batch's is their mean, as FSDP's reduce-scatter averages the
+    other leaves'.  Once a step, after the last microbatch (the division
+    is linear)."""
+    for name, p in model.named_parameters():
+        if is_expert_leaf(name) and isinstance(p, DTensor):
+            ranks = p.shape[0] // p.to_local().shape[0]  # E over this rank's experts
+            if ranks > 1:
+                g = grads[name]
+                (g.to_local() if isinstance(g, DTensor) else g).div_(ranks)
 
 
 @torch.no_grad()

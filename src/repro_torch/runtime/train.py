@@ -24,8 +24,11 @@ rank's own rows, under the mesh it was sharded over
 (:func:`~repro_torch.models.layers.activate_mesh`): FSDP
 reduce-scatters the gradients (their mean over the ranks) on the last
 microbatch only (``set_requires_gradient_sync``), the leaves kept whole are
-averaged after it, the update runs on each rank's shards, and the logged
-loss is the mean of the ranks' losses, i.e. the global batch's.
+averaged after it, an MoE model's expert leaves (split over the batch
+axes: expert parallelism, outside FSDP) have their gradients, which sum
+every rank's loss's, divided by the ranks once, the update runs on each
+rank's shards, and the logged loss is the mean of the ranks' losses, i.e.
+the global batch's.
 
 The training path runs no kernel: ``attention_impl="cuda"`` is refused.
 The hand-written kernels have no backward, and the reference cannot
@@ -43,7 +46,8 @@ from torch.distributed.tensor import DTensor
 from repro_torch.config import ArchConfig, ShardingPolicy, TrainConfig
 from repro_torch.models import Transformer, decode_step, loss_fn
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_lr
-from repro_torch.runtime.sharding import is_sharded, mean_over_ranks, reduce_replicated_grads
+from repro_torch.runtime.sharding import (is_sharded, mean_expert_grads, mean_over_ranks,
+                                          reduce_replicated_grads)
 
 __all__ = ["TrainState", "make_train_state", "make_train_step", "make_serve_step",
            "GradAccumulator", "apply_update", "refuse_kernel_attention"]
@@ -152,7 +156,9 @@ def make_train_step(cfg: ArchConfig, policy: ShardingPolicy, tcfg: TrainConfig):
         if sharded:
             reduce_replicated_grads(model)
             loss = mean_over_ranks(loss, model)
-        lr, om = apply_update(state, acc.gradients(), tcfg)
+        grads = acc.gradients()
+        mean_expert_grads(model, grads)  # expert parallelism: a sum over the ranks' losses
+        lr, om = apply_update(state, grads, tcfg)
         return state, {"loss": loss, "aux": aux, "lr": lr, **om}
 
     return train_step

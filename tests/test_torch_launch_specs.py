@@ -201,20 +201,34 @@ def test_dry_run_counts_a_dense_cells_collectives_at_the_smoke_size(kind):
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 def test_dry_run_counts_a_moe_cells_collectives_at_the_smoke_size(kind):
-    """deepseek-v2-lite-16b's smoke variant with 16 heads (MLA's heads over
-    the 16 model ranks; 4 experts, top-2, a shared one) on the production
-    mesh: the embedding, then each layer's MLA output and MoE output (the
-    routed and shared experts' partial sums together) are an all-reduce
-    each over 'model', and its routing statistics and slot counts one each
-    over every batch axis ('data'; 'pod' too on the multi-pod mesh).
-    Prefill on the single pod: rank 0's 2 rows of 64 tokens; the experts'
-    buffer [4, 128, 64] is never all-reduced."""
+    """deepseek-v2-lite-16b's smoke variant with 16 heads and 32 experts
+    (MLA's heads over the 16 model ranks; top-2, a shared expert; 32 experts
+    so that the 16 and 32 batch ranks divide them: expert parallelism, 2 or
+    1 a rank) on the production mesh: the embedding, then each layer's MLA
+    output and MoE output (the routed and shared experts' partial sums
+    together) are an all-reduce each over 'model', and its routing
+    statistics and slot counts one each over the batch axes ('data'; 'pod'
+    and 'data' as one group on the multi-pod mesh).  The slots go to their
+    experts' ranks and back by all-to-all, one each way over that group,
+    bfloat16, with variable splits.  The dry run has no data, so it splits
+    as the balanced routing would: each rank's N k slots spread evenly over
+    the experts (the first N k mod E one more), kept up to C.  Prefill on
+    the single pod: rank 0's 2 rows of 64 tokens, N = 128, 8 slots an
+    expert from each of the 16 ranks, C = round(1.25 x 2,048 x 2 / 32) =
+    160, all kept; rank 0 sends its 256 slots and gets 16 x 8 for each of
+    its 2 experts, 256.  On the multi-pod mesh 1 row, N = 64: 4 slots an
+    expert from each of 32 ranks, C = 160, 128 each way.  Decode: N = 2 (1
+    on two pods), C = round(1.25 x 32 x 2 / 32) = 2 (round half to even):
+    the first 4 (2) experts get one slot a rank, ranks 0 and 1 keep theirs;
+    rank 0 sends 4 (2) and gets its experts' 2 x 2 (2).  So each way N k
+    slots of D."""
     import dataclasses
 
     from repro_torch.config import ShapeConfig, ShardingPolicy, get_arch, smoke_variant
     from repro_torch.launch.mesh import make_production_mesh
 
     cfg = dataclasses.replace(smoke_variant(get_arch("deepseek-v2-lite-16b")), num_heads=16)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=32))
     shape = ShapeConfig(kind, 64, 32, kind)
     with dryrun.fake_world(512):
         got = {}
@@ -222,9 +236,13 @@ def test_dry_run_counts_a_moe_cells_collectives_at_the_smoke_size(kind):
             mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
             got[multi] = dryrun.step_collectives(mesh, cfg, shape, ShardingPolicy())
     L, E, D = cfg.num_layers, cfg.moe.num_experts, cfg.d_model
-    for multi, per_layer in ((False, 4), (True, 6)):
-        assert got[multi]["collectives"]["c10d_functional.all_reduce"]["count"] == \
-            per_layer * L + 1
+    for multi in (False, True):
+        assert got[multi]["collectives"]["c10d_functional.all_reduce"]["count"] == 4 * L + 1
+    tokens = {"prefill": (128, 64), "decode": (2, 1)}[kind]  # N on one pod, on two
+    k = cfg.moe.top_k
+    for multi in (False, True):
+        assert got[multi]["collectives"]["c10d_functional.all_to_all_single"] == {
+            "count": 2 * L, "bytes": 2 * L * tokens[multi] * k * D * 2}
     if kind == "prefill":
         tokens = 2 * 64
         layer = 2 * tokens * D * 2 + 2 * E * 4 + 16 * E * 8

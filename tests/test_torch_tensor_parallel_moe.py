@@ -27,6 +27,10 @@ separate interpreters joined through a ``file://`` rendezvous under
   kimi's KV) within 1e-5 of the reference's, the greedy tokens equal;
 - a model drawn sharded (``init_sharded``) equal to the one drawn whole.
 
+On (2, 1) and (2, 2) the experts are split over the data ranks (expert
+parallelism, the default policy's layout; its own checks are in
+``tests/test_torch_expert_parallel.py``).
+
 In this process: ``check_model_axis`` accepts both configurations at
 widths 2, 4 and 16 and refuses an expert d_ff that does not divide and the
 moe policy values whose layouts are not ported.

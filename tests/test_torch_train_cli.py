@@ -4,7 +4,8 @@ uninterrupted run would be, and runs the ``--dlt-chain`` mode (a failure
 shrinks the chain and restores the checkpoint, a straggler replans) with
 the reference's lines; a torch.distributed world that is not the chain is
 refused; the standard mode trains data parallel under ``torchrun`` (two
-gloo ranks print one rank's losses) and steps under its data mesh.
+gloo ranks print one rank's losses; an MoE model's experts split over them,
+checkpointed and resumed) and steps under its data mesh.
 """
 
 from __future__ import annotations
@@ -173,6 +174,27 @@ def test_standard_mode_trains_under_torchrun_on_two_gloo_ranks(tmp_path):
     assert lines[0].endswith("devices=2 backend=gloo")
     assert len(_steps(two.stdout)) == 3 and _steps(two.stdout) == _steps(one.stdout)
     assert sorted(os.listdir(tmp_path / "ck")) == ["step_00000002"]  # rank 0 wrote it
+
+
+def test_standard_mode_trains_an_moe_model_with_expert_parallelism_under_torchrun(tmp_path):
+    """deepseek-v2-lite-16b's smoke variant under ``torchrun
+    --nproc-per-node 2``: its experts drawn split over the two ranks
+    (expert parallelism); the printed losses are one process's, and a run
+    resumed from step 1's checkpoint on the two ranks' shards retakes step
+    2 as the straight run does."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), GLOO_SOCKET_IFNAME="lo")
+    argv = ["--arch", "deepseek-v2-lite-16b", *ARGS[2:], "--ckpt-dir", str(tmp_path / "ck")]
+    two = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+           "-m", "repro_torch.launch.train", *argv]
+    runs = [subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300) for cmd in
+            ([*two, "--steps", "3", "--save-every", "2"], [*two, "--steps", "3", "--resume"],
+             [sys.executable, "-m", "repro_torch.launch.train", *argv[:-2], "--steps", "3"])]
+    for r in runs:
+        assert r.returncode == 0, r.stderr[-3000:]
+    first, resumed, one = (_steps(r.stdout) for r in runs)
+    assert sorted(os.listdir(tmp_path / "ck")) == ["step_00000001"]
+    assert "resumed from step 1" in runs[1].stdout
+    assert len(one) == 3 and first == one and resumed == {2: one[2]}
 
 
 def test_standard_mode_refuses_a_batch_the_ranks_cannot_split():
