@@ -57,7 +57,10 @@ Phases, each printing one JSON line:
    fed the same tokens, against the kernel path's logits and final cache
    (KV, Mamba state and conv window); deepseek instead against its own
    forward with dense experts (prefill 511, decode token 512) and gshard at
-   ample capacity against dense.  Each model is freed before the next is
+   ample capacity against dense.  paligemma-3b (the largest vocabulary)
+   also prefills under ``prefill_last_logit_only``: its [4, 1, V] logits
+   against the whole prefill's last row within 1e-5 of max |value|, both
+   prefills' peak memory printed.  Each model is freed before the next is
    loaded;
 6. ``campaign``: the golden campaign's full tier (``full_spec``, 1,296
    instances) through ``repro_torch.eval.run_campaign`` and a
@@ -1802,6 +1805,37 @@ def moe_checks(model, cfg, prompt) -> tuple:
     return errs, info
 
 
+LAST_LOGIT_ARCH = "paligemma-3b"  # the largest vocabulary: the most logits a prefill can skip
+LAST_LOGIT_TOL = 1e-5
+
+
+def last_logit_check(model, cfg, policy, prompt, patches) -> dict:
+    """The prefill under ``prefill_last_logit_only`` (the final hidden
+    state's last position alone through the head: [B, 1, V]) against the
+    whole prefill's last row on the same weights and path: their relative
+    error (of max |value|) and each prefill's peak memory."""
+    import dataclasses
+
+    from repro_torch.models import prefill
+
+    out = {}
+    for name, pol in (("whole", policy),
+                      ("last", dataclasses.replace(policy, prefill_last_logit_only=True))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        logits, cache, _ = prefill(model, cfg, pol, prompt, patches)
+        torch.cuda.synchronize()
+        # the whole prefill's last row copied out, so its logits are freed
+        out[name] = (logits[:, -1:].clone() if name == "whole" else logits,
+                     torch.cuda.max_memory_allocated() / 1e9, tuple(logits.shape))
+        del logits, cache
+    (whole, whole_gb, whole_shape), (last, last_gb, last_shape) = out["whole"], out["last"]
+    err = ((last.float() - whole.float()).abs().max() / whole.float().abs().max()).item()
+    return dict(rel_err=err, tol=LAST_LOGIT_TOL, whole_shape=whole_shape, last_shape=last_shape,
+                whole_prefill_peak_gb=whole_gb, last_prefill_peak_gb=last_gb,
+                peak_saved_gb=whole_gb - last_gb)
+
+
 def serve_phase(dev, arch):
     from repro_torch.config import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1856,6 +1890,8 @@ def serve_phase(dev, arch):
     check_s = time.perf_counter() - t1
     worst = max(errs.values())
     torch.cuda.empty_cache()
+    last_logit = (last_logit_check(model, cfg, policy, prompt, patches)
+                  if arch == LAST_LOGIT_ARCH else None)
     breakdown = serve_profile(model, cfg, policy, prompt, patches, 4, res)
     emit(phase="serve", arch=cfg.name, params=n_params, dtype="float32", batch=B,
          prompt_len=S, patches=0 if patches is None else patches.shape[1], gen_len=N,
@@ -1864,8 +1900,14 @@ def serve_phase(dev, arch):
          decode_s=res.decode_s, decode_tok_per_s=B * N / res.decode_s,
          decode_step_ms=1e3 * res.decode_s / N, peak_mem_gb=peak / 1e9, launches=counts,
          sample_tokens=tokens[0, :8].reshape(-1)[:8].tolist(), check=check_name,
-         check_s=check_s, rel_err=errs, tol=SERVE_TOL, reported=reported, **breakdown)
+         check_s=check_s, rel_err=errs, tol=SERVE_TOL, reported=reported,
+         last_logit=last_logit, **breakdown)
     check(worst <= SERVE_TOL, f"serve {arch}: {check_name} check {errs}")
+    if last_logit is not None:
+        check(last_logit["rel_err"] <= LAST_LOGIT_TOL
+              and last_logit["last_shape"] == (B, 1, cfg.vocab_size),
+              f"serve {arch}: the last-position prefill against the whole one's last row "
+              f"{last_logit}")
     del model, res, prompt, patches
     torch.cuda.empty_cache()
     return counts

@@ -8,7 +8,7 @@
         --seq 32 --prompt 32 --gen 4 --check-batch 4 --serve-batch 4 --lr 1e-3  # the CPU: gloo
 
 ``--parts`` picks the parts, run in the order given (default: all
-nineteen, (i)-(xix)).  The
+twenty-two, (i)-(xxii)).  The
 dense family's: (i) ``train``: ``--check-arch`` (llama3.2-3b) at full width
 and depth in float32: the train cell's step on each of ``--meshes`` (``1x4``
 and ``2x2``: data x model), ``--check-steps`` steps of the global batch
@@ -70,8 +70,20 @@ and profile of one more prefill and decode step recorded.  (xviii)
 ``kimi-ep-check``: (vii) on each.  (xix) ``kimi-ep-serve``: (vi) on the
 last mesh (96 of kimi's 384 experts a rank, drawn as slabs of the rank's
 rows).
+The activation layouts' (the reference's hillclimb variants,
+:data:`VARIANTS`, each run beside the default on the same draws; the one
+card's side under the variant's values, a last-position variant held to
+the whole prefill's last row): (xx) ``layout-train``: (i) under ``sp``,
+``noremat+sp`` and ``noseqshard``.  (xxi) ``layout-serve``: (iii) under
+``last_logit``, ``noseqshard``, ``sp``, ``sp+last``, ``sp_noq`` and
+``sp+last+bf16``, then (ii) under ``sp+last``.  (xxii)
+``layout-families``: the ssm, hybrid, audio and vlm families' models at
+FAMILY_TRAIN_LAYERS layers trained (on the first of ``--meshes``) under
+``sp`` and served on (1, N) under ``sp+last`` and ``noseqshard`` (hymba on
+twice its window), then deepseek-v2-lite-16b at MOE_TRAIN_LAYERS layers
+trained and served on ``--meshes`` under ``sp`` and ``dense``.
 The one-card side of (v), (vii), (xvii), (xviii) and the serving parts
-(ix)-(xv) is fed the sharded side's greedy tokens.
+(ix)-(xv), (xxi), (xxii) is fed the sharded side's greedy tokens.
 Rank 0 prints one JSON line (also written to ``--out``, after each part)
 with the cards' name and power limit, and exits non-zero on a missed bar.
 Every part ends with the ranks' one decision (an all-reduce of whether
@@ -136,6 +148,22 @@ TIE_MARGIN = 1e-6  # a flip with a larger margin is no near-tie
 # expert parallelism's parts (xvi)-(xix): the experts split on E over the data
 # ranks, d_ff over 'model' on (2, 2); (xix) on the last mesh alone
 EP_MESHES = "2x2,4x1"
+# the layout parts (xx)-(xxii): the reference's hillclimb variants
+# (benchmarks/hillclimb.py) of the activation layouts, as policy overrides
+VARIANTS = {
+    "default": {},
+    "last_logit": {"prefill_last_logit_only": True},
+    "noseqshard": {"shard_seq_attn": False, "qkv_feature_shard": False},
+    "sp": {"sp_activations": True},
+    "sp+last": {"sp_activations": True, "prefill_last_logit_only": True},
+    "sp_noq": {"sp_activations": True, "qkv_feature_shard": False},
+    "sp+last+bf16": {"sp_activations": True, "prefill_last_logit_only": True,
+                     "logits_fp32": False},
+    "noremat+sp": {"remat": "none", "sp_activations": True, "qkv_feature_shard": False},
+    "dense": {"moe_impl": "dense"},
+}
+LAYOUT_TRAIN = ("default", "sp", "noremat+sp", "noseqshard")
+LAYOUT_SERVE = ("default", "last_logit", "noseqshard", "sp", "sp+last", "sp_noq", "sp+last+bf16")
 
 
 def _sync(dev):
@@ -395,15 +423,31 @@ def _params_within_c18(got: dict, want: dict, lr: float) -> dict:
                 ok=worst <= 2 * lr and outside <= total // 10_000)
 
 
-def _train_check(opts, dev, rank, cfg, meshes: str | None = None) -> dict:
-    """Parts (i) and (iv): the train cell on each mesh against rank 0
-    unsharded.  An MoE model's routing is compared too: the losses, aux
+def _variant(base: ShardingPolicy, name: str) -> ShardingPolicy:
+    return dataclasses.replace(base, **VARIANTS[name])
+
+
+def _one_card(policy: ShardingPolicy) -> ShardingPolicy:
+    """The one-card side's policy of a variant: its values (the experts'
+    dispatch, the logits' dtype), the layouts' defaults and every
+    prefill's logits whole (a last-position variant is held to their last
+    row)."""
+    return ShardingPolicy(attn_chunk=policy.attn_chunk, moe_impl=policy.moe_impl,
+                          logits_fp32=policy.logits_fp32)
+
+
+def _train_check(opts, dev, rank, cfg, meshes: str | None = None,
+                 variants: tuple = ("default",)) -> dict:
+    """Parts (i), (iv) and the layout parts' training: the train cell on
+    each mesh under each of ``variants`` (:data:`VARIANTS`; runs keyed by
+    mesh, or ``"<variant> <mesh>"`` beside the default) against rank 0
+    unsharded, once for each one-card policy the variants need.  An MoE model's routing is compared too: the losses, aux
     losses and grad norms are held at the first step and at every step
     before the first flip, the parameters after the last step held, and
     at a flip in the first step the cross-entropy of each sequence without
     one too (after a later flip, the parameters already differ by C.18's
     lr-sized moves: reported)."""
-    policy = ShardingPolicy(attn_chunk=min(1024, opts.seq))
+    base = ShardingPolicy(attn_chunk=min(1024, opts.seq))
     tcfg = TrainConfig(lr=opts.lr, warmup_steps=0, total_steps=opts.check_steps + 1)
     shape = ShapeConfig("train", opts.seq, opts.check_batch, "train")
     world = dist.get_world_size()
@@ -414,8 +458,11 @@ def _train_check(opts, dev, rank, cfg, meshes: str | None = None) -> dict:
         stream = SyntheticStream(cfg, opts.check_batch, opts.seq, seed=0)
         return [next(stream) for _ in range(n_steps + 1)]
 
-    runs = {}
-    for spec in (meshes or opts.meshes).split(","):
+    runs, policies = {}, {}
+    for name, spec in ((n, m) for n in variants for m in (meshes or opts.meshes).split(",")):
+        policy = _variant(base, name)
+        key = spec if variants == ("default",) else f"{name} {spec}"
+        policies[key] = policy
         data, model_ax = map(int, spec.split("x"))
         if data * model_ax != world:
             raise SystemExit(f"mesh {spec} is not a world of {world}")
@@ -437,7 +484,7 @@ def _train_check(opts, dev, rank, cfg, meshes: str | None = None) -> dict:
             state, _ = cell.fn(state, {k: torch.from_numpy(v[rows]).to(dev)
                                        for k, v in extra.items()})
             _sync(dev)
-        runs[spec] = dict(steps=steps, init_s=init_s, peak_gb_by_rank=_gather(_peak_gb(dev)),
+        runs[key] = dict(steps=steps, init_s=init_s, peak_gb_by_rank=_gather(_peak_gb(dev)),
                           collectives_per_step=comm.counts(), snaps=snaps,
                           routes=_global_rows(routes, mesh) if moe else None,
                           seq_loss=_global_rows(seq_loss, mesh) if moe else None)
@@ -445,17 +492,21 @@ def _train_check(opts, dev, rank, cfg, meshes: str | None = None) -> dict:
         _release(dev)
     out = None
     if rank == 0:
-        _peak_reset(dev)
-        model = init_params(cfg, seed=0, dtype=torch.float32, device=dev).requires_grad_(True)
-        state, single, want, routes, seq_loss = _train_steps(
-            make_train_step(cfg, policy, tcfg), make_train_state(model, tcfg), batches()[:-1],
-            slice(None), dev, moe, True)
-        single_peak = _peak_gb(dev)
-        del state, model
-        _release(dev)
+        ones = {}
+        for one in dict.fromkeys(_one_card(p) for p in policies.values()):
+            _peak_reset(dev)
+            model = init_params(cfg, seed=0, dtype=torch.float32, device=dev).requires_grad_(True)
+            state, *ones[one] = _train_steps(
+                make_train_step(cfg, one, tcfg), make_train_state(model, tcfg), batches()[:-1],
+                slice(None), dev, moe, True)
+            ones[one].append(_peak_gb(dev))
+            del state, model
+            _release(dev)
         ok = True
         keys = ("loss", "aux", "grad_norm") if moe else ("loss", "grad_norm")
         for spec, run in runs.items():
+            single, want, routes, seq_loss, single_peak = ones[_one_card(policies[spec])]
+            run["single_policy"] = _one_card(policies[spec]).moe_impl
             flips = (_flips(run.pop("routes"), routes, opts.check_batch, opts.seq, cfg) if moe
                      else None)
             first = None if flips is None else flips["first_group"]
@@ -484,7 +535,8 @@ def _train_check(opts, dev, rank, cfg, meshes: str | None = None) -> dict:
             ok = ok and run["ok"]
         out = dict(arch=cfg.name, layers=cfg.num_layers, dtype="float32",
                    global_batch=opts.check_batch, seq=opts.seq, lr=opts.lr, meshes=runs,
-                   single=single, single_peak_gb=single_peak, ok=ok)
+                   single=single, single_peak_gb=single_peak, variants=list(variants),
+                   policies={k: VARIANTS[k] for k in variants}, ok=ok)
     return out
 
 
@@ -614,42 +666,56 @@ def _rows_of(prompt: dict, mesh) -> dict:
     return {k: v[d * v.shape[0] // n:(d + 1) * v.shape[0] // n] for k, v in prompt.items()}
 
 
-def _serve(opts, dev, rank, cfg, mesh_spec: str | None = None) -> dict:
-    """Parts (ii), (vi) and (xix): a model served in bfloat16 on
-    ``mesh_spec`` (default (1, N); each data rank its rows of the batch),
-    its weights drawn sharded."""
-    policy = ShardingPolicy(attn_chunk=min(1024, opts.prompt))
+def _serve(opts, dev, rank, cfg, mesh_spec: str | None = None,
+           variants: tuple = ("default",)) -> dict:
+    """Parts (ii), (vi), (xix) and (xxi)'s full size: a model served in
+    bfloat16 on ``mesh_spec`` (default (1, N); each data rank its rows of
+    the batch), its weights drawn sharded, under each of ``variants`` in
+    turn on the same weights (records by variant beside the default)."""
+    base = ShardingPolicy(attn_chunk=min(1024, opts.prompt))
     mesh = _mesh(dev, mesh_spec)
     _peak_reset(dev)
     _sync(dev)
     t0 = time.perf_counter()
-    model = init_sharded(cfg, mesh, seed=0, dtype=torch.bfloat16, device=dev, policy=policy)
+    model = init_sharded(cfg, mesh, seed=0, dtype=torch.bfloat16, device=dev, policy=base)
     _sync(dev)
     init_s = time.perf_counter() - t0
     weights_gb = _weights_gb(model)
+    weights_by_rank = _gather(weights_gb)
     init_peak = _peak_gb(dev)
     prompt = _rows_of(_prompt(cfg, opts.serve_batch, opts.prompt, 0, dev), mesh)
-    _peak_reset(dev)
-    logits, cache, rec = _serve_run(cfg, mesh, policy, model, prompt, opts.prompt, opts.gen, dev,
-                                    record=True)
-    finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
-    rec.update(arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16",
-               mesh=f"{mesh.size(0)}x{mesh.size(1)}",
-               batch=opts.serve_batch, prompt=opts.prompt, gen=opts.gen,
-               cache_entries=opts.prompt + opts.gen, init_s=init_s,
-               weights_gb_a_rank=weights_gb, weights_gb_by_rank=_gather(weights_gb),
-               init_peak_gb=init_peak, serve_peak_gb_by_rank=_gather(_peak_gb(dev)),
-               logits_shape=list(logits[0].shape), finite=finite,
-               ok=finite and list(logits[0].shape) == [opts.serve_batch, opts.prompt,
-                                                       cfg.vocab_size])
-    del model, cache, logits
+    recs = {}
+    for name in variants:
+        policy = _variant(base, name)
+        _peak_reset(dev)
+        logits, cache, rec = _serve_run(cfg, mesh, policy, model, prompt, opts.prompt, opts.gen,
+                                        dev, record=True)
+        finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+        want = [opts.serve_batch, 1 if policy.prefill_last_logit_only else opts.prompt,
+                cfg.vocab_size]
+        rec.update(arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16",
+                   mesh=f"{mesh.size(0)}x{mesh.size(1)}",
+                   batch=opts.serve_batch, prompt=opts.prompt, gen=opts.gen,
+                   cache_entries=opts.prompt + opts.gen, init_s=init_s,
+                   weights_gb_a_rank=weights_gb, weights_gb_by_rank=weights_by_rank,
+                   init_peak_gb=init_peak, serve_peak_gb_by_rank=_gather(_peak_gb(dev)),
+                   logits_shape=list(logits[0].shape), finite=finite, policy=VARIANTS[name],
+                   ok=finite and list(logits[0].shape) == want)
+        recs[name] = rec
+        del cache, logits
+        _release(dev)
+    del model
     _release(dev)
-    return rec if rank == 0 else None
+    if rank != 0:
+        return None
+    if variants == ("default",):
+        return recs["default"]
+    return dict(variants=recs, ok=all(r["ok"] for r in recs.values()))
 
 
 def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None = None,
                  family: bool = False, mesh_spec: str | None = None,
-                 record: bool = False) -> dict:
+                 record: bool = False, variants: tuple = ("default",)) -> dict:
     """Parts (iii), (v), (vii) and the families' serving parts: ``cfg`` in
     float32 sharded on (1, N) against rank 0 alone (the same draws), the
     one-card side fed the sharded side's tokens, on a prompt of ``seq``
@@ -659,62 +725,83 @@ def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None 
     sides equal; ``record``: the collectives and profile of one more
     prefill and decode step recorded.
     ``mesh_spec``: the sharded side's mesh (default (1, N)); each data rank
-    serves its rows of the batch."""
+    serves its rows of the batch.  ``variants`` (:data:`VARIANTS`): the
+    sharded side runs each in turn on the same weights, the one-card side
+    its values (:func:`_one_card`; a last-position variant held to the
+    whole prefill's last row); records by variant beside the default."""
     seq = seq or opts.prompt
-    policy = ShardingPolicy(attn_chunk=min(1024, seq))
+    base_policy = ShardingPolicy(attn_chunk=min(1024, seq))
     mesh = _mesh(dev, mesh_spec)
     moe = cfg.moe is not None
-    model = init_sharded(cfg, mesh, seed=seed, dtype=torch.float32, device=dev, policy=policy)
+    model = init_sharded(cfg, mesh, seed=seed, dtype=torch.float32, device=dev,
+                         policy=base_policy)
     weights_gb = _weights_gb(model)
     weights_by_rank = _gather(weights_gb)
     prompt = _prompt(cfg, opts.serve_batch, seq, seed, dev)
-    routes = {} if moe else None
-    _peak_reset(dev)
-    logits, caches, rec = _serve_run(cfg, mesh, policy, model, _rows_of(prompt, mesh), seq, gen,
-                                     dev, record=record,
-                                     routes=routes, each_step=family)
-    peaks = _gather(_peak_gb(dev))
-    routes = _global_rows(routes, mesh) if moe else None
-    if rank == 0:
-        logits = [lg.cpu() for lg in logits]
-        caches = caches if family else [_flat(caches)]
+    sharded = {}
+    for name in variants:
+        policy = _variant(base_policy, name)
+        routes = {} if moe else None
+        _peak_reset(dev)
+        logits, caches, rec = _serve_run(cfg, mesh, policy, model, _rows_of(prompt, mesh), seq,
+                                         gen, dev, record=record,
+                                         routes=routes, each_step=family)
+        peaks = _gather(_peak_gb(dev))
+        routes = _global_rows(routes, mesh) if moe else None
+        if rank == 0:
+            logits = [lg.cpu() for lg in logits]
+            caches = caches if family else [_flat(caches)]
+        sharded[name] = (policy, logits, caches, rec, peaks, routes)
+        del logits, caches
+        _release(dev)
     del model
     _release(dev)
-    out = None
-    if rank == 0:
-        base = init_params(cfg, seed=seed, dtype=torch.float32, device=dev)
+    if rank != 0:
+        return None
+    base = init_params(cfg, seed=seed, dtype=torch.float32, device=dev)
+    outs = {}
+    for name, (policy, logits, caches, rec, peaks, routes) in sharded.items():
         single = {} if moe else None
         tokens = torch.tensor(rec["tokens"], dtype=torch.int32, device=dev)
-        want, c, differ = _single_run(cfg, policy, base, prompt, seq, tokens, gen, single,
-                                      each_step=family)
+        want, c, differ = _single_run(cfg, _one_card(policy), base, prompt, seq, tokens, gen,
+                                      single, each_step=family)
+        last = policy.prefill_last_logit_only
+        if last:  # the whole prefill's last row
+            want[0] = want[0][:, -1:]
         want_caches = c if family else [_flat(c)]
         flips = (_flips(routes, single, opts.serve_batch, seq, cfg) if moe else None)
         # each sequence held before the first position an MoE layer touched
         since = flips["first_touched"].get(0, {}) if moe else {}
         until = [since.get(b, seq + gen) for b in range(opts.serve_batch)]
         keep = [b for b in range(opts.serve_batch) if b not in since]
-        errs = {"logits": [_rel_err(a, b, until, 1, seq + i - 1 if i else 0)
+        errs = {"logits": [_rel_err(a, b, until, 1, seq + i - 1 if i or last else 0)
                            for i, (a, b) in enumerate(zip(logits, want))]}
         for got, ref in zip(caches, want_caches):  # [L, B, S, ...] a leaf
-            for name, t in ref.items():
-                errs.setdefault(name, []).append(
-                    _rel_err(got[name].transpose(0, 1), t.transpose(0, 1), until, 2))
+            for leaf, t in ref.items():
+                errs.setdefault(leaf, []).append(
+                    _rel_err(got[leaf].transpose(0, 1), t.transpose(0, 1), until, 2))
         errs = {k: [x for x in v if x is not None] for k, v in errs.items()}
         errs = {k: max(v) for k, v in errs.items() if v}
-        out = dict(arch=cfg.name, layers=cfg.num_layers,
-                   experts=cfg.moe.num_experts if moe else None, dtype="float32",
-                   mesh=f"{mesh.size(0)}x{mesh.size(1)}", batch=opts.serve_batch, prompt=seq,
-                   gen=gen, weights_gb_by_rank=weights_by_rank,
-                   caches_held=len(caches), rel_err=errs, sequences_held=keep, held_until=until,
-                   flips=flips, weights_gb_a_rank=weights_gb,
-                   serve_peak_gb_by_rank=peaks,
-                   own_greedy_differs=[[int(b), int(i)] for b, i in differ.nonzero().tolist()],
-                   ok=bool(errs) and max(errs.values()) <= SERVE_TOL
-                   and (flips is None or flips["ok"]) and not (family and differ.any()),
-                   **{k: v for k, v in rec.items() if k != "tokens"})
-        del base, c
+        outs[name] = dict(
+            arch=cfg.name, layers=cfg.num_layers,
+            experts=cfg.moe.num_experts if moe else None, dtype="float32",
+            mesh=f"{mesh.size(0)}x{mesh.size(1)}", batch=opts.serve_batch, prompt=seq,
+            gen=gen, weights_gb_by_rank=weights_by_rank,
+            caches_held=len(caches), rel_err=errs, sequences_held=keep, held_until=until,
+            flips=flips, weights_gb_a_rank=weights_gb,
+            serve_peak_gb_by_rank=peaks, policy=VARIANTS[name],
+            prefill_logits_shape=list(logits[0].shape),
+            own_greedy_differs=[[int(b), int(i)] for b, i in differ.nonzero().tolist()],
+            ok=bool(errs) and max(errs.values()) <= SERVE_TOL
+            and (flips is None or flips["ok"]) and not (family and differ.any()),
+            **{k: v for k, v in rec.items() if k != "tokens"})
+        del c
         _release(dev)
-    return out
+    del base
+    _release(dev)
+    if variants == ("default",):
+        return outs["default"]
+    return dict(variants=outs, ok=all(r["ok"] for r in outs.values()))
 
 
 def _each_mesh(part, meshes: str) -> dict | None:
@@ -728,8 +815,55 @@ def _each_mesh(part, meshes: str) -> dict | None:
 
 FAMILY_PARTS = tuple(f"{f}-{k}" for f in FAMILIES for k in ("train", "serve"))
 EP_PARTS = ("moe-ep-train", "moe-ep-serve", "kimi-ep-check", "kimi-ep-serve")
+LAYOUT_PARTS = ("layout-train", "layout-serve", "layout-families")
 PARTS = ("train", "check", "serve", "moe-train", "moe-serve", *FAMILY_PARTS, "kimi-check",
-         "kimi-serve", *EP_PARTS)
+         "kimi-serve", *EP_PARTS, *LAYOUT_PARTS)
+
+
+def _layout_serve(opts, dev, rank) -> dict:
+    """Part (xxi): ``--serve-arch`` cut to ``--check-layers`` layers in
+    float32 on (1, N) under LAYOUT_SERVE against one card, as (iii); then at
+    full size in bfloat16 under ``sp+last`` beside the default, as (ii)."""
+    runs = {"check": _serve_check(opts, dev, rank,
+                                  _cfg(opts, opts.serve_arch, opts.check_layers),
+                                  opts.check_gen, record=True, variants=LAYOUT_SERVE),
+            "full": _serve(opts, dev, rank, _cfg(opts, opts.serve_arch),
+                           variants=("default", "sp+last"))}
+    if rank != 0:
+        return None
+    return dict(runs=runs, ok=all(r["ok"] for r in runs.values()))
+
+
+def _layout_families(opts, dev, rank) -> dict:
+    """Part (xxii): the ssm, hybrid, audio and vlm families' models at
+    FAMILY_TRAIN_LAYERS layers trained on the first of ``--meshes`` under
+    ``sp`` and served on (1, N) under ``sp+last`` and ``noseqshard`` (hymba
+    on twice its window); then deepseek-v2-lite-16b at MOE_TRAIN_LAYERS
+    layers trained and served on ``--meshes`` under ``sp`` and ``dense``;
+    each beside the default.  Rank 0 prints each run's record as it ends
+    (a cut run keeps them in its log)."""
+    def done(key, rec):
+        if rank == 0:
+            print(f"layout-families {key}: " + json.dumps(rec), flush=True)
+        return rec
+
+    runs = {}
+    for arch in FAMILIES.values():
+        cfg = _cfg(opts, arch, FAMILY_TRAIN_LAYERS)
+        runs[f"{arch}-train"] = done(f"{arch}-train", _train_check(
+            opts, dev, rank, cfg, opts.meshes.split(",")[0], variants=("default", "sp")))
+        runs[f"{arch}-serve"] = done(f"{arch}-serve", _serve_check(
+            opts, dev, rank, cfg, opts.check_gen, seq=2 * cfg.window or None, family=True,
+            record=True, variants=("default", "sp+last", "noseqshard")))
+    moe_cfg = _cfg(opts, MOE, MOE_TRAIN_LAYERS)
+    runs[f"{MOE}-serve"] = done(f"{MOE}-serve", _each_mesh(lambda m: _serve_check(
+        opts, dev, rank, moe_cfg, opts.check_gen, mesh_spec=m, record=True,
+        variants=("default", "sp", "dense")), opts.meshes))
+    runs[f"{MOE}-train"] = done(f"{MOE}-train", _train_check(
+        opts, dev, rank, moe_cfg, variants=("default", "sp", "dense")))
+    if rank != 0:
+        return None
+    return dict(runs=runs, ok=all(r["ok"] for r in runs.values()))
 
 
 def main(argv=None) -> int:
@@ -774,6 +908,10 @@ def main(argv=None) -> int:
         "kimi-check": lambda: _serve_check(opts, dev, rank, _cfg(opts, KIMI, *KIMI_CHECK),
                                            opts.check_gen),
         "kimi-serve": lambda: _serve(opts, dev, rank, _cfg(opts, KIMI, KIMI_SERVE_LAYERS)),
+        "layout-train": lambda: _train_check(opts, dev, rank, _cfg(opts, opts.check_arch),
+                                             variants=LAYOUT_TRAIN),
+        "layout-serve": lambda: _layout_serve(opts, dev, rank),
+        "layout-families": lambda: _layout_families(opts, dev, rank),
         "moe-ep-train": lambda: _train_check(opts, dev, rank, _cfg(opts, MOE, MOE_TRAIN_LAYERS),
                                              EP_MESHES),
         "moe-ep-serve": lambda: _each_mesh(lambda m: _serve_check(

@@ -155,11 +155,15 @@ class ShardingPolicy:
     ``"gshard"`` (capacity buckets) or ``"dense"`` (every token through
     every expert, the oracle).
 
-    ``shard_seq_attn`` and ``sp_activations`` are the reference's
-    activation layouts on a model axis wider than 1 (attention
-    sequence-sharded; the residual stream sequence-sharded); they change
-    no value.  The port runs their defaults and refuses the others
-    (ROADMAP A.18).
+    ``shard_seq_attn``, ``qkv_feature_shard`` and ``sp_activations`` are
+    the reference's activation layouts on a model axis wider than 1
+    (prefill attention sequence-sharded, else on each rank's heads; q
+    projected feature-sharded; the residual stream sequence-sharded:
+    Megatron sequence parallelism); they change no value.
+    ``prefill_last_logit_only``: a prefill returns the last position's
+    logits alone ([B, 1, V]), the only ones sampling reads, and the head
+    never makes the others.  On a model axis the port refuses the
+    int8 cache, the kernels and the experts over 'model' (ROADMAP A.18).
     """
 
     remat: str = "block"  # none | block (recompute each block in the backward)
@@ -173,7 +177,9 @@ class ShardingPolicy:
     fsdp_params: bool = True  # shard dim0 of weights over 'data' (ZeRO-3 style)
     expert_axis: str = "data"  # axis sharding the expert dimension
     expert_ff_axis: str = "model"  # axis sharding each expert's d_ff
-    shard_seq_attn: bool = True  # sequence-sharded attention (vs replicated)
+    shard_seq_attn: bool = True  # sequence-sharded attention (vs each rank's heads)
+    qkv_feature_shard: bool = True  # project q feature-sharded (then a2a to seq-sharded)
+    prefill_last_logit_only: bool = False  # serving: emit only logits[:, -1:]
     sp_activations: bool = False  # sequence parallelism: residual stream seq-sharded
 
 

@@ -338,6 +338,8 @@ def policy_from_reference(policy):
                           model_axis=policy.model_axis, fsdp_params=policy.fsdp_params,
                           expert_axis=policy.expert_axis, expert_ff_axis=policy.expert_ff_axis,
                           shard_seq_attn=policy.shard_seq_attn,
+                          qkv_feature_shard=policy.qkv_feature_shard,
+                          prefill_last_logit_only=policy.prefill_last_logit_only,
                           sp_activations=policy.sp_activations)
 
 

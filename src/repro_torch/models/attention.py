@@ -22,7 +22,11 @@ On a model axis wider than 1 (DTensor inputs on the model mesh, see
 :func:`repro_torch.models.layers.constrain`) :func:`attention` takes the
 reference's layouts: q sequence-sharded, K and V replicated, the output
 sequence-sharded; each rank runs the plain implementation over its own q
-rows from their global offset (the causal mask's).  :func:`decode_attention`
+rows from their global offset (the causal mask's).  Without ``shard_seq``
+(the reference's ``shard_seq_attn=False``) no constraint is set: q stays
+as its projection left it, on each rank's heads (or replicated where the
+axis does not divide them), and each rank attends its own heads to the
+KV heads of their GQA groups (its own, or its cut of replicated ones).  :func:`decode_attention`
 keeps the cache sequence-sharded and runs split-KV: each rank's partial
 softmax over its own entries (max, sum, weighted values), all-gathered and
 merged, where the reference leaves the split to XLA.
@@ -139,9 +143,12 @@ def attention(q, k, v, *, impl="chunked", causal=True, window=0, q_chunk=1024, k
         v = constrain(v, ("pod", "data"), None, None, None)
     if not isinstance(q, DTensor):
         return _attention(q, k, v, **kw)
-    if not shard_seq:
-        raise ValueError("shard_seq_attn=False on a model axis wider than 1 is not ported "
-                         "(ROADMAP A.18)")
+    if not q.placements[0].is_shard(1):
+        return _head_attention(q, k, v, **kw)
+    # a sequence-sharded q (also without ``shard_seq``, under sequence
+    # parallelism's q on each rank's rows): the keys whole
+    k = constrain(k, ("pod", "data"), None, None, None)
+    v = constrain(v, ("pod", "data"), None, None, None)
     # each rank attends its own q rows to the replicated keys, so its K and
     # V gradients are partial sums over the model axis
     kl, vl = (t.to_local(grad_placements=[Partial()]) for t in (k, v))
@@ -149,6 +156,38 @@ def attention(q, k, v, *, impl="chunked", causal=True, window=0, q_chunk=1024, k
     out = DTensor.from_local(out, q.device_mesh, q.placements, run_check=False, shape=q.shape,
                              stride=torch.empty(q.shape, device="meta").stride())
     return constrain(out, ("pod", "data"), model_axis, None, None)
+
+
+def _head_attention(q, k, v, **kw):
+    """Attention on each rank's heads: q [B, S, H, D] sharded on its heads
+    or replicated, k and v on theirs or replicated (gathered first where
+    they are sequence-sharded).  A rank's q heads ``[lo, hi)`` read the KV
+    heads of their GQA groups, ``h // G``: its own KV heads where both are
+    sharded (the same groups), else its cut of the replicated ones, each
+    repeated to its q heads where they do not fill whole groups.  The
+    output has q's placements; a replicated K or V read by sharded q heads
+    has a partial gradient."""
+    k, v = (t.redistribute(placements=[Replicate()]) if t.placements[0].is_shard(1) else t
+            for t in (k, v))
+    H, KVH = q.shape[2], k.shape[2]
+    G = H // KVH
+    ql = q.to_local()
+    if q.placements[0].is_shard(2) and not k.placements[0].is_shard(2):
+        lo = local_offset(q, 2)
+        idx = torch.arange(lo, lo + ql.shape[2], device=ql.device) // G
+        first, last = lo // G, (lo + ql.shape[2] - 1) // G
+        kl, vl = (t.to_local(grad_placements=[Partial()]) for t in (k, v))
+        if lo % G == 0 and ql.shape[2] % G == 0:  # whole groups: their KV heads
+            kl, vl = kl[:, :, first:last + 1], vl[:, :, first:last + 1]
+        elif first == last:  # part of one group: its KV head
+            kl, vl = kl[:, :, first:first + 1], vl[:, :, first:first + 1]
+        else:  # parts of several groups: each q head's KV head
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+    else:  # both on their heads (the same groups a rank), or both replicated
+        kl, vl = k.to_local(), v.to_local()
+    out = _attention(ql, kl, vl, **kw).contiguous()
+    return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False, shape=q.shape,
+                              stride=torch.empty(q.shape, device="meta").stride())
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, impl="chunked",

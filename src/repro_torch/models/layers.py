@@ -321,7 +321,11 @@ def init_glu_mlp(init: Initializer, d_model: int, d_ff: int):
 def glu_mlp(p, x, act: str = "swiglu", model_axis: str = "model", out_spec=None):
     """Gated MLP with Megatron tensor parallelism on d_ff; ``p`` has
     ``w_gate``, ``w_up`` ``[d_model, d_ff]`` and ``w_down`` ``[d_ff,
-    d_model]``.  ``out_spec``: the residual stream's spec for the output."""
+    d_model]``.  ``out_spec``: the residual stream's spec for the output.
+    A sequence-sharded ``x`` (``sp_activations``) is gathered first, and
+    the row-sharded ``w_down``'s partial sums reach a sequence-sharded
+    ``out_spec`` by a reduce-scatter."""
+    x = constrain(x, ("pod", "data"), None, None)
     g = constrain(x @ p.w_gate, ("pod", "data"), None, model_axis)
     u = constrain(x @ p.w_up, ("pod", "data"), None, model_axis)
     if act == "swiglu":

@@ -80,8 +80,12 @@ def _expanded(q_nope, q_pe, k_nope, k_pe, v, causal):
     return torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype), v)
 
 
-def mla_attention(p, x, cfg: ArchConfig, pos, causal=True, model_axis="model"):
-    """Expanded-form MLA for prefill.  Returns (out [B,S,D], {"c_kv", "k_pe"})."""
+def mla_attention(p, x, cfg: ArchConfig, pos, causal=True, model_axis="model", out_spec=None):
+    """Expanded-form MLA for prefill.  Returns (out [B,S,D], {"c_kv", "k_pe"}).
+    ``out_spec``: the residual stream's spec for the output (a
+    sequence-sharded ``x``, ``sp_activations``, is gathered first, and the
+    partial sums reach a sequence-sharded stream by a reduce-scatter)."""
+    x = constrain(x, DP, None, None)
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
@@ -98,7 +102,7 @@ def mla_attention(p, x, cfg: ArchConfig, pos, causal=True, model_axis="model"):
                                shape=(B, S, H, dv), stride=(S * H * dv, H * dv, dv, 1))
     else:
         o = _expanded(*heads[:3], k_pe, heads[3], causal)
-    out = constrain(o.reshape(B, S, H * dv) @ p.w_o, DP, None, None)
+    out = constrain(o.reshape(B, S, H * dv) @ p.w_o, *(out_spec or (DP, None, None)))
     return out, {"c_kv": c_kv, "k_pe": k_pe}
 
 

@@ -56,7 +56,12 @@ Sharded, as the reference's partitioned program (its ``constrain`` sites):
     divides it by the ranks once
     (:func:`repro_torch.runtime.sharding.mean_expert_grads`).  ``"dense"``
     sends every rank's tokens to every rank's experts and the weighted
-    sums back.  Under ``expert_axis="model"`` on a model axis of 1 every
+    sums back;
+  * ``"dense"`` on a model axis: each rank runs every token through its
+    d_ff slab of every expert it holds (all of them, or its E / ranks
+    under expert parallelism), weighted by the router: partial sums over
+    'model', reduced once at the output's constraint, as gshard's are.
+    Under ``expert_axis="model"`` on a model axis of 1 every
     rank runs its slots through every expert (FSDP gathers them).  A mesh
     whose batch ranks the experts are not split over as the policy says
     raises.  One card and a data group of 1 run none of these collectives.
@@ -68,7 +73,7 @@ import torch
 import torch.distributed as dist
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.config import ArchConfig
 from .layers import DP, constrain, current_mesh, model_mesh, replicated
@@ -303,13 +308,37 @@ def _dispatched(p, x2d, flat_e, mine, keep, table, C, group, x, act_fn, expert_a
     return torch.cat([back, back.new_zeros(1, D)])[row], out
 
 
+def _model_partial_grad(t):
+    """``t`` (a plain tensor equal on every model rank) fed to products with
+    each rank's d_ff slab: on a model axis its gradient there is a partial
+    sum over the ranks, all-reduced by the backward; else ``t``."""
+    tp = model_mesh()
+    if tp is None:
+        return t
+    return DTensor.from_local(t, tp, [Replicate()], run_check=False).to_local(
+        grad_placements=[Partial()])
+
+
+def _dense_local(p, x2d, w, act_fn):
+    """moe_impl 'dense' with every expert here: [N, D] float32, the router's
+    ``w`` [N, E]-weighted sum of every expert's output (on a model axis
+    each rank's d_ff slab's partial sum)."""
+    wg, wu, wd = (t.to_local() if isinstance(t, DTensor) else t
+                  for t in (p.w_gate, p.w_up, p.w_down))
+    g = torch.einsum("nd,edf->nef", x2d, wg)
+    u = torch.einsum("nd,edf->nef", x2d, wu)
+    per_e = torch.einsum("nef,efd->ned", act_fn(g) * u, wd)  # [N, E, D]
+    return torch.einsum("ned,ne->nd", per_e.float(), w)
+
+
 def _dense_dispatched(p, x2d, w, group, act_fn):
     """moe_impl 'dense' with the experts split over the ranks of ``group``
     (a model axis of 1): every rank's tokens and their router weights ``w``
     [N, E] for each rank's experts go to that rank (one all-to-all each),
     each rank sums its E / ranks experts' outputs weighted by them, and the
     reverse all-to-all brings the sums back, added in the ranks' order (the
-    experts')."""
+    experts'); on a model axis each model rank's d_ff slab's partial sums,
+    over its own batch group, as gshard's."""
     ranks, (N, D), E = group.size(), x2d.shape, w.shape[1]
     n = [N] * ranks
     xs = _AllToAll.apply(x2d.repeat(ranks, 1), n, n, group)  # [ranks N, D]
@@ -323,11 +352,14 @@ def _dense_dispatched(p, x2d, w, group, act_fn):
 
 
 def moe_ffn(p, x, cfg: ArchConfig, impl: str = "gshard", expert_axis: str = "data",
-            ff_axis: str = "model"):
+            ff_axis: str = "model", out_spec=None):
     """x [B, S, D] -> ([B, S, D], aux loss times ``router_aux_weight``).
     ``expert_axis`` and ``ff_axis``: the mesh axes of the experts and of
     each expert's d_ff (the policy's ``expert_axis`` and
-    ``expert_ff_axis``), as the reference's arguments."""
+    ``expert_ff_axis``), as the reference's arguments.  ``out_spec``: the
+    residual stream's spec for the output (a sequence-sharded ``x``,
+    ``sp_activations``, is gathered first, and the partial sums reach a
+    sequence-sharded stream by a reduce-scatter)."""
     mo = cfg.moe
     x = constrain(x, DP, None, None)
     B, S, D = x.shape
@@ -348,14 +380,12 @@ def moe_ffn(p, x, cfg: ArchConfig, impl: str = "gshard", expert_axis: str = "dat
     if impl == "dense":
         w = torch.zeros(N, E, dtype=torch.float32, device=x.device).scatter_add_(1, experts,
                                                                                 gates)
-        if parallel:
-            y = _dense_dispatched(p, x2d, w, group, act_fn).to(x.dtype).reshape(B, S, D)
-        else:
-            g = torch.einsum("nd,edf->nef", x2d, p.w_gate)
-            u = torch.einsum("nd,edf->nef", x2d, p.w_up)
-            per_e = torch.einsum("nef,efd->ned", act_fn(g) * u, p.w_down)  # [N, E, D]
-            y = torch.einsum("ned,ne->nd", per_e.float(), w).to(x.dtype).reshape(B, S, D)
-        y = replicated(y, x)
+        # on a model axis both feed each rank's d_ff slab: their gradients partial
+        xin, w = _model_partial_grad(x2d), _model_partial_grad(w)
+        y = (_dense_dispatched(p, xin, w, group, act_fn) if parallel else
+             _dense_local(p, xin, w, act_fn)).to(x.dtype).reshape(B, S, D)
+        if isinstance(x, DTensor):  # each model rank its d_ff slabs' partial sums
+            y = DTensor.from_local(y, x.device_mesh, [Partial()], run_check=False)
     elif impl == "gshard":
         C = capacity(cfg, N * ranks)
         flat_e = experts.reshape(-1)  # [N k] expert of each slot
@@ -400,4 +430,5 @@ def moe_ffn(p, x, cfg: ArchConfig, impl: str = "gshard", expert_axis: str = "dat
         g = constrain(x @ sp.w_gate, DP, None, ff_axis)
         u = constrain(x @ sp.w_up, DP, None, ff_axis)
         y = y + (act_fn(g) * u) @ sp.w_down
-    return constrain(y, DP, None, None), replicated(aux, x) * mo.router_aux_weight
+    return (constrain(y, *(out_spec or (DP, None, None))),
+            replicated(aux, x) * mo.router_aux_weight)

@@ -278,8 +278,11 @@ def _gate_out(p, y, z, cfg: ArchConfig):
 def mamba_mixer(p, x, cfg: ArchConfig, impl: str = "chunked"):
     """x [b,s,d] -> [b,s,d]; ``impl`` is ``"reference"``, ``"chunked"`` or
     ``"cuda"``.  On a model axis see the module doc: the output is a
-    partial sum there."""
+    partial sum there; a sequence-sharded ``x`` (``sp_activations``) is
+    gathered first: the conv and the scan run along the whole sequence."""
     ssm = cfg.ssm
+    if isinstance(x, DTensor) and x.placements[0].is_shard(1):
+        x = x.redistribute(placements=[Replicate()])
     z, xbc, dt, d_in, h, n, g = _in_proj(p, x, cfg)
     b, s, _ = x.shape
     if not isinstance(xbc, DTensor):

@@ -41,8 +41,18 @@ attention split-KV across the ranks; a hybrid block's two branches
 reduced once, together; the
 Mamba mixer, the experts and MLA as :mod:`~repro_torch.models.ssm`,
 :mod:`~repro_torch.models.moe` and :mod:`~repro_torch.models.mla` say.
-The policy values whose layouts are not ported are refused there (ROADMAP
-A.18: :func:`~repro_torch.runtime.sharding.check_model_axis`).
+The policy's activation layouts there: ``sp_activations`` (Megatron
+sequence parallelism) keeps the residual stream sequence-sharded between
+sub-layers: k and v are projected on each rank's rows (the weights
+gathered) and then gathered, each sub-layer that needs the whole sequence
+gathers its input, and the sub-layers' partial sums reach the stream by
+a reduce-scatter; ``shard_seq_attn=False`` attends on each rank's heads
+(:func:`~repro_torch.models.attention.attention`);
+``prefill_last_logit_only`` takes the final hidden state's last position
+before the head (on a sequence-sharded stream from the rank that holds
+it), so the [B, S, V] logits are never made.  The policy values whose
+layouts are not ported are refused there (ROADMAP A.18:
+:func:`~repro_torch.runtime.sharding.check_model_axis`).
 
 As in the reference, ``prefill`` fills the KV (or latent) cache but leaves
 the Mamba state and conv window at zero (ROADMAP C.4).  A vlm prompt's
@@ -149,9 +159,9 @@ class Transformer(nn.Module):
         self.ln_f = _param(params["ln_f"])
 
     def forward(self, cfg: ArchConfig, policy: ShardingPolicy, tokens, patches=None,
-                collect_cache=False):
+                collect_cache=False, last_only=False):
         """See the module function :func:`forward`."""
-        return _forward(self, cfg, policy, tokens, patches, collect_cache)
+        return _forward(self, cfg, policy, tokens, patches, collect_cache, last_only)
 
 
 def _init_attn(init: Initializer, cfg: ArchConfig):
@@ -276,15 +286,46 @@ def _heads(t, n: int, hd: int):
     return t.reshape(*t.shape[:2], n, hd)
 
 
+def _rows(x, w):
+    """``x @ w`` for a sequence-sharded DTensor ``x`` [B, S, D]: each rank
+    its own rows against ``w`` gathered whole (``w``'s gradient a partial
+    sum over the ranks, reduce-scattered back), sequence-sharded too."""
+    w_all = w.redistribute(placements=[Replicate()]).to_local(grad_placements=[Partial()])
+    out = x.to_local() @ w_all
+    shape = (*x.shape[:2], w.shape[-1])
+    return DTensor.from_local(out, x.device_mesh, x.placements, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _sp(x) -> bool:
+    """Whether ``x`` is a sequence-sharded DTensor (``sp_activations``)."""
+    return isinstance(x, DTensor) and x.placements[0].is_shard(1)
+
+
 def _attn_op(p, x, cfg: ArchConfig, policy: ShardingPolicy, positions):
     """The attention branch: (output, (k, v)).  On a model axis the output
-    is a partial sum over the ranks (the block reduces it)."""
+    is a partial sum over the ranks (the block reduces it).  On a
+    sequence-sharded ``x`` (``sp_activations``) k and v are projected on
+    each rank's rows and gathered by the attention, as the reference's
+    constraints put them (the GQA-small k and v move, not the hidden
+    state); q is projected feature-sharded from the gathered rows under
+    ``qkv_feature_shard``, else on each rank's rows too: sequence-sharded,
+    the layout the sequence-sharded attention reads, so q never moves and
+    only ``w_q`` is gathered."""
     B, S, _ = x.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _heads(x @ p.w_q, H, hd)
-    k = _heads(x @ p.w_k, KVH, hd)
-    v = _heads(x @ p.w_v, KVH, hd)
-    q = constrain(q, DP, None, policy.model_axis, None)  # the reference's qkv_feature_shard
+    if _sp(x):
+        k = _heads(_rows(x, p.w_k), KVH, hd)
+        v = _heads(_rows(x, p.w_v), KVH, hd)
+        q = (constrain(x, DP, None, None) @ p.w_q if policy.qkv_feature_shard else
+             _rows(x, p.w_q))
+        q = _heads(q, H, hd)
+    else:
+        q = _heads(x @ p.w_q, H, hd)
+        k = _heads(x @ p.w_k, KVH, hd)
+        v = _heads(x @ p.w_v, KVH, hd)
+    if policy.qkv_feature_shard:
+        q = constrain(q, DP, None, policy.model_axis, None)
     cos, sin = _rope_tables(positions, q, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -296,8 +337,9 @@ def _attn_op(p, x, cfg: ArchConfig, policy: ShardingPolicy, positions):
 
 
 def _res_spec(policy: ShardingPolicy, seq_len: int):
-    """The residual stream's spec: batch over the data axes (sequence
-    parallelism, ``sp_activations``, is refused on a model axis)."""
+    """The residual stream's spec: batch over the data axes, and under
+    ``sp_activations`` the sequence over the model axis (a decode step's
+    one position never)."""
     if policy.sp_activations and seq_len > 1:
         return (DP, policy.model_axis, None)
     return (DP, None, None)
@@ -311,7 +353,7 @@ def _ffn(p: Block, h2, cfg: ArchConfig, policy: ShardingPolicy):
     """The block's second half: (output, MoE aux loss or None)."""
     if cfg.family == "moe":
         return moe_ffn(p.moe, h2, cfg, impl=policy.moe_impl, expert_axis=policy.expert_axis,
-                       ff_axis=policy.expert_ff_axis)
+                       ff_axis=policy.expert_ff_axis, out_spec=_res_spec(policy, h2.shape[1]))
     return glu_mlp(p.mlp, h2, act=cfg.act, model_axis=policy.model_axis,
                    out_spec=_res_spec(policy, h2.shape[1])), None
 
@@ -326,7 +368,8 @@ def _block(p: Block, x, cfg: ArchConfig, policy: ShardingPolicy, positions):
         out = mamba_mixer(p.mamba, h, cfg, impl=_ssm_impl(policy))
         return x + constrain(out, *res), None, None
     if cfg.mla is not None:
-        attn_out, cache = mla_attention(p.attn, h, cfg, positions, model_axis=policy.model_axis)
+        attn_out, cache = mla_attention(p.attn, h, cfg, positions, model_axis=policy.model_axis,
+                                        out_spec=res)
     else:
         attn_out, cache = _attn_op(p.attn, h, cfg, policy, positions)
     if cfg.family == "hybrid":  # both branches partial sums on a model axis: one reduction
@@ -448,24 +491,40 @@ def _stack(caches: list):
 
 
 def forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens, patches=None,
-            collect_cache=False):
+            collect_cache=False, last_only=False):
     """Full-sequence forward over ``tokens`` [B, S] (audio: [B, S, K]) after
     vlm's ``patches`` [B, P, patch_dim] if given.  Returns (logits [B, S', V]
     (audio: [B, S, K, V]), aux, caches_or_None): ``aux`` is the sum of the
     MoE layers' auxiliary losses (0 without experts); ``caches`` is (k, v),
     each [L, B, S', KVH, hd], MLA's {"c_kv" [L, B, S', r], "k_pe" [L, B,
-    S', dr]}, or None for a family without attention.
+    S', dr]}, or None for a family without attention.  ``last_only``: the
+    last position's logits alone ([B, 1, V]; audio [B, 1, K, V]), the final
+    hidden state cut before the head.
 
     When it builds a graph (grad mode on, parameters that require grad) and
     ``policy.remat == "block"``, each block runs under
     :func:`torch.utils.checkpoint.checkpoint` (recomputed in the backward
     pass), as the reference wraps it in ``jax.checkpoint``."""
-    logits, aux, caches = model(cfg, policy, tokens, patches, collect_cache)
+    logits, aux, caches = model(cfg, policy, tokens, patches, collect_cache, last_only)
     return _vocab_cut(logits, cfg.vocab_size), aux, caches
 
 
+def _last(x):
+    """``x[:, -1:]``.  A sequence-sharded DTensor: the rank whose rows hold
+    the last position gives its row, the others zeros, summed over the
+    model axis (an all-reduce of [B, 1, D]; the sequence is never gathered)."""
+    if not _sp(x):
+        return x[:, -1:]
+    local, start = x.to_local(), local_offset(x, 1)
+    B, S, D = x.shape
+    row = local[:, -1:] if start < S <= start + local.shape[1] else local.new_zeros(B, 1, D)
+    row = DTensor.from_local(row, x.device_mesh, [Partial()], run_check=False,
+                             shape=(B, 1, D), stride=(D, D, 1))
+    return row.redistribute(placements=[Replicate()])
+
+
 def _forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens, patches,
-             collect_cache):
+             collect_cache, last_only=False):
     x = _embed(model, cfg, tokens, patches)
     B, S, _ = x.shape
     x = constrain(x, *_res_spec(policy, S))
@@ -485,7 +544,9 @@ def _forward(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens
             aux = a if aux is None else aux + a
         if collect_cache and cache is not None:
             caches.append(cache)
-    x = constrain(x, *_res_spec(policy, x.shape[1]))
+    # the head reads whole rows: a sequence-sharded stream is gathered (or,
+    # for the last position alone, that row taken from its rank)
+    x = _last(x) if last_only else constrain(x, DP, None, None)
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
     logits = _head(model, cfg, policy, x, fp32=policy.logits_fp32)
     if aux is None:
@@ -615,13 +676,17 @@ def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
             max_len=None):
     """Run the prompt, build the decode cache.  Returns (logits, cache,
     cache_len); for vlm the prompt is the ``patches`` prefix and the text
-    tokens, so ``cache_len`` counts both.  The Mamba state and conv window
+    tokens, so ``cache_len`` counts both.  Under the policy's
+    ``prefill_last_logit_only`` the logits are the last position's alone
+    ([B, 1, V]; audio [B, 1, K, V]; vlm's last text token), the reference's
+    serving cell's ``logits[:, -1:]``, made without the others.  The Mamba state and conv window
     stay zero, as the reference's ``if cfg.has_ssm: pass`` leaves them
     (ROADMAP C.4)."""
     if cfg.family == "vlm" and patches is None:
         raise ValueError(f"{cfg.name} prefills a prompt of patch embeddings and text tokens; "
                          "pass patches")
-    logits, _, kv = forward(model, cfg, policy, tokens, patches, collect_cache=True)
+    logits, _, kv = forward(model, cfg, policy, tokens, patches, collect_cache=True,
+                            last_only=policy.prefill_last_logit_only)
     B = tokens.shape[0]
     S = tokens.shape[1] + (cfg.num_patches if cfg.family == "vlm" else 0)
     max_len = max_len or S

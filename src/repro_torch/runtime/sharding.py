@@ -59,10 +59,11 @@ head count the axis does not divide (hymba-1.5b's 50 heads over 4 or 16)
 puts the head dim over 'model' instead, in the scan and in the decode
 state, as :func:`cache_specs` does for the state (why:
 :mod:`repro_torch.models.ssm`).  Refused, naming ROADMAP A.18: the policy
-values whose layouts are not ported to a model axis wider than 1
-(``sp_activations``, ``shard_seq_attn=False``, int8 KV, the CUDA kernels,
-``moe_impl="dense"``, ``expert_axis="model"``, ``expert_ff_axis="data"``);
-on batch axes wider than 1 with a model axis of 1, ``moe_impl="dense"``
+values whose layouts are not ported to a model axis wider than 1 (int8
+KV, the CUDA kernels, ``expert_axis="model"``, ``expert_ff_axis="data"``;
+the activation layouts ``sp_activations``, ``shard_seq_attn=False``,
+``qkv_feature_shard=False`` and ``moe_impl="dense"`` run there);
+on batch axes wider than 1, ``moe_impl="dense"``
 runs expert parallelism too and ``expert_axis="model"`` keeps every
 expert on every rank (FSDP's layout), while ``expert_ff_axis="data"``
 beside ``expert_axis="data"`` is refused (the reference's spec would name
@@ -273,10 +274,9 @@ def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int, batch: 
     runs expert parallelism: the batch ranks must divide its experts, and
     each expert's d_ff cannot be over 'data' too."""
     if size > 1:
-        expect = {"sp_activations": False, "shard_seq_attn": True, "model_axis": "model",
-                  "kv_cache_dtype": "bf16"}
+        expect = {"model_axis": "model", "kv_cache_dtype": "bf16"}
         if cfg.moe is not None:
-            expect.update(moe_impl="gshard", expert_axis="data", expert_ff_axis="model")
+            expect.update(expert_axis="data", expert_ff_axis="model")
         bad = {f: getattr(policy, f) for f, v in expect.items() if getattr(policy, f) != v}
         if policy.attention_impl not in ("chunked", "naive"):
             bad["attention_impl"] = policy.attention_impl

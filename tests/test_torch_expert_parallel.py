@@ -524,7 +524,7 @@ def test_experts_over_the_model_axis_stay_on_every_batch_rank(runs, arch):
         assert shape == ((E, D, F // 2) if name.endswith(("w_gate", "w_up")) else (E, F // 2, D))
 
 
-@pytest.mark.parametrize("field,value", [("moe_impl", "dense"), ("expert_ff_axis", "data"),
+@pytest.mark.parametrize("field,value", [("attention_impl", "cuda"), ("expert_ff_axis", "data"),
                                          ("expert_axis", "model")])
 def test_unported_moe_policy_values_on_a_model_axis_refuse_naming_their_roadmap_item(field,
                                                                                     value):

@@ -202,7 +202,7 @@ def test_shard_model_refuses_a_model_axis_wider_than_one():
     with fake_world(4):
         mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
         with pytest.raises(ValueError, match=r"model axis wider than 1 .*ROADMAP A\.18"):
-            sharding.shard_model(model, mesh, ShardingPolicy(sp_activations=True))
+            sharding.shard_model(model, mesh, ShardingPolicy(kv_cache_dtype="int8"))
         pod = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("pod", "data"))
         with pytest.raises(ValueError, match="FSDP runs over"):
             sharding.shard_model(model, pod)

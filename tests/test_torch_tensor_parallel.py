@@ -372,13 +372,16 @@ def test_a_mamba_width_that_does_not_divide_is_refused():
         sharding.check_model_axis(cfg, ShardingPolicy(), 3)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("sp_activations", True), ("shard_seq_attn", False), ("kv_cache_dtype", "int8"),
-    ("attention_impl", "cuda"), ("model_axis", "tp")])
-def test_unported_policy_values_refuse_naming_their_roadmap_item(field, value):
-    policy = ShardingPolicy(**{field: value})
+@pytest.mark.parametrize("field,value,beside", [
+    ("kv_cache_dtype", "int8", {"sp_activations": True}),
+    ("attention_impl", "cuda", {"shard_seq_attn": False, "qkv_feature_shard": False}),
+    ("kv_cache_dtype", "int8", {}), ("attention_impl", "cuda", {}), ("model_axis", "tp", {})])
+def test_unported_policy_values_refuse_naming_their_roadmap_item(field, value, beside):
+    """Beside the activation layouts that are ported (``beside``: they run)."""
+    policy = ShardingPolicy(**beside, **{field: value})
     with pytest.raises(ValueError, match=rf"{field}.*ROADMAP A\.18"):
         sharding.check_model_axis(CFG, policy, 2)
+    sharding.check_model_axis(CFG, ShardingPolicy(**beside), 2)  # the ported layout runs
     sharding.check_model_axis(CFG, ShardingPolicy(), 2)  # the default runs
     with pytest.raises(ValueError, match="do not divide"):
         sharding.check_model_axis(CFG, ShardingPolicy(), 3)  # d_ff 128 over 3

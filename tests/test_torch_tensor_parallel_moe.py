@@ -411,7 +411,7 @@ def test_an_expert_d_ff_that_does_not_divide_is_refused():
     sharding.check_model_axis(odd, ShardingPolicy(), 8)
 
 
-@pytest.mark.parametrize("field,value", [("moe_impl", "dense"), ("expert_ff_axis", "data"),
+@pytest.mark.parametrize("field,value", [("kv_cache_dtype", "int8"), ("expert_ff_axis", "data"),
                                          ("expert_axis", "model")])
 def test_unported_moe_policy_values_refuse_naming_their_roadmap_item(field, value):
     cfg = smoke_variant(get_arch("deepseek-v2-lite-16b"))
