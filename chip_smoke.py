@@ -32,7 +32,13 @@ Phases, each printing one JSON line:
    the replay kernel also at m = 1, at the chain bucket ladder-padded as
    warm hits pack it (m 16, T 32) and at the campaign's largest bucket
    (64 chain instances with returns, m 8, T 12), each beside the floor of
-   its dependent chain (``chain_floor_ms``);
+   its dependent chain (``chain_floor_ms``); ``kernel_shards``: the
+   attention kernels' model-axis arguments on one card (flash on llama's
+   and paligemma's prefill problems cut into four row blocks at their
+   ``q_offset``, decode on a 544-entry cache cut into four shards at their
+   ``kv_start`` with ``lse``, merged as the model merges the ranks', cache
+   lengths 1 and 544), against the whole call and the plain version, the
+   shards' times beside the whole call's;
 3. ``solve_bulk``: 256 chain + 256 star instances, 64 + 64 with returns and
    release dates, and two goldens, through ``repro_torch.engine.solve_bulk``
    on the card; the launch counts are set to 0 just before each call and
@@ -1264,6 +1270,128 @@ def decode_phase(dev):
     return rows
 
 
+SHARDS = 4  # the model axis the shard checks cut the problems for (four cards)
+
+
+def flash_shard_phase(dev):
+    """flash_attention on a model axis's rows, on one card: the prefill
+    problems of llama3.2-3b's and paligemma-3b's heads (4 x 512) cut into
+    four row blocks, each run with its ``q_offset`` (0/128/256/384) against
+    the whole K and V, as each rank of a (1, 4) mesh runs its rows; held
+    against the whole call's rows and the plain version's, float32 and
+    bfloat16 and once with paligemma's window of 96.  Times: each block's
+    call beside the whole call's."""
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+
+    B, S = 4, 512
+    n = S // SHARDS
+    rows = {}
+    for name, heads, dtype, window in (("llama_f32", LLAMA, torch.float32, 0),
+                                       ("llama_bf16", LLAMA, torch.bfloat16, 0),
+                                       ("paligemma_f32", PALIGEMMA, torch.float32, 0),
+                                       ("paligemma_bf16", PALIGEMMA, torch.bfloat16, 0),
+                                       ("paligemma_window96_f32", PALIGEMMA, torch.float32, 96)):
+        H, KVH, D = heads["H"], heads["KVH"], heads["D"]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7 + window)
+        q, k, v = (_rand(gen, s, dtype, dev) for s in ((B, S, H, D), (B, S, KVH, D),
+                                                       (B, S, KVH, D)))
+        whole = flash_attention(q, k, v, causal=True, window=window)
+        plain = flash_attention_plain(q, k, v, causal=True, window=window)
+        blocks = [q[:, i * n:(i + 1) * n] for i in range(SHARDS)]  # strided views of q
+        err_whole = err_plain = 0.0
+        for i, qb in enumerate(blocks):
+            got = flash_attention(qb, k, v, causal=True, window=window, q_offset=i * n)
+            rows_of = slice(i * n, (i + 1) * n)
+            err_whole = max(err_whole, (got.float() - whole[:, rows_of].float()).abs().max().item())
+            err_plain = max(err_plain, (got.float() - plain[:, rows_of].float()).abs().max().item())
+        err_plain_whole = (whole.float() - plain.float()).abs().max().item()
+        check(max(err_whole, err_plain) <= ATTN_TOL[dtype],
+              f"flash_attention shards {name}: max |err| {err_whole} (whole call), "
+              f"{err_plain} (plain)")
+        whole_ms = device_ms(lambda *a: flash_attention(*a, causal=True, window=window),
+                             lambda: (q, k, v), reps=20)
+        shard_ms = [device_ms(lambda qb, k, v, off=i * n: flash_attention(
+            qb, k, v, causal=True, window=window, q_offset=off), lambda qb=qb: (qb, k, v),
+            reps=20) for i, qb in enumerate(blocks)]
+        rows[name] = dict(max_abs_err_whole=err_whole, max_abs_err_plain=err_plain,
+                          whole_ms=whole_ms, shard_ms=shard_ms)
+        emit(phase="kernel_shards", kernel="flash_attention", case=name, B=B, S=S, H=H, KVH=KVH,
+             D=D, dtype=str(dtype), window=window, shards=SHARDS,
+             q_offsets=[i * n for i in range(SHARDS)], max_abs_err_whole=err_whole,
+             max_abs_err_plain=err_plain, whole_vs_plain=err_plain_whole, tol=ATTN_TOL[dtype],
+             whole_ms=whole_ms, shard_ms=shard_ms, shard_max_ms=max(shard_ms),
+             shard_sum_ms=sum(shard_ms))
+        del q, k, v, whole, plain, blocks
+    return rows
+
+
+def decode_shard_phase(dev):
+    """decode_attention on a model axis's cache shards, on one card: a
+    544-entry cache of llama3.2-3b's and paligemma-3b's heads cut into four
+    shards of 136, each run with its ``kv_start`` and ``lse`` as each rank
+    of a (1, 4) mesh runs its shard, merged as the model merges the ranks'
+    (:func:`repro_torch.models.attention.merge_splits`, the combine of
+    ``combine_splits``), against the whole-cache kernel and the plain
+    version; float32 and bfloat16, ``cache_len`` 1 (three shards empty:
+    o = 0, lse = -1e30) and 544.  Times: each shard's call beside the whole
+    call's."""
+    from repro_torch.kernels import decode_attention, decode_attention_plain
+    from repro_torch.kernels.flash_attention import NEG_INF
+    from repro_torch.models.attention import merge_splits
+
+    B, Smax = 4, 544
+    n = Smax // SHARDS
+    rows = {}
+    for tag, heads in (("llama", LLAMA), ("paligemma", PALIGEMMA)):
+        for dtype in (torch.float32, torch.bfloat16):
+            H, KVH, D = heads["H"], heads["KVH"], heads["D"]
+            gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+            q, kc, vc = (_rand(gen, s, dtype, dev) for s in ((B, 1, H, D), (B, Smax, KVH, D),
+                                                             (B, Smax, KVH, D)))
+            shards = [(kc[:, i * n:(i + 1) * n], vc[:, i * n:(i + 1) * n], i * n)
+                      for i in range(SHARDS)]
+            for length in (1, Smax):
+                name = f"{tag}_len{length}_{str(dtype).split('.')[-1]}"
+                n_t = torch.tensor([length], dtype=torch.int32, device=dev)
+                whole = decode_attention(q, kc, vc, n_t)
+                plain = decode_attention_plain(q, kc, vc, n_t)
+                parts = [decode_attention(q, ks, vs, n_t, kv_start=start, with_lse=True)
+                         for ks, vs, start in shards]
+                o = torch.stack([p[0][:, 0].float() for p in parts])  # [R, B, H, D]
+                lse = torch.stack([p[1] for p in parts])  # [R, B, H]
+                merged = merge_splits(lse, torch.ones_like(lse), o)[:, None].to(dtype)
+                empty = [i for i, (_, _, start) in enumerate(shards) if start >= length]
+                empty_ok = all(bool((parts[i][0] == 0).all()) and
+                               bool((parts[i][1] == NEG_INF).all()) for i in empty)
+                finite = all(bool(torch.isfinite(p[1]).all()) for p in parts)
+                err_whole = (merged.float() - whole.float()).abs().max().item()
+                err_plain = (merged.float() - plain.float()).abs().max().item()
+                plain_parts = [decode_attention_plain(q, ks, vs, n_t, kv_start=start,
+                                                      with_lse=True) for ks, vs, start in shards]
+                lse_err = max((p[1] - w[1]).abs().max().item()
+                              for p, w in zip(parts, plain_parts))
+                check(max(err_whole, err_plain) <= ATTN_TOL[dtype] and empty_ok and finite
+                      and lse_err <= ATTN_TOL[torch.float32] * 10,
+                      f"decode_attention shards {name}: max |err| {err_whole} (whole), "
+                      f"{err_plain} (plain), lse {lse_err}, empty shards {empty} "
+                      f"o = 0 and lse = -1e30: {empty_ok}, lse finite {finite}")
+                whole_ms = device_ms(lambda *a: decode_attention(*a), lambda: (q, kc, vc, n_t),
+                                     reps=50)
+                shard_ms = [device_ms(lambda ks, vs, start: decode_attention(
+                    q, ks, vs, n_t, kv_start=start, with_lse=True), lambda sh=sh: sh, reps=50)
+                    for sh in shards]
+                rows[name] = dict(max_abs_err_whole=err_whole, max_abs_err_plain=err_plain,
+                                  whole_ms=whole_ms, shard_ms=shard_ms)
+                emit(phase="kernel_shards", kernel="decode_attention", case=name, B=B, H=H,
+                     KVH=KVH, D=D, Smax=Smax, shards=SHARDS, cache_len=length,
+                     dtype=str(dtype), empty_shards=empty, max_abs_err_whole=err_whole,
+                     max_abs_err_plain=err_plain, lse_max_abs_err_plain=lse_err,
+                     tol=ATTN_TOL[dtype], whole_ms=whole_ms, shard_ms=shard_ms,
+                     shard_max_ms=max(shard_ms), shard_sum_ms=sum(shard_ms))
+            del q, kc, vc, shards
+    return rows
+
+
 # ---------------------------------------------------------------- the SSD scan kernel
 
 MAMBA2 = dict(H=80, P=64, N=128)  # mamba2-2.7b's SSD heads: d_inner 5120 / head_dim 64
@@ -1326,21 +1454,27 @@ SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_sca
 def kernel_stage_ms(fn, reps: int, kernels=SSD_KERNELS) -> dict:
     """Mean device milliseconds a call of each of ``kernels`` (by name; the
     SSD scan's by default), from torch.profiler over ``reps`` calls of
-    ``fn`` (after one warm-up)."""
+    ``fn`` (after one warm-up).  A profiling session that recorded no
+    device event at all (the profiler's, not the kernels': it happened
+    once in a dozen sessions on the card) is taken again, twice at most;
+    the callers' checks then judge what was seen."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
     out = {k: 0.0 for k in kernels}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for k in kernels:
-                if k in e.name:
-                    out[k] += e.device_time / 1e3 / reps
+    for e in device:
+        for k in kernels:
+            if k in e.name:
+                out[k] += e.device_time / 1e3 / reps
     return out
 
 
@@ -2860,6 +2994,8 @@ def main() -> int:
     # phases 2 (attention and SSD kernels) and 5: the serving paths
     fa = flash_phase(dev)
     da = decode_phase(dev)
+    flash_shard_phase(dev)  # the kernels' model-axis arguments (q_offset; kv_start, lse)
+    decode_shard_phase(dev)
     ssd = ssd_phase(dev)
     rms, rms_launches = rmsnorm_phase(dev)
     torch.cuda.empty_cache()

@@ -32,7 +32,8 @@ rows not read from shared memory), ``probe_no_block_combine`` (the warps' accumu
 merged through shared memory) and ``probe_empty`` (every block returns at
 once: the launch of the clusters).
 
-``--baseline`` adds an older source built as it is, called through the
+``--baseline`` adds an older source built as it is (its entry points
+without a shard's ``kv_start`` and ``lse`` are detected), called through the
 entry point of the split-KV kernel (``repro_decode_attention`` with its
 workspace) at the split ``decode_split`` picks, so the designs before and
 after a change are timed in the same run on the same card; its D <= 128
@@ -156,7 +157,10 @@ VARIANTS = {
 # the builds called with clusters of other sizes than the wrapper picks
 CLUSTERS = {"design": (16, 8, 4, 1), "h4": (16, 8)}
 ENTRY = re.compile(r"Compiling entry function '(\S+)'")
-OLD_SIGNATURE = _SIGNATURES["repro_decode_attention"]
+# the entry points before a shard's kv_start and lse
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+OLD_SIGNATURES = {"repro_decode_attention": [_P] * 9 + [_I] * 7 + [_L] * 7 + [_I, _F, _P],
+                  "repro_decode_attention_d256": [_P] * 5 + [_I] * 5 + [_L] * 7 + [_I, _F, _I, _P]}
 
 
 def kernel_name(mangled: str) -> str:
@@ -215,10 +219,12 @@ def build(baseline: Path | None) -> dict:
         print(json.dumps(dict(variant=name, build_s=build_s, ptxas=ptxas_report(log))),
               flush=True)
         lib = ctypes.CDLL(str(so))
-        lib.repro_decode_attention.argtypes = OLD_SIGNATURE
+        lib.shards = "kv_start" in Path(jobs[name][0]).read_text()
+        signatures = _SIGNATURES if lib.shards else {**_SIGNATURES, **OLD_SIGNATURES}
+        lib.repro_decode_attention.argtypes = signatures["repro_decode_attention"]
         if hasattr(lib, "repro_decode_attention_d256"):
             for fn in ("repro_decode_attention_d256", "repro_decode_attention_d256_max_clusters"):
-                getattr(lib, fn).argtypes = _SIGNATURES[fn]
+                getattr(lib, fn).argtypes = signatures[fn]
         libs[name] = lib
     return libs
 
@@ -229,14 +235,15 @@ def caller256(lib, q, kc, vc, n_t, window: int, cluster: int):
     B, _, H, D = q.shape
     Smax, KVH = kc.shape[1], kc.shape[2]
     o = torch.empty_like(q)
-    tail = (B, H, KVH, Smax, int(q.dtype == torch.bfloat16), q.stride(0), q.stride(2),
-            *kc.stride()[:3], o.stride(0), o.stride(2), window, ctypes.c_float(D ** -0.5),
-            cluster)
+    shard = (None,) if lib.shards else ()  # no lse
+    tail = (B, H, KVH, Smax, int(q.dtype == torch.bfloat16), *((0,) if lib.shards else ()),
+            q.stride(0), q.stride(2), *kc.stride()[:3], o.stride(0), o.stride(2), window,
+            ctypes.c_float(D ** -0.5), cluster)
 
     def call():
         code = lib.repro_decode_attention_d256(
-            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), n_t.data_ptr(), o.data_ptr(), *tail,
-            torch.cuda.current_stream().cuda_stream)
+            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), n_t.data_ptr(), o.data_ptr(), *shard,
+            *tail, torch.cuda.current_stream().cuda_stream)
         if code != 0:
             raise RuntimeError(f"launch failed: CUDA error {code}")
         return o
@@ -259,7 +266,8 @@ def caller_split(lib, q, kc, vc, n_t, window: int, split: int):
         code = lib.repro_decode_attention(
             q.data_ptr(), kc.data_ptr(), vc.data_ptr(), n_t.data_ptr(), part.data_ptr(),
             part[n:].data_ptr(), part[2 * n:].data_ptr(), counters.data_ptr(), o.data_ptr(),
-            B, H, KVH, Smax, D, split, int(q.dtype == torch.bfloat16), q.stride(0),
+            *((None,) if lib.shards else ()), B, H, KVH, Smax, D, split,
+            int(q.dtype == torch.bfloat16), *((0,) if lib.shards else ()), q.stride(0),
             q.stride(2), *kc.stride()[:3], o.stride(0), o.stride(2), window,
             ctypes.c_float(D ** -0.5), torch.cuda.current_stream().cuda_stream)
         if code != 0:

@@ -27,7 +27,7 @@ paired heavy with light); ``order_heavy_first`` keeps every head's heaviest
 q tiles first but does not pair the resident blocks.
 
 ``--baseline`` adds an older source built as it is (its entry point
-without a workspace is detected), so the designs before and after a
+without a workspace, or without the q offset, is detected), so the designs before and after a
 change are timed in the same run on the same card.
 
 Prints the card's name and power limit, a line per build with its seconds
@@ -109,6 +109,9 @@ VARIANTS = {
 ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 OLD_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+# the entry point with a workspace, before the q offset
+NO_OFFSET_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+    ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 
 
 def kernel_name(mangled: str) -> str:
@@ -174,11 +177,15 @@ def build(baseline: Path | None) -> dict:
         print(json.dumps(dict(variant=name, build_s=build_s, ptxas=ptxas_report(log),
                               warnings=warnings)), flush=True)
         lib = ctypes.CDLL(str(so))
-        if hasattr(lib, "repro_flash_attention_split_tile"):
+        lib.takes_offset = "q_offset" in Path(jobs[name][0]).read_text()
+        if lib.takes_offset:
             lib.repro_flash_attention.argtypes = _SIGNATURES["repro_flash_attention"]
-            lib.repro_flash_attention_split_tile.argtypes = []
+        elif hasattr(lib, "repro_flash_attention_split_tile"):
+            lib.repro_flash_attention.argtypes = NO_OFFSET_SIGNATURE
         else:  # an entry point from before the workspace
             lib.repro_flash_attention.argtypes = OLD_SIGNATURE
+        if hasattr(lib, "repro_flash_attention_split_tile"):
+            lib.repro_flash_attention_split_tile.argtypes = []
         libs[name] = lib
     return libs
 
@@ -193,7 +200,8 @@ def caller(lib, q, k, v, causal: bool):
     ws = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=q.device)
     o = torch.empty_like(q)
     tail = (B, H, KVH, Sq, Sk, D, int(q.dtype == torch.bfloat16), *_tma_strides(q),
-            *_tma_strides(k), *o.stride()[:3], int(causal), 0, ctypes.c_float(D ** -0.5))
+            *_tma_strides(k), *o.stride()[:3], int(causal), 0,
+            *((0,) if lib.takes_offset else ()), ctypes.c_float(D ** -0.5))
 
     def call():
         stream = torch.cuda.current_stream().cuda_stream

@@ -8,7 +8,7 @@
         --seq 32 --prompt 32 --gen 4 --check-batch 4 --serve-batch 4 --lr 1e-3  # the CPU: gloo
 
 ``--parts`` picks the parts, run in the order given (default: all
-twenty-two, (i)-(xxii)).  The
+twenty-four, (i)-(xxiv)).  The
 dense family's: (i) ``train``: ``--check-arch`` (llama3.2-3b) at full width
 and depth in float32: the train cell's step on each of ``--meshes`` (``1x4``
 and ``2x2``: data x model), ``--check-steps`` steps of the global batch
@@ -82,8 +82,25 @@ FAMILY_TRAIN_LAYERS layers trained (on the first of ``--meshes``) under
 ``sp`` and served on (1, N) under ``sp+last`` and ``noseqshard`` (hymba on
 twice its window), then deepseek-v2-lite-16b at MOE_TRAIN_LAYERS layers
 trained and served on ``--meshes`` under ``sp`` and ``dense``.
+The hand-written kernels and the int8 KV cache (:data:`VARIANTS` ``cuda``,
+``int8``, ``cuda+int8``; the one card's side under the same values):
+(xxiii) ``kernels-serve``: llama3.2-3b, mamba2-2.7b, hymba-1.5b (on twice
+its window), musicgen-medium and paligemma-3b at full width and depth in
+float32 on (1, N) under ``cuda``, and llama3.2-3b on ``2x2``, as the
+families' serving parts; then ``--serve-arch`` at full size in bfloat16
+under ``cuda`` and ``cuda+int8`` beside the default, as (ii).  (xxiv)
+``int8-serve``: llama3.2-3b and hymba-1.5b (twice its window) with the int8
+cache on (1, N), with and without the kernels, against one card with the
+int8 cache: a K/V value can quantize a step apart on the two sides
+(ROADMAP C.5), so the one card starts each decode step from the sharded
+side's cache; the int8 leaves at most a step apart (the flips counted), a
+row's logits within 1e-3 in the step its new entry flipped.  Every serving
+run counts each rank's kernel launches in the prefill and in the decode
+steps (``launches``): under ``cuda`` on the cards one flash launch a layer
+with attention and one SSD launch a Mamba layer in the prefill, one decode
+launch a layer with attention and step, exactly.
 The one-card side of (v), (vii), (xvii), (xviii) and the serving parts
-(ix)-(xv), (xxi), (xxii) is fed the sharded side's greedy tokens.
+(ix)-(xv), (xxi)-(xxiii) is fed the sharded side's greedy tokens.
 Rank 0 prints one JSON line (also written to ``--out``, after each part)
 with the cards' name and power limit, and exits non-zero on a missed bar.
 Every part ends with the ranks' one decision (an all-reduce of whether
@@ -116,6 +133,7 @@ from torch.profiler import ProfilerActivity, profile
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "src"))
 
+from repro_torch import kernels  # noqa: E402
 from repro_torch.config import (ShapeConfig, ShardingPolicy, TrainConfig, get_arch,  # noqa: E402
                                 smoke_variant)
 from repro_torch.data import SyntheticStream, make_batch  # noqa: E402
@@ -161,9 +179,21 @@ VARIANTS = {
                      "logits_fp32": False},
     "noremat+sp": {"remat": "none", "sp_activations": True, "qkv_feature_shard": False},
     "dense": {"moe_impl": "dense"},
+    # the kernels and the int8 KV cache (parts (xxiii), (xxiv))
+    "cuda": {"attention_impl": "cuda"},
+    "int8": {"kv_cache_dtype": "int8"},
+    "cuda+int8": {"attention_impl": "cuda", "kv_cache_dtype": "int8"},
 }
 LAYOUT_TRAIN = ("default", "sp", "noremat+sp", "noseqshard")
 LAYOUT_SERVE = ("default", "last_logit", "noseqshard", "sp", "sp+last", "sp_noq", "sp+last+bf16")
+# part (xxiii)'s models at full width and depth under "cuda" (llama also on 2x2),
+# then --serve-arch at full size in bfloat16 under these beside the default
+KERNEL_ARCHS = ("llama3.2-3b", *FAMILIES.values())
+KERNEL_SERVE = ("default", "cuda", "cuda+int8")
+# part (xxiv)'s models, each with the int8 cache with and without the kernels
+INT8_ARCHS = ("llama3.2-3b", "hymba-1.5b")
+INT8_SERVE = ("int8", "cuda+int8")
+FLIP_TOL = 1e-3  # a row whose new int8 entry quantized a step apart (ROADMAP C.5)
 
 
 def _sync(dev):
@@ -429,11 +459,29 @@ def _variant(base: ShardingPolicy, name: str) -> ShardingPolicy:
 
 def _one_card(policy: ShardingPolicy) -> ShardingPolicy:
     """The one-card side's policy of a variant: its values (the experts'
-    dispatch, the logits' dtype), the layouts' defaults and every
+    dispatch, the logits' dtype, the attention's implementation: the same
+    kernels, the KV cache's dtype), the layouts' defaults and every
     prefill's logits whole (a last-position variant is held to their last
     row)."""
     return ShardingPolicy(attn_chunk=policy.attn_chunk, moe_impl=policy.moe_impl,
-                          logits_fp32=policy.logits_fp32)
+                          logits_fp32=policy.logits_fp32,
+                          attention_impl=policy.attention_impl,
+                          kv_cache_dtype=policy.kv_cache_dtype)
+
+
+def _launches(cfg, policy, gen: int, counts: dict, dev) -> dict:
+    """A rank's kernel launches in a prefill and ``gen`` decode steps
+    against what the path must launch under ``"cuda"`` on the card: one
+    flash launch a layer with attention and one SSD launch a Mamba layer in
+    the prefill, one decode launch a layer with attention and step (MLA
+    none); none under the plain paths, and none counted on the CPU."""
+    on = policy.attention_impl == "cuda" and dev.type == "cuda"
+    attn = cfg.num_layers if on and cfg.has_attention and cfg.mla is None else 0
+    ssm = cfg.num_layers if on and cfg.has_ssm else 0
+    want = {"prefill": {"flash_attention": attn, "ssd_scan": ssm, "decode_attention": 0},
+            "decode": {"flash_attention": 0, "ssd_scan": 0, "decode_attention": attn * gen}}
+    by_rank = _gather({stage: {k: counts[stage][k] for k in want[stage]} for stage in want})
+    return dict(by_rank=by_rank, want=want, ok=all(g == want for g in by_rank))
 
 
 def _train_check(opts, dev, rank, cfg, meshes: str | None = None,
@@ -549,34 +597,45 @@ def _prompt(cfg, batch: int, seq: int, step: int, dev) -> dict:
 
 
 def _serve_run(cfg, mesh, policy, model, prompt: dict, seq: int, gen: int, dev, record: bool,
-               routes: dict | None = None, each_step: bool = False):
+               routes: dict | None = None, each_step: bool = False, first: bool = False):
     """The prefill cell on ``prompt`` (``seq`` positions), then ``gen``
     greedy decode-cell steps on a cache of seq + gen entries; the logits of
     each and the final cache (full tensors; with ``each_step`` the cache
-    after every decode step, on the host), and with ``record`` the times,
-    collectives and profiles.  ``prompt`` is this data rank's rows; the
-    logits, tokens and caches returned are every data rank's, joined.
-    ``routes``: a dict the MoE layers' routing of this rank's rows is
-    recorded into."""
+    after every decode step, on the host, and with ``first`` the prefill's
+    before them), and with ``record`` the times, collectives and profiles;
+    the kernels' launches of the prefill and of the steps (``launches``).
+    ``prompt`` is this data rank's rows; the logits, tokens and caches
+    returned are every data rank's, joined.  ``routes``: a dict the MoE
+    layers' routing of this rank's rows is recorded into.  An int8 cache
+    is made with room for the steps by the prefill cell itself
+    (``extend_cache`` takes no int8 cache)."""
     B = prompt["tokens"].shape[0] * mesh.size(0)  # the global batch
-    pre = build_cell(mesh, cfg, ShapeConfig("prefill", seq, B, "prefill"), policy,
-                     param_dtype=model.embed.dtype)
+    int8 = policy.kv_cache_dtype == "int8"
+    pre = build_cell(mesh, cfg, ShapeConfig("prefill", seq + gen if int8 else seq, B, "prefill"),
+                     policy, param_dtype=model.embed.dtype)
     dec = build_cell(mesh, cfg, ShapeConfig("decode", seq + gen, B, "decode"), policy,
                      param_dtype=model.embed.dtype)
     rec: dict = {}
     now = {"step": None}
     watch = (_observe_routes(model, routes, lambda: (0, now["step"])) if routes is not None
              else contextlib.nullcontext())
-    steps = []
+    steps, launches = [], {}
     with watch:
         _sync(dev)
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         lg, cache = pre.fn(model, prompt)
         nxt = greedy_tokens(lg[:, -1:])
         _sync(dev)
         rec["prefill_s"] = time.perf_counter() - t0
+        launches["prefill"] = kernels.launch_counts()
         logits = [_data_rows(lg.full_tensor() if isinstance(lg, DTensor) else lg, mesh)]
-        cache = extend_cache(cfg, cache, seq + gen)
+        if not int8:
+            cache = extend_cache(cfg, cache, seq + gen)
+        if each_step and first:
+            whole = _full(cache, mesh)
+            steps.append(_flat(whole) if dist.get_rank() == 0 else None)
+        kernels.reset_launch_counts()
         tokens, walls = [nxt], []
         for i in range(gen):
             now["step"] = i
@@ -591,6 +650,8 @@ def _serve_run(cfg, mesh, policy, model, prompt: dict, seq: int, gen: int, dev, 
             if each_step:  # gathered on every rank, kept on rank 0's host
                 whole = _full(cache, mesh)
                 steps.append(_flat(whole) if dist.get_rank() == 0 else None)
+    launches["decode"] = kernels.launch_counts()
+    rec["launches"] = _launches(cfg, policy, gen, launches, dev)
     rec["decode_ms"] = walls
     rec["decode_ms_median"] = sorted(walls[1:] or walls)[len(walls[1:] or walls) // 2]
     rec["tokens"] = _data_rows(torch.cat(tokens, dim=1), mesh).cpu().tolist()
@@ -700,7 +761,7 @@ def _serve(opts, dev, rank, cfg, mesh_spec: str | None = None,
                    weights_gb_a_rank=weights_gb, weights_gb_by_rank=weights_by_rank,
                    init_peak_gb=init_peak, serve_peak_gb_by_rank=_gather(_peak_gb(dev)),
                    logits_shape=list(logits[0].shape), finite=finite, policy=VARIANTS[name],
-                   ok=finite and list(logits[0].shape) == want)
+                   ok=finite and list(logits[0].shape) == want and rec["launches"]["ok"])
         recs[name] = rec
         del cache, logits
         _release(dev)
@@ -793,7 +854,8 @@ def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None 
             prefill_logits_shape=list(logits[0].shape),
             own_greedy_differs=[[int(b), int(i)] for b, i in differ.nonzero().tolist()],
             ok=bool(errs) and max(errs.values()) <= SERVE_TOL
-            and (flips is None or flips["ok"]) and not (family and differ.any()),
+            and (flips is None or flips["ok"]) and not (family and differ.any())
+            and rec["launches"]["ok"],
             **{k: v for k, v in rec.items() if k != "tokens"})
         del c
         _release(dev)
@@ -801,6 +863,115 @@ def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None 
     _release(dev)
     if variants == ("default",):
         return outs["default"]
+    return dict(variants=outs, ok=all(r["ok"] for r in outs.values()))
+
+
+def _unflat(flat: dict, dev) -> dict:
+    """A cache tree from its leaves by dotted name (:func:`_flat`), on ``dev``."""
+    tree: dict = {}
+    for name, t in flat.items():
+        *groups, leaf = name.split(".")
+        node = tree
+        for g in groups:
+            node = node.setdefault(g, {})
+        node[leaf] = t.to(dev, copy=True)
+    return tree
+
+
+def _int8_leaves(got: dict, want: dict, rows: int) -> tuple:
+    """Two caches' leaves by name: the int8 ones' entries a quantization
+    step apart by batch row (any further apart fails), and the others'
+    max |got - want| over max |want|."""
+    flips, errs = torch.zeros(rows, dtype=torch.int64), {}
+    for leaf, t in want.items():
+        g = got[leaf]
+        if t.dtype == torch.int8:
+            gap = (g.to(torch.int32) - t.to(torch.int32)).abs()  # [L, B, ...]
+            errs[leaf + ".max_step"] = int(gap.max())
+            flips += (gap != 0).transpose(0, 1).reshape(rows, -1).sum(dim=1)
+        else:  # a leaf still zero (the Mamba cache after a prefill, ROADMAP C.4): absolute
+            top = t.float().abs().max()
+            errs[leaf] = float((g.float() - t.float()).abs().max() / (top if top > 0 else 1))
+    return flips, errs
+
+
+def _int8_check(opts, dev, rank, cfg, gen: int, seq: int | None = None,
+                variants: tuple = INT8_SERVE) -> dict:
+    """Part (xxiv): ``cfg`` in float32 with the int8 KV cache on (1, N)
+    under each of ``variants`` (with and without the kernels) against rank
+    0 alone under the same values.  As ROADMAP C.5 holds an int8 cache: a
+    K/V value within an ulp of a rounding boundary can quantize a step
+    apart on the two sides, so the one card starts each decode step from
+    the sharded side's cache before it (a flip cannot carry on).  Held:
+    the prefill's logits within 1e-4 of their max |value|; each cache's
+    int8 leaves at most a step apart (the flips counted by batch row) and
+    its float leaves (the scales, the Mamba state and window) within 1e-4;
+    each step's logits by batch row within 1e-4, and within 1e-3 on a row
+    whose new entry flipped in that step; the greedy tokens equal; the
+    kernels' launches exact."""
+    seq = seq or opts.prompt
+    base = ShardingPolicy(attn_chunk=min(1024, seq))
+    mesh = _mesh(dev, None)
+    model = init_sharded(cfg, mesh, seed=1, dtype=torch.float32, device=dev, policy=base)
+    weights_gb = _weights_gb(model)
+    prompt = _prompt(cfg, opts.serve_batch, seq, 1, dev)
+    sharded = {}
+    for name in variants:
+        policy = _variant(base, name)
+        _peak_reset(dev)
+        logits, caches, rec = _serve_run(cfg, mesh, policy, model, _rows_of(prompt, mesh), seq,
+                                         gen, dev, record=False, each_step=True, first=True)
+        peaks = _gather(_peak_gb(dev))
+        sharded[name] = (policy, [lg.cpu() for lg in logits] if rank == 0 else None, caches,
+                         rec, peaks)
+        del logits, caches
+        _release(dev)
+    del model
+    _release(dev)
+    if rank != 0:
+        return None
+    one = init_params(cfg, seed=1, dtype=torch.float32, device=dev)
+    outs = {}
+    for name, (policy, logits, caches, rec, peaks) in sharded.items():
+        single = _one_card(policy)
+        tokens = torch.tensor(rec["tokens"], dtype=torch.int32, device=dev)
+        lg, cache, pos = prefill(one, cfg, single, prompt["tokens"], prompt.get("patches"),
+                                 max_len=seq + gen)
+        B = opts.serve_batch
+        scale = lg.float().abs().max()
+        errs = {"prefill_logits": float((logits[0].float() - lg.float().cpu()).abs().max()
+                                        / scale)}
+        flips, leaves = _int8_leaves(caches[0], _flat(cache), B)
+        errs.update({f"prefill.{k}": v for k, v in leaves.items()})
+        steps, differ = [], []
+        for i in range(gen):
+            lg, after = decode_step(one, cfg, single, _unflat(caches[i], dev), tokens[:, i:i + 1],
+                                    pos + i)
+            differ.append(bool((greedy_tokens(lg[:, -1:]) != tokens[:, i + 1:i + 2]).any()))
+            step_flips, leaves = _int8_leaves(caches[i + 1], _flat(after), B)
+            gap = (logits[i + 1].float() - lg.float().cpu()).abs()
+            by_row = (gap.reshape(B, -1).amax(dim=1) / lg.float().abs().max().cpu()).tolist()
+            steps.append(dict(row_err=by_row, flips=step_flips.tolist(), **leaves,
+                              ok=all(e <= (FLIP_TOL if f else SERVE_TOL)
+                                     for e, f in zip(by_row, step_flips.tolist()))))
+        leaf_errs = [v for st in [errs, *steps] for k, v in st.items()
+                     if k not in ("prefill_logits", "row_err", "flips", "ok")
+                     and not k.endswith("max_step")]
+        steps_max = [v for st in steps for k, v in st.items() if k.endswith("max_step")]
+        outs[name] = dict(
+            arch=cfg.name, layers=cfg.num_layers, dtype="float32",
+            mesh=f"{mesh.size(0)}x{mesh.size(1)}", batch=B, prompt=seq, gen=gen,
+            weights_gb_a_rank=weights_gb, serve_peak_gb_by_rank=peaks, policy=VARIANTS[name],
+            rel_err=errs, prefill_flips=flips.tolist(), steps=steps, greedy_differs=differ,
+            ok=errs["prefill_logits"] <= SERVE_TOL and max(leaf_errs) <= SERVE_TOL
+            and max(v for k, v in errs.items() if k.endswith("max_step")) <= 1
+            and max(steps_max) <= 1 and all(st["ok"] for st in steps) and not any(differ)
+            and rec["launches"]["ok"],
+            **{k: v for k, v in rec.items() if k != "tokens"})
+        del cache, after
+        _release(dev)
+    del one
+    _release(dev)
     return dict(variants=outs, ok=all(r["ok"] for r in outs.values()))
 
 
@@ -816,8 +987,9 @@ def _each_mesh(part, meshes: str) -> dict | None:
 FAMILY_PARTS = tuple(f"{f}-{k}" for f in FAMILIES for k in ("train", "serve"))
 EP_PARTS = ("moe-ep-train", "moe-ep-serve", "kimi-ep-check", "kimi-ep-serve")
 LAYOUT_PARTS = ("layout-train", "layout-serve", "layout-families")
+KERNEL_PARTS = ("kernels-serve", "int8-serve")
 PARTS = ("train", "check", "serve", "moe-train", "moe-serve", *FAMILY_PARTS, "kimi-check",
-         "kimi-serve", *EP_PARTS, *LAYOUT_PARTS)
+         "kimi-serve", *EP_PARTS, *LAYOUT_PARTS, *KERNEL_PARTS)
 
 
 def _layout_serve(opts, dev, rank) -> dict:
@@ -861,6 +1033,55 @@ def _layout_families(opts, dev, rank) -> dict:
         variants=("default", "sp", "dense")), opts.meshes))
     runs[f"{MOE}-train"] = done(f"{MOE}-train", _train_check(
         opts, dev, rank, moe_cfg, variants=("default", "sp", "dense")))
+    if rank != 0:
+        return None
+    return dict(runs=runs, ok=all(r["ok"] for r in runs.values()))
+
+
+def _printed(rank, part: str):
+    """Rank 0 prints each run's record as it ends (a cut run keeps them in
+    its log)."""
+    def done(key, rec):
+        if rank == 0:
+            print(f"{part} {key}: " + json.dumps(rec), flush=True)
+        return rec
+
+    return done
+
+
+def _kernels_serve(opts, dev, rank) -> dict:
+    """Part (xxiii): KERNEL_ARCHS at full width and depth in float32 on (1,
+    N) under ``cuda`` against rank 0 alone under ``cuda``, as the families'
+    serving parts (every cache leaf after each decode step, greedy tokens
+    equal; hymba on twice its window), llama3.2-3b also on 2x2, the
+    kernels' launches on every rank exact; then ``--serve-arch`` at full
+    size in bfloat16 on (1, N) under KERNEL_SERVE, as (ii)."""
+    done = _printed(rank, "kernels-serve")
+    runs = {}
+    for arch in KERNEL_ARCHS:
+        cfg = _cfg(opts, arch)
+        runs[arch] = done(arch, _serve_check(opts, dev, rank, cfg, opts.check_gen,
+                                             seq=2 * cfg.window or None, family=True,
+                                             variants=("cuda",)))
+    cfg = _cfg(opts, KERNEL_ARCHS[0])
+    runs[f"{cfg.name}-2x2"] = done(f"{cfg.name}-2x2", _serve_check(
+        opts, dev, rank, cfg, opts.check_gen, family=True, mesh_spec="2x2", variants=("cuda",)))
+    runs[opts.serve_arch] = done(opts.serve_arch, _serve(
+        opts, dev, rank, _cfg(opts, opts.serve_arch), variants=KERNEL_SERVE))
+    if rank != 0:
+        return None
+    return dict(runs=runs, ok=all(r["ok"] for r in runs.values()))
+
+
+def _int8_serve(opts, dev, rank) -> dict:
+    """Part (xxiv): INT8_ARCHS at full width and depth (hymba on twice its
+    window) under INT8_SERVE, each against one card (:func:`_int8_check`)."""
+    done = _printed(rank, "int8-serve")
+    runs = {}
+    for arch in INT8_ARCHS:
+        cfg = _cfg(opts, arch)
+        runs[arch] = done(arch, _int8_check(opts, dev, rank, cfg, opts.check_gen,
+                                            seq=2 * cfg.window or None))
     if rank != 0:
         return None
     return dict(runs=runs, ok=all(r["ok"] for r in runs.values()))
@@ -912,6 +1133,8 @@ def main(argv=None) -> int:
                                              variants=LAYOUT_TRAIN),
         "layout-serve": lambda: _layout_serve(opts, dev, rank),
         "layout-families": lambda: _layout_families(opts, dev, rank),
+        "kernels-serve": lambda: _kernels_serve(opts, dev, rank),
+        "int8-serve": lambda: _int8_serve(opts, dev, rank),
         "moe-ep-train": lambda: _train_check(opts, dev, rank, _cfg(opts, MOE, MOE_TRAIN_LAYERS),
                                              EP_MESHES),
         "moe-ep-serve": lambda: _each_mesh(lambda m: _serve_check(

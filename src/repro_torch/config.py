@@ -162,8 +162,9 @@ class ShardingPolicy:
     Megatron sequence parallelism); they change no value.
     ``prefill_last_logit_only``: a prefill returns the last position's
     logits alone ([B, 1, V]), the only ones sampling reads, and the head
-    never makes the others.  On a model axis the port refuses the
-    int8 cache, the kernels and the experts over 'model' (ROADMAP A.18).
+    never makes the others.  On a model axis the int8 cache and the
+    kernels run (the kernels serve only: they have no backward); the port
+    refuses the experts over 'model' there (ROADMAP A.18).
     """
 
     remat: str = "block"  # none | block (recompute each block in the backward)

@@ -52,6 +52,16 @@
 // -1e30 and vanish the same way once a valid key is seen; every split
 // visited here holds one).  With cache_len = 0 the output is 0, as the
 // reference kernel's.
+//
+// A shard of a cache (both kernels): the caches may be a rank's entries
+// [kv_start, kv_start + Smax) of a sequence-sharded cache, cache_len still
+// the whole cache's count, so entry idx of the shard is valid where
+// kv_start + idx is.  Where `lse` is given the kernels also write each
+// head's log-sum-exp over the shard's valid scores (natural log, float32
+// [B, H]), so that the shards' normalised outputs can be merged: with
+// weights exp(lse_r - max lse) (flash-decoding's combine).  A shard with no
+// valid entry writes o = 0 and lse = -1e30, the finite value the merge
+// masks out (never -inf or NaN).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -85,11 +95,14 @@ constexpr int kMaxSplit = 64;  // cache entries a block at most
 constexpr int kMaxG = 8;       // query heads a block at most
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
+constexpr float kNoEntry = -1e30f;  // lse of a shard with no valid entry
 
-// The valid entries [lo, hi) for a cache of smax entries.
-__device__ __forceinline__ void valid_range(int n, int smax, int window, int* lo, int* hi) {
-  *hi = min(max(n, 0), smax);
-  *lo = window > 0 ? max(0, n - window) : 0;
+// The valid entries [lo, hi) of a shard of smax entries that starts at the
+// cache's entry kv_start, for n valid entries in the whole cache.
+__device__ __forceinline__ void valid_range(int n, int smax, int window, int kv_start, int* lo,
+                                            int* hi) {
+  *hi = min(max(n - kv_start, 0), smax);
+  *lo = window > 0 ? max(0, n - window - kv_start) : 0;
 }
 
 // Four consecutive elements as floats.
@@ -138,9 +151,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ cache_len,
                         float* __restrict__ part_m, float* __restrict__ part_l,
                         float* __restrict__ part_acc, int* __restrict__ counters,
-                        T* __restrict__ o, int H, int KVH, int Smax, int split, int n_split,
-                        long long qsb, long long qsh, long long ksb, long long kss,
-                        long long ksh, long long osb, long long osh, int window, float scale) {
+                        T* __restrict__ o, float* __restrict__ lse, int H, int KVH, int Smax,
+                        int split, int n_split, int kv_start, long long qsb, long long qsh,
+                        long long ksb, long long kss, long long ksh, long long osb,
+                        long long osh, int window, float scale) {
   using Gm = Geo<T, D>;
   extern __shared__ __align__(16) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem + Gm::kQ);      // [kMaxG][D]
@@ -161,14 +175,16 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   int lo, hi;
-  valid_range(*cache_len, Smax, window, &lo, &hi);
+  valid_range(*cache_len, Smax, window, kv_start, &lo, &hi);
   const int s_lo = lo / split;
   const int s_hi = hi > lo ? (hi + split - 1) / split : s_lo;
   const int n_active = s_hi - s_lo;
-  if (n_active == 0) {  // nothing valid: the output is 0, written by split 0
-    if (sp == 0)
+  if (n_active == 0) {  // nothing valid: the output is 0 (lse -1e30), written by split 0
+    if (sp == 0) {
       for (int i = tid; i < Gc * D; i += kThreads)
         from_f32(o + b * osb + (h0 + i / D) * osh + i % D, 0.f);
+      if (lse != nullptr && tid < Gc) lse[(long long)b * H + h0 + tid] = kNoEntry;
+    }
     return;
   }
   if (sp < s_lo || sp >= s_hi) return;  // nothing valid here: read nothing
@@ -351,14 +367,16 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       from_f32(o + b * osb + (h0 + g) * osh + d, out[j] / fmaxf(st_l[g], 1e-30f));
     }
   }
+  if (lse != nullptr && tid < Gc)  // st_m, st_l: read above, after a barrier
+    lse[head0 + tid] = st_m[tid] + logf(st_l[tid]);
   if (tid == 0) *counter = 0;  // every block of this call has counted
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* kc, const void* vc, const int* len, float* pm,
-                   float* pl, float* pa, int* counters, void* o, int B, int H, int KVH,
-                   int Smax, int split, const long long* st, int window, float scale,
-                   cudaStream_t stream) {
+                   float* pl, float* pa, int* counters, void* o, float* lse, int B, int H,
+                   int KVH, int Smax, int split, int kv_start, const long long* st, int window,
+                   float scale, cudaStream_t stream) {
   using Gm = Geo<T, D>;
   const int G = H / KVH;
   const int n_gc = (G + kMaxG - 1) / kMaxG;
@@ -370,21 +388,21 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const int* len
   if (err != cudaSuccess) return err;
   kernel<<<dim3(n_split, KVH * n_gc, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), len, pm,
-      pl, pa, counters, static_cast<T*>(o), H, KVH, Smax, split, n_split, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], window, scale);
+      pl, pa, counters, static_cast<T*>(o), lse, H, KVH, Smax, split, n_split, kv_start, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* kc, const void* vc, const int* len,
-                     float* pm, float* pl, float* pa, int* cnt, void* o, int B, int H, int KVH,
-                     int Smax, int split, const long long* st, int window, float scale,
-                     cudaStream_t s) {
+                     float* pm, float* pl, float* pa, int* cnt, void* o, float* lse, int B,
+                     int H, int KVH, int Smax, int split, int k0, const long long* st,
+                     int window, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
-    case 32: return launch<T, 32>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
-    case 64: return launch<T, 64>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
-    case 128: return launch<T, 128>(q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH, Smax, split, st, window, scale, s);
+    case 16: return launch<T, 16>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, split, k0, st, window, scale, s);
+    case 32: return launch<T, 32>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, split, k0, st, window, scale, s);
+    case 64: return launch<T, 64>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, split, k0, st, window, scale, s);
+    case 128: return launch<T, 128>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, split, k0, st, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -454,8 +472,9 @@ cudaError_t dispatch(int D, const void* q, const void* kc, const void* vc, const
 // The choices above are scripts/decode_variants.py's measurements (NVIDIA
 // H100 80GB HBM3, 700 W).
 // A block whose share is empty (cache_len below the cluster's size, a
-// window, cache_len 0) copies nothing and still meets its cluster at both
-// barriers; with no valid entry at all the output is 0.
+// window, cache_len 0, a shard past cache_len) copies nothing and still
+// meets its cluster at both barriers; with no valid entry at all the output
+// is 0 (and lse -1e30).
 
 constexpr int kD256 = 256;
 constexpr int kWarps256 = 8;
@@ -598,10 +617,10 @@ template <typename T, typename Gm>
 __global__ void __launch_bounds__(kThreads256, 1)
 decode_attention_d256_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                              const T* __restrict__ vc, const int* __restrict__ cache_len,
-                             T* __restrict__ o, int H, int KVH, int Smax, int csize,
-                             long long qsb, long long qsh, long long ksb, long long kss,
-                             long long ksh, long long osb, long long osh, int window,
-                             float scale) {
+                             T* __restrict__ o, float* __restrict__ lse, int H, int KVH,
+                             int Smax, int csize, int kv_start, long long qsb, long long qsh,
+                             long long ksb, long long kss, long long ksh, long long osb,
+                             long long osh, int window, float scale) {
   constexpr int kWE = Gm::kWE, kStages = Gm::kStages, kEntries = Gm::kEntries;
   constexpr int kN = kWE * kHeads256;  // a lane's partial scores a stage
   constexpr int kSteps = kN == 32 ? 5 : (kN == 16 ? 4 : 3);
@@ -633,7 +652,7 @@ decode_attention_d256_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   cluster_arrive_relaxed();  // this block has started (waited for before the first remote store)
   // this block's share [e0, e0 + n) of the valid entries [lo, hi)
   int lo, hi;
-  valid_range(*cache_len, Smax, window, &lo, &hi);
+  valid_range(*cache_len, Smax, window, kv_start, &lo, &hi);
   const long long nv = hi > lo ? hi - lo : 0;
   const int e0 = lo + (int)(rank * nv / csize);
   const int n = lo + (int)((rank + 1) * nv / csize) - e0;
@@ -847,6 +866,8 @@ decode_attention_d256_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       L = fmaf(in_ml[(2 * r + 1) * kHeads256 + g], c, L);
     }
     wt[kMaxCluster * kHeads256 + g] = L;
+    if (lse != nullptr && rank == 0 && g < Gc)  // M: -inf where no block saw an entry
+      lse[(long long)b * H + h0 + g] = M == -INFINITY ? kNoEntry : M + logf(L);
   }
   __syncthreads();
   for (int i = tid; i < Gc * dc; i += kThreads256) {
@@ -886,8 +907,9 @@ cudaError_t configure256(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int
 
 template <typename T>
 cudaError_t launch256(const void* q, const void* kc, const void* vc, const int* len, void* o,
-                      int B, int H, int KVH, int Smax, const long long* st, int window,
-                      float scale, int csize, cudaStream_t stream) {
+                      float* lse, int B, int H, int KVH, int Smax, int kv_start,
+                      const long long* st, int window, float scale, int csize,
+                      cudaStream_t stream) {
   const int n_groups = (H / KVH + kGroupHeads - 1) / kGroupHeads;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
@@ -896,8 +918,9 @@ cudaError_t launch256(const void* q, const void* kc, const void* vc, const int* 
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, decode_attention_d256_kernel<T, typename Geo256Of<T>::G>,
                            static_cast<const T*>(q), static_cast<const T*>(kc),
-                           static_cast<const T*>(vc), len, static_cast<T*>(o), H, KVH, Smax,
-                           csize, st[0], st[1], st[2], st[3], st[4], st[5], st[6], window, scale);
+                           static_cast<const T*>(vc), len, static_cast<T*>(o), lse, H, KVH,
+                           Smax, csize, kv_start, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+                           window, scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -936,15 +959,18 @@ extern "C" int repro_decode_attention_geometry(int what) {
 // device.  The workspace:
 // part_m and part_l [B, H, n_split], part_acc [B, H, n_split, D] float32,
 // counters [B, KVH ceil(G / 8)] int32, zero before the first call (each call
-// leaves them zero); n_split = ceil(Smax / split).
+// leaves them zero); n_split = ceil(Smax / split).  The caches are the
+// entries [kv_start, kv_start + Smax) of a cache of which cache_len are
+// valid; lse (NULL: not written) float32 [B, H], each head's log-sum-exp.
 extern "C" int repro_decode_attention(const void* q, const void* kc, const void* vc,
                                       const void* cache_len, void* part_m, void* part_l,
-                                      void* part_acc, void* counters, void* o, int B, int H,
-                                      int KVH, int Smax, int D, int split, int bf16,
-                                      long long qsb, long long qsh, long long ksb,
+                                      void* part_acc, void* counters, void* o, void* lse, int B,
+                                      int H, int KVH, int Smax, int D, int split, int bf16,
+                                      int kv_start, long long qsb, long long qsh, long long ksb,
                                       long long kss, long long ksh, long long osb,
                                       long long osh, int window, float scale, void* stream) {
-  if (B < 1 || B > 65535 || Smax < 1 || KVH < 1 || H % KVH != 0) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > 65535 || Smax < 1 || KVH < 1 || H % KVH != 0 || kv_start < 0)
+    return (int)cudaErrorInvalidValue;
   if (split < kTile || split > kMaxSplit || split % kTile != 0) return (int)cudaErrorInvalidValue;
   const long long st[7] = {qsb, qsh, ksb, kss, ksh, osb, osh};
   const int* len = static_cast<const int*>(cache_len);
@@ -953,33 +979,36 @@ extern "C" int repro_decode_attention(const void* q, const void* kc, const void*
   float* pa = static_cast<float*>(part_acc);
   int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(D, q, kc, vc, len, pm, pl, pa, cnt, o, B, H,
-                                                   KVH, Smax, split, st, window, scale, s)
-                         : dispatch<float>(D, q, kc, vc, len, pm, pl, pa, cnt, o, B, H, KVH,
-                                           Smax, split, st, window, scale, s);
+  float* ls = static_cast<float*>(lse);
+  cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(D, q, kc, vc, len, pm, pl, pa, cnt, o, ls, B,
+                                                   H, KVH, Smax, split, kv_start, st, window,
+                                                   scale, s)
+                         : dispatch<float>(D, q, kc, vc, len, pm, pl, pa, cnt, o, ls, B, H, KVH,
+                                           Smax, split, kv_start, st, window, scale, s);
   return (int)err;
 }
 
 // Head dim 256: q/o [B, 1, H, 256] (strides of b and h), caches
 // [B, Smax, KVH, 256] (k and v share their strides), cache_len one int32 on
 // the device; clusters of `cluster` blocks (1, 2, 4, 8 or 16), each serving
-// up to 8 of a kv head's query heads.
+// up to 8 of a kv head's query heads.  kv_start and lse as above.
 extern "C" int repro_decode_attention_d256(const void* q, const void* kc, const void* vc,
-                                           const void* cache_len, void* o, int B, int H,
-                                           int KVH, int Smax, int bf16, long long qsb,
-                                           long long qsh, long long ksb, long long kss,
-                                           long long ksh, long long osb, long long osh,
-                                           int window, float scale, int cluster,
+                                           const void* cache_len, void* o, void* lse, int B,
+                                           int H, int KVH, int Smax, int bf16, int kv_start,
+                                           long long qsb, long long qsh, long long ksb,
+                                           long long kss, long long ksh, long long osb,
+                                           long long osh, int window, float scale, int cluster,
                                            void* stream) {
-  if (B < 1 || B > 65535 || Smax < 1 || KVH < 1 || KVH > 65535 || H % KVH != 0)
+  if (B < 1 || B > 65535 || Smax < 1 || KVH < 1 || KVH > 65535 || H % KVH != 0 || kv_start < 0)
     return (int)cudaErrorInvalidValue;
   const long long st[7] = {qsb, qsh, ksb, kss, ksh, osb, osh};
   const int* len = static_cast<const int*>(cache_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch256<__nv_bfloat16>(q, kc, vc, len, o, B, H, KVH, Smax, st, window,
-                                               scale, cluster, s)
-                    : launch256<float>(q, kc, vc, len, o, B, H, KVH, Smax, st, window, scale,
-                                       cluster, s));
+  float* ls = static_cast<float*>(lse);
+  return (int)(bf16 ? launch256<__nv_bfloat16>(q, kc, vc, len, o, ls, B, H, KVH, Smax, kv_start,
+                                               st, window, scale, cluster, s)
+                    : launch256<float>(q, kc, vc, len, o, ls, B, H, KVH, Smax, kv_start, st,
+                                       window, scale, cluster, s));
 }
 
 // How many clusters of `cluster` blocks of the head-dim-256 kernel the card

@@ -12,7 +12,11 @@
 // Layout: q and out are [B, Sq, H, D], k and v [B, Sk, KVH, D], read through
 // their strides (the last dimension contiguous), so the model's projections
 // need no transposes.  Query head h reads kv head h / (H / KVH).  float32 or
-// bfloat16 in, float32 accumulation, out in the input type.
+// bfloat16 in, float32 accumulation, out in the input type.  Row i of q is
+// the query at key position q_offset + i: 0 for a whole sequence, a rank's
+// first row for its rows of a sequence-sharded q (K and V whole).  The
+// masks, and the range of kv tiles a q tile visits, use those positions;
+// the q tiles, their TMA boxes and the output rows stay local.
 //
 // Semantics kept from the reference kernel: masked scores are the finite
 // -1e30 (so a row whose first visited tile holds no visible key is wiped by
@@ -635,7 +639,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, T* __restrict__ o, int H,
                        int KVH, int Sq, int Sk, long long osb, long long oss, long long osh,
-                       int causal, int window, float scale) {
+                       int causal, int window, int q_offset, float scale) {
   using G = Geo<T, D>;
   constexpr int kBQ = G::kBQ;
   constexpr int kBK = G::kBK;
@@ -658,11 +662,12 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kvh = h / (H / KVH);
   const int q0 = qt * kBQ;
 
-  // the kv tiles some row of [lo, hi) can see
+  // the kv tiles some row of [lo, hi) can see (rows local, at key
+  // positions q_offset on: the masks compare global positions)
   auto tiles = [&](int lo, int hi, int& t_lo, int& t_hi) {
     int k_lo = 0, k_hi = Sk;
-    if (causal) k_hi = min(Sk, hi);
-    if (window > 0) k_lo = max(0, lo - window + 1);
+    if (causal) k_hi = min(Sk, hi + q_offset);
+    if (window > 0) k_lo = max(0, lo + q_offset - window + 1);
     t_lo = k_lo / kBK;
     t_hi = k_hi > k_lo ? (k_hi + kBK - 1) / kBK : t_lo;
   };
@@ -767,12 +772,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
   // only where the tile reaches past Sk, the diagonal or the window
   auto softmax = [&](float (&sc)[kNB][4], int k0) {
     const int nk = min(kBK, Sk - k0);  // keys of this tile inside [0, Sk)
-    const bool edge = nk < kBK || (causal && k0 + kBK - 1 > wq0) ||
-                      (window > 0 && k0 <= wq_end - 1 - window);
+    const bool edge = nk < kBK || (causal && k0 + kBK - 1 > wq0 + q_offset) ||
+                      (window > 0 && k0 <= wq_end + q_offset - 1 - window);
+    const int qi0 = q0 + q_offset + r0;  // this thread's first row, as a key position
     if (edge)
-      online_softmax<kNB, true>(sc, m, l, alpha, k0, nk, q0 + r0, q4, causal, window, scale2);
+      online_softmax<kNB, true>(sc, m, l, alpha, k0, nk, qi0, q4, causal, window, scale2);
     else
-      online_softmax<kNB, false>(sc, m, l, alpha, k0, nk, q0 + r0, q4, causal, window, scale2);
+      online_softmax<kNB, false>(sc, m, l, alpha, k0, nk, qi0, q4, causal, window, scale2);
 #pragma unroll
     for (int j = 0; j < kDB; ++j) {
       acc[j][0] *= alpha[0];
@@ -1219,8 +1225,8 @@ flash_attention_d256_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap vmap,
                             const uint8_t* __restrict__ img, T* __restrict__ o, int B, int H,
                             int KVH, int Sq, int Sk, long long osb, long long oss,
-                            long long osh, int causal, int window, float scale, int n_sm,
-                            int resident) {
+                            long long osh, int causal, int window, int q_offset, float scale,
+                            int n_sm, int resident) {
   constexpr int kBK = G::kBK;
   constexpr int kStages = G::kStages;
   constexpr int kNB = G::kNB;
@@ -1255,9 +1261,9 @@ flash_attention_d256_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kvh = h / (H / KVH);
   const int q0 = qt * G::kBQ;
   const int q_end = min(q0 + G::kBQ, Sq);
-  int k_lo = 0, k_hi = Sk;  // the keys some row of the tile can see
-  if (causal) k_hi = min(Sk, q_end);
-  if (window > 0) k_lo = max(0, q0 - window + 1);
+  int k_lo = 0, k_hi = Sk;  // the keys some row of the tile can see (row i at key q_offset + i)
+  if (causal) k_hi = min(Sk, q_end + q_offset);
+  if (window > 0) k_lo = max(0, q0 + q_offset - window + 1);
   const int t_lo = k_lo / kBK;
   const int n = k_hi > k_lo ? (k_hi + kBK - 1) / kBK - t_lo : 0;  // kv tiles of this block
   // float32: the images of this kv head's tiles
@@ -1381,12 +1387,13 @@ flash_attention_d256_kernel(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x == 0 && i + kStages < n) load_k(i + kStages);
     const int k0 = (t_lo + i) * kBK;
     const int nk = min(kBK, Sk - k0);  // keys of this tile inside [0, Sk)
-    const bool edge = nk < kBK || (causal && k0 + kBK - 1 > q0) ||
-                      (window > 0 && k0 <= q_end - 1 - window);
+    const bool edge = nk < kBK || (causal && k0 + kBK - 1 > q0 + q_offset) ||
+                      (window > 0 && k0 <= q_end + q_offset - 1 - window);
+    const int qi0 = q0 + q_offset + r0;  // this thread's first row, as a key position
     if (edge)
-      online_softmax<kNB, true>(sc, m, l, alpha, k0, nk, q0 + r0, q4, causal, window, scale2);
+      online_softmax<kNB, true>(sc, m, l, alpha, k0, nk, qi0, q4, causal, window, scale2);
     else
-      online_softmax<kNB, false>(sc, m, l, alpha, k0, nk, q0 + r0, q4, causal, window, scale2);
+      online_softmax<kNB, false>(sc, m, l, alpha, k0, nk, qi0, q4, causal, window, scale2);
 #pragma unroll
     for (int j = 0; j < kCols / 8; ++j) {
       acc[j][0] *= alpha[0];
@@ -1467,8 +1474,8 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
-                   int Sq, int Sk, const long long* st, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   int Sq, int Sk, const long long* st, int causal, int window, int q_offset,
+                   float scale, cudaStream_t stream) {
   using G = Geo<T, D>;
   CUtensorMap qm, km, vm;
   cudaError_t err = make_map<T, D>(&qm, q, B, Sq, H, st[0], st[1], st[2], G::kBQ);
@@ -1481,7 +1488,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + G::kBQ - 1) / G::kBQ, H, B);
   kernel<<<grid, G::kThreads, G::kSmem, stream>>>(qm, km, vm, static_cast<T*>(o), H, KVH, Sq, Sk,
-                                                st[6], st[7], st[8], causal, window, scale);
+                                                st[6], st[7], st[8], causal, window, q_offset,
+                                                scale);
   return cudaGetLastError();
 }
 
@@ -1496,7 +1504,7 @@ long long d256_workspace_bytes(int B, int KVH, int Sk) {
 template <typename T>
 cudaError_t launch_d256(const void* q, const void* k, const void* v, void* o, void* ws,
                         long long ws_bytes, int B, int H, int KVH, int Sq, int Sk,
-                        const long long* st, int causal, int window, float scale,
+                        const long long* st, int causal, int window, int q_offset, float scale,
                         cudaStream_t stream) {
   using G = typename Geo256Of<T>::G;
   CUtensorMap qm{}, km{}, vm{};
@@ -1544,23 +1552,23 @@ cudaError_t launch_d256(const void* q, const void* k, const void* v, void* o, vo
   if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)n_blocks, G::kThreads, G::kSmem, stream>>>(
       qm, km, vm, static_cast<const uint8_t*>(ws), static_cast<T*>(o), B, H, KVH, Sq, Sk, st[6],
-      st[7], st[8], causal, window, scale, sms, res);
+      st[7], st[8], causal, window, q_offset, scale, sms, res);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, void* ws,
                      long long ws_bytes, int B, int H, int KVH, int Sq, int Sk,
-                     const long long* st, int causal, int window, float scale,
+                     const long long* st, int causal, int window, int qo, float scale,
                      cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, qo, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, qo, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, qo, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, qo, scale, stream);
     case 256:
       return launch_d256<T>(q, k, v, o, ws, ws_bytes, B, H, KVH, Sq, Sk, st, causal, window,
-                            scale, stream);
+                            qo, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1572,7 +1580,9 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
 extern "C" int repro_flash_attention_split_tile() { return Geo256Of<float>::G::kBK; }
 
 // q/o [B, Sq, H, D], k/v [B, Sk, KVH, D]; strides in elements, last dim 1;
-// k and v share their strides.  bf16 != 0: bfloat16 tensors, else float32.
+// k and v share their strides.  Row i of q sits at key position q_offset + i
+// (>= 0; a rank's rows of a sequence-sharded q): the causal mask and the
+// window compare those positions.  bf16 != 0: bfloat16 tensors, else float32.
 // TMA needs q, k and v 16-byte aligned and every stride a multiple of 16
 // bytes (the wrapper checks; a map that cannot be encoded returns
 // cudaErrorInvalidValue).  The workspace (16-byte aligned, ws_bytes long)
@@ -1584,13 +1594,15 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      int Sq, int Sk, int D, int bf16, long long qsb,
                                      long long qss, long long qsh, long long ksb, long long kss,
                                      long long ksh, long long osb, long long oss, long long osh,
-                                     int causal, int window, float scale, void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0) return (int)cudaErrorInvalidValue;
+                                     int causal, int window, int q_offset, float scale,
+                                     void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, ws, ws_bytes, B, H, KVH, Sq,
-                                                   Sk, st, causal, window, scale, s)
+                                                   Sk, st, causal, window, q_offset, scale, s)
                          : dispatch<float>(D, q, k, v, o, ws, ws_bytes, B, H, KVH, Sq, Sk, st,
-                                           causal, window, scale, s);
+                                           causal, window, q_offset, scale, s);
   return (int)err;
 }

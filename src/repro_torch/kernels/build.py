@@ -72,17 +72,17 @@ _SIGNATURES = {
     "repro_asap_replay_chain_floor": [_P, _D, _D, _I, _P],
     # q, k, v, o, workspace, its bytes, B, H, KVH, Sq, Sk, D, bf16, strides of
     # q, k/v and o (b, s, h), causal, window, scale, stream
-    "repro_flash_attention": [_P] * 5 + [_L] + [_I] * 7 + [_L] * 9 + [_I, _I, _F, _P],
+    "repro_flash_attention": [_P] * 5 + [_L] + [_I] * 7 + [_L] * 9 + [_I, _I, _I, _F, _P],
     "repro_flash_attention_split_tile": [],
     # q, k_cache, v_cache, cache_len, part_m, part_l, part_acc, counters, o, B,
     # H, KVH, Smax, D, split, bf16, strides q (b, h), caches (b, s, h), o (b,
     # h), window, scale, stream
-    "repro_decode_attention": [_P] * 9 + [_I] * 7 + [_L] * 7 + [_I, _F, _P],
+    "repro_decode_attention": [_P] * 10 + [_I] * 8 + [_L] * 7 + [_I, _F, _P],
     "repro_decode_attention_geometry": [_I],
     # head dim 256: q, k_cache, v_cache, cache_len, o, B, H, KVH, Smax, bf16,
     # strides q (b, h), caches (b, s, h), o (b, h), window, scale, cluster,
     # stream
-    "repro_decode_attention_d256": [_P] * 5 + [_I] * 5 + [_L] * 7 + [_I, _F, _I, _P],
+    "repro_decode_attention_d256": [_P] * 6 + [_I] * 6 + [_L] * 7 + [_I, _F, _I, _P],
     # bf16, cluster, out
     "repro_decode_attention_d256_max_clusters": [_I, _I, _P],
     # x, dt, A, B, C, D, y, workspace, B, S, H, G, P, N, L, bf16, strides of

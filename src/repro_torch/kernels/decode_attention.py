@@ -22,6 +22,16 @@ prefetch, so a decode loop that keeps the length on the card never waits
 for the host.  Valid entries are ``idx < cache_len`` and, with a window,
 ``idx > cache_len - 1 - window``; ``cache_len >= 1`` in every model call.
 
+A shard of a cache (a rank's entries of a sequence-sharded one, on a model
+axis): ``kv_start`` is the position of its first entry, ``cache_len`` stays
+the whole cache's, and entry ``idx`` is valid where ``kv_start + idx`` is.
+With ``with_lse`` the call also returns each head's log-sum-exp over the
+shard's valid scores (float32 ``[B, H]``), which is what the ranks' outputs
+are merged with (:func:`repro_torch.models.attention.combine_splits` with
+``m = lse``, ``den = 1``).  A shard with no valid entry (the first decode
+steps leave the later ranks' shards empty) gives ``o = 0`` and ``lse =
+NEG_INF`` (-1e30), finite, which the merge masks out.
+
 Shapes: q ``[B, 1, H, D]``, caches ``[B, Smax, KVH, D]`` (``H % KVH == 0``);
 float32 or bfloat16, float32 inside, the output ``[B, 1, H, D]`` in q's
 dtype.  The kernels copy the caches in 16-byte units: they start 16-byte
@@ -36,7 +46,7 @@ import numbers
 import torch
 
 from .build import STATE_LOCK, check, count_launch, library, refuse_grad
-from .flash_attention import KERNEL_HEAD_DIMS, masked_attention
+from .flash_attention import KERNEL_HEAD_DIMS, NEG_INF, masked_attention
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_valid", "decode_split",
            "decode_cluster", "decode_cluster_on", "decode_shares", "check_decode_layout"]
@@ -45,10 +55,11 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _MIN_SHARE = 16  # fewest entries of a full cache a block of a cluster takes
 
 
-def decode_valid(smax: int, cache_len, window: int, device):
+def decode_valid(smax: int, cache_len, window: int, device, kv_start: int = 0):
     """Which of ``smax`` cache entries a decode query sees: bool ``[smax]``,
-    ``idx < cache_len`` and, with a window, ``idx > cache_len - 1 - window``."""
-    idx = torch.arange(smax, device=device)
+    ``idx < cache_len`` and, with a window, ``idx > cache_len - 1 - window``,
+    for entries ``idx`` from ``kv_start`` on (a shard's)."""
+    idx = kv_start + torch.arange(smax, device=device)
     n = torch.as_tensor(cache_len, device=device).reshape(())
     valid = idx < n
     if window > 0:
@@ -56,12 +67,28 @@ def decode_valid(smax: int, cache_len, window: int, device):
     return valid
 
 
-def decode_attention_plain(q, k_cache, v_cache, cache_len, *, window=0):
+def decode_attention_plain(q, k_cache, v_cache, cache_len, *, window=0, kv_start=0,
+                           with_lse=False):
     """The plain PyTorch version, on any device: the masked softmax in
     float32 over the whole cache (the function of the reference's
-    ``ref.decode_attention_ref``)."""
-    valid = decode_valid(k_cache.shape[1], cache_len, window, q.device)
-    return masked_attention(q, k_cache, v_cache, valid)
+    ``ref.decode_attention_ref``).  A shard (``kv_start``) or ``with_lse``:
+    a shard without a valid entry gives 0, and ``with_lse`` returns (o,
+    each head's log-sum-exp [B, H] float32, ``NEG_INF`` where none is
+    valid)."""
+    valid = decode_valid(k_cache.shape[1], cache_len, window, q.device, kv_start)
+    o = masked_attention(q, k_cache, v_cache, valid)
+    if not kv_start and not with_lse:
+        return o
+    seen = valid.any()
+    o = torch.where(seen, o, torch.zeros((), dtype=o.dtype, device=o.device))
+    if not with_lse:
+        return o
+    B, _, H, D = q.shape
+    KVH = k_cache.shape[2]
+    s = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, KVH, H // KVH, D).float(),
+                     k_cache.float()) * D ** -0.5
+    lse = torch.logsumexp(torch.where(valid, s, NEG_INF), dim=-1).reshape(B, H)
+    return o, torch.where(seen, lse, NEG_INF)
 
 
 def _check_args(q, k_cache, v_cache, cache_len, window):
@@ -145,13 +172,16 @@ def decode_cluster(B: int, KVH: int, G: int, Smax: int, n_sms: int, *, heads: in
     return cluster
 
 
-def decode_shares(cache_len: int, smax: int, window: int, cluster: int) -> list:
+def decode_shares(cache_len: int, smax: int, window: int, cluster: int,
+                  kv_start: int = 0) -> list:
     """The entries ``[start, end)`` each block of a cluster takes, by rank:
-    the valid range ``[lo, hi)`` (``cache_len`` clamped to ``smax``; with a
-    window, from ``cache_len - window``) in shares that differ by at most
-    one entry, as the head-dim-256 kernel computes them on the device."""
-    hi = min(max(cache_len, 0), smax)
-    lo = max(0, cache_len - window) if window > 0 else 0
+    the valid range ``[lo, hi)`` of a shard of ``smax`` entries from
+    ``kv_start`` (``cache_len - kv_start`` clamped to ``smax``; with a
+    window, from ``cache_len - window - kv_start``) in shares that differ by
+    at most one entry, as the head-dim-256 kernel computes them on the
+    device; every share empty where the shard holds no valid entry."""
+    hi = min(max(cache_len - kv_start, 0), smax)
+    lo = max(0, cache_len - window - kv_start) if window > 0 else 0
     n = max(hi - lo, 0)
     return [(lo + r * n // cluster, lo + (r + 1) * n // cluster) for r in range(cluster)]
 
@@ -230,7 +260,8 @@ def _check_cluster(lib, device, bf16: int, cluster: int) -> None:
                            f"blocks of the head-dim-256 kernel")
 
 
-def _launch_d256(lib, q, k_cache, v_cache, cache_len, o, window: int) -> None:
+def _launch_d256(lib, q, k_cache, v_cache, cache_len, o, lse, window: int,
+                 kv_start: int) -> None:
     B, _, H, D = q.shape
     Smax, KVH = k_cache.shape[1], k_cache.shape[2]
     bf16 = int(q.dtype == torch.bfloat16)
@@ -239,21 +270,28 @@ def _launch_d256(lib, q, k_cache, v_cache, cache_len, o, window: int) -> None:
     with torch.cuda.device(q.device):
         code = lib.repro_decode_attention_d256(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-            o.data_ptr(), B, H, KVH, Smax, bf16, q.stride(0), q.stride(2),
+            o.data_ptr(), None if lse is None else lse.data_ptr(), B, H, KVH, Smax, bf16,
+            kv_start, q.stride(0), q.stride(2),
             *k_cache.stride()[:3], o.stride(0), o.stride(2), int(window),
             ctypes.c_float(D ** -0.5), cluster, torch.cuda.current_stream().cuda_stream)
     check(code, "decode_attention launch")
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
-    """q ``[B,1,H,D]``, caches ``[B,Smax,KVH,D]`` -> ``[B,1,H,D]``: the CUDA
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, kv_start=0, with_lse=False):
+    """q ``[B,1,H,D]``, caches ``[B,Smax,KVH,D]`` -> ``[B,1,H,D]`` (with
+    ``with_lse``: and each head's log-sum-exp ``[B, H]``; ``kv_start``: the
+    caches are a shard from that entry on, see the module doc): the CUDA
     kernel for tensors on the card, :func:`decode_attention_plain` for
     tensors on the CPU.  ``decode_attention.launches`` counts calls that
     launched the kernel (one launch a call)."""
+    kv_start = int(kv_start)
     _check_args(q, k_cache, v_cache, cache_len, window)
+    if kv_start < 0:
+        raise ValueError(f"kv_start must be >= 0; got {kv_start}")
     refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, cache_len, window=window)
+        return decode_attention_plain(q, k_cache, v_cache, cache_len, window=window,
+                                      kv_start=kv_start, with_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu tensors; got {q.device}")
     B, _, H, D = q.shape
@@ -265,10 +303,12 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
         cache_len = torch.tensor([cache_len], dtype=torch.int32, device=q.device)
     lib = library()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if with_lse else None
+    out = (o, lse) if with_lse else o
     if D == 256:
-        _launch_d256(lib, q, k_cache, v_cache, cache_len, o, window)
+        _launch_d256(lib, q, k_cache, v_cache, cache_len, o, lse, window, kv_start)
         count_launch(decode_attention)
-        return o
+        return out
     tile, max_split, heads, _, _ = _geometry(lib)
     split = decode_split(B, KVH, H // KVH, Smax, _n_sms(q.device), tile=tile,
                          max_split=max_split, heads=heads)
@@ -280,12 +320,13 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
         code = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), counters.data_ptr(),
-            o.data_ptr(), B, H, KVH, Smax, D, split, int(q.dtype == torch.bfloat16),
-            q.stride(0), q.stride(2), *k_cache.stride()[:3], o.stride(0), o.stride(2),
-            int(window), ctypes.c_float(D ** -0.5), stream)
+            o.data_ptr(), None if lse is None else lse.data_ptr(), B, H, KVH, Smax, D, split,
+            int(q.dtype == torch.bfloat16), kv_start, q.stride(0), q.stride(2),
+            *k_cache.stride()[:3], o.stride(0), o.stride(2), int(window),
+            ctypes.c_float(D ** -0.5), stream)
     check(code, "decode_attention launch")
     count_launch(decode_attention)
-    return o
+    return out
 
 
 decode_attention.launches = 0

@@ -19,7 +19,9 @@ raises on anything else.
 Shapes: q ``[B, Sq, H, D]``, k/v ``[B, Sk, KVH, D]`` with ``H % KVH == 0``
 (query head ``h`` reads kv head ``h // (H // KVH)``); float32 or bfloat16,
 float32 inside, the output ``[B, Sq, H, D]`` in q's dtype.  Masks use the
-absolute positions: causal ``k <= q``, window ``k > q - window``.
+absolute positions: causal ``k <= q``, window ``k > q - window``, with q's
+row ``i`` at position ``q_offset + i`` (0 for a whole sequence; on a model
+axis a rank's first row of a sequence-sharded q, K and V whole).
 """
 
 from __future__ import annotations
@@ -70,15 +72,16 @@ def masked_attention(q, k, v, valid, *, probs_dtype=torch.float32):
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=0):
+def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0):
     """The plain PyTorch version, on any device: the masked softmax in
     float32 over materialised scores (the function of the reference's
-    ``ref.flash_attention_ref``)."""
-    mask = attention_mask(q.shape[1], k.shape[1], 0, 0, causal, window, q.device)
+    ``ref.flash_attention_ref``; with ``q_offset`` its rows from that
+    position on)."""
+    mask = attention_mask(q.shape[1], k.shape[1], q_offset, 0, causal, window, q.device)
     return masked_attention(q, k, v, mask)
 
 
-def _check_args(q, k, v, window):
+def _check_args(q, k, v, window, q_offset=0):
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q must be [B,Sq,H,D] and k/v [B,Sk,KVH,D]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
@@ -97,6 +100,8 @@ def _check_args(q, k, v, window):
         raise ValueError("q, k and v must lie on one device")
     if window < 0:
         raise ValueError(f"window must be >= 0; got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0; got {q_offset}")
 
 
 def _tma_strides(t):
@@ -141,15 +146,16 @@ def workspace_bytes(B, KVH, Sk, D, dtype, tile) -> int:
     return B * KVH * -(-Sk // tile) * tile * 4 * D * 4
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """q ``[B,Sq,H,D]``, k/v ``[B,Sk,KVH,D]`` -> ``[B,Sq,H,D]``: the CUDA
     kernel for tensors on the card, :func:`flash_attention_plain` for
-    tensors on the CPU.  ``flash_attention.launches`` counts kernel
-    launches."""
-    _check_args(q, k, v, window)
+    tensors on the CPU; q's rows from key position ``q_offset`` on.
+    ``flash_attention.launches`` counts kernel launches."""
+    q_offset = int(q_offset)
+    _check_args(q, k, v, window, q_offset)
     refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors; got {q.device}")
     check_kernel_layout(q, k, v)
@@ -165,7 +171,7 @@ def flash_attention(q, k, v, *, causal=True, window=0):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if ws is None else ws.data_ptr(), nbytes, B, H, KVH, Sq, Sk, D,
             int(q.dtype == torch.bfloat16), *_tma_strides(q), *_tma_strides(k),
-            *o.stride()[:3], int(bool(causal)), int(window), ctypes.c_float(D ** -0.5),
+            *o.stride()[:3], int(bool(causal)), int(window), q_offset, ctypes.c_float(D ** -0.5),
             stream)
     check(code, "flash_attention launch")
     count_launch(flash_attention)

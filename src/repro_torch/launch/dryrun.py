@@ -14,7 +14,8 @@ leaf over the mesh the bytes of arguments one device holds.  The record
 keeps the reference's keys where they can be filled: ``status`` /
 ``skip_reason``, ``devices``, ``params_total`` / ``params_active``,
 ``model_flops``, ``memory.argument_size_in_bytes`` (per device, the
-largest shard of each leaf), ``fits`` against the card's memory
+largest shard of each leaf; a decode cell's cache alone as the port's
+``memory.cache_size_in_bytes``), ``fits`` against the card's memory
 (``HW.HBM_BYTES``) and a roofline from ``HW``'s H100 constants (the model's
 FLOPs over the bfloat16 peak against the arguments read once over HBM).
 For every family's prefill and decode cells the step also runs once on
@@ -31,8 +32,11 @@ steps a layer), with the sequence in one chunk for the attention and the
 scan alike: each runs on a rank's own rows or heads, so the chunks move
 no data, and one chunk is the naive form's work.  The fake group is a
 CPU one, where DTensor runs each all-to-all as an all-gather and a slice.
-A policy whose model-axis layout is not ported records ``collectives`` as
-``null`` with the refusal, which names ROADMAP A.18.  The keys only XLA's
+The int8 KV cache runs there as on the cards (each rank quantizes its own
+entries, dequantizes its shard); the attention stays naive or chunked
+under any ``attention_impl``, as the reference's cells run it.  A policy
+whose model-axis layout is not ported (the experts over 'model') records
+``collectives`` as ``null`` with the refusal, which names ROADMAP A.18.  The keys only XLA's
 compiler gives (``temp_size_in_bytes``, ``bytes_accessed_per_device``,
 ``hlo_bytes``, ``compile_s``, ``flops_per_device``), and ``collectives``
 where the step cannot run so, are ``null``, each with its reason under
@@ -177,8 +181,9 @@ def step_collectives(mesh, cfg, shape, policy, param_dtype=None) -> dict:
 
 def _refusal(cfg, policy, mesh) -> str | None:
     """Why ``cfg`` under ``policy`` cannot run on ``mesh``'s model axis (a
-    policy value whose layout is not ported: the refusal names ROADMAP
-    A.18) or (an MoE model's experts) its batch axes, or None."""
+    policy value whose layout is not ported, the experts over 'model': the
+    refusal names ROADMAP A.18) or (an MoE model's experts) its batch
+    axes, or None."""
     try:
         check_model_axis(cfg, policy, mesh_axis_size(mesh, policy.model_axis),
                          batch_ranks(mesh))
@@ -206,11 +211,13 @@ def _pairs(arg, sharding):
         yield arg, sharding
 
 
-def argument_bytes(cell) -> int:
-    """Bytes of the cell's inputs one device holds: each leaf's shard on
-    this rank (rank 0 takes the largest piece of an uneven split)."""
+def argument_bytes(cell, which: int | None = None) -> int:
+    """Bytes of the cell's inputs (or of input ``which`` alone) one device
+    holds: each leaf's shard on this rank (rank 0 takes the largest piece
+    of an uneven split)."""
     return sum(math.prod(sh.shard_shape(t.shape)) * t.element_size()
-               for arg, shs in zip(cell.args, cell.in_shardings) for t, sh in _pairs(arg, shs))
+               for i, (arg, shs) in enumerate(zip(cell.args, cell.in_shardings))
+               if which in (None, i) for t, sh in _pairs(arg, shs))
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, policy=None, tcfg=None,
@@ -253,7 +260,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, policy=None, tcfg=None
             params_active=int(pc.active),
             model_flops=float(mf),
             model_flops_per_device=float(mf / n_dev),
-            memory={"argument_size_in_bytes": int(arg_bytes), "temp_size_in_bytes": None},
+            memory={"argument_size_in_bytes": int(arg_bytes), "temp_size_in_bytes": None,
+                    # a decode cell's cache (its second input), also a port key
+                    "cache_size_in_bytes": argument_bytes(cell, 1) if shape.kind == "decode"
+                    else None},
             fits=bool(arg_bytes <= HW.HBM_BYTES),
             hbm_bytes=HW.HBM_BYTES,
             roofline={

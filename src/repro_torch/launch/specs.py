@@ -16,8 +16,10 @@ inputs (the model sharded by :mod:`repro_torch.runtime.sharding`) as the
 reference's partitioned program (every family), and an MoE model's train,
 prefill and decode steps on batch axes wider than 1 run expert
 parallelism (each rank its E / ranks experts, the slots sent to them by
-all-to-all: :mod:`repro_torch.models.moe`); a policy value whose layout is
-not ported there raises when its step runs (ROADMAP A.18).
+all-to-all: :mod:`repro_torch.models.moe`).  The serving cells take the
+int8 KV cache and the hand-written kernels (``attention_impl="cuda"``) on
+a mesh too; a policy value whose layout is not ported there (the experts
+over 'model') raises when its step runs (ROADMAP A.18).
 
 Cell skip policy: ``long_500k`` runs only for sub-quadratic archs (ssm /
 hybrid-with-SWA); dense-attention archs get a recorded skip (a 500k dense

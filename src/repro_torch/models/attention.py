@@ -21,15 +21,20 @@ are taken in float32, as the reference's ``preferred_element_type``.
 On a model axis wider than 1 (DTensor inputs on the model mesh, see
 :func:`repro_torch.models.layers.constrain`) :func:`attention` takes the
 reference's layouts: q sequence-sharded, K and V replicated, the output
-sequence-sharded; each rank runs the plain implementation over its own q
-rows from their global offset (the causal mask's).  Without ``shard_seq``
+sequence-sharded; each rank runs the policy's implementation (the plain
+ones, or under ``"cuda"`` the flash kernel with ``q_offset``) over its own
+q rows from their global offset (the causal mask's), on local tensors.  Without ``shard_seq``
 (the reference's ``shard_seq_attn=False``) no constraint is set: q stays
 as its projection left it, on each rank's heads (or replicated where the
 axis does not divide them), and each rank attends its own heads to the
 KV heads of their GQA groups (its own, or its cut of replicated ones).  :func:`decode_attention`
 keeps the cache sequence-sharded and runs split-KV: each rank's partial
-softmax over its own entries (max, sum, weighted values), all-gathered and
-merged, where the reference leaves the split to XLA.
+softmax over its own entries (max, sum, weighted values; under ``"cuda"``
+the decode kernel on the rank's shard from its first entry's position,
+``kv_start``, giving the normalised output and its log-sum-exp), all-gathered
+and merged, where the reference leaves the split to XLA.  No kernel sees a
+DTensor, and a local tensor the kernel cannot take as laid out raises (the
+wrappers' layout checks): nothing falls back to a plain version on a card.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from repro_torch.kernels.flash_attention import NEG_INF, attention_mask, masked_
 from .layers import constrain, local_offset
 
 __all__ = ["naive_attention", "chunked_attention", "attention", "decode_attention",
-           "combine_splits", "NEG_INF"]
+           "combine_splits", "merge_splits", "NEG_INF"]
 
 
 def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -123,11 +128,8 @@ def _attention(q, k, v, *, impl, causal, window, q_chunk, kv_chunk, block_skip, 
     if impl == "chunked":
         return chunked_attention(q, k, v, causal=causal, window=window, q_chunk=q_chunk,
                                  kv_chunk=kv_chunk, block_skip=block_skip, q_offset=q_offset)
-    if impl == "cuda" and not isinstance(q, DTensor):
-        return kernels.flash_attention(q, k, v, causal=causal, window=window)
     if impl == "cuda":
-        raise ValueError("the attention kernels on a model axis wider than 1 are not ported "
-                         "(ROADMAP A.18); the reference's cells run attention_impl='chunked'")
+        return kernels.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     raise ValueError(impl)
 
 
@@ -215,11 +217,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, impl="chunked"
 def _split_kv_decode(q, k_cache, v_cache, cache_len, window, impl):
     """Decode attention over a sequence-sharded cache: each rank's (max,
     sum, weighted values) over its own valid entries, all-gathered over
-    the model axis and merged (flash-decoding's combine).  Returns q's
-    layout, replicated."""
-    if impl not in ("naive", "chunked"):
-        raise ValueError("the attention kernels on a model axis wider than 1 are not ported "
-                         "(ROADMAP A.18); the reference's cells run attention_impl='chunked'")
+    the model axis and merged (flash-decoding's combine); under ``"cuda"``
+    the kernel's output over the rank's shard and its log-sum-exp, merged
+    as (lse, 1, output).  Returns q's layout, replicated."""
+    if impl not in ("naive", "chunked", "cuda"):
+        raise ValueError(impl)
     mesh = q.device_mesh
     if tuple(k_cache.placements) != (Shard(1),) or tuple(v_cache.placements) != (Shard(1),):
         raise ValueError("split-KV decode reads a sequence-sharded cache")
@@ -229,7 +231,13 @@ def _split_kv_decode(q, k_cache, v_cache, cache_len, window, impl):
     KVH = kl.shape[2]
     G = H // KVH
     start = local_offset(k_cache, 1)
-    valid = decode_valid(k_cache.shape[1], cache_len, window, ql.device)[start:start + kl.shape[1]]
+    if impl == "cuda":
+        o, lse = kernels.decode_attention(ql, kl, vl, cache_len, window=window, kv_start=start,
+                                          with_lse=True)
+        out = combine_splits(lse, torch.ones_like(lse), o[:, 0].float(), mesh)
+        out = out.reshape(B, 1, H, D).to(q.dtype)
+        return DTensor.from_local(out, mesh, [Replicate()], run_check=False)
+    valid = decode_valid(kl.shape[1], cache_len, window, ql.device, start)
     s = torch.einsum("bkgd,bskd->bkgs", ql.reshape(B, KVH, G, D).float(),
                      kl.float()) * D ** -0.5
     s = torch.where(valid, s, NEG_INF)
@@ -245,12 +253,20 @@ def combine_splits(m, den, acc, mesh):
     """Flash-decoding's combine over the model axis ``mesh``: each rank's
     softmax over its own entries as its max ``m`` [...], its sum of
     ``exp(s - m)`` ``den`` [...] and its ``exp(s - m)``-weighted values
-    ``acc`` [..., D], all-gathered and merged (a rank with no valid entry
-    weighs nothing) into the softmax-weighted values [..., D], the same on
-    every rank."""
+    ``acc`` [..., D], all-gathered and merged by :func:`merge_splits` into
+    the softmax-weighted values [..., D], the same on every rank."""
     part = torch.cat([m[..., None], den[..., None], acc], dim=-1)
     parts = DTensor.from_local(part[None], mesh, [Shard(0)], run_check=False).full_tensor()
-    top = parts[..., 0].amax(dim=0)
-    w = torch.exp(parts[..., 0] - top) * (parts[..., 0] > NEG_INF / 2)
-    den = (w * parts[..., 1]).sum(dim=0)
-    return (w[..., None] * parts[..., 2:]).sum(dim=0) / torch.clamp(den[..., None], min=1e-30)
+    return merge_splits(parts[..., 0], parts[..., 1], parts[..., 2:])
+
+
+def merge_splits(m, den, acc):
+    """The splits' (max, sum, weighted values), stacked on a leading dim
+    (``m``, ``den`` [R, ...], ``acc`` [R, ..., D]), merged into the
+    softmax-weighted values [..., D]; a split with no valid entry (``m`` at
+    ``NEG_INF``) weighs nothing.  A kernel's normalised output ``o`` and
+    log-sum-exp ``lse`` over a split enter as ``(lse, 1, o)``."""
+    top = m.amax(dim=0)
+    w = torch.exp(m - top) * (m > NEG_INF / 2)
+    den = (w * den).sum(dim=0)
+    return (w[..., None] * acc).sum(dim=0) / torch.clamp(den[..., None], min=1e-30)

@@ -177,28 +177,36 @@ def local_offset(x, dim: int) -> int:
     return int(offset[dim])
 
 
-def write_prefix(cache, new) -> None:
-    """``cache[:, :, :n] = new`` into a sequence-sharded cache DTensor
-    [L, B, S, ...]: each rank writes the entries of its own range.  ``new``
-    is a DTensor, or a plain tensor whole on every rank."""
+def write_prefix(cache, new, first: int = 0) -> None:
+    """``cache[:, :, first:first + n] = new`` into a sequence-sharded cache
+    DTensor [L, B, S, ...]: each rank writes the entries of its own range.
+    ``new`` is a DTensor, or a plain tensor on every rank: whole (``first``
+    0), or the entries from ``first`` on (a rank's own range of one)."""
     if isinstance(new, DTensor):
         new = new.redistribute(placements=[Replicate()]).to_local()
     local, start = cache.to_local(), local_offset(cache, 2)
-    hi = min(new.shape[2], start + local.shape[2])
-    if hi > start:
-        local[:, :, :hi - start] = new[:, :, start:hi]
+    lo, hi = max(start, first), min(first + new.shape[2], start + local.shape[2])
+    if hi > lo:
+        local[:, :, lo - start:hi - start] = new[:, :, lo - first:hi - first]
 
 
 def write_slot(cache, slot, new) -> None:
     """``cache[:, slot] = new`` ([B, 1, ...]) into one layer's sequence-
     sharded cache DTensor [B, S, ...]: the rank whose range holds ``slot``
     writes it (the others rewrite an entry with itself), without reading
-    ``slot`` back to the host."""
+    ``slot`` back to the host.  ``new`` is a DTensor or a plain tensor
+    whole on every rank.  An int8 cache takes int8 values only (quantized
+    first, their scales written beside them): a float cast to int8 would
+    truncate silently, so it raises ``TypeError``."""
     local = cache.to_local()
+    if isinstance(new, DTensor):
+        new = new.redistribute(placements=[Replicate()]).to_local()
+    if local.dtype == torch.int8 and new.dtype != torch.int8:
+        raise TypeError(f"an int8 cache takes quantized int8 values; got {new.dtype}")
     idx = slot - local_offset(cache, 1)
     mine = (idx >= 0) & (idx < local.shape[1])
     idx = torch.where(mine, idx, 0)
-    new = new.redistribute(placements=[Replicate()]).to_local().to(local.dtype)
+    new = new.to(local.dtype)
     local.index_copy_(1, idx, torch.where(mine, new, local.index_select(1, idx)))
 
 

@@ -32,8 +32,10 @@ square is summed over the ranks, and the row-sharded ``w_out`` makes the
 output a partial sum, all-reduced at the block's constraint (the
 reference's, ``ssm.py:222``; a hybrid block reduces its two branches' sum
 once).  The scan is
-the plain one the policy names (``"chunked"`` or ``"reference"``); the
-kernel is refused on a model axis (ROADMAP A.18).
+the one the policy names (``"chunked"``, ``"reference"``, or under
+``"cuda"`` the kernel on the rank's part: its heads, or its strided
+head-dim columns of every head, which the kernel reads through their
+strides as laid out).
 
 A head count the axis does not divide (hymba-1.5b's 50 heads over 4 or
 16 ranks) shards the head dim instead, in the scan and in the decode state
@@ -290,9 +292,6 @@ def mamba_mixer(p, x, cfg: ArchConfig, impl: str = "chunked"):
         xs, B, C, dt, A = _ssm_inputs(p, xbc, dt, d_in, h, n, g, ssm.head_dim)
         y = _scan(impl, xs, dt, A, B, C, p.D, ssm.chunk).reshape(b, s, d_in)
         return _gate_out(p, y, z, cfg)
-    if impl == "cuda":
-        raise ValueError("the SSD scan kernel on a model axis wider than 1 is not ported "
-                         "(ROADMAP A.18); the reference's cells run attention_impl='chunked'")
     mesh = xbc.device_mesh
     conv, _ = _causal_conv(xbc.to_local(), p.conv_w.to_local())  # each rank its channels
     conv = DTensor.from_local(conv, mesh, [Shard(2)], run_check=False, shape=xbc.shape,

@@ -50,8 +50,17 @@ a reduce-scatter; ``shard_seq_attn=False`` attends on each rank's heads
 (:func:`~repro_torch.models.attention.attention`);
 ``prefill_last_logit_only`` takes the final hidden state's last position
 before the head (on a sequence-sharded stream from the rank that holds
-it), so the [B, S, V] logits are never made.  The policy values whose
-layouts are not ported are refused there (ROADMAP A.18:
+it), so the [B, S, V] logits are never made.  The hand-written kernels
+(``attention_impl="cuda"``) run there on each rank's local tensors: flash
+attention on its q rows from their offset, decode attention on its cache
+shard, the SSD scan on its heads or head-dim columns.  An int8 KV cache
+(``kv_cache_dtype="int8"``) is quantized by each rank over its own entries
+and written with its scales into the sequence-sharded values and scales,
+and each rank dequantizes its shard before decode attention, as the
+reference dequantizes before its decode attention; the MLA latent cache
+and the Mamba cache stay in their dtypes there, as in the reference.  The
+one policy value whose layout is not ported there, the experts over
+'model', is refused (ROADMAP A.18:
 :func:`~repro_torch.runtime.sharding.check_model_axis`).
 
 As in the reference, ``prefill`` fills the KV (or latent) cache but leaves
@@ -713,7 +722,10 @@ def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
         k = torch.roll(k[:, :, S - w:], shift, dims=2)
         v = torch.roll(v[:, :, S - w:], shift, dims=2)
         n = w
-    if sharded:
+    if sharded and "k_scale" in cache:
+        _write_int8_prefix(cache, "k", k)
+        _write_int8_prefix(cache, "v", v)
+    elif sharded:
         write_prefix(cache["k"], k)
         write_prefix(cache["v"], v)
     elif policy.kv_cache_dtype == "int8":
@@ -723,6 +735,25 @@ def prefill(model: Transformer, cfg: ArchConfig, policy: ShardingPolicy, tokens,
         cache["k"][:, :, :n] = k
         cache["v"][:, :, :n] = v
     return logits, cache, S
+
+
+def _write_int8_prefix(cache: dict, name: str, t) -> None:
+    """``t`` [L, B, n, KVH, hd] (whole on every rank) into the
+    sequence-sharded int8 cache ``cache[name]`` and its scales: each rank
+    quantizes the entries of its own range only (a scale is per token and
+    kv head, over the head dim, which no rank splits)."""
+    start = local_offset(cache[name], 2)
+    values, scales = quantize_kv(t[:, :, start:start + cache[name].to_local().shape[2]])
+    write_prefix(cache[name], values, start)
+    write_prefix(cache[name + "_scale"], scales, start)
+
+
+def _dequantized(values, scales, dtype):
+    """A sequence-sharded int8 cache layer's values times its scales in
+    ``dtype``: each rank its own shard, a DTensor placed as ``values``."""
+    local = dequantize_kv(values.to_local(), scales.to_local(), dtype)
+    return DTensor.from_local(local, values.device_mesh, values.placements, run_check=False,
+                              shape=values.shape, stride=values.stride())
 
 
 @torch.no_grad()
@@ -778,11 +809,19 @@ def _decode_attn(a, h, cache: dict, n, cfg: ArchConfig, policy: ShardingPolicy):
     Lc = cache["k"].shape[1]
     # the reference's dynamic_update_slice clamps its start index into range
     slot = (torch.remainder(n, Lc) if w else torch.clamp(n, max=Lc - 1)).long()
-    if isinstance(cache["k"], DTensor):
+    int8 = policy.kv_cache_dtype == "int8" and "k_scale" in cache
+    if isinstance(cache["k"], DTensor) and int8:  # each rank quantizes the one new entry
+        for name, t in (("k", k), ("v", v)):
+            values, scales = quantize_kv(t.redistribute(placements=[Replicate()]).to_local())
+            write_slot(cache[name], slot, values)
+            write_slot(cache[name + "_scale"], slot, scales)
+        kd = _dequantized(cache["k"], cache["k_scale"], h.dtype)
+        vd = _dequantized(cache["v"], cache["v_scale"], h.dtype)
+    elif isinstance(cache["k"], DTensor):
         write_slot(cache["k"], slot, k)
         write_slot(cache["v"], slot, v)
         kd, vd = cache["k"], cache["v"]
-    elif policy.kv_cache_dtype == "int8" and "k_scale" in cache:
+    elif int8:
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
         cache["k"].index_copy_(1, slot, kq)

@@ -59,10 +59,13 @@ head count the axis does not divide (hymba-1.5b's 50 heads over 4 or 16)
 puts the head dim over 'model' instead, in the scan and in the decode
 state, as :func:`cache_specs` does for the state (why:
 :mod:`repro_torch.models.ssm`).  Refused, naming ROADMAP A.18: the policy
-values whose layouts are not ported to a model axis wider than 1 (int8
-KV, the CUDA kernels, ``expert_axis="model"``, ``expert_ff_axis="data"``;
-the activation layouts ``sp_activations``, ``shard_seq_attn=False``,
-``qkv_feature_shard=False`` and ``moe_impl="dense"`` run there);
+values whose layouts are not ported to a model axis wider than 1
+(``expert_axis="model"``, ``expert_ff_axis="data"``, and a model axis
+named other than 'model'; the activation layouts ``sp_activations``,
+``shard_seq_attn=False``, ``qkv_feature_shard=False`` and
+``moe_impl="dense"``, the int8 KV cache and the hand-written kernels
+(``attention_impl="cuda"``, a serving path: the kernels have no backward)
+run there);
 on batch axes wider than 1, ``moe_impl="dense"``
 runs expert parallelism too and ``expert_axis="model"`` keeps every
 expert on every rank (FSDP's layout), while ``expert_ff_axis="data"``
@@ -268,18 +271,18 @@ def _data_mesh(mesh):
 def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int, batch: int = 1) -> None:
     """Raise unless ``cfg`` under ``policy`` runs on a model axis of
     ``size`` and batch axes of ``batch`` ranks together: every family,
-    under the policy values whose layouts are ported to a model axis (the
-    others name ROADMAP A.18), at widths every sharded dim divides.  On
+    under the policy values whose layouts are ported to a model axis (every
+    activation layout, the int8 KV cache, the hand-written kernels; the
+    others, the experts over 'model' and a model axis not named 'model',
+    name ROADMAP A.18), at widths every sharded dim divides.  On
     batch axes wider than 1 an MoE model under ``expert_axis="data"``
     runs expert parallelism: the batch ranks must divide its experts, and
     each expert's d_ff cannot be over 'data' too."""
     if size > 1:
-        expect = {"model_axis": "model", "kv_cache_dtype": "bf16"}
+        expect = {"model_axis": "model"}
         if cfg.moe is not None:
             expect.update(expert_axis="data", expert_ff_axis="model")
         bad = {f: getattr(policy, f) for f, v in expect.items() if getattr(policy, f) != v}
-        if policy.attention_impl not in ("chunked", "naive"):
-            bad["attention_impl"] = policy.attention_impl
         if bad:
             raise ValueError(f"{cfg.name}: the layout of {bad} is not ported to a model axis "
                              "wider than 1 yet (ROADMAP A.18)")

@@ -510,6 +510,62 @@ def test_flash_attention_kernel_reads_a_fused_projection_on_card(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (heads, S, window, row blocks): a model axis's ranks' rows at their
+    # q_offset; hymba-1.5b's window over 4 ranks of a 2,048 prompt, blocks
+    # no tile divides, a block of one row
+    ((24, 8, 128), 512, 0, (0, 128, 256, 384)),
+    ((25, 5, 64), 2048, 1024, (0, 512, 1024, 1536)),
+    ((24, 8, 128), 512, 96, (0, 1, 130, 511)),
+    ((8, 1, 256), 512, 96, (0, 37, 300)),
+    ((8, 1, 256), 2048, 1024, (0, 512, 1024, 1536)),
+])
+def test_flash_attention_rows_at_their_offset_on_card(card, case, dtype):
+    """Each row block of q (a strided view) run alone with its
+    ``q_offset`` against the whole K and V equals the plain version's rows."""
+    (H, KVH, D), S, window, cuts = case
+    g = torch.Generator(device=card).manual_seed(S + window)
+    q, k, v = (torch.randn(s, generator=g, device=card).to(dtype)
+               for s in ((2, S, H, D), (2, S, KVH, D), (2, S, KVH, D)))
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    for a, b in zip(cuts, (*cuts[1:], S)):
+        got = flash_attention(q[:, a:b], k, v, causal=True, window=window, q_offset=a)
+        assert (got.float() - want[:, a:b].float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("cache_len", [1, 77, 151, 300])
+@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256)])
+def test_decode_attention_cache_shards_merged_on_card(card, heads, cache_len, window, dtype):
+    """A 300-entry cache in four shards at their ``kv_start``, each with its
+    ``lse``, merged as the model merges the ranks': the plain version's
+    output; each shard's output and lse its plain version's, a shard with
+    no valid entry 0 and -1e30."""
+    from repro_torch.models.attention import merge_splits
+
+    H, KVH, D = heads
+    g = torch.Generator(device=card).manual_seed(cache_len + window)
+    q, kc, vc = (torch.randn(s, generator=g, device=card).to(dtype)
+                 for s in ((3, 1, H, D), (3, 300, KVH, D), (3, 300, KVH, D)))
+    n = torch.tensor([cache_len], dtype=torch.int32, device=card)
+    parts, plain = [], []
+    for a in range(0, 300, 75):
+        args = (q, kc[:, a:a + 75], vc[:, a:a + 75], n)
+        parts.append(decode_attention(*args, window=window, kv_start=a, with_lse=True))
+        plain.append(decode_attention_plain(*args, window=window, kv_start=a, with_lse=True))
+    lse = torch.stack([p[1] for p in parts])
+    got = merge_splits(lse, torch.ones_like(lse), torch.stack([p[0][:, 0].float()
+                                                               for p in parts]))
+    want = decode_attention_plain(q, kc, vc, n, window=window)
+    torch.cuda.synchronize()
+    assert (got[:, None] - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+    for (o, l), (po, pl) in zip(parts, plain):
+        assert (o.float() - po.float()).abs().max().item() <= ATTN_TOL[dtype]
+        assert (l - pl).abs().max().item() <= 1e-4 and torch.isfinite(l).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 64])
 @pytest.mark.parametrize("cache_len", [1, 63, 64, 300, 544])
 # llama3.2-3b's, hymba-1.5b's, paligemma-3b's heads
@@ -646,6 +702,29 @@ def test_ssd_scan_kernel_matches_plain_on_card(card, case, dtype):
     assert launch_counts()["ssd_scan"] == 1 and got.dtype == dtype
     tol = ssd_scan_tolerance(x, dt, A, Bm, Cm, D, chunk=chunk)
     assert ((got.float() - want.float()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("case", [(80, 64, 128, 512), (50, 64, 16, 2048)])
+def test_ssd_scan_on_a_model_axis_rank_s_part_on_card(card, case):
+    """What each of four ranks scans on a model axis: mamba2-2.7b's 80 heads
+    20 a rank; hymba-1.5b's 50 heads (which 4 does not divide) on each
+    rank's 16 of their 64 columns, a strided slice the kernel reads as laid
+    out; against the plain version within ``ssd_scan_tolerance``."""
+    H, P, N, S = case
+    g = torch.Generator(device=card).manual_seed(H + S)
+    xbc = torch.randn(2, S, H * P + 2 * N, generator=g, device=card)
+    xs = xbc[..., :H * P].reshape(2, S, H, P)
+    Bm, Cm = (xbc[..., H * P + i * N:H * P + (i + 1) * N].reshape(2, S, 1, N) for i in (0, 1))
+    dt = torch.nn.functional.softplus(torch.randn(2, S, H, generator=g, device=card) - 2.0)
+    A, D = -torch.linspace(1.0, 16.0, H, device=card), torch.ones(H, device=card)
+    for r in range(4):
+        heads, cols = ((slice(r * H // 4, (r + 1) * H // 4), slice(None)) if H % 4 == 0 else
+                       (slice(None), slice(r * P // 4, (r + 1) * P // 4)))
+        args = (xs[:, :, heads, cols], dt[:, :, heads], A[heads], Bm, Cm, D[heads])
+        got = ssd_scan(*args, chunk=256)
+        want = ssd_scan_plain(*args, chunk=pick_chunk(S, 256))
+        torch.cuda.synchronize()
+        assert ((got - want).abs() <= ssd_scan_tolerance(*args, chunk=256)).all()
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-2.7b", "hymba-1.5b",

@@ -567,11 +567,14 @@ def test_policy_from_reference_carries_every_field_the_port_reads():
      "kv_cache_dtype"),
 ])
 def test_a_ported_layout_beside_a_value_still_refused_names_the_refused_one(over, field):
-    """The ported layouts run on a model axis; beside them A.18's items 5-7
-    are still refused, by name."""
+    """The ported layouts run on a model axis, and beside them the int8
+    cache and the kernels (``field``: A.18's items 5-6) now too; beside
+    them all a value still refused (a model axis not named 'model') is
+    refused by name alone."""
     _, cfg = configs(CASES["llama3.2-3b"])
-    with pytest.raises(ValueError, match=rf"\{{'{field}'.*ROADMAP A\.18") as err:
-        sharding.check_model_axis(cfg, ShardingPolicy(**over), 2)
-    assert not (set(over) - {field}) & set(str(err.value).split("'"))
+    sharding.check_model_axis(cfg, ShardingPolicy(**over), 2)  # runs now
+    with pytest.raises(ValueError, match=r"\{'model_axis'.*ROADMAP A\.18") as err:
+        sharding.check_model_axis(cfg, ShardingPolicy(**over, model_axis="tp"), 2)
+    assert not set(over) & set(str(err.value).split("'"))
     sharding.check_model_axis(cfg, ShardingPolicy(**{k: v for k, v in over.items()
                                                      if k != field}), 2)

@@ -191,7 +191,9 @@ def test_shard_shapes_equal_jax_named_sharding_on_a_small_mesh():
 
 def test_shard_model_refuses_a_model_axis_wider_than_one():
     """Under a policy value whose model-axis layout is not ported (every
-    family's default layout is: tests/test_torch_tensor_parallel*.py)."""
+    family's default layout is: tests/test_torch_tensor_parallel*.py; the
+    int8 cache is too, and beside a model axis named other than 'model'
+    that one alone is refused)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.config import ShardingPolicy
@@ -201,8 +203,12 @@ def test_shard_model_refuses_a_model_axis_wider_than_one():
                         device="cpu")
     with fake_world(4):
         mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
-        with pytest.raises(ValueError, match=r"model axis wider than 1 .*ROADMAP A\.18"):
-            sharding.shard_model(model, mesh, ShardingPolicy(kv_cache_dtype="int8"))
+        sharding.check_model_axis(smoke_variant(get_arch("mamba2-2.7b")),
+                                  ShardingPolicy(kv_cache_dtype="int8"), 2, 2)  # runs now
+        with pytest.raises(ValueError,
+                           match=r"\{'model_axis': 'tp'\} .*model axis wider than 1 .*A\.18"):
+            sharding.shard_model(model, mesh, ShardingPolicy(kv_cache_dtype="int8",
+                                                             model_axis="tp"))
         pod = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("pod", "data"))
         with pytest.raises(ValueError, match="FSDP runs over"):
             sharding.shard_model(model, pod)

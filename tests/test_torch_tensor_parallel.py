@@ -377,10 +377,18 @@ def test_a_mamba_width_that_does_not_divide_is_refused():
     ("attention_impl", "cuda", {"shard_seq_attn": False, "qkv_feature_shard": False}),
     ("kv_cache_dtype", "int8", {}), ("attention_impl", "cuda", {}), ("model_axis", "tp", {})])
 def test_unported_policy_values_refuse_naming_their_roadmap_item(field, value, beside):
-    """Beside the activation layouts that are ported (``beside``: they run)."""
+    """Beside the activation layouts that are ported (``beside``: they run):
+    the int8 cache and the kernels run now (A.18 items 5-6); a model axis
+    named other than 'model' is still refused, by name, beside them too."""
     policy = ShardingPolicy(**beside, **{field: value})
-    with pytest.raises(ValueError, match=rf"{field}.*ROADMAP A\.18"):
-        sharding.check_model_axis(CFG, policy, 2)
+    if field == "model_axis":
+        with pytest.raises(ValueError, match=rf"{field}.*ROADMAP A\.18"):
+            sharding.check_model_axis(CFG, policy, 2)
+    else:
+        sharding.check_model_axis(CFG, policy, 2)  # runs now
+        with pytest.raises(ValueError, match=r"\{'model_axis': 'tp'\}.*ROADMAP A\.18"):
+            sharding.check_model_axis(CFG, ShardingPolicy(**beside, **{field: value},
+                                                          model_axis="tp"), 2)
     sharding.check_model_axis(CFG, ShardingPolicy(**beside), 2)  # the ported layout runs
     sharding.check_model_axis(CFG, ShardingPolicy(), 2)  # the default runs
     with pytest.raises(ValueError, match="do not divide"):
