@@ -8,7 +8,7 @@
         --seq 32 --prompt 32 --gen 4 --check-batch 4 --serve-batch 4 --lr 1e-3  # the CPU: gloo
 
 ``--parts`` picks the parts, run in the order given (default: all
-twenty-four, (i)-(xxiv)).  The
+twenty-six, (i)-(xxvi)).  The
 dense family's: (i) ``train``: ``--check-arch`` (llama3.2-3b) at full width
 and depth in float32: the train cell's step on each of ``--meshes`` (``1x4``
 and ``2x2``: data x model), ``--check-steps`` steps of the global batch
@@ -99,6 +99,16 @@ run counts each rank's kernel launches in the prefill and in the decode
 steps (``launches``): under ``cuda`` on the cards one flash launch a layer
 with attention and one SSD launch a Mamba layer in the prefill, one decode
 launch a layer with attention and step, exactly.
+The experts over the model axis (:data:`VARIANTS` ``expert_model``:
+``expert_axis="model"``, ``expert_ff_axis="data"``, E over 'model' and each
+expert's d_ff over 'data'; each rank's expert slabs checked, and the
+expert exchanges recorded apart by kind, the gathers and the returns):
+(xxv) ``expert-model-train``: (iv) on ``1x4``, ``2x2`` and ``4x1``, then
+kimi-k2-1t-a32b cut as (vii) on ``1x4`` and ``2x2`` against the default
+layout on the same mesh (no card holds its float32 training state).
+(xxvi) ``expert-model-serve``: (v) on ``1x4`` and ``2x2`` with every cache
+leaf held after each decode step and the greedy tokens equal, then (vi) on
+(1, N) beside the default layout (the weights drawn again in each).
 The one-card side of (v), (vii), (xvii), (xviii) and the serving parts
 (ix)-(xv), (xxi)-(xxiii) is fed the sharded side's greedy tokens.
 Rank 0 prints one JSON line (also written to ``--out``, after each part)
@@ -142,11 +152,11 @@ from repro_torch.launch.specs import build_cell  # noqa: E402
 from repro_torch.models import (decode_step, extend_cache, greedy_tokens,  # noqa: E402
                                 init_params, prefill)
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.moe import capacity  # noqa: E402
+from repro_torch.models.moe import capacity, exchange_tally  # noqa: E402
 from repro_torch.models.layers import constrain  # noqa: E402
 from repro_torch.runtime import make_train_state, make_train_step  # noqa: E402
 from repro_torch.runtime.profile import CommBytes, busy_ms, device_time_by_group  # noqa: E402
-from repro_torch.runtime.sharding import init_sharded, shard_model  # noqa: E402
+from repro_torch.runtime.sharding import init_sharded, is_expert_leaf, shard_model  # noqa: E402
 
 LOSS_RTOL = 1e-5
 SERVE_TOL = 1e-4
@@ -183,6 +193,8 @@ VARIANTS = {
     "cuda": {"attention_impl": "cuda"},
     "int8": {"kv_cache_dtype": "int8"},
     "cuda+int8": {"attention_impl": "cuda", "kv_cache_dtype": "int8"},
+    # the experts over 'model', each one's d_ff over 'data' (parts (xxv), (xxvi))
+    "expert_model": {"expert_axis": "model", "expert_ff_axis": "data"},
 }
 LAYOUT_TRAIN = ("default", "sp", "noremat+sp", "noseqshard")
 LAYOUT_SERVE = ("default", "last_logit", "noseqshard", "sp", "sp+last", "sp_noq", "sp+last+bf16")
@@ -194,6 +206,12 @@ KERNEL_SERVE = ("default", "cuda", "cuda+int8")
 INT8_ARCHS = ("llama3.2-3b", "hymba-1.5b")
 INT8_SERVE = ("int8", "cuda+int8")
 FLIP_TOL = 1e-3  # a row whose new int8 entry quantized a step apart (ROADMAP C.5)
+# the experts over the model axis, parts (xxv), (xxvi): deepseek trained on these
+# meshes against one card, in two groups (rank 0's host keeps every run's parameters
+# after each step, 11 GB each); kimi (2 layers, 64 experts) on the first group against
+# the default layout (one card cannot hold its float32 AdamW state: 8.3 G parameters x
+# 16 B), and deepseek and kimi served on it
+EXPERT_MODEL_MESHES = ("1x4,2x2", "4x1")
 
 
 def _sync(dev):
@@ -415,11 +433,11 @@ def _profiled(fn, dev) -> dict | None:
                 device_ms=groups, device_ops=n_ops, host_top_level_aten_ops=host_ops)
 
 
-def _train_steps(step_fn, state, stream, rows, dev, moe: bool, lead: bool):
+def _train_steps(step_fn, state, stream, rows, dev, moe: bool, lead: bool, snap: bool = True):
     """A step of ``step_fn`` on ``rows`` of each of ``stream``'s batches:
-    each step's metrics, the parameters whole after each (on ``lead``'s
-    host), and with ``moe`` each step's routing and cross-entropy by
-    sequence (this rank's rows)."""
+    each step's metrics, with ``snap`` the parameters whole after each (on
+    ``lead``'s host), and with ``moe`` each step's routing and
+    cross-entropy by sequence (this rank's rows)."""
     steps, snaps, routes, seq_loss, now = [], [], {}, {}, {}
     watch = contextlib.ExitStack()
     if moe:
@@ -436,7 +454,8 @@ def _train_steps(step_fn, state, stream, rows, dev, moe: bool, lead: bool):
             steps.append({"loss": loss, "aux": float(m["aux"]),
                           "grad_norm": float(m["grad_norm"]),
                           "ms": 1e3 * (time.perf_counter() - t0)})
-            snaps.append(_whole(state.params, lead))
+            if snap:
+                snaps.append(_whole(state.params, lead))
     return state, steps, snaps, routes, seq_loss
 
 
@@ -455,6 +474,11 @@ def _params_within_c18(got: dict, want: dict, lr: float) -> dict:
 
 def _variant(base: ShardingPolicy, name: str) -> ShardingPolicy:
     return dataclasses.replace(base, **VARIANTS[name])
+
+
+def _layout(policy: ShardingPolicy) -> tuple:
+    """What of a policy places the weights: its expert axes."""
+    return policy.expert_axis, policy.expert_ff_axis
 
 
 def _one_card(policy: ShardingPolicy) -> ShardingPolicy:
@@ -484,23 +508,47 @@ def _launches(cfg, policy, gen: int, counts: dict, dev) -> dict:
     return dict(by_rank=by_rank, want=want, ok=all(g == want for g in by_rank))
 
 
+def _slabs(model, cfg, mesh, policy) -> dict | None:
+    """Under ``expert_axis="model"``: whether every rank holds exactly its
+    [E / M, D, F / D_data] slab of each routed expert leaf ([E / M, F /
+    D_data, D] for ``w_down``), all 3 a layer; None under another layout."""
+    if cfg.moe is None or policy.expert_axis != "model":
+        return None
+    E, D, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    up = (E // mesh.size(1), D, F // mesh.size(0))
+    held = [(n, tuple(p.to_local().shape)) for n, p in model.named_parameters()
+            if is_expert_leaf(n)]
+    bad = [n for n, shape in held
+           if shape != (up if n.endswith(("w_gate", "w_up")) else (up[0], up[2], up[1]))]
+    by_rank = _gather((len(held), len(bad)))
+    return dict(slab=list(up), leaves_and_mismatched_by_rank=by_rank,
+                ok=all(n == 3 * cfg.num_layers and not b for n, b in by_rank))
+
+
 def _train_check(opts, dev, rank, cfg, meshes: str | None = None,
-                 variants: tuple = ("default",)) -> dict:
-    """Parts (i), (iv) and the layout parts' training: the train cell on
-    each mesh under each of ``variants`` (:data:`VARIANTS`; runs keyed by
-    mesh, or ``"<variant> <mesh>"`` beside the default) against rank 0
-    unsharded, once for each one-card policy the variants need.  An MoE model's routing is compared too: the losses, aux
-    losses and grad norms are held at the first step and at every step
-    before the first flip, the parameters after the last step held, and
-    at a flip in the first step the cross-entropy of each sequence without
-    one too (after a later flip, the parameters already differ by C.18's
-    lr-sized moves: reported)."""
+                 variants: tuple = ("default",), against: str | None = None) -> dict:
+    """Parts (i), (iv), (xxv) and the layout parts' training: the train
+    cell on each mesh under each of ``variants`` (:data:`VARIANTS`; runs
+    keyed by mesh, or ``"<variant> <mesh>"`` beside the default) against
+    rank 0 unsharded, once for each one-card policy the variants need; or
+    (``against``, a variant) each run against that variant's on the same
+    mesh, no card holding the model's training state (no parameter
+    snapshots then: its leaves are compared by the metrics alone).  An MoE
+    model's routing is compared too: the losses, aux losses and grad norms
+    are held at the first step and at every step before the first flip,
+    the parameters after the last step held, and at a flip in the first
+    step the cross-entropy of each sequence without one too (after a later
+    flip, the parameters already differ by C.18's lr-sized moves:
+    reported).  Recorded a run: ms a step, peak GB a rank, the collectives
+    of one more step and (an MoE model) its expert exchanges by kind, and
+    under ``expert_axis="model"`` each rank's expert slabs checked."""
     base = ShardingPolicy(attn_chunk=min(1024, opts.seq))
     tcfg = TrainConfig(lr=opts.lr, warmup_steps=0, total_steps=opts.check_steps + 1)
     shape = ShapeConfig("train", opts.seq, opts.check_batch, "train")
     world = dist.get_world_size()
     moe = cfg.moe is not None
     n_steps = opts.check_steps
+    snap = against is None
 
     def batches():
         stream = SyntheticStream(cfg, opts.check_batch, opts.seq, seed=0)
@@ -518,6 +566,7 @@ def _train_check(opts, dev, rank, cfg, meshes: str | None = None,
         _peak_reset(dev)
         t0 = time.perf_counter()
         model = init_sharded(cfg, mesh, seed=0, dtype=torch.float32, device=dev, policy=policy)
+        slabs = _slabs(model, cfg, mesh, policy)
         state = make_train_state(shard_model(model.requires_grad_(True), mesh, policy), tcfg)
         _sync(dev)
         init_s = time.perf_counter() - t0
@@ -526,22 +575,25 @@ def _train_check(opts, dev, rank, cfg, meshes: str | None = None,
         rows = slice(d * opts.check_batch // data, (d + 1) * opts.check_batch // data)
         *stream, extra = batches()
         state, steps, snaps, routes, seq_loss = _train_steps(cell.fn, state, stream, rows, dev,
-                                                             moe, rank == 0)
+                                                             moe, rank == 0, snap)
         comm = CommBytes()
-        with comm:
+        with comm, exchange_tally() as exchanges:
             state, _ = cell.fn(state, {k: torch.from_numpy(v[rows]).to(dev)
                                        for k, v in extra.items()})
             _sync(dev)
         runs[key] = dict(steps=steps, init_s=init_s, peak_gb_by_rank=_gather(_peak_gb(dev)),
-                          collectives_per_step=comm.counts(), snaps=snaps,
-                          routes=_global_rows(routes, mesh) if moe else None,
-                          seq_loss=_global_rows(seq_loss, mesh) if moe else None)
+                         weights_gb_a_rank=_weights_gb(state.params),
+                         collectives_per_step=comm.counts(),
+                         expert_exchanges_per_step=exchanges if moe else None,
+                         expert_slabs=slabs, snaps=snaps,
+                         routes=_global_rows(routes, mesh) if moe else None,
+                         seq_loss=_global_rows(seq_loss, mesh) if moe else None)
         del state, model, cell
         _release(dev)
     out = None
     if rank == 0:
         ones = {}
-        for one in dict.fromkeys(_one_card(p) for p in policies.values()):
+        for one in (() if against else dict.fromkeys(_one_card(p) for p in policies.values())):
             _peak_reset(dev)
             model = init_params(cfg, seed=0, dtype=torch.float32, device=dev).requires_grad_(True)
             state, *ones[one] = _train_steps(
@@ -553,9 +605,17 @@ def _train_check(opts, dev, rank, cfg, meshes: str | None = None,
         ok = True
         keys = ("loss", "aux", "grad_norm") if moe else ("loss", "grad_norm")
         for spec, run in runs.items():
-            single, want, routes, seq_loss, single_peak = ones[_one_card(policies[spec])]
-            run["single_policy"] = _one_card(policies[spec]).moe_impl
-            flips = (_flips(run.pop("routes"), routes, opts.check_batch, opts.seq, cfg) if moe
+            if against:
+                if spec.startswith(f"{against} "):
+                    continue
+                other = runs[f"{against} {spec.split(' ', 1)[1]}"]
+                single, want, routes, seq_loss = (other["steps"], other["snaps"], other["routes"],
+                                                  other["seq_loss"])
+                run["against"] = against
+            else:
+                single, want, routes, seq_loss, single_peak = ones[_one_card(policies[spec])]
+                run["single_policy"] = _one_card(policies[spec]).moe_impl
+            flips = (_flips(run["routes"], routes, opts.check_batch, opts.seq, cfg) if moe
                      else None)
             first = None if flips is None else flips["first_group"]
             # the steps before the first flip, and the first step whatever it holds: a
@@ -563,8 +623,9 @@ def _train_check(opts, dev, rank, cfg, meshes: str | None = None,
             held = n_steps if first is None else max(first, 1)
             rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(run["steps"], single)]
                    for k in keys}
-            snaps = run.pop("snaps")
-            params = _params_within_c18(snaps[held - 1], want[held - 1], opts.lr) if held else None
+            snaps = run["snaps"]
+            params = (_params_within_c18(snaps[held - 1], want[held - 1], opts.lr)
+                      if held and snap else None)
             seqs = None
             if first is not None:  # the flipped step: its sequences without a flip
                 got, ref = run["seq_loss"][first], seq_loss[first]
@@ -572,19 +633,26 @@ def _train_check(opts, dev, rank, cfg, meshes: str | None = None,
                 seqs = dict(step=first, sequences=keep, held=first == 0 and bool(keep),
                             rel_diff=float(((got - ref).abs() / ref.abs())[keep].max())
                             if keep else None)
-            run.pop("seq_loss")
             run.update(rel_diff=rel, steps_held=held, params_after_step=held - 1 if held else None,
                        params=params, flipped_step_sequences=seqs, flips=flips,
                        ok=(max((max(v[:held], default=0.0) for v in rel.values())) <= LOSS_RTOL
                            and (params is None or params["ok"])
                            and (seqs is None or not seqs["held"]
                                 or seqs["rel_diff"] <= LOSS_RTOL)
-                           and (flips is None or flips["ok"])))
+                           and (flips is None or flips["ok"])
+                           and (run["expert_slabs"] is None or run["expert_slabs"]["ok"])))
             ok = ok and run["ok"]
-        out = dict(arch=cfg.name, layers=cfg.num_layers, dtype="float32",
-                   global_batch=opts.check_batch, seq=opts.seq, lr=opts.lr, meshes=runs,
-                   single=single, single_peak_gb=single_peak, variants=list(variants),
-                   policies={k: VARIANTS[k] for k in variants}, ok=ok)
+        for run in runs.values():
+            for k in ("snaps", "routes", "seq_loss"):
+                run.pop(k)
+            run.setdefault("ok", run["expert_slabs"] is None or run["expert_slabs"]["ok"])
+        out = dict(arch=cfg.name, layers=cfg.num_layers, experts=cfg.moe.num_experts if moe
+                   else None, dtype="float32", global_batch=opts.check_batch, seq=opts.seq,
+                   lr=opts.lr, meshes=runs, variants=list(variants),
+                   policies={k: VARIANTS[k] for k in variants}, against=against,
+                   ok=ok and all(r["ok"] for r in runs.values()))
+        if not against:
+            out.update(single=single, single_peak_gb=single_peak)
     return out
 
 
@@ -661,10 +729,12 @@ def _serve_run(cfg, mesh, policy, model, prompt: dict, seq: int, gen: int, dev, 
         for name, fn in (("prefill", lambda: pre.fn(model, prompt)),
                          ("decode", lambda: dec.fn(model, cache, {"tokens": nxt}, last))):
             comm = CommBytes()
-            with comm:
+            with comm, exchange_tally() as exchanges:
                 fn()
                 _sync(dev)
             rec[f"{name}_collectives"] = comm.counts()
+            if cfg.moe is not None:  # the expert exchanges apart, by kind
+                rec[f"{name}_expert_exchanges"] = exchanges
             rec[f"{name}_profile"] = _profiled(fn, dev)
     return logits, (steps if each_step else final), rec
 
@@ -735,19 +805,24 @@ def _serve(opts, dev, rank, cfg, mesh_spec: str | None = None,
     turn on the same weights (records by variant beside the default)."""
     base = ShardingPolicy(attn_chunk=min(1024, opts.prompt))
     mesh = _mesh(dev, mesh_spec)
-    _peak_reset(dev)
-    _sync(dev)
-    t0 = time.perf_counter()
-    model = init_sharded(cfg, mesh, seed=0, dtype=torch.bfloat16, device=dev, policy=base)
-    _sync(dev)
-    init_s = time.perf_counter() - t0
-    weights_gb = _weights_gb(model)
-    weights_by_rank = _gather(weights_gb)
-    init_peak = _peak_gb(dev)
     prompt = _rows_of(_prompt(cfg, opts.serve_batch, opts.prompt, 0, dev), mesh)
-    recs = {}
+    recs, model, drawn = {}, None, None
     for name in variants:
         policy = _variant(base, name)
+        if _layout(policy) != drawn:  # the weights drawn (again) in the variant's layout
+            del model
+            _release(dev)
+            _peak_reset(dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            model = init_sharded(cfg, mesh, seed=0, dtype=torch.bfloat16, device=dev,
+                                 policy=policy)
+            _sync(dev)
+            init_s, drawn = time.perf_counter() - t0, _layout(policy)
+            weights_gb = _weights_gb(model)
+            weights_by_rank = _gather(weights_gb)
+            init_peak = _peak_gb(dev)
+            slabs = _slabs(model, cfg, mesh, policy)
         _peak_reset(dev)
         logits, cache, rec = _serve_run(cfg, mesh, policy, model, prompt, opts.prompt, opts.gen,
                                         dev, record=True)
@@ -761,7 +836,9 @@ def _serve(opts, dev, rank, cfg, mesh_spec: str | None = None,
                    weights_gb_a_rank=weights_gb, weights_gb_by_rank=weights_by_rank,
                    init_peak_gb=init_peak, serve_peak_gb_by_rank=_gather(_peak_gb(dev)),
                    logits_shape=list(logits[0].shape), finite=finite, policy=VARIANTS[name],
-                   ok=finite and list(logits[0].shape) == want and rec["launches"]["ok"])
+                   expert_slabs=slabs,
+                   ok=finite and list(logits[0].shape) == want and rec["launches"]["ok"]
+                   and (slabs is None or slabs["ok"]))
         recs[name] = rec
         del cache, logits
         _release(dev)
@@ -794,14 +871,19 @@ def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None 
     base_policy = ShardingPolicy(attn_chunk=min(1024, seq))
     mesh = _mesh(dev, mesh_spec)
     moe = cfg.moe is not None
-    model = init_sharded(cfg, mesh, seed=seed, dtype=torch.float32, device=dev,
-                         policy=base_policy)
-    weights_gb = _weights_gb(model)
-    weights_by_rank = _gather(weights_gb)
     prompt = _prompt(cfg, opts.serve_batch, seq, seed, dev)
-    sharded = {}
+    sharded, model, drawn = {}, None, None
     for name in variants:
         policy = _variant(base_policy, name)
+        if _layout(policy) != drawn:  # the same draws, in the variant's layout
+            del model
+            _release(dev)
+            model = init_sharded(cfg, mesh, seed=seed, dtype=torch.float32, device=dev,
+                                 policy=policy)
+            drawn = _layout(policy)
+            weights_gb = _weights_gb(model)
+            weights_by_rank = _gather(weights_gb)
+            slabs = _slabs(model, cfg, mesh, policy)
         routes = {} if moe else None
         _peak_reset(dev)
         logits, caches, rec = _serve_run(cfg, mesh, policy, model, _rows_of(prompt, mesh), seq,
@@ -812,6 +894,8 @@ def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None 
         if rank == 0:
             logits = [lg.cpu() for lg in logits]
             caches = caches if family else [_flat(caches)]
+        rec.update(expert_slabs=slabs, weights_gb_a_rank=weights_gb,
+                   weights_gb_by_rank=weights_by_rank)
         sharded[name] = (policy, logits, caches, rec, peaks, routes)
         del logits, caches
         _release(dev)
@@ -847,15 +931,14 @@ def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None 
             arch=cfg.name, layers=cfg.num_layers,
             experts=cfg.moe.num_experts if moe else None, dtype="float32",
             mesh=f"{mesh.size(0)}x{mesh.size(1)}", batch=opts.serve_batch, prompt=seq,
-            gen=gen, weights_gb_by_rank=weights_by_rank,
-            caches_held=len(caches), rel_err=errs, sequences_held=keep, held_until=until,
-            flips=flips, weights_gb_a_rank=weights_gb,
-            serve_peak_gb_by_rank=peaks, policy=VARIANTS[name],
+            gen=gen, caches_held=len(caches), rel_err=errs, sequences_held=keep,
+            held_until=until, flips=flips, serve_peak_gb_by_rank=peaks, policy=VARIANTS[name],
             prefill_logits_shape=list(logits[0].shape),
             own_greedy_differs=[[int(b), int(i)] for b, i in differ.nonzero().tolist()],
             ok=bool(errs) and max(errs.values()) <= SERVE_TOL
             and (flips is None or flips["ok"]) and not (family and differ.any())
-            and rec["launches"]["ok"],
+            and rec["launches"]["ok"] and (rec["expert_slabs"] is None
+                                           or rec["expert_slabs"]["ok"]),
             **{k: v for k, v in rec.items() if k != "tokens"})
         del c
         _release(dev)
@@ -988,8 +1071,9 @@ FAMILY_PARTS = tuple(f"{f}-{k}" for f in FAMILIES for k in ("train", "serve"))
 EP_PARTS = ("moe-ep-train", "moe-ep-serve", "kimi-ep-check", "kimi-ep-serve")
 LAYOUT_PARTS = ("layout-train", "layout-serve", "layout-families")
 KERNEL_PARTS = ("kernels-serve", "int8-serve")
+EXPERT_MODEL_PARTS = ("expert-model-train", "expert-model-serve")
 PARTS = ("train", "check", "serve", "moe-train", "moe-serve", *FAMILY_PARTS, "kimi-check",
-         "kimi-serve", *EP_PARTS, *LAYOUT_PARTS, *KERNEL_PARTS)
+         "kimi-serve", *EP_PARTS, *LAYOUT_PARTS, *KERNEL_PARTS, *EXPERT_MODEL_PARTS)
 
 
 def _layout_serve(opts, dev, rank) -> dict:
@@ -1087,6 +1171,42 @@ def _int8_serve(opts, dev, rank) -> dict:
     return dict(runs=runs, ok=all(r["ok"] for r in runs.values()))
 
 
+def _expert_model_train(opts, dev, rank) -> dict:
+    """Part (xxv): deepseek-v2-lite-16b at MOE_TRAIN_LAYERS layers under
+    ``expert_model`` on each group of EXPERT_MODEL_MESHES against one card,
+    as (iv); then kimi-k2-1t-a32b at KIMI_CHECK's cut on the first group
+    under ``expert_model`` against the default layout on the same mesh."""
+    done = _printed(rank, "expert-model-train")
+    runs = {f"{MOE} {m}": done(f"{MOE} {m}", _train_check(
+        opts, dev, rank, _cfg(opts, MOE, MOE_TRAIN_LAYERS), m, variants=("expert_model",)))
+        for m in EXPERT_MODEL_MESHES}
+    runs[KIMI] = done(KIMI, _train_check(opts, dev, rank, _cfg(opts, KIMI, *KIMI_CHECK),
+                                         EXPERT_MODEL_MESHES[0],
+                                         variants=("default", "expert_model"),
+                                         against="default"))
+    if rank != 0:
+        return None
+    return dict(runs=runs, ok=all(r["ok"] for r in runs.values()))
+
+
+def _expert_model_serve(opts, dev, rank) -> dict:
+    """Part (xxvi): deepseek-v2-lite-16b whole in float32 under
+    ``expert_model`` on the first group of EXPERT_MODEL_MESHES against rank
+    0 alone, as (v) with every cache leaf held after each decode step and the
+    greedy tokens equal; then kimi-k2-1t-a32b at KIMI_SERVE_LAYERS layers in
+    bfloat16 on (1, N), its weights drawn sharded in each layout, under
+    ``expert_model`` beside the default, as (vi)."""
+    done = _printed(rank, "expert-model-serve")
+    runs = {MOE: done(MOE, _each_mesh(lambda m: _serve_check(
+                opts, dev, rank, _cfg(opts, MOE), opts.gen, mesh_spec=m, family=True,
+                record=True, variants=("expert_model",)), EXPERT_MODEL_MESHES[0])),
+            KIMI: done(KIMI, _serve(opts, dev, rank, _cfg(opts, KIMI, KIMI_SERVE_LAYERS),
+                                    variants=("default", "expert_model")))}
+    if rank != 0:
+        return None
+    return dict(runs=runs, ok=all(r["ok"] for r in runs.values()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1135,6 +1255,8 @@ def main(argv=None) -> int:
         "layout-families": lambda: _layout_families(opts, dev, rank),
         "kernels-serve": lambda: _kernels_serve(opts, dev, rank),
         "int8-serve": lambda: _int8_serve(opts, dev, rank),
+        "expert-model-train": lambda: _expert_model_train(opts, dev, rank),
+        "expert-model-serve": lambda: _expert_model_serve(opts, dev, rank),
         "moe-ep-train": lambda: _train_check(opts, dev, rank, _cfg(opts, MOE, MOE_TRAIN_LAYERS),
                                              EP_MESHES),
         "moe-ep-serve": lambda: _each_mesh(lambda m: _serve_check(

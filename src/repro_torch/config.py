@@ -162,9 +162,10 @@ class ShardingPolicy:
     Megatron sequence parallelism); they change no value.
     ``prefill_last_logit_only``: a prefill returns the last position's
     logits alone ([B, 1, V]), the only ones sampling reads, and the head
-    never makes the others.  On a model axis the int8 cache and the
-    kernels run (the kernels serve only: they have no backward); the port
-    refuses the experts over 'model' there (ROADMAP A.18).
+    never makes the others.  On a model axis the int8 cache, the kernels
+    (they serve only: they have no backward) and both expert layouts run;
+    the port refuses a model axis not named 'model' (ROADMAP A.18) and the
+    experts and their d_ff over one axis (C.20).
     """
 
     remat: str = "block"  # none | block (recompute each block in the backward)

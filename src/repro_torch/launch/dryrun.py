@@ -34,9 +34,16 @@ no data, and one chunk is the naive form's work.  The fake group is a
 CPU one, where DTensor runs each all-to-all as an all-gather and a slice.
 The int8 KV cache runs there as on the cards (each rank quantizes its own
 entries, dequantizes its shard); the attention stays naive or chunked
-under any ``attention_impl``, as the reference's cells run it.  A policy
-whose model-axis layout is not ported (the experts over 'model') records
-``collectives`` as ``null`` with the refusal, which names ROADMAP A.18.  The keys only XLA's
+under any ``attention_impl``, as the reference's cells run it.  An MoE
+model's expert exchanges are also recorded apart by kind
+(``expert_exchanges``, :func:`repro_torch.models.moe.exchange_tally`:
+expert parallelism's ``out`` and ``back``, or under ``expert_axis="model"``
+the ``gather`` of the slots to every data rank and the ``return`` of the
+partial outputs), each also counted in ``collectives`` as
+``all_to_all_single``; on the meta device their sizes are balanced
+routing's.  A policy the port refuses on the mesh (a model axis not named
+'model', ROADMAP A.18; the experts and their d_ff over one axis, C.20)
+records ``collectives`` as ``null`` with the refusal.  The keys only XLA's
 compiler gives (``temp_size_in_bytes``, ``bytes_accessed_per_device``,
 ``hlo_bytes``, ``compile_s``, ``flops_per_device``), and ``collectives``
 where the step cannot run so, are ``null``, each with its reason under
@@ -138,8 +145,11 @@ def step_collectives(mesh, cfg, shape, policy, param_dtype=None) -> dict:
     mesh's model axis, rank 0's rows of the batch.  Returns the reference's
     keys: ``collectives`` ({op: {"count", "bytes"}}), ``collective_count``,
     ``collective_operand_bytes`` (the bytes of the whole tensors the
-    collectives gather, reduce or exchange)."""
+    collectives gather, reduce or exchange), and ``expert_exchanges`` (an
+    MoE model's exchanges by kind, :func:`exchange_tally`; else ``None``)."""
     import torch
+
+    from repro_torch.models.moe import exchange_tally
 
     if cfg.has_ssm:  # one chunk of the whole sequence, the scan's and attention's
         cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=shape.seq_len))
@@ -171,22 +181,22 @@ def step_collectives(mesh, cfg, shape, policy, param_dtype=None) -> dict:
     else:
         raise ValueError(f"{shape.kind}: {_TRAIN_COLLECTIVES}")
     comm = CommBytes()
-    with comm:
+    with comm, exchange_tally() as exchanges:
         cell.fn(*args)
     by_op = comm.counts()
     return {"collectives": by_op,
             "collective_count": sum(v["count"] for v in by_op.values()),
-            "collective_operand_bytes": sum(v["bytes"] for v in by_op.values())}
+            "collective_operand_bytes": sum(v["bytes"] for v in by_op.values()),
+            "expert_exchanges": exchanges if cfg.moe is not None else None}
 
 
 def _refusal(cfg, policy, mesh) -> str | None:
-    """Why ``cfg`` under ``policy`` cannot run on ``mesh``'s model axis (a
-    policy value whose layout is not ported, the experts over 'model': the
-    refusal names ROADMAP A.18) or (an MoE model's experts) its batch
-    axes, or None."""
+    """Why ``cfg`` under ``policy`` cannot run on ``mesh`` (a model axis not
+    named 'model', ROADMAP A.18; an MoE model's experts and their d_ff over
+    one axis, C.20; widths that do not divide), or None."""
     try:
         check_model_axis(cfg, policy, mesh_axis_size(mesh, policy.model_axis),
-                         batch_ranks(mesh))
+                         batch_ranks(mesh), mesh_axis_size(mesh, "data"))
     except ValueError as e:
         return str(e)
     return None
@@ -246,7 +256,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, policy=None, tcfg=None
         t_compute = mf / n_dev / HW.PEAK_FLOPS_BF16
         t_memory = arg_bytes / HW.HBM_BW
         not_applicable = dict(NOT_APPLICABLE)
-        comms = {"collectives": None, "collective_count": None, "collective_operand_bytes": None}
+        comms = {"collectives": None, "collective_count": None, "collective_operand_bytes": None,
+                 "expert_exchanges": None}
         if shape.kind == "train":
             not_applicable["collectives"] = _TRAIN_COLLECTIVES
         elif refused := _refusal(cfg, policy, mesh):

@@ -16,10 +16,13 @@ inputs (the model sharded by :mod:`repro_torch.runtime.sharding`) as the
 reference's partitioned program (every family), and an MoE model's train,
 prefill and decode steps on batch axes wider than 1 run expert
 parallelism (each rank its E / ranks experts, the slots sent to them by
-all-to-all: :mod:`repro_torch.models.moe`).  The serving cells take the
-int8 KV cache and the hand-written kernels (``attention_impl="cuda"``) on
-a mesh too; a policy value whose layout is not ported there (the experts
-over 'model') raises when its step runs (ROADMAP A.18).
+all-to-all: :mod:`repro_torch.models.moe`), or under
+``expert_axis="model"`` the experts over 'model' and their d_ff over
+'data' (every data rank's slots gathered to each rank's slabs).  The
+serving cells take the int8 KV cache and the hand-written kernels
+(``attention_impl="cuda"``) on a mesh too; a model axis not named 'model'
+raises when its step runs (ROADMAP A.18), and so do an MoE model's experts
+and their d_ff over one axis (C.20).
 
 Cell skip policy: ``long_500k`` runs only for sub-quadratic archs (ssm /
 hybrid-with-SWA); dense-attention archs get a recorded skip (a 500k dense
@@ -134,14 +137,13 @@ def _batch_shardings(mesh, cfg: ArchConfig, kind: str, batch_size: int, policy) 
 
 
 def _on_mesh(fn, mesh, cfg: ArchConfig, policy: ShardingPolicy):
-    """``fn`` run under ``mesh``; on a model axis wider than 1, or an MoE
-    model's experts over batch axes wider than 1, only where its layout is
-    ported."""
+    """``fn`` run under ``mesh``; on a mesh wider than one rank only where
+    ``check_model_axis`` lets the policy's layout run."""
     width, batch = mesh_axis_size(mesh, "model"), batch_ranks(mesh)
 
     def step(*args):
         if width > 1 or batch > 1:
-            check_model_axis(cfg, policy, width, batch)
+            check_model_axis(cfg, policy, width, batch, mesh_axis_size(mesh, "data"))
         with activate_mesh(mesh):
             return fn(*args)
 

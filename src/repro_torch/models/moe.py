@@ -60,14 +60,36 @@ Sharded, as the reference's partitioned program (its ``constrain`` sites):
   * ``"dense"`` on a model axis: each rank runs every token through its
     d_ff slab of every expert it holds (all of them, or its E / ranks
     under expert parallelism), weighted by the router: partial sums over
-    'model', reduced once at the output's constraint, as gshard's are.
-    Under ``expert_axis="model"`` on a model axis of 1 every
-    rank runs its slots through every expert (FSDP gathers them).  A mesh
-    whose batch ranks the experts are not split over as the policy says
-    raises.  One card and a data group of 1 run none of these collectives.
+    'model', reduced once at the output's constraint, as gshard's are;
+  * under ``expert_axis="model"``, ``expert_ff_axis="data"`` (the
+    reference's ``expert_model``), on any mesh wider than one rank, model
+    rank m holds the experts E_m (E / M of them) and each of their d_ff
+    split over the 'data' axis (:func:`_over_model`).  Each rank routes its
+    own rows (capacity, positions and aux loss the global batch's, as
+    above); its kept slots of E_m go to every data rank (a variable
+    all-gather through ``_AllToAll``, sizes from the count table's one host
+    read a layer), each rank runs its F slabs on the reference's [E / M, C,
+    D] buffer of its pod's slots, the reverse exchange brings each slot's
+    partial output back to its owner, which adds the data ranks' partials
+    in rank order, and a token's gated sum holds only E_m's slots: a
+    partial sum over 'model', reduced by the one all-reduce at the output's
+    constraint (the inputs' and gates' gradients partial there too).
+    ``"dense"`` gathers every data rank's tokens and router weights for E_m
+    (N rows from each) and sends the partial sums back the same way.  A
+    data axis of 1 exchanges nothing;
+  * the shared experts' hidden is over 'model', their weights' layout,
+    under either expert layout.  The reference constrains it over
+    ``ff_axis``, which under ``expert_model`` names 'data' beside the batch
+    axes, and JAX refuses that spec (ROADMAP C.21); a layout moves no
+    number.
+
+A mesh whose ranks the experts are not split over as the policy says
+raises.  One card runs none of these collectives.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -78,7 +100,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.config import ArchConfig
 from .layers import DP, constrain, current_mesh, model_mesh, replicated
 
-__all__ = ["init_moe", "moe_ffn", "capacity"]
+__all__ = ["init_moe", "moe_ffn", "capacity", "exchange_tally"]
 
 
 def init_moe(init, cfg: ArchConfig):
@@ -202,10 +224,42 @@ def _like(t, like):
     return DTensor.from_local(t, like.device_mesh, like.placements, run_check=False)
 
 
-def _exchange(t, send: list, recv: list, group):
+_TALLY: list = []  # the open exchange_tally()s' dicts
+
+
+@contextlib.contextmanager
+def exchange_tally():
+    """Count the experts' exchanges while inside, by kind: ``{kind:
+    {"count", "bytes"}}`` with the bytes each sends (its input), where a
+    kind is ``"out"`` / ``"back"`` (expert parallelism's all-to-alls),
+    ``"gather"`` / ``"return"`` (``expert_axis="model"``: the slots to
+    every data rank, the partial outputs to their owners), each backward
+    exchange as ``"<kind> backward"``.  ``CommDebugMode`` counts them all
+    as ``all_to_all_single``; this tells them apart."""
+    tally: dict = {}
+    _TALLY.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLY.remove(tally)
+
+
+def _partial(t, x):
+    """``t``, each model rank its own term, as a partial sum over the model
+    axis where ``x`` is a DTensor there; else ``t``."""
+    if not isinstance(x, DTensor):
+        return t
+    return DTensor.from_local(t, x.device_mesh, [Partial()], run_check=False)
+
+
+def _exchange(t, send: list, recv: list, group, kind: str):
     """An all-to-all over ``group``: ``t``'s first ``send[0]`` rows go to
     rank 0, the next ``send[1]`` to rank 1, ...; returns the rows every
     rank sent here, rank 0's first (``recv[j]`` of them from rank j)."""
+    for tally in _TALLY:
+        entry = tally.setdefault(kind, {"count": 0, "bytes": 0})
+        entry["count"] += 1
+        entry["bytes"] += t.numel() * t.element_size()
     return funcol.wait_tensor(funcol.all_to_all_single(t.contiguous(), recv, send, group))
 
 
@@ -214,13 +268,13 @@ class _AllToAll(torch.autograd.Function):
     (what came from rank j returns to rank j, into the rows it left)."""
 
     @staticmethod
-    def forward(ctx, t, send, recv, group):
-        ctx.args = recv, send, group
-        return _exchange(t, send, recv, group)
+    def forward(ctx, t, send, recv, group, kind):
+        ctx.args = recv, send, group, f"{kind} backward"
+        return _exchange(t, send, recv, group, kind)
 
     @staticmethod
     def backward(ctx, grad):
-        return _exchange(grad, *ctx.args), None, None, None
+        return _exchange(grad, *ctx.args), None, None, None, None
 
 
 def _slab(w, ff_dim: int):
@@ -233,10 +287,15 @@ def _slab(w, ff_dim: int):
     return local if tp is None else DTensor.from_local(local, tp, [Shard(ff_dim)], run_check=False)
 
 
+def _plain(w):
+    """A DTensor's local tensor (this rank's shard); a plain tensor as itself."""
+    return w.to_local() if isinstance(w, DTensor) else w
+
+
 def _split(w) -> int:
     """The ranks an expert leaf's E is split over (its E over the experts
     this rank holds)."""
-    return w.shape[0] // (w.to_local() if isinstance(w, DTensor) else w).shape[0]
+    return w.shape[0] // _plain(w).shape[0]
 
 
 def _expert_ffn(w_gate, w_up, w_down, buf, act_fn, expert_axis, ff_axis):
@@ -287,7 +346,7 @@ def _dispatched(p, x2d, flat_e, mine, keep, table, C, group, x, act_fn, expert_a
     row = torch.where(keep, start[flat_e] + mine, sum(send))
     rows = x2d.new_zeros(sum(send) + 1, D).index_copy(
         0, row, x2d.repeat_interleave(flat_e.shape[0] // N, dim=0))  # k a token
-    got = _AllToAll.apply(rows[:sum(send)], send, recv, group)
+    got = _AllToAll.apply(rows[:sum(send)], send, recv, group, "out")
     # a received row's place in [E / ranks, C, D]: its expert's C positions,
     # its sending rank's first one there, its order among that rank's
     depth = min(C, N * ranks)
@@ -304,8 +363,118 @@ def _dispatched(p, x2d, flat_e, mine, keep, table, C, group, x, act_fn, expert_a
     # local tensor of a Partial DTensor) over its own batch group: they reach
     # the model rank of the same index, so they stay its partial sums, summed
     # once at the output's constraint
-    back = _AllToAll.apply(_local(out).reshape(-1, D)[at], recv, send, group)
+    back = _AllToAll.apply(_local(out).reshape(-1, D)[at], recv, send, group, "back")
     return torch.cat([back, back.new_zeros(1, D)])[row], out
+
+
+def _data_axis():
+    """The process group of the active mesh's 'data' axis and this rank's
+    index on it; ``(None, 0)`` where that axis is one rank."""
+    mesh = current_mesh()
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if "data" not in names or mesh.size(names.index("data")) == 1:
+        return None, 0
+    return mesh.get_group("data"), mesh.get_local_rank("data")
+
+
+def _slab_ffn(w_gate, w_up, w_down, buf, act_fn):
+    """buf [E', R, D] through the gated MLPs of local expert slabs [E', D,
+    F'] / [E', F', D] (plain tensors)."""
+    return torch.bmm(act_fn(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up), w_down)
+
+
+def _model_experts(E: int) -> tuple:
+    """(this model rank's first expert, its count E / M) under
+    ``expert_axis="model"``."""
+    tp = model_mesh()
+    n = E if tp is None else E // tp.size()
+    return (0 if tp is None else tp.get_local_rank() * n), n
+
+
+def _over_model(p, xin, flat_e, mine, keep, table, me, C, act_fn):
+    """``expert_axis="model"``, ``expert_ff_axis="data"`` (gshard): this
+    model rank holds experts E_m (E / M of them), each one's d_ff split
+    over the 'data' axis (F / D_data columns here).  Returns each slot's
+    output [N k, D] summed over the data ranks' d_ff slabs, 0 for a slot
+    dropped or of another model rank's experts: a partial sum over
+    'model'.
+
+    On a 'data' axis of one rank every slot of E_m is here: they go into
+    [E / M, R, D] at their positions among this rank's slots.  Wider, each
+    data rank holds an F slab of every expert of E_m, so every data rank
+    needs every data rank's slots of them: this rank's kept slots of E_m,
+    in expert order, go to every data rank (a variable all-gather through
+    ``_AllToAll``, sizes from the count ``table`` [batch ranks, E] read to
+    the host once, ``_host_counts``); each rank puts the rows it gets at
+    the slots' positions in the reference's [E / M, C, D] buffer (counted
+    from its pod's first rank; ``me``: this rank's row of the table), runs
+    its slabs on it, and the reverse exchange brings each slot's partial
+    output back to the rank that owns its token, which adds the data
+    ranks' partials in rank order."""
+    (N, D), k = xin.shape, flat_e.shape[0] // xin.shape[0]
+    lo, n_e = _model_experts(p.w_gate.shape[0])
+    local_e = flat_e - lo
+    ours = keep & (local_e >= 0) & (local_e < n_e)
+    local_e = local_e.clamp(0, n_e - 1)
+    slabs = [_plain(w) for w in (p.w_gate, p.w_up, p.w_down)]
+    slots = xin.repeat_interleave(k, dim=0)
+    group, d = _data_axis()
+    if group is None:
+        R = min(C, N)
+        row = torch.where(ours, local_e * R + mine, n_e * R)
+        buf = xin.new_zeros(n_e * R + 1, D).index_copy(0, row, slots)
+        out = _slab_ffn(*slabs, buf[:n_e * R].view(n_e, R, D), act_fn).reshape(-1, D)
+        return torch.cat([out, out.new_zeros(1, D)])[row]
+    ranks, cols = group.size(), slice(lo, lo + n_e)
+    pod = slice(me - d, me - d + ranks)  # this pod's data ranks' rows of the table
+    earlier = table.cumsum(dim=0) - table  # each rank's first global position an expert
+    kept = torch.minimum((C - earlier).clamp(min=0), table)  # [batch ranks, E]
+    sizes = _host_counts(kept, table, C, flat_e.shape[0])
+    recv = [sum(row[cols]) for row in sizes[pod]]
+    n_me = recv[d]
+    start = kept[me, cols].cumsum(dim=0) - kept[me, cols]
+    row = torch.where(ours, start[local_e] + mine, n_me)  # a spare row past the kept ones
+    rows = xin.new_zeros(n_me + 1, D).index_copy(0, row, slots)[:n_me]
+    got = _AllToAll.apply(rows.repeat(ranks, 1), [n_me] * ranks, recv, group, "gather")
+    # a received row's place in [E / M, C, D]: its expert's positions, its
+    # sender's first one there (from the pod's first rank), its order there
+    depth = min(C, N * ranks)
+    n = kept[pod, cols].reshape(-1)  # by sending rank, then expert
+    first = (torch.arange(n_e, device=xin.device) * depth
+             + earlier[pod, cols] - earlier[pod.start, cols]).reshape(-1)
+    total = sum(recv)
+    at = (torch.repeat_interleave(first - (n.cumsum(dim=0) - n), n, output_size=total)
+          + torch.arange(total, device=xin.device))
+    buf = xin.new_zeros(n_e * depth, D).index_copy(0, at, got)
+    out = _slab_ffn(*slabs, buf.view(n_e, depth, D), act_fn).reshape(-1, D)
+    parts = _AllToAll.apply(out[at], recv, [n_me] * ranks, group, "return")
+    summed = parts.float().view(ranks, n_me, D).sum(dim=0).to(xin.dtype)
+    return torch.cat([summed, summed.new_zeros(1, D)])[row]
+
+
+def _dense_over_model(p, xin, w, act_fn):
+    """moe_impl 'dense' under ``expert_axis="model"``: [N, D] float32, the
+    router's ``w`` [N, E]-weighted sum of this model rank's experts'
+    outputs (a partial sum over 'model').  On a 'data' axis wider than one
+    rank every data rank's tokens and their weights for E_m come here (an
+    exchange each, N rows from every rank), this rank's d_ff slabs run on
+    them, and each owner adds the partial sums that come back in rank
+    order."""
+    lo, n_e = _model_experts(w.shape[1])
+    w = w[:, lo:lo + n_e]
+    group, _ = _data_axis()
+    (N, D), ranks = xin.shape, 1 if group is None else group.size()
+    n = [N] * ranks
+    if group is not None:
+        xin = _AllToAll.apply(xin.repeat(ranks, 1), n, n, group, "gather")
+        w = _AllToAll.apply(w.repeat(ranks, 1), n, n, group, "gather")
+    wg, wu, wd = (_plain(t) for t in (p.w_gate, p.w_up, p.w_down))
+    g = torch.einsum("nd,edf->nef", xin, wg)
+    u = torch.einsum("nd,edf->nef", xin, wu)
+    part = torch.einsum("ned,ne->nd", torch.einsum("nef,efd->ned", act_fn(g) * u, wd).float(), w)
+    if group is None:
+        return part
+    return _AllToAll.apply(part, n, n, group, "return").view(ranks, N, D).sum(dim=0)
 
 
 def _model_partial_grad(t):
@@ -323,8 +492,7 @@ def _dense_local(p, x2d, w, act_fn):
     """moe_impl 'dense' with every expert here: [N, D] float32, the router's
     ``w`` [N, E]-weighted sum of every expert's output (on a model axis
     each rank's d_ff slab's partial sum)."""
-    wg, wu, wd = (t.to_local() if isinstance(t, DTensor) else t
-                  for t in (p.w_gate, p.w_up, p.w_down))
+    wg, wu, wd = (_plain(t) for t in (p.w_gate, p.w_up, p.w_down))
     g = torch.einsum("nd,edf->nef", x2d, wg)
     u = torch.einsum("nd,edf->nef", x2d, wu)
     per_e = torch.einsum("nef,efd->ned", act_fn(g) * u, wd)  # [N, E, D]
@@ -341,14 +509,14 @@ def _dense_dispatched(p, x2d, w, group, act_fn):
     over its own batch group, as gshard's."""
     ranks, (N, D), E = group.size(), x2d.shape, w.shape[1]
     n = [N] * ranks
-    xs = _AllToAll.apply(x2d.repeat(ranks, 1), n, n, group)  # [ranks N, D]
+    xs = _AllToAll.apply(x2d.repeat(ranks, 1), n, n, group, "out")  # [ranks N, D]
     ws = _AllToAll.apply(w.view(N, ranks, E // ranks).transpose(0, 1).reshape(ranks * N, -1),
-                         n, n, group)
+                         n, n, group, "out")
     g = torch.einsum("nd,edf->nef", xs, p.w_gate.to_local())
     u = torch.einsum("nd,edf->nef", xs, p.w_up.to_local())
     per_e = torch.einsum("nef,efd->ned", act_fn(g) * u, p.w_down.to_local())
     part = torch.einsum("ned,ne->nd", per_e.float(), ws)
-    return _AllToAll.apply(part, n, n, group).view(ranks, N, D).sum(dim=0)
+    return _AllToAll.apply(part, n, n, group, "back").view(ranks, N, D).sum(dim=0)
 
 
 def moe_ffn(p, x, cfg: ArchConfig, impl: str = "gshard", expert_axis: str = "data",
@@ -368,24 +536,30 @@ def moe_ffn(p, x, cfg: ArchConfig, impl: str = "gshard", expert_axis: str = "dat
     act_fn = _act(cfg)
     group = _batch_group()
     ranks = 1 if group is None else group.size()
+    tp = model_mesh()
     parallel = ranks > 1 and expert_axis == "data"  # expert parallelism
-    if _split(p.w_gate) != (ranks if parallel else 1):
+    over_model = expert_axis == "model" and (ranks > 1 or tp is not None)
+    data_group, _ = _data_axis()
+    want = ((1 if tp is None else tp.size(), 1 if data_group is None else data_group.size())
+            if over_model else (ranks if parallel else 1, None))
+    got = (_split(p.w_gate), p.w_gate.shape[2] // _plain(p.w_gate).shape[2])
+    if got[0] != want[0] or want[1] not in (None, got[1]):
         raise ValueError(
-            f"the experts are split over {_split(p.w_gate)} batch ranks and the batch over "
-            f"{ranks}: under expert_axis {expert_axis!r} they are split on E over the batch "
-            "axes exactly when those are wider than 1 (runtime.sharding.tp_distribute, "
-            "init_sharded or shard_model)")
+            f"the experts are split {got[0]} ways on E and {got[1]} on d_ff, against {ranks} "
+            f"batch ranks: under expert_axis {expert_axis!r} they are split on E over the batch "
+            "axes where those are wider than 1, or (expert_axis 'model') on E over 'model' and "
+            "on d_ff over 'data' on any mesh wider than one rank (runtime.sharding."
+            "tp_distribute, init_sharded or shard_model)")
     gates, experts, aux = _router(p, x2d.float(), mo, group)
 
     if impl == "dense":
         w = torch.zeros(N, E, dtype=torch.float32, device=x.device).scatter_add_(1, experts,
                                                                                 gates)
-        # on a model axis both feed each rank's d_ff slab: their gradients partial
+        # on a model axis both feed each rank's d_ff slab (or experts): their gradients partial
         xin, w = _model_partial_grad(x2d), _model_partial_grad(w)
-        y = (_dense_dispatched(p, xin, w, group, act_fn) if parallel else
-             _dense_local(p, xin, w, act_fn)).to(x.dtype).reshape(B, S, D)
-        if isinstance(x, DTensor):  # each model rank its d_ff slabs' partial sums
-            y = DTensor.from_local(y, x.device_mesh, [Partial()], run_check=False)
+        y = _partial((_dense_over_model(p, xin, w, act_fn) if over_model else
+                      _dense_dispatched(p, xin, w, group, act_fn) if parallel else
+                      _dense_local(p, xin, w, act_fn)).to(x.dtype).reshape(B, S, D), x)
     elif impl == "gshard":
         C = capacity(cfg, N * ranks)
         flat_e = experts.reshape(-1)  # [N k] expert of each slot
@@ -394,6 +568,7 @@ def moe_ffn(p, x, cfg: ArchConfig, impl: str = "gshard", expert_axis: str = "dat
         # among this rank's slots, and in the global batch's slot order
         onehot = F.one_hot(flat_e, E)
         mine = (torch.cumsum(onehot, dim=0) - 1).gather(1, flat_e[:, None])[:, 0]
+        table = me = None
         if group is None:
             flat_pos = mine
         else:
@@ -402,7 +577,10 @@ def moe_ffn(p, x, cfg: ArchConfig, impl: str = "gshard", expert_axis: str = "dat
             flat_pos = mine + (table[:me].sum(dim=0))[flat_e]
         keep = flat_pos < C
         flat_g = torch.where(keep, flat_g, 0.0)
-        if parallel:
+        if over_model:  # each model rank its experts' slots
+            back = _over_model(p, _model_partial_grad(x2d), flat_e, mine, keep, table, me, C,
+                               act_fn)
+        elif parallel:
             back, out_buf = _dispatched(p, x2d, flat_e, mine, keep, table, C, group, x, act_fn,
                                         expert_axis, ff_axis)
         else:  # every expert here: this rank's slots into [E, R, D]
@@ -420,15 +598,19 @@ def moe_ffn(p, x, cfg: ArchConfig, impl: str = "gshard", expert_axis: str = "dat
         # gather back, weighted by gates; a token's k slots summed in order
         # (on a model axis, each rank its partial sums: linear in them; the
         # gates' gradient is then partial too, and ``_against`` sums it)
-        y2 = back * _against(flat_g, out_buf)[:, None].to(x.dtype)
-        y = _like(y2.float().view(N, k, D).sum(dim=1).to(x.dtype).reshape(B, S, D), out_buf)
+        if over_model:
+            gate, wrap = _model_partial_grad(flat_g), lambda t: _partial(t, x)
+        else:
+            gate, wrap = _against(flat_g, out_buf), lambda t: _like(t, out_buf)
+        y2 = back * gate[:, None].to(x.dtype)
+        y = wrap(y2.float().view(N, k, D).sum(dim=1).to(x.dtype).reshape(B, S, D))
     else:
         raise ValueError(impl)
 
-    if mo.num_shared:
+    if mo.num_shared:  # d_ff over 'model', their weights' layout, under either expert layout
         sp = p.shared
-        g = constrain(x @ sp.w_gate, DP, None, ff_axis)
-        u = constrain(x @ sp.w_up, DP, None, ff_axis)
+        g = constrain(x @ sp.w_gate, DP, None, "model")
+        u = constrain(x @ sp.w_up, DP, None, "model")
         y = y + (act_fn(g) * u) @ sp.w_down
     return (constrain(y, *(out_spec or (DP, None, None))),
             replicated(aux, x) * mo.router_aux_weight)

@@ -58,9 +58,8 @@ shard, the SSD scan on its heads or head-dim columns.  An int8 KV cache
 and written with its scales into the sequence-sharded values and scales,
 and each rank dequantizes its shard before decode attention, as the
 reference dequantizes before its decode attention; the MLA latent cache
-and the Mamba cache stay in their dtypes there, as in the reference.  The
-one policy value whose layout is not ported there, the experts over
-'model', is refused (ROADMAP A.18:
+and the Mamba cache stay in their dtypes there, as in the reference.  A
+model axis not named 'model' is refused (ROADMAP A.18:
 :func:`~repro_torch.runtime.sharding.check_model_axis`).
 
 As in the reference, ``prefill`` fills the KV (or latent) cache but leaves

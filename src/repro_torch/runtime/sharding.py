@@ -7,7 +7,7 @@ Conventions (mesh axes: optional 'pod', 'data', 'model'):
   * weights [.., d_in, d_out]:  d_in over 'data' (FSDP/ZeRO-3), d_out over
     'model' (TP) — flipped for down/output projections so TP contracts;
   * expert weights [E, D, F]: E over ('pod', 'data') (expert parallelism),
-    F over 'model';
+    F over 'model'; or E over 'model', F over 'data' (``expert_axis="model"``);
   * embeddings [V, D]: V over 'model', D over 'data';
   * activations: batch over ('pod', 'data');
   * KV caches: sequence over 'model' (split-KV decode), batch over dp;
@@ -43,37 +43,36 @@ placement its spec's model entry gives (:func:`tp_distribute`;
 :func:`init_sharded` draws a model no card holds leaf by leaf, each rank
 keeping its shard); the activations follow the reference's ``constrain``
 sites (:func:`repro_torch.models.layers.constrain`).  An MoE model's routed
-expert leaves on batch axes wider than 1 ('pod' and 'data' together, any
-model axis; the FSDP-only (N, 1) mesh too), under the default
-``expert_axis="data"``, take both entries of their spec instead: a DTensor on the whole mesh, E over the batch axes and F over
-'model' (expert parallelism, the reference's ``expert_axis="data"``), so
-each rank holds its E / ranks experts only, and the gshard slots travel to
-them by all-to-all (:mod:`repro_torch.models.moe`).  For training
-:func:`shard_model` then applies FSDP2 over the 'data' submesh, the usual
-2-D composition (the model-axis placement first), with the expert leaves
-left out of it (``ignored_params``: they are split already and FSDP never
-gathers them); their gradients, each the sum of every rank's loss's, are
-divided by the ranks once a step (:func:`mean_expert_grads`), and AdamW,
-its global norm and the checkpoint take them as any sharded leaf.  An SSM
-head count the axis does not divide (hymba-1.5b's 50 heads over 4 or 16)
-puts the head dim over 'model' instead, in the scan and in the decode
-state, as :func:`cache_specs` does for the state (why:
-:mod:`repro_torch.models.ssm`).  Refused, naming ROADMAP A.18: the policy
-values whose layouts are not ported to a model axis wider than 1
-(``expert_axis="model"``, ``expert_ff_axis="data"``, and a model axis
-named other than 'model'; the activation layouts ``sp_activations``,
-``shard_seq_attn=False``, ``qkv_feature_shard=False`` and
-``moe_impl="dense"``, the int8 KV cache and the hand-written kernels
-(``attention_impl="cuda"``, a serving path: the kernels have no backward)
-run there);
-on batch axes wider than 1, ``moe_impl="dense"``
-runs expert parallelism too and ``expert_axis="model"`` keeps every
-expert on every rank (FSDP's layout), while ``expert_ff_axis="data"``
-beside ``expert_axis="data"`` is refused (the reference's spec would name
-'data' twice); and widths a sharded dim does not divide, the experts over
-the batch ranks included (:func:`check_model_axis`).  Each rank computes its loss over its own
-rows; an MoE layer's capacity, slot positions and aux loss are still the
-global batch's, as the reference's partitioner computes them, so every
+expert leaves take both entries of their spec instead, a DTensor on the
+whole mesh, under either expert layout of the reference: on batch axes
+wider than 1 ('pod' and 'data' together, any model axis; the FSDP-only
+(N, 1) mesh too) under the default ``expert_axis="data"``, E over the
+batch axes and F over 'model' (expert parallelism: each rank holds its E /
+ranks experts, and the gshard slots travel to them by all-to-all); on any
+mesh wider than one rank under ``expert_axis="model"`` with
+``expert_ff_axis="data"``, E over 'model' and F over 'data', replicated
+over 'pod' (each rank holds E / M experts' F / D_data columns, and every
+data rank's slots of them are gathered to it; :mod:`repro_torch.models.moe`).
+For training :func:`shard_model` then applies FSDP2 over the 'data'
+submesh, the usual 2-D composition (the model-axis placement first), with
+the expert leaves left out of it (``ignored_params``: they are split
+already and FSDP never gathers them); their gradients, each the sum of the
+losses' of the ranks whose slots reach them, are divided by those ranks
+once a step (:func:`mean_expert_grads`), and AdamW, its global norm and the
+checkpoint take them as any sharded leaf.  An SSM head count the axis does
+not divide (hymba-1.5b's 50 heads over 4 or 16) puts the head dim over
+'model' instead, in the scan and in the decode state, as
+:func:`cache_specs` does for the state (why: :mod:`repro_torch.models.ssm`).
+Every policy value runs on a model axis wider than 1 (the activation
+layouts, the int8 KV cache, the hand-written kernels in serving: they have
+no backward) but a model axis named other than 'model' (ROADMAP A.18: the
+reference's mesh names no other axis).  Refused too: an MoE model's
+experts and their d_ff over one axis (``expert_ff_axis`` equal to
+``expert_axis``: the reference's spec would name the axis twice; C.20),
+and widths a sharded dim does not divide, the experts over their ranks
+included (:func:`check_model_axis`).  Each rank computes its loss over its
+own rows; an MoE layer's capacity, slot positions and aux loss are still
+the global batch's, as the reference's partitioner computes them, so every
 family trains as one process does.
 
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
@@ -268,40 +267,54 @@ def _data_mesh(mesh):
     return mesh["data"] if len(names) > 1 else mesh
 
 
-def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int, batch: int = 1) -> None:
+def check_model_axis(cfg: ArchConfig, policy: ShardingPolicy, size: int, batch: int = 1,
+                     data: int | None = None) -> None:
     """Raise unless ``cfg`` under ``policy`` runs on a model axis of
-    ``size`` and batch axes of ``batch`` ranks together: every family,
-    under the policy values whose layouts are ported to a model axis (every
-    activation layout, the int8 KV cache, the hand-written kernels; the
-    others, the experts over 'model' and a model axis not named 'model',
-    name ROADMAP A.18), at widths every sharded dim divides.  On
-    batch axes wider than 1 an MoE model under ``expert_axis="data"``
-    runs expert parallelism: the batch ranks must divide its experts, and
-    each expert's d_ff cannot be over 'data' too."""
-    if size > 1:
-        expect = {"model_axis": "model"}
-        if cfg.moe is not None:
-            expect.update(expert_axis="data", expert_ff_axis="model")
-        bad = {f: getattr(policy, f) for f, v in expect.items() if getattr(policy, f) != v}
-        if bad:
-            raise ValueError(f"{cfg.name}: the layout of {bad} is not ported to a model axis "
-                             "wider than 1 yet (ROADMAP A.18)")
-    if cfg.moe is not None and batch > 1 and policy.expert_axis == "data":
-        if policy.expert_ff_axis == "data":
-            raise ValueError(f"{cfg.name}: expert_ff_axis 'data' beside expert_axis 'data' "
-                             "puts the experts and each expert's d_ff over the same batch axes "
-                             "(the reference's spec names 'data' twice, which JAX refuses)")
-        if cfg.moe.num_experts % batch:
-            raise ValueError(f"{cfg.name}: {{'num_experts': {cfg.moe.num_experts}}} do not "
+    ``size``, batch axes of ``batch`` ranks together and a 'data' axis of
+    ``data`` ranks (default ``batch``: no 'pod'): every family, every
+    policy value but a model axis not named 'model' (ROADMAP A.18: the
+    reference's mesh names no other axis, and ``fix_spec`` would drop the
+    name), at widths every sharded dim divides.  An MoE model on a mesh
+    wider than one rank takes one of the two expert layouts: E over the
+    batch axes and d_ff over 'model' (``expert_axis="data"``, expert
+    parallelism: the batch ranks divide the experts), or E over 'model' and
+    d_ff over 'data' (``expert_axis="model"``, ``expert_ff_axis="data"``:
+    the model axis divides the experts, the data axis each expert's d_ff).
+    The experts and their d_ff over one axis are refused (ROADMAP C.20)."""
+    data = batch if data is None else data
+    if size > 1 and policy.model_axis != "model":
+        raise ValueError(f"{cfg.name}: the layout of {{'model_axis': {policy.model_axis!r}}} "
+                         "is not ported to a model axis wider than 1 (ROADMAP A.18: the "
+                         "reference's mesh names no other axis, and fix_spec would drop it)")
+    mo = cfg.moe
+    if mo is not None and (size > 1 or batch > 1):
+        pair = (policy.expert_axis, policy.expert_ff_axis)
+        if pair[0] == pair[1]:
+            raise ValueError(f"{cfg.name}: expert_ff_axis {pair[1]!r} beside expert_axis "
+                             f"{pair[0]!r} puts the experts and each expert's d_ff over the same "
+                             f"mesh axis (the reference's spec names {pair[0]!r} twice, which JAX "
+                             "refuses; ROADMAP C.20)")
+        if pair not in (("data", "model"), ("model", "data")):
+            raise ValueError(f"{cfg.name}: the experts over {pair[0]!r} and their d_ff over "
+                             f"{pair[1]!r}: the reference's mesh has 'data' and 'model' only")
+        if pair[0] == "data" and mo.num_experts % batch:
+            raise ValueError(f"{cfg.name}: {{'num_experts': {mo.num_experts}}} do not "
                              f"divide over batch axes of {batch} ranks (expert parallelism)")
+        if pair[0] == "model":
+            uneven = {k: w for k, w, n in (("num_experts", mo.num_experts, size),
+                                           ("d_ff_expert", mo.d_ff_expert, data)) if w % n}
+            if uneven:
+                raise ValueError(f"{cfg.name}: {uneven} do not divide over the experts' model "
+                                 f"axis of {size} and their d_ff's data axis of {data} ranks")
     if size == 1:
         return
     widths = {"padded_vocab": cfg.padded_vocab}  # audio: each codebook's
-    if cfg.moe is None:
+    if mo is None:
         widths["d_ff"] = cfg.d_ff  # 0 for an ssm block
-    else:
-        widths.update(d_ff_expert=cfg.moe.d_ff_expert,
-                      d_ff_shared=cfg.moe.d_ff_expert * cfg.moe.num_shared)
+    else:  # the shared experts' d_ff over 'model' under either layout (C.21)
+        if policy.expert_axis == "data":
+            widths["d_ff_expert"] = mo.d_ff_expert
+        widths["d_ff_shared"] = mo.d_ff_expert * mo.num_shared
     if cfg.mla is not None:  # MLA's heads: each rank scores its own
         widths["mla_heads"] = cfg.num_heads
     if cfg.has_ssm:  # z and the gated norm on d_inner, the conv on its channels
@@ -324,9 +337,23 @@ def is_expert_leaf(name: str) -> bool:
     return reference_key(name)[0] in EXPERT_LEAVES
 
 
-def _expert_parallel(mesh, cfg: ArchConfig, policy: ShardingPolicy) -> bool:
-    """Whether ``cfg``'s experts are split over ``mesh``'s batch axes."""
-    return cfg.moe is not None and batch_ranks(mesh) > 1 and policy.expert_axis == "data"
+def _experts_on_mesh(mesh, cfg: ArchConfig, policy: ShardingPolicy) -> bool:
+    """Whether ``cfg``'s routed experts are DTensors on the whole of
+    ``mesh``: split over its batch axes (expert parallelism), or under
+    ``expert_axis="model"`` on any mesh wider than one rank (E over
+    'model', each expert's d_ff over 'data')."""
+    if cfg.moe is None:
+        return False
+    if policy.expert_axis == "model":
+        return batch_ranks(mesh) > 1 or _model_width(mesh) > 1
+    return batch_ranks(mesh) > 1
+
+
+def _check(cfg: ArchConfig, policy: ShardingPolicy, mesh) -> None:
+    """:func:`check_model_axis` at ``mesh``'s widths."""
+    names = tuple(mesh.mesh_dim_names or ())
+    data = mesh.size(names.index("data")) if "data" in names else 1
+    check_model_axis(cfg, policy, _model_width(mesh), batch_ranks(mesh), data)
 
 
 def _place(mesh, policy: ShardingPolicy, experts: bool):
@@ -334,8 +361,9 @@ def _place(mesh, policy: ShardingPolicy, experts: bool):
     (a whole tensor, or a :class:`~repro_torch.models.layers.Deferred` one,
     of which only the rows of dim 0 the shard needs are made): with
     ``experts``, a routed expert leaf on the whole mesh (E over the batch
-    axes, F over 'model'), every other leaf on the model submesh (a plain
-    tensor, whole, where the model axis is 1)."""
+    axes and F over 'model', or E over 'model' and F over 'data'), every
+    other leaf on the model submesh (a plain tensor, whole, where the model
+    axis is 1)."""
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     tp = model_mesh(mesh)
@@ -365,16 +393,17 @@ def _model_width(mesh) -> int:
 def tp_distribute(model, mesh, policy: ShardingPolicy | None = None):
     """Make ``model``'s weights DTensors on ``mesh`` in place, each with the
     placement its spec gives: a routed expert leaf of an MoE model on the
-    whole mesh when the batch axes hold more than one rank (expert
-    parallelism: E over 'pod' and 'data', F over 'model'), every other
-    weight on the model submesh (its spec's model entry); returns the
-    model (unchanged on a model axis of 1 without expert parallelism).
-    Each rank keeps its shard of the whole weights it holds."""
+    whole mesh (:func:`_experts_on_mesh`: E over 'pod' and 'data' and F
+    over 'model' under expert parallelism, E over 'model' and F over
+    'data' under ``expert_axis="model"``), every other weight on the model
+    submesh (its spec's model entry); returns the model (unchanged on a
+    model axis of 1 without experts on the mesh).  Each rank keeps its
+    shard of the whole weights it holds."""
     policy = policy or ShardingPolicy()
-    width, experts = _model_width(mesh), _expert_parallel(mesh, model.cfg, policy)
+    width, experts = _model_width(mesh), _experts_on_mesh(mesh, model.cfg, policy)
     if width == 1 and not experts:
         return model
-    check_model_axis(model.cfg, policy, width, batch_ranks(mesh))
+    _check(model.cfg, policy, mesh)
     place = _place(mesh, policy, experts)
     for name, p in list(model.named_parameters()):
         if isinstance(p, DTensor):
@@ -390,15 +419,16 @@ def init_sharded(cfg: ArchConfig, mesh, seed: int = 0, dtype=torch.bfloat16, dev
     """:func:`repro_torch.models.init_params`'s model, the same draws, each
     weight placed as :func:`tp_distribute` places it as it is drawn: a
     rank draws only the rows of dim 0 its shard needs (an expert leaf:
-    its experts, the generator run on past the others), and never holds
-    more than one leaf whole (how a model no card holds is made)."""
+    its experts, the generator run on past the others; then its d_ff
+    columns cut), and never holds more than one leaf whole (how a model no
+    card holds is made)."""
     from repro_torch.models import init_params
 
     policy = policy or ShardingPolicy()
-    width, experts = _model_width(mesh), _expert_parallel(mesh, cfg, policy)
+    width, experts = _model_width(mesh), _experts_on_mesh(mesh, cfg, policy)
     if width == 1 and not experts:
         return init_params(cfg, seed, dtype, device)
-    check_model_axis(cfg, policy, width, batch_ranks(mesh))
+    _check(cfg, policy, mesh)
     return init_params(cfg, seed, dtype, device, place=_place(mesh, policy, experts))
 
 
@@ -427,9 +457,9 @@ def shard_model(model, mesh, policy: ShardingPolicy | None = None):
         tp_distribute(model, mesh, policy)
     specs = param_specs(model, policy)
     dims = {p: _data_dim(specs[n]) for n, p in model.named_parameters()}
-    # kept whole on every data rank, or (expert parallelism) split on E already
+    # kept whole on every data rank, or (the experts on the mesh) split already
     whole = {p for p, d in dims.items() if d is None}
-    if _expert_parallel(mesh, model.cfg, policy):
+    if _experts_on_mesh(mesh, model.cfg, policy):
         whole |= {p for n, p in model.named_parameters() if is_expert_leaf(n)}
 
     def placement(p):
@@ -473,16 +503,16 @@ def _all_reduce_mean(tensors: list, group) -> None:
 
 def _replicated_over_data(p) -> bool:
     """A leaf every data rank holds whole: a plain tensor, or a DTensor on
-    the model submesh only (FSDP's leaves and the experts split over the
-    batch axes are DTensors on a mesh with 'data')."""
+    the model submesh only (FSDP's leaves and the experts on the whole
+    mesh are DTensors on a mesh with 'data')."""
     return not isinstance(p, DTensor) or "data" not in (p.device_mesh.mesh_dim_names or ())
 
 
 @torch.no_grad()
 def reduce_replicated_grads(model) -> None:
     """Average over the data ranks the gradients of the leaves a sharded
-    model keeps whole (FSDP reduce-scatters its own; an expert leaf split
-    over the batch axes is no replica: :func:`mean_expert_grads`).  On a
+    model keeps whole (FSDP reduce-scatters its own; an expert leaf on the
+    whole mesh is no replica: :func:`mean_expert_grads`).  On a
     model axis such a leaf's gradient can come back as a partial sum over
     it: it is reduced to the leaf's own placement first."""
     group = data_group(model)
@@ -504,15 +534,20 @@ def reduce_replicated_grads(model) -> None:
 @torch.no_grad()
 def mean_expert_grads(model, grads: dict) -> None:
     """Divide each expert leaf's gradient in ``grads`` (by name, in place)
-    by the batch ranks its experts are split over.  Under expert
-    parallelism an expert's gradient reaches its rank through the return
-    all-to-all's backward as the sum of every rank's loss's gradient; the
-    global batch's is their mean, as FSDP's reduce-scatter averages the
-    other leaves'.  Once a step, after the last microbatch (the division
-    is linear)."""
+    by the batch ranks whose slots reach its slab: those it is split over
+    (on E under expert parallelism, on d_ff under ``expert_axis="model"``).
+    The slab's gradient comes back through the exchange's backward as the
+    sum of those ranks' losses' gradients; the global batch's is their
+    mean, as FSDP's reduce-scatter averages the other leaves'.  Once a
+    step, after the last microbatch (the division is linear).  A slab
+    replicated over 'pod' would need its replicas averaged too, but FSDP
+    trains on ('data', 'model') meshes only (:func:`shard_model`)."""
     for name, p in model.named_parameters():
         if is_expert_leaf(name) and isinstance(p, DTensor):
-            ranks = p.shape[0] // p.to_local().shape[0]  # E over this rank's experts
+            names, ranks = p.device_mesh.mesh_dim_names, 1
+            for i, pl in enumerate(p.placements):
+                if names[i] in DP and pl.is_shard():
+                    ranks *= p.device_mesh.size(i)
             if ranks > 1:
                 g = grads[name]
                 (g.to_local() if isinstance(g, DTensor) else g).div_(ranks)

@@ -31,12 +31,14 @@ interpreters joined through a ``file://`` rendezvous under ``tmp_path``:
   leaf; a model drawn sharded on (2, 2) equals the one drawn whole;
 - on (2, 1) the dense oracle over the experts' ranks equals the
   reference's dense step, and the experts over 'model' (each expert's d_ff
-  over 'data': FSDP's layout, no expert parallelism) one process's.
+  over 'data', outside FSDP: ``tests/test_torch_expert_model.py``) one
+  process's.
 
-In this process: an expert count the batch ranks do not divide, the moe
-policy values on a model axis, and each expert's d_ff over 'data' beside
-the experts over 'data', are refused; a deferred leaf's rows are the whole
-leaf's.
+In this process: an expert count the batch ranks do not divide, and the
+experts and their d_ff over one axis (each expert's d_ff over 'data'
+beside the experts over 'data', or both over 'model'), are refused, and
+the experts over 'model' with their d_ff over 'data' run on a model axis;
+a deferred leaf's rows are the whole leaf's.
 """
 
 from __future__ import annotations
@@ -511,38 +513,44 @@ def test_the_dense_oracle_runs_over_the_experts_ranks(reference, runs, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_experts_over_the_model_axis_stay_on_every_batch_rank(runs, arch):
     """expert_axis 'model' (each expert's d_ff over 'data') on (2, 1): no
-    expert parallelism, FSDP splits each expert's d_ff and gathers it, every
-    rank runs its slots through every expert; the step is one process's."""
+    expert parallelism, every expert on every batch rank (a model axis of
+    1), each expert's d_ff split over 'data' and never gathered (FSDP
+    manages no expert leaf: every data rank's slots go to every rank's d_ff
+    slab); the step is one process's."""
     cfg = smoke_variant(get_arch(arch))
     E, D, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
     got = runs["2x1"][0][arch]
     (g,), o = got["model_axis_metrics"], runs["one"][arch]["metrics"][0]
     assert all(_rel(a, b) <= RTOL for a, b in zip(g, o)), (g, o)
-    assert {n for n in got["model_axis_fsdp"] if sharding.is_expert_leaf(n)} == \
-        set(got["model_axis_experts"])
+    assert not [n for n in got["model_axis_fsdp"] if sharding.is_expert_leaf(n)]
+    assert len(got["model_axis_experts"]) == 3 * cfg.num_layers
     for name, shape in got["model_axis_experts"].items():
         assert shape == ((E, D, F // 2) if name.endswith(("w_gate", "w_up")) else (E, F // 2, D))
 
 
 @pytest.mark.parametrize("field,value", [("attention_impl", "cuda"), ("expert_ff_axis", "data"),
-                                         ("expert_axis", "model")])
+                                         ("expert_axis", "model"),
+                                         ("expert_axis+expert_ff_axis", "model+data")])
 def test_unported_moe_policy_values_on_a_model_axis_refuse_naming_their_roadmap_item(field,
                                                                                     value):
-    """The experts over 'model' (A.18 item 7) are refused by name on a
-    model axis beside expert parallelism; the kernels run there now (item
-    6), and beside item 7 only item 7 is named."""
+    """On a (2, 2) mesh: the experts over 'model' with their d_ff over
+    'data' (A.18 item 7) run now, and so do the kernels (item 6) beside
+    either expert layout; the experts and their d_ff over one axis ('data'
+    twice, or 'model' twice) are refused naming C.20."""
     cfg = smoke_variant(get_arch("kimi-k2-1t-a32b"))
+    over = dict(zip(field.split("+"), value.split("+")))
     if field == "attention_impl":
-        sharding.check_model_axis(cfg, ShardingPolicy(**{field: value}), 2, 2)  # runs now
-        with pytest.raises(ValueError,
-                           match=r"\{'expert_axis'[^}]*\} .*model axis wider than 1.*A\.18"):
-            sharding.check_model_axis(cfg, ShardingPolicy(**{field: value},
-                                                          expert_axis="model"), 2, 2)
+        sharding.check_model_axis(cfg, ShardingPolicy(**over), 2, 2)  # runs now
+        sharding.check_model_axis(cfg, ShardingPolicy(**over, expert_axis="model",
+                                                      expert_ff_axis="data"), 2, 2)
+    elif len(over) == 2:
+        sharding.check_model_axis(cfg, ShardingPolicy(**over), 2, 2)  # item 7 runs now
     else:
+        axis = "data" if field == "expert_ff_axis" else "model"
         with pytest.raises(ValueError,
-                           match=rf"{field}.*model axis wider than 1.*ROADMAP A\.18"):
-            sharding.check_model_axis(cfg, ShardingPolicy(**{field: value}), 2, 2)
-    sharding.check_model_axis(cfg, ShardingPolicy(**{field: value}), 1, 1)  # one card: any
+                           match=rf"{field}.*'{axis}' twice.*ROADMAP C\.20"):
+            sharding.check_model_axis(cfg, ShardingPolicy(**over), 2, 2)
+    sharding.check_model_axis(cfg, ShardingPolicy(**over), 1, 1)  # one card: any
 
 
 def test_expert_parallelism_refuses_each_experts_d_ff_over_data_too():

@@ -565,11 +565,13 @@ def test_policy_from_reference_carries_every_field_the_port_reads():
     ({"shard_seq_attn": False, "attention_impl": "cuda"}, "attention_impl"),
     ({"prefill_last_logit_only": True, "qkv_feature_shard": False, "kv_cache_dtype": "int8"},
      "kv_cache_dtype"),
+    ({"sp_activations": True, "expert_axis": "model", "expert_ff_axis": "data"}, "expert_axis"),
 ])
 def test_a_ported_layout_beside_a_value_still_refused_names_the_refused_one(over, field):
     """The ported layouts run on a model axis, and beside them the int8
-    cache and the kernels (``field``: A.18's items 5-6) now too; beside
-    them all a value still refused (a model axis not named 'model') is
+    cache, the kernels and the experts over 'model' (``field``: A.18's
+    items 5-7; a dense model has no experts to place) now too; beside them
+    all the one value still refused (a model axis not named 'model') is
     refused by name alone."""
     _, cfg = configs(CASES["llama3.2-3b"])
     sharding.check_model_axis(cfg, ShardingPolicy(**over), 2)  # runs now

@@ -192,8 +192,8 @@ def test_shard_shapes_equal_jax_named_sharding_on_a_small_mesh():
 def test_shard_model_refuses_a_model_axis_wider_than_one():
     """Under a policy value whose model-axis layout is not ported (every
     family's default layout is: tests/test_torch_tensor_parallel*.py; the
-    int8 cache is too, and beside a model axis named other than 'model'
-    that one alone is refused)."""
+    int8 cache and the experts over 'model' are too, and beside a model
+    axis named other than 'model' that one alone is refused)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.config import ShardingPolicy
@@ -209,6 +209,13 @@ def test_shard_model_refuses_a_model_axis_wider_than_one():
                            match=r"\{'model_axis': 'tp'\} .*model axis wider than 1 .*A\.18"):
             sharding.shard_model(model, mesh, ShardingPolicy(kv_cache_dtype="int8",
                                                              model_axis="tp"))
+        moe = smoke_variant(get_arch("deepseek-v2-lite-16b"))
+        pair = {"expert_axis": "model", "expert_ff_axis": "data"}
+        sharding.check_model_axis(moe, ShardingPolicy(**pair), 2, 2)  # runs now (A.18 item 7)
+        with pytest.raises(ValueError, match=r"\{'model_axis': 'tp'\} .*A\.18") as err:
+            sharding.tp_distribute(param_shapes(moe), mesh, ShardingPolicy(**pair,
+                                                                           model_axis="tp"))
+        assert "expert" not in str(err.value)
         pod = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("pod", "data"))
         with pytest.raises(ValueError, match="FSDP runs over"):
             sharding.shard_model(model, pod)

@@ -25,8 +25,8 @@ model axis of 2, the identity on a model axis of 1, ``check_model_axis``
 accepting the ssm, hybrid, audio and vlm families' configurations at widths
 2, 4 and 16 (their cells run in ``test_torch_tensor_parallel_ssm.py`` and
 ``test_torch_tensor_parallel_families.py``) and refusing a width a sharded
-dim does not divide, and the refusals of the policy values whose layouts
-are not ported (ROADMAP A.18).
+dim does not divide, and the refusal of the one policy value whose layout
+the port keeps refusing, a model axis not named 'model' (ROADMAP A.18).
 """
 
 from __future__ import annotations

@@ -33,7 +33,8 @@ parallelism, the default policy's layout; its own checks are in
 
 In this process: ``check_model_axis`` accepts both configurations at
 widths 2, 4 and 16 and refuses an expert d_ff that does not divide and the
-moe policy values whose layouts are not ported.
+experts and their d_ff over one axis (C.20); the experts over 'model' run
+(``tests/test_torch_expert_model.py``).
 """
 
 from __future__ import annotations
@@ -412,19 +413,26 @@ def test_an_expert_d_ff_that_does_not_divide_is_refused():
 
 
 @pytest.mark.parametrize("field,value", [("kv_cache_dtype", "int8"), ("expert_ff_axis", "data"),
-                                         ("expert_axis", "model")])
+                                         ("expert_axis", "model"),
+                                         ("expert_axis+expert_ff_axis", "model+data")])
 def test_unported_moe_policy_values_refuse_naming_their_roadmap_item(field, value):
-    """The experts over 'model' (A.18 item 7) are refused by name; the int8
-    cache runs now (item 5), and beside item 7 only item 7 is named."""
+    """The experts over 'model' with their d_ff over 'data' (A.18 item 7)
+    run on a model axis now, beside the int8 cache (item 5) too; the
+    experts and their d_ff over one axis ('data' twice, or 'model' twice)
+    are refused naming C.20."""
     cfg = smoke_variant(get_arch("deepseek-v2-lite-16b"))
+    over = dict(zip(field.split("+"), value.split("+")))
     if field == "kv_cache_dtype":
-        sharding.check_model_axis(cfg, ShardingPolicy(**{field: value}), 2)  # runs now
-        with pytest.raises(ValueError, match=r"\{'expert_axis': 'model'\}.*ROADMAP A\.18"):
-            sharding.check_model_axis(cfg, ShardingPolicy(**{field: value},
-                                                          expert_axis="model"), 2)
+        sharding.check_model_axis(cfg, ShardingPolicy(**over), 2)  # runs now
+        sharding.check_model_axis(cfg, ShardingPolicy(**over, expert_axis="model",
+                                                      expert_ff_axis="data"), 2)
         return
-    with pytest.raises(ValueError, match=rf"{field}.*ROADMAP A\.18"):
-        sharding.check_model_axis(cfg, ShardingPolicy(**{field: value}), 2)
+    if len(over) == 2:
+        sharding.check_model_axis(cfg, ShardingPolicy(**over), 2)  # item 7 runs now
+        return
+    axis = "data" if field == "expert_ff_axis" else "model"
+    with pytest.raises(ValueError, match=rf"{field}.*'{axis}' twice.*ROADMAP C\.20"):
+        sharding.check_model_axis(cfg, ShardingPolicy(**over), 2)
 
 
 def test_a_leaf_past_whole_is_drawn_in_slabs_deferred_or_not(monkeypatch):
