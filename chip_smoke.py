@@ -1083,6 +1083,9 @@ def plan_server_phase(dev, chain, star, phase3):
 LLAMA = dict(H=24, KVH=8, D=128)  # llama3.2-3b's attention heads
 HYMBA_ATTN = dict(H=25, KVH=5, D=64)  # hymba-1.5b's (window 1024)
 PALIGEMMA = dict(H=8, KVH=1, D=256)  # paligemma-3b's: head dim 256, one kv head
+# kimi-k2-1t-a32b's: head dim 112, which the kernels run at width 128 (columns
+# past 112 read as zeros), 8 query heads a kv head
+KIMI = dict(H=64, KVH=8, D=112)
 # kernel vs plain on the card: float32 computes the same function with sums
 # in another order (~1e-6 at these lengths); bfloat16 rounds inputs and
 # outputs to 8 bits of mantissa, both sides computing in float32 in between
@@ -1106,8 +1109,9 @@ FLASH_D256_KERNELS = ("flash_attention_split_kv_kernel", "flash_attention_d256_k
 def flash_phase(dev):
     """flash_attention against its plain version at the prefills' shapes
     (llama3.2-3b's heads, hymba-1.5b's with its 1024 window, paligemma-3b's
-    at head dim 256), plus bfloat16, a window and a length no tile divides
-    (at llama's heads and at paligemma's); times of the kernel (the whole
+    at head dim 256, kimi-k2-1t-a32b's at head dim 112), plus bfloat16, a
+    window and a length no tile divides (at llama's heads, paligemma's and
+    kimi's); times of the kernel (the whole
     call: float32 at head dim 256 also reports its split kernel's share),
     the plain version and PyTorch's SDPA (the yardstick)."""
     import torch.nn.functional as F
@@ -1125,7 +1129,11 @@ def flash_phase(dev):
              ("paligemma_causal_bf16", PALIGEMMA, S, torch.bfloat16, 0),
              ("paligemma_ragged500_f32", PALIGEMMA, 500, torch.float32, 0),
              ("paligemma_window96_f32", PALIGEMMA, S, torch.float32, 96),
-             ("paligemma_window96_bf16", PALIGEMMA, S, torch.bfloat16, 96)]
+             ("paligemma_window96_bf16", PALIGEMMA, S, torch.bfloat16, 96),
+             ("kimi_causal_f32", KIMI, S, torch.float32, 0),
+             ("kimi_causal_bf16", KIMI, S, torch.bfloat16, 0),
+             ("kimi_ragged500_f32", KIMI, 500, torch.float32, 0),
+             ("kimi_window96_f32", KIMI, S, torch.float32, 96)]
     rows = {}
     for name, heads, L, dtype, window in cases:
         H, KVH, D = heads["H"], heads["KVH"], heads["D"]
@@ -1194,7 +1202,9 @@ def decode_phase(dev):
     shapes (a 544-entry cache, 1 to 544 entries valid, with and without a
     window; llama3.2-3b's heads, hymba-1.5b's, whose ring of 544 slots the
     path reads with no window, and paligemma-3b's at head dim 256, which
-    run the cluster kernel, in both types), the L2 cache flushed before
+    run the cluster kernel, in both types; kimi-k2-1t-a32b's at head dim
+    112, 1 and 544 entries without a window, in both types), the L2 cache
+    flushed before
     every timed call, as the serving path finds each layer's cache cold.
     Head dims up to 128 report the split the wrapper picks; head dim 256
     the cluster's blocks and the entries its largest share holds."""
@@ -1208,16 +1218,20 @@ def decode_phase(dev):
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     flush = torch.empty(2 * L2_BYTES // 4, device=dev)
     rows = {}
-    for tag, heads, dtype in (("", LLAMA, torch.float32), ("", LLAMA, torch.bfloat16),
-                              ("hymba_", HYMBA_ATTN, torch.float32),
-                              ("paligemma_", PALIGEMMA, torch.float32),
-                              ("paligemma_", PALIGEMMA, torch.bfloat16)):
+    every = ((1, 0), (300, 0), (544, 0), (1, 64), (300, 64), (544, 64))
+    for tag, heads, dtype, lengths in (
+            ("", LLAMA, torch.float32, every), ("", LLAMA, torch.bfloat16, every),
+            ("hymba_", HYMBA_ATTN, torch.float32, every),
+            ("paligemma_", PALIGEMMA, torch.float32, every),
+            ("paligemma_", PALIGEMMA, torch.bfloat16, every),
+            ("kimi_", KIMI, torch.float32, ((1, 0), (544, 0))),
+            ("kimi_", KIMI, torch.bfloat16, ((1, 0), (544, 0)))):
         H, KVH, D = heads["H"], heads["KVH"], heads["D"]
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         q, kc, vc = (_rand(gen, s, dtype, dev) for s in ((B, 1, H, D), (B, Smax, KVH, D),
                                                          (B, Smax, KVH, D)))
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
-        for n, window in ((1, 0), (300, 0), (544, 0), (1, 64), (300, 64), (544, 64)):
+        for n, window in lengths:
             name = f"{tag}len{n}_w{window}_{str(dtype).split('.')[-1]}"
             n_t = torch.tensor([n], dtype=torch.int32, device=dev)
             got = decode_attention(q, kc, vc, n_t, window=window)
@@ -1275,9 +1289,10 @@ SHARDS = 4  # the model axis the shard checks cut the problems for (four cards)
 
 def flash_shard_phase(dev):
     """flash_attention on a model axis's rows, on one card: the prefill
-    problems of llama3.2-3b's and paligemma-3b's heads (4 x 512) cut into
-    four row blocks, each run with its ``q_offset`` (0/128/256/384) against
-    the whole K and V, as each rank of a (1, 4) mesh runs its rows; held
+    problems of llama3.2-3b's, paligemma-3b's and kimi-k2-1t-a32b's heads
+    (4 x 512) cut into four row blocks, each run with its ``q_offset``
+    (0/128/256/384) against the whole K and V, as each rank of a (1, 4)
+    mesh runs its rows; held
     against the whole call's rows and the plain version's, float32 and
     bfloat16 and once with paligemma's window of 96.  Times: each block's
     call beside the whole call's."""
@@ -1290,7 +1305,9 @@ def flash_shard_phase(dev):
                                        ("llama_bf16", LLAMA, torch.bfloat16, 0),
                                        ("paligemma_f32", PALIGEMMA, torch.float32, 0),
                                        ("paligemma_bf16", PALIGEMMA, torch.bfloat16, 0),
-                                       ("paligemma_window96_f32", PALIGEMMA, torch.float32, 96)):
+                                       ("paligemma_window96_f32", PALIGEMMA, torch.float32, 96),
+                                       ("kimi_f32", KIMI, torch.float32, 0),
+                                       ("kimi_bf16", KIMI, torch.bfloat16, 0)):
         H, KVH, D = heads["H"], heads["KVH"], heads["D"]
         gen = torch.Generator(device=dev).manual_seed(SEED + 7 + window)
         q, k, v = (_rand(gen, s, dtype, dev) for s in ((B, S, H, D), (B, S, KVH, D),
@@ -1327,7 +1344,8 @@ def flash_shard_phase(dev):
 
 def decode_shard_phase(dev):
     """decode_attention on a model axis's cache shards, on one card: a
-    544-entry cache of llama3.2-3b's and paligemma-3b's heads cut into four
+    544-entry cache of llama3.2-3b's, paligemma-3b's and kimi-k2-1t-a32b's
+    heads cut into four
     shards of 136, each run with its ``kv_start`` and ``lse`` as each rank
     of a (1, 4) mesh runs its shard, merged as the model merges the ranks'
     (:func:`repro_torch.models.attention.merge_splits`, the combine of
@@ -1342,7 +1360,7 @@ def decode_shard_phase(dev):
     B, Smax = 4, 544
     n = Smax // SHARDS
     rows = {}
-    for tag, heads in (("llama", LLAMA), ("paligemma", PALIGEMMA)):
+    for tag, heads in (("llama", LLAMA), ("paligemma", PALIGEMMA), ("kimi", KIMI)):
         for dtype in (torch.float32, torch.bfloat16):
             H, KVH, D = heads["H"], heads["KVH"], heads["D"]
             gen = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -1731,7 +1749,11 @@ SERVE_B, SERVE_PROMPT, SERVE_STEPS = 4, 512, 32
 # each model freed before the next; deepseek-v2-lite-16b (64.8 GB of float32
 # weights) last
 SERVE_ARCHS = ("llama3.2-3b", "mamba2-2.7b", "hymba-1.5b", "paligemma-3b", "musicgen-medium",
-               "deepseek-v2-lite-16b")
+               "kimi-k2-1t-a32b", "deepseek-v2-lite-16b")
+# kimi-k2-1t-a32b (~2.1 TB whole) at full width cut as scripts/tp_dist.py's
+# (vii): 2 of 61 layers, 64 of 384 routed experts (top-8 and the shared one
+# kept), ~33 GB of float32 weights
+SERVE_CUTS = {"kimi-k2-1t-a32b": dict(num_layers=2, num_experts=64)}
 # kernel path vs plain path (both float32 on the card, the same weights and
 # the same matrix products): they differ only in the summation order of
 # attention and of the SSD scan (chunked against step by step), ~1e-6
@@ -1860,6 +1882,72 @@ def naive_check(model, cfg, prompt, patches, res) -> dict:
     return errs
 
 
+def _held_rel_err(got, want, until: list, dim: int, first: int = 0):
+    """``_rel_err`` over the entries of each sequence b (dim 0) at the
+    positions before ``until[b]`` (``dim`` counts them from ``first``);
+    None where none is held."""
+    n = got.shape[dim]
+    held = (first + torch.arange(n, device=got.device))[None, :] < torch.tensor(
+        until, device=got.device)[:, None]
+    held = held.reshape([len(until) if d == 0 else n if d == dim else 1
+                         for d in range(got.dim())]).expand_as(got)
+    if not bool(held.any()):
+        return None
+    return ((got.float() - want.float()).abs()[held].max()
+            / want.float().abs()[held].max().clamp_min(1.0)).item()
+
+
+def moe_naive_check(model, cfg, prompt, res) -> tuple:
+    """An MoE model with GQA attention (kimi-k2-1t-a32b): the kernel path and
+    the plain path (``"naive"``) on the same weights, both fed the kernel
+    run's tokens, with each MoE layer's routing recorded (the kernel path is
+    run again for it).  Where a router's k-th and (k+1)-th probabilities
+    nearly tie, the two attentions' ~1e-7 differences pick another expert
+    for a token (C.16): each sequence is held to the bar on its logits and
+    its cache before its first touched position, as ``moe_checks`` holds
+    gshard against dense, and the flips are reported
+    (``runtime.profile.routing_flips``, as ``scripts/tp_dist.py``'s); a
+    primary flip above its near-tie margin fails.  Returns (the held
+    relative errors, what is reported)."""
+    from repro_torch.launch.serve import serve_policy
+    from repro_torch.models import prefill
+    from repro_torch.runtime import make_serve_step
+    from repro_torch.runtime.profile import observe_routes, routing_flips
+
+    B, S = prompt.shape
+    N = len(res.step_logits)
+    feed = [res.prefill_logits[:, -1:].argmax(dim=-1).to(torch.int32)] + [
+        res.tokens[:, i:i + 1] for i in range(N - 1)]
+    runs = {}
+    for impl in ("cuda", "naive"):
+        routes, now = {}, {"step": None}
+        policy = serve_policy(S, impl)
+        with observe_routes(model, routes, lambda: (0, now["step"])):
+            logits, cache, pos = prefill(model, cfg, policy, prompt, max_len=S + N)
+            step = make_serve_step(cfg, policy)
+            steps = []
+            for i in range(N):
+                now["step"] = i
+                lg, cache = step(model, cache, feed[i], pos + i)
+                steps.append(lg)
+        runs[impl] = (logits if impl == "naive" else None, steps, cache, routes)
+        del logits
+    info = routing_flips(runs["cuda"][3], runs["naive"][3], B, S, cfg)
+    until = [info["first_touched"].get(0, {}).get(b, S + N) for b in range(B)]
+    logits, steps, cache, _ = runs["naive"]
+    errs = {"prefill_logits": _held_rel_err(res.prefill_logits, logits, until, 1),
+            "step_logits": max((e for e in (_held_rel_err(res.step_logits[i], lg, until, 1, S + i)
+                                             for i, lg in enumerate(steps)) if e is not None),
+                               default=None)}
+    got = _leaves(res.cache)
+    for name, leaf in _leaves(cache).items():  # [L, B, S + N, ...]
+        errs[f"cache_{name}"] = _held_rel_err(got[name].transpose(0, 1), leaf.transpose(0, 1),
+                                              until, 2)
+    info.update(sequences_held_whole=[b for b in range(B) if until[b] == S + N],
+                held_until=until)
+    return {k: v for k, v in errs.items() if v is not None}, info
+
+
 def moe_checks(model, cfg, prompt) -> tuple:
     """deepseek-v2-lite-16b at full width, which no kernel runs: (a) the
     reference's ``test_prefill_then_decode_matches_forward`` with dense
@@ -1971,12 +2059,18 @@ def last_logit_check(model, cfg, policy, prompt, patches) -> dict:
 
 
 def serve_phase(dev, arch):
+    import dataclasses
+
     from repro_torch.config import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import (generate, load_model, prompt_patches, prompt_tokens,
                                           serve_policy)
 
     cfg = get_arch(arch)
+    cut = SERVE_CUTS.get(arch)
+    if cut:
+        cfg = dataclasses.replace(cfg, num_layers=cut["num_layers"], moe=dataclasses.replace(
+            cfg.moe, num_experts=cut["num_experts"]))
     B, S, N = SERVE_B, SERVE_PROMPT, SERVE_STEPS
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2016,10 +2110,12 @@ def serve_phase(dev, arch):
 
     t1 = time.perf_counter()
     reported = {}
-    if cfg.mla is None:  # the plain path on the same weights
-        errs, check_name = naive_check(model, cfg, prompt, patches, res), "naive"
-    else:  # MLA: no kernel to hold against its plain version
+    if cfg.mla is not None:  # MLA: no kernel to hold against its plain version
         (errs, reported), check_name = moe_checks(model, cfg, prompt), "dense_and_gshard"
+    elif cfg.moe is not None:  # the plain path, the sequences no routing flip touched
+        (errs, reported), check_name = moe_naive_check(model, cfg, prompt, res), "naive_held"
+    else:  # the plain path on the same weights
+        errs, check_name = naive_check(model, cfg, prompt, patches, res), "naive"
     torch.cuda.synchronize()
     check_s = time.perf_counter() - t1
     worst = max(errs.values())
@@ -2027,7 +2123,8 @@ def serve_phase(dev, arch):
     last_logit = (last_logit_check(model, cfg, policy, prompt, patches)
                   if arch == LAST_LOGIT_ARCH else None)
     breakdown = serve_profile(model, cfg, policy, prompt, patches, 4, res)
-    emit(phase="serve", arch=cfg.name, params=n_params, dtype="float32", batch=B,
+    emit(phase="serve", arch=cfg.name, cut=cut, layers=cfg.num_layers, params=n_params,
+         dtype="float32", batch=B,
          prompt_len=S, patches=0 if patches is None else patches.shape[1], gen_len=N,
          moe_impl=policy.moe_impl if cfg.moe else None, init_s=init_s,
          prefill_s=res.prefill_s, prefill_tok_per_s=B * S / res.prefill_s,
@@ -2037,6 +2134,8 @@ def serve_phase(dev, arch):
          check_s=check_s, rel_err=errs, tol=SERVE_TOL, reported=reported,
          last_logit=last_logit, **breakdown)
     check(worst <= SERVE_TOL, f"serve {arch}: {check_name} check {errs}")
+    check(reported.get("ok", True), f"serve {arch}: a primary routing flip above the "
+          f"near-tie margin: {reported.get('primary_margin_max')}")
     if last_logit is not None:
         check(last_logit["rel_err"] <= LAST_LOGIT_TOL
               and last_logit["last_shape"] == (B, 1, cfg.vocab_size),
@@ -3046,7 +3145,9 @@ def main() -> int:
              ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"], bound_by=f["bound_by"],
              library_ms=f["library_ms"],
              head_dim_256={"float32": fa["paligemma_causal_f32"],
-                           "bfloat16": fa["paligemma_causal_bf16"]}),
+                           "bfloat16": fa["paligemma_causal_bf16"]},
+             head_dim_112={"float32": fa["kimi_causal_f32"],
+                           "bfloat16": fa["kimi_causal_bf16"]}),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:105",
@@ -3055,7 +3156,9 @@ def main() -> int:
              ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"], bound_by=d["bound_by"],
              library_ms=d["library_ms"],
              head_dim_256={"float32": da["paligemma_len544_w0_float32"],
-                           "bfloat16": da["paligemma_len544_w0_bfloat16"]}),
+                           "bfloat16": da["paligemma_len544_w0_bfloat16"]},
+             head_dim_112={"float32": da["kimi_len544_w0_float32"],
+                           "bfloat16": da["kimi_len544_w0_bfloat16"]}),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:90", launches=served["ssd_scan"],
              max_abs_err=max(v["max_abs_err"] for v in ssd.values()),

@@ -8,7 +8,7 @@
         --seq 32 --prompt 32 --gen 4 --check-batch 4 --serve-batch 4 --lr 1e-3  # the CPU: gloo
 
 ``--parts`` picks the parts, run in the order given (default: all
-twenty-six, (i)-(xxvi)).  The
+twenty-seven, (i)-(xxvii)).  The
 dense family's: (i) ``train``: ``--check-arch`` (llama3.2-3b) at full width
 and depth in float32: the train cell's step on each of ``--meshes`` (``1x4``
 and ``2x2``: data x model), ``--check-steps`` steps of the global batch
@@ -109,8 +109,15 @@ layout on the same mesh (no card holds its float32 training state).
 (xxvi) ``expert-model-serve``: (v) on ``1x4`` and ``2x2`` with every cache
 leaf held after each decode step and the greedy tokens equal, then (vi) on
 (1, N) beside the default layout (the weights drawn again in each).
+(xxvii) ``kimi-kernels-serve``: kimi-k2-1t-a32b's attention (64 heads on 8
+KV heads of head dim 112, which the kernels run at width 128) through the
+kernels: (vii)'s cut in float32 on (1, N) under ``cuda`` against rank 0
+alone under ``cuda``, as (xxiii) (every cache leaf after each decode step,
+greedy tokens equal, launches exact on every rank); then (vi) under
+KERNEL_SERVE, as (xxiii) runs ``--serve-arch``.  Its head dim is kept in
+the ``--smoke`` variant.
 The one-card side of (v), (vii), (xvii), (xviii) and the serving parts
-(ix)-(xv), (xxi)-(xxiii) is fed the sharded side's greedy tokens.
+(ix)-(xv), (xxi)-(xxiii), (xxvii) is fed the sharded side's greedy tokens.
 Rank 0 prints one JSON line (also written to ``--out``, after each part)
 with the cards' name and power limit, and exits non-zero on a missed bar.
 Every part ends with the ranks' one decision (an all-reduce of whether
@@ -152,10 +159,10 @@ from repro_torch.launch.specs import build_cell  # noqa: E402
 from repro_torch.models import (decode_step, extend_cache, greedy_tokens,  # noqa: E402
                                 init_params, prefill)
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.moe import capacity, exchange_tally  # noqa: E402
-from repro_torch.models.layers import constrain  # noqa: E402
+from repro_torch.models.moe import exchange_tally  # noqa: E402
 from repro_torch.runtime import make_train_state, make_train_step  # noqa: E402
-from repro_torch.runtime.profile import CommBytes, busy_ms, device_time_by_group  # noqa: E402
+from repro_torch.runtime.profile import (CommBytes, busy_ms, device_time_by_group,  # noqa: E402
+                                         observe_routes, routing_flips)
 from repro_torch.runtime.sharding import init_sharded, is_expert_leaf, shard_model  # noqa: E402
 
 LOSS_RTOL = 1e-5
@@ -172,7 +179,6 @@ KIMI, KIMI_SERVE_LAYERS, KIMI_CHECK = "kimi-k2-1t-a32b", 6, (2, 64)
 FAMILIES = {"ssm": "mamba2-2.7b", "hybrid": "hymba-1.5b", "audio": "musicgen-medium",
             "vlm": "paligemma-3b"}
 FAMILY_TRAIN_LAYERS = 2
-TIE_MARGIN = 1e-6  # a flip with a larger margin is no near-tie
 # expert parallelism's parts (xvi)-(xix): the experts split on E over the data
 # ranks, d_ff over 'model' on (2, 2); (xix) on the last mesh alone
 EP_MESHES = "2x2,4x1"
@@ -296,34 +302,6 @@ def _cfg(opts, arch: str, layers: int | None = None, experts: int | None = None)
 
 
 @contextlib.contextmanager
-def _observe_routes(model, record: dict, key):
-    """Record each MoE layer's routing of this rank's rows while inside:
-    ``record[(key(), layer)]`` = (the experts of each token, sorted [N, k];
-    the k-th minus the (k+1)-th router probability [N]), on the host.  A
-    recomputed block (remat) records the same again."""
-    layer_of = {id(blk.moe): l for l, blk in enumerate(model.blocks)}
-    ffn = transformer.moe_ffn
-
-    def observed(p, x, cfg, **kw):
-        with torch.no_grad():
-            h = constrain(x, ("pod", "data"), None, None)
-            h = (h.to_local() if isinstance(h, DTensor) else h).reshape(-1, cfg.d_model)
-            w = p.router.to_local() if isinstance(p.router, DTensor) else p.router
-            top = torch.softmax(h.float() @ w.float(), dim=-1).topk(cfg.moe.top_k + 1, dim=-1)
-            k = cfg.moe.top_k
-            record[(key(), layer_of[id(p)])] = (
-                top.indices[:, :k].sort(dim=-1).values.cpu(),
-                (top.values[:, k - 1] - top.values[:, k]).cpu())
-        return ffn(p, x, cfg, **kw)
-
-    transformer.moe_ffn = observed
-    try:
-        yield record
-    finally:
-        transformer.moe_ffn = ffn
-
-
-@contextlib.contextmanager
 def _observe_seq_losses(record: dict, key):
     """Record each training forward's cross-entropy by sequence of this
     rank's rows while inside: ``record[key()]`` [rows], on the host (the
@@ -361,57 +339,6 @@ def _global_rows(record: dict, mesh) -> dict | None:
     return {k: join(k) for k in rows[0]}
 
 
-def _kept(experts, cap: int, n_experts: int):
-    """Which experts keep each token's slot [N, E] under gshard at capacity
-    ``cap``: a token's slot is its expert's nth, n counted over the earlier
-    tokens in order (a token picks an expert once), and kept under ``cap``."""
-    chose = torch.zeros(experts.shape[0], n_experts, dtype=torch.int64).scatter_(1, experts, 1)
-    return (chose > 0) & (chose.cumsum(0) - chose < cap)
-
-
-def _flips(sharded: dict, single: dict, batch: int, seq: int, cfg) -> dict:
-    """The (token, layer) pairs the two sides route apart.  Keys are
-    ``((group, step), layer)``: ``step`` None for a pass over whole
-    sequences (positions 0..seq-1), else a decode step at position seq +
-    step.  A token is touched at a layer where its top-k differs (a flip)
-    or, its top-k the same, gshard's capacity keeps other slots of it (an
-    earlier token's flip moved its expert's count).  A flip is primary
-    unless, in its group and sequence, a token at an earlier layer and the
-    same or an earlier position was touched, or an earlier group flipped
-    at all.  Returns every flip, the primary ones' count and largest
-    margin, the touched sequences of each group and the first position
-    touched in each, and ``ok`` (no primary flip above the near-tie
-    margin)."""
-    if set(sharded) != set(single):
-        raise ValueError("the two sides recorded other MoE calls")
-    flips, touched = [], []
-    for (group, step), layer in sorted(single, key=repr):
-        (ea, ma), (eb, mb) = sharded[((group, step), layer)], single[((group, step), layer)]
-        cap = capacity(cfg, ea.shape[0])
-        E = cfg.moe.num_experts
-        flip = (ea != eb).any(dim=-1)
-        moved = flip | (_kept(ea, cap, E) != _kept(eb, cap, E)).any(dim=-1)
-        for t in moved.nonzero().flatten().tolist():
-            seq_i, pos = (t // seq, t % seq) if step is None else (t, seq + step)
-            at = dict(group=group, layer=layer, seq=seq_i, pos=pos)
-            touched.append(at)
-            if flip[t]:
-                flips.append(dict(at, margin=max(float(ma[t]), float(mb[t]))))
-    first = min((f["group"] for f in flips), default=None)
-    primary = [f for f in flips if f["group"] == first and not any(
-        g["seq"] == f["seq"] and g["group"] == first and g["layer"] < f["layer"]
-        and g["pos"] <= f["pos"] for g in touched)]
-    worst = max((f["margin"] for f in primary), default=0.0)
-    since: dict = {}
-    for g in touched:
-        at = since.setdefault(g["group"], {})
-        at[g["seq"]] = min(at.get(g["seq"], g["pos"]), g["pos"])
-    return dict(flips=flips[:200], n_flips=len(flips), n_primary=len(primary),
-                n_touched=len(touched), primary_margin_max=worst, first_group=first,
-                flipped_seqs={g: sorted(v) for g, v in since.items()},
-                first_touched=since, ok=worst <= TIE_MARGIN)
-
-
 def _profiled(fn, dev) -> dict | None:
     """One call of ``fn`` under torch.profiler: its wall, the device's busy
     share of it and its device ms by group (NCCL's kernels apart: they
@@ -441,7 +368,7 @@ def _train_steps(step_fn, state, stream, rows, dev, moe: bool, lead: bool, snap:
     steps, snaps, routes, seq_loss, now = [], [], {}, {}, {}
     watch = contextlib.ExitStack()
     if moe:
-        watch.enter_context(_observe_routes(state.params, routes, lambda: (now["step"], None)))
+        watch.enter_context(observe_routes(state.params, routes, lambda: (now["step"], None)))
         watch.enter_context(_observe_seq_losses(seq_loss, lambda: now["step"]))
     with watch:
         for i, batch in enumerate(stream):
@@ -615,7 +542,7 @@ def _train_check(opts, dev, rank, cfg, meshes: str | None = None,
             else:
                 single, want, routes, seq_loss, single_peak = ones[_one_card(policies[spec])]
                 run["single_policy"] = _one_card(policies[spec]).moe_impl
-            flips = (_flips(run["routes"], routes, opts.check_batch, opts.seq, cfg) if moe
+            flips = (routing_flips(run["routes"], routes, opts.check_batch, opts.seq, cfg) if moe
                      else None)
             first = None if flips is None else flips["first_group"]
             # the steps before the first flip, and the first step whatever it holds: a
@@ -685,7 +612,7 @@ def _serve_run(cfg, mesh, policy, model, prompt: dict, seq: int, gen: int, dev, 
                      param_dtype=model.embed.dtype)
     rec: dict = {}
     now = {"step": None}
-    watch = (_observe_routes(model, routes, lambda: (0, now["step"])) if routes is not None
+    watch = (observe_routes(model, routes, lambda: (0, now["step"])) if routes is not None
              else contextlib.nullcontext())
     steps, launches = [], {}
     with watch:
@@ -747,7 +674,7 @@ def _single_run(cfg, policy, model, prompt: dict, seq: int, tokens, gen: int,
     every decode step, on the host), and where its own greedy token
     differed."""
     now = {"step": None}
-    watch = (_observe_routes(model, routes, lambda: (0, now["step"])) if routes is not None
+    watch = (observe_routes(model, routes, lambda: (0, now["step"])) if routes is not None
              else contextlib.nullcontext())
     steps = []
     with watch:
@@ -914,7 +841,7 @@ def _serve_check(opts, dev, rank, cfg, gen: int, seed: int = 1, seq: int | None 
         if last:  # the whole prefill's last row
             want[0] = want[0][:, -1:]
         want_caches = c if family else [_flat(c)]
-        flips = (_flips(routes, single, opts.serve_batch, seq, cfg) if moe else None)
+        flips = (routing_flips(routes, single, opts.serve_batch, seq, cfg) if moe else None)
         # each sequence held before the first position an MoE layer touched
         since = flips["first_touched"].get(0, {}) if moe else {}
         until = [since.get(b, seq + gen) for b in range(opts.serve_batch)]
@@ -1073,7 +1000,8 @@ LAYOUT_PARTS = ("layout-train", "layout-serve", "layout-families")
 KERNEL_PARTS = ("kernels-serve", "int8-serve")
 EXPERT_MODEL_PARTS = ("expert-model-train", "expert-model-serve")
 PARTS = ("train", "check", "serve", "moe-train", "moe-serve", *FAMILY_PARTS, "kimi-check",
-         "kimi-serve", *EP_PARTS, *LAYOUT_PARTS, *KERNEL_PARTS, *EXPERT_MODEL_PARTS)
+         "kimi-serve", *EP_PARTS, *LAYOUT_PARTS, *KERNEL_PARTS, *EXPERT_MODEL_PARTS,
+         "kimi-kernels-serve")
 
 
 def _layout_serve(opts, dev, rank) -> dict:
@@ -1152,6 +1080,24 @@ def _kernels_serve(opts, dev, rank) -> dict:
         opts, dev, rank, cfg, opts.check_gen, family=True, mesh_spec="2x2", variants=("cuda",)))
     runs[opts.serve_arch] = done(opts.serve_arch, _serve(
         opts, dev, rank, _cfg(opts, opts.serve_arch), variants=KERNEL_SERVE))
+    if rank != 0:
+        return None
+    return dict(runs=runs, ok=all(r["ok"] for r in runs.values()))
+
+
+def _kimi_kernels_serve(opts, dev, rank) -> dict:
+    """Part (xxvii): kimi-k2-1t-a32b at KIMI_CHECK's cut in float32 on (1, N)
+    under ``cuda`` against rank 0 alone under ``cuda``, as (xxiii)'s models;
+    then at KIMI_SERVE_LAYERS layers in bfloat16 on (1, N) under
+    KERNEL_SERVE, as (vi).  The head dim stays kimi's 112 (also in the
+    ``--smoke`` variant)."""
+    done = _printed(rank, "kimi-kernels-serve")
+    head_dim = get_arch(KIMI).head_dim
+    check = dataclasses.replace(_cfg(opts, KIMI, *KIMI_CHECK), head_dim=head_dim)
+    serve = dataclasses.replace(_cfg(opts, KIMI, KIMI_SERVE_LAYERS), head_dim=head_dim)
+    runs = {"check": done("check", _serve_check(opts, dev, rank, check, opts.check_gen,
+                                                family=True, variants=("cuda",))),
+            "serve": done("serve", _serve(opts, dev, rank, serve, variants=KERNEL_SERVE))}
     if rank != 0:
         return None
     return dict(runs=runs, ok=all(r["ok"] for r in runs.values()))
@@ -1255,6 +1201,7 @@ def main(argv=None) -> int:
         "layout-families": lambda: _layout_families(opts, dev, rank),
         "kernels-serve": lambda: _kernels_serve(opts, dev, rank),
         "int8-serve": lambda: _int8_serve(opts, dev, rank),
+        "kimi-kernels-serve": lambda: _kimi_kernels_serve(opts, dev, rank),
         "expert-model-train": lambda: _expert_model_train(opts, dev, rank),
         "expert-model-serve": lambda: _expert_model_serve(opts, dev, rank),
         "moe-ep-train": lambda: _train_check(opts, dev, rank, _cfg(opts, MOE, MOE_TRAIN_LAYERS),

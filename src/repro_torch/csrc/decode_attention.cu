@@ -14,10 +14,19 @@
 // their strides (the last dimension contiguous; the caches 16-byte aligned
 // with strides of whole 16-byte units, as the wrapper checks).  float32 or
 // bfloat16 in, float32 inside, out in the input type.  One kernel a call:
-// head dims 16 to 128 (llama3.2-3b's and hymba-1.5b's heads) run
-// decode_attention_kernel, designed here; head dim 256 (paligemma-3b's) runs
+// head dims that are multiples of 16 up to 128 (llama3.2-3b's and
+// hymba-1.5b's heads, kimi-k2-1t-a32b's 112) run decode_attention_kernel,
+// designed here; head dim 256 (paligemma-3b's) runs
 // decode_attention_d256_kernel, with a design of its own (below, with its
-// note).
+// note).  A head dim D that is not a power of two runs the geometry of the
+// next instantiated width W (16, 32, 64, 128: 112 at 128, whose W / 8 = 16
+// dimensions a lane and W / 4 lanes across a row divide the block; D's own
+// would not): a row's D sizeof(T) / 16 units (28 in float32, 14 in bfloat16
+// at D = 112) are copied, the rest of its W-wide shared row and q's columns
+// past D are zeros, so the scores and the first D columns of P V are D's;
+// the splits' partial sums are W wide in the workspace, and only o's D
+// columns are written.  It reads no extra byte of device memory; the padded
+// columns cost W / D of the (few) operations.
 //
 // What bounds both on this card: bytes.  A call must read the valid K and V
 // rows once (llama3.2-3b's decode, B = 4, KVH = 8, D = 128, 544 entries,
@@ -145,6 +154,7 @@ struct Geo {
                 "fits the 227 KB a block can use");
 };
 
+// D: the geometry's width; dim (<= D, a multiple of 16): the head dim.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
@@ -154,7 +164,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         T* __restrict__ o, float* __restrict__ lse, int H, int KVH, int Smax,
                         int split, int n_split, int kv_start, long long qsb, long long qsh,
                         long long ksb, long long kss, long long ksh, long long osb,
-                        long long osh, int window, float scale) {
+                        long long osh, int window, float scale, int dim) {
   using Gm = Geo<T, D>;
   extern __shared__ __align__(16) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem + Gm::kQ);      // [kMaxG][D]
@@ -181,8 +191,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int n_active = s_hi - s_lo;
   if (n_active == 0) {  // nothing valid: the output is 0 (lse -1e30), written by split 0
     if (sp == 0) {
-      for (int i = tid; i < Gc * D; i += kThreads)
-        from_f32(o + b * osb + (h0 + i / D) * osh + i % D, 0.f);
+      for (int i = tid; i < Gc * dim; i += kThreads)
+        from_f32(o + b * osb + (h0 + i / dim) * osh + i % dim, 0.f);
       if (lse != nullptr && tid < Gc) lse[(long long)b * H + h0 + tid] = kNoEntry;
     }
     return;
@@ -193,9 +203,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int t_lo = c_lo / kTile, t_hi = (c_hi + kTile - 1) / kTile;
   const int nt = t_hi - t_lo;
 
-  // all of K, then all of V, one commit group a tile
+  // all of K, then all of V, one commit group a tile: a row's units of the
+  // head dim copied, its units past it zeros
   const T* kb = kc + b * ksb + kvh * ksh + (long long)k0 * kss;
   const T* vb = vc + b * ksb + kvh * ksh + (long long)k0 * kss;
+  const int n_units = dim * (int)sizeof(T) / 16;
   for (int pass = 0; pass < 2; ++pass) {
     const T* src = pass == 0 ? kb : vb;
     T* dst = pass == 0 ? ks : vs;
@@ -203,13 +215,19 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       const int e0 = max(t * kTile, c_lo), e1 = min(t * kTile + kTile, c_hi);
       for (int i = tid; i < (e1 - e0) * Gm::kUnits; i += kThreads) {
         const int e = e0 + i / Gm::kUnits, u = i % Gm::kUnits;
-        cp_async16(dst + e * D + u * (16 / (int)sizeof(T)), src + e * kss + u * (16 / (int)sizeof(T)));
+        T* to = dst + e * D + u * (16 / (int)sizeof(T));
+        if (u < n_units)
+          cp_async16(to, src + e * kss + u * (16 / (int)sizeof(T)));
+        else
+          *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
       }
       cp_async_commit();
     }
   }
-  for (int i = tid; i < Gc * D; i += kThreads)
-    qs[i] = to_f32(q[b * qsb + (h0 + i / D) * qsh + i % D]);
+  for (int i = tid; i < Gc * D; i += kThreads) {
+    const int d = i % D;
+    qs[i] = d < dim ? to_f32(q[b * qsb + (h0 + i / D) * qsh + d]) : 0.f;
+  }
 
   // scores, tile by tile as K lands: kLK lanes an entry
   const int grp = lane % Gm::kLK;
@@ -364,7 +382,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     const int i = tid + kThreads * j;
     if (i < Gc * D) {
       const int g = i / D, d = i - g * D;
-      from_f32(o + b * osb + (h0 + g) * osh + d, out[j] / fmaxf(st_l[g], 1e-30f));
+      if (d < dim) from_f32(o + b * osb + (h0 + g) * osh + d, out[j] / fmaxf(st_l[g], 1e-30f));
     }
   }
   if (lse != nullptr && tid < Gc)  // st_m, st_l: read above, after a barrier
@@ -372,11 +390,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   if (tid == 0) *counter = 0;  // every block of this call has counted
 }
 
+// Head dim `dim` on the geometry of width D >= dim.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* kc, const void* vc, const int* len, float* pm,
                    float* pl, float* pa, int* counters, void* o, float* lse, int B, int H,
-                   int KVH, int Smax, int split, int kv_start, const long long* st, int window,
-                   float scale, cudaStream_t stream) {
+                   int KVH, int Smax, int dim, int split, int kv_start, const long long* st,
+                   int window, float scale, cudaStream_t stream) {
   using Gm = Geo<T, D>;
   const int G = H / KVH;
   const int n_gc = (G + kMaxG - 1) / kMaxG;
@@ -389,7 +408,7 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const int* len
   kernel<<<dim3(n_split, KVH * n_gc, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), len, pm,
       pl, pa, counters, static_cast<T*>(o), lse, H, KVH, Smax, split, n_split, kv_start, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], window, scale);
+      st[1], st[2], st[3], st[4], st[5], st[6], window, scale, dim);
   return cudaGetLastError();
 }
 
@@ -398,13 +417,12 @@ cudaError_t dispatch(int D, const void* q, const void* kc, const void* vc, const
                      float* pm, float* pl, float* pa, int* cnt, void* o, float* lse, int B,
                      int H, int KVH, int Smax, int split, int k0, const long long* st,
                      int window, float scale, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, split, k0, st, window, scale, s);
-    case 32: return launch<T, 32>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, split, k0, st, window, scale, s);
-    case 64: return launch<T, 64>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, split, k0, st, window, scale, s);
-    case 128: return launch<T, 128>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, split, k0, st, window, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (D < 16 || D > 128 || D % 16 != 0) return cudaErrorInvalidValue;
+  // the next instantiated width: 48 at 64; 80, 96 and 112 at 128
+  if (D <= 16) return launch<T, 16>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, s);
+  if (D <= 32) return launch<T, 32>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, s);
+  if (D <= 64) return launch<T, 64>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, s);
+  return launch<T, 128>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, s);
 }
 
 // ---------------------------------------------------------------- head dim 256
@@ -954,10 +972,12 @@ extern "C" int repro_decode_attention_geometry(int what) {
   }
 }
 
-// Head dims 16 to 128.  q/o [B, 1, H, D] (strides of b and h), caches
+// Head dims that are multiples of 16 up to 128 (any other returns
+// cudaErrorInvalidValue).  q/o [B, 1, H, D] (strides of b and h), caches
 // [B, Smax, KVH, D] (k and v share their strides), cache_len one int32 on the
 // device.  The workspace:
-// part_m and part_l [B, H, n_split], part_acc [B, H, n_split, D] float32,
+// part_m and part_l [B, H, n_split], part_acc [B, H, n_split, W] float32 (W
+// the instantiated width D runs at: the next of 16, 32, 64, 128),
 // counters [B, KVH ceil(G / 8)] int32, zero before the first call (each call
 // leaves them zero); n_split = ceil(Smax / split).  The caches are the
 // entries [kv_start, kv_start + Smax) of a cache of which cache_len are

@@ -81,9 +81,19 @@
 //    `ex2.approx`), masks only the tiles that reach past Sk, the diagonal or
 //    the window, and every product-sum outside the tensor cores is an
 //    explicit fmaf (the library is built with -fmad=false).
-// Head dims 16 to 128.  Head dim 256 (paligemma-3b's heads) does not fit this
-// geometry in either type and has a design of its own, flash_attention_d256_kernel
-// (below, with its note).
+// Head dims: every multiple of 16 up to 128.  One that is not a power of two
+// (kimi-k2-1t-a32b's 112, and 48, 80, 96) runs the geometry of the next
+// instantiated width W (16, 32, 64, 128: 112 at 128): the tensor maps keep
+// the true extent D, so TMA reads columns D .. W-1 of q, K and V as zeros
+// (OOB fill), which change neither Q K^T nor the first D columns of P V; the
+// split-TF32 halves of a zero are zeros; the O store writes only the first D
+// columns (a row of o is H D wide: a W-column store would write into the next
+// head); the scale is the true D's (the wrapper's D^-0.5).  The padding costs
+// W / D of the tensor-core work (128 / 112 = 1.14 at kimi's heads) and no
+// extra bytes of device memory: the zeros are made by TMA, not read.  Head
+// dim 256 (paligemma-3b's heads) does not fit this geometry in either type
+// and has a design of its own, flash_attention_d256_kernel (below, with its
+// note).
 // A barrier wait that does not complete within ~2 s traps (a launch error in
 // place of a hung card).
 
@@ -110,7 +120,8 @@ using repro::mbar_wait;
 using repro::smem_u32;
 using repro::split_tf32;
 
-// Shared-memory geometry of one instance.  A tile of R rows of D elements is
+// Shared-memory geometry of one instance, of width D (the head dim rounded up
+// to an instantiated width).  A tile of R rows of D elements is
 // stored as kChunks slices of kSW bytes a row ([R][kSW] each, 1024-byte
 // aligned), in the TMA swizzle of that width (32, 64 or 128 bytes).
 template <typename T, int D>
@@ -639,7 +650,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, T* __restrict__ o, int H,
                        int KVH, int Sq, int Sk, long long osb, long long oss, long long osh,
-                       int causal, int window, int q_offset, float scale) {
+                       int causal, int window, int q_offset, float scale, int dim) {
+  // D: the geometry's width; dim (<= D, a multiple of 8): the head dim, the
+  // columns of o written (q, K and V read as zeros past it)
   using G = Geo<T, D>;
   constexpr int kBQ = G::kBQ;
   constexpr int kBK = G::kBK;
@@ -929,7 +942,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
     T* orow = o + b * osb + qi * oss + h * osh;
 #pragma unroll
     for (int j = 0; j < kDB; ++j)
-      store2(orow + 8 * j + 2 * q4, acc[j][2 * half] / denom, acc[j][2 * half + 1] / denom);
+      if (8 * j < dim)
+        store2(orow + 8 * j + 2 * q4, acc[j][2 * half] / denom, acc[j][2 * half + 1] / denom);
   }
 }
 
@@ -1444,18 +1458,20 @@ EncodeTiled find_encoder() {
   return reinterpret_cast<EncodeTiled>(fn);
 }
 
-// The 4-D map of a [B, S, heads, D] tensor (strides in elements, the last
-// dimension contiguous) whose box is one slice of `rows` rows of one head:
-// the row's D elements if they span less than 128 bytes, else 128 bytes of
-// them, in the TMA swizzle of that width.
+// The 4-D map of a [B, S, heads, dim] tensor (strides in elements, the last
+// dimension contiguous) whose box is one slice of `rows` rows of one head in
+// a geometry of width D >= dim: the row's D elements if they span less than
+// 128 bytes, else 128 bytes of them, in the TMA swizzle of that width.  The
+// map's extent is the true dim: columns dim .. D-1 (a box partly or wholly
+// past it) read as zeros.
 template <typename T, int D>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, long long sb,
-                     long long ss, long long sh, int rows) {
+                     long long ss, long long sh, int rows, int dim) {
   constexpr int kEs = (int)sizeof(T);
   constexpr int kSW = D * kEs < 128 ? D * kEs : 128;
   static const EncodeTiled encode = find_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)dim, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(sh * kEs), (cuuint64_t)(ss * kEs),
                                  (cuuint64_t)(sb * kEs)};
   const cuuint32_t box[4] = {(cuuint32_t)(kSW / kEs), 1, (cuuint32_t)rows, 1};
@@ -1472,15 +1488,18 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Head dim `dim` on the geometry of width D >= dim.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
-                   int Sq, int Sk, const long long* st, int causal, int window, int q_offset,
-                   float scale, cudaStream_t stream) {
+                   int Sq, int Sk, int dim, const long long* st, int causal, int window,
+                   int q_offset, float scale, cudaStream_t stream) {
   using G = Geo<T, D>;
   CUtensorMap qm, km, vm;
-  cudaError_t err = make_map<T, D>(&qm, q, B, Sq, H, st[0], st[1], st[2], G::kBQ);
-  if (err == cudaSuccess) err = make_map<T, D>(&km, k, B, Sk, KVH, st[3], st[4], st[5], G::kBK);
-  if (err == cudaSuccess) err = make_map<T, D>(&vm, v, B, Sk, KVH, st[3], st[4], st[5], G::kBK);
+  cudaError_t err = make_map<T, D>(&qm, q, B, Sq, H, st[0], st[1], st[2], G::kBQ, dim);
+  if (err == cudaSuccess)
+    err = make_map<T, D>(&km, k, B, Sk, KVH, st[3], st[4], st[5], G::kBK, dim);
+  if (err == cudaSuccess)
+    err = make_map<T, D>(&vm, v, B, Sk, KVH, st[3], st[4], st[5], G::kBK, dim);
   if (err != cudaSuccess) return err;
   auto kernel = flash_attention_kernel<T, D>;
   static int smem_set[kMaxDevices] = {};
@@ -1489,7 +1508,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   dim3 grid((Sq + G::kBQ - 1) / G::kBQ, H, B);
   kernel<<<grid, G::kThreads, G::kSmem, stream>>>(qm, km, vm, static_cast<T*>(o), H, KVH, Sq, Sk,
                                                 st[6], st[7], st[8], causal, window, q_offset,
-                                                scale);
+                                                scale, dim);
   return cudaGetLastError();
 }
 
@@ -1508,7 +1527,7 @@ cudaError_t launch_d256(const void* q, const void* k, const void* v, void* o, vo
                         cudaStream_t stream) {
   using G = typename Geo256Of<T>::G;
   CUtensorMap qm{}, km{}, vm{};
-  cudaError_t err = make_map<T, 256>(&qm, q, B, Sq, H, st[0], st[1], st[2], G::kBQ);
+  cudaError_t err = make_map<T, 256>(&qm, q, B, Sq, H, st[0], st[1], st[2], G::kBQ, 256);
   if (err != cudaSuccess) return err;
   if constexpr (G::kF32) {
     if (ws == nullptr || ws_bytes < d256_workspace_bytes(B, KVH, Sk)) return cudaErrorInvalidValue;
@@ -1518,8 +1537,9 @@ cudaError_t launch_d256(const void* q, const void* k, const void* v, void* o, vo
         KVH, Sk, st[3], st[4], st[5]);
     err = cudaGetLastError();
   } else {
-    err = make_map<T, 256>(&km, k, B, Sk, KVH, st[3], st[4], st[5], G::kBK);
-    if (err == cudaSuccess) err = make_map<T, 256>(&vm, v, B, Sk, KVH, st[3], st[4], st[5], G::kBK);
+    err = make_map<T, 256>(&km, k, B, Sk, KVH, st[3], st[4], st[5], G::kBK, 256);
+    if (err == cudaSuccess)
+      err = make_map<T, 256>(&vm, v, B, Sk, KVH, st[3], st[4], st[5], G::kBK, 256);
   }
   if (err != cudaSuccess) return err;
   auto kernel = flash_attention_d256_kernel<T, G>;
@@ -1561,16 +1581,15 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
                      long long ws_bytes, int B, int H, int KVH, int Sq, int Sk,
                      const long long* st, int causal, int window, int qo, float scale,
                      cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, qo, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, qo, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, qo, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KVH, Sq, Sk, st, causal, window, qo, scale, stream);
-    case 256:
-      return launch_d256<T>(q, k, v, o, ws, ws_bytes, B, H, KVH, Sq, Sk, st, causal, window,
-                            qo, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  if (D == 256)
+    return launch_d256<T>(q, k, v, o, ws, ws_bytes, B, H, KVH, Sq, Sk, st, causal, window, qo,
+                          scale, stream);
+  if (D < 16 || D > 128 || D % 16 != 0) return cudaErrorInvalidValue;
+  // the next instantiated width: 48 at 64; 80, 96 and 112 at 128
+  if (D <= 16) return launch<T, 16>(q, k, v, o, B, H, KVH, Sq, Sk, D, st, causal, window, qo, scale, stream);
+  if (D <= 32) return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Sk, D, st, causal, window, qo, scale, stream);
+  if (D <= 64) return launch<T, 64>(q, k, v, o, B, H, KVH, Sq, Sk, D, st, causal, window, qo, scale, stream);
+  return launch<T, 128>(q, k, v, o, B, H, KVH, Sq, Sk, D, st, causal, window, qo, scale, stream);
 }
 
 }  // namespace
@@ -1580,7 +1599,9 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
 extern "C" int repro_flash_attention_split_tile() { return Geo256Of<float>::G::kBK; }
 
 // q/o [B, Sq, H, D], k/v [B, Sk, KVH, D]; strides in elements, last dim 1;
-// k and v share their strides.  Row i of q sits at key position q_offset + i
+// k and v share their strides.  D: a multiple of 16 up to 128 (one that is
+// not a power of two on the next instantiated width's geometry), or 256;
+// anything else returns cudaErrorInvalidValue.  Row i of q sits at key position q_offset + i
 // (>= 0; a rank's rows of a sequence-sharded q): the causal mask and the
 // window compare those positions.  bf16 != 0: bfloat16 tensors, else float32.
 // TMA needs q, k and v 16-byte aligned and every stride a multiple of 16

@@ -7,7 +7,10 @@ The port of the Pallas kernel ``decode_attention_kernel`` /
 wrapper ``ops.decode_attention``.  :func:`decode_attention` launches a
 hand-written CUDA kernel (``csrc/decode_attention.cu``) for tensors on the
 card and runs :func:`decode_attention_plain` for tensors on the CPU; it
-never falls back from one to the other.  Head dims 16 to 128 run split-KV
+never falls back from one to the other.  Head dims are those of
+:func:`kernel_width` (the flash kernel's rule): multiples of 16 up to 128
+(one that is not a power of two at the next instantiated width, its extra
+columns zeros) run split-KV
 blocks that stream the cache through shared memory, the last block of each
 kv head combining the splits (:func:`decode_split` picks the split); head
 dim 256 runs a thread-block cluster per (batch, kv head, group of up to 8
@@ -46,7 +49,7 @@ import numbers
 import torch
 
 from .build import STATE_LOCK, check, count_launch, library, refuse_grad
-from .flash_attention import KERNEL_HEAD_DIMS, NEG_INF, masked_attention
+from .flash_attention import NEG_INF, kernel_width, masked_attention
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_valid", "decode_split",
            "decode_cluster", "decode_cluster_on", "decode_shares", "check_decode_layout"]
@@ -205,7 +208,8 @@ def _geometry(lib) -> tuple:
 def _workspace(device, stream: int, B: int, H: int, KVH: int, n_split: int, D: int,
                heads: int):
     """The splits' partial (max, denominator, accumulator), float32
-    ``[B, H, n_split]`` twice and ``[B, H, n_split, D]``, and the combine's
+    ``[B, H, n_split]`` twice and ``[B, H, n_split, D]`` (``D`` the kernel's
+    width, :func:`kernel_width`), and the combine's
     counters, int32 ``[B, KVH ceil(G / heads)]`` and zero: one workspace per
     device, stream and shape, reused by every call (calls on one stream run
     in order, and each leaves the counters zero)."""
@@ -296,8 +300,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, kv_start=0, wi
         raise ValueError(f"decode_attention runs on cuda or cpu tensors; got {q.device}")
     B, _, H, D = q.shape
     Smax, KVH = k_cache.shape[1], k_cache.shape[2]
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}; got {D}")
+    width = kernel_width(D)
     check_decode_layout(k_cache, v_cache, q)
     if not isinstance(cache_len, torch.Tensor):
         cache_len = torch.tensor([cache_len], dtype=torch.int32, device=q.device)
@@ -316,7 +319,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, kv_start=0, wi
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         part_m, part_l, part_acc, counters = _workspace(q.device, stream, B, H, KVH, n_split,
-                                                        D, heads)
+                                                        width, heads)
         code = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), counters.data_ptr(),

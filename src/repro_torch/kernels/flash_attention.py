@@ -14,7 +14,10 @@ the TPU kernel it reads the model's ``[B, S, H, D]`` layout through strides
 (no transposes) and takes lengths that no tile size divides.  TMA needs
 q, k and v 16-byte aligned with strides that are multiples of 16 bytes:
 :func:`check_kernel_layout` says what the kernel takes, and the wrapper
-raises on anything else.
+raises on anything else.  Head dims: every multiple of 16 up to 128, and
+256 (:func:`kernel_width`, the rule the decode kernel shares); one that is
+not a power of two runs the next instantiated width with its extra
+columns read as zeros.
 
 Shapes: q ``[B, Sq, H, D]``, k/v ``[B, Sk, KVH, D]`` with ``H % KVH == 0``
 (query head ``h`` reads kv head ``h // (H // KVH)``); float32 or bfloat16,
@@ -33,10 +36,10 @@ import torch
 from .build import check, count_launch, library, refuse_grad
 
 __all__ = ["flash_attention", "flash_attention_plain", "masked_attention", "attention_mask",
-           "check_kernel_layout", "workspace_bytes", "NEG_INF", "KERNEL_HEAD_DIMS"]
+           "check_kernel_layout", "workspace_bytes", "kernel_width", "NEG_INF"]
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+_WIDTHS = (16, 32, 64, 128)  # the instantiated widths of the kernels for head dims up to 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -111,16 +114,30 @@ def _tma_strides(t):
     return [st if n != 1 else t.shape[-1] for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
+def kernel_width(D: int) -> int:
+    """The width both attention kernels run head dim ``D`` at: a multiple of
+    16 from 16 to 128 runs at the next instantiated width (16, 32, 64 or
+    128; 48 at 64, 80, 96 and 112 at 128), whose columns past D the kernels
+    read as zeros and never write; 256 at its own kernel's.  Raise
+    ``ValueError``, naming the head dims the kernels take, for any other
+    (checked before every launch; runs anywhere, so the CPU tests hold it)."""
+    D = int(D)
+    if D == 256:
+        return 256
+    if D % 16 == 0 and 16 <= D <= _WIDTHS[-1]:
+        return next(w for w in _WIDTHS if w >= D)
+    raise ValueError(f"the kernels take head dims that are multiples of 16 from 16 to 128, "
+                     f"and 256; got {D}")
+
+
 def check_kernel_layout(q, k, v):
     """Raise ``ValueError`` unless the kernel takes these tensors as laid
     out (checked before every launch; runs on tensors on any device): a
-    head dim of :data:`KERNEL_HEAD_DIMS`, a contiguous last dimension, k and
+    head dim :func:`kernel_width` takes, a contiguous last dimension, k and
     v with equal strides, and what the kernel's TMA copies need: every base
     address 16-byte aligned and every other stride a positive multiple of 16
     bytes."""
-    D = q.shape[-1]
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}; got {D}")
+    kernel_width(q.shape[-1])
     if q.stride(-1) != 1 or k.stride(-1) != 1 or k.stride() != v.stride():
         raise ValueError("the kernel needs a contiguous last dimension, and k and v "
                          "with equal strides")

@@ -22,7 +22,8 @@ from repro_torch.kernels import (decode_attention, decode_attention_plain, flash
                                  flash_attention_plain)
 from repro_torch.kernels.decode_attention import (check_decode_layout, decode_cluster,
                                                   decode_shares, decode_split, decode_valid)
-from repro_torch.kernels.flash_attention import check_kernel_layout, workspace_bytes
+from repro_torch.kernels.flash_attention import (check_kernel_layout, kernel_width,
+                                                 workspace_bytes)
 from repro_torch.models.attention import attention
 from repro_torch.models.attention import decode_attention as model_decode_attention
 
@@ -39,6 +40,12 @@ FLASH_CASES = [
     # without a mask: the oracle of the card's head-dim-256 kernels
     (1, 256, 256, 8, 1, 256, True, 96),
     (1, 128, 256, 4, 2, 256, False, 0),
+    # head dims the kernels run at the next instantiated width: kimi-k2-1t-a32b's
+    # 112 at its 8 query heads a kv head, causal and with a window over a
+    # length no tile divides; 80
+    (1, 256, 256, 8, 1, 112, True, 0),
+    (1, 100, 100, 8, 1, 112, True, 96),
+    (1, 128, 128, 4, 2, 80, True, 0),
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -101,6 +108,8 @@ DECODE_SHAPE = (2, 4, 2, 32, 256)  # B, H, KVH, D, Smax (as tests/test_kernels.p
 
 # paligemma-3b's decode heads: head dim 256, 8 query heads on one kv head
 DECODE_SHAPE_256 = (2, 8, 1, 256, 192)
+# kimi-k2-1t-a32b's grouping, 8 query heads a kv head, at its head dim 112
+DECODE_SHAPE_112 = (2, 8, 1, 112, 192)
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,6 +165,32 @@ def test_decode_attention_head_dim_256_matches_pallas_and_oracle(cache_len, wind
     np.testing.assert_allclose(_np32(out), oracle, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("impl", sorted(DECODE_IMPLS))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("cache_len", [1, 150])
+def test_decode_attention_head_dim_112_matches_pallas_and_oracle(cache_len, window, dtype, impl):
+    (q, k, v), kern, oracle = _decode_case(cache_len, window, dtype, DECODE_SHAPE_112)
+    out = DECODE_IMPLS[impl](q, k, v, cache_len, window)
+    assert out.dtype == q.dtype and tuple(out.shape) == tuple(q.shape)
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(_np32(out), kern, rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np32(out), oracle, rtol=tol, atol=tol)
+
+
+# every head dim the kernels take, and the width each runs at; others refused
+@pytest.mark.parametrize("D,width", [(16, 16), (32, 32), (48, 64), (64, 64), (80, 128),
+                                     (96, 128), (112, 128), (128, 128), (256, 256),
+                                     (8, None), (24, None), (120, None), (144, None),
+                                     (192, None), (512, None), (0, None)])
+def test_kernel_width_takes_multiples_of_16_to_128_and_256(D, width):
+    if width is None:
+        with pytest.raises(ValueError, match="head dims"):
+            kernel_width(D)
+    else:
+        assert kernel_width(D) == width
+
+
 def _bad_flash():
     q, k, v = (torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2, 16))
     return {
@@ -195,8 +230,15 @@ def _layouts():
         "bf16_head_stride": ((torch.zeros(B, S, H, D + 4).bfloat16()[..., :D], k.bfloat16(),
                               v.bfloat16()), "multiples of 16 bytes"),
         "misaligned_base": ((flat[1:].view(B, S, H, D), k, v), "16-byte-aligned"),
-        "head_dim": ((torch.zeros(B, S, H, 48), torch.zeros(B, S, KVH, 48),
-                      torch.zeros(B, S, KVH, 48)), "head dims"),
+        "head_dim_112": ((torch.zeros(B, S, H, 112), torch.zeros(B, S, KVH, 112),
+                          torch.zeros(B, S, KVH, 112)), None),
+        "head_dim_80_bf16": ((torch.zeros(B, S, H, 80).bfloat16(),
+                              torch.zeros(B, S, KVH, 80).bfloat16(),
+                              torch.zeros(B, S, KVH, 80).bfloat16()), None),
+        "head_dim_48": ((torch.zeros(B, S, H, 48), torch.zeros(B, S, KVH, 48),
+                         torch.zeros(B, S, KVH, 48)), None),
+        "head_dim": ((torch.zeros(B, S, H, 120), torch.zeros(B, S, KVH, 120),
+                      torch.zeros(B, S, KVH, 120)), "head dims"),
         "last_dim_stride": ((q.transpose(2, 3).contiguous().transpose(2, 3), k, v),
                             "contiguous last dimension"),
         "kv_strides_differ": ((q, k, torch.zeros(B, KVH, S, D).transpose(1, 2)),

@@ -459,6 +459,19 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (2, 77, 203, 8, 1, 256, True, 0),
     (1, 129, 129, 8, 1, 256, True, 0),
     (4, 1024, 1024, 8, 1, 256, True, 0),
+    # head dims run at the next instantiated width (columns past D read as
+    # zeros, o's D columns written): kimi-k2-1t-a32b's prefill (64 heads on
+    # 8 kv heads of 112), 8 : 1 GQA ragged, with a window, Sq != Sk unmasked;
+    # 80 (a float32 row's last 32-column slice wholly past D), 48 and 96
+    (4, 512, 512, 64, 8, 112, True, 0),
+    (1, 500, 500, 8, 1, 112, True, 0),
+    (2, 256, 256, 8, 1, 112, True, 96),
+    (1, 130, 200, 8, 8, 112, False, 0),
+    (1, 65, 65, 4, 2, 80, True, 0),
+    (1, 500, 500, 8, 1, 80, True, 0),
+    (2, 300, 300, 8, 1, 80, True, 64),
+    (1, 200, 200, 4, 2, 48, True, 0),
+    (1, 200, 200, 8, 1, 96, True, 32),
 ])
 def test_flash_attention_kernel_matches_plain_on_card(card, case, dtype):
     B, Sq, Sk, H, KVH, D, causal, window = case
@@ -493,11 +506,14 @@ def test_flash_attention_d256_back_to_back_shapes_on_card(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_kernel_reads_a_fused_projection_on_card(card, dtype):
+@pytest.mark.parametrize("D", [128, 112, 80])
+def test_flash_attention_kernel_reads_a_fused_projection_on_card(card, D, dtype):
     """q, k and v as strided views into one [B, S, (H + 2 KVH) D] projection,
     as a model with a fused QKV weight hands them over: the tensor maps
-    read them in place."""
-    B, S, H, KVH, D = 2, 200, 8, 2, 128
+    read them in place.  At 112 and 80 (run at width 128) the maps stop at
+    D, so no column of the next head is read, and the output's rows hold
+    only D columns: a store past them would write the next head's."""
+    B, S, H, KVH = 2, 200, 8, 2
     g = torch.Generator(device=card).manual_seed(7)
     qkv = torch.randn(B, S, (H + 2 * KVH) * D, generator=g, device=card).to(dtype)
     q = qkv[..., :H * D].view(B, S, H, D)
@@ -519,6 +535,8 @@ def test_flash_attention_kernel_reads_a_fused_projection_on_card(card, dtype):
     ((24, 8, 128), 512, 96, (0, 1, 130, 511)),
     ((8, 1, 256), 512, 96, (0, 37, 300)),
     ((8, 1, 256), 2048, 1024, (0, 512, 1024, 1536)),
+    ((64, 8, 112), 512, 0, (0, 128, 256, 384)),  # kimi-k2-1t-a32b's heads
+    ((8, 1, 80), 300, 64, (0, 77, 150)),
 ])
 def test_flash_attention_rows_at_their_offset_on_card(card, case, dtype):
     """Each row block of q (a strided view) run alone with its
@@ -536,7 +554,8 @@ def test_flash_attention_rows_at_their_offset_on_card(card, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 64])
 @pytest.mark.parametrize("cache_len", [1, 77, 151, 300])
-@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256)])
+@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256), (64, 8, 112),
+                                   (8, 1, 80)])
 def test_decode_attention_cache_shards_merged_on_card(card, heads, cache_len, window, dtype):
     """A 300-entry cache in four shards at their ``kv_start``, each with its
     ``lse``, merged as the model merges the ranks': the plain version's
@@ -568,8 +587,9 @@ def test_decode_attention_cache_shards_merged_on_card(card, heads, cache_len, wi
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 64])
 @pytest.mark.parametrize("cache_len", [1, 63, 64, 300, 544])
-# llama3.2-3b's, hymba-1.5b's, paligemma-3b's heads
-@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256)])
+# llama3.2-3b's, hymba-1.5b's, paligemma-3b's, kimi-k2-1t-a32b's heads; head dim 80
+@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256), (64, 8, 112),
+                                   (8, 1, 80)])
 def test_decode_attention_kernel_matches_plain_on_card(card, heads, cache_len, window, dtype):
     B, Smax = 4, 544
     H, KVH, D = heads
@@ -586,8 +606,9 @@ def test_decode_attention_kernel_matches_plain_on_card(card, heads, cache_len, w
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# llama3.2-3b's, hymba-1.5b's, paligemma-3b's heads
-@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256)])
+# llama3.2-3b's, hymba-1.5b's, paligemma-3b's, kimi-k2-1t-a32b's heads; head dim 80
+@pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256), (64, 8, 112),
+                                   (8, 1, 80)])
 def test_decode_attention_kernel_at_split_boundaries_on_card(card, heads, dtype):
     """A cache of 550 entries, which no split (a multiple of 16) divides;
     cache lengths on either side of the first and third split boundaries;
@@ -614,6 +635,22 @@ def test_decode_attention_kernel_at_split_boundaries_on_card(card, heads, dtype)
             want = decode_attention_plain(q, kc, vc, n, window=window)
             err = (out.float() - want.float()).abs().max().item()
             assert err <= ATTN_TOL[dtype], (n.item(), window, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 120, 144])
+def test_attention_kernels_refuse_other_head_dims_before_a_launch_on_card(card, D, dtype):
+    """A head dim outside the kernels' rule (multiples of 16 up to 128, and
+    256) raises ValueError on the card, naming the head dims taken, before
+    any launch: nothing falls back to the plain version."""
+    q, k = (torch.zeros(s, device=card, dtype=dtype) for s in ((2, 64, 8, D), (2, 64, 2, D)))
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="head dims"):
+        decode_attention(q[:, :1], k, k, 5)
+    counts = launch_counts()
+    assert counts["flash_attention"] == 0 and counts["decode_attention"] == 0
 
 
 # head dim 256 (decode_attention_d256_kernel): paligemma-3b's heads, 8 on one

@@ -101,6 +101,8 @@ CASES = {
     "paligemma-3b": Case("paligemma-3b", (("vocab_size", 250),), 32, ("cuda", "cuda+int8")),
     "musicgen-medium": Case("musicgen-medium", (), 32, ("cuda", "cuda+int8")),
     "deepseek-v2-lite-16b": Case("deepseek-v2-lite-16b", (), 32, ("cuda+int8",)),
+    # kimi-k2-1t-a32b's head dim, 112: the kernels at the next instantiated width
+    "kimi-d112": Case("kimi-k2-1t-a32b", (("head_dim", 112),), 32, ("cuda",)),
 }
 PARAMS = [(c, v, m) for c, case in CASES.items() for v in case.variants for m in case.meshes
           if m == "1x2" or v != "int8"]
@@ -463,7 +465,8 @@ def test_write_slot_refuses_floats_for_an_int8_cache():
 # the plain versions' new arguments against the reference's oracles
 
 FLASH = [((24, 8, 16), 64, 0, (0, 16, 32, 48)), ((8, 1, 32), 64, 12, (0, 5, 40)),
-         ((25, 5, 16), 96, 32, (0, 24, 48, 72)), ((4, 2, 16), 40, 0, (0, 13, 27))]
+         ((25, 5, 16), 96, 32, (0, 24, 48, 72)), ((4, 2, 16), 40, 0, (0, 13, 27)),
+         ((8, 1, 112), 64, 0, (0, 16, 32, 48))]
 
 
 @pytest.mark.parametrize("heads,S,window,cuts", FLASH)
@@ -480,7 +483,8 @@ def test_flash_attention_plain_rows_at_their_offset_equal_the_reference(heads, S
         _close(got, want[:, a:b], 1e-5, f"rows {a}:{b}")
 
 
-DECODE_CASES = [((24, 8, 16), 40, 4, 0), ((8, 1, 32), 36, 3, 8), ((25, 5, 16), 30, 5, 0)]
+DECODE_CASES = [((24, 8, 16), 40, 4, 0), ((8, 1, 32), 36, 3, 8), ((25, 5, 16), 30, 5, 0),
+                ((8, 1, 112), 40, 4, 0)]
 
 
 @pytest.mark.parametrize("heads,smax,shards,window", DECODE_CASES)

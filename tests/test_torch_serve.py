@@ -64,12 +64,17 @@ B, PROMPT, STEPS, MAX_LEN = 2, 16, 6, 24
 # (reference attention_impl, kv_cache_dtype, attention type[, arch: llama3.2-3b])
 CASES = [("pallas", "bf16", "full"), ("chunked", "bf16", "full"), ("pallas", "int8", "full"),
          ("chunked", "bf16", "swa"), ("chunked", "bf16", "full", "deepseek-v2-lite-16b"),
-         ("pallas", "bf16", "full", "paligemma-3b"), ("pallas", "bf16", "full", "musicgen-medium")]
+         ("pallas", "bf16", "full", "paligemma-3b"), ("pallas", "bf16", "full", "musicgen-medium"),
+         ("pallas", "bf16", "full", "kimi-k2-1t-a32b")]
+# fields replaced in an arch's smoke variant in both packages: kimi-k2-1t-a32b
+# keeps its head dim, 112, which the kernels run at the next instantiated width
+SMOKE_FIELDS = {"kimi-k2-1t-a32b": {"head_dim": 112}}
 
 
 def _cfgs(attn_type, arch=ARCH):
-    ref_cfg = ref_smoke_variant(ref_get_arch(arch))
-    cfg = smoke_variant(get_arch(arch))
+    fields = SMOKE_FIELDS.get(arch, {})
+    ref_cfg = dataclasses.replace(ref_smoke_variant(ref_get_arch(arch)), **fields)
+    cfg = dataclasses.replace(smoke_variant(get_arch(arch)), **fields)
     if attn_type == "swa":  # the ring-buffer branches: window 8 < prompt 16
         ref_cfg = dataclasses.replace(ref_cfg, attn_type="swa", window=8)
         cfg = dataclasses.replace(cfg, attn_type="swa", window=8)
