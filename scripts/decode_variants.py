@@ -5,6 +5,7 @@ older source, all in one process.
 
     python scripts/decode_variants.py                      # from the repo root, one card
     python scripts/decode_variants.py --baseline build/parent/src/repro_torch/csrc/decode_attention.cu
+    python scripts/decode_variants.py --variants design --baseline build/parent/src/repro_torch/csrc/decode_attention.cu
 
 A variant is ``src/repro_torch/csrc/decode_attention.cu`` with edits, built
 by ``nvcc`` with ``-Xptxas -v`` into ``build/decode_variants/`` (all in
@@ -33,12 +34,14 @@ merged through shared memory) and ``probe_empty`` (every block returns at
 once: the launch of the clusters).
 
 ``--baseline`` adds an older source built as it is (its entry points
-without a shard's ``kv_start`` and ``lse`` are detected), called through the
-entry point of the split-KV kernel (``repro_decode_attention`` with its
-workspace) at the split ``decode_split`` picks, so the designs before and
-after a change are timed in the same run on the same card; its D <= 128
-instantiations are timed beside the source's at llama3.2-3b's and
-hymba-1.5b's shapes.
+without a shard's ``kv_start`` and ``lse``, or without the head dim, are
+detected), called through its head-dim-256 entry point on the cluster the
+wrapper picks (a source without one: through the split-KV kernel's at the
+split ``decode_split`` picks), so the designs before and after a change are
+timed in the same run on the same card; its split-KV kernel is timed beside
+the source's at llama3.2-3b's, hymba-1.5b's and kimi-k2-1t-a32b's shapes in
+both types, in the order baseline, design, design, baseline.
+``--variants`` builds only the named variants (``design`` is always built).
 
 Each call is timed by ``chip_smoke.device_ms`` (mean of 30) with the L2 cache
 flushed by a 100 MB write before it (``write``, phase 2's method) and warm
@@ -72,6 +75,7 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import decode_attention_plain  # noqa: E402
 from repro_torch.kernels.build import NVCC_FLAGS, SOURCE_DIR, _SIGNATURES, _nvcc  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_cluster_on, decode_split  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel_width  # noqa: E402
 
 OUT = REPO / "build" / "decode_variants"
 F32, BF16 = "float", "__nv_bfloat16"
@@ -85,31 +89,9 @@ def geometry(dtype: str, we: int, stages: int) -> list:
 
 
 # warp 0's lanes copy q, K and V with 16-byte cp.async, each lane's arrival
-# on the stage's barrier counted once its copies land
-CP_ASYNC = [
-    (re.compile(r"^    const uint32_t bytes = \(uint32_t\)rows \* Gm::kRow;\n.*?^  \};\n",
-                re.M | re.S),
-     lambda _: """    constexpr int kUnits = Gm::kRow / 16;
-    for (int i = lane; i < qrows * kUnits; i += 32) {
-      const int r = i / kUnits, u = i - r * kUnits;
-      cp_async16(reinterpret_cast<uint8_t*>(const_cast<T*>(qs)) + r * Gm::kRow + 16 * u,
-                 reinterpret_cast<const uint8_t*>(qb + r * qsh) + 16 * u);
-    }
-    for (int pass = 0; pass < 2; ++pass) {
-      const uint8_t* src = reinterpret_cast<const uint8_t*>(pass == 0 ? kb : vb);
-      uint8_t* dst = pass == 0 ? kdst : vdst;
-      for (int i = lane; i < rows * kUnits; i += 32) {
-        const int r = i / kUnits, u = i - r * kUnits;
-        cp_async16(dst + r * Gm::kRow + 16 * u,
-                   src + (long long)(r0 + r) * kss * (long long)sizeof(T) + 16 * u);
-      }
-      const uint32_t bar = (pass == 0 ? kfull : vfull) + 8 * s;
-      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\\n" ::"r"(bar) : "memory");
-    }
-  };
-"""),
-    (re.compile(r"mbar_init\((kfull|vfull) \+ 8 \* s, 1\);"), r"mbar_init(\1 + 8 * s, 32);"),
-]
+# on the stage's barrier counted once its copies land: the kernel's own path
+# for rows that bulk copies cannot take, here at every row
+CP_ASYNC = [(re.compile(r"const bool bulk = unit == 16;"), "const bool bulk = false;")]
 NO_COPIES = [
     (re.compile(r"^  if \(warp == 0\)\n    for \(int t = 0; t < min\(kStages, nt\); \+\+t\) "
                 r"issue\(t\);\n", re.M), ""),
@@ -161,6 +143,9 @@ ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 OLD_SIGNATURES = {"repro_decode_attention": [_P] * 9 + [_I] * 7 + [_L] * 7 + [_I, _F, _P],
                   "repro_decode_attention_d256": [_P] * 5 + [_I] * 5 + [_L] * 7 + [_I, _F, _I, _P]}
+# the head-dim-256 entry point with a shard's kv_start and lse, before it
+# took the head dim (it ran D = 256 only)
+NO_DIM_D256 = [_P] * 6 + [_I] * 6 + [_L] * 7 + [_I, _F, _I, _P]
 
 
 def kernel_name(mangled: str) -> str:
@@ -170,8 +155,10 @@ def kernel_name(mangled: str) -> str:
     geo = re.search(r"Geo256I(?:f|13__nv_bfloat16|S\d*_)Li(\d+)ELi(\d+)E", mangled)
     if "decode_attention_d256_kernel" in mangled and geo:
         return f"d256_{dtype}_w{geo.group(1)}_s{geo.group(2)}"
-    d = re.search(r"decode_attention_kernelI(?:f|13__nv_bfloat16)Li(\d+)E", mangled)
-    return f"split_{dtype}_D{d.group(1)}" if d else mangled
+    d = re.search(r"decode_attention_kernelI(?:f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?", mangled)
+    if d is None:
+        return mangled
+    return f"split_{dtype}_D{d.group(1)}" + (f"_u{d.group(2)}" if d.group(2) else "")
 
 
 def ptxas_report(log: str) -> dict:
@@ -188,11 +175,13 @@ def ptxas_report(log: str) -> dict:
     return per
 
 
-def build(baseline: Path | None) -> dict:
+def build(baseline: Path | None, names) -> dict:
     OUT.mkdir(parents=True, exist_ok=True)
     source = (SOURCE_DIR / "decode_attention.cu").read_text()
     jobs = {}
     for name, edits in VARIANTS.items():
+        if name not in names:
+            continue
         text = source
         for pattern, repl in edits:
             text, count = pattern.subn(repl, text)
@@ -219,8 +208,12 @@ def build(baseline: Path | None) -> dict:
         print(json.dumps(dict(variant=name, build_s=build_s, ptxas=ptxas_report(log))),
               flush=True)
         lib = ctypes.CDLL(str(so))
-        lib.shards = "kv_start" in Path(jobs[name][0]).read_text()
+        text = Path(jobs[name][0]).read_text()
+        lib.shards = "kv_start" in text
+        lib.head_dim = "int Smax, int D, int bf16, int kv_start" in text
         signatures = _SIGNATURES if lib.shards else {**_SIGNATURES, **OLD_SIGNATURES}
+        if lib.shards and not lib.head_dim:
+            signatures = {**signatures, "repro_decode_attention_d256": NO_DIM_D256}
         lib.repro_decode_attention.argtypes = signatures["repro_decode_attention"]
         if hasattr(lib, "repro_decode_attention_d256"):
             for fn in ("repro_decode_attention_d256", "repro_decode_attention_d256_max_clusters"):
@@ -236,7 +229,8 @@ def caller256(lib, q, kc, vc, n_t, window: int, cluster: int):
     Smax, KVH = kc.shape[1], kc.shape[2]
     o = torch.empty_like(q)
     shard = (None,) if lib.shards else ()  # no lse
-    tail = (B, H, KVH, Smax, int(q.dtype == torch.bfloat16), *((0,) if lib.shards else ()),
+    tail = (B, H, KVH, Smax, *((D,) if lib.head_dim else ()), int(q.dtype == torch.bfloat16),
+            *((0,) if lib.shards else ()),
             q.stride(0), q.stride(2), *kc.stride()[:3], o.stride(0), o.stride(2), window,
             ctypes.c_float(D ** -0.5), cluster)
 
@@ -257,7 +251,7 @@ def caller_split(lib, q, kc, vc, n_t, window: int, split: int):
     B, _, H, D = q.shape
     Smax, KVH = kc.shape[1], kc.shape[2]
     n_split = -(-Smax // split)
-    part = torch.empty(B * H * n_split * (D + 2), device=q.device)
+    part = torch.empty(B * H * n_split * (kernel_width(D) + 2), device=q.device)
     counters = torch.zeros(B * KVH * -(-(H // KVH) // 8), dtype=torch.int32, device=q.device)
     o = torch.empty_like(q)
     n = B * H * n_split
@@ -290,12 +284,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
                     help="another decode_attention.cu to build and time beside the variants")
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated variants to build (design always)")
     args = ap.parse_args()
     import torch.nn.functional as F
 
     print(cs.smi(), flush=True)
     dev = torch.device("cuda")
-    libs = build(args.baseline)
+    libs = build(args.baseline, {"design", *args.variants.split(",")})
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     fits = {}
     for bf16 in (0, 1):
@@ -324,7 +320,7 @@ def main() -> int:
             want = decode_attention_plain(q, kc, vc, n_t, window=window)
             calls = {}
             for name, lib in libs.items():
-                if name == "baseline":
+                if name == "baseline" and not hasattr(lib, "repro_decode_attention_d256"):
                     split = decode_split(B, KVH, H // KVH, Smax, n_sms)
                     calls[name] = caller_split(lib, q, kc, vc, n_t, window, split)
                 elif name in CLUSTERS:
@@ -357,10 +353,13 @@ def main() -> int:
     # the split-KV kernel at head dims <= 128: the source against the baseline
     Smax = 544
     if "baseline" in libs:
-        for tag, heads in (("llama", cs.LLAMA), ("hymba", cs.HYMBA_ATTN)):
+        for tag, heads, dtype in ((t, h, d) for t, h in (("llama", cs.LLAMA),
+                                                         ("hymba", cs.HYMBA_ATTN),
+                                                         ("kimi", cs.KIMI))
+                                  for d in (torch.float32, torch.bfloat16)):
             H, KVH, D = heads["H"], heads["KVH"], heads["D"]
             gen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
-            q, kc, vc = (torch.randn(s, generator=gen, device=dev)
+            q, kc, vc = (cs._rand(gen, s, dtype, dev)
                          for s in ((B, 1, H, D), (B, Smax, KVH, D), (B, Smax, KVH, D)))
             split = decode_split(B, KVH, H // KVH, Smax, n_sms)
             for n in (1, Smax):
@@ -369,11 +368,14 @@ def main() -> int:
                 row = {}
                 for name in ("baseline", "design", "design", "baseline"):
                     call = caller_split(libs[name], q, kc, vc, n_t, 0, split)
-                    err = (call() - want).abs().max().item()
-                    cs.check(err <= cs.ATTN_TOL[torch.float32], f"{name} {tag} len {n}: {err}")
+                    err = (call().float() - want.float()).abs().max().item()
+                    cs.check(err <= cs.ATTN_TOL[dtype], f"{name} {tag} {dtype} len {n}: {err}")
                     row.setdefault(name, []).append(timed(call, flush))
-                print(json.dumps(dict(shape=tag, H=H, KVH=KVH, D=D, Smax=Smax, cache_len=n,
-                                      split=split, ms=row)), flush=True)
+                change = {k: (sum(r[k] for r in row["design"])
+                              / sum(r[k] for r in row["baseline"]) - 1) for k in ("write", "warm")}
+                print(json.dumps(dict(shape=tag, dtype=str(dtype), H=H, KVH=KVH, D=D, Smax=Smax,
+                                      cache_len=n, split=split, ms=row, change=change)),
+                      flush=True)
     return 0
 
 

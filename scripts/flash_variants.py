@@ -4,6 +4,7 @@ one kv head, causal), beside PyTorch's SDPA, all in one process.
 
     python scripts/flash_variants.py                      # from the repo root, one card
     python scripts/flash_variants.py --baseline build/parent/src/repro_torch/csrc/flash_attention.cu
+    python scripts/flash_variants.py --variants design --baseline build/parent/src/repro_torch/csrc/flash_attention.cu
 
 A variant is ``src/repro_torch/csrc/flash_attention.cu`` with edits, built
 by ``nvcc`` with ``-Xptxas -v`` into ``build/flash_variants/`` (all in
@@ -28,7 +29,12 @@ q tiles first but does not pair the resident blocks.
 
 ``--baseline`` adds an older source built as it is (its entry point
 without a workspace, or without the q offset, is detected), so the designs before and after a
-change are timed in the same run on the same card.
+change are timed in the same run on the same card; then both are also timed
+at the served models' head dims up to 128 (llama3.2-3b's heads,
+hymba-1.5b's with its window of 1,024, kimi-k2-1t-a32b's at head dim 112;
+B 4, S 512, causal, both types) in the order baseline, design, design,
+baseline.  ``--variants`` builds only the named variants (``design`` is
+always built).
 
 Prints the card's name and power limit, a line per build with its seconds
 and, per kernel instantiation, ptxas's registers, spill-store bytes and any
@@ -125,6 +131,8 @@ def kernel_name(mangled: str) -> str:
             d = re.search(r"kernelI(?:f|13__nv_bfloat16)Li(\d+)E", mangled)
             tag = (f"_bk{geo.group(1)}_st{geo.group(2)}_wg{geo.group(3)}" if geo
                    else (f"_D{d.group(1)}" if d else ""))
+            if re.search(r"kernelI(?:f|13__nv_bfloat16)Li\d+ELb0E", mangled):
+                tag += "_narrow"  # o's columns stored with a test of each pair
             return f"{name}_{dtype}{tag}"
     return mangled
 
@@ -145,11 +153,13 @@ def ptxas_report(log: str) -> dict:
     return per
 
 
-def build(baseline: Path | None) -> dict:
+def build(baseline: Path | None, names) -> dict:
     OUT.mkdir(parents=True, exist_ok=True)
     source = (SOURCE_DIR / "flash_attention.cu").read_text()
     jobs = {}
     for name, edits in VARIANTS.items():
+        if name not in names:
+            continue
         text = source
         for pattern, repl in edits:
             text, count = pattern.subn(repl, text)
@@ -190,7 +200,7 @@ def build(baseline: Path | None) -> dict:
     return libs
 
 
-def caller(lib, q, k, v, causal: bool):
+def caller(lib, q, k, v, causal: bool, window: int = 0):
     """One kernel call of ``lib`` (with a workspace of its own where it takes one)."""
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
@@ -200,7 +210,7 @@ def caller(lib, q, k, v, causal: bool):
     ws = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=q.device)
     o = torch.empty_like(q)
     tail = (B, H, KVH, Sq, Sk, D, int(q.dtype == torch.bfloat16), *_tma_strides(q),
-            *_tma_strides(k), *o.stride()[:3], int(causal), 0,
+            *_tma_strides(k), *o.stride()[:3], int(causal), window,
             *((0,) if lib.takes_offset else ()), ctypes.c_float(D ** -0.5))
 
     def call():
@@ -221,12 +231,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
                     help="another flash_attention.cu to build and time beside the variants")
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated variants to build (design always)")
     args = ap.parse_args()
     import torch.nn.functional as F
 
     print(cs.smi(), flush=True)
     dev = torch.device("cuda")
-    libs = build(args.baseline)
+    libs = build(args.baseline, {"design", *args.variants.split(",")})
     B, H, KVH, D = 4, cs.PALIGEMMA["H"], cs.PALIGEMMA["KVH"], cs.PALIGEMMA["D"]
     for dtype in (torch.float32, torch.bfloat16):
         for S in (512, 1024):
@@ -261,6 +273,30 @@ def main() -> int:
                                   ms=row, split_share=split_share, sdpa_ms=sdpa_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)), flush=True)
             del q, k, v, qt, kt, vt, want
+
+    # the served head dims up to 128: the source against the baseline
+    if "baseline" in libs:
+        B, S = 4, 512
+        for tag, heads, window in (("llama", cs.LLAMA, 0), ("hymba", cs.HYMBA_ATTN, 1024),
+                                   ("kimi", cs.KIMI, 0)):
+            H, KVH, D = heads["H"], heads["KVH"], heads["D"]
+            for dtype in (torch.float32, torch.bfloat16):
+                gen = torch.Generator(device=dev).manual_seed(cs.SEED + S)
+                q, k, v = (cs._rand(gen, s, dtype, dev)
+                           for s in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+                want = flash_attention_plain(q, k, v, causal=True, window=window)
+                row = {}
+                for name in ("baseline", "design", "design", "baseline"):
+                    call = caller(libs[name], q, k, v, causal=True, window=window)
+                    err = (call().float() - want.float()).abs().max().item()
+                    cs.check(err <= cs.ATTN_TOL[dtype], f"{name} {tag} {dtype}: max |err| {err}")
+                    row.setdefault(name, []).append(cs.device_ms(lambda: call(), lambda: (),
+                                                                 reps=20))
+                print(json.dumps(dict(shape=tag, dtype=str(dtype), B=B, S=S, H=H, KVH=KVH, D=D,
+                                      window=window, ms=row,
+                                      change=sum(row["design"]) / sum(row["baseline"]) - 1)),
+                      flush=True)
+                del q, k, v, want
     return 0
 
 

@@ -38,13 +38,21 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--arch", default="llama3.2-3b")
     args = ap.parse_args(argv)
+    # the tree under test first: chip_smoke puts this tree's src on the path
+    # when imported, and a package once imported is the one every later
+    # import of it finds
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    import repro_torch
+
+    if not Path(repro_torch.__file__).resolve().is_relative_to(src):
+        raise RuntimeError(f"imported {repro_torch.__file__}, not from {src}")
     sys.path.insert(0, str(ROOT))
     from chip_smoke import SEED, SERVE_ARCHS, SERVE_B, SERVE_PROMPT, SERVE_STEPS
 
     if args.arch not in SERVE_ARCHS:
         ap.error(f"--arch must be one of {', '.join(SERVE_ARCHS)}")
 
-    sys.path.insert(0, args.src)
     import torch
 
     if not torch.cuda.is_available():

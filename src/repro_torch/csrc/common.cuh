@@ -1,7 +1,7 @@
 // Helpers shared by the port's kernels: the shared-memory and cluster-size
 // opt-ins, loads and stores in the tensor's type, TF32 on the tensor cores,
-// cp.async, and mbarriers with the bulk copies (TMA's non-tensor form) that
-// complete on them.  Everything is inline, so each source that includes this
+// cp.async (16, 8 or 4 bytes), and mbarriers with the copies (cp.async, and
+// the bulk copies, TMA's non-tensor form) that complete on them.  Everything is inline, so each source that includes this
 // header compiles its own copy.
 #pragma once
 
@@ -89,6 +89,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
+// The same for 8 or 4 bytes (cached in L1 and L2: the 16-byte form is the
+// only one that can bypass L1).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -147,6 +157,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       __trap();
     }
   }
+}
+
+// An arrival on the barrier once every cp.async this thread has issued so
+// far has landed (.noinc: the arrival is one of those the barrier counts).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // A bulk copy of `bytes` contiguous bytes into shared memory, its bytes

@@ -11,22 +11,29 @@
 // needs no host round trip (and can be captured in a CUDA graph).
 //
 // Layout: q and out [B, 1, H, D], caches [B, Smax, KVH, D], read through
-// their strides (the last dimension contiguous; the caches 16-byte aligned
-// with strides of whole 16-byte units, as the wrapper checks).  float32 or
-// bfloat16 in, float32 inside, out in the input type.  One kernel a call:
-// head dims that are multiples of 16 up to 128 (llama3.2-3b's and
-// hymba-1.5b's heads, kimi-k2-1t-a32b's 112) run decode_attention_kernel,
-// designed here; head dim 256 (paligemma-3b's) runs
-// decode_attention_d256_kernel, with a design of its own (below, with its
-// note).  A head dim D that is not a power of two runs the geometry of the
-// next instantiated width W (16, 32, 64, 128: 112 at 128, whose W / 8 = 16
-// dimensions a lane and W / 4 lanes across a row divide the block; D's own
-// would not): a row's D sizeof(T) / 16 units (28 in float32, 14 in bfloat16
-// at D = 112) are copied, the rest of its W-wide shared row and q's columns
+// their strides (the last dimension contiguous), in place: the cache is the
+// model's, and no call copies it.  float32 or bfloat16 in, float32 inside,
+// out in the input type.  One kernel a call: head dims up to 128
+// (llama3.2-3b's and hymba-1.5b's heads, kimi-k2-1t-a32b's 112,
+// SigLIP-so400m's 72) run decode_attention_kernel, designed here; head dims
+// from 129 to 256 (paligemma-3b's 256; 192) run decode_attention_d256_kernel,
+// with a design of its own (below, with its note).  A head dim D that is not
+// an instantiated width runs the geometry of the next one, W (16, 32, 64,
+// 128: 112 and 72 at 128, whose W / 8 = 16 dimensions a lane and W / 4 lanes
+// across a row divide the block; D's own would not; 256 above 128): a row's
+// D columns are copied, the rest of its W-wide shared row and q's columns
 // past D are zeros, so the scores and the first D columns of P V are D's;
 // the splits' partial sums are W wide in the workspace, and only o's D
 // columns are written.  It reads no extra byte of device memory; the padded
 // columns cost W / D of the (few) operations.
+//
+// Copies: a row is copied in pieces of the widest of 16, 8 or 4 bytes (2,
+// a bfloat16, for an odd D) that divides its D sizeof(T) bytes, the caches'
+// (and for the head-dim-256 kernel q's) base addresses and strides
+// (`copy_unit`, on the host): 16-byte `cp.async` or bulk copies where the
+// rows allow them, as every served model's do, else 8- or 4-byte `cp.async`,
+// else plain loads, so any layout with a contiguous last dimension is read
+// where it lies.
 //
 // What bounds both on this card: bytes.  A call must read the valid K and V
 // rows once (llama3.2-3b's decode, B = 4, KVH = 8, D = 128, 544 entries,
@@ -85,6 +92,9 @@ namespace {
 namespace cg = cooperative_groups;
 
 using repro::cp_async16;
+using repro::cp_async4;
+using repro::cp_async8;
+using repro::cp_async_mbar_arrive;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
 using repro::allow_wide_clusters;
@@ -125,13 +135,63 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// A piece of `bytes` bytes of a row (16, 8 or 4: cp.async; 2: one bfloat16
+// copied by a plain load and store, which the same barrier publishes).
+template <typename T>
+__device__ __forceinline__ void copy_piece(T* dst, const T* src, int bytes) {
+  switch (bytes) {
+    case 16: cp_async16(dst, src); break;
+    case 8: cp_async8(dst, src); break;
+    case 4: cp_async4(dst, src); break;
+    default: *dst = *src; break;
+  }
+}
+
+// A piece of `bytes` bytes of a shared row set to zero.
+__device__ __forceinline__ void zero_piece(void* dst, int bytes) {
+  switch (bytes) {
+    case 16: *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u); break;
+    case 8: *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u); break;
+    case 4: *reinterpret_cast<uint32_t*>(dst) = 0u; break;
+    default: *reinterpret_cast<uint16_t*>(dst) = 0; break;
+  }
+}
+
+// All of K, then all of V, of entries [c_lo, c_hi) into the W-wide shared
+// rows, one commit group a kTile-entry tile: a row's pieces of the head dim
+// copied, its pieces past it zeros.  kUnit: the bytes of a piece, or 0 for
+// `unit` at run time.
+template <typename T, int D, int kUnit>
+__device__ __forceinline__ void copy_tiles(T* ks, T* vs, const T* kb, const T* vb,
+                                           long long kss, int t_lo, int t_hi, int c_lo,
+                                           int c_hi, int dim, int unit, int tid) {
+  const int bytes = kUnit ? kUnit : unit;
+  const int per = bytes / (int)sizeof(T);  // elements a piece
+  const int pieces = D / per;              // pieces of a W-wide shared row
+  for (int pass = 0; pass < 2; ++pass) {
+    const T* src = pass == 0 ? kb : vb;
+    T* dst = pass == 0 ? ks : vs;
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int e0 = max(t * kTile, c_lo), e1 = min(t * kTile + kTile, c_hi);
+      for (int i = tid; i < (e1 - e0) * pieces; i += kThreads) {
+        const int e = e0 + i / pieces, u = i % pieces;
+        T* to = dst + e * D + u * per;
+        if (u * per < dim)
+          copy_piece(to, src + e * kss + u * per, bytes);
+        else
+          zero_piece(to, bytes);
+      }
+      cp_async_commit();
+    }
+  }
+}
+
 template <typename T, int D>
 struct Geo {
   static constexpr int kLK = D / 4 < 8 ? D / 4 : 8;  // lanes an entry for the scores
   static constexpr int kDL = D / kLK;                // dimensions a lane (multiple of 4)
   static constexpr int kLD = D / 4;                  // lanes across D for P V
   static constexpr int kEG = kThreads / kLD;         // entry groups for P V
-  static constexpr int kUnits = D * (int)sizeof(T) / 16;  // 16-byte copies a row
   static constexpr int kRed = kEG * kMaxG * D * 4;   // P V partial sums (bytes)
   // q [kMaxG][D] float, scores [kMaxG][kMaxSplit] float, stats (m, l, flag),
   // then K [split][D] (reused for the P V sums) and V [split][D] in T
@@ -154,8 +214,10 @@ struct Geo {
                 "fits the 227 KB a block can use");
 };
 
-// D: the geometry's width; dim (<= D, a multiple of 16): the head dim.
-template <typename T, int D>
+// D: the geometry's width; dim (<= D): the head dim; unit: the bytes of a
+// piece of a row's copy (copy_unit); kUnit: 16 where unit is (every served
+// model's rows: the piece a compile-time size), else 0.
+template <typename T, int D, int kUnit>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ cache_len,
@@ -164,7 +226,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         T* __restrict__ o, float* __restrict__ lse, int H, int KVH, int Smax,
                         int split, int n_split, int kv_start, long long qsb, long long qsh,
                         long long ksb, long long kss, long long ksh, long long osb,
-                        long long osh, int window, float scale, int dim) {
+                        long long osh, int window, float scale, int dim, int unit) {
   using Gm = Geo<T, D>;
   extern __shared__ __align__(16) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem + Gm::kQ);      // [kMaxG][D]
@@ -203,27 +265,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int t_lo = c_lo / kTile, t_hi = (c_hi + kTile - 1) / kTile;
   const int nt = t_hi - t_lo;
 
-  // all of K, then all of V, one commit group a tile: a row's units of the
-  // head dim copied, its units past it zeros
+  // all of K, then all of V, one commit group a tile
   const T* kb = kc + b * ksb + kvh * ksh + (long long)k0 * kss;
   const T* vb = vc + b * ksb + kvh * ksh + (long long)k0 * kss;
-  const int n_units = dim * (int)sizeof(T) / 16;
-  for (int pass = 0; pass < 2; ++pass) {
-    const T* src = pass == 0 ? kb : vb;
-    T* dst = pass == 0 ? ks : vs;
-    for (int t = t_lo; t < t_hi; ++t) {
-      const int e0 = max(t * kTile, c_lo), e1 = min(t * kTile + kTile, c_hi);
-      for (int i = tid; i < (e1 - e0) * Gm::kUnits; i += kThreads) {
-        const int e = e0 + i / Gm::kUnits, u = i % Gm::kUnits;
-        T* to = dst + e * D + u * (16 / (int)sizeof(T));
-        if (u < n_units)
-          cp_async16(to, src + e * kss + u * (16 / (int)sizeof(T)));
-        else
-          *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
-      }
-      cp_async_commit();
-    }
-  }
+  copy_tiles<T, D, kUnit>(ks, vs, kb, vb, kss, t_lo, t_hi, c_lo, c_hi, dim, unit, tid);
   for (int i = tid; i < Gc * D; i += kThreads) {
     const int d = i % D;
     qs[i] = d < dim ? to_f32(q[b * qsb + (h0 + i / D) * qsh + d]) : 0.f;
@@ -395,21 +440,35 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* kc, const void* vc, const int* len, float* pm,
                    float* pl, float* pa, int* counters, void* o, float* lse, int B, int H,
                    int KVH, int Smax, int dim, int split, int kv_start, const long long* st,
-                   int window, float scale, cudaStream_t stream) {
+                   int window, float scale, int unit, cudaStream_t stream) {
   using Gm = Geo<T, D>;
   const int G = H / KVH;
   const int n_gc = (G + kMaxG - 1) / kMaxG;
   const int n_split = (Smax + split - 1) / split;
   const int smem = Gm::bytes(split);
-  auto kernel = decode_attention_kernel<T, D>;
-  static int smem_set[kMaxDevices] = {};  // smem grows with the split
-  cudaError_t err = ensure_smem(kernel, smem, smem_set);
+  auto kernel = unit == 16 ? decode_attention_kernel<T, D, 16> : decode_attention_kernel<T, D, 0>;
+  static int smem_set[2][kMaxDevices] = {};  // smem grows with the split
+  cudaError_t err = ensure_smem(kernel, smem, smem_set[unit == 16]);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(n_split, KVH * n_gc, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), len, pm,
       pl, pa, counters, static_cast<T*>(o), lse, H, KVH, Smax, split, n_split, kv_start, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], window, scale, dim);
+      st[1], st[2], st[3], st[4], st[5], st[6], window, scale, dim, unit);
   return cudaGetLastError();
+}
+
+// The widest piece, 16, 8, 4 or (bfloat16) 2 bytes, that divides a row's
+// dim sizeof(T) bytes, every base address in `ptrs` and every stride (in
+// elements) in `strides` that is stepped over (its dimension longer than 1).
+int copy_unit(const void* const* ptrs, int n_ptrs, const long long* strides,
+              const int* extents, int n_strides, int dim, int es) {
+  unsigned long long bits = (unsigned long long)dim * es;
+  for (int i = 0; i < n_ptrs; ++i) bits |= reinterpret_cast<uintptr_t>(ptrs[i]);
+  for (int i = 0; i < n_strides; ++i)
+    if (extents[i] > 1) bits |= (unsigned long long)(strides[i] * es);
+  int unit = 16;
+  while (unit > es && bits % unit != 0) unit /= 2;
+  return unit;
 }
 
 template <typename T>
@@ -417,12 +476,15 @@ cudaError_t dispatch(int D, const void* q, const void* kc, const void* vc, const
                      float* pm, float* pl, float* pa, int* cnt, void* o, float* lse, int B,
                      int H, int KVH, int Smax, int split, int k0, const long long* st,
                      int window, float scale, cudaStream_t s) {
-  if (D < 16 || D > 128 || D % 16 != 0) return cudaErrorInvalidValue;
-  // the next instantiated width: 48 at 64; 80, 96 and 112 at 128
-  if (D <= 16) return launch<T, 16>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, s);
-  if (D <= 32) return launch<T, 32>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, s);
-  if (D <= 64) return launch<T, 64>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, s);
-  return launch<T, 128>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, s);
+  if (D < 1 || D > 128) return cudaErrorInvalidValue;
+  const void* ptrs[2] = {kc, vc};
+  const int extents[3] = {B, Smax, KVH};
+  const int u = copy_unit(ptrs, 2, st + 2, extents, 3, D, (int)sizeof(T));
+  // the next instantiated width: 8 at 16; 48 at 64; 72, 100 and 112 at 128
+  if (D <= 16) return launch<T, 16>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, u, s);
+  if (D <= 32) return launch<T, 32>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, u, s);
+  if (D <= 64) return launch<T, 64>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, u, s);
+  return launch<T, 128>(q, kc, vc, len, pm, pl, pa, cnt, o, lse, B, H, KVH, Smax, D, split, k0, st, window, scale, u, s);
 }
 
 // ---------------------------------------------------------------- head dim 256
@@ -493,6 +555,15 @@ cudaError_t dispatch(int D, const void* q, const void* kc, const void* vc, const
 // window, cache_len 0, a shard past cache_len) copies nothing and still
 // meets its cluster at both barriers; with no valid entry at all the output
 // is 0 (and lse -1e30).
+// Head dims from 129 to 255 run this kernel too: each row's D columns are
+// copied into its 256-wide shared row (per-row bulk copies of D sizeof(T)
+// bytes), whose columns past D every thread zeroes once before the first
+// copy (no copy ever writes them); q's likewise; o's D columns are written.
+// Where a row's bytes, the base addresses or the strides are not whole
+// 16-byte units (copy_unit below 16), the bulk copies cannot take them:
+// warp 0's lanes copy the rows in 8- or 4-byte cp.async pieces (plain loads
+// for a bfloat16 at an odd D), and the K and V barriers count the 32 lanes'
+// arrivals in place of the bytes.
 
 constexpr int kD256 = 256;
 constexpr int kWarps256 = 8;
@@ -638,7 +709,7 @@ decode_attention_d256_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                              T* __restrict__ o, float* __restrict__ lse, int H, int KVH,
                              int Smax, int csize, int kv_start, long long qsb, long long qsh,
                              long long ksb, long long kss, long long ksh, long long osb,
-                             long long osh, int window, float scale) {
+                             long long osh, int window, float scale, int dim, int unit) {
   constexpr int kWE = Gm::kWE, kStages = Gm::kStages, kEntries = Gm::kEntries;
   constexpr int kN = kWE * kHeads256;  // a lane's partial scores a stage
   constexpr int kSteps = kN == 32 ? 5 : (kN == 16 ? 4 : 3);
@@ -659,13 +730,23 @@ decode_attention_d256_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const uint32_t kfull = smem_u32(smem + Gm::kBars);  // K landed, V landed, stage freed
   const uint32_t vfull = kfull + 8 * kStages, freed = vfull + 8 * kStages;
 
+  const bool bulk = unit == 16;  // bulk copies; else warp 0's lanes' pieces
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(kfull + 8 * s, 1);
-      mbar_init(vfull + 8 * s, 1);
+      mbar_init(kfull + 8 * s, bulk ? 1 : 32);
+      mbar_init(vfull + 8 * s, bulk ? 1 : 32);
       mbar_init(freed + 8 * s, kWarps256);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (dim < kD256) {  // the columns past the head dim of every ring row and q row: zeros
+    const int pad = kD256 - dim, rows = 2 * kStages * kEntries;
+    T* ring = reinterpret_cast<T*>(smem);
+    T* qrow = reinterpret_cast<T*>(smem + Gm::kQ);
+    for (int i = tid; i < (rows + kHeads256) * pad; i += kThreads256) {
+      const int r = i / pad, d = dim + i % pad;
+      from_f32(r < rows ? ring + r * kD256 + d : qrow + (r - rows) * kD256 + d, 0.f);
+    }
   }
   cluster_arrive_relaxed();  // this block has started (waited for before the first remote store)
   // this block's share [e0, e0 + n) of the valid entries [lo, hi)
@@ -683,32 +764,54 @@ decode_attention_d256_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   // warp 0: stage t % kStages <- the K rows and the V rows of tile t; with
   // tile 0, on its K barrier, q's Gc rows (a block with no entries needs
   // no q)
+  const uint32_t row_bytes = (uint32_t)(dim * (int)sizeof(T));  // the bytes of a row copied
+  const bool whole = dim == kD256;  // shared rows as packed as the head dim's
   auto issue = [&](int t) {
     const int s = t % kStages, r0 = t * kEntries, rows = min(kEntries, n - r0);
     const int qrows = t == 0 ? Gc : 0;
     uint8_t* kdst = smem + s * 2 * Gm::kTileBytes;
     uint8_t* vdst = kdst + Gm::kTileBytes;
-    const uint32_t bytes = (uint32_t)rows * Gm::kRow;
+    if (!bulk) {  // each lane its pieces of the rows, then its arrivals
+      T* kt = reinterpret_cast<T*>(kdst);
+      T* vt = reinterpret_cast<T*>(vdst);
+      const int per = unit / (int)sizeof(T), pieces = dim / per;
+      for (int i = lane; i < qrows * pieces; i += 32) {
+        const int r = i / pieces, u = i - r * pieces;
+        copy_piece(const_cast<T*>(qs) + r * kD256 + u * per, qb + r * qsh + u * per, unit);
+      }
+      for (int i = lane; i < rows * pieces; i += 32) {
+        const int r = i / pieces, u = i - r * pieces;
+        copy_piece(kt + r * kD256 + u * per, kb + (r0 + r) * kss + u * per, unit);
+      }
+      if (unit >= 4) cp_async_mbar_arrive(kfull + 8 * s); else mbar_arrive(kfull + 8 * s);
+      for (int i = lane; i < rows * pieces; i += 32) {
+        const int r = i / pieces, u = i - r * pieces;
+        copy_piece(vt + r * kD256 + u * per, vb + (r0 + r) * kss + u * per, unit);
+      }
+      if (unit >= 4) cp_async_mbar_arrive(vfull + 8 * s); else mbar_arrive(vfull + 8 * s);
+      return;
+    }
+    const uint32_t bytes = (uint32_t)rows * row_bytes;
     if (lane == 0) {
-      mbar_expect_tx(kfull + 8 * s, bytes + (uint32_t)qrows * Gm::kRow);
+      mbar_expect_tx(kfull + 8 * s, bytes + (uint32_t)qrows * row_bytes);
       mbar_expect_tx(vfull + 8 * s, bytes);
     }
     __syncwarp();
-    if (qrows > 0 && (qsh == kD256 || qrows == 1)) {  // q's rows are one run
+    if (qrows > 0 && ((whole && qsh == kD256) || qrows == 1)) {  // q's rows are one run
       if (lane == 0)
-        bulk_load(smem_u32(qs), qb, (uint32_t)qrows * Gm::kRow, kfull + 8 * s);
+        bulk_load(smem_u32(qs), qb, (uint32_t)qrows * row_bytes, kfull + 8 * s);
     } else if (lane < qrows) {
-      bulk_load(smem_u32(qs + lane * kD256), qb + lane * qsh, Gm::kRow, kfull + 8 * s);
+      bulk_load(smem_u32(qs + lane * kD256), qb + lane * qsh, row_bytes, kfull + 8 * s);
     }
-    if (kss == kD256) {  // the rows are one run
+    if (whole && kss == kD256) {  // the rows are one run
       if (lane == 0) {
         bulk_load(smem_u32(kdst), kb + r0 * kss, bytes, kfull + 8 * s);
         bulk_load(smem_u32(vdst), vb + r0 * kss, bytes, vfull + 8 * s);
       }
     } else {
       for (int r = lane; r < rows; r += 32) {
-        bulk_load(smem_u32(kdst + r * Gm::kRow), kb + (r0 + r) * kss, Gm::kRow, kfull + 8 * s);
-        bulk_load(smem_u32(vdst + r * Gm::kRow), vb + (r0 + r) * kss, Gm::kRow, vfull + 8 * s);
+        bulk_load(smem_u32(kdst + r * Gm::kRow), kb + (r0 + r) * kss, row_bytes, kfull + 8 * s);
+        bulk_load(smem_u32(vdst + r * Gm::kRow), vb + (r0 + r) * kss, row_bytes, vfull + 8 * s);
       }
     }
   };
@@ -890,6 +993,7 @@ decode_attention_d256_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   __syncthreads();
   for (int i = tid; i < Gc * dc; i += kThreads256) {
     const int g = i / dc, j = i - g * dc;
+    if (rank * dc + j >= dim) continue;  // o's columns past the head dim are never written
     float a = 0.f;
     for (int r = 0; r < csize; ++r) a = fmaf(in[(r * kHeads256 + g) * dc + j], wt[r * kHeads256 + g], a);
     from_f32(o + b * osb + (long long)(h0 + g) * osh + rank * dc + j,
@@ -923,12 +1027,18 @@ cudaError_t configure256(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int
   return cudaSuccess;
 }
 
+// Head dim `dim` from 129 to 256.
 template <typename T>
 cudaError_t launch256(const void* q, const void* kc, const void* vc, const int* len, void* o,
-                      float* lse, int B, int H, int KVH, int Smax, int kv_start,
+                      float* lse, int B, int H, int KVH, int Smax, int dim, int kv_start,
                       const long long* st, int window, float scale, int csize,
                       cudaStream_t stream) {
+  if (dim <= 128 || dim > kD256) return cudaErrorInvalidValue;
   const int n_groups = (H / KVH + kGroupHeads - 1) / kGroupHeads;
+  const void* ptrs[3] = {q, kc, vc};
+  const long long strides[5] = {st[0], st[1], st[2], st[3], st[4]};  // q (b, h), caches (b, s, h)
+  const int extents[5] = {B, H, B, Smax, KVH};
+  const int unit = copy_unit(ptrs, 3, strides, extents, 5, dim, (int)sizeof(T));
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t err = configure256<T>(&cfg, attr, csize, dim3(csize * n_groups, KVH, B));
@@ -938,7 +1048,7 @@ cudaError_t launch256(const void* q, const void* kc, const void* vc, const int* 
                            static_cast<const T*>(q), static_cast<const T*>(kc),
                            static_cast<const T*>(vc), len, static_cast<T*>(o), lse, H, KVH,
                            Smax, csize, kv_start, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-                           window, scale);
+                           window, scale, dim, unit);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -972,8 +1082,7 @@ extern "C" int repro_decode_attention_geometry(int what) {
   }
 }
 
-// Head dims that are multiples of 16 up to 128 (any other returns
-// cudaErrorInvalidValue).  q/o [B, 1, H, D] (strides of b and h), caches
+// Head dims from 1 to 128 (any other returns cudaErrorInvalidValue).  q/o [B, 1, H, D] (strides of b and h), caches
 // [B, Smax, KVH, D] (k and v share their strides), cache_len one int32 on the
 // device.  The workspace:
 // part_m and part_l [B, H, n_split], part_acc [B, H, n_split, W] float32 (W
@@ -1008,13 +1117,13 @@ extern "C" int repro_decode_attention(const void* q, const void* kc, const void*
   return (int)err;
 }
 
-// Head dim 256: q/o [B, 1, H, 256] (strides of b and h), caches
-// [B, Smax, KVH, 256] (k and v share their strides), cache_len one int32 on
+// Head dims D from 129 to 256: q/o [B, 1, H, D] (strides of b and h), caches
+// [B, Smax, KVH, D] (k and v share their strides), cache_len one int32 on
 // the device; clusters of `cluster` blocks (1, 2, 4, 8 or 16), each serving
 // up to 8 of a kv head's query heads.  kv_start and lse as above.
 extern "C" int repro_decode_attention_d256(const void* q, const void* kc, const void* vc,
                                            const void* cache_len, void* o, void* lse, int B,
-                                           int H, int KVH, int Smax, int bf16, int kv_start,
+                                           int H, int KVH, int Smax, int D, int bf16, int kv_start,
                                            long long qsb, long long qsh, long long ksb,
                                            long long kss, long long ksh, long long osb,
                                            long long osh, int window, float scale, int cluster,
@@ -1025,9 +1134,9 @@ extern "C" int repro_decode_attention_d256(const void* q, const void* kc, const 
   const int* len = static_cast<const int*>(cache_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
-  return (int)(bf16 ? launch256<__nv_bfloat16>(q, kc, vc, len, o, ls, B, H, KVH, Smax, kv_start,
-                                               st, window, scale, cluster, s)
-                    : launch256<float>(q, kc, vc, len, o, ls, B, H, KVH, Smax, kv_start, st,
+  return (int)(bf16 ? launch256<__nv_bfloat16>(q, kc, vc, len, o, ls, B, H, KVH, Smax, D,
+                                               kv_start, st, window, scale, cluster, s)
+                    : launch256<float>(q, kc, vc, len, o, ls, B, H, KVH, Smax, D, kv_start, st,
                                        window, scale, cluster, s));
 }
 

@@ -81,19 +81,29 @@
 //    `ex2.approx`), masks only the tiles that reach past Sk, the diagonal or
 //    the window, and every product-sum outside the tensor cores is an
 //    explicit fmaf (the library is built with -fmad=false).
-// Head dims: every multiple of 16 up to 128.  One that is not a power of two
-// (kimi-k2-1t-a32b's 112, and 48, 80, 96) runs the geometry of the next
-// instantiated width W (16, 32, 64, 128: 112 at 128): the tensor maps keep
-// the true extent D, so TMA reads columns D .. W-1 of q, K and V as zeros
-// (OOB fill), which change neither Q K^T nor the first D columns of P V; the
-// split-TF32 halves of a zero are zeros; the O store writes only the first D
-// columns (a row of o is H D wide: a W-column store would write into the next
-// head); the scale is the true D's (the wrapper's D^-0.5).  The padding costs
-// W / D of the tensor-core work (128 / 112 = 1.14 at kimi's heads) and no
-// extra bytes of device memory: the zeros are made by TMA, not read.  Head
-// dim 256 (paligemma-3b's heads) does not fit this geometry in either type
-// and has a design of its own, flash_attention_d256_kernel (below, with its
-// note).
+// Head dims: every D from 1 to 256.  One up to 128 that is not an
+// instantiated width (kimi-k2-1t-a32b's 112, SigLIP-so400m's 72, 8, 100)
+// runs the geometry of the next one, W (16, 32, 64, 128: 72 and 112 at
+// 128); one from 129 to 256 (192, 200) runs the head-dim-256 kernel below.
+// The tensor maps keep the true extent D, so TMA reads columns D .. W-1 of
+// q, K and V as zeros (OOB fill), which change neither Q K^T nor the first
+// D columns of P V; the split-TF32 halves of a zero are zeros; the O store
+// writes only the first D columns (a row of o is H D wide: a W-column store
+// would write into the next head), two at a time where D and o's strides are
+// even, else one by one; the scale is the true D's (the wrapper's D^-0.5).
+// The padding costs W / D of the tensor-core work (128 / 112 = 1.14 at
+// kimi's heads, 128 / 72 = 1.78 at SigLIP's) and no extra bytes of device
+// memory: the zeros are made by TMA, not read.
+// Rows of D sizeof(T) bytes that are no multiple of 16 (bfloat16 at a D that
+// is no multiple of 8, float32 at one that is no multiple of 4) have no
+// layout whose strides TMA takes: the wrapper copies q, k and v of such a D
+// into tensors whose rows are padded to 16 bytes (kernels/flash_attention.py
+// `kernel_operands`; route (b) of the two this port weighed, the other being
+// loads without TMA in the kernel), whose maps keep the true extent D, and
+// refuses any other layout TMA cannot read (a misaligned base, odd strides):
+// the kernel itself only ever sees strides TMA takes.  Head dim 256 (paligemma-3b's heads)
+// does not fit this geometry in either type and has a design of its own,
+// flash_attention_d256_kernel (below, with its note).
 // A barrier wait that does not complete within ~2 s traps (a launch error in
 // place of a hung card).
 
@@ -112,6 +122,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 using repro::bulk_load;
 using repro::ensure_smem;
+using repro::from_f32;
 using repro::kMaxDevices;
 using repro::mbar_arrive;
 using repro::mbar_expect_tx;
@@ -642,17 +653,33 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// Columns col and col + 1 (col even) of an output row, those below dim:
+// one paired store where `pair` (dim and the row's start even), else one by
+// one.
+template <typename T>
+__device__ __forceinline__ void store_cols(T* row, int col, float a, float b, int dim,
+                                           bool pair) {
+  if (pair && col + 1 < dim) {
+    store2(row + col, a, b);
+    return;
+  }
+  if (col < dim) from_f32(row + col, a);
+  if (col + 1 < dim) from_f32(row + col + 1, b);
+}
+
 // ---------------------------------------------------------------- the kernel
 
-template <typename T, int D>
+template <typename T, int D, bool kWhole>
 __global__ void __launch_bounds__(Geo<T, D>::kThreads)
 flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, T* __restrict__ o, int H,
                        int KVH, int Sq, int Sk, long long osb, long long oss, long long osh,
                        int causal, int window, int q_offset, float scale, int dim) {
-  // D: the geometry's width; dim (<= D, a multiple of 8): the head dim, the
-  // columns of o written (q, K and V read as zeros past it)
+  // D: the geometry's width; dim (<= D): the head dim, the columns of o
+  // written (q, K and V read as zeros past it); kWhole: dim a multiple of 8
+  // and o's strides even (every served model's), so o's columns are stored
+  // in pairs with no test of the pair against dim
   using G = Geo<T, D>;
   constexpr int kBQ = G::kBQ;
   constexpr int kBK = G::kBK;
@@ -934,6 +961,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   }
 
+  [[maybe_unused]] const bool pair = ((osb | oss | osh | (long long)dim) & 1) == 0;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qi = q0 + r0 + 8 * half;
@@ -942,12 +970,22 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
     T* orow = o + b * osb + qi * oss + h * osh;
 #pragma unroll
     for (int j = 0; j < kDB; ++j)
-      if (8 * j < dim)
-        store2(orow + 8 * j + 2 * q4, acc[j][2 * half] / denom, acc[j][2 * half + 1] / denom);
+      if (8 * j < dim) {
+        if constexpr (kWhole)
+          store2(orow + 8 * j + 2 * q4, acc[j][2 * half] / denom, acc[j][2 * half + 1] / denom);
+        else
+          store_cols(orow, 8 * j + 2 * q4, acc[j][2 * half] / denom,
+                     acc[j][2 * half + 1] / denom, dim, pair);
+      }
   }
 }
 
 // ---------------------------------------------------------------- head dim 256
+//
+// Head dims from 129 to 255 run this kernel as well, with columns D .. 255 of
+// q, K and V zeros: q's (and bfloat16's K and V) from TMA, the maps keeping
+// the true extent; float32's K and V images written as zeros there by the
+// split kernel; only o's D columns are stored.
 //
 // At D = 256 (paligemma-3b's heads: 8 query heads on one kv head) the
 // geometry above does not fit: one warpgroup holding all 256 output columns
@@ -1077,7 +1115,8 @@ __device__ __forceinline__ void wgmma_s_bf16_ss(float (&d)[N / 8][4], uint64_t d
 
 // float32 at D = 256: keys [8 blockIdx.x, 8 blockIdx.x + 8) of kv head
 // blockIdx.y (b KVH + kvh) written into their tile's image (see the note
-// above): K_hi, K_lo, V^T_hi, V^T_lo, zeros past Sk.  Eight keys are one
+// above): K_hi, K_lo, V^T_hi, V^T_lo, zeros past Sk and past the head dim
+// `dim` (<= 256).  Eight keys are one
 // group of the V^T order, two 16-byte units of each V^T row, so a block
 // writes whole units; the grid has Sk / 8 blocks a kv head, enough to keep
 // the loads of every SM in flight.  A thread a column d: it reads column d
@@ -1088,7 +1127,7 @@ template <typename G>
 __global__ void __launch_bounds__(256)
 flash_attention_split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
                                 uint8_t* __restrict__ img, int KVH, int Sk, long long ksb,
-                                long long kss, long long ksh) {
+                                long long kss, long long ksh, int dim) {
   static_assert(G::D == 256, "a thread a column");
   constexpr int kGroups = G::kBK / 8;  // 8-key groups a tile
   const int t = blockIdx.x / kGroups;  // the tile
@@ -1106,8 +1145,8 @@ flash_attention_split_kv_kernel(const float* __restrict__ k, const float* __rest
 #pragma unroll
   for (int r = 0; r < 8; ++r) {  // all loads first
     const int key = t * G::kBK + r0 + r;
-    kx[r] = key < Sk ? kp[(long long)key * kss] : 0.f;
-    vx[r] = key < Sk ? vp[(long long)key * kss] : 0.f;
+    kx[r] = key < Sk && d < dim ? kp[(long long)key * kss] : 0.f;
+    vx[r] = key < Sk && d < dim ? vp[(long long)key * kss] : 0.f;
   }
   float vh[8], vl[8];  // this group of V^T row d, keys in the kernel's order
 #pragma unroll
@@ -1240,7 +1279,7 @@ flash_attention_d256_kernel(const __grid_constant__ CUtensorMap qmap,
                             const uint8_t* __restrict__ img, T* __restrict__ o, int B, int H,
                             int KVH, int Sq, int Sk, long long osb, long long oss,
                             long long osh, int causal, int window, int q_offset, float scale,
-                            int n_sm, int resident) {
+                            int n_sm, int resident, int dim) {
   constexpr int kBK = G::kBK;
   constexpr int kStages = G::kStages;
   constexpr int kNB = G::kNB;
@@ -1425,15 +1464,23 @@ flash_attention_d256_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   }
 
+  const bool pair = ((osb | oss | osh | (long long)dim) & 1) == 0;
+  const bool whole = pair && dim == G::D;  // paligemma-3b's: every column, paired
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qi = q0 + r0 + 8 * half;
     if (qi >= Sq) continue;
     const float denom = fmaxf(l[half], 1e-30f);
-    T* orow = o + b * osb + qi * oss + h * osh + kCols * wg;
+    T* orow = o + b * osb + qi * oss + h * osh;
 #pragma unroll
-    for (int j = 0; j < kCols / 8; ++j)
-      store2(orow + 8 * j + 2 * q4, acc[j][2 * half] / denom, acc[j][2 * half + 1] / denom);
+    for (int j = 0; j < kCols / 8; ++j) {
+      if (whole)
+        store2(orow + kCols * wg + 8 * j + 2 * q4, acc[j][2 * half] / denom,
+               acc[j][2 * half + 1] / denom);
+      else
+        store_cols(orow, kCols * wg + 8 * j + 2 * q4, acc[j][2 * half] / denom,
+                   acc[j][2 * half + 1] / denom, dim, pair);
+    }
   }
 }
 
@@ -1501,9 +1548,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   if (err == cudaSuccess)
     err = make_map<T, D>(&vm, v, B, Sk, KVH, st[3], st[4], st[5], G::kBK, dim);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_attention_kernel<T, D>;
-  static int smem_set[kMaxDevices] = {};
-  err = ensure_smem(kernel, G::kSmem, smem_set);
+  const bool whole = ((st[6] | st[7] | st[8] | (long long)dim) & 1) == 0 && dim % 8 == 0;
+  auto kernel = whole ? flash_attention_kernel<T, D, true> : flash_attention_kernel<T, D, false>;
+  static int smem_set[2][kMaxDevices] = {};
+  err = ensure_smem(kernel, G::kSmem, smem_set[whole]);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + G::kBQ - 1) / G::kBQ, H, B);
   kernel<<<grid, G::kThreads, G::kSmem, stream>>>(qm, km, vm, static_cast<T*>(o), H, KVH, Sq, Sk,
@@ -1518,28 +1566,29 @@ long long d256_workspace_bytes(int B, int KVH, int Sk) {
   return (long long)B * KVH * ((Sk + G::kBK - 1) / G::kBK) * G::kImage;
 }
 
-// Head dim 256: float32 splits K and V into the workspace first (a second
-// launch on the same stream), bfloat16 reads them through tensor maps.
+// Head dim `dim` from 129 to 256 on the head-dim-256 geometry: float32
+// splits K and V into the workspace first (a second launch on the same
+// stream), bfloat16 reads them through tensor maps.
 template <typename T>
 cudaError_t launch_d256(const void* q, const void* k, const void* v, void* o, void* ws,
-                        long long ws_bytes, int B, int H, int KVH, int Sq, int Sk,
+                        long long ws_bytes, int B, int H, int KVH, int Sq, int Sk, int dim,
                         const long long* st, int causal, int window, int q_offset, float scale,
                         cudaStream_t stream) {
   using G = typename Geo256Of<T>::G;
   CUtensorMap qm{}, km{}, vm{};
-  cudaError_t err = make_map<T, 256>(&qm, q, B, Sq, H, st[0], st[1], st[2], G::kBQ, 256);
+  cudaError_t err = make_map<T, 256>(&qm, q, B, Sq, H, st[0], st[1], st[2], G::kBQ, dim);
   if (err != cudaSuccess) return err;
   if constexpr (G::kF32) {
     if (ws == nullptr || ws_bytes < d256_workspace_bytes(B, KVH, Sk)) return cudaErrorInvalidValue;
     const dim3 grid((Sk + G::kBK - 1) / G::kBK * (G::kBK / 8), B * KVH);
     flash_attention_split_kv_kernel<G><<<grid, 256, 0, stream>>>(
         static_cast<const float*>(k), static_cast<const float*>(v), static_cast<uint8_t*>(ws),
-        KVH, Sk, st[3], st[4], st[5]);
+        KVH, Sk, st[3], st[4], st[5], dim);
     err = cudaGetLastError();
   } else {
-    err = make_map<T, 256>(&km, k, B, Sk, KVH, st[3], st[4], st[5], G::kBK, 256);
+    err = make_map<T, 256>(&km, k, B, Sk, KVH, st[3], st[4], st[5], G::kBK, dim);
     if (err == cudaSuccess)
-      err = make_map<T, 256>(&vm, v, B, Sk, KVH, st[3], st[4], st[5], G::kBK, 256);
+      err = make_map<T, 256>(&vm, v, B, Sk, KVH, st[3], st[4], st[5], G::kBK, dim);
   }
   if (err != cudaSuccess) return err;
   auto kernel = flash_attention_d256_kernel<T, G>;
@@ -1572,7 +1621,7 @@ cudaError_t launch_d256(const void* q, const void* k, const void* v, void* o, vo
   if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)n_blocks, G::kThreads, G::kSmem, stream>>>(
       qm, km, vm, static_cast<const uint8_t*>(ws), static_cast<T*>(o), B, H, KVH, Sq, Sk, st[6],
-      st[7], st[8], causal, window, q_offset, scale, sms, res);
+      st[7], st[8], causal, window, q_offset, scale, sms, res, dim);
   return cudaGetLastError();
 }
 
@@ -1581,11 +1630,11 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
                      long long ws_bytes, int B, int H, int KVH, int Sq, int Sk,
                      const long long* st, int causal, int window, int qo, float scale,
                      cudaStream_t stream) {
-  if (D == 256)
-    return launch_d256<T>(q, k, v, o, ws, ws_bytes, B, H, KVH, Sq, Sk, st, causal, window, qo,
-                          scale, stream);
-  if (D < 16 || D > 128 || D % 16 != 0) return cudaErrorInvalidValue;
-  // the next instantiated width: 48 at 64; 80, 96 and 112 at 128
+  if (D < 1 || D > 256) return cudaErrorInvalidValue;
+  if (D > 128)  // 129 .. 256 on the head-dim-256 geometry
+    return launch_d256<T>(q, k, v, o, ws, ws_bytes, B, H, KVH, Sq, Sk, D, st, causal, window,
+                          qo, scale, stream);
+  // the next instantiated width: 8 at 16; 48 at 64; 72, 100 and 112 at 128
   if (D <= 16) return launch<T, 16>(q, k, v, o, B, H, KVH, Sq, Sk, D, st, causal, window, qo, scale, stream);
   if (D <= 32) return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Sk, D, st, causal, window, qo, scale, stream);
   if (D <= 64) return launch<T, 64>(q, k, v, o, B, H, KVH, Sq, Sk, D, st, causal, window, qo, scale, stream);
@@ -1599,15 +1648,15 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
 extern "C" int repro_flash_attention_split_tile() { return Geo256Of<float>::G::kBK; }
 
 // q/o [B, Sq, H, D], k/v [B, Sk, KVH, D]; strides in elements, last dim 1;
-// k and v share their strides.  D: a multiple of 16 up to 128 (one that is
-// not a power of two on the next instantiated width's geometry), or 256;
+// k and v share their strides.  D: 1 to 128 on the next instantiated
+// width's geometry (16, 32, 64, 128), 129 to 256 on the head-dim-256 one;
 // anything else returns cudaErrorInvalidValue.  Row i of q sits at key position q_offset + i
 // (>= 0; a rank's rows of a sequence-sharded q): the causal mask and the
 // window compare those positions.  bf16 != 0: bfloat16 tensors, else float32.
 // TMA needs q, k and v 16-byte aligned and every stride a multiple of 16
 // bytes (the wrapper checks; a map that cannot be encoded returns
 // cudaErrorInvalidValue).  The workspace (16-byte aligned, ws_bytes long)
-// is used by float32 at D = 256 only, which needs B KVH ceil(Sk / tile)
+// is used by float32 at D from 129 to 256 only, which needs B KVH ceil(Sk / tile)
 // tile 4096 bytes (tile: repro_flash_attention_split_tile()) and returns
 // cudaErrorInvalidValue with less; any other call may pass NULL.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,

@@ -19,7 +19,8 @@
 // The carried term is skipped in the first chunk (the state entering it is
 // zero) and no contribution is formed for the last chunk (nothing reads
 // it), as in `ssd_scan_plain`, which defines the function.  One wrapper call
-// enqueues three kernels:
+// enqueues three kernels (after `ssd_chunk_cumsum_kernel` where the chunk is
+// longer than kSmemChunk, below):
 //  1. `ssd_chunk_state_kernel`: one block per (b, chunk, head, half of N)
 //     for each chunk's own state contribution, and one per (b, chunk,
 //     group, 64 x 64 tile on or below the diagonal) for C B^T, computed once
@@ -62,6 +63,26 @@
 // overflows, and a factor that underflows in float64 makes the product
 // underflow in float32 too; the product is off by ~2e-16 relative, inside
 // the same one rounding.  That is 128 exps a tile in place of 4,096.
+//
+// Sizes: the kernels are instantiated at P and N of 16, 32, 64, 128 and
+// 256; any head dim p and state size n up to 256 runs at the next of them
+// (48 at 64, 80 at 128, 200 at 256).  Columns of x, B and C past p or n are
+// staged as zeros, which change neither C B^T nor the first p rows and n
+// columns of a state; y's columns past p are never written.  The states in
+// the workspace are P x N (the padded rows and columns zeros), and the state
+// pass runs P N threads a head.
+//
+// Chunks: a chunk of up to kSmemChunk (2,048) steps keeps its float64
+// cumsum, dt and decay weights in each block's shared memory; a longer one
+// (any length: the reference's chunk is any divisor of S) has them
+// computed once per (b, chunk, head) by `ssd_chunk_cumsum_kernel` into the
+// workspace, where both kernels read them.  The output kernel's grid holds
+// B nc on its z dimension up to 65,535 and loops over the rest (at S 4,099,
+// a prime, the chunk is 1 and B 16 gives 65,584).  These three cases run the
+// kernels' general instantiations (kGen); a call at an instantiated P and N
+// with a chunk of up to kSmemChunk and B nc up to 65,535 (every served
+// model's) runs the others, with compile-time sizes and the cumsum in
+// shared memory, as fast as before the general ones existed.
 //
 // Layout: x [B, S, H, P], B and C [B, S, G, N] (head h reads group
 // h / (H / G)), dt [B, S, H] float32, all read through their strides (the
@@ -112,11 +133,14 @@ constexpr int kScanLanes = 32;  // threads of the float64 cumsum
 constexpr int kPS = kT + 4;     // decayed score tile row stride: 4 (mod 32)
 constexpr int kNChunk = 64;     // state columns staged at a time for C B^T and C s
 constexpr int kMaxSmem = 232448;
+constexpr int kSmemChunk = 2048;  // longer chunks keep cum, dt and w in the workspace
+constexpr int kMaxGridZ = 65535;
 
 __host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) & ~15; }
 
 // The shared-memory head every block starts with: cum [n] and the scan's
-// partials in float64, dt [n] in float32; the tiles follow at `tiles`.
+// partials in float64, dt [n] in float32; the tiles follow at `tiles`
+// (n = 0 for a chunk whose cum lives in the workspace).
 struct Head {
   int cum, part, dts, tiles;
   __host__ __device__ explicit Head(int n)
@@ -199,8 +223,9 @@ __device__ __forceinline__ void zero(float (&acc)[TM][TN][4]) {
 // cum[l] = sum_{k <= l} (double)(dts[k] * a) for l < n, in float64: 32
 // threads sum contiguous runs, one thread scans the runs' totals, then each
 // run adds its offset.  Every thread of the block calls it; it ends on a
-// barrier.
-__device__ void chunk_cumsum(const float* dts, float a, int n, double* cum, double* part) {
+// barrier.  Inlined, so that the callers' shared-memory arrays are read as
+// shared memory (the workspace's, for a long chunk, as global).
+__device__ __forceinline__ void chunk_cumsum(const float* dts, float a, int n, double* cum, double* part) {
   const int tid = threadIdx.x;
   const int per = (n + kScanLanes - 1) / kScanLanes;
   const int lo = min(n, tid * per), hi = min(n, lo + per);
@@ -232,6 +257,17 @@ __device__ void chunk_cumsum(const float* dts, float a, int n, double* cum, doub
 struct Strides {
   long long xsb, xss, xsh, dsb, dss, dsh, bsb, bss, bsg, csb, css, csg, ysb, yss, ysh;
   int vec;  // x, B and C rows start on whole 4-element units: loads go 4 elements at a time
+  int p, n;  // the true head dim and state size (<= the instance's P, N)
+};
+
+// A long chunk's float64 cumsum, dt and decay weights w_l = exp(cum_{L-1} -
+// cum_l), each [B, nc, H, L] in the workspace (ssd_chunk_cumsum_kernel);
+// all null for chunks of up to kSmemChunk, whose blocks keep them in shared
+// memory.
+struct Scratch {
+  double* cum;
+  float* dts;
+  float* w;
 };
 
 // Four consecutive elements of a row as floats: one 16-byte (float32) or
@@ -249,6 +285,17 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p, bool vec) {
   }
   return make_float4(to_f32(p[0]), to_f32(p[1]), to_f32(p[2]), to_f32(p[3]));
 }
+// Elements col .. col + 3 of a row (p points at col) where they lie below
+// `lim`, zeros past it: the padded columns of a head dim or state size that
+// is not an instantiated one (kGen; else every column is below `lim`).
+template <bool kGen, typename T>
+__device__ __forceinline__ float4 load4(const T* p, int col, int lim, bool vec) {
+  if (!kGen || col + 4 <= lim) return load4(p, vec);
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = col + e < lim ? to_f32(p[e]) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
 __device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 __device__ __forceinline__ float4 scale4(float4 v, float a) {
   return make_float4(v.x * a, v.y * a, v.z * a, v.w * a);
@@ -259,7 +306,8 @@ __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.
 
 template <int P, int N>
 struct StateGeo {
-  static constexpr int kNS = N >= 64 ? 2 : 1;  // blocks a head's state is split over (by N)
+  // blocks a head's state is split over (by N): 64 columns a block from N 128 on
+  static constexpr int kNS = N <= 32 ? 1 : (N == 64 ? 2 : N / 64);
   static constexpr int kNB = N / kNS;          // state columns a block computes
   static constexpr int kXS = P + 8;    // weighted xbar slab [64][P]: read down a column
   static constexpr int kBS = kNB + 8;  // B slab [64][kNB]: read down a column
@@ -275,11 +323,12 @@ struct StateGeo {
   }
 };
 
-template <typename T, int P, int N>
-__device__ void chunk_state(const T* __restrict__ x, const float* __restrict__ dt,
+template <typename T, int P, int N, bool kGen>
+__device__ __forceinline__ void chunk_state(const T* __restrict__ x, const float* __restrict__ dt,
                             const float* __restrict__ A, const T* __restrict__ Bm,
-                            float* __restrict__ states, float* __restrict__ decay, int idx,
-                            int H, int G, int nc, int L, const Strides& s, uint8_t* smem) {
+                            float* __restrict__ states, float* __restrict__ decay,
+                            const Scratch& ws, int idx, int H, int G, int nc, int L,
+                            const Strides& s, uint8_t* smem) {
   using SG = StateGeo<P, N>;
   using WG = WarpGrid<P, SG::kNB>;
   constexpr bool kSplitB = sizeof(T) == 4;
@@ -289,25 +338,39 @@ __device__ void chunk_state(const T* __restrict__ x, const float* __restrict__ d
   idx /= H;
   const int c = idx % (nc - 1), b = idx / (nc - 1);
   const int grp = h / (H / G);
-  const Head hd(L);
-  double* cum = reinterpret_cast<double*>(smem + hd.cum);
-  double* part = reinterpret_cast<double*>(smem + hd.part);
-  float* dts = reinterpret_cast<float*>(smem + hd.dts);
-  float* w = reinterpret_cast<float*>(smem + hd.tiles);
-  float* xs = w + align16(4 * L) / 4;
-  float* bs = xs + kT * SG::kXS;
-
+  const bool long_chunk = kGen && ws.cum != nullptr;  // cum, dt and w in the workspace
+  const Head hd(long_chunk ? 0 : L);
+  const float* dts;
+  const float* w;
+  float* xs;
   const int tid = threadIdx.x;
   const long long t0 = (long long)c * L;
   const T* xb = x + b * s.xsb + h * s.xsh + t0 * s.xss;
   const T* bb = Bm + b * s.bsb + grp * s.bsg + t0 * s.bss + nb * SG::kNB;
-  const float* db = dt + b * s.dsb + h * s.dsh + t0 * s.dss;
-  for (int l = tid; l < L; l += kThreads) dts[l] = db[l * s.dss];
-  __syncthreads();
-  chunk_cumsum(dts, A[h], L, cum, part);
-  const double total = cum[L - 1];
-  if (tid == 0 && nb == 0) decay[((long long)b * (nc - 1) + c) * H + h] = (float)exp(total);
-  for (int l = tid; l < L; l += kThreads) w[l] = (float)exp(total - cum[l]);
+  if (long_chunk) {
+    const long long o = (((long long)b * nc + c) * H + h) * L;
+    dts = ws.dts + o;
+    w = ws.w + o;
+    xs = reinterpret_cast<float*>(smem + hd.tiles);
+    if (tid == 0 && nb == 0)
+      decay[((long long)b * (nc - 1) + c) * H + h] = (float)exp(ws.cum[o + L - 1]);
+  } else {
+    double* scum = reinterpret_cast<double*>(smem + hd.cum);
+    double* part = reinterpret_cast<double*>(smem + hd.part);
+    float* sdts = reinterpret_cast<float*>(smem + hd.dts);
+    float* sw = reinterpret_cast<float*>(smem + hd.tiles);
+    const float* db = dt + b * s.dsb + h * s.dsh + t0 * s.dss;
+    for (int l = tid; l < L; l += kThreads) sdts[l] = db[l * s.dss];
+    __syncthreads();
+    chunk_cumsum(sdts, A[h], L, scum, part);
+    const double total = scum[L - 1];
+    if (tid == 0 && nb == 0) decay[((long long)b * (nc - 1) + c) * H + h] = (float)exp(total);
+    for (int l = tid; l < L; l += kThreads) sw[l] = (float)exp(total - scum[l]);
+    dts = sdts;
+    w = sw;
+    xs = sw + align16(4 * L) / 4;
+  }
+  float* bs = xs + kT * SG::kXS;
 
   float acc[WG::kTM][WG::kTN][4];
   zero(acc);
@@ -317,15 +380,18 @@ __device__ void chunk_state(const T* __restrict__ x, const float* __restrict__ d
     const int ns = min(kT, L - s0);
     __syncthreads();  // w is written; the previous slab is consumed
     for (int i = tid; i < kT * P / 4; i += kThreads) {
-      const int r = i / (P / 4), p = 4 * (i - r * (P / 4));
-      store4(xs + r * SG::kXS + p,
-             r < ns ? scale4(scale4(load4(xb + (s0 + r) * s.xss + p, s.vec), dts[s0 + r]),
+      const int r = i / (P / 4), col = 4 * (i - r * (P / 4));
+      store4(xs + r * SG::kXS + col,
+             r < ns ? scale4(scale4(load4<kGen>(xb + (s0 + r) * s.xss + col, col, s.p, s.vec),
+                                    dts[s0 + r]),
                              w[s0 + r])
                     : zero4());
     }
     for (int i = tid; i < kT * SG::kNB / 4; i += kThreads) {
-      const int r = i / (SG::kNB / 4), n = 4 * (i - r * (SG::kNB / 4));
-      store4(bs + r * SG::kBS + n, r < ns ? load4(bb + (s0 + r) * s.bss + n, s.vec) : zero4());
+      const int r = i / (SG::kNB / 4), col = 4 * (i - r * (SG::kNB / 4));
+      store4(bs + r * SG::kBS + col,
+             r < ns ? load4<kGen>(bb + (s0 + r) * s.bss + col, nb * SG::kNB + col, s.n, s.vec)
+                    : zero4());
     }
     __syncthreads();
     if (warp < WG::kBusy)
@@ -348,8 +414,8 @@ __device__ void chunk_state(const T* __restrict__ x, const float* __restrict__ d
       }
 }
 
-template <typename T, int P, int N>
-__device__ void chunk_scores(const T* __restrict__ Bm, const T* __restrict__ Cm,
+template <typename T, int P, int N, bool kGen>
+__device__ __forceinline__ void chunk_scores(const T* __restrict__ Bm, const T* __restrict__ Cm,
                              float* __restrict__ scores, int idx, int G, int nc, int L,
                              const Strides& s, uint8_t* smem) {
   using WG = WarpGrid<kT, kT>;
@@ -374,12 +440,15 @@ __device__ void chunk_scores(const T* __restrict__ Bm, const T* __restrict__ Cm,
   const int m0 = (warp % WG::kWM) * WG::kTM * 16, n0 = (warp / WG::kWM) * WG::kTN * 8;
   float acc[WG::kTM][WG::kTN][4];
   zero(acc);
-  for (int k0 = 0; k0 < N; k0 += kNC) {
+  const int n_cols = kGen ? s.n : N;
+  for (int k0 = 0; k0 < n_cols; k0 += kNC) {  // slices wholly past n are zeros: skipped
     if (k0 > 0) __syncthreads();  // the previous columns are consumed
     for (int i = tid; i < kT * kNC / 4; i += kThreads) {
-      const int r = i / (kNC / 4), n = 4 * (i - r * (kNC / 4));
-      store4(cs + r * kCS + n, r < nr ? load4(cb + r * s.css + k0 + n, s.vec) : zero4());
-      store4(bs + r * kCS + n, r < ns ? load4(bb + r * s.bss + k0 + n, s.vec) : zero4());
+      const int r = i / (kNC / 4), col = k0 + 4 * (i - r * (kNC / 4));
+      store4(cs + r * kCS + col - k0,
+             r < nr ? load4<kGen>(cb + r * s.css + col, col, s.n, s.vec) : zero4());
+      store4(bs + r * kCS + col - k0,
+             r < ns ? load4<kGen>(bb + r * s.bss + col, col, s.n, s.vec) : zero4());
     }
     __syncthreads();
     if (warp < WG::kBusy)
@@ -403,19 +472,40 @@ __device__ void chunk_scores(const T* __restrict__ Bm, const T* __restrict__ Cm,
 }
 
 // Blocks [0, n_state) form chunk contributions, the rest score tiles.
-template <typename T, int P, int N>
+// kGen: a head dim or state size below the instance's, or a chunk past
+// kSmemChunk (the host picks; every served model's calls run !kGen, whose
+// sizes are compile-time and whose cumsum is in shared memory).
+template <typename T, int P, int N, bool kGen>
 __global__ void __launch_bounds__(kThreads)
 ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                        const float* __restrict__ A, const T* __restrict__ Bm,
                        const T* __restrict__ Cm, float* __restrict__ states,
-                       float* __restrict__ decay, float* __restrict__ scores, int n_state,
-                       int H, int G, int nc, int L, Strides s) {
+                       float* __restrict__ decay, float* __restrict__ scores, Scratch ws,
+                       int n_state, int H, int G, int nc, int L, Strides s) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int idx = blockIdx.x;
   if (idx < n_state)
-    chunk_state<T, P, N>(x, dt, A, Bm, states, decay, idx, H, G, nc, L, s, smem);
+    chunk_state<T, P, N, kGen>(x, dt, A, Bm, states, decay, ws, idx, H, G, nc, L, s, smem);
   else
-    chunk_scores<T, P, N>(Bm, Cm, scores, idx - n_state, G, nc, L, s, smem);
+    chunk_scores<T, P, N, kGen>(Bm, Cm, scores, idx - n_state, G, nc, L, s, smem);
+}
+
+// A chunk longer than kSmemChunk: its cumsum, dt and decay weights, once per
+// (b, chunk, head) = blockIdx.x, into the workspace (see Scratch).
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_cumsum_kernel(const float* __restrict__ dt, const float* __restrict__ A, Scratch ws,
+                        int H, int nc, int L, Strides s) {
+  __shared__ double part[kScanLanes];
+  const int h = blockIdx.x % H, c = blockIdx.x / H % nc, b = blockIdx.x / H / nc;
+  const long long o = (long long)blockIdx.x * L;
+  const float* db = dt + b * s.dsb + h * s.dsh + (long long)c * L * s.dss;
+  float* dts = ws.dts + o;
+  double* cum = ws.cum + o;
+  for (int l = threadIdx.x; l < L; l += kThreads) dts[l] = db[l * s.dss];
+  __syncthreads();
+  chunk_cumsum(dts, A[h], L, cum, part);
+  const double total = cum[L - 1];
+  for (int l = threadIdx.x; l < L; l += kThreads) ws.w[o + l] = (float)exp(total - cum[l]);
 }
 
 // ---------------------------------------------------------------- 2. passing the state
@@ -452,28 +542,29 @@ struct ScanGeo {
   static int bytes(int L) { return Head(L).tiles + 2 * 8 * kT + kRegion; }  // + ul, vs
 };
 
-template <typename T, int P, int N>
-__global__ void __launch_bounds__(kThreads)
-ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                      const float* __restrict__ A, const T* __restrict__ Cm,
-                      const float* __restrict__ Dv, const float* __restrict__ states,
-                      const float* __restrict__ scores, T* __restrict__ y, int H, int G, int nc,
-                      int L, Strides s) {
+// One output block: row tile blockIdx.x (heaviest first) of head blockIdx.y
+// in chunk c of batch row b (z = b nc + c).  Inlined, as the two roles of
+// the states kernel are: a call would take `smem` as a generic pointer and
+// every tile access with it.
+template <typename T, int P, int N, bool kGen>
+__device__ __forceinline__ void chunk_scan(const T* __restrict__ x, const float* __restrict__ dt,
+                           const float* __restrict__ A, const T* __restrict__ Cm,
+                           const float* __restrict__ Dv, const float* __restrict__ states,
+                           const float* __restrict__ scores, T* __restrict__ y,
+                           const Scratch& ws, int z, int H, int G, int nc, int L,
+                           const Strides& s, uint8_t* smem) {
   using SG = ScanGeo<P, N>;
   using WG = WarpGrid<kT, P>;
   constexpr bool kSplitC = sizeof(T) == 4;
-  extern __shared__ __align__(16) uint8_t smem[];
   const int nt = gridDim.x, npairs = nt * (nt + 1) / 2;
   const int rt = nt - 1 - blockIdx.x;  // heavy row tiles first
   const int h = blockIdx.y;
-  const int c = blockIdx.z % nc, b = blockIdx.z / nc;
+  const int c = z % nc, b = z / nc;
   const int grp = h / (H / G);
   const int r0 = rt * kT, nr = min(kT, L - r0), rend = r0 + nr;
 
-  const Head hd(L);
-  double* cum = reinterpret_cast<double*>(smem + hd.cum);
-  double* part = reinterpret_cast<double*>(smem + hd.part);
-  float* dts = reinterpret_cast<float*>(smem + hd.dts);
+  const bool long_chunk = kGen && ws.cum != nullptr;  // cum and dt in the workspace
+  const Head hd(long_chunk ? 0 : L);
   double* ul = reinterpret_cast<double*>(smem + hd.tiles);  // exp(cum_l - cum_r0), l in the row tile
   double* vs = ul + kT;                                     // exp(cum_r0 - cum_s), s in a column tile
   float* region = reinterpret_cast<float*>(vs + kT);
@@ -485,10 +576,22 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int tid = threadIdx.x, warp = tid >> 5;
   const long long t0 = (long long)c * L;
   const T* xb = x + b * s.xsb + h * s.xsh + t0 * s.xss;
-  const float* db = dt + b * s.dsb + h * s.dsh + t0 * s.dss;
-  for (int l = tid; l < rend; l += kThreads) dts[l] = db[l * s.dss];
-  __syncthreads();
-  chunk_cumsum(dts, A[h], rend, cum, part);
+  const double* cum;
+  const float* dts;
+  if (long_chunk) {
+    const long long o = (((long long)b * nc + c) * H + h) * L;
+    cum = ws.cum + o;
+    dts = ws.dts + o;
+  } else {
+    double* scum = reinterpret_cast<double*>(smem + hd.cum);
+    float* sdts = reinterpret_cast<float*>(smem + hd.dts);
+    const float* db = dt + b * s.dsb + h * s.dsh + t0 * s.dss;
+    for (int l = tid; l < rend; l += kThreads) sdts[l] = db[l * s.dss];
+    __syncthreads();
+    chunk_cumsum(sdts, A[h], rend, scum, reinterpret_cast<double*>(smem + hd.part));
+    cum = scum;
+    dts = sdts;
+  }
 
   const bool busy = warp < WG::kBusy;
   const int m0 = (warp % WG::kWM) * WG::kTM * 16, n0 = (warp / WG::kWM) * WG::kTN * 8;
@@ -501,11 +604,13 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   if (c > 0) {  // the state entering this chunk, through C, decayed from the chunk's start
     const T* cb = Cm + b * s.csb + grp * s.csg + (t0 + r0) * s.css;
     const float* sb = states + (((long long)b * (nc - 1) + c - 1) * H + h) * (P * N);
-    for (int k0 = 0; k0 < N; k0 += SG::kNC) {
+    const int n_cols = kGen ? s.n : N;
+    for (int k0 = 0; k0 < n_cols; k0 += SG::kNC) {  // slices wholly past n are zeros: skipped
       if (k0 > 0) __syncthreads();  // the previous columns are consumed
       for (int i = tid; i < kT * SG::kNC / 4; i += kThreads) {
-        const int r = i / (SG::kNC / 4), n = 4 * (i - r * (SG::kNC / 4));
-        store4(cs + r * SG::kCS + n, r < nr ? load4(cb + r * s.css + k0 + n, s.vec) : zero4());
+        const int r = i / (SG::kNC / 4), col = k0 + 4 * (i - r * (SG::kNC / 4));
+        store4(cs + r * SG::kCS + col - k0,
+               r < nr ? load4<kGen>(cb + r * s.css + col, col, s.n, s.vec) : zero4());
       }
       for (int i = tid; i < P * SG::kNC / 4; i += kThreads) {
         const int p = i / (SG::kNC / 4), n = 4 * (i - p * (SG::kNC / 4));
@@ -564,9 +669,11 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       store4(ps + r * kPS + col, make_float4(v[0], v[1], v[2], v[3]));
     }
     for (int i = tid; i < kT * P / 4; i += kThreads) {
-      const int r = i / (P / 4), p = 4 * (i - r * (P / 4));
-      store4(xs + r * SG::kXS + p,
-             r < ns ? scale4(load4(xb + (s0 + r) * s.xss + p, s.vec), dts[s0 + r]) : zero4());
+      const int r = i / (P / 4), col = 4 * (i - r * (P / 4));
+      store4(xs + r * SG::kXS + col,
+             r < ns ? scale4(load4<kGen>(xb + (s0 + r) * s.xss + col, col, s.p, s.vec),
+                             dts[s0 + r])
+                    : zero4());
     }
     __syncthreads();
     if (busy)
@@ -589,19 +696,54 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int p = n0 + 8 * j + 2 * t + e;
+          if (kGen && p >= s.p) continue;  // y's columns past the head dim are never written
           const float xv = to_f32(xb[(r0 + r) * s.xss + p]);
           from_f32(yb + r * s.yss + p, acc[i][j][2 * half + e] + xv * dcoef);
         }
     }
 }
 
+// Blocks (row tile, head, z = blockIdx.z); under kGen (as above, or B nc
+// past 65,535) z = blockIdx.z, then z + gridDim.z, ... up to B nc: the
+// grid's z dimension holds at most 65,535.
+template <typename T, int P, int N, bool kGen>
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ A, const T* __restrict__ Cm,
+                      const float* __restrict__ Dv, const float* __restrict__ states,
+                      const float* __restrict__ scores, T* __restrict__ y, Scratch ws, int H,
+                      int G, int nc, int L, int n_z, Strides s) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  if constexpr (!kGen) {
+    chunk_scan<T, P, N, false>(x, dt, A, Cm, Dv, states, scores, y, ws, blockIdx.z, H, G, nc,
+                               L, s, smem);
+  } else {
+    for (int z = blockIdx.z; z < n_z; z += gridDim.z) {
+      if (z != (int)blockIdx.z) __syncthreads();  // the last block's shared memory is consumed
+      chunk_scan<T, P, N, true>(x, dt, A, Cm, Dv, states, scores, y, ws, z, H, G, nc, L, s,
+                                smem);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- host side
 
+// The instantiated size a head dim or state size runs at, or 0 above 256.
+int instance_size(int n) {
+  for (int w = 16; w <= 256; w *= 2)
+    if (n <= w) return w;
+  return 0;
+}
+
+// Float32 elements: the scores, the per-chunk decays, the states at the
+// instance's P x N, and for a chunk past kSmemChunk its cum (float64), dt
+// and w, B S H of each.
 long long workspace_floats(int B, int S, int H, int G, int P, int N, int L) {
   const long long nc = S / L, nt = (L + kT - 1) / kT;
   const long long scores = (long long)B * nc * G * (nt * (nt + 1) / 2) * kTile;
   const long long decay = ((long long)B * (nc - 1) * H + 3) / 4 * 4;
-  return scores + decay + (long long)B * (nc - 1) * H * P * N;
+  const long long scratch = L > kSmemChunk ? 4LL * B * S * H : 0;
+  return scores + decay + (long long)B * (nc - 1) * H * P * N + scratch;
 }
 
 template <typename T, int P, int N>
@@ -609,27 +751,44 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
                    const void* Cm, const float* Dv, void* y, float* ws, int B, int S, int H,
                    int G, int L, const Strides& st, cudaStream_t stream) {
   const int nc = S / L, nt = (L + kT - 1) / kT, npairs = nt * (nt + 1) / 2;
-  if ((long long)B * nc > 65535) return cudaErrorInvalidValue;
   float* scores = ws;
   float* decay = scores + (long long)B * nc * G * npairs * kTile;
   float* states = decay + ((long long)B * (nc - 1) * H + 3) / 4 * 4;
+  Scratch scratch{nullptr, nullptr, nullptr};
+  const int Ls = L > kSmemChunk ? 0 : L;  // the chunk's length in shared memory
+  if (L > kSmemChunk) {
+    const long long n = (long long)B * S * H;  // states end on an even float: cum aligned
+    scratch.cum = reinterpret_cast<double*>(states + (long long)B * (nc - 1) * H * P * N);
+    scratch.dts = reinterpret_cast<float*>(scratch.cum + n);
+    scratch.w = scratch.dts + n;
+  }
   const T* xt = static_cast<const T*>(x);
   const T* bt = static_cast<const T*>(Bm);
   const T* ct = static_cast<const T*>(Cm);
 
   const long long n_state = (long long)B * (nc - 1) * H * StateGeo<P, N>::kNS;
   const long long n_blocks = n_state + (long long)B * nc * G * npairs;
-  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int smem1 = StateGeo<P, N>::bytes(L);
-  const int smem3 = ScanGeo<P, N>::bytes(L);
+  if (n_blocks > 0x7fffffffLL || (long long)B * nc * H > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem1 = StateGeo<P, N>::bytes(Ls);
+  const int smem3 = ScanGeo<P, N>::bytes(Ls);
   if (smem1 > kMaxSmem || smem3 > kMaxSmem) return cudaErrorInvalidValue;
 
-  auto k1 = ssd_chunk_state_kernel<T, P, N>;
-  static int set1[kMaxDevices] = {};
-  cudaError_t err = ensure_smem(k1, smem1, set1);
+  cudaError_t err;
+  if (scratch.cum != nullptr) {
+    ssd_chunk_cumsum_kernel<<<(unsigned)(B * nc * H), kThreads, 0, stream>>>(dt, A, scratch, H,
+                                                                            nc, L, st);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  // the general instantiations only where the call needs them
+  const bool gen = st.p != P || st.n != N || L > kSmemChunk || (long long)B * nc > kMaxGridZ;
+  auto k1 = gen ? ssd_chunk_state_kernel<T, P, N, true> : ssd_chunk_state_kernel<T, P, N, false>;
+  static int set1[2][kMaxDevices] = {};
+  err = ensure_smem(k1, smem1, set1[gen]);
   if (err != cudaSuccess) return err;
   k1<<<(unsigned)n_blocks, kThreads, smem1, stream>>>(xt, dt, A, bt, ct, states, decay, scores,
-                                                      (int)n_state, H, G, nc, L, st);
+                                                      scratch, (int)n_state, H, G, nc, L, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -640,12 +799,13 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
     if (err != cudaSuccess) return err;
   }
 
-  auto k3 = ssd_chunk_scan_kernel<T, P, N>;
-  static int set3[kMaxDevices] = {};
-  err = ensure_smem(k3, smem3, set3);
+  auto k3 = gen ? ssd_chunk_scan_kernel<T, P, N, true> : ssd_chunk_scan_kernel<T, P, N, false>;
+  static int set3[2][kMaxDevices] = {};
+  err = ensure_smem(k3, smem3, set3[gen]);
   if (err != cudaSuccess) return err;
-  k3<<<dim3(nt, H, B * nc), kThreads, smem3, stream>>>(xt, dt, A, ct, Dv, states, scores,
-                                                       static_cast<T*>(y), H, G, nc, L, st);
+  const int n_z = B * nc;
+  k3<<<dim3(nt, H, n_z < kMaxGridZ ? n_z : kMaxGridZ), kThreads, smem3, stream>>>(
+      xt, dt, A, ct, Dv, states, scores, static_cast<T*>(y), scratch, H, G, nc, L, n_z, st);
   return cudaGetLastError();
 }
 
@@ -658,10 +818,12 @@ cudaError_t dispatch_n(int N, const void* x, const float* dt, const float* A, co
     case 32: return launch<T, P, 32>(x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
     case 64: return launch<T, P, 64>(x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
     case 128: return launch<T, P, 128>(x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
+    case 256: return launch<T, P, 256>(x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// P and N: the instantiated sizes (instance_size of the true ones, in st)
 template <typename T>
 cudaError_t dispatch(int P, int N, const void* x, const float* dt, const float* A,
                      const void* Bm, const void* Cm, const float* Dv, void* y, float* ws, int B,
@@ -671,29 +833,32 @@ cudaError_t dispatch(int P, int N, const void* x, const float* dt, const float* 
     case 32: return dispatch_n<T, 32>(N, x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
     case 64: return dispatch_n<T, 64>(N, x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
     case 128: return dispatch_n<T, 128>(N, x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
+    case 256: return dispatch_n<T, 256>(N, x, dt, A, Bm, Cm, Dv, y, ws, B, S, H, G, L, st, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-bool valid_shape(int B, int S, int H, int G, int L) {
-  return B >= 1 && S >= 1 && H >= 1 && G >= 1 && H % G == 0 && L >= 1 && S % L == 0 &&
-         H <= 65535;
+bool valid_shape(int B, int S, int H, int G, int P, int N, int L) {
+  return B >= 1 && B <= 65535 && S >= 1 && H >= 1 && G >= 1 && H % G == 0 && L >= 1 &&
+         S % L == 0 && H <= 65535 && instance_size(P) > 0 && instance_size(N) > 0 && P >= 1 &&
+         N >= 1;
 }
 
 }  // namespace
 
-// Float32 elements of the workspace a call needs (scores, per-chunk decays
-// and states), or -1 for a shape the kernels do not take.
+// Float32 elements of the workspace a call needs (scores, per-chunk decays,
+// states and a long chunk's cumsum), or -1 for a shape the kernels do not
+// take (P or N above 256).
 extern "C" long long repro_ssd_scan_workspace(int B, int S, int H, int G, int P, int N, int L) {
-  if (!valid_shape(B, S, H, G, L)) return -1;
-  return workspace_floats(B, S, H, G, P, N, L);
+  if (!valid_shape(B, S, H, G, P, N, L)) return -1;
+  return workspace_floats(B, S, H, G, instance_size(P), instance_size(N), L);
 }
 
 // x [B, S, H, P], dt [B, S, H] float32, A and D [H] float32 (contiguous),
 // B and C [B, S, G, N], y [B, S, H, P]; strides in elements, the last
 // dimension of x, B, C and y contiguous.  bf16 != 0: x, B, C and y bfloat16,
-// else float32.  L divides S; G divides H.  ws: repro_ssd_scan_workspace
-// float32 elements, 16-byte aligned.
+// else float32.  L divides S; G divides H; P and N from 1 to 256.  ws:
+// repro_ssd_scan_workspace float32 elements, 16-byte aligned.
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
                               const void* Cm, const void* Dv, void* y, void* ws,
                               int B, int S, int H, int G, int P, int N, int L, int bf16,
@@ -702,7 +867,7 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A, cons
                               long long bsb, long long bss, long long bsg,
                               long long csb, long long css, long long csg,
                               long long ysb, long long yss, long long ysh, void* stream) {
-  if (!valid_shape(B, S, H, G, L)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, S, H, G, P, N, L)) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(ws) % 16 != 0) return (int)cudaErrorInvalidValue;
   // rows of x, B and C start on 4-element units: base addresses and strides
   const uintptr_t unit = bf16 ? 8 : 16;
@@ -711,15 +876,16 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A, cons
                    reinterpret_cast<uintptr_t>(Cm) % unit == 0 &&
                    (xsb | xss | xsh | bsb | bss | bsg | csb | css | csg) % 4 == 0;
   const Strides st{xsb, xss, xsh, dsb, dss, dsh, bsb, bss, bsg, csb, css, csg, ysb, yss, ysh,
-                   (int)vec};
+                   (int)vec, P, N};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
   const float* Df = static_cast<const float*>(Dv);
   float* wf = static_cast<float*>(ws);
-  cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(P, N, x, dtf, Af, Bm, Cm, Df, y, wf, B, S,
+  const int Pi = instance_size(P), Ni = instance_size(N);
+  cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(Pi, Ni, x, dtf, Af, Bm, Cm, Df, y, wf, B, S,
                                                    H, G, L, st, s)
-                         : dispatch<float>(P, N, x, dtf, Af, Bm, Cm, Df, y, wf, B, S, H, G, L,
+                         : dispatch<float>(Pi, Ni, x, dtf, Af, Bm, Cm, Df, y, wf, B, S, H, G, L,
                                            st, s);
   return (int)err;
 }

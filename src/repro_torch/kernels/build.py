@@ -79,10 +79,10 @@ _SIGNATURES = {
     # h), window, scale, stream
     "repro_decode_attention": [_P] * 10 + [_I] * 8 + [_L] * 7 + [_I, _F, _P],
     "repro_decode_attention_geometry": [_I],
-    # head dim 256: q, k_cache, v_cache, cache_len, o, B, H, KVH, Smax, bf16,
-    # strides q (b, h), caches (b, s, h), o (b, h), window, scale, cluster,
-    # stream
-    "repro_decode_attention_d256": [_P] * 6 + [_I] * 6 + [_L] * 7 + [_I, _F, _I, _P],
+    # head dims 129-256: q, k_cache, v_cache, cache_len, o, lse, B, H, KVH,
+    # Smax, D, bf16, kv_start, strides q (b, h), caches (b, s, h), o (b, h),
+    # window, scale, cluster, stream
+    "repro_decode_attention_d256": [_P] * 6 + [_I] * 7 + [_L] * 7 + [_I, _F, _I, _P],
     # bf16, cluster, out
     "repro_decode_attention_d256_max_clusters": [_I, _I, _P],
     # x, dt, A, B, C, D, y, workspace, B, S, H, G, P, N, L, bf16, strides of

@@ -8,12 +8,11 @@ wrapper ``ops.decode_attention``.  :func:`decode_attention` launches a
 hand-written CUDA kernel (``csrc/decode_attention.cu``) for tensors on the
 card and runs :func:`decode_attention_plain` for tensors on the CPU; it
 never falls back from one to the other.  Head dims are those of
-:func:`kernel_width` (the flash kernel's rule): multiples of 16 up to 128
-(one that is not a power of two at the next instantiated width, its extra
-columns zeros) run split-KV
+:func:`kernel_width` (the flash kernel's rule), each at the width it gives,
+its extra columns zeros: 1 to 128 run split-KV
 blocks that stream the cache through shared memory, the last block of each
-kv head combining the splits (:func:`decode_split` picks the split); head
-dim 256 runs a thread-block cluster per (batch, kv head, group of up to 8
+kv head combining the splits (:func:`decode_split` picks the split); 129 to
+256 run a thread-block cluster per (batch, kv head, group of up to 8
 query heads) whose blocks share out the valid entries and combine in
 distributed shared memory (:func:`decode_cluster` picks the cluster,
 :func:`decode_cluster_on` with the kernel's geometry and the card's SMs;
@@ -37,8 +36,10 @@ NEG_INF`` (-1e30), finite, which the merge masks out.
 
 Shapes: q ``[B, 1, H, D]``, caches ``[B, Smax, KVH, D]`` (``H % KVH == 0``);
 float32 or bfloat16, float32 inside, the output ``[B, 1, H, D]`` in q's
-dtype.  The kernels copy the caches in 16-byte units: they start 16-byte
-aligned, with strides of whole 16-byte units (:func:`check_decode_layout`).
+dtype.  The kernels read the caches where they lie, never a copy: in
+16-byte pieces where the rows, base addresses and strides are whole 16-byte
+units, as every served model's are, else in the widest of 8, 4 or 2 bytes
+that divides them (:func:`check_decode_layout` says what they take).
 """
 
 from __future__ import annotations
@@ -124,12 +125,12 @@ def _check_args(q, k_cache, v_cache, cache_len, window):
 
 
 def check_decode_layout(k_cache, v_cache, q=None):
-    """Raise ``ValueError`` unless the kernels' 16-byte copies take the
-    caches and, where given, q (which the head-dim-256 kernel copies too)
-    as laid out (checked before every launch; runs on tensors on any
-    device): a contiguous last dimension, k and v with equal strides, each
-    tensor starting 16-byte aligned, and every other stride a positive
-    multiple of 16 bytes (a dimension of size 1 is never stepped over)."""
+    """Raise ``ValueError`` unless the kernels read the caches and, where
+    given, q as laid out (checked before every launch; runs on tensors on
+    any device): a contiguous last dimension, k and v with equal strides,
+    and every other stride positive (a dimension of size 1 is never stepped
+    over).  Any base address and any stride of whole elements is taken: the
+    kernels copy in the widest pieces (16, 8, 4 or 2 bytes) they divide."""
     if k_cache.stride(-1) != 1 or k_cache.stride() != v_cache.stride():
         raise ValueError("the kernel needs a contiguous last dimension, and caches with "
                          "equal strides")
@@ -137,14 +138,9 @@ def check_decode_layout(k_cache, v_cache, q=None):
         raise ValueError("the kernel needs q with a contiguous last dimension")
     named = [("k_cache", k_cache), ("v_cache", v_cache)] + ([("q", q)] if q is not None else [])
     for name, t in named:
-        if t.data_ptr() % 16:
-            raise ValueError(f"the kernel copies 16-byte units; {name} starts at an address "
-                             f"{t.data_ptr() % 16} bytes past a multiple of 16")
-        bad = [st for n, st in zip(t.shape[:3], t.stride()[:3])
-               if n != 1 and (st <= 0 or (st * t.element_size()) % 16)]
-        if bad or (t.shape[-1] * t.element_size()) % 16:
-            raise ValueError(f"the kernel copies 16-byte units; {name} has strides "
-                             f"{tuple(t.stride())} of {t.element_size()}-byte elements")
+        if any(n != 1 and st <= 0 for n, st in zip(t.shape[:3], t.stride()[:3])):
+            raise ValueError(f"the kernel steps over positive strides; {name} has strides "
+                             f"{tuple(t.stride())}")
 
 
 def decode_split(B: int, KVH: int, G: int, Smax: int, n_sms: int, *, tile: int = 16,
@@ -266,6 +262,7 @@ def _check_cluster(lib, device, bf16: int, cluster: int) -> None:
 
 def _launch_d256(lib, q, k_cache, v_cache, cache_len, o, lse, window: int,
                  kv_start: int) -> None:
+    """Head dims from 129 to 256: the cluster kernel."""
     B, _, H, D = q.shape
     Smax, KVH = k_cache.shape[1], k_cache.shape[2]
     bf16 = int(q.dtype == torch.bfloat16)
@@ -274,7 +271,7 @@ def _launch_d256(lib, q, k_cache, v_cache, cache_len, o, lse, window: int,
     with torch.cuda.device(q.device):
         code = lib.repro_decode_attention_d256(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-            o.data_ptr(), None if lse is None else lse.data_ptr(), B, H, KVH, Smax, bf16,
+            o.data_ptr(), None if lse is None else lse.data_ptr(), B, H, KVH, Smax, D, bf16,
             kv_start, q.stride(0), q.stride(2),
             *k_cache.stride()[:3], o.stride(0), o.stride(2), int(window),
             ctypes.c_float(D ** -0.5), cluster, torch.cuda.current_stream().cuda_stream)
@@ -308,7 +305,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, kv_start=0, wi
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if with_lse else None
     out = (o, lse) if with_lse else o
-    if D == 256:
+    if width == 256:
         _launch_d256(lib, q, k_cache, v_cache, cache_len, o, lse, window, kv_start)
         count_launch(decode_attention)
         return out

@@ -12,12 +12,15 @@ card and runs :func:`flash_attention_plain` for tensors on the CPU; it never
 falls back from one to the other.  Unlike
 the TPU kernel it reads the model's ``[B, S, H, D]`` layout through strides
 (no transposes) and takes lengths that no tile size divides.  TMA needs
-q, k and v 16-byte aligned with strides that are multiples of 16 bytes:
-:func:`check_kernel_layout` says what the kernel takes, and the wrapper
-raises on anything else.  Head dims: every multiple of 16 up to 128, and
-256 (:func:`kernel_width`, the rule the decode kernel shares); one that is
-not a power of two runs the next instantiated width with its extra
-columns read as zeros.
+q, k and v 16-byte aligned with strides that are multiples of 16 bytes,
+which no layout of rows of ``D * sizeof(T)`` bytes has where that is no
+multiple of 16 (bfloat16 at head dim 100): the wrapper copies q, k and v
+of such a head dim into rows padded to 16 bytes (:func:`kernel_operands`)
+and reads every other layout in place, refusing one TMA cannot read
+(:func:`check_kernel_layout`).  Head dims: every D from 1 to 256
+(:func:`kernel_width`, the rule the decode kernel shares); one that is not
+an instantiated width runs the next one with its extra columns read as
+zeros.
 
 Shapes: q ``[B, Sq, H, D]``, k/v ``[B, Sk, KVH, D]`` with ``H % KVH == 0``
 (query head ``h`` reads kv head ``h // (H // KVH)``); float32 or bfloat16,
@@ -36,10 +39,14 @@ import torch
 from .build import check, count_launch, library, refuse_grad
 
 __all__ = ["flash_attention", "flash_attention_plain", "masked_attention", "attention_mask",
-           "check_kernel_layout", "workspace_bytes", "kernel_width", "NEG_INF"]
+           "check_kernel_layout", "kernel_operands", "workspace_bytes", "kernel_width",
+           "MAX_HEAD_DIM", "NEG_INF"]
 
 NEG_INF = -1e30
-_WIDTHS = (16, 32, 64, 128)  # the instantiated widths of the kernels for head dims up to 128
+_WIDTHS = (16, 32, 64, 128, 256)  # the instantiated widths of the kernels
+# the widest head dim: shared memory holds the head-dim-256 geometries' tiles
+# and no wider ones (ROADMAP B)
+MAX_HEAD_DIM = _WIDTHS[-1]
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -107,37 +114,50 @@ def _check_args(q, k, v, window, q_offset=0):
         raise ValueError(f"q_offset must be >= 0; got {q_offset}")
 
 
+def _row16(t) -> int:
+    """The head dim in elements, rounded up to whole 16-byte units."""
+    return -(-t.shape[-1] * t.element_size() // 16) * 16 // t.element_size()
+
+
 def _tma_strides(t):
     """The strides (elements) of dims 0-2 as the kernel's tensor maps take
     them: a dimension of size 1 is never stepped over, so its stride is
-    replaced by the head dim's, which every accepted layout aligns."""
-    return [st if n != 1 else t.shape[-1] for n, st in zip(t.shape[:3], t.stride()[:3])]
+    replaced by the head dim rounded up to 16 bytes, which TMA takes."""
+    return [st if n != 1 else _row16(t) for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
 def kernel_width(D: int) -> int:
-    """The width both attention kernels run head dim ``D`` at: a multiple of
-    16 from 16 to 128 runs at the next instantiated width (16, 32, 64 or
-    128; 48 at 64, 80, 96 and 112 at 128), whose columns past D the kernels
-    read as zeros and never write; 256 at its own kernel's.  Raise
-    ``ValueError``, naming the head dims the kernels take, for any other
-    (checked before every launch; runs anywhere, so the CPU tests hold it)."""
+    """The width both attention kernels run head dim ``D`` at: D from 1 to
+    128 at the next instantiated width (16, 32, 64 or 128; 8 at 16, 48 at
+    64, 72, 100 and 112 at 128), D from 129 to 256 at the head-dim-256
+    kernels' (192, 200), whose columns past D the kernels read as zeros and
+    never write.  Raise ``ValueError``, naming the head dims the kernels
+    take, above :data:`MAX_HEAD_DIM` (checked before every launch; runs
+    anywhere, so the CPU tests hold it)."""
     D = int(D)
-    if D == 256:
-        return 256
-    if D % 16 == 0 and 16 <= D <= _WIDTHS[-1]:
+    if 1 <= D <= MAX_HEAD_DIM:
         return next(w for w in _WIDTHS if w >= D)
-    raise ValueError(f"the kernels take head dims that are multiples of 16 from 16 to 128, "
-                     f"and 256; got {D}")
+    raise ValueError(f"the kernels take head dims from 1 to {MAX_HEAD_DIM} (shared memory holds "
+                     f"the head-dim-256 kernels' tiles and no wider); got {D}")
+
+
+def _needs_padding(t) -> bool:
+    """Whether a row of ``t``'s head dim is no whole number of 16-byte
+    units, so that no stride of a layout of such rows is one TMA takes."""
+    return (t.shape[-1] * t.element_size()) % 16 != 0
 
 
 def check_kernel_layout(q, k, v):
-    """Raise ``ValueError`` unless the kernel takes these tensors as laid
-    out (checked before every launch; runs on tensors on any device): a
-    head dim :func:`kernel_width` takes, a contiguous last dimension, k and
-    v with equal strides, and what the kernel's TMA copies need: every base
-    address 16-byte aligned and every other stride a positive multiple of 16
-    bytes."""
+    """Raise ``ValueError`` unless the kernel takes these tensors (checked
+    before every launch; runs on tensors on any device): a head dim
+    :func:`kernel_width` takes and, unless its rows are no whole number of
+    16-byte units (:func:`kernel_operands` copies those), a layout the
+    kernel's TMA copies read in place: a contiguous last dimension, k and v
+    with equal strides, every base address 16-byte aligned and every other
+    stride a positive multiple of 16 bytes."""
     kernel_width(q.shape[-1])
+    if _needs_padding(q):
+        return
     if q.stride(-1) != 1 or k.stride(-1) != 1 or k.stride() != v.stride():
         raise ValueError("the kernel needs a contiguous last dimension, and k and v "
                          "with equal strides")
@@ -145,22 +165,40 @@ def check_kernel_layout(q, k, v):
         if t.data_ptr() % 16:
             raise ValueError(f"TMA needs 16-byte-aligned tensors; {name} starts at an address "
                              f"{t.data_ptr() % 16} bytes past a multiple of 16")
-        bad = [st for st in _tma_strides(t) if st <= 0 or (st * t.element_size()) % 16]
-        if bad:
+        if any(st <= 0 or (st * t.element_size()) % 16 for st in _tma_strides(t)):
             raise ValueError(f"TMA needs strides that are positive multiples of 16 bytes; {name} "
                              f"has strides {tuple(t.stride())} of {t.element_size()}-byte "
                              f"elements")
 
 
+def _padded(t):
+    """A copy of ``t`` [B, S, H, D] whose rows are padded to whole 16-byte
+    units (the view of its first D columns: the kernel's maps keep the
+    extent D, so the pad is never read)."""
+    buf = torch.empty((*t.shape[:3], _row16(t)), dtype=t.dtype, device=t.device)
+    view = buf[..., :t.shape[-1]]
+    view.copy_(t)
+    return view
+
+
+def kernel_operands(q, k, v):
+    """q, k and v as the kernel reads them: copies with rows padded to 16
+    bytes where a row of the head dim is no whole number of 16-byte units,
+    else the tensors themselves.  Runs on tensors on any device."""
+    if _needs_padding(q):
+        return _padded(q), _padded(k), _padded(v)
+    return q, k, v
+
+
 def workspace_bytes(B, KVH, Sk, D, dtype, tile) -> int:
-    """Bytes of scratch a kernel call needs: float32 at head dim 256 splits K
-    and V into TF32 hi and lo halves once a call, ``tile`` keys at a time
-    (the kernel's kv tile, ``repro_flash_attention_split_tile()``), each key
-    as 4 x D float32 (K_hi, K_lo, V^T_hi, V^T_lo) and the keys padded to
-    whole tiles; every other call needs none."""
-    if D != 256 or dtype != torch.float32:
+    """Bytes of scratch a kernel call needs: float32 at head dims from 129 to
+    256 splits K and V into TF32 hi and lo halves once a call, ``tile`` keys
+    at a time (the kernel's kv tile, ``repro_flash_attention_split_tile()``),
+    each key as 4 x 256 float32 (K_hi, K_lo, V^T_hi, V^T_lo, zeros past D)
+    and the keys padded to whole tiles; every other call needs none."""
+    if not _WIDTHS[-2] < D <= MAX_HEAD_DIM or dtype != torch.float32:
         return 0
-    return B * KVH * -(-Sk // tile) * tile * 4 * D * 4
+    return B * KVH * -(-Sk // tile) * tile * 4 * MAX_HEAD_DIM * 4
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -176,10 +214,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors; got {q.device}")
     check_kernel_layout(q, k, v)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    q, k, v = kernel_operands(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     lib = library()
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     nbytes = workspace_bytes(B, KVH, Sk, D, q.dtype, lib.repro_flash_attention_split_tile())
     ws = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
     with torch.cuda.device(q.device):

@@ -21,10 +21,13 @@ factors that are then at most 1.
 Both versions compute the chunked dual form at the chunk ``L`` (the largest
 divisor of S that is at most ``chunk``, as ``ops._pick_block``): within a
 chunk the quadratic form over the visible pairs, across chunks the carried
-state.  The cumulative log-decay is summed in float64 and each decay factor
-is evaluated in float64 and rounded once to float32: at the models' widths
-the decay within a chunk reaches ~-3,400, where a float32 cumsum is off by
-~1e-4 and its value depends on the order of the sum (see the CUDA source).
+state.  The kernels take every shape the reference's kernel takes up to a
+head dim and state size of 256 (:func:`kernel_size`), any chunk and any
+count of chunks.  The cumulative log-decay is summed in float64 and each
+decay factor is evaluated in float64 and rounded once to float32: at the
+models' widths the decay within a chunk reaches ~-3,400, where a float32
+cumsum is off by ~1e-4 and its value depends on the order of the sum (see
+the CUDA source).
 """
 
 from __future__ import annotations
@@ -33,12 +36,23 @@ import torch
 
 from .build import check, count_launch, library, refuse_grad
 
-__all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_tolerance", "pick_chunk", "KERNEL_SIZES",
-           "MAX_CHUNK"]
+__all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_tolerance", "pick_chunk", "kernel_size",
+           "KERNEL_SIZES"]
 
-KERNEL_SIZES = (16, 32, 64, 128)  # head dims P and state sizes N the kernel takes
-MAX_CHUNK = 2048  # the kernel keeps a chunk's float64 cumsum in shared memory
+KERNEL_SIZES = (16, 32, 64, 128, 256)  # the instantiated head dims P and state sizes N
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_size(n: int, what: str = "head dims and state sizes") -> int:
+    """The instantiated size a head dim P or state size N runs at: the next
+    of :data:`KERNEL_SIZES` (48 at 64, 80 at 128, 200 at 256), whose columns
+    past ``n`` the kernels read as zeros and never write.  Raise
+    ``ValueError`` above 256 (checked before every launch; runs anywhere,
+    so the CPU tests hold it)."""
+    n = int(n)
+    if 1 <= n <= KERNEL_SIZES[-1]:
+        return next(w for w in KERNEL_SIZES if w >= n)
+    raise ValueError(f"the kernels take {what} from 1 to {KERNEL_SIZES[-1]}; got {n}")
 
 
 def pick_chunk(seq_len: int, chunk: int) -> int:
@@ -185,11 +199,8 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk=64):
         raise ValueError(f"ssd_scan runs on cuda or cpu tensors; got {x.device}")
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    if p not in KERNEL_SIZES or n not in KERNEL_SIZES:
-        raise ValueError(f"the kernel takes head dims and state sizes {KERNEL_SIZES}; got "
-                         f"P={p}, N={n}")
-    if L > MAX_CHUNK:
-        raise ValueError(f"the kernel takes chunks up to {MAX_CHUNK}; got {L}")
+    kernel_size(p, "head dims P")
+    kernel_size(n, "state sizes N")
     if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1:
         raise ValueError("the kernel needs x, B and C with a contiguous last dimension")
     lib = library()

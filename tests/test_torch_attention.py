@@ -22,8 +22,8 @@ from repro_torch.kernels import (decode_attention, decode_attention_plain, flash
                                  flash_attention_plain)
 from repro_torch.kernels.decode_attention import (check_decode_layout, decode_cluster,
                                                   decode_shares, decode_split, decode_valid)
-from repro_torch.kernels.flash_attention import (check_kernel_layout, kernel_width,
-                                                 workspace_bytes)
+from repro_torch.kernels.flash_attention import (check_kernel_layout, kernel_operands,
+                                                 kernel_width, workspace_bytes)
 from repro_torch.models.attention import attention
 from repro_torch.models.attention import decode_attention as model_decode_attention
 
@@ -46,6 +46,15 @@ FLASH_CASES = [
     (1, 256, 256, 8, 1, 112, True, 0),
     (1, 100, 100, 8, 1, 112, True, 96),
     (1, 128, 128, 4, 2, 80, True, 0),
+    # any head dim up to 256: 8 (width 16), SigLIP-so400m's 72 and 100
+    # (width 128; bfloat16 rows of 200 bytes, which the wrapper copies into
+    # padded rows on the card), 192 on the head-dim-256 kernels; GQA, a
+    # window, a length no tile divides, unmasked Sq != Sk
+    (1, 128, 128, 4, 2, 8, True, 0),
+    (1, 128, 128, 8, 2, 72, True, 32),
+    (1, 100, 100, 4, 2, 100, True, 0),
+    (1, 128, 192, 8, 1, 192, False, 0),
+    (1, 128, 128, 8, 1, 192, True, 64),
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -110,6 +119,10 @@ DECODE_SHAPE = (2, 4, 2, 32, 256)  # B, H, KVH, D, Smax (as tests/test_kernels.p
 DECODE_SHAPE_256 = (2, 8, 1, 256, 192)
 # kimi-k2-1t-a32b's grouping, 8 query heads a kv head, at its head dim 112
 DECODE_SHAPE_112 = (2, 8, 1, 112, 192)
+# any head dim up to 256: 8, SigLIP-so400m's 72, 100, 192 (the head-dim-256
+# kernel's); GQA
+DECODE_SHAPES_ANY = [(2, 4, 2, 8, 192), (2, 4, 2, 72, 192), (2, 8, 1, 100, 192),
+                     (2, 8, 1, 192, 192)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,12 +191,27 @@ def test_decode_attention_head_dim_112_matches_pallas_and_oracle(cache_len, wind
     np.testing.assert_allclose(_np32(out), oracle, rtol=tol, atol=tol)
 
 
-# every head dim the kernels take, and the width each runs at; others refused
+@pytest.mark.parametrize("impl", sorted(DECODE_IMPLS))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("cache_len", [1, 150])
+@pytest.mark.parametrize("shape", DECODE_SHAPES_ANY, ids=lambda s: f"D{s[3]}")
+def test_decode_attention_any_head_dim_matches_pallas_and_oracle(shape, cache_len, window,
+                                                                 dtype, impl):
+    (q, k, v), kern, oracle = _decode_case(cache_len, window, dtype, shape)
+    out = DECODE_IMPLS[impl](q, k, v, cache_len, window)
+    assert out.dtype == q.dtype and tuple(out.shape) == tuple(q.shape)
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(_np32(out), kern, rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np32(out), oracle, rtol=tol, atol=tol)
+
+
+# every head dim from 1 to 256 runs at the next instantiated width; others refused
 @pytest.mark.parametrize("D,width", [(16, 16), (32, 32), (48, 64), (64, 64), (80, 128),
                                      (96, 128), (112, 128), (128, 128), (256, 256),
-                                     (8, None), (24, None), (120, None), (144, None),
-                                     (192, None), (512, None), (0, None)])
-def test_kernel_width_takes_multiples_of_16_to_128_and_256(D, width):
+                                     (8, 16), (24, 32), (120, 128), (144, 256),
+                                     (192, 256), (512, None), (0, None)])
+def test_kernel_width_takes_every_head_dim_up_to_256(D, width):
     if width is None:
         with pytest.raises(ValueError, match="head dims"):
             kernel_width(D)
@@ -209,13 +237,18 @@ def test_flash_attention_wrapper_rejects(what):
         flash_attention(*args)
 
 
+def _fused(B, S, H, KVH, D, dtype=torch.float32):
+    """q, k and v as views of one fused projection [B, S, (H + 2 KVH) D]."""
+    qkv = torch.zeros(B, S, (H + 2 * KVH) * D, dtype=dtype)
+    return (qkv[..., :H * D].view(B, S, H, D), qkv[..., H * D:(H + KVH) * D].view(B, S, KVH, D),
+            qkv[..., (H + KVH) * D:].view(B, S, KVH, D))
+
+
 def _layouts():
     """(q, k, v) laid out as the kernel takes them (``None``), or not (the
     words its refusal must contain)."""
     B, S, H, KVH, D = 2, 8, 4, 2, 16
-    qkv = torch.zeros(B, S, (H + 2 * KVH) * D)  # a fused projection, viewed per part
-    fused = (qkv[..., :H * D].view(B, S, H, D), qkv[..., H * D:(H + KVH) * D].view(B, S, KVH, D),
-             qkv[..., (H + KVH) * D:].view(B, S, KVH, D))
+    fused = _fused(B, S, H, KVH, D)
     k, v = torch.zeros(B, S, KVH, D), torch.zeros(B, S, KVH, D)
     q = torch.zeros(B, S, H, D)
     flat = torch.zeros(B * S * H * D + 1)
@@ -237,8 +270,20 @@ def _layouts():
                               torch.zeros(B, S, KVH, 80).bfloat16()), None),
         "head_dim_48": ((torch.zeros(B, S, H, 48), torch.zeros(B, S, KVH, 48),
                          torch.zeros(B, S, KVH, 48)), None),
-        "head_dim": ((torch.zeros(B, S, H, 120), torch.zeros(B, S, KVH, 120),
-                      torch.zeros(B, S, KVH, 120)), "head dims"),
+        "head_dim": ((torch.zeros(B, S, H, 320), torch.zeros(B, S, KVH, 320),
+                      torch.zeros(B, S, KVH, 320)), "head dims"),
+        "head_dim_72": ((torch.zeros(B, S, H, 72), torch.zeros(B, S, KVH, 72),
+                         torch.zeros(B, S, KVH, 72)), None),
+        "head_dim_192_bf16": ((torch.zeros(B, S, H, 192).bfloat16(),
+                               torch.zeros(B, S, KVH, 192).bfloat16(),
+                               torch.zeros(B, S, KVH, 192).bfloat16()), None),
+        # rows of 200 / 28 bytes: copied into padded rows, whatever the strides
+        "head_dim_100_bf16": ((torch.zeros(B, S, H, 100).bfloat16(),
+                               torch.zeros(B, S, KVH, 100).bfloat16(),
+                               torch.zeros(B, S, KVH, 100).bfloat16()), None),
+        "head_dim_100_bf16_fused": (_fused(B, S, H, KVH, 100, torch.bfloat16), None),
+        "head_dim_7": ((torch.zeros(B, S, H, 7), torch.zeros(B, S, KVH, 7),
+                        torch.zeros(B, S, KVH, 7)), None),
         "last_dim_stride": ((q.transpose(2, 3).contiguous().transpose(2, 3), k, v),
                             "contiguous last dimension"),
         "kv_strides_differ": ((q, k, torch.zeros(B, KVH, S, D).transpose(1, 2)),
@@ -248,14 +293,49 @@ def _layouts():
 
 @pytest.mark.parametrize("what", sorted(_layouts()))
 def test_flash_kernel_layout_check(what):
-    """What the kernel's TMA copies take, checked on CPU tensors: the check
-    the wrapper runs before every launch on the card."""
+    """What the kernel's TMA copies take in place, checked on CPU tensors:
+    the check the wrapper runs before every launch on the card, reading the
+    tensors that pass in place and copying the rest (but a head dim above
+    256, which it refuses)."""
     args, words = _layouts()[what]
     if words is None:
         check_kernel_layout(*args)
     else:
         with pytest.raises(ValueError, match=words):
             check_kernel_layout(*args)
+
+
+@pytest.mark.parametrize("what", sorted(w for w, (_, words) in _layouts().items()
+                                         if words is None))
+def test_flash_kernel_operands_are_what_tma_reads(what):
+    """Every layout the kernel takes: the tensors themselves, which TMA
+    reads in place, or, where a row of the head dim is no whole number of
+    16-byte units (bfloat16 at 100, float32 at 7), copies equal to them
+    whose rows are padded to 16 bytes, 16-byte aligned."""
+    args, _ = _layouts()[what]
+    ops = kernel_operands(*args)
+    padded = (args[0].shape[-1] * args[0].element_size()) % 16 != 0
+    for t, o in zip(args, ops):
+        assert o.shape == t.shape and torch.equal(o, t)
+        assert (o.data_ptr() != t.data_ptr()) == padded
+        if padded:
+            assert o.stride(-1) == 1 and o.data_ptr() % 16 == 0
+            assert all(st > 0 and (st * o.element_size()) % 16 == 0 for st in o.stride()[:3])
+
+
+@pytest.mark.parametrize("what", sorted(w for w, (_, words) in _layouts().items()
+                                         if words is not None))
+def test_flash_kernel_operands_copy_no_refused_layout(what):
+    """A layout the kernel refuses at a head dim whose rows are whole
+    16-byte units (a misaligned view, odd strides, k and v apart) is handed
+    back as it is, not copied, so the wrapper's check raises on it before a
+    launch: a layout regression in the model shows as an error, not as
+    copies in every prefill."""
+    args, words = _layouts()[what]
+    ops = kernel_operands(*args)
+    assert all(o is t for t, o in zip(args, ops))
+    with pytest.raises(ValueError, match=words):
+        check_kernel_layout(*ops)
 
 
 @pytest.mark.parametrize("shape,want", [
@@ -265,10 +345,12 @@ def test_flash_kernel_layout_check(what):
     ((2, 2, 130, 256, torch.float32, 16), 2 * 2 * 144 * 4096),
     ((1, 1, 1, 256, torch.float32, 32), 32 * 4096),
     ((1, 1, 500, 256, torch.float32, 32), 512 * 4096),
+    # head dims from 129 to 255 on the same images, zeros past D
+    ((4, 1, 512, 192, torch.float32, 32), 4 * 512 * 4096),
     # nothing for bfloat16 (read as stored) or a smaller head dim
     ((4, 1, 512, 256, torch.bfloat16, 16), 0),
     ((4, 8, 512, 128, torch.float32, 16), 0),
-], ids=["paligemma", "ragged", "one_key", "tile32", "bf16", "d128"])
+], ids=["paligemma", "ragged", "one_key", "tile32", "d192", "bf16", "d128"])
 def test_flash_workspace_bytes(shape, want):
     assert workspace_bytes(*shape) == want
 
@@ -293,8 +375,9 @@ def test_decode_attention_wrapper_rejects(what):
 
 
 def _decode_layouts():
-    """(k_cache, v_cache) laid out as the kernel's 16-byte copies take them
-    (``None``), or not (the words its refusal must contain)."""
+    """(k_cache, v_cache) laid out as the kernels read them in place
+    (``None``: in 16-byte pieces or narrower ones), or not (the words its
+    refusal must contain)."""
     B, S, KVH, D = 2, 8, 2, 16
     k = torch.zeros(B, S, KVH, D)
     kv = torch.zeros(B, S, 2 * KVH * D)  # a fused KV projection, viewed per part
@@ -307,8 +390,10 @@ def _decode_layouts():
                         kv[..., KVH * D:].view(B, S, KVH, D)), None),
         "bf16_d16": ((k.bfloat16(), k.bfloat16()), None),
         "size1_odd_stride": ((size1, size1), None),
-        "row_stride_12_bytes": ((odd, odd), "has strides"),
-        "misaligned_base": ((flat, flat), "past a multiple of 16"),
+        "row_stride_12_bytes": ((odd, odd), None),
+        "misaligned_base": ((flat, flat), None),
+        "bf16_head_dim_100": ((torch.zeros(B, S, KVH, 100).bfloat16(),) * 2, None),
+        "zero_stride": ((torch.zeros(B, 1, KVH, D).expand(B, S, KVH, D),) * 2, "positive strides"),
         "last_dim_stride": ((k.transpose(2, 3).contiguous().transpose(2, 3),) * 2,
                             "contiguous last dimension"),
         "kv_strides_differ": ((k, torch.zeros(B, KVH, S, D).transpose(1, 2)), "equal strides"),
@@ -317,8 +402,8 @@ def _decode_layouts():
 
 @pytest.mark.parametrize("what", sorted(_decode_layouts()))
 def test_decode_kernel_layout_check(what):
-    """What the decode kernel's 16-byte copies take, checked on CPU tensors:
-    the check the wrapper runs before every launch on the card."""
+    """What the decode kernels read in place, checked on CPU tensors: the
+    check the wrapper runs before every launch on the card."""
     args, words = _decode_layouts()[what]
     if words is None:
         check_decode_layout(*args)
@@ -343,8 +428,9 @@ def test_decode_split_keeps_at_most_four_blocks_an_sm(shape, split):
 
 
 def _q_layouts():
-    """q laid out as the head-dim-256 kernel's bulk copies take it (``None``),
-    or not (the words its refusal must contain), beside contiguous caches."""
+    """q laid out as the head-dim-256 kernel reads it (``None``: by bulk
+    copies, or narrower pieces where those cannot take it), or not (the
+    words its refusal must contain), beside contiguous caches."""
     B, H, KVH, D = 2, 8, 1, 256
     qkv = torch.zeros(B, 1, (H + 2 * KVH) * D)  # a fused projection, q viewed out of it
     flat = torch.zeros(B * H * D + 1)[1:].view(B, 1, H, D)
@@ -353,15 +439,15 @@ def _q_layouts():
         "fused_view": (qkv[..., :H * D].view(B, 1, H, D), None),
         "bf16": (torch.zeros(B, 1, H, D, dtype=torch.bfloat16), None),
         "one_row": (torch.zeros(1, 1, 1, D + 2)[..., :D], None),
-        "head_stride_12_bytes": (torch.zeros(B, 1, H, D + 3)[..., :D], "has strides"),
-        "misaligned_base": (flat, "past a multiple of 16"),
+        "head_stride_12_bytes": (torch.zeros(B, 1, H, D + 3)[..., :D], None),
+        "misaligned_base": (flat, None),
         "last_dim_stride": (torch.zeros(B, 1, D, H).transpose(2, 3), "contiguous last dimension"),
     }
 
 
 @pytest.mark.parametrize("what", sorted(_q_layouts()))
 def test_decode_q_layout_check(what):
-    """What the head-dim-256 kernel's bulk copy of q takes, checked on CPU
+    """What the head-dim-256 kernel's copy of q takes, checked on CPU
     tensors beside contiguous caches: the check the wrapper runs before
     every launch on the card."""
     q, words = _q_layouts()[what]

@@ -472,6 +472,27 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (2, 300, 300, 8, 1, 80, True, 64),
     (1, 200, 200, 4, 2, 48, True, 0),
     (1, 200, 200, 8, 1, 96, True, 32),
+    # any head dim up to 256: 8 (width 16); SigLIP-so400m's 16 heads of 72
+    # and 100 (width 128; bfloat16 at 100 is a layout TMA cannot address, so
+    # the wrapper pads a copy); 192 and 200 on the head-dim-256 kernels;
+    # ragged, a window, GQA, unmasked Sq != Sk
+    (4, 512, 512, 16, 16, 72, True, 0),
+    (1, 130, 200, 8, 8, 72, False, 0),
+    (2, 300, 300, 8, 2, 72, True, 64),
+    (1, 500, 500, 8, 1, 100, True, 0),
+    (2, 256, 256, 4, 2, 100, True, 96),
+    (1, 65, 65, 4, 2, 8, True, 0),
+    (2, 200, 200, 8, 1, 8, True, 32),
+    (4, 512, 512, 8, 1, 192, True, 0),
+    (1, 77, 203, 8, 1, 192, True, 0),
+    (2, 200, 200, 8, 1, 192, True, 64),
+    (1, 100, 130, 8, 8, 200, False, 0),
+    (1, 129, 129, 8, 1, 200, True, 0),
+    # odd head dims: rows of 28 / 14 bytes (7) and 520 / 260, 524 / 262 (130,
+    # 131), copied into rows padded to 16 bytes
+    (1, 100, 100, 4, 2, 7, True, 0),
+    (1, 100, 100, 8, 1, 130, True, 0),
+    (1, 70, 150, 4, 2, 131, True, 32),
 ])
 def test_flash_attention_kernel_matches_plain_on_card(card, case, dtype):
     B, Sq, Sk, H, KVH, D, causal, window = case
@@ -506,13 +527,15 @@ def test_flash_attention_d256_back_to_back_shapes_on_card(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [128, 112, 80])
+@pytest.mark.parametrize("D", [128, 112, 80, 8, 72, 100, 192, 200])
 def test_flash_attention_kernel_reads_a_fused_projection_on_card(card, D, dtype):
     """q, k and v as strided views into one [B, S, (H + 2 KVH) D] projection,
     as a model with a fused QKV weight hands them over: the tensor maps
-    read them in place.  At 112 and 80 (run at width 128) the maps stop at
-    D, so no column of the next head is read, and the output's rows hold
-    only D columns: a store past them would write the next head's."""
+    read them in place (or, where the strides are no multiple of 16 bytes,
+    as bfloat16's at 100, a padded copy).  At 112, 80, 8, 72, 100, 192 and
+    200 (run at width 16, 128 or 256) the maps stop at D, so no column of
+    the next head is read, and the output's rows hold only D columns: a
+    store past them would write the next head's."""
     B, S, H, KVH = 2, 200, 8, 2
     g = torch.Generator(device=card).manual_seed(7)
     qkv = torch.randn(B, S, (H + 2 * KVH) * D, generator=g, device=card).to(dtype)
@@ -537,6 +560,11 @@ def test_flash_attention_kernel_reads_a_fused_projection_on_card(card, D, dtype)
     ((8, 1, 256), 2048, 1024, (0, 512, 1024, 1536)),
     ((64, 8, 112), 512, 0, (0, 128, 256, 384)),  # kimi-k2-1t-a32b's heads
     ((8, 1, 80), 300, 64, (0, 77, 150)),
+    ((16, 16, 72), 512, 0, (0, 128, 256, 384)),  # SigLIP-so400m's heads
+    ((8, 2, 100), 300, 64, (0, 77, 150)),
+    ((8, 1, 192), 512, 0, (0, 128, 256, 384)),
+    ((8, 1, 200), 300, 64, (0, 77, 150)),
+    ((4, 2, 8), 300, 0, (0, 1, 150)),
 ])
 def test_flash_attention_rows_at_their_offset_on_card(card, case, dtype):
     """Each row block of q (a strided view) run alone with its
@@ -555,7 +583,8 @@ def test_flash_attention_rows_at_their_offset_on_card(card, case, dtype):
 @pytest.mark.parametrize("window", [0, 64])
 @pytest.mark.parametrize("cache_len", [1, 77, 151, 300])
 @pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256), (64, 8, 112),
-                                   (8, 1, 80)])
+                                   (8, 1, 80), (16, 16, 72), (8, 2, 100), (8, 1, 192),
+                                   (8, 1, 200), (4, 2, 8)])
 def test_decode_attention_cache_shards_merged_on_card(card, heads, cache_len, window, dtype):
     """A 300-entry cache in four shards at their ``kv_start``, each with its
     ``lse``, merged as the model merges the ranks': the plain version's
@@ -587,9 +616,15 @@ def test_decode_attention_cache_shards_merged_on_card(card, heads, cache_len, wi
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 64])
 @pytest.mark.parametrize("cache_len", [1, 63, 64, 300, 544])
-# llama3.2-3b's, hymba-1.5b's, paligemma-3b's, kimi-k2-1t-a32b's heads; head dim 80
+# llama3.2-3b's, hymba-1.5b's, paligemma-3b's, kimi-k2-1t-a32b's heads; head
+# dim 80; SigLIP-so400m's 72; 100 (bfloat16 rows of 200 bytes: 8-byte pieces),
+# 192 and 200 on the cluster kernel, 8; odd ones, whose rows take the
+# narrower copies: 7 (4-byte pieces in float32, plain loads in bfloat16), and
+# on the cluster kernel 130 (8 / 4-byte pieces) and 131 (4-byte / plain)
 @pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256), (64, 8, 112),
-                                   (8, 1, 80)])
+                                   (8, 1, 80), (16, 16, 72), (8, 2, 100), (8, 1, 192),
+                                   (8, 1, 200), (4, 2, 8), (4, 2, 7), (8, 1, 130),
+                                   (8, 1, 131)])
 def test_decode_attention_kernel_matches_plain_on_card(card, heads, cache_len, window, dtype):
     B, Smax = 4, 544
     H, KVH, D = heads
@@ -606,9 +641,10 @@ def test_decode_attention_kernel_matches_plain_on_card(card, heads, cache_len, w
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# llama3.2-3b's, hymba-1.5b's, paligemma-3b's, kimi-k2-1t-a32b's heads; head dim 80
+# llama3.2-3b's, hymba-1.5b's, paligemma-3b's, kimi-k2-1t-a32b's heads; head
+# dims 80, 72, 100, 192
 @pytest.mark.parametrize("heads", [(24, 8, 128), (25, 5, 64), (8, 1, 256), (64, 8, 112),
-                                   (8, 1, 80)])
+                                   (8, 1, 80), (16, 16, 72), (8, 2, 100), (8, 1, 192)])
 def test_decode_attention_kernel_at_split_boundaries_on_card(card, heads, dtype):
     """A cache of 550 entries, which no split (a multiple of 16) divides;
     cache lengths on either side of the first and third split boundaries;
@@ -638,11 +674,11 @@ def test_decode_attention_kernel_at_split_boundaries_on_card(card, heads, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [8, 120, 144])
+@pytest.mark.parametrize("D", [257, 320, 512])
 def test_attention_kernels_refuse_other_head_dims_before_a_launch_on_card(card, D, dtype):
-    """A head dim outside the kernels' rule (multiples of 16 up to 128, and
-    256) raises ValueError on the card, naming the head dims taken, before
-    any launch: nothing falls back to the plain version."""
+    """A head dim outside the kernels' rule (1 to 256) raises ValueError on
+    the card, naming the head dims taken, before any launch: nothing falls
+    back to the plain version."""
     q, k = (torch.zeros(s, device=card, dtype=dtype) for s in ((2, 64, 8, D), (2, 64, 2, D)))
     reset_launch_counts()
     with pytest.raises(ValueError, match="head dims"):
@@ -721,6 +757,16 @@ def test_decode_attention_d256_cache_len_above_smax_on_card(card, dtype):
     (2, 320, 4, 128, 1, 16, 64, 1.0),
     (1, 600, 8, 32, 2, 128, 256, 1.0),
     (1, 1000, 4, 64, 1, 128, 512, 1e-3),
+    # any head dim and state size up to 256, any chunk and chunk count:
+    # (P, N) = (48, 80) and (64, 256) at mamba2-2.7b's heads, (24, 48), (200,
+    # 130) over three chunks; a chunk of 4,096 (its cumsum in the workspace);
+    # S 4,099, a prime: chunks of 1, B nc = 65,584 past the grid's 65,535
+    (4, 512, 80, 48, 1, 80, 256, 1.0),
+    (4, 512, 80, 64, 1, 256, 256, 1.0),
+    (1, 192, 4, 24, 2, 48, 64, 1e-3),
+    (1, 192, 2, 200, 1, 130, 64, 1e-3),
+    (1, 8192, 2, 64, 1, 128, 4096, 1e-3),
+    (16, 4099, 2, 16, 1, 16, 256, 1.0),
 ])
 def test_ssd_scan_kernel_matches_plain_on_card(card, case, dtype):
     B, S, H, P, G, N, chunk, decay = case

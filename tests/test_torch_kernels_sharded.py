@@ -103,16 +103,30 @@ CASES = {
     "deepseek-v2-lite-16b": Case("deepseek-v2-lite-16b", (), 32, ("cuda+int8",)),
     # kimi-k2-1t-a32b's head dim, 112: the kernels at the next instantiated width
     "kimi-d112": Case("kimi-k2-1t-a32b", (("head_dim", 112),), 32, ("cuda",)),
+    # hymba-1.5b's family at d_model 72: 3 SSD heads of 48 (which 2 ranks do
+    # not divide: each rank scans its 24 strided head-dim columns), state
+    # size 80, 4 attention heads on 2 KV heads of 72
+    "hymba-d72": Case("hymba-1.5b", (("d_model", 72), ("num_heads", 4), ("num_kv_heads", 2),
+                                     ("head_dim", 72),
+                                     ("ssm", (("d_state", 80), ("head_dim", 48)))),
+                      32, ("cuda",)),
 }
 PARAMS = [(c, v, m) for c, case in CASES.items() for v in case.variants for m in case.meshes
           if m == "1x2" or v != "int8"]
 
 
+def _smoke(cfg, fields: tuple):
+    """``cfg`` with ``fields`` replaced ("ssm": pairs of its SSM config's)."""
+    fields = dict(fields)
+    if "ssm" in fields:
+        fields["ssm"] = dataclasses.replace(cfg.ssm, **dict(fields["ssm"]))
+    return dataclasses.replace(cfg, **fields)
+
+
 def configs(case: Case) -> tuple:
     """The reference's and the port's configuration of a case."""
-    fields = dict(case.fields)
-    return (dataclasses.replace(ref_smoke_variant(ref_get_arch(case.arch)), **fields),
-            dataclasses.replace(smoke_variant(get_arch(case.arch)), **fields))
+    return (_smoke(ref_smoke_variant(ref_get_arch(case.arch)), case.fields),
+            _smoke(smoke_variant(get_arch(case.arch)), case.fields))
 
 
 def policy(variant: str) -> ShardingPolicy:
@@ -244,7 +258,11 @@ outs = {}
 for name, ((arch, fields, S, vs, meshes), params, prompt, steps) in cases.items():
     if mesh_name not in meshes:
         continue
-    cfg = dataclasses.replace(smoke_variant(get_arch(arch)), **dict(fields))
+    fields = dict(fields)
+    if "ssm" in fields:
+        fields["ssm"] = dataclasses.replace(smoke_variant(get_arch(arch)).ssm,
+                                            **dict(fields["ssm"]))
+    cfg = dataclasses.replace(smoke_variant(get_arch(arch)), **fields)
     out = outs[name] = {}
     for v in vs:
         if v == "int8" and mesh_name != "1x2":
@@ -466,7 +484,8 @@ def test_write_slot_refuses_floats_for_an_int8_cache():
 
 FLASH = [((24, 8, 16), 64, 0, (0, 16, 32, 48)), ((8, 1, 32), 64, 12, (0, 5, 40)),
          ((25, 5, 16), 96, 32, (0, 24, 48, 72)), ((4, 2, 16), 40, 0, (0, 13, 27)),
-         ((8, 1, 112), 64, 0, (0, 16, 32, 48))]
+         ((8, 1, 112), 64, 0, (0, 16, 32, 48)), ((16, 16, 72), 64, 0, (0, 16, 32, 48)),
+         ((8, 1, 192), 64, 12, (0, 5, 40))]
 
 
 @pytest.mark.parametrize("heads,S,window,cuts", FLASH)
@@ -484,7 +503,7 @@ def test_flash_attention_plain_rows_at_their_offset_equal_the_reference(heads, S
 
 
 DECODE_CASES = [((24, 8, 16), 40, 4, 0), ((8, 1, 32), 36, 3, 8), ((25, 5, 16), 30, 5, 0),
-                ((8, 1, 112), 40, 4, 0)]
+                ((8, 1, 112), 40, 4, 0), ((16, 16, 72), 40, 4, 0), ((8, 1, 192), 36, 3, 8)]
 
 
 @pytest.mark.parametrize("heads,smax,shards,window", DECODE_CASES)

@@ -65,16 +65,34 @@ B, PROMPT, STEPS, MAX_LEN = 2, 16, 6, 24
 CASES = [("pallas", "bf16", "full"), ("chunked", "bf16", "full"), ("pallas", "int8", "full"),
          ("chunked", "bf16", "swa"), ("chunked", "bf16", "full", "deepseek-v2-lite-16b"),
          ("pallas", "bf16", "full", "paligemma-3b"), ("pallas", "bf16", "full", "musicgen-medium"),
-         ("pallas", "bf16", "full", "kimi-k2-1t-a32b")]
-# fields replaced in an arch's smoke variant in both packages: kimi-k2-1t-a32b
-# keeps its head dim, 112, which the kernels run at the next instantiated width
-SMOKE_FIELDS = {"kimi-k2-1t-a32b": {"head_dim": 112}}
+         ("pallas", "bf16", "full", "kimi-k2-1t-a32b"),
+         ("pallas", "bf16", "full", "hymba-1.5b-d72"),
+         ("pallas", "bf16", "full", "llama3.2-3b-d192")]
+# fields replaced in an arch's smoke variant in both packages ("ssm": fields of
+# its SSM config), by case name, with the registered arch it starts from:
+# kimi-k2-1t-a32b keeps its head dim, 112, which the kernels run at the next
+# instantiated width; shapes no registered config has: hymba-1.5b's family at
+# d_model 72 (d_inner 144: 3 SSD heads of 48, state size 80; 4 attention heads
+# on 2 KV heads of 72), llama3.2-3b's at head dim 192 (the head-dim-256 kernels)
+SMOKE_FIELDS = {
+    "kimi-k2-1t-a32b": ("kimi-k2-1t-a32b", {"head_dim": 112}),
+    "hymba-1.5b-d72": ("hymba-1.5b", {"d_model": 72, "num_heads": 4, "num_kv_heads": 2,
+                                      "head_dim": 72, "ssm": {"d_state": 80, "head_dim": 48}}),
+    "llama3.2-3b-d192": ("llama3.2-3b", {"head_dim": 192}),
+}
+
+
+def _smoke(cfg, fields):
+    fields = dict(fields)
+    if "ssm" in fields:
+        fields["ssm"] = dataclasses.replace(cfg.ssm, **fields["ssm"])
+    return dataclasses.replace(cfg, **fields)
 
 
 def _cfgs(attn_type, arch=ARCH):
-    fields = SMOKE_FIELDS.get(arch, {})
-    ref_cfg = dataclasses.replace(ref_smoke_variant(ref_get_arch(arch)), **fields)
-    cfg = dataclasses.replace(smoke_variant(get_arch(arch)), **fields)
+    arch, fields = SMOKE_FIELDS.get(arch, (arch, {}))
+    ref_cfg = _smoke(ref_smoke_variant(ref_get_arch(arch)), fields)
+    cfg = _smoke(smoke_variant(get_arch(arch)), fields)
     if attn_type == "swa":  # the ring-buffer branches: window 8 < prompt 16
         ref_cfg = dataclasses.replace(ref_cfg, attn_type="swa", window=8)
         cfg = dataclasses.replace(cfg, attn_type="swa", window=8)

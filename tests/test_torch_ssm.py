@@ -16,6 +16,11 @@ Tolerances, each with its reason:
   the reference oracle is the sequential recurrence.
 * SSD scan against the model's chunked form (both packages): the reference's
   bar for that comparison, 2e-4.
+* SSD scan at a chunk of 4,096: the oracle's float32 bar, 3e-4; against the
+  reference's kernel 1e-3 of max |y|, since that kernel sums the log-decay
+  of a chunk in float32 (|cum| reaches ~3,000 here, ulp 2.4e-4, so its
+  decay factors are off by ~1e-4 relative; 7.7e-3 of 104 measured against
+  its own oracle).
 * The mixer and its decode step, float32: the same function with sums in
   another order, 1e-5; the kernel pairs (the reference's Pallas kernel and
   the port's ``"cuda"`` impl, whose plain version runs here) 1e-4, for the
@@ -51,7 +56,7 @@ from repro_torch.config import get_arch, smoke_variant
 from repro_torch.convert import cache_from_reference, params_from_reference, policy_from_reference
 from repro_torch.kernels import (launch_counts, reset_launch_counts, ssd_scan, ssd_scan_plain,
                                  ssd_scan_tolerance)
-from repro_torch.kernels.ssd_scan import pick_chunk
+from repro_torch.kernels.ssd_scan import kernel_size, pick_chunk
 from repro_torch.models import init_cache, init_params, prefill, ssm
 from repro_torch.runtime import make_serve_step
 
@@ -101,6 +106,15 @@ def _ssd_case(case, dtype):
     return tin, _np32(kern), _np32(oracle)
 
 
+# head dims and state sizes the kernels run at the next instantiated size
+# (16 ... 256): (48, 80), (24, 48) with two groups, (64, 256)
+SSD_SIZE_CASES = [
+    (1, 64, 2, 48, 1, 80, 32),
+    (1, 64, 2, 24, 2, 48, 16),
+    (1, 32, 2, 64, 1, 256, 16),
+]
+
+
 SSD_IMPLS = {
     "plain": lambda args, chunk: ssd_scan_plain(*args, chunk=pick_chunk(args[0].shape[1], chunk)),
     "wrapper": lambda args, chunk: ssd_scan(*args, chunk=chunk),
@@ -109,7 +123,7 @@ SSD_IMPLS = {
 
 @pytest.mark.parametrize("impl", sorted(SSD_IMPLS))
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("case", SSD_CASES + SSD_SIZE_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_ssd_scan_matches_pallas_and_oracle(case, dtype, impl):
     args, kern, oracle = _ssd_case(case, dtype)
     out = SSD_IMPLS[impl](args, case[6])
@@ -167,6 +181,43 @@ def test_ssd_scan_reads_strided_slices_like_copies():
     got = ssd_scan(x, dt, A, B, C, D, chunk=16)
     want = ssd_scan(x.contiguous(), dt, A, B.contiguous(), C.contiguous(), D, chunk=16)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_scan_at_a_chunk_of_4096_matches_pallas_and_oracle(dtype):
+    """A chunk past the kernels' shared memory (its cumsum in the
+    workspace on the card): 2 chunks of 4,096 at 2 heads."""
+    case = (1, 8192, 2, 16, 1, 16, 4096)
+    args, kern, oracle = _ssd_case(case, dtype)
+    out = _np32(ssd_scan(*args, chunk=4096))
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(out, oracle, rtol=tol, atol=tol)
+    bar = max(tol, 1e-3 * np.abs(kern).max()) if dtype == "float32" else tol
+    np.testing.assert_allclose(out, kern, rtol=tol, atol=bar)
+
+
+def test_ssd_scan_at_a_prime_length_matches_the_oracle():
+    """S = 4,099, a prime: the reference's chunk picker gives chunks of 1,
+    4,099 of them (the kernel's grid loops past 65,535 of them at batch 16
+    on the card).  Against ``ref.ssd_scan_ref``: interpret mode would run
+    4,099 grid steps."""
+    case = (2, 4099, 2, 16, 1, 16, 256)
+    assert pick_chunk(4099, 256) == 1
+    x, dt, A, B, C, D = _ssd_arrays(case)
+    want = np.asarray(ref.ssd_scan_ref(*map(jnp.asarray, (x, dt, A, B, C, D))))
+    got = ssd_scan(*map(torch.from_numpy, (x, dt, A, B, C, D)), chunk=256).numpy()
+    np.testing.assert_allclose(got, want, rtol=DTYPES["float32"][2], atol=DTYPES["float32"][2])
+
+
+@pytest.mark.parametrize("n,size", [(1, 16), (16, 16), (24, 32), (48, 64), (80, 128),
+                                    (128, 128), (129, 256), (200, 256), (256, 256), (257, None),
+                                    (0, None)])
+def test_ssd_kernel_size_takes_every_size_to_256(n, size):
+    if size is None:
+        with pytest.raises(ValueError, match="from 1 to 256"):
+            kernel_size(n)
+    else:
+        assert kernel_size(n) == size
 
 
 @pytest.mark.parametrize("n,target", [(512, 256), (96, 64), (480, 256), (7, 4), (8, 64)])
